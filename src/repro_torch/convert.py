@@ -1,0 +1,75 @@
+"""Carry simulator state between the JAX package and the port.
+
+The counterpart of carrying weights: state travels as flat dicts of numpy
+arrays, so this module needs neither JAX nor ``repro``. A caller holding a
+JAX ``SimState`` turns it into such a dict from its leaves (keys
+``"fabric.<field>"``, ``"eps.<field>"`` and ``"cycle"``); the same keys come
+back from :func:`sim_state_to_numpy`. The tests use this to hand a JAX run
+over to the port mid-run, and ``chip_smoke.py`` to hold a GPU state against
+a CPU one.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core.noc import endpoints as epm
+from repro_torch.core.noc import engine as eng
+from repro_torch.core.noc.params import NocParams
+from repro_torch.core.noc.sim import SimState
+
+# NocParams fields of the JAX package that select a Pallas code path; the
+# port's tensors' device decides instead, so they are dropped
+DROPPED_PARAMS = ("backend", "router_tile")
+
+
+def params_from_dict(fields: dict) -> NocParams:
+    """The port's NocParams from a dict of the JAX NocParams' fields
+    (``dataclasses.asdict``). Raises ``NotImplementedError`` for values
+    the port does not implement yet."""
+    return NocParams(**{k: v for k, v in fields.items()
+                        if k not in DROPPED_PARAMS})
+
+
+def _fields(obj):
+    return [f.name for f in dataclasses.fields(obj)]
+
+
+def sim_state_to_numpy(st: SimState) -> dict:
+    """Flat dict of numpy arrays: ``fabric.*``, ``eps.*`` and ``cycle``."""
+    out = {}
+    for prefix, part in (("fabric", st.fabric), ("eps", st.eps)):
+        for name in _fields(part):
+            out[f"{prefix}.{name}"] = getattr(part, name).cpu().numpy()
+    out["cycle"] = st.cycle.cpu().numpy()
+    return out
+
+
+def sim_state_from_numpy(arrays: dict, device) -> SimState:
+    """A port SimState on ``device`` from a flat dict of numpy arrays
+    (dtypes kept: int32 state, float32 buckets, bool flags)."""
+    t = lambda a: torch.as_tensor(np.array(a), device=device)
+    fabric = eng.FabricState(**{
+        f.name: t(arrays[f"fabric.{f.name}"])
+        for f in dataclasses.fields(eng.FabricState)})
+    eps = epm.EndpointState(**{
+        f.name: t(arrays[f"eps.{f.name}"])
+        for f in dataclasses.fields(epm.EndpointState)})
+    return SimState(fabric=fabric, eps=eps,
+                    cycle=t(np.asarray(arrays["cycle"], np.int32)))
+
+
+def tables_to_numpy(tb: eng.FabricTables) -> dict:
+    """FabricTables as a dict of numpy arrays keyed by field name."""
+    return {name: getattr(tb, name).cpu().numpy() for name in _fields(tb)}
+
+
+def tables_from_numpy(arrays: dict, device) -> eng.FabricTables:
+    """FabricTables on ``device`` from numpy arrays keyed by field name."""
+    return eng.FabricTables(**{
+        f.name: torch.as_tensor(np.array(arrays[f.name], np.int32),
+                                device=device)
+        for f in dataclasses.fields(eng.FabricTables)})
+

@@ -1,0 +1,639 @@
+"""Full-system FlooNoC simulator in PyTorch: a channel-batched fabric (req /
+rsp / wide plus optional extra wide channels) + vectorized endpoints,
+stepped cycle by cycle from Python.
+
+The PyTorch counterpart of ``repro.core.noc.sim`` on its fast path. The
+per-cycle body contains no Python loop over channels or endpoints. The
+router cycle runs on the device's kernels (``ops.router_cycle``); the
+endpoint phases are plain tensor code. ``run`` keeps the cycle number a
+Python int, so stepping never waits on the device.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from repro_torch.core.noc import endpoints as epm
+from repro_torch.core.noc import engine as eng
+from repro_torch.core.noc.engine import (
+    F_KIND,
+    F_LAST,
+    F_META,
+    F_SRC,
+    F_TS,
+    F_TXN,
+)
+from repro_torch.core.noc.params import (
+    CH_REQ,
+    CH_RSP,
+    CH_WIDE,
+    NARROW_REQ,
+    NARROW_RSP,
+    WIDE_AR,
+    WIDE_AW_W,
+    WIDE_B,
+    WIDE_R,
+    NocParams,
+    wide_channel_of,
+)
+from repro_torch.core.noc.topology import Topology
+from repro_torch.device import resolve_device
+
+I32 = torch.int32
+
+@dataclass
+class SimState:
+    """Full simulator state: fabric + endpoints + the cycle counter (a 0-d
+    int32 tensor)."""
+
+    fabric: eng.FabricState  # channel-batched [C, ...]
+    eps: epm.EndpointState
+    cycle: torch.Tensor
+
+
+def _full(E, value, device):
+    return torch.full((E,), value, dtype=I32, device=device)
+
+
+def _ingest(st: epm.EndpointState, flits, valid, cycle: int,
+            params: NocParams):
+    """Process delivered flits on all channels at once.
+
+    flits: [C, E, NF]; valid: [C, E]. Narrow requests / responses ride their
+    role channels (CH_REQ / CH_RSP); wide kinds are recognized by kind on any
+    wide channel, so counters are summed over the channel axis."""
+    E = st.lat_sum.shape[0]
+    dev = flits.device
+    eidx = torch.arange(E, dtype=I32, device=dev)
+    kind = flits[..., F_KIND]  # [C, E]
+
+    # ---- req channel: we are the target ----
+    f = flits[CH_REQ]
+    v = valid[CH_REQ]
+    is_nreq = v & (f[:, F_KIND] == NARROW_REQ)
+    is_war = v & (f[:, F_KIND] == WIDE_AR)
+    rsp_flit = eng.pack_flit(f[:, F_SRC], eidx, NARROW_RSP, f[:, F_TXN], 1,
+                             f[:, F_TS], 1)
+    rsp_ready = _full(E, cycle + params.ni_rsp_lat + params.mem_lat
+                      + params.ni_req_lat, dev)
+    # the req-channel delivery is gated on rsp-egress space upstream (see
+    # Sim.step), so this push can never overflow the queue
+    eg, eg_ready, eg_cnt = epm._eg_push(st.eg, st.eg_ready, st.eg_head,
+                                        st.eg_cnt, CH_RSP, is_nreq, rsp_flit,
+                                        rsp_ready)
+    mq, mq_cnt = epm._mq_push(st.mq, st.mq_head, st.mq_cnt, is_war,
+                              f[:, F_SRC], f[:, F_TXN], f[:, F_META], WIDE_R,
+                              f[:, F_TS], f[:, F_META])
+
+    # ---- wide kinds (any channel) ----
+    S = st.d_outst.shape[1]  # streams
+    stream = flits[..., F_TXN].clamp(0, S - 1)
+    is_r = valid & (kind == WIDE_R)
+    d_beats_got = epm._col_add(st.d_beats_got, stream, is_r.to(I32))
+    r_done = is_r & (flits[..., F_LAST] > 0)
+    d_outst = epm._col_add(st.d_outst, stream, -r_done.to(I32))
+    d_done = epm._col_add(st.d_done, stream, r_done.to(I32))
+    # write bursts arriving (we are the target); wormhole => no interleave
+    is_w = valid & (kind == WIDE_AW_W)
+    rcvd = is_r | is_w
+    beats_rcvd = st.beats_rcvd + epm._isum(rcvd, 0)
+    any_beat = rcvd.any(dim=0)
+    cyc_e = _full(E, cycle, dev)
+    last_rx = torch.where(any_beat, cyc_e, st.last_rx)
+    first_rx = torch.where(any_beat & (st.first_rx < 0), cyc_e, st.first_rx)
+    w_tail = is_w & (flits[..., F_LAST] > 0)
+    if params.n_channels == 3:
+        # single wide channel: AW_W beats only ever ride CH_WIDE, so the
+        # per-channel push collapses to a single-channel push (same cells)
+        fw = flits[CH_WIDE]
+        mq, mq_cnt = epm._mq_push(mq, st.mq_head, mq_cnt, w_tail[CH_WIDE],
+                                  fw[:, F_SRC], fw[:, F_TXN], 1, WIDE_B,
+                                  fw[:, F_TS], fw[:, F_META])
+    else:
+        mq, mq_cnt = epm._mq_push_multi(mq, st.mq_head, mq_cnt, w_tail,
+                                        flits[..., F_SRC], flits[..., F_TXN],
+                                        1, WIDE_B, flits[..., F_TS],
+                                        flits[..., F_META])
+    # completed write bursts per stream (the scheduled DMA's gate signal)
+    rx_bursts = epm._col_add(st.rx_bursts, stream, w_tail.to(I32))
+
+    # ---- rsp channel ----
+    f = flits[CH_RSP]
+    v = valid[CH_RSP]
+    is_nrsp = v & (f[:, F_KIND] == NARROW_RSP)
+    rx_const = params.cluster_rsp_lat
+    lat_sum = st.lat_sum + torch.where(
+        is_nrsp, (cycle - f[:, F_TS] + rx_const).to(torch.float32), 0.0)
+    lat_cnt = st.lat_cnt + is_nrsp.to(I32)
+    is_b = v & (f[:, F_KIND] == WIDE_B)
+    stream_b = f[:, F_TXN].clamp(0, S - 1)
+    d_outst = epm._col_add(d_outst, stream_b, -is_b.to(I32))
+    d_done = epm._col_add(d_done, stream_b, is_b.to(I32))
+    # the three retirements (wide-R tails on any channel, narrow and B
+    # responses on CH_RSP) have disjoint masks and only add into ni_cnt /
+    # rob_credit, so one combined retire is exact. B responses and read
+    # tails carry the issued beat count in F_META (exact RoB credits).
+    rsp_row = (torch.arange(params.n_channels, device=dev) == CH_RSP)[:, None]
+    m_all = r_done | (rsp_row & (is_nrsp | is_b)[None])
+    beats_all = (torch.where(r_done, flits[..., F_META], 0)
+                 + (rsp_row & is_nrsp[None]).to(I32)
+                 + torch.where(rsp_row & is_b[None], f[None, :, F_META], 0))
+    ni_cnt, ni_dst, rob = epm._ni_retire(st.ni_cnt, st.ni_dst, st.rob_credit,
+                                         m_all, flits[..., F_TXN], beats_all,
+                                         params)
+
+    return dataclasses.replace(
+        st, ni_cnt=ni_cnt, ni_dst=ni_dst, rob_credit=rob, mq=mq, mq_cnt=mq_cnt,
+        d_beats_got=d_beats_got, rx_bursts=rx_bursts, beats_rcvd=beats_rcvd,
+        d_outst=d_outst, d_done=d_done, lat_sum=lat_sum, lat_cnt=lat_cnt,
+        last_rx=last_rx, first_rx=first_rx, eg=eg, eg_ready=eg_ready,
+        eg_cnt=eg_cnt,
+    )
+
+
+@dataclass(frozen=True)
+class WorkloadTensors:
+    """The array fields of a Workload as device tensors (made once)."""
+
+    narrow_rate: torch.Tensor  # [E] f32
+    narrow_dst: torch.Tensor  # [E] i32
+    dma_dst: torch.Tensor  # [E, S] i32
+    dma_alt_dst: torch.Tensor  # [E, S] i32
+    dma_dst_seq: torch.Tensor | None  # [E, S, K] i32
+    dma_gate: torch.Tensor | None
+    dma_beats_seq: torch.Tensor | None
+
+    @classmethod
+    def of(cls, wl: epm.Workload, device) -> "WorkloadTensors":
+        """Copy ``wl``'s arrays to ``device``."""
+        i32 = lambda a: (None if a is None else
+                         torch.as_tensor(np.array(a, np.int32), device=device))
+        return cls(
+            narrow_rate=torch.as_tensor(np.array(wl.narrow_rate, np.float32),
+                                        device=device),
+            narrow_dst=i32(wl.narrow_dst), dma_dst=i32(wl.dma_dst),
+            dma_alt_dst=i32(wl.dma_alt_dst), dma_dst_seq=i32(wl.dma_dst_seq),
+            dma_gate=i32(wl.dma_gate), dma_beats_seq=i32(wl.dma_beats_seq))
+
+
+def _generators(st: epm.EndpointState, cycle: int, params: NocParams,
+                wl: epm.Workload, wt: WorkloadTensors):
+    """Narrow + DMA request generation into egress queues."""
+    E = st.lat_sum.shape[0]
+    dev = st.lat_sum.device
+    eidx = torch.arange(E, dtype=I32, device=dev)
+    eg, eg_ready, eg_cnt = st.eg, st.eg_ready, st.eg_cnt
+    EQ = eg_ready.shape[-1]
+    T = st.ni_cnt.shape[1]
+    n_tiles = wl.n_tiles
+    src_delay = params.cluster_req_lat + params.ni_req_lat
+
+    # ---- narrow generator ----
+    n_acc = st.n_acc + wt.narrow_rate
+    want_n = (n_acc >= 1.0) & (wt.narrow_dst != -1)
+    dst_n = torch.where(wt.narrow_dst == -2,
+                        _uniform_dst(eidx, st.n_seq, n_tiles),
+                        wt.narrow_dst).to(I32)
+    txn_n = torch.remainder(st.n_seq, T)
+    ones = torch.ones((E,), dtype=I32, device=dev)
+    ok_n = epm._ni_check(st, txn_n, dst_n, params, ones)
+    space_n = eg_cnt[CH_REQ] < EQ
+    fire_n = want_n & ok_n & space_n
+    stall_n = want_n & ~ok_n
+    flit_n = eng.pack_flit(dst_n, eidx, NARROW_REQ, txn_n, 1, cycle, 1)
+    eg, eg_ready, eg_cnt = epm._eg_push(
+        eg, eg_ready, st.eg_head, eg_cnt, CH_REQ, fire_n, flit_n,
+        _full(E, cycle + src_delay, dev))
+    ni_cnt, ni_dst, rob = epm._ni_issue(st, fire_n, txn_n, dst_n, ones,
+                                        params)
+    n_acc = torch.where(fire_n, n_acc - 1.0, n_acc.clamp(max=4.0))
+    n_seq = st.n_seq + fire_n.to(I32)
+    n_sent = st.n_sent + fire_n.to(I32)
+
+    # ---- DMA: pick one eligible stream per endpoint (rotating priority) ----
+    S = st.d_outst.shape[1]
+    s_idx = torch.arange(S, dtype=I32, device=dev)
+    if wl.unique_txn_per_stream:
+        txn_of_stream = torch.remainder(s_idx, T)[None, :].expand(E, S)
+    else:
+        txn_of_stream = torch.zeros((E, S), dtype=I32, device=dev)
+    if wt.dma_dst_seq is not None:
+        # scheduled multi-phase DMA: destination, beats and receive gate
+        # are looked up per issue index
+        k = st.d_seq.clamp(0, wt.dma_dst_seq.shape[-1] - 1).long()[:, :, None]
+        at_k = lambda a: torch.gather(a, 2, k)[..., 0]
+        dst_es = at_k(wt.dma_dst_seq)
+        beats = at_k(wt.dma_beats_seq)
+        gate_ok = st.rx_bursts >= at_k(wt.dma_gate)
+        enabled = dst_es != -1
+    else:
+        # per-(e, s) desired destination for the *next* transfer
+        odd = torch.remainder(st.d_seq, 2) == 1
+        dst_es = torch.where((wt.dma_alt_dst >= 0) & odd, wt.dma_alt_dst,
+                             wt.dma_dst)
+        dst_es = torch.where(
+            wt.dma_dst == -2,
+            _uniform_dst(eidx[:, None], st.d_seq * S + s_idx[None, :],
+                         n_tiles),
+            dst_es).to(I32)
+        beats = torch.full((E, S), wl.dma_beats, dtype=I32, device=dev)
+        gate_ok = torch.ones((E, S), dtype=torch.bool, device=dev)
+        enabled = wt.dma_dst != -1
+    st_tmp = dataclasses.replace(st, ni_cnt=ni_cnt, ni_dst=ni_dst,
+                                 rob_credit=rob)
+    ok_es = epm._ni_check(st_tmp, txn_of_stream, dst_es, params, beats)
+    want_es = ((st.d_txns_left > 0) & (st.d_outst < params.max_outstanding)
+               & enabled & gate_ok)
+    elig = want_es & ok_es
+    rot = torch.remainder(s_idx[None, :] - (cycle + eidx[:, None]), S)
+    score = torch.where(elig, rot, S + 1)
+    # argmin ties go to the first index: rank by (score, stream) so the
+    # minimum is unique on every device
+    pick = (score * S + s_idx).argmin(dim=1)
+    best = torch.gather(score, 1, pick[:, None])[:, 0]
+    any_pick = best <= S
+    stall_d = (want_es & ~ok_es).any(dim=1) & ~any_pick
+
+    e64 = eidx.long()
+    pick_dst = dst_es[e64, pick]
+    pick_txn = txn_of_stream[e64, pick]
+    pick_beats = beats[e64, pick]
+    pick32 = pick.to(I32)
+
+    if not wl.dma_write:
+        space_r = eg_cnt[CH_REQ] < EQ
+        fire_d = any_pick & space_r
+        flit_ar = eng.pack_flit(pick_dst, eidx, WIDE_AR, pick_txn, 1, cycle,
+                                pick_beats)
+        eg, eg_ready, eg_cnt = epm._eg_push(
+            eg, eg_ready, st.eg_head, eg_cnt, CH_REQ, fire_d, flit_ar,
+            _full(E, cycle + src_delay, dev))
+        w_stream, w_left, w_beats, w_dst, w_txn, w_ts = (
+            st.w_stream, st.w_left, st.w_beats, st.w_dst, st.w_txn, st.w_ts)
+    else:
+        # claim the write serializer
+        fire_d = any_pick & (st.w_stream < 0)
+        w_stream = torch.where(fire_d, pick32, st.w_stream)
+        w_left = torch.where(fire_d, pick_beats, st.w_left)
+        w_beats = torch.where(fire_d, pick_beats, st.w_beats)
+        w_dst = torch.where(fire_d, pick_dst, st.w_dst)
+        w_txn = torch.where(fire_d, pick_txn, st.w_txn)
+        w_ts = torch.where(fire_d, _full(E, cycle, dev), st.w_ts)
+
+    ni_cnt, ni_dst, rob = epm._ni_issue(st_tmp, fire_d, pick_txn, pick_dst,
+                                        pick_beats, params)
+    d_txns_left = epm._col_add(st.d_txns_left, pick, -fire_d.to(I32))
+    d_outst = epm._col_add(st.d_outst, pick, fire_d.to(I32))
+    d_seq = epm._col_add(st.d_seq, pick, fire_d.to(I32))
+
+    # ---- write burst serializer: one AW_W beat per cycle ----
+    beats_sent = st.beats_sent
+    if wl.dma_write:
+        active = w_stream >= 0
+        if params.n_channels == 3:
+            wch = CH_WIDE  # single wide channel: static-channel push
+            space_w = eg_cnt[CH_WIDE] < EQ
+        else:
+            wch = wide_channel_of(w_txn.clamp(min=0), params.n_channels)
+            space_w = torch.gather(eg_cnt, 0, wch.long()[None, :])[0] < EQ
+        emit = active & space_w
+        last = torch.where(emit, (w_left == 1).to(I32), 0)
+        # META carries the burst's TOTAL beats so the target can echo it in
+        # the B response (exact retirement credit at the issuer)
+        flit_w = eng.pack_flit(w_dst, eidx, WIDE_AW_W, w_txn, last, w_ts,
+                               w_beats)
+        eg, eg_ready, eg_cnt = epm._eg_push(
+            eg, eg_ready, st.eg_head, eg_cnt, wch, emit, flit_w,
+            _full(E, cycle + 1, dev))
+        beats_sent = beats_sent + emit.to(I32)
+        w_left = torch.where(emit, w_left - 1, w_left)
+        done_w = emit & (w_left == 0)
+        w_stream = torch.where(done_w, -1, w_stream)
+
+    ni_stall = st.ni_stall + stall_n.to(I32) + stall_d.to(I32)
+    return dataclasses.replace(
+        st, eg=eg, eg_ready=eg_ready, eg_cnt=eg_cnt, ni_cnt=ni_cnt,
+        ni_dst=ni_dst, rob_credit=rob, n_acc=n_acc, n_seq=n_seq,
+        n_sent=n_sent, d_txns_left=d_txns_left, d_outst=d_outst, d_seq=d_seq,
+        w_stream=w_stream, w_left=w_left, w_beats=w_beats, w_dst=w_dst,
+        w_txn=w_txn, w_ts=w_ts, beats_sent=beats_sent, ni_stall=ni_stall,
+    )
+
+
+def _uniform_dst(e, seq, n_tiles: int):
+    """Pseudo-random destination tile other than ``e`` (hash of e, seq)."""
+    h = epm._hash(e, seq, 0)
+    other = torch.remainder(h, max(n_tiles - 1, 1))
+    return torch.remainder(e + 1 + other, n_tiles).to(I32)
+
+
+def _memory(st: epm.EndpointState, cycle: int, params: NocParams,
+            is_hbm, is_mem):
+    """Memory server: pop requests, serve after latency, emit response beats."""
+    E = st.lat_sum.shape[0]
+    dev = st.lat_sum.device
+    eidx = torch.arange(E, dtype=I32, device=dev)
+    EQ = st.eg_ready.shape[-1]
+
+    # the refill is one float32 value, as JAX's weak-typed scalar becomes
+    refill = float(np.float32(params.hbm_rate * params.hbm_eff))
+    hbm_tok = torch.where(is_hbm, (st.hbm_tok + refill).clamp(max=8.0),
+                          torch.ones_like(st.hbm_tok))
+
+    m_busy = (st.m_busy - 1).clamp(min=0)
+    # pop next request when idle
+    can_pop = ~st.m_active & (st.mq_cnt > 0) & is_mem
+    head, mq, mq_head, mq_cnt = epm._mq_pop(st.mq, st.mq_head, st.mq_cnt,
+                                            can_pop)
+    m_active = st.m_active | can_pop
+    m_busy = torch.where(can_pop, params.mem_lat + params.ni_rsp_lat, m_busy)
+    m_beats = torch.where(can_pop, head[:, epm.MQ_BEATS], st.m_beats)
+    # response template META = the original transfer size (MQ_META)
+    new_flit = eng.pack_flit(head[:, epm.MQ_SRC], eidx, head[:, epm.MQ_KIND],
+                             head[:, epm.MQ_TXN], 0, head[:, epm.MQ_TS],
+                             head[:, epm.MQ_META])
+    m_flit = torch.where(can_pop[:, None], new_flit, st.m_flit)
+
+    # emit a beat when serving (wide reads stripe over the wide channels by
+    # TxnID, B responses ride rsp)
+    is_wide_r = m_flit[:, F_KIND] == WIDE_R
+    wch = wide_channel_of(m_flit[:, F_TXN].clamp(min=0), params.n_channels)
+    ch_of_kind = torch.where(is_wide_r, wch, CH_RSP)
+    tok_ok = torch.where(is_hbm & is_wide_r, hbm_tok >= 1.0, True)
+    space = torch.gather(st.eg_cnt, 0, ch_of_kind.long()[None, :])[0] < EQ
+    emit = m_active & (m_busy == 0) & tok_ok & space & (m_beats > 0)
+    out = m_flit.clone()
+    out[:, F_LAST] = (m_beats == 1).to(I32)
+    ready = _full(E, cycle + params.ni_req_lat, dev)
+
+    # two legs (wide read beats / B responses on CH_RSP): disjoint masks per
+    # endpoint, so the writes commute; with 3 channels both are static
+    wide_ch = CH_WIDE if params.n_channels == 3 else wch
+    eg, eg_ready, eg_cnt = epm._eg_push(
+        st.eg, st.eg_ready, st.eg_head, st.eg_cnt, wide_ch,
+        emit & is_wide_r, out, ready)
+    eg, eg_ready, eg_cnt = epm._eg_push(
+        eg, eg_ready, st.eg_head, eg_cnt, CH_RSP, emit & ~is_wide_r, out,
+        ready)
+
+    hbm_tok = torch.where(is_hbm & emit & is_wide_r, hbm_tok - 1.0, hbm_tok)
+    hbm_served = st.hbm_served + (emit & is_hbm & is_wide_r).to(I32)
+    m_beats = torch.where(emit, m_beats - 1, m_beats)
+    m_active = m_active & ~(emit & (m_beats == 0))
+
+    return dataclasses.replace(
+        st, mq=mq, mq_head=mq_head, mq_cnt=mq_cnt, m_busy=m_busy,
+        m_beats=m_beats, m_flit=m_flit, m_active=m_active, hbm_tok=hbm_tok,
+        hbm_served=hbm_served, eg=eg, eg_ready=eg_ready, eg_cnt=eg_cnt,
+    )
+
+
+@dataclass
+class Sim:
+    """A built simulator: topology + params + workload + derived tables,
+    all on one device."""
+
+    topo: Topology
+    params: NocParams
+    wl: epm.Workload
+    tables: eng.FabricTables
+    is_hbm: torch.Tensor
+    is_mem: torch.Tensor
+    wt: WorkloadTensors
+    device: torch.device
+
+    def init_state(self) -> SimState:
+        """Fresh SimState at cycle 0 on the sim's device."""
+        fabric = eng.init_fabric(self.topo, self.params.depth_in,
+                                 self.params.depth_out,
+                                 self.params.n_channels, device=self.device)
+        eps = epm.init_endpoints(self.topo.n_endpoints, self.params,
+                                 self.wl.n_streams, self.device)
+        eps = dataclasses.replace(eps, d_txns_left=torch.as_tensor(
+            np.asarray(self.wl.dma_txns, np.int32), device=self.device))
+        return SimState(fabric=fabric, eps=eps,
+                        cycle=torch.zeros((), dtype=I32, device=self.device))
+
+    @torch.no_grad()
+    def step(self, st: SimState, cycle: int | None = None):
+        """One simulated cycle. ``cycle`` is ``st.cycle`` as a Python int
+        (read from the state, with a device sync, when omitted). Returns
+        ``(state', (ep_flit [C, E, NF], ep_valid [C, E]))``."""
+        if cycle is None:
+            cycle = int(st.cycle)
+        E = self.topo.n_endpoints
+        C = self.params.n_channels
+        EQ = st.eps.eg_ready.shape[-1]
+        # 1) fabric cycle, all channels at once. A delivered narrow request
+        #    pushes its response into the CH_RSP egress queue, so
+        #    req-channel delivery is held while that queue is full.
+        rsp_free = st.eps.eg_cnt[CH_RSP] < EQ
+        space = torch.ones((C, E), dtype=torch.bool, device=self.device)
+        space[CH_REQ] = rsp_free
+        er = self.tables.ep_attach[:, 0].long()
+        ep_p = self.tables.ep_attach[:, 1].long()
+        req_waiting = st.fabric.out_cnt[CH_REQ, er, ep_p] > 0
+        fabric, ep_flit, ep_valid = eng.fabric_cycle(st.fabric, self.tables,
+                                                     space)
+        # 2) endpoint processing
+        eps = _ingest(st.eps, ep_flit, ep_valid, cycle, self.params)
+        eps = dataclasses.replace(
+            eps, eg_overflow=eps.eg_overflow
+            + (req_waiting & ~rsp_free).to(I32))
+        eps = _generators(eps, cycle, self.params, self.wl, self.wt)
+        eps = _memory(eps, cycle, self.params, self.is_hbm, self.is_mem)
+        # 3) egress -> injection: every channel's head whose ready time came
+        head, ready_ts = epm._eg_peek(eps.eg, eps.eg_ready, eps.eg_head)
+        ready = (eps.eg_cnt > 0) & (ready_ts <= cycle)  # [C, E]
+        fabric, accepted = eng.inject(fabric, self.tables, head, ready)
+        eg, eg_ready, eg_head, eg_cnt = epm._eg_pop(
+            eps.eg, eps.eg_ready, eps.eg_head, eps.eg_cnt, accepted)
+        eps = dataclasses.replace(eps, eg=eg, eg_ready=eg_ready,
+                                  eg_head=eg_head, eg_cnt=eg_cnt)
+        return (SimState(fabric=fabric, eps=eps, cycle=st.cycle + 1),
+                (ep_flit, ep_valid))
+
+
+def build_sim(topo: Topology, params: NocParams, wl: epm.Workload,
+              groups: list[dict] | None = None, device=None) -> Sim:
+    """Assemble a Sim on ``device`` (``cuda`` unless the caller names
+    another): fabric tables, HBM/memory maps and workload tensors."""
+    dev = resolve_device(device)
+    if groups is not None or wl.n_groups:
+        raise NotImplementedError(
+            "collective groups are not ported yet (ROADMAP Queue 1 item 9)")
+    E = topo.n_endpoints
+    is_hbm = np.zeros((E,), bool)
+    n_hbm = topo.meta.get("n_hbm", 0)
+    if n_hbm:
+        is_hbm[E - n_hbm:] = True
+    is_mem = np.ones((E,), bool)  # every endpoint can serve (tiles: SPM)
+    return Sim(
+        topo=topo, params=params, wl=wl,
+        tables=eng.make_tables(topo, params.n_vcs, device=dev),
+        is_hbm=torch.as_tensor(is_hbm, device=dev),
+        is_mem=torch.as_tensor(is_mem, device=dev),
+        wt=WorkloadTensors.of(wl, dev), device=dev,
+    )
+
+
+@torch.no_grad()
+def run(sim: Sim, n_cycles: int, state: SimState | None = None) -> SimState:
+    """Advance ``sim`` by ``n_cycles`` (from ``state`` or a fresh one)."""
+    st = state if state is not None else sim.init_state()
+    c0 = int(st.cycle)  # the only read of the device per call
+    for i in range(n_cycles):
+        st, _ = sim.step(st, c0 + i)
+    return st
+
+
+# selectable per-cycle trace fields for run_trace: "deliver" (the endpoint
+# deliveries), "counters" (small occupancy/progress counters) and "fabric"
+# (the whole FabricState every cycle: O(T*C*R*P*D*NF), opt in deliberately)
+TRACE_FIELDS = ("deliver", "counters", "fabric")
+
+
+def _trace_slice(st: SimState, deliver, fields: tuple) -> dict:
+    out = {}
+    for f in fields:
+        if f == "deliver":
+            out[f] = deliver
+        elif f == "counters":
+            fab = st.fabric
+            out[f] = {
+                "eg_cnt": st.eps.eg_cnt,
+                "mq_cnt": st.eps.mq_cnt,
+                "in_flight": (epm._isum(fab.in_cnt, (1, 2))
+                              + epm._isum(fab.out_cnt, (1, 2))),
+                "beats_rcvd": st.eps.beats_rcvd,
+                "n_sent": st.eps.n_sent,
+            }
+        else:
+            out[f] = st.fabric
+    return out
+
+
+def _stack(items):
+    """Stack a list of equally-shaped nests (tuples, dicts, dataclasses)."""
+    first = items[0]
+    if isinstance(first, torch.Tensor):
+        return torch.stack(items)
+    if isinstance(first, tuple):
+        return tuple(_stack(list(xs)) for xs in zip(*items))
+    if isinstance(first, dict):
+        return {k: _stack([x[k] for x in items]) for k in first}
+    return type(first)(**{f.name: _stack([getattr(x, f.name) for x in items])
+                          for f in dataclasses.fields(first)})
+
+
+@torch.no_grad()
+def run_trace(sim: Sim, n_cycles: int, state: SimState | None = None,
+              fields: tuple = ("deliver",)):
+    """Like run(), but also returns a per-cycle trace.
+
+    With the default ``fields=("deliver",)`` the trace is the endpoint
+    deliveries ``(flits [T, C, E, NF], valid [T, C, E])``. Other
+    ``TRACE_FIELDS`` come back in a dict keyed by field name.
+    """
+    fields = tuple(fields)
+    for f in fields:
+        if f not in TRACE_FIELDS:
+            raise ValueError(
+                f"unknown trace field {f!r}; expected one of {TRACE_FIELDS}")
+    st = state if state is not None else sim.init_state()
+    c0 = int(st.cycle)
+    slices = []
+    for i in range(n_cycles):
+        st, deliver = sim.step(st, c0 + i)
+        slices.append(_trace_slice(st, deliver, fields))
+    trace = _stack(slices)
+    if fields == ("deliver",):
+        return st, trace["deliver"]
+    return st, trace
+
+
+def canonical_state(sim: Sim, st: SimState, scrub: bool = False) -> SimState:
+    """SimState with implementation-defined garbage masked out.
+
+    Rotates every circular queue to head 0 and zeroes all dead queue/FIFO
+    slots, as ``repro.core.noc.sim.canonical_state`` does. ``scrub=True``
+    also neutralizes the endpoint scratch registers that keep their last
+    burst after going idle (``m_flit``, the ``w_*`` serializer registers,
+    NI destination slots with zero outstanding count).
+    """
+    f, eps = st.fabric, st.eps
+
+    def mask_fifo(buf, cnt):
+        """Zero slots at or past the FIFO count (buf [..., D, NF])."""
+        D = buf.shape[-2]
+        live = torch.arange(D, device=buf.device) < cnt[..., None]
+        return torch.where(live[..., None], buf, 0)
+
+    fabric = dataclasses.replace(
+        f, in_buf=mask_fifo(f.in_buf, f.in_cnt),
+        out_buf=mask_fifo(f.out_buf, f.out_cnt))
+
+    dev = eps.mq.device
+    Q = eps.mq.shape[1]
+    rot = torch.remainder(eps.mq_head[:, None] + torch.arange(Q, device=dev), Q)
+    mq = torch.gather(eps.mq, 1, rot.long()[..., None].expand(eps.mq.shape))
+    mq = torch.where((torch.arange(Q, device=dev) < eps.mq_cnt[:, None])[..., None],
+                     mq, 0)
+
+    EQ = eps.eg_ready.shape[-1]
+    rote = torch.remainder(eps.eg_head[..., None] + torch.arange(EQ, device=dev),
+                           EQ).long()
+    live = torch.arange(EQ, device=dev) < eps.eg_cnt[..., None]
+    eg = torch.where(live[..., None],
+                     torch.gather(eps.eg, 2, rote[..., None].expand(eps.eg.shape)), 0)
+    eg_ready = torch.where(live, torch.gather(eps.eg_ready, 2, rote), 0)
+    eps = dataclasses.replace(
+        eps, mq=mq, mq_head=torch.zeros_like(eps.mq_head),
+        eg=eg, eg_ready=eg_ready, eg_head=torch.zeros_like(eps.eg_head))
+    if scrub:
+        w_idle = eps.w_stream < 0
+        z = torch.zeros_like(eps.w_left)
+        eps = dataclasses.replace(
+            eps,
+            m_flit=torch.where(eps.m_active[:, None], eps.m_flit, 0),
+            w_left=torch.where(w_idle, z, eps.w_left),
+            w_beats=torch.where(w_idle, z, eps.w_beats),
+            w_dst=torch.where(w_idle, z, eps.w_dst),
+            w_txn=torch.where(w_idle, z, eps.w_txn),
+            w_ts=torch.where(w_idle, z, eps.w_ts),
+            ni_dst=torch.where(eps.ni_cnt == 0, -1, eps.ni_dst),
+        )
+    return SimState(fabric=fabric, eps=eps, cycle=st.cycle)
+
+
+def stats(sim: Sim, st: SimState) -> dict:
+    """Summarize a final SimState: latency, beats, utilization, stalls."""
+    eps = {f.name: getattr(st.eps, f.name).cpu().numpy()
+           for f in dataclasses.fields(st.eps)}
+    cyc = int(st.cycle)
+    n_tiles = sim.wl.n_tiles
+    lat = eps["lat_sum"] / np.maximum(eps["lat_cnt"], 1)
+    return {
+        "cycles": cyc,
+        "narrow_lat_mean": lat[:n_tiles],
+        "narrow_lat_cnt": eps["lat_cnt"][:n_tiles],
+        "beats_rcvd": eps["beats_rcvd"],
+        "beats_sent": eps["beats_sent"],
+        "hbm_served": eps["hbm_served"],
+        "ni_stalls": eps["ni_stall"],
+        "eg_overflow": eps["eg_overflow"],
+        "dma_done": eps["d_done"],
+        "rx_bursts": eps["rx_bursts"],
+        "last_rx": eps["last_rx"],
+        "first_rx": eps["first_rx"],
+        "mq_max": int(eps["mq_cnt"].max()),
+        "wide_util": eps["beats_rcvd"][:n_tiles].sum() / max(cyc * n_tiles, 1),
+        "hbm_util": (
+            eps["hbm_served"].sum()
+            / max(cyc * max(int(sim.is_hbm.sum()), 1), 1)
+            / sim.params.hbm_rate
+        ),
+    }

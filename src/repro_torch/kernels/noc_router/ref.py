@@ -1,0 +1,298 @@
+"""Plain PyTorch version of one FlooNoC router cycle (VC-less, offload-less).
+
+This is the PyTorch counterpart of ``repro.kernels.noc_router.ref``: the
+bit-exact specification of the per-cycle router datapath — cycle-start
+snapshot, round-robin output arbitration, wormhole locks, FIFO push/pop over
+packed ``[R, P, D, NF]`` int32 flit state. The CUDA kernels in
+``noc_router.py`` are held against these functions.
+
+Every function here takes any number of leading batch axes in front of the
+router axis (the channel axis ``C`` in the engine), while the routing and
+wiring tables (``route`` [R, E], ``link_src``/``link_dst`` [R, P, 2],
+``port_ep`` [R, P]) are shared across the batch. So the channel-batched
+fabric runs these functions once, with no Python channel loop, and a
+single channel is just the unbatched call.
+
+Cycle semantics: arbitration and link decisions are both computed from the
+cycle-start snapshot, then applied. A flit spends >= 1 cycle in the input
+buffer and >= 1 cycle in the output buffer: 2 cycles per router hop at zero
+load, matching the paper's Fig. 7.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+# packed flit layout: trailing axis of NF int32 fields
+FLIT_FIELDS = ("dst", "src", "kind", "txn", "last", "ts", "meta")
+NF = len(FLIT_FIELDS)
+F_DST, F_SRC, F_KIND, F_TXN, F_LAST, F_TS, F_META = range(NF)
+
+I32 = torch.int32
+
+
+def empty_flits(shape, device=None) -> torch.Tensor:
+    """Zeroed packed flit tensor of shape [*shape, NF]."""
+    return torch.zeros((*tuple(shape), NF), dtype=I32, device=device)
+
+
+def broadcast_fields(ref, *values) -> torch.Tensor:
+    """Stack ``ref`` and ``values`` (tensors or ints, broadcast against
+    ``ref``'s shape) along a new trailing int32 axis."""
+    parts = [ref]
+    for v in values:
+        if isinstance(v, torch.Tensor):
+            parts.append(v.to(I32).expand(ref.shape))
+        else:
+            parts.append(torch.full_like(ref, v))
+    return torch.stack(parts, dim=-1)
+
+
+def pack_flit(dst, src, kind, txn, last, ts, meta) -> torch.Tensor:
+    """Pack per-field values (tensors or ints, broadcast against ``dst``'s
+    shape) into [..., NF] int32."""
+    return broadcast_fields(torch.as_tensor(dst).to(I32), src, kind, txn,
+                            last, ts, meta)
+
+
+def fifo_pop(buf, cnt, pop_mask):
+    """Drop the head slot of every FIFO selected by ``pop_mask`` [..., P]."""
+    shifted = torch.roll(buf, -1, dims=-2)
+    newbuf = torch.where(pop_mask[..., None, None], shifted, buf)
+    return newbuf, cnt - pop_mask.to(I32)
+
+
+def fifo_push(buf, cnt, push_mask, flit):
+    """Append ``flit`` [..., P, NF] at the tail where ``push_mask`` [..., P]."""
+    D = buf.shape[-2]
+    idx = cnt.clamp(0, D - 1)
+    d = torch.arange(D, device=buf.device)
+    onehot = (d == idx[..., None]) & push_mask[..., None]
+    newbuf = torch.where(onehot[..., None], flit[..., None, :], buf)
+    return newbuf, cnt + push_mask.to(I32)
+
+
+def fifo_update(buf, cnt, pop_mask, push_mask, flit):
+    """Fused pop-then-push, slot for slot what the JAX ``fifo_update`` writes.
+
+    Identical to ``fifo_pop`` followed by ``fifo_push`` on every live slot
+    (index < count). Dead slots hold the same garbage as the JAX fused
+    path: the ``D == 2`` direct-select form and the general
+    ``min(d + pop, D - 1)`` shift. Never pushes past the last slot:
+    callers guarantee space.
+    """
+    D = buf.shape[-2]
+    cnt1 = cnt - pop_mask.to(I32)
+    if D == 2:
+        head = torch.where(pop_mask[..., None], buf[..., 1, :], buf[..., 0, :])
+        tail = cnt1.clamp(0, 1)
+        s0 = torch.where((push_mask & (tail == 0))[..., None], flit, head)
+        s1 = torch.where((push_mask & (tail == 1))[..., None], flit,
+                         buf[..., 1, :])
+        return torch.stack([s0, s1], dim=-2), cnt1 + push_mask.to(I32)
+    d = torch.arange(D, device=buf.device)
+    src = torch.clamp(d + pop_mask[..., None].to(torch.int64), max=D - 1)
+    shifted = torch.gather(buf, -2, src[..., None].expand(buf.shape))
+    at_tail = push_mask[..., None] & (d == cnt1.clamp(0, D - 1)[..., None])
+    newbuf = torch.where(at_tail[..., None], flit[..., None, :], shifted)
+    return newbuf, cnt1 + push_mask.to(I32)
+
+
+def heads(buf) -> torch.Tensor:
+    """Head flit of every FIFO: [..., D, NF] -> [..., NF]."""
+    return buf[..., 0, :]
+
+
+class ArbDecisions(NamedTuple):
+    """Per-output-port arbitration results, all computed from the snapshot."""
+
+    arb_pop: torch.Tensor  # [..., R, P_in] bool: head popped by some output
+    granted: torch.Tensor  # [..., R, P_out] bool: output port granted a flit
+    chosen: torch.Tensor  # [..., R, P_out, NF] flit the output port latches
+    rr_ptr: torch.Tensor  # [..., R, P_out] updated round-robin pointer
+    wh_lock: torch.Tensor  # [..., R, P_out] updated wormhole lock (-1 free)
+    in_space: torch.Tensor  # [..., R, P_in] bool: input FIFO space after pops
+
+
+def route_lookup(route, dst):
+    """``route[r, dst[..., r, p]]`` for every head: [..., R, P] int32.
+
+    ``dst`` is clipped at 0 as the JAX reference does. A destination past
+    the table (JAX's gather fills it) requests no port (-1).
+    """
+    R, E = route.shape
+    d = dst.clamp(min=0)
+    r_idx = torch.arange(R, device=route.device)[:, None]
+    port = route[r_idx, d.clamp(max=E - 1).long()]
+    return torch.where(d < E, port, -1)
+
+
+def arb_decisions(in_buf, in_cnt, out_cnt, rr_ptr, wh_lock, route,
+                  depth_out: int) -> ArbDecisions:
+    """Round-robin output arbitration from the cycle-start snapshot.
+
+    Each output port picks the lowest-scoring eligible input head
+    (round-robin distance ``(pin - rr_ptr) % P``, a floor modulo); ties go
+    to the lowest input index. Eligibility requires a head routed to that
+    port, a free or matching wormhole lock, and output-buffer space. A
+    granted tail flit releases the wormhole lock; a granted body flit locks
+    the output to its input port.
+    """
+    P = in_cnt.shape[-1]
+    Din = in_buf.shape[-2]
+    h = heads(in_buf)  # [..., R, P, NF]
+    req_port = torch.where(in_cnt > 0, route_lookup(route, h[..., F_DST]), -1)
+
+    dev = in_buf.device
+    pout = torch.arange(P, device=dev)
+    pin = torch.arange(P, device=dev)[:, None]  # [P_in, 1]
+    elig = req_port[..., :, None] == pout  # [..., R, P_in, P_out]
+    locked = wh_lock[..., None, :]
+    elig &= (locked < 0) | (locked == pin)
+    elig &= (out_cnt < depth_out)[..., None, :]
+
+    score = torch.remainder(pin - rr_ptr[..., None, :], P)
+    score = torch.where(elig, score, P + 1)
+    # first-min over the input axis: a strict < keeps the lowest index
+    best = score[..., 0, :]
+    winner = torch.zeros_like(best)
+    for i in range(1, P):
+        si = score[..., i, :]
+        better = si < best
+        best = torch.where(better, si, best)
+        winner = torch.where(better, i, winner)
+    granted = best <= P  # [..., R, P_out]
+    win_onehot = (winner[..., None, :] == pin) & granted[..., None, :]
+    arb_pop = win_onehot.any(dim=-1)  # [..., R, P_in]
+    chosen = torch.gather(h, -2, winner.long()[..., None].expand(h.shape))
+
+    rr = torch.where(granted, torch.remainder(winner + 1, P), rr_ptr)
+    is_tail = chosen[..., F_LAST] > 0
+    wh = torch.where(granted & ~is_tail, winner, wh_lock)
+    wh = torch.where(granted & is_tail, -1, wh)
+
+    in_space = (in_cnt - arb_pop.to(I32)) < Din
+    return ArbDecisions(arb_pop, granted, chosen, rr.to(I32), wh.to(I32),
+                        in_space)
+
+
+def link_inputs(out_heads_all, out_valid_all, link_src, in_space):
+    """Link traversal on the input side: which upstream head feeds each
+    input port and whether it is accepted this cycle.
+
+    ``out_heads_all`` [..., R, P, NF] / ``out_valid_all`` [..., R, P] are
+    the fabric-wide snapshot; ``link_src`` [R, P, 2] the upstream table
+    (both coordinates clipped into range as the JAX reference does).
+    Returns ``(up_head [..., R, P, NF], link_accept [..., R, P])``.
+    """
+    R_all, P = out_valid_all.shape[-2:]
+    src_r, src_p = link_src[..., 0], link_src[..., 1]
+    have_up = src_r >= 0
+    sr = src_r.clamp(0, R_all - 1).long()
+    sp = src_p.clamp(0, P - 1).long()
+    up_head = out_heads_all[..., sr, sp, :]
+    up_valid = out_valid_all[..., sr, sp] & have_up
+    return up_head, up_valid & in_space
+
+
+def sent_mask(out_valid, link_dst, port_ep, in_space_all, ep_space):
+    """Which output heads leave their buffer this cycle: over a live link
+    iff the downstream input FIFO has space after its own arbitration pops
+    (``in_space_all`` [..., R, P]), or into an attached endpoint iff it
+    signalled ingress space (``ep_space`` [..., E])."""
+    E = ep_space.shape[-1]
+    R_all, P = in_space_all.shape[-2:]
+    dst_r, dst_p = link_dst[..., 0], link_dst[..., 1]
+    to_router = dst_r >= 0
+    down_space = in_space_all[..., dst_r.clamp(0, R_all - 1).long(),
+                              dst_p.clamp(0, P - 1).long()]
+    sent_link = to_router & out_valid & down_space
+    has_ep = port_ep >= 0
+    ep_ok = ep_space[..., port_ep.clamp(0, E - 1).long()]
+    return sent_link | (has_ep & out_valid & ep_ok)
+
+
+def apply_cycle(in_buf, in_cnt, out_buf, out_cnt, arb_pop, granted, chosen,
+                link_accept, up_head, sent, fused: bool = False):
+    """Apply the snapshot decisions: FIFO pops then pushes, per side.
+
+    ``fused=True`` applies each side's pop+push as one ``fifo_update``
+    (same live contents, different dead-slot garbage)."""
+    if fused:
+        in2, in_cnt2 = fifo_update(in_buf, in_cnt, arb_pop, link_accept,
+                                   up_head)
+        out2, out_cnt2 = fifo_update(out_buf, out_cnt, sent, granted, chosen)
+        return in2, in_cnt2, out2, out_cnt2
+    in1, in_cnt1 = fifo_pop(in_buf, in_cnt, arb_pop)
+    in2, in_cnt2 = fifo_push(in1, in_cnt1, link_accept, up_head)
+    out1, out_cnt1 = fifo_pop(out_buf, out_cnt, sent)
+    out2, out_cnt2 = fifo_push(out1, out_cnt1, granted, chosen)
+    return in2, in_cnt2, out2, out_cnt2
+
+
+def apply_phase(in_buf, in_cnt, out_buf, out_cnt, arb: ArbDecisions,
+                link_src, link_dst, port_ep, ep_space, fused: bool = True):
+    """Link resolution against the cycle-start snapshot plus the FIFO
+    updates of both sides: the plain version of the CUDA apply kernel.
+    Returns ``(in_buf', in_cnt', out_buf', out_cnt')``."""
+    out_heads = heads(out_buf)
+    out_valid = out_cnt > 0
+    up_head, link_accept = link_inputs(out_heads, out_valid, link_src,
+                                       arb.in_space)
+    sent = sent_mask(out_valid, link_dst, port_ep, arb.in_space, ep_space)
+    return apply_cycle(in_buf, in_cnt, out_buf, out_cnt, arb.arb_pop,
+                       arb.granted, arb.chosen, link_accept, up_head, sent,
+                       fused=fused)
+
+
+def endpoint_deliveries(out_buf, out_cnt, ep_attach, ep_space):
+    """Output heads at every endpoint's attach port, from the cycle-start
+    snapshot: ``(ep_flit [..., E, NF], ep_valid [..., E])``."""
+    er, ep_p = ep_attach[:, 0].long(), ep_attach[:, 1].long()
+    ep_flit = heads(out_buf)[..., er, ep_p, :]
+    ep_valid = (out_cnt[..., er, ep_p] > 0) & ep_space
+    return ep_flit, ep_valid
+
+
+def router_cycle_reference(in_buf, in_cnt, out_buf, out_cnt, rr_ptr, wh_lock,
+                           route, link_src, link_dst, port_ep, ep_attach,
+                           ep_space, fused: bool = False):
+    """One router cycle over the full fabric (plain version).
+
+    State is ``[..., R, P, ...]`` (any leading batch axes, e.g. channels);
+    ``ep_space`` [..., E] is the endpoint ingress-space mask. Returns
+    ``(in_buf, in_cnt, out_buf, out_cnt, rr_ptr, wh_lock, ep_flit [..., E,
+    NF], ep_valid [..., E])``. ``fused`` selects the fused FIFO datapath.
+    """
+    arb = arb_decisions(in_buf, in_cnt, out_cnt, rr_ptr, wh_lock, route,
+                        depth_out=out_buf.shape[-2])
+    in2, in_cnt2, out2, out_cnt2 = apply_phase(
+        in_buf, in_cnt, out_buf, out_cnt, arb, link_src, link_dst, port_ep,
+        ep_space, fused=fused)
+    ep_flit, ep_valid = endpoint_deliveries(out_buf, out_cnt, ep_attach,
+                                            ep_space)
+    return (in2, in_cnt2, out2, out_cnt2, arb.rr_ptr, arb.wh_lock, ep_flit,
+            ep_valid)
+
+
+def inject_endpoints(in_buf, in_cnt, er, ep_p, port_ep, flit, want):
+    """Gather-push one flit per endpoint into its attached input FIFO.
+
+    ``er``/``ep_p`` [E] are the attach (router, port) of every endpoint,
+    ``port_ep`` [R, P] the inverse map (-1 where none), ``flit`` [..., E,
+    NF], ``want`` [..., E]. Attach ports are unique, so each port pulls its
+    endpoint's flit and writes slot ``cnt`` through a one-hot select.
+    Returns ``(in_buf, in_cnt, accepted [..., E])``.
+    """
+    Din = in_buf.shape[-2]
+    pe = port_ep.clamp(min=0).long()
+    want_rp = want[..., pe] & (port_ep >= 0)
+    acc_rp = want_rp & (in_cnt < Din)
+    flit_rp = flit[..., pe, :]  # [..., R, P, NF]
+    d = torch.arange(Din, device=in_buf.device)
+    at = acc_rp[..., None] & (d == in_cnt[..., None])
+    in_buf = torch.where(at[..., None], flit_rp[..., None, :], in_buf)
+    in_cnt = in_cnt + acc_rp.to(I32)
+    accepted = acc_rp[..., er.long(), ep_p.long()]
+    return in_buf, in_cnt, accepted

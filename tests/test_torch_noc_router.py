@@ -1,0 +1,174 @@
+"""Router datapath parity: the port's plain PyTorch router functions
+(``repro_torch.kernels.noc_router.ref``) and its channel-batched entry point
+(``ops.router_cycle``) against the JAX reference and its Pallas kernel.
+
+Inputs are random *consistent* snapshots made with numpy from a seed:
+counts within depth, stale dead slots, several heads routed to one output
+(round-robin contention), locked and free wormholes, full output buffers,
+destinations outside the table. Everything is integer, so the tolerance is
+exact equality on every output."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.noc.engine import make_tables as jax_make_tables
+from repro.core.noc.topology import build_mesh as jax_build_mesh
+from repro.kernels.noc_router import ops as jops
+from repro.kernels.noc_router import ref as jref
+from repro_torch.kernels.noc_router import ops as tops
+from repro_torch.kernels.noc_router import ref as tref
+from test_torch_cuda_kernels import P, _snapshot, _tables
+
+NF = jref.NF
+
+# the state tensors are small: one intra-op thread is fastest, and keeps
+# parallel test workers from oversubscribing the cores
+torch.set_num_threads(1)
+
+
+def _mesh_tables():
+    tb = jax_make_tables(jax_build_mesh(nx=4, ny=8))
+    return {k: np.array(getattr(tb, k)) for k in
+            ("route", "link_src", "link_dst", "port_ep", "ep_attach")}
+
+
+def _eq(a, b, tag=""):
+    np.testing.assert_array_equal(np.asarray(a), b.cpu().numpy(), err_msg=tag)
+
+
+def _both(d):
+    return ({k: jnp.asarray(v) for k, v in d.items()},
+            {k: torch.as_tensor(v) for k, v in d.items()})
+
+
+CASES = [(R, d, seed) for R in (1, 32) for d in (2, 4) for seed in (0, 1)]
+
+
+@pytest.mark.parametrize("R,depth,seed", CASES)
+def test_fifo_functions_match_jax(R, depth, seed):
+    rng = np.random.default_rng(seed)
+    E = 3 if R == 1 else 40
+    s = _snapshot(rng, (), R, E, depth, depth)
+    pop = rng.random((R, P)) < 0.5
+    push = rng.random((R, P)) < 0.5
+    flit = rng.integers(-9, 9, (R, P, NF)).astype(np.int32)
+    j, t = _both(dict(buf=s["in_buf"], cnt=s["in_cnt"], pop=pop, push=push,
+                      flit=flit))
+    for a, b in zip(jref.fifo_pop(j["buf"], j["cnt"], j["pop"]),
+                    tref.fifo_pop(t["buf"], t["cnt"], t["pop"])):
+        _eq(a, b, "fifo_pop")
+    for a, b in zip(jref.fifo_push(j["buf"], j["cnt"], j["push"], j["flit"]),
+                    tref.fifo_push(t["buf"], t["cnt"], t["push"], t["flit"])):
+        _eq(a, b, "fifo_push")
+    # fifo_update: live and dead slots alike (states compare leaf for leaf);
+    # callers never push into a full FIFO, so mask such pushes as they do
+    ok = (s["in_cnt"] - pop) < depth
+    j["push"], t["push"] = jnp.asarray(push & ok), torch.as_tensor(push & ok)
+    for a, b in zip(
+            jref.fifo_update(j["buf"], j["cnt"], j["pop"], j["push"], j["flit"]),
+            tref.fifo_update(t["buf"], t["cnt"], t["pop"], t["push"], t["flit"])):
+        _eq(a, b, "fifo_update")
+    _eq(jref.heads(j["buf"]), tref.heads(t["buf"]), "heads")
+    _eq(jref.empty_flits((R, 2)), tref.empty_flits((R, 2)), "empty_flits")
+    _eq(jref.pack_flit(j["flit"][..., 0], 1, 2, j["flit"][..., 3], 0, 5, 6),
+        tref.pack_flit(t["flit"][..., 0], 1, 2, t["flit"][..., 3], 0, 5, 6),
+        "pack_flit")
+
+
+@pytest.mark.parametrize("R,depth,seed", [c for c in CASES if c[2] == 0])
+def test_decision_functions_match_jax(R, depth, seed):
+    """arb_decisions, link_inputs, sent_mask, apply_cycle (fused and
+    unfused) and router_cycle_reference, single channel."""
+    rng = np.random.default_rng(100 + seed)
+    E = 3 if R == 1 else 40
+    tb = _tables(rng, R, E)
+    s = _snapshot(rng, (), R, E, depth, depth)
+    (js, ts), (jt, tt) = _both(s), _both(tb)
+    args = lambda d, t: (d["in_buf"], d["in_cnt"], d["out_cnt"], d["rr_ptr"],
+                         d["wh_lock"], t["route"])
+    ja = jref.arb_decisions(*args(js, jt), depth_out=depth)
+    ta = tref.arb_decisions(*args(ts, tt), depth_out=depth)
+    for name, a, b in zip(ja._fields, ja, ta):
+        _eq(a, b, f"arb_decisions.{name}")
+    if R > 1:  # the random snapshot exercises both outcomes
+        assert ta.granted.any() and (~ta.granted).any()
+
+    jup, jacc = jref.link_inputs(jref.heads(js["out_buf"]), js["out_cnt"] > 0,
+                                 jt["link_src"], ja.in_space)
+    tup, tacc = tref.link_inputs(tref.heads(ts["out_buf"]), ts["out_cnt"] > 0,
+                                 tt["link_src"], ta.in_space)
+    _eq(jup, tup, "link_inputs.up_head")
+    _eq(jacc, tacc, "link_inputs.accept")
+    jsent = jref.sent_mask(js["out_cnt"] > 0, jt["link_dst"], jt["port_ep"],
+                           ja.in_space, js["ep_space"])
+    tsent = tref.sent_mask(ts["out_cnt"] > 0, tt["link_dst"], tt["port_ep"],
+                           ta.in_space, ts["ep_space"])
+    _eq(jsent, tsent, "sent_mask")
+    for fused in (False, True):
+        for a, b in zip(
+                jref.apply_cycle(js["in_buf"], js["in_cnt"], js["out_buf"],
+                                 js["out_cnt"], ja.arb_pop, ja.granted,
+                                 ja.chosen, jacc, jup, jsent, fused=fused),
+                tref.apply_cycle(ts["in_buf"], ts["in_cnt"], ts["out_buf"],
+                                 ts["out_cnt"], ta.arb_pop, ta.granted,
+                                 ta.chosen, tacc, tup, tsent, fused=fused)):
+            _eq(a, b, f"apply_cycle fused={fused}")
+        cyc = lambda ref, d, t: ref.router_cycle_reference(
+            d["in_buf"], d["in_cnt"], d["out_buf"], d["out_cnt"], d["rr_ptr"],
+            d["wh_lock"], t["route"], t["link_src"], t["link_dst"],
+            t["port_ep"], t["ep_attach"], d["ep_space"], fused=fused)
+        for i, (a, b) in enumerate(zip(cyc(jref, js, jt), cyc(tref, ts, tt))):
+            _eq(a, b, f"router_cycle_reference[{i}] fused={fused}")
+
+
+@pytest.mark.parametrize("R,seed", [(1, 0), (32, 1)])
+def test_inject_endpoints_matches_jax(R, seed):
+    rng = np.random.default_rng(200 + seed)
+    E = 3 if R == 1 else 40
+    tb = _tables(rng, R, E)
+    s = _snapshot(rng, (), R, E, 2, 2)
+    flit = rng.integers(-9, 9, (E, NF)).astype(np.int32)
+    want = rng.random(E) < 0.6
+    er, ep_p = tb["ep_attach"][:, 0], tb["ep_attach"][:, 1]
+    j = jref.inject_endpoints(jnp.asarray(s["in_buf"]), jnp.asarray(s["in_cnt"]),
+                              jnp.asarray(er), jnp.asarray(ep_p),
+                              jnp.asarray(tb["port_ep"]), jnp.asarray(flit),
+                              jnp.asarray(want))
+    t = tref.inject_endpoints(torch.as_tensor(s["in_buf"]),
+                              torch.as_tensor(s["in_cnt"]), torch.as_tensor(er),
+                              torch.as_tensor(ep_p),
+                              torch.as_tensor(tb["port_ep"]),
+                              torch.as_tensor(flit), torch.as_tensor(want))
+    for i, (a, b) in enumerate(zip(j, t)):
+        _eq(a, b, f"inject_endpoints[{i}]")
+
+
+@pytest.mark.parametrize("depth,tile", [(2, 8), (4, 0)])
+def test_ops_router_cycle_matches_pallas_interpret(depth, tile):
+    """The channel-batched entry point on a [3, 32, 5, ...] batch built on
+    the 8x4 mesh tables, against the JAX Pallas kernel run in interpret
+    mode (fused FIFO datapath; 8 routers per program, or the whole fabric)
+    and the vmapped jnp reference."""
+    rng = np.random.default_rng(7 + depth)
+    tb = _mesh_tables()
+    s = _snapshot(rng, (3,), 32, 40, depth, depth)
+    (js, ts), (jt, tt) = _both(s), _both(tb)
+    args = lambda d, t: (d["in_buf"], d["in_cnt"], d["out_buf"], d["out_cnt"],
+                         d["rr_ptr"], d["wh_lock"], t["route"], t["link_src"],
+                         t["link_dst"], t["port_ep"], t["ep_attach"],
+                         d["ep_space"])
+    want_pallas = jops.router_cycle(*args(js, jt), backend="pallas",
+                                    interpret=True, fused_fifo=True,
+                                    router_tile=tile)
+    want_jnp = jops.router_cycle(*args(js, jt), backend="jnp", fused_fifo=True)
+    got = tops.router_cycle(*args(ts, tt))
+    for i, (a, c, b) in enumerate(zip(want_pallas, want_jnp, got)):
+        _eq(a, b, f"router_cycle[{i}] vs pallas")
+        _eq(c, b, f"router_cycle[{i}] vs jnp")
+
+
+def test_ops_router_cycle_rejects_other_devices():
+    meta = torch.empty((1, 1, P, 2, NF), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        tops.router_cycle(meta, *([None] * 11))

@@ -1,0 +1,126 @@
+"""Ground rules of the PyTorch port, checked on the CPU.
+
+* ``repro_torch`` and ``chip_smoke.py`` import neither JAX nor anything of
+  the JAX package ``repro``;
+* importing the port builds nothing and the entry points never drop to the
+  CPU silently: without a card and without ``device="cpu"`` they raise;
+* every configuration value the port does not implement yet is refused
+  with ``NotImplementedError``.
+"""
+import ast
+import dataclasses
+import os
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import repro_torch
+from repro_torch import convert
+from repro_torch.core.noc import sim as TS
+from repro_torch.core.noc import traffic as TT
+from repro_torch.core.noc.engine import make_tables
+from repro_torch.core.noc.params import NocParams
+from repro_torch.core.noc.topology import build_mesh
+from repro_torch.kernels.noc_router import noc_router, ref
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _port_modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        repro_torch.__path__, prefix="repro_torch."))
+
+
+def test_port_imports_neither_jax_nor_repro():
+    """Import every module of the port in a fresh interpreter (the test
+    process itself has JAX loaded)."""
+    mods = _port_modules()
+    assert "repro_torch.core.noc.sim" in mods and len(mods) >= 15
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "             or m == 'repro' or m.startswith('repro.'))\n"
+        "from repro_torch.kernels.noc_router import noc_router\n"
+        "print(bad, noc_router._lib)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=ROOT, timeout=300, env=env)
+    assert out.returncode == 0, out.stderr
+    # nothing of JAX, and no kernel library built or loaded by importing
+    assert out.stdout.strip() == "[] None", out.stdout
+
+
+def _imported_names(path: Path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", ["chip_smoke.py", "src/repro_torch"])
+def test_no_source_of_the_port_names_jax_or_repro(path):
+    files = [ROOT / path] if path.endswith(".py") else sorted(
+        (ROOT / path).rglob("*.py"))
+    for f in files:
+        for name in _imported_names(f):
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), f"{f}: imports {name}"
+
+
+def test_entry_points_refuse_to_drop_to_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    topo = build_mesh(nx=4, ny=2)
+    wl = TT.dma_workload(topo, "uniform", transfer_kb=1, n_txns=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TS.build_sim(topo, NocParams(), wl)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_tables(topo)
+    sim = TS.build_sim(topo, NocParams(), wl, device="cpu")
+    assert sim.init_state().fabric.in_buf.device.type == "cpu"
+
+
+def test_cuda_wrappers_refuse_cpu_tensors():
+    buf = torch.zeros((1, 1, 5, 2, ref.NF), dtype=torch.int32)
+    cnt = torch.zeros((1, 1, 5), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        noc_router.arb_cuda(buf, cnt, cnt, cnt, cnt,
+                            torch.zeros((1, 1), dtype=torch.int32), 2)
+
+
+@pytest.mark.parametrize("kw,item", [
+    ({"n_vcs": 2}, "item 7"),
+    ({"collective_offload": True}, "item 9"),
+    ({"fused_cycles": 4}, "item 6"),
+    ({"step_impl": "naive"}, "item 4"),
+])
+def test_unported_params_raise(kw, item):
+    with pytest.raises(NotImplementedError, match=item):
+        NocParams(**kw)
+
+
+def test_unported_groups_raise():
+    topo = build_mesh(nx=4, ny=2)
+    wl = TT.dma_workload(topo, "uniform", transfer_kb=1, n_txns=1)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        make_tables(topo, groups=[{"root": 0, "members": [1]}], device="cpu")
+    with pytest.raises(NotImplementedError, match="item 9"):
+        TS.build_sim(topo, NocParams(), wl, groups=[{"root": 0}], device="cpu")
+    with pytest.raises(NotImplementedError, match="item 9"):
+        TS.build_sim(topo, NocParams(), dataclasses.replace(wl, n_groups=1),
+                     device="cpu")
+
+
+def test_params_from_jax_fields_drop_the_pallas_knobs():
+    fields = dataclasses.asdict(NocParams(n_channels=4))
+    fields.update(backend="pallas", router_tile=8)
+    assert convert.params_from_dict(fields) == NocParams(n_channels=4)
+    with pytest.raises(NotImplementedError):
+        convert.params_from_dict({**fields, "n_vcs": 2})
