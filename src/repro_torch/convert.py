@@ -62,14 +62,22 @@ def sim_state_from_numpy(arrays: dict, device) -> SimState:
 
 
 def tables_to_numpy(tb: eng.FabricTables) -> dict:
-    """FabricTables as a dict of numpy arrays keyed by field name."""
-    return {name: getattr(tb, name).cpu().numpy() for name in _fields(tb)}
+    """FabricTables as a dict of numpy arrays keyed by field name
+    (``n_vcs`` as a 0-d array; ``vc_out`` left out when it is None)."""
+    out = {name: getattr(tb, name).cpu().numpy() for name in _fields(tb)
+           if isinstance(getattr(tb, name), torch.Tensor)}
+    out["n_vcs"] = np.asarray(tb.n_vcs, np.int32)
+    return out
 
 
 def tables_from_numpy(arrays: dict, device) -> eng.FabricTables:
-    """FabricTables on ``device`` from numpy arrays keyed by field name."""
-    return eng.FabricTables(**{
-        f.name: torch.as_tensor(np.array(arrays[f.name], np.int32),
-                                device=device)
-        for f in dataclasses.fields(eng.FabricTables)})
+    """FabricTables on ``device`` from numpy arrays keyed by field name;
+    ``vc_out`` and ``n_vcs`` are optional (a VC-less table)."""
+    t = lambda a: torch.as_tensor(np.array(a, np.int32), device=device)
+    vc_out = arrays.get("vc_out")
+    return eng.FabricTables(
+        **{name: t(arrays[name]) for name in
+           ("route", "link_src", "link_dst", "port_ep", "ep_attach")},
+        vc_out=None if vc_out is None else t(vc_out),
+        n_vcs=int(arrays.get("n_vcs", 1)))
 

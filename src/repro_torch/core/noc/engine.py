@@ -7,8 +7,10 @@ fields]. The per-cycle router datapath lives in
 ``repro_torch.kernels.noc_router``: ``ops.router_cycle`` runs the plain
 PyTorch version on CPU tensors and the CUDA kernels on CUDA tensors.
 
-This is the VC-less, offload-less slice of ``repro.core.noc.engine`` on its
-fast path: fused FIFO updates and gather-based endpoint injection.
+This is the offload-less part of ``repro.core.noc.engine`` on its fast
+path: fused FIFO updates, gather-based endpoint injection, virtual
+channels with dateline switching (``n_vcs > 1``) and fused multi-cycle
+windows (``fabric_cycles_fused``).
 
 Cycle semantics: arbitration and link decisions are both computed from the
 cycle-start snapshot, then applied. A flit spends >= 1 cycle in the input
@@ -56,10 +58,14 @@ class FabricState:
 
 
 def init_fabric(topo: Topology, depth_in: int, depth_out: int,
-                n_channels: int, device=None) -> FabricState:
-    """Empty fabric state for ``n_channels`` physical channels of ``topo``."""
+                n_channels: int, n_vcs: int = 1, device=None) -> FabricState:
+    """Empty fabric state for ``n_channels`` physical channels of ``topo``.
+
+    With ``n_vcs > 1`` the port axis folds the VC axis in: slot
+    ``p * n_vcs + v`` is (physical port p, virtual channel v), each with
+    its own FIFOs, round-robin pointer and wormhole lock."""
     dev = resolve_device(device)
-    C, R, P = n_channels, topo.n_routers, topo.n_ports
+    C, R, P = n_channels, topo.n_routers, topo.n_ports * n_vcs
     z = lambda: torch.zeros((C, R, P), dtype=torch.int32, device=dev)
     return FabricState(
         in_buf=empty_flits((C, R, P, depth_in), device=dev),
@@ -73,21 +79,26 @@ def init_fabric(topo: Topology, depth_in: int, depth_out: int,
 
 @dataclass(frozen=True)
 class FabricTables:
-    """Static routing/wiring tables shared by every physical channel."""
+    """Static routing/wiring tables shared by every physical channel.
 
-    route: torch.Tensor  # [R, E] out port
-    link_src: torch.Tensor  # [R, P, 2] upstream (router, port) feeding my in port
-    link_dst: torch.Tensor  # [R, P, 2]
-    port_ep: torch.Tensor  # [R, P] endpoint attached (-1)
-    ep_attach: torch.Tensor  # [E, 2] (router, port)
+    With ``n_vcs > 1``, ``port_ep``/``ep_attach`` are *slot*-level
+    (endpoints attach at VC0 of their port) while ``route``/``link_src``/
+    ``link_dst`` stay physical; ``vc_out`` is the dateline VC-switch
+    table. ``n_vcs = 1`` keeps ``vc_out=None``."""
+
+    route: torch.Tensor  # [R, E] physical out port
+    link_src: torch.Tensor  # [R, Pp, 2] upstream (router, port) feeding my in port
+    link_dst: torch.Tensor  # [R, Pp, 2]
+    port_ep: torch.Tensor  # [R, P] endpoint attached (-1); slot-level if V > 1
+    ep_attach: torch.Tensor  # [E, 2] (router, port-or-slot)
+    # output VC for (router, input slot, physical out port); None when V == 1
+    vc_out: torch.Tensor | None = None  # [R, P*V, Pp]
+    n_vcs: int = 1
 
 
 def make_tables(topo: Topology, n_vcs: int = 1, groups=None,
                 device=None) -> FabricTables:
     """FabricTables on ``device`` derived from a Topology's numpy tables."""
-    if n_vcs != 1:
-        raise NotImplementedError(
-            "n_vcs > 1 is not ported yet (ROADMAP Queue 1 item 7)")
     if groups is not None:
         raise NotImplementedError(
             "collective groups are not ported yet (ROADMAP Queue 1 item 9)")
@@ -100,9 +111,33 @@ def make_tables(topo: Topology, n_vcs: int = 1, groups=None,
             if r2 >= 0:
                 link_src[r2, p2] = (r, p)
     t = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=dev)
+    if n_vcs == 1:
+        return FabricTables(route=t(topo.route), link_src=t(link_src),
+                            link_dst=t(topo.link_to), port_ep=t(topo.port_ep),
+                            ep_attach=t(topo.ep_attach))
+    V = n_vcs
+    # slot-level endpoint tables: endpoints live on VC0 of their port
+    port_ep = np.full((R, P * V), -1, np.int32)
+    port_ep[:, ::V] = topo.port_ep
+    ep_attach = topo.ep_attach.copy()
+    ep_attach[:, 1] *= V
+    # dateline VC-switching table: a flit arriving on input slot (pin, vin)
+    # and routed out physical port pout departs on
+    #   1    if dateline[r, pout]  (crossing the ring's dateline)
+    #   vin  if port_dim[r, pout] == port_dim[r, pin]  (same ring)
+    #   0    otherwise  (dimension turn / ejection resets the VC)
+    # Topologies without VC tables keep everything on VC0.
+    vc_out = np.zeros((R, P * V, P), np.int32)
+    if topo.port_dim is not None and topo.dateline is not None:
+        for pin in range(P):
+            same = topo.port_dim == topo.port_dim[:, pin:pin + 1]
+            for vin in range(V):
+                vout = np.where(same, vin, 0)
+                vout = np.where(topo.dateline, min(1, V - 1), vout)
+                vc_out[:, pin * V + vin, :] = vout
     return FabricTables(route=t(topo.route), link_src=t(link_src),
-                        link_dst=t(topo.link_to), port_ep=t(topo.port_ep),
-                        ep_attach=t(topo.ep_attach))
+                        link_dst=t(topo.link_to), port_ep=t(port_ep),
+                        ep_attach=t(ep_attach), vc_out=t(vc_out), n_vcs=V)
 
 
 def fabric_cycle(st: FabricState, tb: FabricTables,
@@ -117,8 +152,35 @@ def fabric_cycle(st: FabricState, tb: FabricTables,
         router_ops.router_cycle(
             st.in_buf, st.in_cnt, st.out_buf, st.out_cnt, st.rr_ptr,
             st.wh_lock, tb.route, tb.link_src, tb.link_dst, tb.port_ep,
-            tb.ep_attach, ep_ingress_space))
+            tb.ep_attach, ep_ingress_space, vc_out=tb.vc_out,
+            n_vcs=tb.n_vcs))
     return FabricState(in2, in_cnt2, out2, out_cnt2, rr, wh), ep_flit, ep_valid
+
+
+def fabric_cycles_fused(st: FabricState, tb: FabricTables,
+                        ep_ingress_space: torch.Tensor,
+                        eg, eg_ready, eg_head, eg_cnt, cycle0: int,
+                        n_cycles: int):
+    """``n_cycles`` fused fabric cycles with egress injection threaded in.
+
+    The super-step core: the fabric advances ``n_cycles`` with
+    ``ep_ingress_space`` held, injecting each endpoint's ready circular-
+    egress head per cycle except the window's last (the caller injects
+    after the endpoint phases, so a 1-cycle window equals ``fabric_cycle``
+    + ``inject``). On a CUDA device the whole window is one kernel launch.
+    Returns ``(state', eg, eg_ready, eg_head, eg_cnt, ep_flit [C, N, E, NF],
+    ep_valid [C, N, E], req_waiting [C, N, E])``. (Collective offload,
+    which the JAX version refuses here, has no tables in the port.)
+    """
+    (in2, in_cnt2, out2, out_cnt2, rr, wh, eg, eg_ready, eg_head, eg_cnt,
+     ep_flit, ep_valid, waiting) = router_ops.router_cycles_fused(
+        st.in_buf, st.in_cnt, st.out_buf, st.out_cnt, st.rr_ptr, st.wh_lock,
+        eg, eg_ready, eg_head, eg_cnt,
+        tb.route, tb.link_src, tb.link_dst, tb.port_ep, tb.ep_attach,
+        ep_ingress_space, cycle0, n_cycles, vc_out=tb.vc_out,
+        n_vcs=tb.n_vcs)
+    return (FabricState(in2, in_cnt2, out2, out_cnt2, rr, wh),
+            eg, eg_ready, eg_head, eg_cnt, ep_flit, ep_valid, waiting)
 
 
 def inject(st: FabricState, tb: FabricTables, flit: torch.Tensor,

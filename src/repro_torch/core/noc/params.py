@@ -24,8 +24,8 @@ class NocParams:
     depth_in: int = 2  # input FIFO depth (paper: minimal input buffers)
     depth_out: int = 2  # output buffers (timing closure across >1mm links)
 
-    # virtual channels per physical channel (only 1, the paper's VC-less
-    # mesh routers, is ported)
+    # virtual channels per physical channel (1 = the paper's VC-less mesh
+    # routers; 2 = dateline VCs, which make the torus deadlock-free)
     n_vcs: int = 1
 
     # endpoint / NI
@@ -65,7 +65,8 @@ class NocParams:
     # updates, scatter injection) is ported
     step_impl: str = "fast"
 
-    # multi-cycle super-stepping (only 1, per-cycle stepping, is ported)
+    # multi-cycle super-stepping: k fabric cycles per fabric call (one fused
+    # kernel launch on the card); 1 = per-cycle stepping
     fused_cycles: int = 1
 
     # in-network collective offload (not ported)
@@ -84,15 +85,9 @@ class NocParams:
             raise ValueError("n_vcs must be >= 1")
         if self.collective_offload and self.fused_cycles != 1:
             raise ValueError("collective_offload requires fused_cycles == 1")
-        if self.n_vcs > 1:
-            raise NotImplementedError(
-                "n_vcs > 1 is not ported yet (ROADMAP Queue 1 item 7)")
         if self.collective_offload:
             raise NotImplementedError(
                 "collective_offload is not ported yet (ROADMAP Queue 1 item 9)")
-        if self.fused_cycles > 1:
-            raise NotImplementedError(
-                "fused_cycles > 1 is not ported yet (ROADMAP Queue 1 item 6)")
         if self.step_impl == "naive":
             raise NotImplementedError(
                 "step_impl='naive' is not ported yet (ROADMAP Queue 1 item 4)")

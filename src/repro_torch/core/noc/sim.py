@@ -4,7 +4,8 @@ stepped cycle by cycle from Python.
 
 The PyTorch counterpart of ``repro.core.noc.sim`` on its fast path. The
 per-cycle body contains no Python loop over channels or endpoints. The
-router cycle runs on the device's kernels (``ops.router_cycle``); the
+router cycle runs on the device's kernels (``ops.router_cycle``, or
+``ops.router_cycles_fused`` for a ``fused_cycles > 1`` super-step); the
 endpoint phases are plain tensor code. ``run`` keeps the cycle number a
 Python int, so stepping never waits on the device.
 """
@@ -409,7 +410,8 @@ class Sim:
         """Fresh SimState at cycle 0 on the sim's device."""
         fabric = eng.init_fabric(self.topo, self.params.depth_in,
                                  self.params.depth_out,
-                                 self.params.n_channels, device=self.device)
+                                 self.params.n_channels, self.params.n_vcs,
+                                 device=self.device)
         eps = epm.init_endpoints(self.topo.n_endpoints, self.params,
                                  self.wl.n_streams, self.device)
         eps = dataclasses.replace(eps, d_txns_left=torch.as_tensor(
@@ -456,6 +458,73 @@ class Sim:
         return (SimState(fabric=fabric, eps=eps, cycle=st.cycle + 1),
                 (ep_flit, ep_valid))
 
+    @torch.no_grad()
+    def step_super(self, st: SimState, cycle: int | None = None):
+        """One super-step: ``params.fused_cycles`` = k cycles per fabric
+        call.
+
+        The fabric advances k cycles through ``eng.fabric_cycles_fused``
+        (one fused kernel launch on the card), recording per-cycle
+        deliveries; the endpoint phases then replay those k cycles in order
+        against their true cycle numbers, and the final egress injection
+        closes the window. A k=1 super-step equals :meth:`step`. For k>1
+        the req-channel backpressure mask is sampled at the window start
+        and held, and an egress flit pushed during the window becomes
+        injectable only at the window's close, as in the JAX package.
+        ``cycle`` is ``st.cycle`` as a Python int (read from the state when
+        omitted). Returns ``(state', (ep_flit [k, C, E, NF], ep_valid
+        [k, C, E]))``.
+        """
+        if cycle is None:
+            cycle = int(st.cycle)
+        k = self.params.fused_cycles
+        E = self.topo.n_endpoints
+        C = self.params.n_channels
+        EQ = st.eps.eg_ready.shape[-1]
+        rsp_free = st.eps.eg_cnt[CH_RSP] < EQ
+        space = torch.ones((C, E), dtype=torch.bool, device=self.device)
+        space[CH_REQ] = rsp_free
+        (fabric, eg, eg_ready, eg_head, eg_cnt, dF, dV, dW) = (
+            eng.fabric_cycles_fused(
+                st.fabric, self.tables, space, st.eps.eg, st.eps.eg_ready,
+                st.eps.eg_head, st.eps.eg_cnt, cycle, k))
+        eps = dataclasses.replace(st.eps, eg=eg, eg_ready=eg_ready,
+                                  eg_head=eg_head, eg_cnt=eg_cnt)
+        # [C, k, ...] -> [k, C, ...] for the per-cycle endpoint replay
+        dF, dV, dW = (x.transpose(0, 1) for x in (dF, dV, dW))
+        for j in range(k):
+            eps = _ingest(eps, dF[j], dV[j], cycle + j, self.params)
+            eps = dataclasses.replace(
+                eps, eg_overflow=eps.eg_overflow
+                + (dW[j, CH_REQ] & ~rsp_free).to(I32))
+            eps = _generators(eps, cycle + j, self.params, self.wl, self.wt)
+            eps = _memory(eps, cycle + j, self.params, self.is_hbm,
+                          self.is_mem)
+        head, ready_ts = epm._eg_peek(eps.eg, eps.eg_ready, eps.eg_head)
+        ready = (eps.eg_cnt > 0) & (ready_ts <= cycle + (k - 1))
+        fabric, accepted = eng.inject(fabric, self.tables, head, ready)
+        eg, eg_ready, eg_head, eg_cnt = epm._eg_pop(
+            eps.eg, eps.eg_ready, eps.eg_head, eps.eg_cnt, accepted)
+        eps = dataclasses.replace(eps, eg=eg, eg_ready=eg_ready,
+                                  eg_head=eg_head, eg_cnt=eg_cnt)
+        return (SimState(fabric=fabric, eps=eps, cycle=st.cycle + k),
+                (dF, dV))
+
+    def _advance(self, st: SimState, cycle: int):
+        """One (super-)step from ``cycle``: ``step`` at k = 1, else
+        ``step_super``. Returns ``(state', deliveries, cycles advanced)``."""
+        k = self.params.fused_cycles
+        if k == 1:
+            return (*self.step(st, cycle), 1)
+        return (*self.step_super(st, cycle), k)
+
+    def _n_steps(self, n_cycles: int) -> int:
+        k = self.params.fused_cycles
+        if n_cycles % k:
+            raise ValueError(
+                f"n_cycles={n_cycles} not a multiple of fused_cycles={k}")
+        return n_cycles // k
+
 
 def build_sim(topo: Topology, params: NocParams, wl: epm.Workload,
               groups: list[dict] | None = None, device=None) -> Sim:
@@ -482,11 +551,16 @@ def build_sim(topo: Topology, params: NocParams, wl: epm.Workload,
 
 @torch.no_grad()
 def run(sim: Sim, n_cycles: int, state: SimState | None = None) -> SimState:
-    """Advance ``sim`` by ``n_cycles`` (from ``state`` or a fresh one)."""
+    """Advance ``sim`` by ``n_cycles`` (from ``state`` or a fresh one).
+
+    ``params.fused_cycles`` > 1 advances in fused super-steps (``n_cycles``
+    must be a multiple, or ``ValueError``)."""
+    n_steps = sim._n_steps(n_cycles)
     st = state if state is not None else sim.init_state()
-    c0 = int(st.cycle)  # the only read of the device per call
-    for i in range(n_cycles):
-        st, _ = sim.step(st, c0 + i)
+    cyc = int(st.cycle)  # the only read of the device per call
+    for _ in range(n_steps):
+        st, _, k = sim._advance(st, cyc)
+        cyc += k
     return st
 
 
@@ -536,20 +610,28 @@ def run_trace(sim: Sim, n_cycles: int, state: SimState | None = None,
 
     With the default ``fields=("deliver",)`` the trace is the endpoint
     deliveries ``(flits [T, C, E, NF], valid [T, C, E])``. Other
-    ``TRACE_FIELDS`` come back in a dict keyed by field name.
+    ``TRACE_FIELDS`` come back in a dict keyed by field name. With
+    ``fused_cycles > 1`` the deliveries are flattened to per-cycle
+    ``[T, C, ...]`` while "counters"/"fabric" stay per super-step (they
+    sample the state at window boundaries).
     """
     fields = tuple(fields)
     for f in fields:
         if f not in TRACE_FIELDS:
             raise ValueError(
                 f"unknown trace field {f!r}; expected one of {TRACE_FIELDS}")
+    n_steps = sim._n_steps(n_cycles)
     st = state if state is not None else sim.init_state()
-    c0 = int(st.cycle)
+    cyc = int(st.cycle)
     slices = []
-    for i in range(n_cycles):
-        st, deliver = sim.step(st, c0 + i)
+    for _ in range(n_steps):
+        st, deliver, k = sim._advance(st, cyc)
+        cyc += k
         slices.append(_trace_slice(st, deliver, fields))
     trace = _stack(slices)
+    if sim.params.fused_cycles > 1 and "deliver" in trace:
+        # [T/k, k, C, ...] -> [T, C, ...]
+        trace["deliver"] = tuple(x.flatten(0, 1) for x in trace["deliver"])
     if fields == ("deliver",):
         return st, trace["deliver"]
     return st, trace

@@ -1,42 +1,54 @@
-// FlooNoC router cycle for Hopper (sm_90a): the two per-cycle kernels.
+// FlooNoC router cycle for Hopper (sm_90a): per-cycle and fused kernels.
 //
-// Replaces the Pallas router-cycle kernels of the JAX package:
-//   * noc_arb_kernel   <- src/repro/kernels/noc_router/noc_router.py
-//                         `_arb_kernel` (plain version: ref.arb_decisions)
-//   * noc_apply_kernel <- src/repro/kernels/noc_router/noc_router.py
-//                         `_apply_kernel` (plain version: ref.apply_phase,
-//                         i.e. link_inputs + sent_mask + fused apply_cycle)
-// Both are held bit for bit against the plain PyTorch versions in
+// Replaces the Pallas router kernels of the JAX package
+// (src/repro/kernels/noc_router/noc_router.py):
+//   * noc_arb_kernel   <- `_arb_kernel` (V = 1) and `_arb_kernel_vc`
+//                         (V > 1); plain version: ref.arb_decisions
+//   * noc_apply_kernel <- `_apply_kernel` (its `n_vcs` argument covers
+//                         both); plain version: ref.apply_phase, i.e.
+//                         link_inputs + sent_mask + fused apply_cycle
+//   * noc_fused_kernel <- `_fused_kernel` (V = 1) and `_fused_kernel_vc`
+//                         (V > 1); plain version: ref.router_cycles_scan
+// All are held bit for bit against the plain PyTorch versions in
 // src/repro_torch/kernels/noc_router/ref.py.
 //
-// Design. One simulated cycle is two launches on the caller's stream. The
-// launch boundary is the arb -> link barrier: link acceptance depends on
-// the *downstream* router's post-pop input space, so every router's
-// `in_space` must be visible fabric-wide before any link decision. Two
-// launches work at any mesh size (a one-CTA-per-channel design does not:
-// at 32x32 `in_buf` alone is 287 KB per channel, over the 227 KB a block
-// can hold in shared memory).
+// Design. One simulated cycle is two phases. The phase boundary is the
+// arb -> link barrier: link acceptance depends on the *downstream*
+// router's post-pop input space, so every router's `in_space` must be
+// visible fabric-wide before any link decision. The per-cycle path makes
+// each phase its own launch, which works at any mesh size. The fused
+// window runs N cycles in one launch with one CTA per channel (the Pallas
+// grid is (C,) too): the block's threads stride over the routers and
+// slots, `__syncthreads()` is the barrier, and the state stays in global
+// memory (at 32x32 `in_buf` alone is 287 KB per channel, over the 227 KB
+// a block can hold in shared memory), ping-ponging between the output
+// buffers and a scratch set so that no phase reads what it writes.
 //
-// Bound on an H100. Both kernels do a few integer operations per byte, so
+// Bound on an H100. All kernels do a few integer operations per byte, so
 // bytes bound them: at a 32x32 mesh the apply phase reads and rewrites
-// both FIFO buffers, about 3.4 MB per cycle, ~1 us at 3.35 TB/s; the arb
-// phase moves ~1.3 MB. At these sizes launch latency dominates; making
-// them fast (fusing cycles, keeping state on chip) is later work.
+// both FIFO buffers, about 3.4 MB per cycle, ~1 us at 3.35 TB/s. The
+// per-cycle kernels are launch-latency bound at these sizes; the fused
+// kernel keeps only C SMs busy. Making them fast is later work.
 //
-// Layouts (all int32 unless noted, C-contiguous):
+// Layouts (all int32 unless noted, C-contiguous; P counts slots, P = Pp*V):
 //   in_buf  [C, R, P, Din, NF]   out_buf [C, R, P, Dout, NF]
 //   in_cnt, out_cnt, rr, wh      [C, R, P]
-//   route [R, E]; link_src, link_dst [R, P, 2]; port_ep [R, P]
+//   route [R, E]; link_src, link_dst [R, Pp, 2]; port_ep [R, P]
+//   vc_out [R, P, Pp] (V > 1 only, else null); ep_attach [E, 2]
 //   ep_space [C, E] bool; arb_pop, granted, in_space [C, R, P] bool
 //   chosen [C, R, P, NF]
+//   eg [C, E, Q, NF], eg_ready [C, E, Q], eg_head, eg_cnt [C, E]
 
 #include <cuda_runtime.h>
+#include <limits.h>
+#include <stddef.h>
 #include <stdint.h>
+#include <string.h>
 
 #define NF 7
 #define F_DST 0
 #define F_LAST 4
-#define MAX_P 16
+#define MAX_P 32
 
 // JAX's `%` on integers is a floor modulo; C++'s `%` truncates toward
 // zero and is negative for a negative operand (pin - rr_ptr < 0).
@@ -48,30 +60,36 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
-// Round-robin output arbitration for one (channel, router): P input heads
-// against P output ports, all from the cycle-start snapshot.
-__global__ void noc_arb_kernel(
+// Round-robin output arbitration for one (channel, router) `cr = c*R + r`:
+// P input heads against P output slots, all from the cycle-start snapshot.
+__device__ __forceinline__ void arb_router(
     const int* __restrict__ in_buf, const int* __restrict__ in_cnt,
     const int* __restrict__ out_cnt, const int* __restrict__ rr,
     const int* __restrict__ wh, const int* __restrict__ route,
-    bool* __restrict__ arb_pop, bool* __restrict__ granted,
-    int* __restrict__ chosen, int* __restrict__ rr_out,
-    int* __restrict__ wh_out, bool* __restrict__ in_space,
-    int C, int R, int P, int Din, int Dout, int E) {
-  int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= C * R) return;
-  int r = t % R;
-  int base = t * P;  // (c * R + r) * P
-
+    const int* __restrict__ vc_out, bool* __restrict__ arb_pop,
+    bool* __restrict__ granted, int* __restrict__ chosen,
+    int* __restrict__ rr_out, int* __restrict__ wh_out,
+    bool* __restrict__ in_space, int cr, int r, int P, int Din, int Dout,
+    int E, int V) {
+  int base = cr * P;
   int req[MAX_P];
   bool pop[MAX_P];
   for (int pin = 0; pin < P; ++pin) {
     const int* head = in_buf + (size_t)(base + pin) * Din * NF;
     // Clamping: the reference gathers route[r, clip(dst, 0, None)], and
-    // JAX's gather fills (never matches) a destination past the table.
+    // JAX's gather fills a destination past the table with INT_MIN.
     // Dead heads (count 0) hold stale contents and request nothing.
     int dst = max(head[F_DST], 0);
-    int port = dst < E ? route[(size_t)r * E + dst] : -1;
+    int port = dst < E ? route[(size_t)r * E + dst] : INT_MIN;
+    if (V > 1) {
+      // Dateline VC switching: the physical out port expands to slot
+      // phys * V + vc_out[r, pin, clip(phys)], in int32 wraparound as JAX
+      // computes it (INT_MIN * 2 wraps to 0). Signed overflow is undefined
+      // in C++, so the multiply runs on uint32_t.
+      int Pp = P / V;
+      int vout = vc_out[((size_t)r * P + pin) * Pp + clampi(port, 0, Pp - 1)];
+      port = (int)((uint32_t)port * (uint32_t)V + (uint32_t)vout);
+    }
     req[pin] = in_cnt[base + pin] > 0 ? port : -1;
     pop[pin] = false;
   }
@@ -130,13 +148,88 @@ __device__ __forceinline__ int fifo_update(
   return cnt1 + (push ? 1 : 0);
 }
 
-// Link resolution + FIFO update for one (channel, router, port).
+// The wire between slot group `a` (V consecutive slots) and slot group `b`
+// moves one flit per cycle: VC u of it is eligible when a's head on u is
+// valid and b's input FIFO on u has space, and the lowest eligible VC wins.
+// True iff that winner is VC v. With V == 1 this is the plain link test.
+__device__ __forceinline__ bool lowest_vc_wins(
+    const int* __restrict__ out_cnt, const bool* __restrict__ in_space,
+    size_t a, size_t b, int v) {
+  for (int u = 0; u <= v; ++u) {
+    if (out_cnt[a + u] > 0 && in_space[b + u]) return u == v;
+  }
+  return false;
+}
+
+// Link resolution + FIFO update for one (channel, router, slot).
 //
 // Write race: a thread reads *other* routers' output heads (link_inputs)
 // and post-pop input space (sent_mask) while those routers update their
-// own FIFOs in the same launch. So nothing is written in place: the new
-// buffers and counts go to separate output tensors (ping-pong), and every
-// read below is of the cycle-start snapshot or the arb scratch.
+// own FIFOs in the same phase. So nothing is written in place: the new
+// buffers and counts go to separate tensors (ping-pong), and every read
+// below is of the cycle-start snapshot or the arb scratch. The link
+// tables are physical: slot p = pp * V + v uses row pp = p / V.
+__device__ __forceinline__ void apply_slot(
+    const int* __restrict__ in_buf, const int* __restrict__ in_cnt,
+    const int* __restrict__ out_buf, const int* __restrict__ out_cnt,
+    const bool* __restrict__ arb_pop, const bool* __restrict__ granted,
+    const int* __restrict__ chosen, const bool* __restrict__ in_space,
+    const int* __restrict__ link_src, const int* __restrict__ link_dst,
+    const int* __restrict__ port_ep, const bool* __restrict__ ep_space,
+    int* __restrict__ new_in_buf, int* __restrict__ new_in_cnt,
+    int* __restrict__ new_out_buf, int* __restrict__ new_out_cnt,
+    int c, int r, int p, int R, int P, int Din, int Dout, int E, int V) {
+  int Pp = P / V, pp = p / V, v = p % V;
+  int lp = r * Pp + pp;
+  size_t chan = (size_t)c * R * P;
+  size_t t = chan + (size_t)r * P + p;
+  size_t group = chan + (size_t)r * P + pp * V;  // my slots of port pp
+
+  // ---- input side: link_inputs, then fused fifo_update of in_buf ----
+  // Clamping: src coordinates are clipped into range before the gather,
+  // as the reference does; a missing link (src_r < 0) accepts nothing.
+  int src_r = link_src[lp * 2], src_p = link_src[lp * 2 + 1];
+  size_t up = chan + (size_t)clampi(src_r, 0, R - 1) * P + clampi(src_p, 0, Pp - 1) * V;
+  bool accept = src_r >= 0 && lowest_vc_wins(out_cnt, in_space, up, group, v);
+  new_in_cnt[t] = fifo_update(in_buf + t * Din * NF, new_in_buf + t * Din * NF,
+                              in_cnt[t], arb_pop[t], accept,
+                              out_buf + (up + v) * Dout * NF, Din);
+
+  // ---- output side: sent_mask, then fused fifo_update of out_buf ----
+  // The link leg recomputes the downstream wire's VC choice from the
+  // upstream side (same snapshot, same winner); endpoints attach at VC0
+  // slots, so the endpoint leg is slot-level as it is.
+  int dst_r = link_dst[lp * 2], dst_p = link_dst[lp * 2 + 1];
+  size_t down = chan + (size_t)clampi(dst_r, 0, R - 1) * P + clampi(dst_p, 0, Pp - 1) * V;
+  bool sent_link = dst_r >= 0 && lowest_vc_wins(out_cnt, in_space, group, down, v);
+  bool out_valid = out_cnt[t] > 0;
+  int pe = port_ep[(size_t)r * P + p];
+  bool sent_ep = pe >= 0 && out_valid &&
+                 ep_space[(size_t)c * E + clampi(pe, 0, E - 1)];
+  new_out_cnt[t] = fifo_update(out_buf + t * Dout * NF,
+                               new_out_buf + t * Dout * NF, out_cnt[t],
+                               sent_link || sent_ep, granted[t],
+                               chosen + t * NF, Dout);
+}
+
+// One thread per (channel, router).
+__global__ void noc_arb_kernel(
+    const int* __restrict__ in_buf, const int* __restrict__ in_cnt,
+    const int* __restrict__ out_cnt, const int* __restrict__ rr,
+    const int* __restrict__ wh, const int* __restrict__ route,
+    const int* __restrict__ vc_out, bool* __restrict__ arb_pop,
+    bool* __restrict__ granted, int* __restrict__ chosen,
+    int* __restrict__ rr_out, int* __restrict__ wh_out,
+    bool* __restrict__ in_space, int C, int R, int P, int Din, int Dout,
+    int E, int V) {
+  int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= C * R) return;
+  arb_router(in_buf, in_cnt, out_cnt, rr, wh, route, vc_out, arb_pop,
+             granted, chosen, rr_out, wh_out, in_space, t, t % R, P, Din,
+             Dout, E, V);
+}
+
+// One thread per (channel, router, slot).
 __global__ void noc_apply_kernel(
     const int* __restrict__ in_buf, const int* __restrict__ in_cnt,
     const int* __restrict__ out_buf, const int* __restrict__ out_cnt,
@@ -146,55 +239,136 @@ __global__ void noc_apply_kernel(
     const int* __restrict__ port_ep, const bool* __restrict__ ep_space,
     int* __restrict__ new_in_buf, int* __restrict__ new_in_cnt,
     int* __restrict__ new_out_buf, int* __restrict__ new_out_cnt,
-    int C, int R, int P, int Din, int Dout, int E) {
+    int C, int R, int P, int Din, int Dout, int E, int V) {
   int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= C * R * P) return;
-  int p = t % P;
-  int r = (t / P) % R;
-  int c = t / (P * R);
-  int rp = r * P + p;
-  size_t chan = (size_t)c * R * P;
+  apply_slot(in_buf, in_cnt, out_buf, out_cnt, arb_pop, granted, chosen,
+             in_space, link_src, link_dst, port_ep, ep_space, new_in_buf,
+             new_in_cnt, new_out_buf, new_out_cnt, t / (P * R), (t / P) % R,
+             t % P, R, P, Din, Dout, E, V);
+}
 
-  // ---- input side: link_inputs, then fused fifo_update of in_buf ----
-  // Clamping: src coordinates are clipped into range before the gather,
-  // as the reference does; have_up masks the missing links.
-  int src_r = link_src[rp * 2], src_p = link_src[rp * 2 + 1];
-  size_t up = chan + clampi(src_r, 0, R - 1) * P + clampi(src_p, 0, P - 1);
-  bool up_valid = src_r >= 0 && out_cnt[up] > 0;
-  bool accept = up_valid && in_space[t];
-  new_in_cnt[t] = fifo_update(in_buf + (size_t)t * Din * NF,
-                              new_in_buf + (size_t)t * Din * NF, in_cnt[t],
-                              arb_pop[t], accept,
-                              out_buf + up * Dout * NF, Din);
+// Operands of the fused window. `*0` are the inputs (never written); the
+// ten state outputs double as one half of the ping-pong pair, `s_*` is the
+// other half; `arb_*` is the per-cycle arbitration scratch.
+struct FusedArgs {
+  const int *in_buf0, *in_cnt0, *out_buf0, *out_cnt0, *rr0, *wh0;
+  const int *eg0, *eg_ready0, *eg_head0, *eg_cnt0;
+  const int *route, *vc_out, *link_src, *link_dst, *port_ep, *ep_attach;
+  const bool* ep_space;
+  int *in_buf, *in_cnt, *out_buf, *out_cnt, *rr, *wh;
+  int *eg, *eg_ready, *eg_head, *eg_cnt;
+  int* ep_flit;
+  bool *ep_valid, *req_waiting;
+  int *s_in_buf, *s_in_cnt, *s_out_buf, *s_out_cnt, *s_rr, *s_wh;
+  bool *arb_pop, *granted, *in_space;
+  int* chosen;
+  int R, P, Din, Dout, E, Q, V, cycle0, N;
+};
+static const int kFusedPtrs = 40;  // pointer members of FusedArgs, in order
+static_assert(offsetof(FusedArgs, R) == kFusedPtrs * sizeof(void*),
+              "FusedArgs: pointers first, then the ints");
 
-  // ---- output side: sent_mask, then fused fifo_update of out_buf ----
-  bool out_valid = out_cnt[t] > 0;
-  int dst_r = link_dst[rp * 2], dst_p = link_dst[rp * 2 + 1];
-  size_t down = chan + clampi(dst_r, 0, R - 1) * P + clampi(dst_p, 0, P - 1);
-  bool sent_link = dst_r >= 0 && out_valid && in_space[down];
-  int pe = port_ep[rp];
-  bool sent_ep = pe >= 0 && out_valid &&
-                 ep_space[(size_t)c * E + clampi(pe, 0, E - 1)];
-  new_out_cnt[t] = fifo_update(out_buf + (size_t)t * Dout * NF,
-                               new_out_buf + (size_t)t * Dout * NF,
-                               out_cnt[t], sent_link || sent_ep, granted[t],
-                               chosen + (size_t)t * NF, Dout);
+static const int kFusedThreads = 512;
+
+// N fabric cycles of one channel (blockIdx.x), each ref.fused_cycle_body:
+// deliveries and req_waiting from the cycle-start snapshot, arbitration,
+// apply into the other half of the ping-pong pair, then egress injection
+// (skipped on the window's last cycle). Cycle i writes the outputs when
+// N - 1 - i is even, so the last cycle lands in them.
+__global__ void __launch_bounds__(kFusedThreads) noc_fused_kernel(FusedArgs a) {
+  const int c = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
+  const int R = a.R, P = a.P, E = a.E, Q = a.Q, N = a.N;
+  const int Din = a.Din, Dout = a.Dout, V = a.V;
+  const size_t nstate = (size_t)R * P, ceq = (size_t)c * E * Q;
+
+  // the egress queues: contents pass through, head/count are updated below
+  for (size_t k = tid; k < (size_t)E * Q * NF; k += nt)
+    a.eg[ceq * NF + k] = a.eg0[ceq * NF + k];
+  for (size_t k = tid; k < (size_t)E * Q; k += nt)
+    a.eg_ready[ceq + k] = a.eg_ready0[ceq + k];
+  for (int e = tid; e < E; e += nt) {
+    a.eg_head[c * E + e] = a.eg_head0[c * E + e];
+    a.eg_cnt[c * E + e] = a.eg_cnt0[c * E + e];
+  }
+  __syncthreads();
+
+  for (int i = 0; i < N; ++i) {
+    bool to_out = (N - 1 - i) % 2 == 0;
+    bool from_out = (N - i) % 2 == 0;  // where cycle i - 1 wrote
+    const int* in_buf = i == 0 ? a.in_buf0 : (from_out ? a.in_buf : a.s_in_buf);
+    const int* in_cnt = i == 0 ? a.in_cnt0 : (from_out ? a.in_cnt : a.s_in_cnt);
+    const int* out_buf = i == 0 ? a.out_buf0 : (from_out ? a.out_buf : a.s_out_buf);
+    const int* out_cnt = i == 0 ? a.out_cnt0 : (from_out ? a.out_cnt : a.s_out_cnt);
+    const int* rr = i == 0 ? a.rr0 : (from_out ? a.rr : a.s_rr);
+    const int* wh = i == 0 ? a.wh0 : (from_out ? a.wh : a.s_wh);
+    int* n_in_buf = to_out ? a.in_buf : a.s_in_buf;
+    int* n_in_cnt = to_out ? a.in_cnt : a.s_in_cnt;
+    int* n_out_buf = to_out ? a.out_buf : a.s_out_buf;
+    int* n_out_cnt = to_out ? a.out_cnt : a.s_out_cnt;
+    int* n_rr = to_out ? a.rr : a.s_rr;
+    int* n_wh = to_out ? a.wh : a.s_wh;
+
+    // 1. deliveries and req_waiting (cycle-start snapshot), arbitration
+    for (int e = tid; e < E; e += nt) {
+      size_t at = ((size_t)c * R + a.ep_attach[e * 2]) * P + a.ep_attach[e * 2 + 1];
+      size_t o = ((size_t)c * N + i) * E + e;
+      bool waiting = out_cnt[at] > 0;
+      for (int f = 0; f < NF; ++f) a.ep_flit[o * NF + f] = out_buf[at * Dout * NF + f];
+      a.ep_valid[o] = waiting && a.ep_space[(size_t)c * E + e];
+      a.req_waiting[o] = waiting;
+    }
+    for (int r = tid; r < R; r += nt)
+      arb_router(in_buf, in_cnt, out_cnt, rr, wh, a.route, a.vc_out,
+                 a.arb_pop, a.granted, a.chosen, n_rr, n_wh, a.in_space,
+                 c * R + r, r, P, Din, Dout, E, V);
+    __syncthreads();
+
+    // 2. link resolution and FIFO updates into the other buffer half
+    for (size_t k = tid; k < nstate; k += nt)
+      apply_slot(in_buf, in_cnt, out_buf, out_cnt, a.arb_pop, a.granted,
+                 a.chosen, a.in_space, a.link_src, a.link_dst, a.port_ep,
+                 a.ep_space, n_in_buf, n_in_cnt, n_out_buf, n_out_cnt, c,
+                 (int)(k / P), (int)(k % P), R, P, Din, Dout, E, V);
+    __syncthreads();
+
+    // 3. egress injection: each endpoint pushes its ready head onto its
+    //    attach port (ports are unique per endpoint, and port_ep is their
+    //    inverse, so the reference's per-port pull is this per-endpoint push)
+    if (i < N - 1) {
+      for (int e = tid; e < E; e += nt) {
+        int h = a.eg_head[c * E + e], cnt = a.eg_cnt[c * E + e];
+        bool want = cnt > 0 && a.eg_ready[ceq + (size_t)e * Q + h] <= a.cycle0 + i;
+        size_t at = ((size_t)c * R + a.ep_attach[e * 2]) * P + a.ep_attach[e * 2 + 1];
+        int ic = n_in_cnt[at];
+        if (want && ic < Din) {
+          const int* src = a.eg + (ceq + (size_t)e * Q + h) * NF;
+          for (int f = 0; f < NF; ++f) n_in_buf[(at * Din + ic) * NF + f] = src[f];
+          n_in_cnt[at] = ic + 1;
+          a.eg_head[c * E + e] = (h + 1) % Q;
+          a.eg_cnt[c * E + e] = cnt - 1;
+        }
+      }
+      __syncthreads();
+    }
+  }
 }
 
 static const int kThreads = 128;
 
 extern "C" int noc_arb_launch(
     const void* in_buf, const void* in_cnt, const void* out_cnt,
-    const void* rr, const void* wh, const void* route, void* arb_pop,
-    void* granted, void* chosen, void* rr_out, void* wh_out, void* in_space,
-    int C, int R, int P, int Din, int Dout, int E, void* stream) {
+    const void* rr, const void* wh, const void* route, const void* vc_out,
+    void* arb_pop, void* granted, void* chosen, void* rr_out, void* wh_out,
+    void* in_space, int C, int R, int P, int Din, int Dout, int E, int V,
+    void* stream) {
   int n = C * R;
   int blocks = (n + kThreads - 1) / kThreads;
   noc_arb_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       (const int*)in_buf, (const int*)in_cnt, (const int*)out_cnt,
-      (const int*)rr, (const int*)wh, (const int*)route, (bool*)arb_pop,
-      (bool*)granted, (int*)chosen, (int*)rr_out, (int*)wh_out,
-      (bool*)in_space, C, R, P, Din, Dout, E);
+      (const int*)rr, (const int*)wh, (const int*)route,
+      (const int*)vc_out, (bool*)arb_pop, (bool*)granted, (int*)chosen,
+      (int*)rr_out, (int*)wh_out, (bool*)in_space, C, R, P, Din, Dout, E, V);
   return (int)cudaGetLastError();
 }
 
@@ -204,7 +378,7 @@ extern "C" int noc_apply_launch(
     const void* chosen, const void* in_space, const void* link_src,
     const void* link_dst, const void* port_ep, const void* ep_space,
     void* new_in_buf, void* new_in_cnt, void* new_out_buf, void* new_out_cnt,
-    int C, int R, int P, int Din, int Dout, int E, void* stream) {
+    int C, int R, int P, int Din, int Dout, int E, int V, void* stream) {
   int n = C * R * P;
   int blocks = (n + kThreads - 1) / kThreads;
   noc_apply_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
@@ -213,6 +387,20 @@ extern "C" int noc_apply_launch(
       (const int*)chosen, (const bool*)in_space, (const int*)link_src,
       (const int*)link_dst, (const int*)port_ep, (const bool*)ep_space,
       (int*)new_in_buf, (int*)new_in_cnt, (int*)new_out_buf,
-      (int*)new_out_cnt, C, R, P, Din, Dout, E);
+      (int*)new_out_cnt, C, R, P, Din, Dout, E, V);
+  return (int)cudaGetLastError();
+}
+
+// `ptrs` holds the kFusedPtrs pointers of FusedArgs in declaration order,
+// `dims` (C, R, P, Din, Dout, E, Q, V, cycle0, N).
+extern "C" int noc_fused_launch(void* const* ptrs, const int* dims,
+                                void* stream) {
+  FusedArgs a;
+  memcpy(&a, ptrs, kFusedPtrs * sizeof(void*));
+  int C = dims[0];
+  a.R = dims[1]; a.P = dims[2]; a.Din = dims[3]; a.Dout = dims[4];
+  a.E = dims[5]; a.Q = dims[6]; a.V = dims[7]; a.cycle0 = dims[8];
+  a.N = dims[9];
+  noc_fused_kernel<<<C, kFusedThreads, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -1,25 +1,30 @@
 """CUDA router cycle for Hopper: build, ctypes binding and wrappers.
 
-One simulated cycle of the channel-batched fabric is two kernel launches
-(``csrc/noc_router.cu``), the counterparts of the JAX package's Pallas
-``_arb_kernel`` and ``_apply_kernel``:
+The kernels (``csrc/noc_router.cu``) are the counterparts of the JAX
+package's Pallas router kernels:
 
 1. **arb** — one thread per (channel, router): round-robin output
    arbitration from the cycle-start snapshot, written to scratch tensors
    (``arb_pop``, ``granted``, ``chosen``, ``rr_ptr'``, ``wh_lock'``,
-   post-pop ``in_space``).
-2. **apply** — one thread per (channel, router, port): link resolution
+   post-pop ``in_space``). Replaces ``_arb_kernel``; with ``n_vcs > 1``
+   (dateline slot expansion through ``vc_out``) ``_arb_kernel_vc``.
+2. **apply** — one thread per (channel, router, slot): link resolution
    against the fabric-wide snapshot plus the fused FIFO update of both
    sides, into freshly allocated output buffers (never in place).
+   Replaces ``_apply_kernel`` at any ``n_vcs``.
+3. **fused** — one CTA per channel runs an N-cycle window (arb, apply and
+   egress injection per cycle, ``__syncthreads()`` between the phases).
+   Replaces ``_fused_kernel`` and, with ``n_vcs > 1``, ``_fused_kernel_vc``.
 
-The launch boundary is the arb -> link barrier: ``in_space`` of every
-router must be visible before any link decision.
+One per-cycle step is an arb then an apply launch: the launch boundary is
+the arb -> link barrier (``in_space`` of every router must be visible
+before any link decision).
 
 The library is built with ``nvcc`` for ``sm_90a`` at first use on a CUDA
 tensor, keyed by a hash of the sources, into ``_build/`` beside this file;
 importing the module builds nothing. It exposes a plain C interface loaded
-with ``ctypes``. ``LAUNCHES`` counts the launches of each kernel, so a run
-can show that it went through them.
+with ``ctypes``. ``LAUNCHES`` counts the launches of each kernel and mode
+(``*_vc`` for ``n_vcs > 1``), so a run can show that it went through them.
 """
 from __future__ import annotations
 
@@ -41,10 +46,12 @@ SOURCES = (CSRC / "noc_router.cu",)
 BUILD_DIR = Path(__file__).parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-MAX_P = 16  # ports per router the arb kernel holds in registers
+MAX_P = 32  # slots (ports x VCs) per router the arb kernel holds per thread
+FUSED_PTRS = 40  # pointer operands of noc_fused_launch (FusedArgs)
 
-# launches of each kernel, counted where the wrapper launches it
-LAUNCHES = {"arb": 0, "apply": 0}
+# launches of each kernel and mode, counted where the wrapper launches it
+LAUNCHES = {"arb": 0, "apply": 0, "arb_vc": 0, "apply_vc": 0, "fused": 0,
+            "fused_vc": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -99,10 +106,12 @@ def _load():
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.noc_arb_launch.argtypes = [vp] * 12 + [ci] * 6 + [vp]
+            lib.noc_arb_launch.argtypes = [vp] * 13 + [ci] * 7 + [vp]
             lib.noc_arb_launch.restype = ci
-            lib.noc_apply_launch.argtypes = [vp] * 16 + [ci] * 6 + [vp]
+            lib.noc_apply_launch.argtypes = [vp] * 16 + [ci] * 7 + [vp]
             lib.noc_apply_launch.restype = ci
+            lib.noc_fused_launch.argtypes = [vp, vp, vp]
+            lib.noc_fused_launch.restype = ci
             _lib = lib
     return _lib
 
@@ -123,14 +132,26 @@ def _check(name, t, dtype, shape, device):
 
 
 def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr())
+    """A tensor's device address (a null pointer for an absent operand)."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 def _stream(device):
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def _dims(*bufs):
+def _mode(kernel: str, n_vcs: int) -> str:
+    return kernel if n_vcs == 1 else f"{kernel}_vc"
+
+
+def _count(kernel: str, n_vcs: int, err: int):
+    """Raise on a refused launch, else count it."""
+    if err != 0:
+        raise RuntimeError(f"noc_{kernel}_kernel launch failed: CUDA error {err}")
+    LAUNCHES[_mode(kernel, n_vcs)] += 1
+
+
+def _dims(*bufs, n_vcs: int = 1):
     """(C, R, P, D...) of a launch from its [C, R, P, D, NF] buffers."""
     for b in bufs:
         if b.dim() != 5 or b.shape[-1] != NF:
@@ -140,12 +161,24 @@ def _dims(*bufs):
             raise ValueError("state too large for 32-bit thread indexing")
     C, R, P = bufs[0].shape[:3]
     if not 1 <= P <= MAX_P:
-        raise ValueError(f"the CUDA arb kernel takes 1..{MAX_P} ports, got {P}")
+        raise ValueError(f"the CUDA arb kernel takes 1..{MAX_P} slots, got {P}")
+    if n_vcs < 1 or P % n_vcs:
+        raise ValueError(f"{P} slots do not fold into n_vcs={n_vcs}")
     return (C, R, P, *(b.shape[3] for b in bufs))
 
 
+def _check_vc(vc_out, n_vcs, R, P, dev):
+    """``vc_out`` must be an [R, P, P / n_vcs] table when n_vcs > 1, and
+    absent otherwise."""
+    if n_vcs == 1:
+        if vc_out is not None:
+            raise ValueError("vc_out is only taken with n_vcs > 1")
+        return
+    _check("vc_out", vc_out, torch.int32, (R, P, P // n_vcs), dev)
+
+
 def arb_cuda(in_buf, in_cnt, out_cnt, rr_ptr, wh_lock, route,
-             depth_out: int) -> ArbDecisions:
+             depth_out: int, vc_out=None, n_vcs: int = 1) -> ArbDecisions:
     """Launch the arb kernel on channel-batched state (CUDA tensors).
 
     The counterpart of ``ref.arb_decisions`` over ``[C, R, P, ...]``;
@@ -154,7 +187,7 @@ def arb_cuda(in_buf, in_cnt, out_cnt, rr_ptr, wh_lock, route,
     dev = in_buf.device
     if dev.type != "cuda":
         raise ValueError(f"arb_cuda needs CUDA tensors, got {dev}")
-    C, R, P, Din = _dims(in_buf)
+    C, R, P, Din = _dims(in_buf, n_vcs=n_vcs)
     Dout = int(depth_out)
     if route.dim() != 2:
         raise ValueError("route must be [R, E]")
@@ -165,6 +198,7 @@ def arb_cuda(in_buf, in_cnt, out_cnt, rr_ptr, wh_lock, route,
                     ("rr_ptr", rr_ptr), ("wh_lock", wh_lock)):
         _check(name, t, i32, (C, R, P), dev)
     _check("route", route, i32, (R, E), dev)
+    _check_vc(vc_out, n_vcs, R, P, dev)
     out = ArbDecisions(
         arb_pop=torch.empty((C, R, P), dtype=b, device=dev),
         granted=torch.empty((C, R, P), dtype=b, device=dev),
@@ -175,24 +209,24 @@ def arb_cuda(in_buf, in_cnt, out_cnt, rr_ptr, wh_lock, route,
     lib = _load()
     err = lib.noc_arb_launch(
         _ptr(in_buf), _ptr(in_cnt), _ptr(out_cnt), _ptr(rr_ptr),
-        _ptr(wh_lock), _ptr(route), _ptr(out.arb_pop), _ptr(out.granted),
-        _ptr(out.chosen), _ptr(out.rr_ptr), _ptr(out.wh_lock),
-        _ptr(out.in_space), C, R, P, Din, Dout, E, _stream(dev))
-    if err != 0:
-        raise RuntimeError(f"noc_arb_kernel launch failed: CUDA error {err}")
-    LAUNCHES["arb"] += 1
+        _ptr(wh_lock), _ptr(route), _ptr(vc_out), _ptr(out.arb_pop),
+        _ptr(out.granted), _ptr(out.chosen), _ptr(out.rr_ptr),
+        _ptr(out.wh_lock), _ptr(out.in_space), C, R, P, Din, Dout, E, n_vcs,
+        _stream(dev))
+    _count("arb", n_vcs, err)
     return out
 
 
 def apply_cuda(in_buf, in_cnt, out_buf, out_cnt, arb: ArbDecisions,
-               link_src, link_dst, port_ep, ep_space):
+               link_src, link_dst, port_ep, ep_space, n_vcs: int = 1):
     """Launch the apply kernel: the counterpart of ``ref.apply_phase``
     (fused FIFO datapath). Returns fresh ``(in_buf', in_cnt', out_buf',
-    out_cnt')``; the inputs stay the untouched cycle-start snapshot."""
+    out_cnt')``; the inputs stay the untouched cycle-start snapshot. The
+    link tables are physical ([R, P / n_vcs, 2])."""
     dev = in_buf.device
     if dev.type != "cuda":
         raise ValueError(f"apply_cuda needs CUDA tensors, got {dev}")
-    C, R, P, Din, Dout = _dims(in_buf, out_buf)
+    C, R, P, Din, Dout = _dims(in_buf, out_buf, n_vcs=n_vcs)
     E = ep_space.shape[-1]
     i32, b = torch.int32, torch.bool
     _check("in_buf", in_buf, i32, (C, R, P, Din, NF), dev)
@@ -202,8 +236,8 @@ def apply_cuda(in_buf, in_cnt, out_buf, out_cnt, arb: ArbDecisions,
     for name in ("arb_pop", "granted", "in_space"):
         _check(name, getattr(arb, name), b, (C, R, P), dev)
     _check("chosen", arb.chosen, i32, (C, R, P, NF), dev)
-    _check("link_src", link_src, i32, (R, P, 2), dev)
-    _check("link_dst", link_dst, i32, (R, P, 2), dev)
+    _check("link_src", link_src, i32, (R, P // n_vcs, 2), dev)
+    _check("link_dst", link_dst, i32, (R, P // n_vcs, 2), dev)
     _check("port_ep", port_ep, i32, (R, P), dev)
     _check("ep_space", ep_space, b, (C, E), dev)
     new_in = torch.empty_like(in_buf)
@@ -216,16 +250,14 @@ def apply_cuda(in_buf, in_cnt, out_buf, out_cnt, arb: ArbDecisions,
         _ptr(arb.arb_pop), _ptr(arb.granted), _ptr(arb.chosen),
         _ptr(arb.in_space), _ptr(link_src), _ptr(link_dst), _ptr(port_ep),
         _ptr(ep_space), _ptr(new_in), _ptr(new_in_cnt), _ptr(new_out),
-        _ptr(new_out_cnt), C, R, P, Din, Dout, E, _stream(dev))
-    if err != 0:
-        raise RuntimeError(f"noc_apply_kernel launch failed: CUDA error {err}")
-    LAUNCHES["apply"] += 1
+        _ptr(new_out_cnt), C, R, P, Din, Dout, E, n_vcs, _stream(dev))
+    _count("apply", n_vcs, err)
     return new_in, new_in_cnt, new_out, new_out_cnt
 
 
 def router_cycle_cuda(in_buf, in_cnt, out_buf, out_cnt, rr_ptr, wh_lock,
                       route, link_src, link_dst, port_ep, ep_attach,
-                      ep_space):
+                      ep_space, vc_out=None, n_vcs: int = 1):
     """One fabric cycle of every channel on the CUDA kernels.
 
     Same contract as ``ref.router_cycle_reference(..., fused=True)`` over
@@ -235,11 +267,73 @@ def router_cycle_cuda(in_buf, in_cnt, out_buf, out_cnt, rr_ptr, wh_lock,
     kernel leaves untouched (its outputs are separate tensors).
     """
     arb = arb_cuda(in_buf, in_cnt, out_cnt, rr_ptr, wh_lock, route,
-                   depth_out=out_buf.shape[-2])
+                   depth_out=out_buf.shape[-2], vc_out=vc_out, n_vcs=n_vcs)
     in2, in_cnt2, out2, out_cnt2 = apply_cuda(
         in_buf, in_cnt, out_buf, out_cnt, arb, link_src, link_dst, port_ep,
-        ep_space)
+        ep_space, n_vcs=n_vcs)
     ep_flit, ep_valid = endpoint_deliveries(out_buf, out_cnt, ep_attach,
                                             ep_space)
     return (in2, in_cnt2, out2, out_cnt2, arb.rr_ptr, arb.wh_lock, ep_flit,
             ep_valid)
+
+
+def router_cycles_fused_cuda(in_buf, in_cnt, out_buf, out_cnt, rr_ptr,
+                             wh_lock, eg, eg_ready, eg_head, eg_cnt, route,
+                             link_src, link_dst, port_ep, ep_attach,
+                             ep_space, cycle0: int, n_cycles: int,
+                             vc_out=None, n_vcs: int = 1):
+    """``n_cycles`` fused fabric cycles in one launch of the fused kernel
+    (one CTA per channel).
+
+    Same contract as ``ref.router_cycles_scan`` over channel-batched state:
+    returns the 10 updated state tensors (fresh; the inputs are not
+    modified) plus ``(ep_flit [C, N, E, NF], ep_valid [C, N, E],
+    req_waiting [C, N, E])``.
+    """
+    dev = in_buf.device
+    if dev.type != "cuda":
+        raise ValueError(f"router_cycles_fused_cuda needs CUDA tensors, got {dev}")
+    N = int(n_cycles)
+    if N < 1:
+        raise ValueError(f"n_cycles must be >= 1, got {N}")
+    C, R, P, Din, Dout = _dims(in_buf, out_buf, n_vcs=n_vcs)
+    E, Q = eg_ready.shape[-2:]
+    i32, b = torch.int32, torch.bool
+    _check("in_buf", in_buf, i32, (C, R, P, Din, NF), dev)
+    _check("out_buf", out_buf, i32, (C, R, P, Dout, NF), dev)
+    for name, t in (("in_cnt", in_cnt), ("out_cnt", out_cnt),
+                    ("rr_ptr", rr_ptr), ("wh_lock", wh_lock)):
+        _check(name, t, i32, (C, R, P), dev)
+    _check("eg", eg, i32, (C, E, Q, NF), dev)
+    _check("eg_ready", eg_ready, i32, (C, E, Q), dev)
+    _check("eg_head", eg_head, i32, (C, E), dev)
+    _check("eg_cnt", eg_cnt, i32, (C, E), dev)
+    _check("route", route, i32, (R, E), dev)
+    _check_vc(vc_out, n_vcs, R, P, dev)
+    _check("link_src", link_src, i32, (R, P // n_vcs, 2), dev)
+    _check("link_dst", link_dst, i32, (R, P // n_vcs, 2), dev)
+    _check("port_ep", port_ep, i32, (R, P), dev)
+    _check("ep_attach", ep_attach, i32, (E, 2), dev)
+    _check("ep_space", ep_space, b, (C, E), dev)
+    state = [torch.empty_like(t) for t in (in_buf, in_cnt, out_buf, out_cnt,
+                                           rr_ptr, wh_lock, eg, eg_ready,
+                                           eg_head, eg_cnt)]
+    ep_flit = torch.empty((C, N, E, NF), dtype=i32, device=dev)
+    ep_valid = torch.empty((C, N, E), dtype=b, device=dev)
+    waiting = torch.empty((C, N, E), dtype=b, device=dev)
+    scratch = [torch.empty_like(t) for t in (in_buf, in_cnt, out_buf,
+                                             out_cnt, rr_ptr, wh_lock)]
+    arb = [torch.empty((C, R, P), dtype=b, device=dev) for _ in range(3)]
+    chosen = torch.empty((C, R, P, NF), dtype=i32, device=dev)
+    # FusedArgs, in declaration order
+    ptrs = [in_buf, in_cnt, out_buf, out_cnt, rr_ptr, wh_lock,
+            eg, eg_ready, eg_head, eg_cnt,
+            route, vc_out, link_src, link_dst, port_ep, ep_attach, ep_space,
+            *state, ep_flit, ep_valid, waiting, *scratch, *arb, chosen]
+    assert len(ptrs) == FUSED_PTRS
+    c_ptrs = (ctypes.c_void_p * FUSED_PTRS)(
+        *(None if t is None else t.data_ptr() for t in ptrs))
+    dims = (ctypes.c_int * 10)(C, R, P, Din, Dout, E, Q, n_vcs, int(cycle0), N)
+    err = _load().noc_fused_launch(c_ptrs, dims, _stream(dev))
+    _count("fused", n_vcs, err)
+    return (*state, ep_flit, ep_valid, waiting)

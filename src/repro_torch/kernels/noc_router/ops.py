@@ -1,38 +1,78 @@
-"""Public entry point: one router-fabric cycle, dispatched on the device.
+"""Public entry points: router-fabric cycles, dispatched on the device.
 
 ``router_cycle`` runs one cycle of the channel-batched fabric (state
 ``[C, R, P, ...]``, tables shared across channels) on the fused FIFO
-datapath. The tensors decide where it runs:
+datapath; ``router_cycles_fused`` advances it N cycles with the endpoint
+egress injection threaded in (the multi-cycle super-step). The tensors
+decide where they run:
 
-* on the CPU it runs the plain version (``ref.router_cycle_reference``),
-  with the channel axis as a batch dimension (no Python channel loop);
-* on a CUDA device it launches the two CUDA kernels
-  (``noc_router.router_cycle_cuda``), or raises.
+* on the CPU they run the plain version (``ref.router_cycle_reference``,
+  ``ref.router_cycles_scan``), with the channel axis as a batch dimension
+  (no Python channel loop);
+* on a CUDA device they launch the CUDA kernels
+  (``noc_router.router_cycle_cuda``, ``noc_router.router_cycles_fused_cuda``),
+  or raise.
 
-This module does not import ``repro_torch.core.noc``: the engine layers on
-top of it.
+``n_vcs > 1`` selects the virtual-channel datapath (slot-level P axis,
+``vc_out`` [R, P, Pp] the dateline table). This module does not import
+``repro_torch.core.noc``: the engine layers on top of it.
 """
 from __future__ import annotations
 
-from repro_torch.kernels.noc_router.noc_router import router_cycle_cuda
-from repro_torch.kernels.noc_router.ref import router_cycle_reference
+from repro_torch.kernels.noc_router.noc_router import (
+    router_cycle_cuda,
+    router_cycles_fused_cuda,
+)
+from repro_torch.kernels.noc_router.ref import (
+    router_cycle_reference,
+    router_cycles_scan,
+)
+
+
+def _device_kind(t) -> str:
+    if t.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no router-cycle kernel for device {t.device}")
+    return t.device.type
 
 
 def router_cycle(in_buf, in_cnt, out_buf, out_cnt, rr_ptr, wh_lock,
-                 route, link_src, link_dst, port_ep, ep_attach, ep_space):
+                 route, link_src, link_dst, port_ep, ep_attach, ep_space,
+                 vc_out=None, n_vcs: int = 1):
     """One cycle of every channel at once.
 
     State is channel-batched (``in_buf`` [C, R, P, Din, NF], counters
     [C, R, P]); tables are shared (``route`` [R, E], ``link_src``/
-    ``link_dst`` [R, P, 2], ``port_ep`` [R, P], ``ep_attach`` [E, 2]);
+    ``link_dst`` [R, Pp, 2], ``port_ep`` [R, P], ``ep_attach`` [E, 2]);
     ``ep_space`` [C, E] bool. Returns ``(in_buf, in_cnt, out_buf, out_cnt,
     rr_ptr, wh_lock, ep_flit [C, E, NF], ep_valid [C, E])``, bit for bit
     the JAX ``ops.router_cycle(..., fused_fifo=True)``.
     """
     args = (in_buf, in_cnt, out_buf, out_cnt, rr_ptr, wh_lock, route,
             link_src, link_dst, port_ep, ep_attach, ep_space)
-    if in_buf.device.type == "cuda":
-        return router_cycle_cuda(*args)
-    if in_buf.device.type == "cpu":
-        return router_cycle_reference(*args, fused=True)
-    raise ValueError(f"no router-cycle kernel for device {in_buf.device}")
+    if _device_kind(in_buf) == "cuda":
+        return router_cycle_cuda(*args, vc_out=vc_out, n_vcs=n_vcs)
+    return router_cycle_reference(*args, fused=True, vc_out=vc_out,
+                                  n_vcs=n_vcs)
+
+
+def router_cycles_fused(in_buf, in_cnt, out_buf, out_cnt, rr_ptr, wh_lock,
+                        eg, eg_ready, eg_head, eg_cnt,
+                        route, link_src, link_dst, port_ep, ep_attach,
+                        ep_space, cycle0: int, n_cycles: int,
+                        vc_out=None, n_vcs: int = 1):
+    """``n_cycles`` fused fabric cycles with egress injection threaded in.
+
+    The array contract of the JAX ``ops.router_cycles_fused``: the
+    :func:`router_cycle` state plus the channel-batched circular egress
+    queues (``eg`` [C, E, Q, NF], ``eg_ready`` [C, E, Q],
+    ``eg_head``/``eg_cnt`` [C, E]) and the window's first cycle number
+    ``cycle0``; ``ep_space`` is held for the window. Returns the 10 updated
+    state tensors plus ``(ep_flit [C, N, E, NF], ep_valid [C, N, E],
+    req_waiting [C, N, E])``.
+    """
+    args = (in_buf, in_cnt, out_buf, out_cnt, rr_ptr, wh_lock, eg, eg_ready,
+            eg_head, eg_cnt, route, link_src, link_dst, port_ep, ep_attach,
+            ep_space, cycle0, n_cycles)
+    if _device_kind(in_buf) == "cuda":
+        return router_cycles_fused_cuda(*args, vc_out=vc_out, n_vcs=n_vcs)
+    return router_cycles_scan(*args, vc_out=vc_out, n_vcs=n_vcs)

@@ -1,10 +1,11 @@
-"""Plain PyTorch version of one FlooNoC router cycle (VC-less, offload-less).
+"""Plain PyTorch version of the FlooNoC router cycle (offload-less).
 
 This is the PyTorch counterpart of ``repro.kernels.noc_router.ref``: the
 bit-exact specification of the per-cycle router datapath — cycle-start
 snapshot, round-robin output arbitration, wormhole locks, FIFO push/pop over
-packed ``[R, P, D, NF]`` int32 flit state. The CUDA kernels in
-``noc_router.py`` are held against these functions.
+packed ``[R, P, D, NF]`` int32 flit state, with or without virtual
+channels, one cycle at a time or as a fused multi-cycle window. The CUDA
+kernels in ``noc_router.py`` are held against these functions.
 
 Every function here takes any number of leading batch axes in front of the
 router axis (the channel axis ``C`` in the engine), while the routing and
@@ -12,6 +13,11 @@ wiring tables (``route`` [R, E], ``link_src``/``link_dst`` [R, P, 2],
 ``port_ep`` [R, P]) are shared across the batch. So the channel-batched
 fabric runs these functions once, with no Python channel loop, and a
 single channel is just the unbatched call.
+
+With ``n_vcs = V > 1`` the port axis is *slot*-level: slot ``p * V + v``
+is (physical port p, virtual channel v). ``route`` and the link tables
+stay physical ([R, Pp, 2], Pp = P / V); ``vc_out`` [R, P, Pp] gives the
+departing VC of a head on an input slot routed out a physical port.
 
 Cycle semantics: arbitration and link decisions are both computed from the
 cycle-start snapshot, then applied. A flit spends >= 1 cycle in the input
@@ -115,21 +121,40 @@ class ArbDecisions(NamedTuple):
     in_space: torch.Tensor  # [..., R, P_in] bool: input FIFO space after pops
 
 
-def route_lookup(route, dst):
-    """``route[r, dst[..., r, p]]`` for every head: [..., R, P] int32.
+INT32_MIN = -(2**31)
 
-    ``dst`` is clipped at 0 as the JAX reference does. A destination past
-    the table (JAX's gather fills it) requests no port (-1).
+
+def request_slots(route, dst, vc_out=None, n_vcs: int = 1):
+    """Output slot every head requests: [..., R, P] int32.
+
+    The route is ``route[r, clip(dst, 0, None)]``; a destination past the
+    table gets INT32_MIN, the value JAX's out-of-bounds gather fills in
+    (at V = 1 it matches no port). With ``n_vcs > 1`` the physical port
+    expands to slot ``phys * V + vc_out[r, slot_in, clip(phys, 0, Pp - 1)]``
+    in int32 wraparound arithmetic, as in JAX: a past-table head at V = 2
+    wraps to slot ``vc_out[r, slot_in, 0]``.
     """
     R, E = route.shape
     d = dst.clamp(min=0)
     r_idx = torch.arange(R, device=route.device)[:, None]
     port = route[r_idx, d.clamp(max=E - 1).long()]
-    return torch.where(d < E, port, -1)
+    port = torch.where(d < E, port, INT32_MIN)
+    if n_vcs == 1:
+        return port
+    Pp = vc_out.shape[-1]
+    s_idx = torch.arange(vc_out.shape[1], device=route.device)
+    vout = vc_out[r_idx, s_idx, port.clamp(0, Pp - 1).long()]
+    slot = (port.long() * n_vcs + vout.long()) & 0xFFFFFFFF  # int32 wrap
+    return torch.where(slot >= 2**31, slot - 2**32, slot).to(I32)
+
+
+def first_true(mask):
+    """Keep only the first True along the last axis (lowest index wins)."""
+    return mask & (mask.to(I32).cumsum(dim=-1) == 1)
 
 
 def arb_decisions(in_buf, in_cnt, out_cnt, rr_ptr, wh_lock, route,
-                  depth_out: int) -> ArbDecisions:
+                  depth_out: int, vc_out=None, n_vcs: int = 1) -> ArbDecisions:
     """Round-robin output arbitration from the cycle-start snapshot.
 
     Each output port picks the lowest-scoring eligible input head
@@ -138,11 +163,16 @@ def arb_decisions(in_buf, in_cnt, out_cnt, rr_ptr, wh_lock, route,
     port, a free or matching wormhole lock, and output-buffer space. A
     granted tail flit releases the wormhole lock; a granted body flit locks
     the output to its input port.
+
+    With ``n_vcs > 1`` heads request output *slots* (``request_slots``);
+    arbitration then runs unchanged over slots, each with its own
+    round-robin pointer and wormhole lock.
     """
     P = in_cnt.shape[-1]
     Din = in_buf.shape[-2]
     h = heads(in_buf)  # [..., R, P, NF]
-    req_port = torch.where(in_cnt > 0, route_lookup(route, h[..., F_DST]), -1)
+    req_port = torch.where(
+        in_cnt > 0, request_slots(route, h[..., F_DST], vc_out, n_vcs), -1)
 
     dev = in_buf.device
     pout = torch.arange(P, device=dev)
@@ -177,40 +207,66 @@ def arb_decisions(in_buf, in_cnt, out_cnt, rr_ptr, wh_lock, route,
                         in_space)
 
 
-def link_inputs(out_heads_all, out_valid_all, link_src, in_space):
+def link_inputs(out_heads_all, out_valid_all, link_src, in_space,
+                n_vcs: int = 1):
     """Link traversal on the input side: which upstream head feeds each
     input port and whether it is accepted this cycle.
 
     ``out_heads_all`` [..., R, P, NF] / ``out_valid_all`` [..., R, P] are
-    the fabric-wide snapshot; ``link_src`` [R, P, 2] the upstream table
+    the fabric-wide snapshot; ``link_src`` [R, Pp, 2] the upstream table
     (both coordinates clipped into range as the JAX reference does).
     Returns ``(up_head [..., R, P, NF], link_accept [..., R, P])``.
+
+    With ``n_vcs > 1`` slot (p, v) receives from upstream slot (src_p, v)
+    only, and each wire accepts the *lowest eligible VC first* (eligible:
+    upstream head valid and this VC's input FIFO has space).
     """
+    V = n_vcs
     R_all, P = out_valid_all.shape[-2:]
-    src_r, src_p = link_src[..., 0], link_src[..., 1]
-    have_up = src_r >= 0
-    sr = src_r.clamp(0, R_all - 1).long()
-    sp = src_p.clamp(0, P - 1).long()
-    up_head = out_heads_all[..., sr, sp, :]
-    up_valid = out_valid_all[..., sr, sp] & have_up
-    return up_head, up_valid & in_space
+    Pp = P // V
+    src_r, src_p = link_src[..., 0], link_src[..., 1]  # [R, Pp]
+    have_up = (src_r >= 0)[..., None]  # [R, Pp, 1]
+    sr = src_r.clamp(0, R_all - 1).long()[..., None]
+    slot = (src_p.clamp(0, Pp - 1).long()[..., None] * V
+            + torch.arange(V, device=link_src.device))  # [R, Pp, V]
+    lead = in_space.shape[:-1]
+    up_head = out_heads_all[..., sr, slot, :].reshape(*lead, P, NF)
+    up_valid = (out_valid_all[..., sr, slot] & have_up).reshape(in_space.shape)
+    elig = up_valid & in_space
+    if V > 1:
+        elig = first_true(elig.reshape(*lead, Pp, V)).reshape(in_space.shape)
+    return up_head, elig
 
 
-def sent_mask(out_valid, link_dst, port_ep, in_space_all, ep_space):
+def sent_mask(out_valid, link_dst, port_ep, in_space_all, ep_space,
+              n_vcs: int = 1):
     """Which output heads leave their buffer this cycle: over a live link
     iff the downstream input FIFO has space after its own arbitration pops
     (``in_space_all`` [..., R, P]), or into an attached endpoint iff it
-    signalled ingress space (``ep_space`` [..., E])."""
+    signalled ingress space (``ep_space`` [..., E]).
+
+    With ``n_vcs > 1`` the link leg recomputes ``link_inputs``'s
+    lowest-eligible-VC-first choice from the upstream side; endpoint slots
+    are VC0 only (slot-level ``port_ep``), so the endpoint leg is
+    unchanged.
+    """
+    V = n_vcs
     E = ep_space.shape[-1]
     R_all, P = in_space_all.shape[-2:]
-    dst_r, dst_p = link_dst[..., 0], link_dst[..., 1]
-    to_router = dst_r >= 0
-    down_space = in_space_all[..., dst_r.clamp(0, R_all - 1).long(),
-                              dst_p.clamp(0, P - 1).long()]
-    sent_link = to_router & out_valid & down_space
+    Pp = P // V
+    dst_r, dst_p = link_dst[..., 0], link_dst[..., 1]  # [R, Pp]
+    to_router = (dst_r >= 0)[..., None]
+    dr = dst_r.clamp(0, R_all - 1).long()[..., None]
+    slot = (dst_p.clamp(0, Pp - 1).long()[..., None] * V
+            + torch.arange(V, device=link_dst.device))  # [R, Pp, V]
+    down_space = in_space_all[..., dr, slot]  # [..., R, Pp, V]
+    lead = out_valid.shape[:-1]
+    elig = (to_router & down_space).reshape(out_valid.shape) & out_valid
+    if V > 1:
+        elig = first_true(elig.reshape(*lead, Pp, V)).reshape(out_valid.shape)
     has_ep = port_ep >= 0
     ep_ok = ep_space[..., port_ep.clamp(0, E - 1).long()]
-    return sent_link | (has_ep & out_valid & ep_ok)
+    return elig | (has_ep & out_valid & ep_ok)
 
 
 def apply_cycle(in_buf, in_cnt, out_buf, out_cnt, arb_pop, granted, chosen,
@@ -232,15 +288,17 @@ def apply_cycle(in_buf, in_cnt, out_buf, out_cnt, arb_pop, granted, chosen,
 
 
 def apply_phase(in_buf, in_cnt, out_buf, out_cnt, arb: ArbDecisions,
-                link_src, link_dst, port_ep, ep_space, fused: bool = True):
+                link_src, link_dst, port_ep, ep_space, fused: bool = True,
+                n_vcs: int = 1):
     """Link resolution against the cycle-start snapshot plus the FIFO
     updates of both sides: the plain version of the CUDA apply kernel.
     Returns ``(in_buf', in_cnt', out_buf', out_cnt')``."""
     out_heads = heads(out_buf)
     out_valid = out_cnt > 0
     up_head, link_accept = link_inputs(out_heads, out_valid, link_src,
-                                       arb.in_space)
-    sent = sent_mask(out_valid, link_dst, port_ep, arb.in_space, ep_space)
+                                       arb.in_space, n_vcs=n_vcs)
+    sent = sent_mask(out_valid, link_dst, port_ep, arb.in_space, ep_space,
+                     n_vcs=n_vcs)
     return apply_cycle(in_buf, in_cnt, out_buf, out_cnt, arb.arb_pop,
                        arb.granted, arb.chosen, link_accept, up_head, sent,
                        fused=fused)
@@ -257,19 +315,24 @@ def endpoint_deliveries(out_buf, out_cnt, ep_attach, ep_space):
 
 def router_cycle_reference(in_buf, in_cnt, out_buf, out_cnt, rr_ptr, wh_lock,
                            route, link_src, link_dst, port_ep, ep_attach,
-                           ep_space, fused: bool = False):
+                           ep_space, fused: bool = False, vc_out=None,
+                           n_vcs: int = 1):
     """One router cycle over the full fabric (plain version).
 
     State is ``[..., R, P, ...]`` (any leading batch axes, e.g. channels);
     ``ep_space`` [..., E] is the endpoint ingress-space mask. Returns
     ``(in_buf, in_cnt, out_buf, out_cnt, rr_ptr, wh_lock, ep_flit [..., E,
-    NF], ep_valid [..., E])``. ``fused`` selects the fused FIFO datapath.
+    NF], ep_valid [..., E])``. ``fused`` selects the fused FIFO datapath;
+    ``n_vcs > 1`` the virtual-channel datapath with the dateline table
+    ``vc_out``. Endpoint delivery is slot-level already (endpoints attach
+    at VC0), so it needs no VC branch.
     """
     arb = arb_decisions(in_buf, in_cnt, out_cnt, rr_ptr, wh_lock, route,
-                        depth_out=out_buf.shape[-2])
+                        depth_out=out_buf.shape[-2], vc_out=vc_out,
+                        n_vcs=n_vcs)
     in2, in_cnt2, out2, out_cnt2 = apply_phase(
         in_buf, in_cnt, out_buf, out_cnt, arb, link_src, link_dst, port_ep,
-        ep_space, fused=fused)
+        ep_space, fused=fused, n_vcs=n_vcs)
     ep_flit, ep_valid = endpoint_deliveries(out_buf, out_cnt, ep_attach,
                                             ep_space)
     return (in2, in_cnt2, out2, out_cnt2, arb.rr_ptr, arb.wh_lock, ep_flit,
@@ -296,3 +359,66 @@ def inject_endpoints(in_buf, in_cnt, er, ep_p, port_ep, flit, want):
     in_cnt = in_cnt + acc_rp.to(I32)
     accepted = acc_rp[..., er.long(), ep_p.long()]
     return in_buf, in_cnt, accepted
+
+
+def fused_cycle_body(i: int, carry, route, link_src, link_dst, port_ep,
+                     ep_attach, ep_space, cycle0, n_cycles: int, vc_out=None,
+                     n_vcs: int = 1):
+    """Cycle ``i`` of the fused multi-cycle window (any leading batch axes).
+
+    ``carry`` holds the fabric state plus the endpoint egress queues
+    (circular: ``eg`` [..., E, Q, NF], ``eg_ready`` [..., E, Q],
+    ``eg_head``/``eg_cnt`` [..., E]). Capture ``req_waiting`` (an output
+    head pending at an attach port, pre-cycle), run the router cycle
+    against the held ``ep_space``, then inject each endpoint's ready egress
+    head, except on the window's last cycle, where the caller injects
+    after the endpoint phases. Returns ``(carry', (ep_flit [..., E, NF],
+    ep_valid [..., E], req_waiting [..., E]))``.
+    """
+    (in_buf, in_cnt, out_buf, out_cnt, rr, wh,
+     eg, eg_ready, eg_head, eg_cnt) = carry
+    er, ep_p = ep_attach[:, 0], ep_attach[:, 1]
+    req_waiting = out_cnt[..., er.long(), ep_p.long()] > 0
+
+    (in_buf, in_cnt, out_buf, out_cnt, rr, wh, ep_flit, ep_valid) = (
+        router_cycle_reference(in_buf, in_cnt, out_buf, out_cnt, rr, wh,
+                               route, link_src, link_dst, port_ep, ep_attach,
+                               ep_space, fused=True, vc_out=vc_out,
+                               n_vcs=n_vcs))
+
+    Q = eg_ready.shape[-1]
+    h = eg_head.long()[..., None]  # [..., E, 1]
+    head_flit = torch.gather(eg, -2, h[..., None].expand(*h.shape, NF))[..., 0, :]
+    head_ready = torch.gather(eg_ready, -1, h)[..., 0]
+    want = (eg_cnt > 0) & (head_ready <= cycle0 + i) & (i < n_cycles - 1)
+    in_buf, in_cnt, accepted = inject_endpoints(in_buf, in_cnt, er, ep_p,
+                                                port_ep, head_flit, want)
+    eg_head = torch.remainder(eg_head + accepted.to(I32), Q)
+    eg_cnt = eg_cnt - accepted.to(I32)
+    carry = (in_buf, in_cnt, out_buf, out_cnt, rr, wh,
+             eg, eg_ready, eg_head, eg_cnt)
+    return carry, (ep_flit, ep_valid, req_waiting)
+
+
+def router_cycles_scan(in_buf, in_cnt, out_buf, out_cnt, rr_ptr, wh_lock,
+                       eg, eg_ready, eg_head, eg_cnt,
+                       route, link_src, link_dst, port_ep, ep_attach,
+                       ep_space, cycle0, n_cycles: int, vc_out=None,
+                       n_vcs: int = 1):
+    """``n_cycles`` of ``fused_cycle_body`` in order: the plain version of
+    the fused CUDA kernel. Returns the 10 updated state tensors plus
+    ``(ep_flit [..., N, E, NF], ep_valid [..., N, E], req_waiting
+    [..., N, E])``: the JAX ``ops.router_cycles_fused`` layout with the
+    channel axis leading."""
+    carry = (in_buf, in_cnt, out_buf, out_cnt, rr_ptr, wh_lock,
+             eg, eg_ready, eg_head, eg_cnt)
+    flits, valids, waits = [], [], []
+    for i in range(n_cycles):
+        carry, (f, v, w) = fused_cycle_body(
+            i, carry, route, link_src, link_dst, port_ep, ep_attach,
+            ep_space, cycle0, n_cycles, vc_out=vc_out, n_vcs=n_vcs)
+        flits.append(f)
+        valids.append(v)
+        waits.append(w)
+    return (*carry, torch.stack(flits, dim=-3), torch.stack(valids, dim=-2),
+            torch.stack(waits, dim=-2))

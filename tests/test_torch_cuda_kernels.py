@@ -1,11 +1,12 @@
-"""The CUDA router kernels against their plain PyTorch version, on the card.
+"""The CUDA router kernels against their plain PyTorch version, on the card:
+arb and apply with and without virtual channels, and the fused window.
 
 These tests need a CUDA device and skip without one (the kernels have no
 CPU mode); run them on the GPU host with
 ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda_kernels.py``.
 This file imports neither JAX nor ``repro``, so it runs where only PyTorch
 is installed. The random snapshot and table builders here are shared with
-the CPU parity tests in ``test_torch_noc_router.py``. Integer state, so the
+the CPU parity tests in ``test_torch_noc_*.py``. Integer state, so the
 tolerance is exact equality.
 """
 import numpy as np
@@ -19,9 +20,11 @@ from repro_torch.kernels.noc_router.ref import F_DST, F_LAST, NF
 P = 5
 
 
-def _tables(rng, R, E):
-    """Random routing/wiring tables; endpoint attachments are unique and
-    ``port_ep`` is their inverse, as on every real topology."""
+def _tables(rng, R, E, V=1):
+    """Random routing/wiring tables for ``P`` physical ports and ``V``
+    virtual channels; endpoint attachments are unique VC0 slots and
+    ``port_ep`` (slot-level) is their inverse, as on every real topology.
+    With ``V > 1`` a random dateline table ``vc_out`` [R, P * V, P]."""
     route = rng.integers(0, P, (R, E)).astype(np.int32)
     # bias a third of the destinations to port 0 so heads contend for it
     route[:, : E // 3] = 0
@@ -30,17 +33,20 @@ def _tables(rng, R, E):
                      -1).astype(np.int32)
         t[rng.random((R, P)) < 0.3] = -1
         return t
-    slots = rng.permutation(R * P)[:E]
-    ep_attach = np.stack([slots // P, slots % P], -1).astype(np.int32)
-    port_ep = np.full((R, P), -1, np.int32)
+    ports = rng.permutation(R * P)[:E]
+    ep_attach = np.stack([ports // P, ports % P * V], -1).astype(np.int32)
+    port_ep = np.full((R, P * V), -1, np.int32)
     port_ep[ep_attach[:, 0], ep_attach[:, 1]] = np.arange(E)
-    return dict(route=route, link_src=links(), link_dst=links(),
-                port_ep=port_ep, ep_attach=ep_attach)
+    tb = dict(route=route, link_src=links(), link_dst=links(),
+              port_ep=port_ep, ep_attach=ep_attach)
+    if V > 1:
+        tb["vc_out"] = rng.integers(0, V, (R, P * V, P)).astype(np.int32)
+    return tb
 
 
-def _snapshot(rng, lead, R, E, din, dout):
-    """Random consistent state of shape ``lead + [R, P, ...]``."""
-    s = tuple(lead) + (R, P)
+def _snapshot(rng, lead, R, E, din, dout, V=1):
+    """Random consistent state of shape ``lead + [R, P * V, ...]``."""
+    s = tuple(lead) + (R, P * V)
 
     def flits(d):
         f = rng.integers(-50, 50, s + (d, NF)).astype(np.int32)
@@ -48,37 +54,87 @@ def _snapshot(rng, lead, R, E, din, dout):
         f[..., F_LAST] = rng.integers(0, 2, s + (d,))
         return f
 
-    wh = rng.integers(-1, P, s).astype(np.int32)
+    wh = rng.integers(-1, P * V, s).astype(np.int32)
     wh[rng.random(s) < 0.5] = -1
     return dict(
         in_buf=flits(din), in_cnt=rng.integers(0, din + 1, s).astype(np.int32),
         out_buf=flits(dout),
         out_cnt=rng.integers(0, dout + 1, s).astype(np.int32),
-        rr_ptr=rng.integers(0, P, s).astype(np.int32), wh_lock=wh,
+        rr_ptr=rng.integers(0, P * V, s).astype(np.int32), wh_lock=wh,
         ep_space=rng.random(tuple(lead) + (E,)) < 0.7)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("R,depth", [(32, 2), (32, 4), (1024, 2)])
-def test_cuda_kernels_match_plain(R, depth):
-    """The CUDA arb and apply kernels against the plain version on the
-    card, bit for bit, and one launch of each per router cycle."""
+def _egress(rng, C, E, Q, cycle0, N):
+    """Random circular egress queues: counts 0..Q (empty and full), heads
+    anywhere, ready stamps before, inside and after the window."""
+    eg = rng.integers(-50, 50, (C, E, Q, NF)).astype(np.int32)
+    eg[..., F_DST] = rng.integers(0, E, (C, E, Q))
+    return dict(eg=eg,
+                eg_ready=rng.integers(cycle0 - 3, cycle0 + N + 3,
+                                      (C, E, Q)).astype(np.int32),
+                eg_head=rng.integers(0, Q, (C, E)).astype(np.int32),
+                eg_cnt=rng.integers(0, Q + 1, (C, E)).astype(np.int32))
+
+
+def _on_card(d):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
-    rng = np.random.default_rng(R + depth)
+    return {k: torch.as_tensor(v, device="cuda") for k, v in d.items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,depth,V", [(32, 2, 1), (32, 4, 1), (1024, 2, 1),
+                                       (32, 2, 2), (32, 4, 2), (1024, 2, 2),
+                                       (32, 2, 6)],
+                         ids=["32-2", "32-4", "1024-2", "32-2-vc2", "32-4-vc2",
+                              "1024-2-vc2", "32-2-vc6"])
+def test_cuda_kernels_match_plain(R, depth, V):
+    """The CUDA arb and apply kernels against the plain version on the
+    card, bit for bit, and one launch of each per router cycle (V = 6 is
+    30 slots, near the arb kernel's limit)."""
+    rng = np.random.default_rng(R + depth + 100 * V)
     E = 40 if R == 32 else 1056
-    tb = {k: torch.as_tensor(v, device="cuda")
-          for k, v in _tables(rng, R, E).items()}
-    s = {k: torch.as_tensor(v, device="cuda")
-         for k, v in _snapshot(rng, (3,), R, E, depth, depth).items()}
+    tb = _on_card(_tables(rng, R, E, V))
+    s = _on_card(_snapshot(rng, (3,), R, E, depth, depth, V))
     args = (s["in_buf"], s["in_cnt"], s["out_buf"], s["out_cnt"], s["rr_ptr"],
             s["wh_lock"], tb["route"], tb["link_src"], tb["link_dst"],
             tb["port_ep"], tb["ep_attach"], s["ep_space"])
+    kw = dict(vc_out=tb.get("vc_out"), n_vcs=V)
+    mode = lambda k: k if V == 1 else f"{k}_vc"
     before = dict(tkern.LAUNCHES)
-    got = tkern.router_cycle_cuda(*args)
+    got = tkern.router_cycle_cuda(*args, **kw)
     torch.cuda.synchronize()
-    want = tref.router_cycle_reference(*args, fused=True)
+    want = tref.router_cycle_reference(*args, fused=True, **kw)
     for i, (a, b) in enumerate(zip(want, got)):
         assert torch.equal(a, b), f"output {i} differs"
-    assert tkern.LAUNCHES["arb"] == before["arb"] + 1
-    assert tkern.LAUNCHES["apply"] == before["apply"] + 1
+    assert tkern.LAUNCHES[mode("arb")] == before[mode("arb")] + 1
+    assert tkern.LAUNCHES[mode("apply")] == before[mode("apply")] + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,N,V", [(32, 1, 1), (32, 4, 1), (32, 16, 2),
+                                   (1024, 4, 1), (1024, 4, 2)])
+def test_cuda_fused_matches_plain(R, N, V):
+    """One launch of the fused kernel against N cycles of the plain
+    ``router_cycles_scan``, bit for bit; its inputs stay untouched."""
+    rng = np.random.default_rng(7 * R + N + V)
+    E, C, Q, cycle0 = (40 if R == 32 else 1056), 3, 8, 50
+    tb = _on_card(_tables(rng, R, E, V))
+    s = _on_card(_snapshot(rng, (C,), R, E, 2, 2, V))
+    q = _on_card(_egress(rng, C, E, Q, cycle0, N))
+    args = (s["in_buf"], s["in_cnt"], s["out_buf"], s["out_cnt"], s["rr_ptr"],
+            s["wh_lock"], q["eg"], q["eg_ready"], q["eg_head"], q["eg_cnt"],
+            tb["route"], tb["link_src"], tb["link_dst"], tb["port_ep"],
+            tb["ep_attach"], s["ep_space"], cycle0, N)
+    kw = dict(vc_out=tb.get("vc_out"), n_vcs=V)
+    copies = [a.clone() for a in args[:10]]
+    before = dict(tkern.LAUNCHES)
+    got = tkern.router_cycles_fused_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    want = tref.router_cycles_scan(*args, **kw)
+    for i, (a, b) in enumerate(zip(want, got)):
+        assert torch.equal(a, b), f"output {i} differs"
+    for i, (a, b) in enumerate(zip(copies, args)):
+        assert torch.equal(a, b), f"input {i} modified"
+    key = "fused" if V == 1 else "fused_vc"
+    assert tkern.LAUNCHES[key] == before[key] + 1

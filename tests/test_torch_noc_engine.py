@@ -48,9 +48,18 @@ def test_tables_travel_as_numpy_dicts():
 
 
 def test_make_tables_refuses_unported_options():
+    """VC tables are built (slot-level endpoint tables, physical links,
+    all-VC0 dateline table on the mesh); collective groups are refused."""
     topo = torch_build_mesh(nx=4, ny=2)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        teng.make_tables(topo, n_vcs=2, device="cpu")
+    tb = teng.make_tables(topo, n_vcs=2, device="cpu")
+    R, P = topo.n_routers, topo.n_ports
+    assert tb.n_vcs == 2 and tuple(tb.vc_out.shape) == (R, 2 * P, P)
+    assert tuple(tb.link_src.shape) == (R, P, 2)
+    assert tuple(tb.port_ep.shape) == (R, 2 * P)
+    assert (tb.port_ep[:, 1::2] == -1).all()  # endpoints attach at VC0
+    assert (tb.ep_attach[:, 1] % 2 == 0).all()
+    assert not tb.vc_out.any()  # a mesh has no dateline: all VC0
+    assert teng.make_tables(topo, device="cpu").vc_out is None
     with pytest.raises(NotImplementedError, match="item 9"):
         teng.make_tables(topo, groups=[{"root": 0, "members": [1]}],
                          device="cpu")

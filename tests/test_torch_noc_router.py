@@ -14,6 +14,7 @@ import torch
 
 from repro.core.noc.engine import make_tables as jax_make_tables
 from repro.core.noc.topology import build_mesh as jax_build_mesh
+from repro.core.noc.topology import build_torus as jax_build_torus
 from repro.kernels.noc_router import ops as jops
 from repro.kernels.noc_router import ref as jref
 from repro_torch.kernels.noc_router import ops as tops
@@ -27,10 +28,16 @@ NF = jref.NF
 torch.set_num_threads(1)
 
 
-def _mesh_tables():
-    tb = jax_make_tables(jax_build_mesh(nx=4, ny=8))
+def _mesh_tables(n_vcs=1):
+    """The 8x4 mesh's tables, or at ``n_vcs > 1`` the 8x4 torus's (whose
+    dateline table is not all VC0)."""
+    if n_vcs == 1:
+        tb = jax_make_tables(jax_build_mesh(nx=4, ny=8))
+    else:
+        tb = jax_make_tables(jax_build_torus(nx=4, ny=8), n_vcs=n_vcs)
     return {k: np.array(getattr(tb, k)) for k in
-            ("route", "link_src", "link_dst", "port_ep", "ep_attach")}
+            ("route", "link_src", "link_dst", "port_ep", "ep_attach",
+             "vc_out") if getattr(tb, k) is not None}
 
 
 def _eq(a, b, tag=""):
@@ -144,25 +151,30 @@ def test_inject_endpoints_matches_jax(R, seed):
         _eq(a, b, f"inject_endpoints[{i}]")
 
 
-@pytest.mark.parametrize("depth,tile", [(2, 8), (4, 0)])
-def test_ops_router_cycle_matches_pallas_interpret(depth, tile):
-    """The channel-batched entry point on a [3, 32, 5, ...] batch built on
-    the 8x4 mesh tables, against the JAX Pallas kernel run in interpret
-    mode (fused FIFO datapath; 8 routers per program, or the whole fabric)
-    and the vmapped jnp reference."""
-    rng = np.random.default_rng(7 + depth)
-    tb = _mesh_tables()
-    s = _snapshot(rng, (3,), 32, 40, depth, depth)
+@pytest.mark.parametrize("depth,tile,V", [(2, 8, 1), (4, 0, 1), (2, 8, 2)],
+                         ids=["2-8", "4-0", "2-8-vc2"])
+def test_ops_router_cycle_matches_pallas_interpret(depth, tile, V):
+    """The channel-batched entry point on a [3, 32, 5 * V, ...] batch built
+    on the 8x4 mesh tables (the 8x4 torus's at V = 2), against the JAX
+    Pallas kernel run in interpret mode (fused FIFO datapath; 8 routers per
+    program, or the whole fabric; ``_arb_kernel_vc`` at V = 2) and the
+    vmapped jnp reference."""
+    rng = np.random.default_rng(7 + depth + V)
+    tb = _mesh_tables(V)
+    E = tb["route"].shape[1]
+    s = _snapshot(rng, (3,), 32, E, depth, depth, V)
     (js, ts), (jt, tt) = _both(s), _both(tb)
     args = lambda d, t: (d["in_buf"], d["in_cnt"], d["out_buf"], d["out_cnt"],
                          d["rr_ptr"], d["wh_lock"], t["route"], t["link_src"],
                          t["link_dst"], t["port_ep"], t["ep_attach"],
                          d["ep_space"])
+    vc = lambda t: dict(vc_out=t.get("vc_out"), n_vcs=V)
     want_pallas = jops.router_cycle(*args(js, jt), backend="pallas",
                                     interpret=True, fused_fifo=True,
-                                    router_tile=tile)
-    want_jnp = jops.router_cycle(*args(js, jt), backend="jnp", fused_fifo=True)
-    got = tops.router_cycle(*args(ts, tt))
+                                    router_tile=tile, **vc(jt))
+    want_jnp = jops.router_cycle(*args(js, jt), backend="jnp", fused_fifo=True,
+                                 **vc(jt))
+    got = tops.router_cycle(*args(ts, tt), **vc(tt))
     for i, (a, c, b) in enumerate(zip(want_pallas, want_jnp, got)):
         _eq(a, b, f"router_cycle[{i}] vs pallas")
         _eq(c, b, f"router_cycle[{i}] vs jnp")
