@@ -24,12 +24,15 @@ card, drives the simulator's main path through the port's entry points
    a step, and the device's busy share under ``torch.profiler``;
 5. super-steps: the 8x4 mesh at ``fused_cycles=4`` (GPU state equal to
    CPU state, one fused launch per 4 cycles, ms per cycle beside k = 1);
-6. the 8x4 torus at ``n_vcs=2, fused_cycles=4``, same checks;
+6. the 8x4 torus at ``n_vcs=2``, one cycle per step and at
+   ``fused_cycles=4``: GPU state equal to CPU state, ms per cycle, the VC
+   arb/apply kernels timed on the per-cycle run's state;
 7. the 8x1 ring: wedged at ``n_vcs=1`` (nothing delivered in 4000
-   cycles), drained at ``n_vcs=2``;
-8. the 32x32 torus at ``n_vcs=2, fused_cycles=4`` (200 cycles): GPU state
-   equal to CPU state, ms per cycle, peak device memory; VC and fused
-   kernel times against their plain versions and bounds;
+   cycles), drained at ``n_vcs=2`` with the GPU state equal to CPU state;
+8. the 32x32 torus at ``n_vcs=2``, one cycle per step and at
+   ``fused_cycles=4`` (200 cycles each): GPU state equal to CPU state, ms
+   per cycle, peak device memory; VC and fused kernel times against their
+   plain versions and bounds;
 9. one JSON line listing every kernel and mode (launches on its main path,
    mismatch, times, bounds).
 
@@ -149,11 +152,6 @@ def max_abs_err(want, got):
               f"shape/dtype {tuple(a.shape)} {a.dtype} vs {tuple(b.shape)} {b.dtype}")
         err = max(err, int((a.long() - b.long()).abs().max()))
     return err
-
-
-def mode(kernel, n_vcs):
-    """``LAUNCHES`` key of a kernel in a VC mode."""
-    return kernel if n_vcs == 1 else f"{kernel}_vc"
 
 
 def compare_kernels(snap, tables):
@@ -479,9 +477,9 @@ def expected_launches(params, n):
     want = dict.fromkeys(K.LAUNCHES, 0)
     k, V = params.fused_cycles, params.n_vcs
     if k == 1:
-        want.update({mode("arb", V): n, mode("apply", V): n})
+        want.update({K.mode("arb", V): n, K.mode("apply", V): n})
     else:
-        want[mode("fused", V)] = n // k
+        want[K.mode("fused", V)] = n // k
     return want
 
 
@@ -584,9 +582,9 @@ def main() -> int:
             errs["arb"] = max(errs["arb"], e["arb"], e["cycle"])
             errs["apply"] = max(errs["apply"], e["apply"], e["cycle"])
 
-    # ---- 2b. the VC modes (V = 2): torus 8x4 and 32x32, Occamy's 28 slots --
+    # ---- 2b. the VC modes (V = 2): tori 8x4, 32x32 and 8x1, Occamy's 28 slots
     vc_cases = [(f"torus {nx}x{ny}", build_torus(nx=nx, ny=ny), depth)
-                for nx, ny in ((4, 8), (32, 32)) for depth in (2, 4)]
+                for nx, ny in ((4, 8), (32, 32), (8, 1)) for depth in (2, 4)]
     vc_cases.append(("occamy", build_occamy(), 2))
     for name, vtopo, depth in vc_cases:
         tables = make_tables(vtopo, n_vcs=2, device=dev)
@@ -612,7 +610,8 @@ def main() -> int:
                 phase("fused_vs_plain", fabric=ftopo.name,
                       n_vcs=V, n_cycles=N, max_abs_err=err)
                 check(err == 0, f"fused kernel disagrees with plain: {err}")
-                errs[mode("fused", V)] = max(errs[mode("fused", V)], err)
+                key = K.mode("fused", V)
+                errs[key] = max(errs[key], err)
 
     # ---- 3. main path on the paper's 8x4 mesh -----------------------------
     topo = build_mesh(nx=4, ny=8)
@@ -722,9 +721,28 @@ def main() -> int:
     fused_32 = time_fused(bst.fabric, bst.eps, bsim.tables, ones(btopo), 200)
     phase("kernel_times_fused_32x32", **fused_32)
 
-    # ---- 6. the 8x4 torus with dateline VCs and super-steps ---------------
+    # ---- 6. the 8x4 torus with dateline VCs, per cycle and in super-steps --
     ttopo = build_torus(nx=4, ny=8)
     twl = mesh_workload(TT, ttopo, transfer_kb=8, narrow_rate=0.05)
+    vp = NocParams(n_vcs=2)
+    vsim = TS.build_sim(ttopo, vp, twl)
+    vst, vdt, vc_launches = run_counted(TS, vsim, 1200)
+    vst_cpu = TS.run(TS.build_sim(ttopo, vp, twl, device="cpu"), 1200)
+    bad = states_equal(vst, vst_cpu)
+    check(not bad, f"torus_vc_8x4 GPU state differs from CPU state in {bad}")
+    vout = TS.stats(vsim, vst)
+    check(vout["beats_rcvd"].sum() > 0 and vout["narrow_lat_cnt"].sum() > 0,
+          "torus_vc_8x4 moved no traffic")
+    ms_vc = vdt / 1200 * 1e3
+    phase("torus_vc_8x4", cycles=1200, n_vcs=2, fused_cycles=1,
+          launches=vc_launches, gpu_ms_per_cycle=ms_vc,
+          gpu_state_equals_cpu=True, wide_util=float(vout["wide_util"]),
+          narrow_lat_mean=float(vout["narrow_lat_mean"].mean()))
+    layers_vc = layer_times(eng, vsim, vst)
+    phase("layers_torus_vc_8x4", **layers_vc)
+    vc_8x4 = time_kernels(vst.fabric, vsim.tables, ones(ttopo))
+    phase("kernel_times_vc_8x4", **vc_8x4)
+
     tp = NocParams(n_vcs=2, fused_cycles=4)
     tsim = TS.build_sim(ttopo, tp, twl)
     tst, tdt, torus_launches = run_counted(TS, tsim, 1200)
@@ -740,8 +758,6 @@ def main() -> int:
           gpu_state_equals_cpu=True, wide_util=float(tout["wide_util"]),
           narrow_lat_mean=float(tout["narrow_lat_mean"].mean()))
     phase("profile_torus_8x4", **device_profile(tsim, tst, ms_torus, n=10))
-    vc_8x4 = time_kernels(tst.fabric, tsim.tables, ones(ttopo))
-    phase("kernel_times_vc_8x4", **vc_8x4)
     fused_vc_8x4 = time_fused(tst.fabric, tst.eps, tsim.tables, ones(ttopo),
                               1200)
     phase("kernel_times_fused_vc_8x4", **fused_vc_8x4)
@@ -757,14 +773,19 @@ def main() -> int:
               and int(rst.eps.beats_rcvd.sum()) == mid)
     check(wedged, "the VC-less 8x1 ring did not wedge")
     rsim2 = TS.build_sim(rtopo, NocParams(n_vcs=2), rwl)
-    rst2, ring_launches, ring_s = None, dict.fromkeys(K.LAUNCHES, 0), 0.0
+    rsim2_cpu = TS.build_sim(rtopo, NocParams(n_vcs=2), rwl, device="cpu")
+    rst2 = rst2_cpu = None
+    ring_launches, ring_s = dict.fromkeys(K.LAUNCHES, 0), 0.0
     for _ in range(8):  # up to 4000 cycles, in steps of 500
         rst2, dt, got = run_counted(TS, rsim2, 500, rst2)
+        rst2_cpu = TS.run(rsim2_cpu, 500, rst2_cpu)
         ring_launches = {k: ring_launches[k] + got[k] for k in got}
         ring_s += dt
         if int(rst2.eps.rx_bursts.sum()) == rtopo.n_endpoints:
             break
     ring_cycles = int(rst2.cycle)
+    bad = states_equal(rst2, rst2_cpu)
+    check(not bad, f"ring_8x1 (n_vcs=2) GPU state differs from CPU state in {bad}")
     drained = (int(rst2.eps.rx_bursts.sum()) == rtopo.n_endpoints
                and int(rst2.eps.beats_rcvd.sum())
                == rtopo.n_endpoints * rwl.dma_beats)
@@ -772,12 +793,27 @@ def main() -> int:
           vc1_rx_bursts=int(rst.eps.rx_bursts.sum()), vc1_wedged=wedged,
           vc2_cycles=ring_cycles, vc2_rx_bursts=int(rst2.eps.rx_bursts.sum()),
           vc2_drained=drained, vc2_launches=ring_launches,
+          vc2_gpu_state_equals_cpu=True,
           vc2_gpu_ms_per_cycle=ring_s / ring_cycles * 1e3)
     check(drained, "the 8x1 ring with n_vcs=2 did not drain")
 
-    # ---- 8. the 32x32 torus with dateline VCs and super-steps -------------
+    # ---- 8. the 32x32 torus with dateline VCs, per cycle and in super-steps
     gtor = build_torus(nx=32, ny=32)
     gwl = mesh_workload(TT, gtor, transfer_kb=8, narrow_rate=0.0)
+    gsim_v = TS.build_sim(gtor, vp, gwl)
+    gst_v, gvdt, gv_launches = run_counted(TS, gsim_v, 200)
+    gst_v_cpu = TS.run(TS.build_sim(gtor, vp, gwl, device="cpu"), 200)
+    bad = states_equal(gst_v, gst_v_cpu)
+    check(not bad, f"32x32 torus (k=1) GPU state differs from CPU state in {bad}")
+    check(TS.stats(gsim_v, gst_v)["beats_rcvd"].sum() > 0,
+          "32x32 torus (k=1) moved no wide beats")
+    phase("scale_32x32_torus_vc", cycles=200, n_vcs=2, fused_cycles=1,
+          launches=gv_launches, gpu_ms_per_cycle=gvdt / 200 * 1e3,
+          gpu_state_equals_cpu=True)
+    vc_32 = time_kernels(gst_v.fabric, gsim_v.tables, ones(gtor))
+    phase("kernel_times_vc_32x32", **vc_32)
+    del gsim_v, gst_v  # out of the k = 4 run's peak device memory
+
     gsim_t = TS.build_sim(gtor, tp, gwl)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -796,8 +832,6 @@ def main() -> int:
           cpu_ms_per_cycle=gdt_cpu / 200 * 1e3, gpu_state_equals_cpu=True,
           peak_device_bytes=gpeak, beats_rcvd=int(gout["beats_rcvd"].sum()))
     phase("profile_32x32_torus", **device_profile(gsim_t, gst_t, ms_gtor, n=5))
-    vc_32 = time_kernels(gst_t.fabric, gsim_t.tables, ones(gtor))
-    phase("kernel_times_vc_32x32", **vc_32)
     fused_vc_32 = time_fused(gst_t.fabric, gst_t.eps, gsim_t.tables,
                              ones(gtor), 200)
     phase("kernel_times_fused_vc_32x32", **fused_vc_32)
@@ -811,9 +845,9 @@ def main() -> int:
          timing_32["arb"], "8x4 mesh, C=3, R=32, P=5, D=2"),
         ("apply", "noc_apply_kernel", 172, main_launches, timing_8x4["apply"],
          timing_32["apply"], "8x4 mesh, C=3, R=32, P=5, D=2"),
-        ("arb_vc", "noc_arb_kernel[n_vcs=2]", 93, ring_launches,
+        ("arb_vc", "noc_arb_kernel[n_vcs=2]", 93, vc_launches,
          vc_8x4["arb"], vc_32["arb"], "8x4 torus, C=3, R=32, P=10 slots, D=2"),
-        ("apply_vc", "noc_apply_kernel[n_vcs=2]", 172, ring_launches,
+        ("apply_vc", "noc_apply_kernel[n_vcs=2]", 172, vc_launches,
          vc_8x4["apply"], vc_32["apply"],
          "8x4 torus, C=3, R=32, P=10 slots, D=2"),
         ("fused", "noc_fused_kernel", 414, super_launches, fused_8x4,

@@ -140,7 +140,8 @@ def _stream(device):
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def _mode(kernel: str, n_vcs: int) -> str:
+def mode(kernel: str, n_vcs: int) -> str:
+    """``LAUNCHES`` key of ``kernel`` ("arb", "apply", "fused") at ``n_vcs``."""
     return kernel if n_vcs == 1 else f"{kernel}_vc"
 
 
@@ -148,7 +149,7 @@ def _count(kernel: str, n_vcs: int, err: int):
     """Raise on a refused launch, else count it."""
     if err != 0:
         raise RuntimeError(f"noc_{kernel}_kernel launch failed: CUDA error {err}")
-    LAUNCHES[_mode(kernel, n_vcs)] += 1
+    LAUNCHES[mode(kernel, n_vcs)] += 1
 
 
 def _dims(*bufs, n_vcs: int = 1):

@@ -100,15 +100,14 @@ def test_cuda_kernels_match_plain(R, depth, V):
             s["wh_lock"], tb["route"], tb["link_src"], tb["link_dst"],
             tb["port_ep"], tb["ep_attach"], s["ep_space"])
     kw = dict(vc_out=tb.get("vc_out"), n_vcs=V)
-    mode = lambda k: k if V == 1 else f"{k}_vc"
     before = dict(tkern.LAUNCHES)
     got = tkern.router_cycle_cuda(*args, **kw)
     torch.cuda.synchronize()
     want = tref.router_cycle_reference(*args, fused=True, **kw)
     for i, (a, b) in enumerate(zip(want, got)):
         assert torch.equal(a, b), f"output {i} differs"
-    assert tkern.LAUNCHES[mode("arb")] == before[mode("arb")] + 1
-    assert tkern.LAUNCHES[mode("apply")] == before[mode("apply")] + 1
+    for k in (tkern.mode("arb", V), tkern.mode("apply", V)):
+        assert tkern.LAUNCHES[k] == before[k] + 1
 
 
 @pytest.mark.gpu
