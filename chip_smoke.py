@@ -33,8 +33,19 @@ card, drives the simulator's main path through the port's entry points
    ``fused_cycles=4`` (200 cycles each): GPU state equal to CPU state, ms
    per cycle, peak device memory; VC and fused kernel times against their
    plain versions and bounds;
-9. one JSON line listing every kernel and mode (launches on its main path,
-   mismatch, times, bounds).
+9. in-network collective offload (``collective_offload=True``): the
+   offload arb kernel against its plain version on random snapshots with
+   random reduction-ALU state (8x4 mesh and torus, 32x32 mesh, Occamy's 28
+   slots); the in-fabric all-reduce (16 kB, 2 streams) on the 8x4 mesh
+   and the 8x4 torus at ``n_vcs=2`` and the offloaded tree multicast
+   (16 kB, 4 streams) on the 8x4 mesh, each delivering exactly its
+   ``expect_rx`` at the CPU run's completion cycle (693 / 673 / 278) with
+   the GPU state equal to the CPU's; the all-reduce on the 32x32 mesh for
+   200 cycles (state against CPU, ms per cycle, peak device memory); the
+   offload arb kernel's time against its plain version and bound; the
+   8x4 all-reduce's layer split and device profile from cycle 400;
+10. one JSON line listing every kernel and mode (launches on its main
+   path, mismatch, times, bounds).
 
 Each main path runs with the launch counts set to 0 just before it and
 checked just after.
@@ -82,8 +93,13 @@ def check(cond, what):
         raise AssertionError(what)
 
 
+_T0 = time.perf_counter()
+
+
 def phase(name, **fields):
-    """One line of the phase's results."""
+    """One line of the phase's results, with the seconds since the script
+    started."""
+    fields["elapsed_s"] = round(time.perf_counter() - _T0, 1)
     print(f"[{name}] " + json.dumps(fields, default=float), flush=True)
 
 
@@ -229,6 +245,127 @@ def compare_fused(snap, egress, tables, cycle0, N):
     check(all(torch.equal(a, b) for a, b in zip(before, args)),
           "the fused kernel modified its inputs")
     return max_abs_err(want, got)
+
+
+def random_offload(rng, snap, tables):
+    """Random reduction-ALU state for a numpy snapshot on offload tables,
+    whose input heads it turns into group-addressed multicast and
+    reduction heads in part (in place). Full ALU slots and unlocked parent
+    slots are made common, so emissions, shared parents and contested
+    ports occur."""
+    import numpy as np
+
+    from repro_torch.kernels.noc_router.ref import (
+        A_CNT, F_DST, F_KIND, KIND_MC, KIND_RED, NRED)
+
+    C, R, P = snap["in_cnt"].shape
+    E = tables.route.shape[1]
+    G = tables.n_groups
+    need = tables.red_need.cpu().numpy()
+    parent = tables.red_parent.cpu().numpy()
+    heads = snap["in_buf"][..., 0, :]
+    roll = rng.random((C, R, P))
+    heads[..., F_KIND] = np.where(roll < 0.3, KIND_MC,
+                                  np.where(roll < 0.6, KIND_RED,
+                                           heads[..., F_KIND]))
+    heads[..., F_DST] = np.where(roll < 0.65,
+                                 E + rng.integers(0, 2 * G + 1, roll.shape),
+                                 heads[..., F_DST])
+    acc = rng.integers(-9, 9, (C, R, G, NRED)).astype(np.int32)
+    acc[..., A_CNT] = np.where(rng.random((C, R, G)) < 0.7,
+                               need + rng.integers(0, 2, (C, R, G)),
+                               rng.integers(0, 4, (C, R, G)))
+    for c in range(C):
+        r, g = np.nonzero((rng.random((R, G)) < 0.6) & (parent >= 0))
+        snap["wh_lock"][c, r, parent[r, g]] = -1
+    return dict(red_acc=acc, red_got=rng.random((C, R, G, P)) < 0.3)
+
+
+def offload_cases(snap, red, tables, granted):
+    """How often a snapshot reaches the offload cases that matter,
+    recomputed in numpy: ports two can-emit groups want (shared parent),
+    emissions onto a port some head requests (contested), and ports where
+    a multicast win was cancelled (a head eligible, nothing granted)."""
+    import numpy as np
+
+    from repro_torch.kernels.noc_router.ref import (
+        A_CNT, F_DST, F_KIND, KIND_MC, KIND_RED)
+
+    s = {k: v.cpu().numpy() for k, v in snap.items()}
+    tb = {k: getattr(tables, k).cpu().numpy() for k in
+          ("route", "fork_out", "red_parent", "red_need")}
+    C, R, P = s["in_cnt"].shape
+    E, G, V = tb["route"].shape[1], tables.n_groups, tables.n_vcs
+    dout = s["out_buf"].shape[-2]
+    h = s["in_buf"][..., 0, :]
+    valid = s["in_cnt"] > 0
+    is_mc = valid & (h[..., F_KIND] == KIND_MC)
+    uni = valid & ~is_mc & (h[..., F_KIND] != KIND_RED)
+    g_of = np.clip(h[..., F_DST] - E, 0, G - 1)
+    need, par = tb["red_need"], tb["red_parent"]
+    full = (need > 0) & (red["red_acc"].cpu().numpy()[..., A_CNT] >= need)
+    pc = np.broadcast_to(np.clip(par, 0, P - 1), (C, R, G))
+    can = (full & (par >= 0)
+           & np.take_along_axis(s["out_cnt"] < dout, pc, -1)
+           & (np.take_along_axis(s["wh_lock"], pc, -1) < 0))
+    wants = (pc[..., None] == np.arange(P)) & can[..., None]
+    emit_port = wants.any(-2)
+    r_idx = np.arange(R)[:, None]
+    port = tb["route"][r_idx, np.clip(h[..., F_DST], 0, E - 1)]
+    if V > 1:
+        vc_out = tables.vc_out.cpu().numpy()
+        port = port * V + vc_out[r_idx, np.arange(P),
+                                 np.clip(port, 0, P // V - 1)]
+    req = ((uni[..., None] & (port[..., None] == np.arange(P)))
+           | (is_mc[..., None] & tb["fork_out"][r_idx, g_of]))
+    lock = s["wh_lock"][..., None, :]
+    elig = (req & ((lock < 0) | (lock == np.arange(P)[:, None]))
+            & (s["out_cnt"] < dout)[..., None, :] & ~emit_port[..., None, :])
+    return {"shared_parent": int((wants.sum(-2) >= 2).sum()),
+            "contested_emission": int((emit_port & req.any(-2)).sum()),
+            "cancelled_mc_win": int((elig.any(-2)
+                                     & ~granted.cpu().numpy()).sum())}
+
+
+def compare_offload(snap, red, tables):
+    """The offload arb kernel and the offload cycle (offload arb + apply)
+    against the plain version on the card; checks that the kernels leave
+    their inputs as they were. Returns ``({"arb": err, "cycle": err},
+    the cases reached)``."""
+    import torch
+
+    from repro_torch.kernels.noc_router import noc_router as K
+    from repro_torch.kernels.noc_router import ref
+
+    s, t = snap, tables
+    E = t.route.shape[1]
+    off = dict(fork_out=t.fork_out, red_parent=t.red_parent,
+               red_need=t.red_need, red_acc=red["red_acc"],
+               red_got=red["red_got"], n_endpoints=E, vc_out=t.vc_out,
+               n_vcs=t.n_vcs)
+    depth_out = s["out_buf"].shape[-2]
+    arb_args = (s["in_buf"], s["in_cnt"], s["out_cnt"], s["rr_ptr"],
+                s["wh_lock"], t.route)
+    inputs = [*s.values(), *red.values()]
+    before = [a.clone() for a in inputs]
+    arb_k, acc_k, got_k = K.arb_offload_cuda(*arb_args, depth_out=depth_out,
+                                             **off)
+    arb_p, acc_p, got_p = ref.offload_decisions(*arb_args,
+                                                depth_out=depth_out, **off)
+    cyc = (s["in_buf"], s["in_cnt"], s["out_buf"], s["out_cnt"], s["rr_ptr"],
+           s["wh_lock"], t.route, t.link_src, t.link_dst, t.port_ep,
+           t.ep_attach, s["ep_space"])
+    cyc_k = K.router_cycle_offload_cuda(*cyc, **off)
+    cyc_p = ref.router_cycle_offload_reference(
+        *cyc[:6], red["red_acc"], red["red_got"], *cyc[6:11], t.fork_out,
+        t.red_parent, t.red_need, s["ep_space"], n_endpoints=E, fused=True,
+        vc_out=t.vc_out, n_vcs=t.n_vcs)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(before, inputs)),
+          "the offload kernels modified their inputs")
+    errs = {"arb": max_abs_err((*arb_p, acc_p, got_p), (*arb_k, acc_k, got_k)),
+            "cycle": max_abs_err(cyc_p, cyc_k)}
+    return errs, offload_cases(s, red, t, arb_p.granted)
 
 
 def graph_ms(fn, reps=50, rounds=7):
@@ -386,6 +523,58 @@ def time_fused(st, eps, tables, ep_space, cycle0, N=4):
             "bound_ms": b_ms, "bound_by": b_by}
 
 
+def offload_bytes(st, tables):
+    """Bytes the offload arb kernel must move on this state, each input
+    read once and each output written once: the input heads, counters,
+    pointers and locks; the route (and ``vc_out``) entries of the live
+    unicast heads and the fork rows of the live multicast heads; the
+    group tables and the ALU state in; the decisions and the ALU state
+    out."""
+    from repro_torch.kernels.noc_router.ref import F_KIND, KIND_MC, KIND_RED
+
+    C, R, P, Din, NF = st.in_buf.shape
+    G = tables.n_groups
+    n = C * R * P
+    heads = st.in_buf[..., 0, :]
+    live = st.in_cnt > 0
+    mc = int((live & (heads[..., F_KIND] == KIND_MC)).sum())
+    uni = int((live & (heads[..., F_KIND] != KIND_MC)
+               & (heads[..., F_KIND] != KIND_RED)).sum())
+    alu = C * R * G * (st.red_acc.shape[-1] * 4 + P)  # red_acc + red_got
+    reads = (n * NF * 4 + 4 * n * 4 + uni * 4 * (1 if tables.n_vcs == 1 else 2)
+             + mc * P + R * G * 8 + alu)
+    writes = 3 * n + n * NF * 4 + 2 * n * 4 + alu
+    return reads + writes
+
+
+def time_offload(st, tables):
+    """Device time of one offload arb launch and of its plain version on
+    a simulator state (CUDA graph, median of 7), plus the least time the
+    card could take."""
+    from repro_torch.kernels.noc_router import noc_router as K
+    from repro_torch.kernels.noc_router import ref
+
+    C, R, P = st.in_cnt.shape
+    args = (st.in_buf, st.in_cnt, st.out_cnt, st.rr_ptr, st.wh_lock,
+            tables.route)
+    kw = dict(depth_out=st.out_buf.shape[-2], fork_out=tables.fork_out,
+              red_parent=tables.red_parent, red_need=tables.red_need,
+              red_acc=st.red_acc, red_got=st.red_got,
+              n_endpoints=tables.route.shape[1], vc_out=tables.vc_out,
+              n_vcs=tables.n_vcs)
+    saved = dict(K.LAUNCHES)
+    out = {"ms": graph_ms(lambda: K.arb_offload_cuda(*args, **kw)),
+           "plain_ms": graph_ms(lambda: ref.offload_decisions(*args, **kw)),
+           "eager_ms": eager_ms(lambda: K.arb_offload_cuda(*args, **kw))}
+    K.LAUNCHES.update(saved)  # timing launches are not main-path launches
+    nbytes = offload_bytes(st, tables)
+    nops = C * R * (P * P * 12 + P * (st.in_buf.shape[-1] + 12)
+                    + tables.n_groups * P * 12)
+    b_ms, b_by = bound(nbytes, nops)
+    out.update(bytes=nbytes, ops=nops, bound_ms=b_ms, bound_by=b_by)
+    return out
+
+
 def layer_times(eng, sim, st, n=100):
     """Host-clock ms of one router cycle alone and of one whole step on the
     card (each over ``n`` calls from state ``st``, synchronised at the
@@ -470,14 +659,16 @@ def states_equal(a, b):
 
 def expected_launches(params, n):
     """Launches of each kernel and mode that ``n`` cycles must make: one
-    arb and one apply per cycle, or one fused window per ``fused_cycles``,
-    in the params' VC mode, and none of any other."""
+    arb (the offload arb under ``collective_offload``) and one apply per
+    cycle, or one fused window per ``fused_cycles``, in the params' VC
+    mode, and none of any other."""
     from repro_torch.kernels.noc_router import noc_router as K
 
     want = dict.fromkeys(K.LAUNCHES, 0)
     k, V = params.fused_cycles, params.n_vcs
     if k == 1:
-        want.update({K.mode("arb", V): n, K.mode("apply", V): n})
+        arb = "arb_offload" if params.collective_offload else "arb"
+        want.update({K.mode(arb, V): n, K.mode("apply", V): n})
     else:
         want[K.mode("fused", V)] = n // k
     return want
@@ -500,6 +691,59 @@ def run_counted(TS, sim, n, state=None):
     want = expected_launches(sim.params, n)
     check(launches == want, f"expected launches {want}, got {launches}")
     return st, dt, launches
+
+
+def offload_run(name, otopo, V, sched, n, mid, done_at=None):
+    """One offloaded collective on the card through ``build_sim`` /
+    ``run`` (two counted runs: ``mid`` cycles, then the rest), held
+    against the same run on the CPU; with ``done_at`` also the
+    exactly-once delivery and the completion cycle. Returns the state
+    at ``mid``, the sim and the launch counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.noc import collective_traffic as CT
+    from repro_torch.core.noc import sim as TS
+    from repro_torch.core.noc.params import NocParams
+
+    op = NocParams(collective_offload=True, n_vcs=V)
+    owl = CT.to_workload(otopo, sched)
+    groups = sched.meta["groups"]
+    osim = TS.build_sim(otopo, op, owl, groups=groups)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # earlier phases' live tensors
+    st_mid, dt1, l1 = run_counted(TS, osim, mid)
+    st, dt2, l2 = run_counted(TS, osim, n - mid, st_mid)
+    peak_ = torch.cuda.max_memory_allocated()
+    launches = {k: l1[k] + l2[k] for k in l1}
+    csim = TS.build_sim(otopo, op, owl, groups=groups, device="cpu")
+    t0 = time.perf_counter()
+    cst = TS.run(csim, n)
+    dt_cpu = time.perf_counter() - t0
+    bad = states_equal(st, cst)
+    check(not bad, f"{name} GPU state differs from CPU state in {bad}")
+    out = TS.stats(osim, st)
+    done = CT.measured_cycles(out, otopo)
+    cpu_done = CT.measured_cycles(TS.stats(csim, cst), otopo)
+    exact = bool(np.array_equal(out["rx_bursts"], sched.expect_rx))
+    phase(name, cycles=n, n_vcs=V, groups=len(groups),
+          beats=sched.meta["beats"], launches=launches,
+          gpu_ms_per_cycle=(dt1 + dt2) / n * 1e3,
+          cpu_ms_per_cycle=dt_cpu / n * 1e3, gpu_state_equals_cpu=True,
+          completion_cycle=done, cpu_completion_cycle=cpu_done,
+          analytical_cycles=CT.analytical_cycles(sched, op, otopo),
+          rx_bursts_equal_expect_rx=exact,
+          beats_rcvd=int(out["beats_rcvd"].sum()),
+          beats_sent=int(out["beats_sent"].sum()), peak_device_bytes=peak_,
+          peak_above_earlier_phases_bytes=peak_ - held)
+    check(out["beats_sent"].sum() > 0, f"{name} moved no wide beats")
+    if done_at is not None:
+        check(exact, f"{name}: rx_bursts differ from expect_rx")
+        check(done == cpu_done == done_at,
+              f"{name} completes at {done} (CPU {cpu_done}), "
+              f"expected {done_at}")
+    return st_mid, osim, launches
 
 
 def ring_workload(TT_epm, topo, beats=64):
@@ -545,6 +789,7 @@ def main() -> int:
     from repro_torch.core.noc import endpoints as epm
     from repro_torch.core.noc import engine as eng
     from repro_torch.core.noc import sim as TS
+    from repro_torch.core.noc import collective_traffic as CT
     from repro_torch.core.noc import traffic as TT
     from repro_torch.core.noc.engine import make_tables
     from repro_torch.core.noc.params import NocParams
@@ -612,6 +857,35 @@ def main() -> int:
                 check(err == 0, f"fused kernel disagrees with plain: {err}")
                 key = K.mode("fused", V)
                 errs[key] = max(errs[key], err)
+
+    # ---- 2d. the offload arb kernel with random reduction-ALU state --------
+    # tables: the in-fabric all-reduce's two groups (one tree, so they share
+    # every parent port) plus a multicast group rooted elsewhere
+    reached = dict.fromkeys(("shared_parent", "contested_emission",
+                             "cancelled_mc_win"), 0)
+    for name, otopo, V in (("mesh 8x4", build_mesh(nx=4, ny=8), 1),
+                           ("torus 8x4", build_torus(nx=4, ny=8), 2),
+                           ("mesh 32x32", build_mesh(nx=32, ny=32), 1),
+                           ("occamy", build_occamy(), 2)):
+        groups = (CT.all_reduce(otopo, data_kb=16, streams=2,
+                                algo="infabric").meta["groups"]
+                  + CT.multicast(otopo, root=1, offload=True).meta["groups"])
+        tables = make_tables(otopo, n_vcs=V, groups=groups, device=dev)
+        for depth in (2, 4):
+            raw = random_snapshot(rng, tables, 3, depth)
+            red = random_offload(rng, raw, tables)
+            e, seen = compare_offload(to_device(raw, dev), to_device(red, dev),
+                                      tables)
+            phase("kernels_vs_plain_offload", fabric=name,
+                  R=int(tables.route.shape[0]),
+                  slots=int(tables.port_ep.shape[1]), groups=len(groups),
+                  depth=depth, max_abs_err=e, cases=seen)
+            check(max(e.values()) == 0,
+                  f"offload kernel disagrees with plain: {e}")
+            key = K.mode("arb_offload", V)
+            errs[key] = max(errs[key], e["arb"], e["cycle"])
+            reached = {k: reached[k] + seen[k] for k in reached}
+    check(all(reached.values()), f"offload cases not all reached: {reached}")
 
     # ---- 3. main path on the paper's 8x4 mesh -----------------------------
     topo = build_mesh(nx=4, ny=8)
@@ -836,7 +1110,30 @@ def main() -> int:
                              ones(gtor), 200)
     phase("kernel_times_fused_vc_32x32", **fused_vc_32)
 
-    # ---- 9. the kernels line -----------------------------------------------
+    # ---- 9. in-network collective offload -----------------------------------
+    ar = lambda t: CT.all_reduce(t, data_kb=16, streams=2, algo="infabric")
+    ar_mid, ar_sim, ar_launches = offload_run(
+        "allreduce_infabric_8x4", topo, 1, ar(topo), 1000, 400, done_at=693)
+    offload_8x4 = time_offload(ar_mid.fabric, ar_sim.tables)
+    phase("kernel_times_offload_8x4", at_cycle=400, **offload_8x4)
+    layers_ar = layer_times(eng, ar_sim, ar_mid)
+    phase("layers_allreduce_infabric_8x4", from_cycle=400, **layers_ar)
+    phase("profile_allreduce_infabric_8x4", from_cycle=400,
+          **device_profile(ar_sim, ar_mid, layers_ar["step_ms"], n=10))
+    offload_run("multicast_tree_8x4", topo, 1,
+                CT.multicast(topo, data_kb=16, streams=4, offload=True),
+                450, 150, done_at=278)
+    tar_mid, tar_sim, tar_launches = offload_run(
+        "allreduce_infabric_torus_vc_8x4", ttopo, 2, ar(ttopo), 1000, 400,
+        done_at=673)
+    offload_vc_8x4 = time_offload(tar_mid.fabric, tar_sim.tables)
+    phase("kernel_times_offload_vc_8x4", at_cycle=400, **offload_vc_8x4)
+    big_mid, big_sim, _ = offload_run(
+        "scale_32x32_allreduce_infabric", btopo, 1, ar(btopo), 200, 100)
+    offload_32 = time_offload(big_mid.fabric, big_sim.tables)
+    phase("kernel_times_offload_32x32", at_cycle=100, **offload_32)
+
+    # ---- 10. the kernels line ----------------------------------------------
     src = "src/repro_torch/kernels/noc_router/csrc/noc_router.cu"
     tpu = "src/repro/kernels/noc_router/noc_router.py:"
     rows = [  # (LAUNCHES key, kernel, TPU kernel line, main-path launches,
@@ -855,6 +1152,12 @@ def main() -> int:
         ("fused_vc", "noc_fused_kernel[n_vcs=2]", 419, torus_launches,
          fused_vc_8x4, fused_vc_32,
          "8x4 torus, C=3, R=32, P=10 slots, D=2, window N=4"),
+        ("arb_offload", "noc_arb_offload_kernel", 120, ar_launches,
+         offload_8x4, offload_32,
+         "8x4 mesh, C=3, R=32, P=5, D=2, G=2 (in-fabric all-reduce)"),
+        ("arb_offload_vc", "noc_arb_offload_kernel[n_vcs=2]", 120,
+         tar_launches, offload_vc_8x4, None,
+         "8x4 torus, C=3, R=32, P=10 slots, D=2, G=2 (in-fabric all-reduce)"),
     ]
     kernels = []
     for key, name, line, launches, t8, t32, shape in rows:
@@ -865,9 +1168,9 @@ def main() -> int:
             "max_abs_err": errs[key], "ms": t8["ms"], "plain_ms": t8["plain_ms"],
             "bound_ms": t8["bound_ms"], "bound_by": t8["bound_by"],
             "library_ms": None, "shape": shape,
-            "scale_32x32": {"ms": t32["ms"], "plain_ms": t32["plain_ms"],
-                            "bound_ms": t32["bound_ms"],
-                            "bound_by": t32["bound_by"]},
+            "scale_32x32": None if t32 is None else {
+                "ms": t32["ms"], "plain_ms": t32["plain_ms"],
+                "bound_ms": t32["bound_ms"], "bound_by": t32["bound_by"]},
         })
     phase("total", seconds=time.perf_counter() - t_start)
     print(card)

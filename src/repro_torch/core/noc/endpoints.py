@@ -51,7 +51,11 @@ class Workload:
     dma_dst_seq: np.ndarray | None = None  # [E, S, K] int32
     dma_gate: np.ndarray | None = None  # [E, S, K] int32 required rx_bursts
     dma_beats_seq: np.ndarray | None = None  # [E, S, K] int32
-    # collective groups addressed by this workload (offload; not ported)
+    # in-fabric collective offload (params.collective_offload): DMA
+    # destinations in [E, E+n_groups) are offloaded multicasts to group g,
+    # [E+n_groups, E+2*n_groups) reduction contributions to group g. Both
+    # are posted writes (no NI/RoB tracking); the fabric must be built with
+    # matching groups (sim.build_sim)
     n_groups: int = 0
 
     @property

@@ -69,7 +69,9 @@ class NocParams:
     # kernel launch on the card); 1 = per-cycle stepping
     fused_cycles: int = 1
 
-    # in-network collective offload (not ported)
+    # in-network collective offload: multicast fork tables and per-router
+    # reduction ALUs in the fabric (groups passed to sim.build_sim);
+    # per-cycle stepping only
     collective_offload: bool = False
 
     def __post_init__(self):
@@ -85,9 +87,6 @@ class NocParams:
             raise ValueError("n_vcs must be >= 1")
         if self.collective_offload and self.fused_cycles != 1:
             raise ValueError("collective_offload requires fused_cycles == 1")
-        if self.collective_offload:
-            raise NotImplementedError(
-                "collective_offload is not ported yet (ROADMAP Queue 1 item 9)")
         if self.step_impl == "naive":
             raise NotImplementedError(
                 "step_impl='naive' is not ported yet (ROADMAP Queue 1 item 4)")
@@ -100,8 +99,8 @@ WIDE_AR = 2  # wide read request (rides the narrow `req` link)
 WIDE_R = 3  # wide read data beat (wide link)
 WIDE_AW_W = 4  # wide write addr+data beats (wide link, wormhole)
 WIDE_B = 5  # write response (rsp link)
-WIDE_MC = 6  # multicast write beat (collective offload, not ported)
-WIDE_RED = 7  # reduction partial-sum beat (collective offload, not ported)
+WIDE_MC = 6  # multicast write beat (collective offload, tree-forked)
+WIDE_RED = 7  # reduction partial-sum beat (collective offload, ALU-combined)
 
 # physical channel roles (channel indices >= CH_WIDE are all wide channels;
 # the channel *count* lives in NocParams.n_channels)

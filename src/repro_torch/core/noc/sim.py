@@ -36,7 +36,9 @@ from repro_torch.core.noc.params import (
     WIDE_AR,
     WIDE_AW_W,
     WIDE_B,
+    WIDE_MC,
     WIDE_R,
+    WIDE_RED,
     NocParams,
     wide_channel_of,
 )
@@ -100,6 +102,14 @@ def _ingest(st: epm.EndpointState, flits, valid, cycle: int,
     # write bursts arriving (we are the target); wormhole => no interleave
     is_w = valid & (kind == WIDE_AW_W)
     rcvd = is_r | is_w
+    if params.collective_offload:
+        # in-fabric collective payloads (tree-forked multicast beats and
+        # combined reduction partials) are posted writes: they count as
+        # received beats and complete bursts, but neither enqueue a memory
+        # response nor touch the issuer-side NI
+        is_off = valid & ((kind == WIDE_MC) | (kind == WIDE_RED))
+        rcvd = rcvd | is_off
+        off_tail = is_off & (flits[..., F_LAST] > 0)
     beats_rcvd = st.beats_rcvd + epm._isum(rcvd, 0)
     any_beat = rcvd.any(dim=0)
     cyc_e = _full(E, cycle, dev)
@@ -118,8 +128,11 @@ def _ingest(st: epm.EndpointState, flits, valid, cycle: int,
                                         flits[..., F_SRC], flits[..., F_TXN],
                                         1, WIDE_B, flits[..., F_TS],
                                         flits[..., F_META])
-    # completed write bursts per stream (the scheduled DMA's gate signal)
-    rx_bursts = epm._col_add(st.rx_bursts, stream, w_tail.to(I32))
+    # completed write bursts per stream (the scheduled DMA's gate signal);
+    # offloaded collective tails count too (a root gates its multicast on
+    # the in-fabric reduction arriving)
+    burst_tail = w_tail | off_tail if params.collective_offload else w_tail
+    rx_bursts = epm._col_add(st.rx_bursts, stream, burst_tail.to(I32))
 
     # ---- rsp channel ----
     f = flits[CH_RSP]
@@ -246,11 +259,25 @@ def _generators(st: epm.EndpointState, cycle: int, params: NocParams,
     st_tmp = dataclasses.replace(st, ni_cnt=ni_cnt, ni_dst=ni_dst,
                                  rob_credit=rob)
     ok_es = epm._ni_check(st_tmp, txn_of_stream, dst_es, params, beats)
+    n_off = wl.n_groups
+    if n_off:
+        # group-addressed transfers (dst >= E: offloaded multicast in
+        # [E, E+G), reduction contributions in [E+G, E+2G)) are posted
+        # writes: no response returns, so they bypass the NI/RoB check
+        ok_es = ok_es | (dst_es >= E)
     want_es = ((st.d_txns_left > 0) & (st.d_outst < params.max_outstanding)
                & enabled & gate_ok)
     elig = want_es & ok_es
-    rot = torch.remainder(s_idx[None, :] - (cycle + eidx[:, None]), S)
-    score = torch.where(elig, rot, S + 1)
+    if n_off:
+        # static lowest-stream-first pick under collective offload: the
+        # in-fabric reduction consumes the streams' bursts beat-aligned per
+        # group, so every contributor drains its streams in one global
+        # order (a rotating pick can close a circular wait through the
+        # shared write serializer)
+        score = torch.where(elig, s_idx[None, :], S + 1)
+    else:
+        rot = torch.remainder(s_idx[None, :] - (cycle + eidx[:, None]), S)
+        score = torch.where(elig, rot, S + 1)
     # argmin ties go to the first index: rank by (score, stream) so the
     # minimum is unique on every device
     pick = (score * S + s_idx).argmin(dim=1)
@@ -284,10 +311,19 @@ def _generators(st: epm.EndpointState, cycle: int, params: NocParams,
         w_txn = torch.where(fire_d, pick_txn, st.w_txn)
         w_ts = torch.where(fire_d, _full(E, cycle, dev), st.w_ts)
 
-    ni_cnt, ni_dst, rob = epm._ni_issue(st_tmp, fire_d, pick_txn, pick_dst,
+    d_done = st.d_done
+    if n_off:
+        # posted group-addressed transfers hold no NI slot and are never
+        # outstanding (nothing retires them): they count done at issue
+        pick_off = fire_d & (pick_dst >= E)
+        fire_ni = fire_d & ~pick_off
+        d_done = epm._col_add(d_done, pick, pick_off.to(I32))
+    else:
+        fire_ni = fire_d
+    ni_cnt, ni_dst, rob = epm._ni_issue(st_tmp, fire_ni, pick_txn, pick_dst,
                                         pick_beats, params)
     d_txns_left = epm._col_add(st.d_txns_left, pick, -fire_d.to(I32))
-    d_outst = epm._col_add(st.d_outst, pick, fire_d.to(I32))
+    d_outst = epm._col_add(st.d_outst, pick, fire_ni.to(I32))
     d_seq = epm._col_add(st.d_seq, pick, fire_d.to(I32))
 
     # ---- write burst serializer: one AW_W beat per cycle ----
@@ -304,8 +340,18 @@ def _generators(st: epm.EndpointState, cycle: int, params: NocParams,
         last = torch.where(emit, (w_left == 1).to(I32), 0)
         # META carries the burst's TOTAL beats so the target can echo it in
         # the B response (exact retirement credit at the issuer)
-        flit_w = eng.pack_flit(w_dst, eidx, WIDE_AW_W, w_txn, last, w_ts,
-                               w_beats)
+        if n_off:
+            # decode the group-address range at emission: reduction
+            # contributions rewrite dst to the group address [E, E+G) that
+            # the in-fabric ALU emits toward the root; multicast beats keep it
+            is_red_w = w_dst >= E + n_off
+            kind_w = torch.where(is_red_w, WIDE_RED,
+                                 torch.where(w_dst >= E, WIDE_MC, WIDE_AW_W))
+            flit_w = eng.pack_flit(torch.where(is_red_w, w_dst - n_off, w_dst),
+                                   eidx, kind_w, w_txn, last, w_ts, w_beats)
+        else:
+            flit_w = eng.pack_flit(w_dst, eidx, WIDE_AW_W, w_txn, last, w_ts,
+                                   w_beats)
         eg, eg_ready, eg_cnt = epm._eg_push(
             eg, eg_ready, st.eg_head, eg_cnt, wch, emit, flit_w,
             _full(E, cycle + 1, dev))
@@ -319,8 +365,9 @@ def _generators(st: epm.EndpointState, cycle: int, params: NocParams,
         st, eg=eg, eg_ready=eg_ready, eg_cnt=eg_cnt, ni_cnt=ni_cnt,
         ni_dst=ni_dst, rob_credit=rob, n_acc=n_acc, n_seq=n_seq,
         n_sent=n_sent, d_txns_left=d_txns_left, d_outst=d_outst, d_seq=d_seq,
-        w_stream=w_stream, w_left=w_left, w_beats=w_beats, w_dst=w_dst,
-        w_txn=w_txn, w_ts=w_ts, beats_sent=beats_sent, ni_stall=ni_stall,
+        d_done=d_done, w_stream=w_stream, w_left=w_left, w_beats=w_beats,
+        w_dst=w_dst, w_txn=w_txn, w_ts=w_ts, beats_sent=beats_sent,
+        ni_stall=ni_stall,
     )
 
 
@@ -411,6 +458,7 @@ class Sim:
         fabric = eng.init_fabric(self.topo, self.params.depth_in,
                                  self.params.depth_out,
                                  self.params.n_channels, self.params.n_vcs,
+                                 n_groups=self.tables.n_groups,
                                  device=self.device)
         eps = epm.init_endpoints(self.topo.n_endpoints, self.params,
                                  self.wl.n_streams, self.device)
@@ -529,11 +577,23 @@ class Sim:
 def build_sim(topo: Topology, params: NocParams, wl: epm.Workload,
               groups: list[dict] | None = None, device=None) -> Sim:
     """Assemble a Sim on ``device`` (``cuda`` unless the caller names
-    another): fabric tables, HBM/memory maps and workload tensors."""
+    another): fabric tables, HBM/memory maps and workload tensors.
+
+    ``groups`` (requires ``params.collective_offload``) declares the
+    in-fabric collective groups, ``{"root": ep, "members": [...]}`` dicts
+    with optional ``"reduce": [...]`` contributors, whose multicast fork
+    and reduction trees go into the fabric tables; workloads address group
+    ``g`` as destination ``E + g`` (multicast) or ``E + G + g`` (reduction
+    contribution).
+    """
     dev = resolve_device(device)
-    if groups is not None or wl.n_groups:
-        raise NotImplementedError(
-            "collective groups are not ported yet (ROADMAP Queue 1 item 9)")
+    if groups is not None and not params.collective_offload:
+        raise ValueError(
+            "collective groups require NocParams(collective_offload=True)")
+    if wl.n_groups and (groups is None or len(groups) != wl.n_groups):
+        raise ValueError(
+            f"workload addresses {wl.n_groups} collective group(s) but the "
+            f"fabric was built with {0 if groups is None else len(groups)}")
     E = topo.n_endpoints
     is_hbm = np.zeros((E,), bool)
     n_hbm = topo.meta.get("n_hbm", 0)
@@ -542,7 +602,7 @@ def build_sim(topo: Topology, params: NocParams, wl: epm.Workload,
     is_mem = np.ones((E,), bool)  # every endpoint can serve (tiles: SPM)
     return Sim(
         topo=topo, params=params, wl=wl,
-        tables=eng.make_tables(topo, params.n_vcs, device=dev),
+        tables=eng.make_tables(topo, params.n_vcs, groups=groups, device=dev),
         is_hbm=torch.as_tensor(is_hbm, device=dev),
         is_mem=torch.as_tensor(is_mem, device=dev),
         wt=WorkloadTensors.of(wl, dev), device=dev,
@@ -591,8 +651,11 @@ def _trace_slice(st: SimState, deliver, fields: tuple) -> dict:
 
 
 def _stack(items):
-    """Stack a list of equally-shaped nests (tuples, dicts, dataclasses)."""
+    """Stack a list of equally-shaped nests (tuples, dicts, dataclasses;
+    ``None`` leaves stay ``None``)."""
     first = items[0]
+    if first is None:
+        return None
     if isinstance(first, torch.Tensor):
         return torch.stack(items)
     if isinstance(first, tuple):

@@ -9,6 +9,10 @@
 //                         link_inputs + sent_mask + fused apply_cycle
 //   * noc_fused_kernel <- `_fused_kernel` (V = 1) and `_fused_kernel_vc`
 //                         (V > 1); plain version: ref.router_cycles_scan
+//   * noc_arb_offload_kernel <- `_arb_kernel_offload` (any V); plain
+//                         version: ref.offload_decisions (multicast fork,
+//                         reduction ALU, emission pre-emption). Its merged
+//                         decisions feed the unchanged noc_apply_kernel.
 // All are held bit for bit against the plain PyTorch versions in
 // src/repro_torch/kernels/noc_router/ref.py.
 //
@@ -38,6 +42,8 @@
 //   ep_space [C, E] bool; arb_pop, granted, in_space [C, R, P] bool
 //   chosen [C, R, P, NF]
 //   eg [C, E, Q, NF], eg_ready [C, E, Q], eg_head, eg_cnt [C, E]
+//   offload: fork_out [R, G, P] bool; red_parent, red_need [R, G];
+//   red_acc [C, R, G, NRED]; red_got [C, R, G, P] bool
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -47,8 +53,23 @@
 
 #define NF 7
 #define F_DST 0
+#define F_SRC 1
+#define F_KIND 2
+#define F_TXN 3
 #define F_LAST 4
+#define F_TS 5
+#define F_META 6
 #define MAX_P 32
+// collective offload: flit kinds and the reduction-ALU slot layout
+#define KIND_MC 6
+#define KIND_RED 7
+#define NRED 6
+#define A_VAL 0
+#define A_CNT 1
+#define A_NLAST 2
+#define A_TXN 3
+#define A_TS 4
+#define A_SRC 5
 
 // JAX's `%` on integers is a floor modulo; C++'s `%` truncates toward
 // zero and is negative for a negative operand (pin - rr_ptr < 0).
@@ -58,6 +79,12 @@ __device__ __forceinline__ int floor_mod(int a, int m) {
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
+}
+
+// int32 subtraction with the two's-complement wraparound JAX computes
+// (signed overflow is undefined in C++, so it runs on uint32_t).
+__device__ __forceinline__ int wrap_sub(int a, int b) {
+  return (int)((uint32_t)a - (uint32_t)b);
 }
 
 // Round-robin output arbitration for one (channel, router) `cr = c*R + r`:
@@ -248,6 +275,215 @@ __global__ void noc_apply_kernel(
              t % P, R, P, Din, Dout, E, V);
 }
 
+// Collective-offload arbitration for one (channel, router) `cr = c*R + r`:
+// ref.offload_decisions. All decisions come from the cycle-start snapshot.
+//
+//  1. Reduction ALU, one pass over the G groups in order (G is not bounded:
+//     no per-thread array is sized by it). A group on the tree is `full`
+//     once its count reaches `red_need`; it emits into its parent slot if
+//     that slot has output space and no wormhole lock, and no lower group
+//     took the port this cycle (the reference's `cumsum == 1`). A RED head
+//     of group g at a slot that has not contributed to the current beat
+//     is consumed when the slot is not full or is emitting this cycle; the
+//     accumulator sums F_META and the count (int32 wrap), max-merges the
+//     rest, and zero-clears on emission.
+//  2. Arbitration over uint32_t request masks (P <= 32 slots): a unicast
+//     head requests its routed slot, a multicast head every fork slot of
+//     its group. Ports an emission owns are not eligible. The first-min
+//     round-robin winner per output; a multicast head fires only if it won
+//     every requested branch, and grants won by a multicast head that did
+//     not fire are cancelled (their rr/wh stay). Emissions are merged into
+//     `granted` / `chosen` after the rr/wh updates, as the reference does.
+__device__ __forceinline__ void arb_router_offload(
+    const int* __restrict__ in_buf, const int* __restrict__ in_cnt,
+    const int* __restrict__ out_cnt, const int* __restrict__ rr,
+    const int* __restrict__ wh, const int* __restrict__ route,
+    const int* __restrict__ vc_out, const bool* __restrict__ fork_out,
+    const int* __restrict__ red_parent, const int* __restrict__ red_need,
+    const int* __restrict__ red_acc, const bool* __restrict__ red_got,
+    bool* __restrict__ arb_pop, bool* __restrict__ granted,
+    int* __restrict__ chosen, int* __restrict__ rr_out,
+    int* __restrict__ wh_out, bool* __restrict__ in_space,
+    int* __restrict__ red_acc_out, bool* __restrict__ red_got_out, int cr,
+    int r, int P, int Din, int Dout, int E, int V, int G) {
+  const size_t base = (size_t)cr * P;
+  const size_t rg = (size_t)r * G, crg = (size_t)cr * G;
+  int g_of[MAX_P];
+  uint32_t is_mc = 0, is_red = 0, uni = 0;
+  for (int pin = 0; pin < P; ++pin) {
+    const int* head = in_buf + (base + pin) * Din * NF;
+    // group addresses are E + g; anything else clamps into [0, G - 1]
+    g_of[pin] = clampi(wrap_sub(head[F_DST], E), 0, G - 1);
+    if (in_cnt[base + pin] > 0) {
+      uint32_t bit = 1u << pin;
+      if (head[F_KIND] == KIND_MC) is_mc |= bit;
+      else if (head[F_KIND] == KIND_RED) is_red |= bit;
+      else uni |= bit;
+    }
+  }
+
+  // ---- 1. reduction ALU ----
+  uint32_t emit_mask = 0, red_pop = 0;
+  int emit_g[MAX_P];
+  for (int g = 0; g < G; ++g) {
+    const int need = red_need[rg + g], par = red_parent[rg + g];
+    const int* acc = red_acc + (crg + g) * NRED;
+    const bool on_tree = need > 0;
+    const bool full = on_tree && acc[A_CNT] >= need;
+    const int pc = clampi(par, 0, P - 1);
+    const bool can_emit = full && par >= 0 && out_cnt[base + pc] < Dout &&
+                          wh[base + pc] < 0;
+    bool emitting = false;
+    if (can_emit && !((emit_mask >> pc) & 1u)) {
+      emit_mask |= 1u << pc;
+      emit_g[pc] = g;
+      emitting = true;
+    }
+    const bool accept = on_tree && (!full || emitting);
+    const bool* got = red_got + (crg + g) * P;
+    bool* got_out = red_got_out + (crg + g) * P;
+    uint32_t sum = 0, n = 0;
+    // the reference maxes over every slot, 0 standing in for the slots
+    // that do not contribute
+    int m_nlast = INT_MIN, m_txn = INT_MIN, m_ts = INT_MIN, m_src = INT_MIN;
+    for (int pin = 0; pin < P; ++pin) {
+      const bool take = ((is_red >> pin) & 1u) && g_of[pin] == g &&
+                        !got[pin] && accept;
+      int v_nlast = 0, v_txn = 0, v_ts = 0, v_src = 0;
+      if (take) {
+        const int* head = in_buf + (base + pin) * Din * NF;
+        sum += (uint32_t)head[F_META];
+        n += 1;
+        v_nlast = wrap_sub(1, head[F_LAST]);
+        v_txn = head[F_TXN];
+        v_ts = head[F_TS];
+        v_src = head[F_SRC];
+        red_pop |= 1u << pin;
+      }
+      m_nlast = max(m_nlast, v_nlast);
+      m_txn = max(m_txn, v_txn);
+      m_ts = max(m_ts, v_ts);
+      m_src = max(m_src, v_src);
+      got_out[pin] = (got[pin] && !emitting) || take;
+    }
+    int* acc_out = red_acc_out + (crg + g) * NRED;
+    acc_out[A_VAL] = (int)((emitting ? 0u : (uint32_t)acc[A_VAL]) + sum);
+    acc_out[A_CNT] = (int)((emitting ? 0u : (uint32_t)acc[A_CNT]) + n);
+    acc_out[A_NLAST] = max(emitting ? 0 : acc[A_NLAST], m_nlast);
+    acc_out[A_TXN] = max(emitting ? 0 : acc[A_TXN], m_txn);
+    acc_out[A_TS] = max(emitting ? 0 : acc[A_TS], m_ts);
+    acc_out[A_SRC] = max(emitting ? 0 : acc[A_SRC], m_src);
+  }
+
+  // ---- 2. arbitration with multicast fork requests ----
+  uint32_t req[MAX_P];
+  for (int pin = 0; pin < P; ++pin) {
+    uint32_t m = 0;
+    if ((uni >> pin) & 1u) {
+      // the destination is clipped into the table before the lookup
+      const int* head = in_buf + (base + pin) * Din * NF;
+      int port = route[(size_t)r * E + clampi(head[F_DST], 0, E - 1)];
+      if (V > 1) {
+        int Pp = P / V;
+        int vout = vc_out[((size_t)r * P + pin) * Pp + clampi(port, 0, Pp - 1)];
+        port = (int)((uint32_t)port * (uint32_t)V + (uint32_t)vout);
+      }
+      if (port >= 0 && port < P) m = 1u << port;
+    }
+    if ((is_mc >> pin) & 1u) {
+      const bool* fork = fork_out + (rg + g_of[pin]) * P;
+      for (int pout = 0; pout < P; ++pout)
+        if (fork[pout]) m |= 1u << pout;
+    }
+    req[pin] = m;
+  }
+
+  uint32_t granted0 = 0, win[MAX_P];
+  int winner[MAX_P];
+  for (int pin = 0; pin < P; ++pin) win[pin] = 0;
+  for (int pout = 0; pout < P; ++pout) {
+    const int lock = wh[base + pout], ptr = rr[base + pout];
+    const bool open = out_cnt[base + pout] < Dout && !((emit_mask >> pout) & 1u);
+    int best = 0, w = 0;
+    for (int pin = 0; pin < P; ++pin) {
+      bool elig = ((req[pin] >> pout) & 1u) && (lock < 0 || lock == pin) && open;
+      int score = elig ? floor_mod(pin - ptr, P) : P + 1;
+      if (pin == 0 || score < best) {  // first minimum, as the reference
+        best = score;
+        w = pin;
+      }
+    }
+    winner[pout] = w;
+    if (best <= P) {
+      granted0 |= 1u << pout;
+      win[w] |= 1u << pout;
+    }
+  }
+
+  uint32_t fire = 0, pop = red_pop;
+  for (int pin = 0; pin < P; ++pin) {
+    const uint32_t bit = 1u << pin;
+    if ((is_mc & bit) && req[pin] != 0 && (req[pin] & ~win[pin]) == 0) fire |= bit;
+    if ((uni & bit) && win[pin] != 0) pop |= bit;
+  }
+  pop |= fire;
+
+  for (int pout = 0; pout < P; ++pout) {
+    const int w = winner[pout], lock = wh[base + pout], ptr = rr[base + pout];
+    const uint32_t wbit = 1u << w;
+    const bool g = ((granted0 >> pout) & 1u) && (!(is_mc & wbit) || (fire & wbit));
+    const bool emit = (emit_mask >> pout) & 1u;
+    const int* wh_head = in_buf + (base + w) * Din * NF;
+    int* ch = chosen + (base + pout) * NF;
+    if (emit) {
+      // the combined flit stays group-addressed for the next hop
+      const int ge = emit_g[pout];
+      const int* acc = red_acc + (crg + ge) * NRED;
+      ch[F_DST] = E + ge;
+      ch[F_SRC] = acc[A_SRC];
+      ch[F_KIND] = KIND_RED;
+      ch[F_TXN] = acc[A_TXN];
+      ch[F_LAST] = wrap_sub(1, acc[A_NLAST]);
+      ch[F_TS] = acc[A_TS];
+      ch[F_META] = acc[A_VAL];
+    } else {
+      for (int f = 0; f < NF; ++f) ch[f] = wh_head[f];
+    }
+    granted[base + pout] = g || emit;
+    rr_out[base + pout] = g ? (w + 1) % P : ptr;
+    const bool is_tail = wh_head[F_LAST] > 0;
+    wh_out[base + pout] = g ? (is_tail ? -1 : w) : lock;
+  }
+
+  for (int pin = 0; pin < P; ++pin) {
+    const bool p = (pop >> pin) & 1u;
+    arb_pop[base + pin] = p;
+    in_space[base + pin] = (in_cnt[base + pin] - (p ? 1 : 0)) < Din;
+  }
+}
+
+// One thread per (channel, router).
+__global__ void noc_arb_offload_kernel(
+    const int* __restrict__ in_buf, const int* __restrict__ in_cnt,
+    const int* __restrict__ out_cnt, const int* __restrict__ rr,
+    const int* __restrict__ wh, const int* __restrict__ route,
+    const int* __restrict__ vc_out, const bool* __restrict__ fork_out,
+    const int* __restrict__ red_parent, const int* __restrict__ red_need,
+    const int* __restrict__ red_acc, const bool* __restrict__ red_got,
+    bool* __restrict__ arb_pop, bool* __restrict__ granted,
+    int* __restrict__ chosen, int* __restrict__ rr_out,
+    int* __restrict__ wh_out, bool* __restrict__ in_space,
+    int* __restrict__ red_acc_out, bool* __restrict__ red_got_out, int C,
+    int R, int P, int Din, int Dout, int E, int V, int G) {
+  int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= C * R) return;
+  arb_router_offload(in_buf, in_cnt, out_cnt, rr, wh, route, vc_out,
+                     fork_out, red_parent, red_need, red_acc, red_got,
+                     arb_pop, granted, chosen, rr_out, wh_out, in_space,
+                     red_acc_out, red_got_out, t, t % R, P, Din, Dout, E, V,
+                     G);
+}
+
 // Operands of the fused window. `*0` are the inputs (never written); the
 // ten state outputs double as one half of the ping-pong pair, `s_*` is the
 // other half; `arb_*` is the per-cycle arbitration scratch.
@@ -388,6 +624,25 @@ extern "C" int noc_apply_launch(
       (const int*)link_dst, (const int*)port_ep, (const bool*)ep_space,
       (int*)new_in_buf, (int*)new_in_cnt, (int*)new_out_buf,
       (int*)new_out_cnt, C, R, P, Din, Dout, E, V);
+  return (int)cudaGetLastError();
+}
+
+// `ptrs` holds the 20 pointer operands of noc_arb_offload_kernel in order,
+// `dims` (C, R, P, Din, Dout, E, V, G).
+extern "C" int noc_arb_offload_launch(void* const* ptrs, const int* dims,
+                                      void* stream) {
+  const int C = dims[0], R = dims[1], P = dims[2], Din = dims[3];
+  const int Dout = dims[4], E = dims[5], V = dims[6], G = dims[7];
+  int n = C * R;
+  int blocks = (n + kThreads - 1) / kThreads;
+  noc_arb_offload_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const int*)ptrs[0], (const int*)ptrs[1], (const int*)ptrs[2],
+      (const int*)ptrs[3], (const int*)ptrs[4], (const int*)ptrs[5],
+      (const int*)ptrs[6], (const bool*)ptrs[7], (const int*)ptrs[8],
+      (const int*)ptrs[9], (const int*)ptrs[10], (const bool*)ptrs[11],
+      (bool*)ptrs[12], (bool*)ptrs[13], (int*)ptrs[14], (int*)ptrs[15],
+      (int*)ptrs[16], (bool*)ptrs[17], (int*)ptrs[18], (bool*)ptrs[19], C,
+      R, P, Din, Dout, E, V, G);
   return (int)cudaGetLastError();
 }
 

@@ -15,6 +15,11 @@ package's Pallas router kernels:
 3. **fused** — one CTA per channel runs an N-cycle window (arb, apply and
    egress injection per cycle, ``__syncthreads()`` between the phases).
    Replaces ``_fused_kernel`` and, with ``n_vcs > 1``, ``_fused_kernel_vc``.
+4. **arb_offload** — one thread per (channel, router): the collective-
+   offload arbitration (multicast fork, reduction ALU, emission
+   pre-emption) at any ``n_vcs``, with the ALU state ``red_acc`` /
+   ``red_got`` in and out. Replaces ``_arb_kernel_offload``; its merged
+   decisions go to the unchanged apply kernel.
 
 One per-cycle step is an arb then an apply launch: the launch boundary is
 the arb -> link barrier (``in_space`` of every router must be visible
@@ -39,7 +44,12 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels.noc_router.ref import NF, ArbDecisions, endpoint_deliveries
+from repro_torch.kernels.noc_router.ref import (
+    NF,
+    NRED,
+    ArbDecisions,
+    endpoint_deliveries,
+)
 
 CSRC = Path(__file__).parent / "csrc"
 SOURCES = (CSRC / "noc_router.cu",)
@@ -48,10 +58,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 MAX_P = 32  # slots (ports x VCs) per router the arb kernel holds per thread
 FUSED_PTRS = 40  # pointer operands of noc_fused_launch (FusedArgs)
+OFFLOAD_PTRS = 20  # pointer operands of noc_arb_offload_launch
 
 # launches of each kernel and mode, counted where the wrapper launches it
 LAUNCHES = {"arb": 0, "apply": 0, "arb_vc": 0, "apply_vc": 0, "fused": 0,
-            "fused_vc": 0}
+            "fused_vc": 0, "arb_offload": 0, "arb_offload_vc": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -112,6 +123,8 @@ def _load():
             lib.noc_apply_launch.restype = ci
             lib.noc_fused_launch.argtypes = [vp, vp, vp]
             lib.noc_fused_launch.restype = ci
+            lib.noc_arb_offload_launch.argtypes = [vp, vp, vp]
+            lib.noc_arb_offload_launch.restype = ci
             _lib = lib
     return _lib
 
@@ -141,7 +154,8 @@ def _stream(device):
 
 
 def mode(kernel: str, n_vcs: int) -> str:
-    """``LAUNCHES`` key of ``kernel`` ("arb", "apply", "fused") at ``n_vcs``."""
+    """``LAUNCHES`` key of ``kernel`` ("arb", "apply", "fused",
+    "arb_offload") at ``n_vcs``."""
     return kernel if n_vcs == 1 else f"{kernel}_vc"
 
 
@@ -218,6 +232,58 @@ def arb_cuda(in_buf, in_cnt, out_cnt, rr_ptr, wh_lock, route,
     return out
 
 
+def arb_offload_cuda(in_buf, in_cnt, out_cnt, rr_ptr, wh_lock, route,
+                     depth_out: int, fork_out, red_parent, red_need, red_acc,
+                     red_got, n_endpoints: int, vc_out=None, n_vcs: int = 1):
+    """Launch the offload arb kernel on channel-batched state (CUDA
+    tensors): the counterpart of ``ref.offload_decisions`` over
+    ``[C, R, P, ...]``. Returns ``(ArbDecisions, red_acc', red_got')``,
+    all fresh tensors; the inputs are only read."""
+    dev = in_buf.device
+    if dev.type != "cuda":
+        raise ValueError(f"arb_offload_cuda needs CUDA tensors, got {dev}")
+    C, R, P, Din = _dims(in_buf, n_vcs=n_vcs)
+    Dout = int(depth_out)
+    if route.dim() != 2 or fork_out.dim() != 3:
+        raise ValueError("route must be [R, E] and fork_out [R, G, P]")
+    E, G = route.shape[1], fork_out.shape[1]
+    if n_endpoints != E:
+        raise ValueError(f"n_endpoints={n_endpoints} but route has {E} columns")
+    if G < 1:
+        raise ValueError("the offload arb kernel needs at least one group")
+    i32, b = torch.int32, torch.bool
+    _check("in_buf", in_buf, i32, (C, R, P, Din, NF), dev)
+    for name, t in (("in_cnt", in_cnt), ("out_cnt", out_cnt),
+                    ("rr_ptr", rr_ptr), ("wh_lock", wh_lock)):
+        _check(name, t, i32, (C, R, P), dev)
+    _check("route", route, i32, (R, E), dev)
+    _check_vc(vc_out, n_vcs, R, P, dev)
+    _check("fork_out", fork_out, b, (R, G, P), dev)
+    _check("red_parent", red_parent, i32, (R, G), dev)
+    _check("red_need", red_need, i32, (R, G), dev)
+    _check("red_acc", red_acc, i32, (C, R, G, NRED), dev)
+    _check("red_got", red_got, b, (C, R, G, P), dev)
+    out = ArbDecisions(
+        arb_pop=torch.empty((C, R, P), dtype=b, device=dev),
+        granted=torch.empty((C, R, P), dtype=b, device=dev),
+        chosen=torch.empty((C, R, P, NF), dtype=i32, device=dev),
+        rr_ptr=torch.empty((C, R, P), dtype=i32, device=dev),
+        wh_lock=torch.empty((C, R, P), dtype=i32, device=dev),
+        in_space=torch.empty((C, R, P), dtype=b, device=dev))
+    red_acc2 = torch.empty_like(red_acc)
+    red_got2 = torch.empty_like(red_got)
+    ptrs = [in_buf, in_cnt, out_cnt, rr_ptr, wh_lock, route, vc_out,
+            fork_out, red_parent, red_need, red_acc, red_got, *out,
+            red_acc2, red_got2]
+    assert len(ptrs) == OFFLOAD_PTRS
+    c_ptrs = (ctypes.c_void_p * OFFLOAD_PTRS)(
+        *(None if t is None else t.data_ptr() for t in ptrs))
+    dims = (ctypes.c_int * 8)(C, R, P, Din, Dout, E, n_vcs, G)
+    err = _load().noc_arb_offload_launch(c_ptrs, dims, _stream(dev))
+    _count("arb_offload", n_vcs, err)
+    return out, red_acc2, red_got2
+
+
 def apply_cuda(in_buf, in_cnt, out_buf, out_cnt, arb: ArbDecisions,
                link_src, link_dst, port_ep, ep_space, n_vcs: int = 1):
     """Launch the apply kernel: the counterpart of ``ref.apply_phase``
@@ -276,6 +342,33 @@ def router_cycle_cuda(in_buf, in_cnt, out_buf, out_cnt, rr_ptr, wh_lock,
                                             ep_space)
     return (in2, in_cnt2, out2, out_cnt2, arb.rr_ptr, arb.wh_lock, ep_flit,
             ep_valid)
+
+
+def router_cycle_offload_cuda(in_buf, in_cnt, out_buf, out_cnt, rr_ptr,
+                              wh_lock, route, link_src, link_dst, port_ep,
+                              ep_attach, ep_space, fork_out, red_parent,
+                              red_need, red_acc, red_got, n_endpoints: int,
+                              vc_out=None, n_vcs: int = 1):
+    """One fabric cycle of every channel with collective offload: the
+    offload arb kernel, then the unchanged apply kernel (fork copies and
+    emitted reduction flits reach it through the merged ``granted`` /
+    ``chosen``). Same contract as ``ref.router_cycle_offload_reference(...,
+    fused=True)`` over channel-batched state: returns ``(in_buf, in_cnt,
+    out_buf, out_cnt, rr_ptr, wh_lock, ep_flit, ep_valid, red_acc',
+    red_got')``."""
+    arb, red_acc2, red_got2 = arb_offload_cuda(
+        in_buf, in_cnt, out_cnt, rr_ptr, wh_lock, route,
+        depth_out=out_buf.shape[-2], fork_out=fork_out,
+        red_parent=red_parent, red_need=red_need, red_acc=red_acc,
+        red_got=red_got, n_endpoints=n_endpoints, vc_out=vc_out,
+        n_vcs=n_vcs)
+    in2, in_cnt2, out2, out_cnt2 = apply_cuda(
+        in_buf, in_cnt, out_buf, out_cnt, arb, link_src, link_dst, port_ep,
+        ep_space, n_vcs=n_vcs)
+    ep_flit, ep_valid = endpoint_deliveries(out_buf, out_cnt, ep_attach,
+                                            ep_space)
+    return (in2, in_cnt2, out2, out_cnt2, arb.rr_ptr, arb.wh_lock, ep_flit,
+            ep_valid, red_acc2, red_got2)
 
 
 def router_cycles_fused_cuda(in_buf, in_cnt, out_buf, out_cnt, rr_ptr,

@@ -14,16 +14,20 @@ decide where they run:
   or raise.
 
 ``n_vcs > 1`` selects the virtual-channel datapath (slot-level P axis,
-``vc_out`` [R, P, Pp] the dateline table). This module does not import
+``vc_out`` [R, P, Pp] the dateline table). Passing ``fork_out`` selects
+the collective-offload datapath of ``router_cycle`` (on a CUDA device the
+offload arb kernel with the unchanged apply kernel). This module does not import
 ``repro_torch.core.noc``: the engine layers on top of it.
 """
 from __future__ import annotations
 
 from repro_torch.kernels.noc_router.noc_router import (
     router_cycle_cuda,
+    router_cycle_offload_cuda,
     router_cycles_fused_cuda,
 )
 from repro_torch.kernels.noc_router.ref import (
+    router_cycle_offload_reference,
     router_cycle_reference,
     router_cycles_scan,
 )
@@ -37,7 +41,9 @@ def _device_kind(t) -> str:
 
 def router_cycle(in_buf, in_cnt, out_buf, out_cnt, rr_ptr, wh_lock,
                  route, link_src, link_dst, port_ep, ep_attach, ep_space,
-                 vc_out=None, n_vcs: int = 1):
+                 vc_out=None, n_vcs: int = 1, fork_out=None, red_parent=None,
+                 red_need=None, red_acc=None, red_got=None,
+                 n_endpoints: int = 0):
     """One cycle of every channel at once.
 
     State is channel-batched (``in_buf`` [C, R, P, Din, NF], counters
@@ -46,9 +52,25 @@ def router_cycle(in_buf, in_cnt, out_buf, out_cnt, rr_ptr, wh_lock,
     ``ep_space`` [C, E] bool. Returns ``(in_buf, in_cnt, out_buf, out_cnt,
     rr_ptr, wh_lock, ep_flit [C, E, NF], ep_valid [C, E])``, bit for bit
     the JAX ``ops.router_cycle(..., fused_fifo=True)``.
+
+    Passing ``fork_out`` [R, G, P] (with ``red_parent`` / ``red_need``
+    [R, G] and the channel-batched reduction state ``red_acc``
+    [C, R, G, NRED] / ``red_got`` [C, R, G, P]) selects the collective-
+    offload datapath and extends the return tuple to ``(..., red_acc',
+    red_got')``.
     """
     args = (in_buf, in_cnt, out_buf, out_cnt, rr_ptr, wh_lock, route,
             link_src, link_dst, port_ep, ep_attach, ep_space)
+    if fork_out is not None:
+        off = dict(fork_out=fork_out, red_parent=red_parent,
+                   red_need=red_need, red_acc=red_acc, red_got=red_got,
+                   n_endpoints=n_endpoints, vc_out=vc_out, n_vcs=n_vcs)
+        if _device_kind(in_buf) == "cuda":
+            return router_cycle_offload_cuda(*args, **off)
+        return router_cycle_offload_reference(
+            *args[:6], red_acc, red_got, *args[6:11], fork_out, red_parent,
+            red_need, ep_space, n_endpoints=n_endpoints, fused=True,
+            vc_out=vc_out, n_vcs=n_vcs)
     if _device_kind(in_buf) == "cuda":
         return router_cycle_cuda(*args, vc_out=vc_out, n_vcs=n_vcs)
     return router_cycle_reference(*args, fused=True, vc_out=vc_out,

@@ -1,11 +1,13 @@
-"""Plain PyTorch version of the FlooNoC router cycle (offload-less).
+"""Plain PyTorch version of the FlooNoC router cycle.
 
 This is the PyTorch counterpart of ``repro.kernels.noc_router.ref``: the
 bit-exact specification of the per-cycle router datapath — cycle-start
 snapshot, round-robin output arbitration, wormhole locks, FIFO push/pop over
 packed ``[R, P, D, NF]`` int32 flit state, with or without virtual
-channels, one cycle at a time or as a fused multi-cycle window. The CUDA
-kernels in ``noc_router.py`` are held against these functions.
+channels, one cycle at a time or as a fused multi-cycle window, and with
+in-network collective offload (``offload_decisions``: multicast fork and
+reduction ALU). The CUDA kernels in ``noc_router.py`` are held against
+these functions.
 
 Every function here takes any number of leading batch axes in front of the
 router axis (the channel axis ``C`` in the engine), while the routing and
@@ -34,6 +36,19 @@ import torch
 FLIT_FIELDS = ("dst", "src", "kind", "txn", "last", "ts", "meta")
 NF = len(FLIT_FIELDS)
 F_DST, F_SRC, F_KIND, F_TXN, F_LAST, F_TS, F_META = range(NF)
+
+# collective-offload flit kinds (equal to repro_torch.core.noc.params.WIDE_MC
+# / WIDE_RED; this package does not import core.noc). MC/RED flits are
+# group-addressed: F_DST = n_endpoints + group id.
+KIND_MC = 6
+KIND_RED = 7
+
+# per-(router, group) reduction-ALU accumulator layout: trailing axis of
+# NRED int32 fields. "nlast" accumulates max(1 - F_LAST), so the all-zero
+# reset state emits last=1 and clearing an emitted slot is a zero-fill.
+RED_FIELDS = ("val", "cnt", "nlast", "txn", "ts", "src")
+NRED = len(RED_FIELDS)
+A_VAL, A_CNT, A_NLAST, A_TXN, A_TS, A_SRC = range(NRED)
 
 I32 = torch.int32
 
@@ -141,11 +156,24 @@ def request_slots(route, dst, vc_out=None, n_vcs: int = 1):
     port = torch.where(d < E, port, INT32_MIN)
     if n_vcs == 1:
         return port
-    Pp = vc_out.shape[-1]
-    s_idx = torch.arange(vc_out.shape[1], device=route.device)
+    return vc_slots(port, vc_out, n_vcs)
+
+
+def vc_slots(port, vc_out, n_vcs: int):
+    """Physical out port -> output slot ``port * V + vc_out[r, slot_in,
+    clip(port, 0, Pp - 1)]`` in int32 wraparound arithmetic, as in JAX."""
+    R, P, Pp = vc_out.shape
+    r_idx = torch.arange(R, device=vc_out.device)[:, None]
+    s_idx = torch.arange(P, device=vc_out.device)
     vout = vc_out[r_idx, s_idx, port.clamp(0, Pp - 1).long()]
-    slot = (port.long() * n_vcs + vout.long()) & 0xFFFFFFFF  # int32 wrap
-    return torch.where(slot >= 2**31, slot - 2**32, slot).to(I32)
+    return wrap32(port.long() * n_vcs + vout.long())
+
+
+def wrap32(x):
+    """An int64 tensor to int32 with two's-complement wraparound: what
+    JAX's int32 arithmetic (sums included) keeps."""
+    x = x & 0xFFFFFFFF
+    return torch.where(x >= 2**31, x - 2**32, x).to(I32)
 
 
 def first_true(mask):
@@ -205,6 +233,151 @@ def arb_decisions(in_buf, in_cnt, out_cnt, rr_ptr, wh_lock, route,
     in_space = (in_cnt - arb_pop.to(I32)) < Din
     return ArbDecisions(arb_pop, granted, chosen, rr.to(I32), wh.to(I32),
                         in_space)
+
+
+def offload_decisions(in_buf, in_cnt, out_cnt, rr_ptr, wh_lock, route,
+                      depth_out: int, fork_out, red_parent, red_need,
+                      red_acc, red_got, n_endpoints: int, vc_out=None,
+                      n_vcs: int = 1):
+    """Arbitration with tree-multicast fork and in-fabric reduction ALU.
+
+    The ``collective_offload=True`` counterpart of ``arb_decisions``, slot
+    for slot the JAX ``ref.offload_decisions`` over any leading batch axes.
+    Extra inputs, shared across the batch unless noted:
+
+    * ``fork_out`` [R, G, P] bool: multicast tree out-slots per group. A
+      head with ``F_KIND == KIND_MC`` and ``F_DST == n_endpoints + g``
+      requests every marked slot and pops only when it wins all of them in
+      the same cycle; a partial win cancels the won branches (their
+      round-robin pointers do not move).
+    * ``red_parent`` / ``red_need`` [R, G] int32: the out-slot toward the
+      reduction root (-1 off-tree) and the number of child slots that
+      contribute to each beat.
+    * ``red_acc`` [..., R, G, NRED] int32 / ``red_got`` [..., R, G, P]
+      bool: the ALU slot. A ``KIND_RED`` head at a child slot that has not
+      contributed to the current beat is consumed into the accumulator
+      (``val`` += F_META, ``cnt`` += 1, metadata max-merged) when the slot
+      can take it; once ``cnt == red_need`` the combined flit is emitted
+      into the parent out-slot (the lowest group id wins a shared port,
+      and emission pre-empts arbitration on that port) and the slot
+      zero-clears, taking the next beat in the same cycle.
+
+    The destination is clipped into ``[0, E - 1]`` before the route
+    lookup, so a group-addressed head never reaches the past-table fill of
+    ``request_slots``. Sums wrap in int32 as JAX's do. Returns
+    ``(ArbDecisions, red_acc', red_got')``; the apply phase consumes the
+    merged decisions unchanged.
+    """
+    P = in_cnt.shape[-1]
+    Din = in_buf.shape[-2]
+    R, G = red_need.shape
+    lead = in_cnt.shape[:-2]
+    dev = in_buf.device
+    gs = torch.arange(G, device=dev)
+    ps = torch.arange(P, device=dev)
+
+    h = heads(in_buf)  # [..., R, P, NF]
+    h_valid = in_cnt > 0
+    is_mc = h_valid & (h[..., F_KIND] == KIND_MC)
+    is_red = h_valid & (h[..., F_KIND] == KIND_RED)
+    g_of = (h[..., F_DST] - n_endpoints).clamp(0, G - 1).long()  # [..., R, P]
+
+    # ---- reduction ALU (all decisions from the cycle-start snapshot) ----
+    on_tree = red_need > 0  # [R, G]
+    full = on_tree & (red_acc[..., A_CNT] >= red_need)  # [..., R, G]
+    parent = red_parent.clamp(0, P - 1).long().expand(*lead, R, G)
+    parent_free = torch.gather(out_cnt < depth_out, -1, parent)
+    parent_unlocked = torch.gather(wh_lock, -1, parent) < 0
+    can_emit = full & (red_parent >= 0) & parent_free & parent_unlocked
+    emit_oh = (parent[..., None] == ps) & can_emit[..., None]  # [..., R, G, P]
+    emit_oh = emit_oh & (emit_oh.to(I32).cumsum(dim=-2) == 1)  # lowest g
+    emit_port = emit_oh.any(dim=-2)  # [..., R, P_out]
+    emitting = emit_oh.any(dim=-1)  # [..., R, G]
+    # the emitting group of each port (0 where none): at most one per port
+    g_sel = (emit_oh.long() * gs[:, None]).sum(dim=-2)  # [..., R, P_out]
+    acc_sel = torch.gather(red_acc, -2,
+                           g_sel[..., None].expand(*lead, R, P, NRED))
+    red_flit = pack_flit(  # stays group-addressed for the next hop
+        (g_sel + n_endpoints).to(I32), acc_sel[..., A_SRC], KIND_RED,
+        acc_sel[..., A_TXN], 1 - acc_sel[..., A_NLAST], acc_sel[..., A_TS],
+        acc_sel[..., A_VAL])
+
+    # consume RED heads whose group slot takes a contribution this cycle:
+    # not yet contributed to the current beat, and the slot is either not
+    # full or flushing its snapshot this same cycle (pipelined refill)
+    accept_g = on_tree & (~full | emitting)  # [..., R, G]
+    accept_at = torch.gather(accept_g, -1, g_of)  # [..., R, P_in]
+    got_at = torch.gather(red_got, -2, g_of[..., None, :])[..., 0, :]
+    red_pop = is_red & ~got_at & accept_at
+    gmask = red_pop[..., None, :] & (g_of[..., None, :] == gs[:, None])
+    base_acc = torch.where(emitting[..., None], 0, red_acc)
+    base_got = red_got & ~emitting[..., None]
+
+    def merged_max(v):
+        """Max of ``v`` [..., R, P] over each group's contributors, with 0
+        for the other slots (JAX's ``where(gmask, v, 0).max(-1)``)."""
+        return torch.where(gmask, v[..., None, :], 0).amax(dim=-1)
+
+    contrib_sum = torch.where(gmask, h[..., F_META][..., None, :].long(),
+                              0).sum(dim=-1)
+    red_acc2 = torch.stack([
+        wrap32(base_acc[..., A_VAL].long() + contrib_sum),
+        wrap32(base_acc[..., A_CNT].long() + gmask.long().sum(dim=-1)),
+        torch.maximum(base_acc[..., A_NLAST], merged_max(1 - h[..., F_LAST])),
+        torch.maximum(base_acc[..., A_TXN], merged_max(h[..., F_TXN])),
+        torch.maximum(base_acc[..., A_TS], merged_max(h[..., F_TS])),
+        torch.maximum(base_acc[..., A_SRC], merged_max(h[..., F_SRC])),
+    ], dim=-1)
+    red_got2 = base_got | gmask
+
+    # ---- arbitration with multicast fork requests ----
+    r_idx = torch.arange(R, device=dev)[:, None]
+    port = route[r_idx, h[..., F_DST].clamp(0, n_endpoints - 1).long()]
+    if n_vcs > 1:
+        port = vc_slots(port, vc_out, n_vcs)
+    uni = h_valid & ~is_mc & ~is_red
+    req_port = torch.where(uni, port, -1)
+    pin = ps[:, None]
+    fork_at = fork_out[r_idx, g_of]  # [..., R, P_in, P_out]
+    req = (req_port[..., :, None] == ps) | (is_mc[..., :, None] & fork_at)
+    locked = wh_lock[..., None, :]
+    elig = req & ((locked < 0) | (locked == pin))
+    elig &= (out_cnt < depth_out)[..., None, :]
+    elig &= ~emit_port[..., None, :]  # reduction emission owns the port
+
+    score = torch.remainder(pin - rr_ptr[..., None, :], P)
+    score = torch.where(elig, score, P + 1)
+    best = score[..., 0, :]
+    winner = torch.zeros_like(best)
+    for i in range(1, P):
+        si = score[..., i, :]
+        better = si < best
+        best = torch.where(better, si, best)
+        winner = torch.where(better, i, winner)
+    granted0 = best <= P  # [..., R, P_out]
+    win_onehot = (winner[..., None, :] == pin) & granted0[..., None, :]
+
+    # a multicast head fires only when it wins EVERY requested branch
+    fire_mc = is_mc & req.any(dim=-1) & ~(req & ~win_onehot).any(dim=-1)
+    pop_uni = (win_onehot & uni[..., None]).any(dim=-1)
+    arb_pop = pop_uni | fire_mc | red_pop
+
+    # cancel grants whose winner is a multicast head that did not fire
+    wl = winner.long()
+    granted = granted0 & (~torch.gather(is_mc, -1, wl)
+                          | torch.gather(fire_mc, -1, wl))
+    chosen = torch.gather(h, -2, wl[..., None].expand(h.shape))
+    rr = torch.where(granted, torch.remainder(winner + 1, P), rr_ptr)
+    is_tail = chosen[..., F_LAST] > 0
+    wh = torch.where(granted & ~is_tail, winner, wh_lock)
+    wh = torch.where(granted & is_tail, -1, wh)
+
+    # merge reduction emissions (their ports were excluded from arb)
+    granted_all = granted | emit_port
+    chosen_all = torch.where(emit_port[..., None], red_flit, chosen)
+    in_space = (in_cnt - arb_pop.to(I32)) < Din
+    return (ArbDecisions(arb_pop, granted_all, chosen_all, rr.to(I32),
+                         wh.to(I32), in_space), red_acc2, red_got2)
 
 
 def link_inputs(out_heads_all, out_valid_all, link_src, in_space,
@@ -337,6 +510,36 @@ def router_cycle_reference(in_buf, in_cnt, out_buf, out_cnt, rr_ptr, wh_lock,
                                             ep_space)
     return (in2, in_cnt2, out2, out_cnt2, arb.rr_ptr, arb.wh_lock, ep_flit,
             ep_valid)
+
+
+def router_cycle_offload_reference(in_buf, in_cnt, out_buf, out_cnt, rr_ptr,
+                                   wh_lock, red_acc, red_got, route, link_src,
+                                   link_dst, port_ep, ep_attach, fork_out,
+                                   red_parent, red_need, ep_space,
+                                   n_endpoints: int, fused: bool = False,
+                                   vc_out=None, n_vcs: int = 1):
+    """One router cycle with collective offload (plain version).
+
+    ``router_cycle_reference`` with arbitration through
+    ``offload_decisions`` (fork table + reduction ALU); the reduction state
+    ``red_acc`` [..., R, G, NRED] / ``red_got`` [..., R, G, P] rides along.
+    Returns the ``router_cycle_reference`` tuple extended with
+    ``(red_acc', red_got')``. The link and apply phases are shared
+    unchanged: offload only changes which flits are popped and latched.
+    """
+    arb, red_acc2, red_got2 = offload_decisions(
+        in_buf, in_cnt, out_cnt, rr_ptr, wh_lock, route,
+        depth_out=out_buf.shape[-2], fork_out=fork_out,
+        red_parent=red_parent, red_need=red_need, red_acc=red_acc,
+        red_got=red_got, n_endpoints=n_endpoints, vc_out=vc_out,
+        n_vcs=n_vcs)
+    in2, in_cnt2, out2, out_cnt2 = apply_phase(
+        in_buf, in_cnt, out_buf, out_cnt, arb, link_src, link_dst, port_ep,
+        ep_space, fused=fused, n_vcs=n_vcs)
+    ep_flit, ep_valid = endpoint_deliveries(out_buf, out_cnt, ep_attach,
+                                            ep_space)
+    return (in2, in_cnt2, out2, out_cnt2, arb.rr_ptr, arb.wh_lock, ep_flit,
+            ep_valid, red_acc2, red_got2)
 
 
 def inject_endpoints(in_buf, in_cnt, er, ep_p, port_ep, flit, want):

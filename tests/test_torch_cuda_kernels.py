@@ -1,5 +1,6 @@
 """The CUDA router kernels against their plain PyTorch version, on the card:
-arb and apply with and without virtual channels, and the fused window.
+arb and apply with and without virtual channels, the fused window, and the
+collective-offload arb kernel.
 
 These tests need a CUDA device and skip without one (the kernels have no
 CPU mode); run them on the GPU host with
@@ -15,7 +16,16 @@ import torch
 
 from repro_torch.kernels.noc_router import noc_router as tkern
 from repro_torch.kernels.noc_router import ref as tref
-from repro_torch.kernels.noc_router.ref import F_DST, F_LAST, NF
+from repro_torch.kernels.noc_router.ref import (
+    A_CNT,
+    F_DST,
+    F_KIND,
+    F_LAST,
+    KIND_MC,
+    KIND_RED,
+    NF,
+    NRED,
+)
 
 P = 5
 
@@ -74,6 +84,49 @@ def _egress(rng, C, E, Q, cycle0, N):
                                       (C, E, Q)).astype(np.int32),
                 eg_head=rng.integers(0, Q, (C, E)).astype(np.int32),
                 eg_cnt=rng.integers(0, Q + 1, (C, E)).astype(np.int32))
+
+
+def _offload(rng, s, R, E, G, V=1):
+    """Random collective-offload tables and ALU state for the snapshot
+    ``s`` (made by ``_snapshot``), whose input heads it turns into
+    group-addressed multicast and reduction heads in part.
+
+    The cases the offload arbitration must get right are made common:
+    fork slots on a third of the ports (multicast heads contend with
+    unicast heads and each other, so partial wins are frequent), groups 0
+    and 1 sharing a parent slot on half the routers, full ALU slots,
+    contributions already taken, and heads of every kind addressed to
+    groups past ``G``. Returns ``(tables, state)`` dicts of numpy arrays.
+    """
+    PV = P * V
+    heads = s["in_buf"][..., 0, :]
+    roll = rng.random(heads.shape[:-1])
+    heads[..., F_KIND] = np.where(roll < 0.3, KIND_MC,
+                                  np.where(roll < 0.6, KIND_RED,
+                                           heads[..., F_KIND]))
+    group = roll < 0.65
+    heads[..., F_DST] = np.where(
+        group, E + rng.integers(0, 2 * G + 1, roll.shape), heads[..., F_DST])
+    parent = rng.integers(-1, PV, (R, G)).astype(np.int32)
+    for g, p_share in ((1, 0.8), (2, 0.3))[:G - 1]:
+        share = rng.random(R) < p_share
+        parent[share, g] = parent[share, 0]
+    need = rng.integers(0, 4, (R, G)).astype(np.int32)
+    lead = s["in_cnt"].shape[:-2]
+    acc = rng.integers(-9, 9, lead + (R, G, NRED)).astype(np.int32)
+    # most slots full (count >= need), and most parent slots unlocked, so
+    # that emissions are common
+    acc[..., A_CNT] = np.where(rng.random(lead + (R, G)) < 0.7,
+                               need + rng.integers(0, 2, lead + (R, G)),
+                               rng.integers(0, 4, lead + (R, G)))
+    wh = s["wh_lock"].reshape(-1, R, PV)
+    for c in range(wh.shape[0]):
+        r, g = np.nonzero((rng.random((R, G)) < 0.6) & (parent >= 0))
+        wh[c, r, parent[r, g]] = -1
+    tables = dict(fork_out=rng.random((R, G, PV)) < 0.35, red_parent=parent,
+                  red_need=need)
+    state = dict(red_acc=acc, red_got=rng.random(lead + (R, G, PV)) < 0.3)
+    return tables, state
 
 
 def _on_card(d):
@@ -137,3 +190,48 @@ def test_cuda_fused_matches_plain(R, N, V):
         assert torch.equal(a, b), f"input {i} modified"
     key = "fused" if V == 1 else "fused_vc"
     assert tkern.LAUNCHES[key] == before[key] + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,G,V", [(32, 1, 1), (32, 3, 1), (32, 2, 2),
+                                   (1024, 2, 1), (1024, 1, 2), (32, 3, 6)],
+                         ids=["32-1", "32-3", "32-2-vc2", "1024-2",
+                              "1024-1-vc2", "32-3-vc6"])
+def test_cuda_offload_arb_matches_plain(R, G, V):
+    """The offload arb kernel and the offload router cycle (offload arb +
+    the unchanged apply kernel) against the plain version on the card, bit
+    for bit, with random reduction-ALU state; the inputs stay untouched,
+    and one launch of each kernel per cycle."""
+    rng = np.random.default_rng(11 * R + G + 100 * V)
+    E = 40 if R == 32 else 1056
+    tb = _tables(rng, R, E, V)
+    s = _snapshot(rng, (3,), R, E, 2, 2, V)
+    otb, ost = _offload(rng, s, R, E, G, V)
+    tb, s, otb, ost = (_on_card(d) for d in (tb, s, otb, ost))
+    args = (s["in_buf"], s["in_cnt"], s["out_buf"], s["out_cnt"], s["rr_ptr"],
+            s["wh_lock"], tb["route"], tb["link_src"], tb["link_dst"],
+            tb["port_ep"], tb["ep_attach"], s["ep_space"])
+    kw = dict(vc_out=tb.get("vc_out"), n_vcs=V, n_endpoints=E, **otb, **ost)
+    copies = [a.clone() for a in (*args[:6], *ost.values())]
+    arb_args = (s["in_buf"], s["in_cnt"], s["out_cnt"], s["rr_ptr"],
+                s["wh_lock"], tb["route"])
+    arb_k = tkern.arb_offload_cuda(*arb_args, depth_out=2, **kw)
+    arb_p = tref.offload_decisions(*arb_args, depth_out=2, **kw)
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip((*arb_p[0], *arb_p[1:]),
+                                   (*arb_k[0], *arb_k[1:]))):
+        assert torch.equal(a, b), f"arb output {i} differs"
+    before = dict(tkern.LAUNCHES)
+    got = tkern.router_cycle_offload_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    want = tref.router_cycle_offload_reference(
+        *args[:6], ost["red_acc"], ost["red_got"], *args[6:11],
+        otb["fork_out"], otb["red_parent"], otb["red_need"], s["ep_space"],
+        n_endpoints=E, fused=True, vc_out=tb.get("vc_out"), n_vcs=V)
+    for i, (a, b) in enumerate(zip(want, got)):
+        assert torch.equal(a, b), f"cycle output {i} differs"
+    for i, (a, b) in enumerate(zip(copies, (*args[:6], *ost.values()))):
+        assert torch.equal(a, b), f"input {i} modified"
+    for k in (tkern.mode("arb_offload", V), tkern.mode("apply", V)):
+        assert tkern.LAUNCHES[k] == before[k] + 1
+    assert tkern.LAUNCHES[tkern.mode("arb", V)] == before[tkern.mode("arb", V)]

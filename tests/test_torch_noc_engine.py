@@ -49,7 +49,8 @@ def test_tables_travel_as_numpy_dicts():
 
 def test_make_tables_refuses_unported_options():
     """VC tables are built (slot-level endpoint tables, physical links,
-    all-VC0 dateline table on the mesh); collective groups are refused."""
+    all-VC0 dateline table on the mesh); collective groups build the
+    offload trees, and without groups there are none."""
     topo = torch_build_mesh(nx=4, ny=2)
     tb = teng.make_tables(topo, n_vcs=2, device="cpu")
     R, P = topo.n_routers, topo.n_ports
@@ -59,14 +60,23 @@ def test_make_tables_refuses_unported_options():
     assert (tb.port_ep[:, 1::2] == -1).all()  # endpoints attach at VC0
     assert (tb.ep_attach[:, 1] % 2 == 0).all()
     assert not tb.vc_out.any()  # a mesh has no dateline: all VC0
-    assert teng.make_tables(topo, device="cpu").vc_out is None
-    with pytest.raises(NotImplementedError, match="item 9"):
-        teng.make_tables(topo, groups=[{"root": 0, "members": [1]}],
-                         device="cpu")
+    plain = teng.make_tables(topo, device="cpu")
+    assert plain.vc_out is None and plain.fork_out is None
+    assert plain.n_groups == 0
+    tb = teng.make_tables(topo, groups=[{"root": 0, "members": [1]}],
+                          device="cpu")
+    assert tb.n_groups == 1 and tb.fork_out.dtype == torch.bool
+    assert tuple(tb.fork_out.shape) == (R, 1, P)
+    # one fork slot per router on the route 0 -> 1, ejection included
+    assert int(tb.fork_out.sum()) == topo.hops(0, 1)
+    assert not (tb.red_need > 0).any()  # a multicast-only group
 
 
 def _assert_fabric_equal(jst, tst, tag):
     for f in dataclasses.fields(tst):
+        if getattr(tst, f.name) is None:  # no offload: no ALU state
+            assert getattr(jst, f.name) is None, f"{tag}: {f.name}"
+            continue
         np.testing.assert_array_equal(np.asarray(getattr(jst, f.name)),
                                       getattr(tst, f.name).numpy(),
                                       err_msg=f"{tag}: {f.name}")

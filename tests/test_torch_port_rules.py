@@ -97,14 +97,14 @@ def test_cuda_wrappers_refuse_cpu_tensors():
 
 @pytest.mark.parametrize("kw,item", [
     ({"n_vcs": 2}, None),
-    ({"collective_offload": True}, "item 9"),
+    ({"collective_offload": True}, None),
     ({"fused_cycles": 4}, None),
     ({"step_impl": "naive"}, "item 4"),
 ], ids=["kw0-item 7", "kw1-item 9", "kw2-item 6", "kw3-item 4"])
 def test_unported_params_raise(kw, item):
-    """Virtual channels and super-steps are ported and accepted (together
-    too: ``test_params_from_jax_fields_drop_the_pallas_knobs``); collective
-    offload and the naive step are still refused."""
+    """Virtual channels, super-steps and collective offload are ported and
+    accepted (together too: ``test_params_from_jax_fields_drop_the_pallas_
+    knobs``); the naive step is still refused."""
     if item is None:
         params = NocParams(**kw)
         assert all(getattr(params, k) == v for k, v in kw.items())
@@ -114,15 +114,24 @@ def test_unported_params_raise(kw, item):
 
 
 def test_unported_groups_raise():
+    """Collective groups are ported: they build offload tables, and
+    ``build_sim`` refuses them, as the JAX package does, without
+    ``collective_offload`` or when the workload's group count differs."""
     topo = build_mesh(nx=4, ny=2)
     wl = TT.dma_workload(topo, "uniform", transfer_kb=1, n_txns=1)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        make_tables(topo, groups=[{"root": 0, "members": [1]}], device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    assert make_tables(topo, groups=[{"root": 0, "members": [1]}],
+                       device="cpu").n_groups == 1
+    with pytest.raises(ValueError, match="collective_offload"):
         TS.build_sim(topo, NocParams(), wl, groups=[{"root": 0}], device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        TS.build_sim(topo, NocParams(), dataclasses.replace(wl, n_groups=1),
-                     device="cpu")
+    with pytest.raises(ValueError, match="group"):
+        TS.build_sim(topo, NocParams(collective_offload=True),
+                     dataclasses.replace(wl, n_groups=1), device="cpu")
+    sim = TS.build_sim(topo, NocParams(collective_offload=True), wl,
+                       groups=[{"root": 0, "members": [1, 2]}], device="cpu")
+    st = sim.init_state()
+    assert tuple(st.fabric.red_got.shape) == (3, 8, 1, 5)
+    with pytest.raises(ValueError, match="fused_cycles"):
+        NocParams(collective_offload=True, fused_cycles=4)
 
 
 def test_params_from_jax_fields_drop_the_pallas_knobs():
@@ -132,5 +141,8 @@ def test_params_from_jax_fields_drop_the_pallas_knobs():
     assert convert.params_from_dict(
         {**fields, "n_vcs": 2, "fused_cycles": 4}) == NocParams(
             n_channels=4, n_vcs=2, fused_cycles=4)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        convert.params_from_dict({**fields, "collective_offload": True})
+    assert convert.params_from_dict(
+        {**fields, "collective_offload": True}) == NocParams(
+            n_channels=4, collective_offload=True)
+    with pytest.raises(NotImplementedError, match="item 4"):
+        convert.params_from_dict({**fields, "step_impl": "naive"})
