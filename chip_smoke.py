@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port of the FlooNoC simulator on one GPU.
+"""Smoke run of the PyTorch/CUDA port of the FlooNoC reproduction on one GPU.
 
     python3 chip_smoke.py
 
-Builds the router-cycle CUDA kernels from ``src/repro_torch`` (``nvcc`` for
-``sm_90a``), holds each kernel against its plain PyTorch version on the
+Builds the CUDA kernels from ``src/repro_torch`` (``nvcc`` for ``sm_90a``,
+one compiler per source, all at once): the router cycle, flash attention
+and RMSNorm. Holds each kernel against its plain PyTorch version on the
 card, drives the simulator's main path through the port's entry points
-(``build_sim`` / ``run`` / ``stats``) and checks what comes out:
+(``build_sim`` / ``run`` / ``stats``) and the model stack's serving path
+(``Engine.generate`` on Phi-4-mini), and checks what comes out:
 
 1. the card (``nvidia-smi``) and the kernels' build time;
 2. the arb and apply kernels bit-identical to the plain version on random
@@ -44,7 +46,24 @@ card, drives the simulator's main path through the port's entry points
    200 cycles (state against CPU, ms per cycle, peak device memory); the
    offload arb kernel's time against its plain version and bound; the
    8x4 all-reduce's layer split and device profile from cycle 400;
-10. one JSON line listing every kernel and mode (launches on its main
+10. the model stack (``kernels_vs_plain_model``, ``serve_phi4_mini_vs_cpu``,
+   ``serve_phi4_mini``, ``kernel_times_model``): the flash-attention kernel
+   against its plain version at the serve path's shapes (B=4, S=512, H=24,
+   KV=8, D=128, bf16), the ``tests/test_kernels.py`` sweep shapes in float32
+   and bf16, a ragged S=520 and Dv != D; both RMSNorm variants at N = 4 and
+   2048, d = 3072, float32 and bf16; inputs untouched. Phi-4-mini at full
+   width and 2 layers on the card against the CPU (one 400-token prompt, 4
+   greedy steps: logits within ``LOGIT_TOL``, tokens equal where the CPU's
+   top-2 margin exceeds it). Phi-4-mini at full width and depth through
+   ``Engine.generate``: 4 prompts of 300-500 tokens, 16 greedy tokens, twice
+   (identical tokens; 32 flash launches and 65 RMSNorm launches per prefill,
+   0 and 65 per decode step, 15 decode steps), all logits finite, prefill
+   ms, decode ms per step, tokens/s, peak device memory, and the device's
+   busy share of one prefill and one decode step
+   (``profile_serve_phi4_mini``, ``torch.profiler``); each kernel's time at
+   the path's shapes beside its bound, its plain version and one PyTorch call
+   (``library_ms``: ``scaled_dot_product_attention``, ``rms_norm``);
+11. one JSON line listing every kernel and mode (launches on its main
    path, mismatch, times, bounds).
 
 Each main path runs with the launch counts set to 0 just before it and
@@ -62,6 +81,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -461,10 +481,10 @@ def fused_bytes(st, egress, tables, N):
     return 2 * (state + queues) + table + per_cycle
 
 
-def bound(nbytes, nops):
+def bound(nbytes, nops, ops_per_s=SCALAR_OPS_PER_S):
     """The least time the card could take: (ms, what bounds it)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / SCALAR_OPS_PER_S * 1e3
+    t_ops = nops / ops_per_s * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -777,6 +797,368 @@ def narrow_latency(TS, TT_epm, topo, src, dst, cycles=380):
     return float(out["narrow_lat_mean"][src])
 
 
+# ---------------------------------------------------------------------------
+# the model stack: Phi-4-mini served through the flash-attention and RMSNorm
+# kernels
+
+# the H100 SXM's dense bf16 tensor-core peak (NVIDIA data sheet)
+BF16_FLOPS_PER_S = 989e12
+# kernel vs plain version (atol, rtol): float32 sums in another order
+# (attention: exp and row sums of up to 520 keys); bf16 one output rounding,
+# as tests/test_kernels.py
+ATTN_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (3e-2, 3e-2)}
+RMS_TOL = {"float32": (2e-5, 1e-5), "bfloat16": (3e-2, 3e-2)}
+# card vs CPU logits of the 2-layer full-width model, both bf16: the two
+# sides round bf16 at other places (cuBLAS vs the CPU's matrix products, the
+# kernel vs the plain attention), a few bf16 ulps of logits of size ~5
+LOGIT_TOL = 0.1
+RMS_EPS = 1e-5
+PHI4 = "phi4-mini-3.8b"
+
+
+def randn(rng, shape, dtype, dev):
+    """Seeded normal numbers (numpy) as a ``dtype`` tensor on ``dev``."""
+    import numpy as np
+    import torch
+
+    return torch.as_tensor(rng.standard_normal(shape, np.float32)).to(dev, dtype)
+
+
+def close_err(got, want, tol):
+    """(max |got - want|, every element within atol + rtol * |want|)."""
+    atol, rtol = tol
+    d = (got.float() - want.float()).abs()
+    return float(d.max()), bool((d <= atol + rtol * want.float().abs()).all())
+
+
+def compare_model_kernels(dev):
+    """Flash attention and RMSNorm (both variants) against their plain
+    versions on the card, inputs checked untouched. Returns the max error of
+    each kernel at the serve path's shapes."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention as FK
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.rmsnorm import rmsnorm as RK
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref, rmsnorm_residual_ref
+
+    rng = np.random.default_rng(14)
+    bf, f32 = "bfloat16", "float32"
+    dt = {bf: torch.bfloat16, f32: torch.float32}
+    cases = [("path", 4, 512, 24, 8, 128, 128, bf)]  # (label, B, S, H, KV, D, Dv, dtype)
+    for d_ in (f32, bf):
+        cases += [("sweep", 1, 128, 2, 2, 64, 64, d_), ("sweep", 2, 256, 4, 2, 64, 64, d_),
+                  ("sweep_mqa", 1, 128, 8, 1, 32, 32, d_),
+                  ("ragged", 1, 520, 24, 8, 128, 128, d_),
+                  ("dv_ne_d", 2, 200, 4, 2, 128, 64, d_)]
+    errs, rows = {}, []
+    for label, B, S, H, KV, D, Dv, d_ in cases:
+        q, k, v = (randn(rng, sh, dt[d_], dev) for sh in
+                   ((B, S, H, D), (B, S, KV, D), (B, S, KV, Dv)))
+        keep = [t.clone() for t in (q, k, v)]
+        got = FK.flash_attention_cuda(q, k, v)
+        torch.cuda.synchronize()
+        err, ok = close_err(got, attention_ref(q, k, v), ATTN_TOL[d_])
+        same = all(torch.equal(a, b) for a, b in zip(keep, (q, k, v)))
+        rows.append({"case": label, "shape": [B, S, H, KV, D, Dv], "dtype": d_,
+                     "max_abs_err": err, "tol": ATTN_TOL[d_]})
+        check(ok, f"flash attention disagrees with plain ({label}, {d_}): {err}")
+        check(same, "the flash-attention kernel modified its inputs")
+        if label == "path":
+            errs["flash_attention"] = err
+    d = 3072
+    for N in (4, 2048):
+        for d_ in (f32, bf):
+            x, r = randn(rng, (N, d), dt[d_], dev), randn(rng, (N, d), dt[d_], dev)
+            w = randn(rng, (d,), torch.float32, dev) * 0.1 + 1
+            keep = [t.clone() for t in (x, r, w)]
+            out = RK.rmsnorm_cuda(x, w, RMS_EPS)
+            out_r, s_ = RK.rmsnorm_cuda(x, w, RMS_EPS, res2=r)
+            torch.cuda.synchronize()
+            e1, ok1 = close_err(out, rmsnorm_ref(x, w, RMS_EPS), RMS_TOL[d_])
+            want_o, want_s = rmsnorm_residual_ref(x, r, w, RMS_EPS)
+            e2, ok2 = close_err(out_r, want_o, RMS_TOL[d_])
+            e3, ok3 = close_err(s_, want_s, RMS_TOL[d_])
+            rows.append({"case": "rmsnorm", "shape": [N, d], "dtype": d_,
+                         "max_abs_err": e1, "residual_max_abs_err": max(e2, e3),
+                         "tol": RMS_TOL[d_]})
+            check(ok1 and ok2 and ok3, f"RMSNorm disagrees with plain ({N}, {d_})")
+            check(all(torch.equal(a, b) for a, b in zip(keep, (x, r, w))),
+                  "the RMSNorm kernel modified its inputs")
+            if N == 2048 and d_ == bf:
+                errs["rmsnorm"], errs["rmsnorm_residual"] = e1, max(e2, e3)
+    phase("kernels_vs_plain_model", cases=rows)
+    return errs
+
+
+def greedy_trace(M, cfg, p, toks, lens, n, force=None):
+    """Prefill, then ``n`` greedy decode steps (fed ``force``'s tokens when
+    given). Returns the logits of the last valid position and of each step
+    ([n + 1] x [B, V], float32 on the CPU) and the tokens [B, n + 1]."""
+    import torch
+
+    B, S = toks.shape
+    logits, cache = M.prefill(cfg, p, {"tokens": toks}, pad_to=S + n + 1)
+    cache["len"] = lens
+    cur = logits[torch.arange(B, device=toks.device), lens.long() - 1]
+    out_logits, out_toks = [], []
+    for i in range(n + 1):
+        out_logits.append(cur.float().cpu())
+        tok = cur.argmax(-1) if force is None else force[:, i].to(toks.device)
+        out_toks.append(tok.cpu())
+        if i < n:
+            lg, cache = M.decode_step(cfg, p, cache, tok[:, None])
+            cur = lg[:, 0]
+    return out_logits, torch.stack(out_toks, 1)
+
+
+def serve_vs_cpu(dev):
+    """Phi-4-mini at full width and 2 layers: one 400-token prompt padded
+    to 512 and 4 greedy decode steps on the card (teacher-forced with the
+    CPU's tokens) and on the CPU (plain versions), logits within
+    ``LOGIT_TOL`` and tokens equal wherever the CPU's top-2 margin exceeds
+    it."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import pad_prompts
+
+    cfg = get_config(PHI4).replace(n_layers=2)
+    p_cpu = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    p_gpu = copy.deepcopy(p_cpu).to(dev)
+    prompt = np.random.default_rng(5).integers(0, cfg.vocab_size, 400).tolist()
+    n = 4
+    t0 = time.perf_counter()
+    toks, lens = pad_prompts([prompt], "cpu")
+    want, cpu_toks = greedy_trace(M, cfg, p_cpu, toks, lens, n)
+    cpu_s = time.perf_counter() - t0
+    toks_g, lens_g = pad_prompts([prompt], dev)
+    got, _ = greedy_trace(M, cfg, p_gpu, toks_g, lens_g, n, force=cpu_toks)
+    errs, checked, equal = [], 0, 0
+    for g, w in zip(got, want):
+        errs.append(float((g - w).abs().max()))
+        top2 = w.topk(2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > LOGIT_TOL
+        checked += int(sure.sum())
+        equal += int((g.argmax(-1) == w.argmax(-1))[sure].sum())
+    phase("serve_phi4_mini_vs_cpu", layers=2, d_model=cfg.d_model,
+          prompt_tokens=len(prompt), padded_to=int(toks.shape[1]), decode_steps=n,
+          max_abs_logit_err=errs, tol=LOGIT_TOL,
+          max_abs_logit=float(max(w.abs().max() for w in want)),
+          tokens_checked=checked, tokens_equal=equal, cpu_s=cpu_s)
+    check(all(np.isfinite(errs)) and max(errs) <= LOGIT_TOL,
+          f"card logits differ from the CPU's by {max(errs)}")
+    check(equal == checked, f"greedy tokens differ: {equal} of {checked}")
+
+
+def call_profile(fn, wall_ms):
+    """Device activity of one ``fn()`` call under ``torch.profiler``: device
+    events, device time, the busy share of an unprofiled call
+    (``wall_ms``) and the kernels that take most device time. ``None``
+    where the profiler reports no device activity."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.flash_attention import flash_attention as FK
+    from repro_torch.kernels.rmsnorm import rmsnorm as RK
+
+    saved = dict(FK.LAUNCHES), dict(RK.LAUNCHES)
+    with torch.no_grad(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    FK.LAUNCHES.update(saved[0])
+    RK.LAUNCHES.update(saved[1])
+    by_name = collections.Counter()
+    n_events = 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name[:60]] += e.time_range.elapsed_us()
+            n_events += 1
+    if not n_events:
+        return {"device_events": 0, "busy_share": None}
+    dev_us = sum(by_name.values())
+    return {"device_events": n_events, "device_us": dev_us,
+            "busy_share": dev_us / (wall_ms * 1e3),
+            "top_us": dict(by_name.most_common(6))}
+
+
+def serve_phi4_mini(dev):
+    """Phi-4-mini at full width and depth through ``Engine.generate``: 4
+    prompts of 300-500 tokens (padded to 512, a 529-slot cache), 16 greedy
+    tokens, twice; then the same prefill and decode steps one by one, timed
+    and counted. Returns the generate run's kernel launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention as FK
+    from repro_torch.kernels.rmsnorm import rmsnorm as RK
+    from repro_torch.models import model as M
+    from repro_torch.serve import Engine, ServeConfig
+    from repro_torch.serve.engine import pad_prompts
+
+    cfg = get_config(PHI4)
+    L, n_new = cfg.n_layers, 16
+    norms = 2 * L + 1  # ln1 and ln2 of each layer, then the final norm
+
+    def counts():
+        return {"flash_attention": FK.LAUNCHES["flash_attention"],
+                "rmsnorm": RK.LAUNCHES["rmsnorm"],
+                "rmsnorm_residual": RK.LAUNCHES["rmsnorm_residual"]}
+
+    def reset():
+        torch.cuda.synchronize()
+        FK.LAUNCHES.update(dict.fromkeys(FK.LAUNCHES, 0))
+        RK.LAUNCHES.update(dict.fromkeys(RK.LAUNCHES, 0))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(t.numel() * t.element_size() for t in params.parameters())
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, cfg.vocab_size, int(m)).tolist()
+               for m in rng.integers(300, 501, 4)]
+    eng = Engine(cfg, params, scfg=ServeConfig(max_new_tokens=n_new))
+    runs, launches = [], None
+    for _ in range(2):
+        reset()
+        t0 = time.perf_counter()
+        outs = eng.generate(prompts)
+        torch.cuda.synchronize()
+        runs.append((outs, time.perf_counter() - t0, counts()))
+    (outs, gen1_s, launches), (outs2, gen2_s, launches2) = runs
+    # one prefill and a decode step after each new token but the last
+    want = {"flash_attention": L, "rmsnorm": norms * n_new, "rmsnorm_residual": 0}
+    check(launches == want == launches2, f"generate launched {launches} / {launches2}, "
+          f"expected {want}")
+    check(outs == outs2, "two greedy runs gave different tokens")
+    check(all(len(o) == n_new and all(0 <= t < cfg.vocab_size for t in o) for o in outs),
+          "generate returned malformed tokens")
+
+    # the same work one call at a time: prefill, then the 15 decode steps
+    # fed the engine's tokens, each checked against the engine and timed
+    toks, lens = pad_prompts(prompts, dev)
+    B, S = toks.shape
+    reset()
+    t0 = time.perf_counter()
+    logits, cache = M.prefill(cfg, params, {"tokens": toks}, pad_to=S + n_new + 1)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    check(counts() == {"flash_attention": L, "rmsnorm": norms, "rmsnorm_residual": 0},
+          f"prefill launched {counts()}")
+    finite = bool(torch.isfinite(logits).all())
+    cache["len"] = lens
+    cur = logits[torch.arange(B, device=dev), lens.long() - 1]
+    del logits
+    gen = torch.tensor(outs, device=dev)  # [B, n_new]
+    agree = bool((cur.argmax(-1) == gen[:, 0]).all())
+    step_ms = []
+    for i in range(n_new - 1):
+        reset()
+        t0 = time.perf_counter()
+        lg, cache = M.decode_step(cfg, params, cache, gen[:, i:i + 1])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        check(counts() == {"flash_attention": 0, "rmsnorm": norms, "rmsnorm_residual": 0},
+              f"decode step launched {counts()}")
+        finite &= bool(torch.isfinite(lg).all())
+        agree &= bool((lg[:, 0].argmax(-1) == gen[:, i + 1]).all())
+    peak = torch.cuda.max_memory_allocated()
+    decode_ms = statistics.median(step_ms)
+    prof_prefill = call_profile(lambda: M.prefill(
+        cfg, params, {"tokens": toks}, pad_to=S + n_new + 1), prefill_ms)
+    prof_decode = call_profile(lambda: M.decode_step(
+        cfg, params, cache, gen[:, -1:]), decode_ms)
+    kv_bytes = sum(t.numel() * t.element_size() for t in cache["blocks"].values())
+    phase("serve_phi4_mini", layers=L, d_model=cfg.d_model, batch=B,
+          prompt_tokens=[len(p_) for p_ in prompts], padded_to=S,
+          cache_slots=int(cache["blocks"]["k"].shape[2]), new_tokens=n_new,
+          launches_per_generate=launches, tokens_identical_two_runs=True,
+          steps_reproduce_engine_tokens=agree, logits_finite=finite,
+          init_s=init_s, generate_s=[gen1_s, gen2_s], prefill_ms=prefill_ms,
+          decode_ms_per_step=decode_ms, decode_ms_per_step_all=step_ms,
+          decode_tokens_per_s=B / decode_ms * 1e3,
+          generate_tokens_per_s=B * n_new / gen2_s,
+          weight_bytes=weight_bytes, kv_cache_bytes=kv_bytes,
+          peak_device_bytes=peak, peak_above_earlier_phases_bytes=peak - held)
+    phase("profile_serve_phi4_mini", prefill=prof_prefill, decode_step=prof_decode)
+    check(finite, "non-finite logits")
+    check(agree, "one-call-at-a-time steps do not reproduce the engine's tokens")
+    del params, cache, eng
+    torch.cuda.empty_cache()
+    return launches
+
+
+def attn_bound(B, S, H, KV, D, Dv, itemsize):
+    """Least time of causal attention: the visible (q, k) pairs' two
+    products at the bf16 tensor-core peak, or q, k, v read once and the
+    output written once at the memory rate, whichever is larger."""
+    flops = 2 * (D + Dv) * (S * (S + 1) // 2) * B * H
+    nbytes = B * S * (H * D + KV * D + KV * Dv + H * Dv) * itemsize
+    return bound_fields(nbytes, flops, BF16_FLOPS_PER_S)
+
+
+def bound_fields(nbytes, nops, ops_per_s=SCALAR_OPS_PER_S):
+    """``bound`` as the ``bound_ms`` / ``bound_by`` fields of a row."""
+    return dict(zip(("bound_ms", "bound_by"), bound(nbytes, nops, ops_per_s)))
+
+
+def time_model_kernels(dev):
+    """Each kernel at the serve path's shapes: kernel, plain version and one
+    PyTorch call (the yardstick the port never calls), with the bound."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention as FK
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.rmsnorm import rmsnorm as RK
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref, rmsnorm_residual_ref
+
+    rng = np.random.default_rng(7)
+    bf = torch.bfloat16
+    B, S, H, KV, D = 4, 512, 24, 8, 128
+    q, k, v = (randn(rng, sh, bf, dev) for sh in ((B, S, H, D), (B, S, KV, D), (B, S, KV, D)))
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))  # [B, heads, S, D]
+    out = {"flash_attention": {
+        "ms": graph_ms(lambda: FK.flash_attention_cuda(q, k, v), reps=20),
+        "plain_ms": graph_ms(lambda: attention_ref(q, k, v), reps=20),
+        "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), reps=20),
+        **attn_bound(B, S, H, KV, D, D, 2),
+        "shape": f"B={B}, S={S}, H={H}, KV={KV}, D=Dv={D}, bf16, causal"}}
+    d = 3072
+    w = randn(rng, (d,), torch.float32, dev) * 0.1 + 1
+    wb = w.to(bf)
+    for N, tag in ((B * S, ""), (B, "_decode")):
+        x, r = randn(rng, (N, d), bf, dev), randn(rng, (N, d), bf, dev)
+        row = N * d * 2
+        out["rmsnorm" + tag] = {
+            "ms": graph_ms(lambda: RK.rmsnorm_cuda(x, w, RMS_EPS)),
+            "plain_ms": graph_ms(lambda: rmsnorm_ref(x, w, RMS_EPS)),
+            "library_ms": graph_ms(lambda: F.rms_norm(x, (d,), wb, RMS_EPS)),
+            **bound_fields(2 * row + d * 4, 4 * N * d), "shape": f"N={N}, d={d}, bf16"}
+        out["rmsnorm_residual" + tag] = {
+            "ms": graph_ms(lambda: RK.rmsnorm_cuda(x, w, RMS_EPS, res2=r)),
+            "plain_ms": graph_ms(lambda: rmsnorm_residual_ref(x, r, w, RMS_EPS)),
+            "library_ms": None,
+            **bound_fields(4 * row + d * 4, 5 * N * d), "shape": f"N={N}, d={d}, bf16"}
+    phase("kernel_times_model", **out)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -794,7 +1176,9 @@ def main() -> int:
     from repro_torch.core.noc.engine import make_tables
     from repro_torch.core.noc.params import NocParams
     from repro_torch.core.noc.topology import build_mesh, build_occamy, build_torus
+    from repro_torch.kernels.flash_attention import flash_attention as FK
     from repro_torch.kernels.noc_router import noc_router as K
+    from repro_torch.kernels.rmsnorm import rmsnorm as RK
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -805,12 +1189,14 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     card = smi.splitlines()[0]
-    fresh = not K.library_path().exists()
+    libs = (K.LIBRARY, FK.LIBRARY, RK.LIBRARY)
+    fresh = [not lib.path().exists() for lib in libs]
     t0 = time.perf_counter()
-    so = K.build()
+    with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc per source, together
+        built = list(pool.map(lambda lib: lib.build(), libs))
     build_s = time.perf_counter() - t0
     phase("card", nvidia_smi=card, torch=torch.__version__,
-          cuda=torch.version.cuda, library=str(so.relative_to(ROOT)),
+          cuda=torch.version.cuda, libraries=[str(so.relative_to(ROOT)) for so in built],
           built_now=fresh, build_s=build_s)
 
     # ---- 2. kernels vs plain on random snapshots --------------------------
@@ -1133,7 +1519,13 @@ def main() -> int:
     offload_32 = time_offload(big_mid.fabric, big_sim.tables)
     phase("kernel_times_offload_32x32", at_cycle=100, **offload_32)
 
-    # ---- 10. the kernels line ----------------------------------------------
+    # ---- 10. the model stack: Phi-4-mini served on the card ----------------
+    model_errs = compare_model_kernels(dev)
+    serve_vs_cpu(dev)
+    serve_launches = serve_phi4_mini(dev)
+    model_times = time_model_kernels(dev)
+
+    # ---- 11. the kernels line ----------------------------------------------
     src = "src/repro_torch/kernels/noc_router/csrc/noc_router.cu"
     tpu = "src/repro/kernels/noc_router/noc_router.py:"
     rows = [  # (LAUNCHES key, kernel, TPU kernel line, main-path launches,
@@ -1171,6 +1563,26 @@ def main() -> int:
             "scale_32x32": None if t32 is None else {
                 "ms": t32["ms"], "plain_ms": t32["plain_ms"],
                 "bound_ms": t32["bound_ms"], "bound_by": t32["bound_by"]},
+        })
+    model_src = "src/repro_torch/kernels/{0}/csrc/{0}.cu"
+    model_tpu = "src/repro/kernels/{0}/{0}.py:{1}"
+    for key, pkg, line, on_path in (("flash_attention", "flash_attention", 23, True),
+                                    ("rmsnorm", "rmsnorm", 16, True),
+                                    ("rmsnorm_residual", "rmsnorm", 24, False)):
+        t = model_times[key]
+        if on_path:
+            check(serve_launches[key] > 0, f"{key} was not launched on its main path")
+        kernels.append({
+            "name": f"{key}_kernel", "route": "cuda", "source": model_src.format(pkg),
+            "replaces": model_tpu.format(pkg, line), "launches": serve_launches[key],
+            "max_abs_err": model_errs[key], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "shape": t["shape"],
+            "main_path": "serve_phi4_mini" if on_path else
+                         "none (the serve path rounds x + a before its norm)",
+            "decode": None if key == "flash_attention" else {
+                k_: model_times[key + "_decode"][k_] for k_ in
+                ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
         })
     phase("total", seconds=time.perf_counter() - t_start)
     print(card)

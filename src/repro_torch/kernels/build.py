@@ -1,0 +1,97 @@
+"""Build a kernel package's CUDA sources into a ``ctypes``-loaded library.
+
+Every kernel package of the port compiles its ``csrc/*.cu`` the same way:
+plain ``nvcc`` for ``sm_90a`` into a shared library with a C interface, at
+first use on a CUDA tensor, keyed by a hash of the sources and flags, into
+``_build/`` beside the package. Importing builds nothing; a library for the
+current sources is built once and reused.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+from typing import Callable, Sequence
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+
+def nvcc() -> str:
+    """Path of the CUDA compiler: ``$CUDA_HOME/bin/nvcc`` or on PATH."""
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (set CUDA_HOME)")
+    return found
+
+
+class CudaLibrary:
+    """One package's kernels: ``name`` keys the file, ``declare(lib)`` sets
+    the C signatures once the library is loaded."""
+
+    def __init__(self, name: str, sources: Sequence[Path], build_dir: Path,
+                 declare: Callable[[ctypes.CDLL], None]):
+        self.name = name
+        self.sources = tuple(sources)
+        self.build_dir = build_dir
+        self._declare = declare
+        self.lib = None  # the loaded library, once a launch has needed it
+        self._lock = threading.Lock()
+
+    def path(self) -> Path:
+        """Where the built library for the current sources lives."""
+        h = hashlib.sha256()
+        for src in self.sources:
+            h.update(src.read_bytes())
+        h.update(" ".join(NVCC_FLAGS).encode())
+        return self.build_dir / f"{self.name}_{h.hexdigest()[:16]}.so"
+
+    def build(self) -> Path:
+        """Compile the kernels unless a library for these sources exists."""
+        so = self.path()
+        if so.exists():
+            return so
+        self.build_dir.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=self.build_dir)
+        os.close(fd)
+        try:
+            subprocess.run([nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, self.sources)],
+                           check=True, capture_output=True, text=True)
+            os.replace(tmp, so)  # atomic: concurrent builders agree on the result
+        except subprocess.CalledProcessError as err:
+            raise RuntimeError(f"nvcc failed:\n{err.stdout}\n{err.stderr}") from err
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+        return so
+
+    def load(self) -> ctypes.CDLL:
+        """Build (if needed) and load the library; declare the C signatures."""
+        with self._lock:
+            if self.lib is None:
+                lib = ctypes.CDLL(str(self.build()))
+                self._declare(lib)
+                self.lib = lib
+        return self.lib
+
+
+def ptr(t) -> ctypes.c_void_p:
+    """A tensor's device address (a null pointer for an absent operand)."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def stream(device) -> ctypes.c_void_p:
+    """PyTorch's current CUDA stream on ``device``, for a launch."""
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)

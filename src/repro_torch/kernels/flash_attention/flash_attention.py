@@ -1,0 +1,80 @@
+"""CUDA flash attention for Hopper: build, ctypes binding and wrapper.
+
+The kernel (``csrc/flash_attention.cu``) replaces the JAX package's Pallas
+kernel ``_kernel`` (``src/repro/kernels/flash_attention/flash_attention.py:23``,
+launched by ``flash_attention_bhsd`` behind ``ops.flash_attention``). It
+reads the ``[B, S, H, D]`` layout directly and indexes KV head
+``h // (H // KV)``, so neither the transpose nor the GQA broadcast of the
+JAX wrapper is materialised. It is bound by operations (the causal
+products); this version computes them with scalar float32 FMAs, far from
+the tensor-core bound.
+
+The library is built by ``repro_torch.kernels.build`` at first use on a
+CUDA tensor, into ``_build/`` beside this file; importing builds nothing.
+``LAUNCHES`` counts the launches.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels.build import CudaLibrary, ptr, stream
+
+SOURCES = (Path(__file__).parent / "csrc" / "flash_attention.cu",)
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (32, 64, 128)  # D and Dv the kernel is built for
+
+# launches, counted where the wrapper launches the kernel
+LAUNCHES = {"flash_attention": 0}
+
+
+def _declare(lib):
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.flash_attention_launch.argtypes = [vp] * 4 + [ci] * 9 + [ctypes.c_float, vp]
+    lib.flash_attention_launch.restype = ci
+
+
+LIBRARY = CudaLibrary("flash_attention", SOURCES, Path(__file__).parent / "_build",
+                      _declare)
+
+
+def flash_attention_cuda(q, k, v, *, causal: bool = True):
+    """Launch the kernel on contiguous CUDA tensors q [B, Sq, H, D], k
+    [B, Skv, KV, D], v [B, Skv, KV, Dv] (float32 or bfloat16, one dtype).
+    Scores scale by ``D ** -0.5``. Returns a fresh [B, Sq, H, Dv] tensor;
+    the inputs are only read."""
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention_cuda needs CUDA tensors, got {dev}")
+    if q.dtype not in DTYPES:
+        raise TypeError(f"the flash-attention kernel takes float32 or bfloat16, got {q.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("q, k and v must be [B, S, heads, head_dim]")
+    B, Sq, H, D = q.shape
+    Skv, KV, Dv = k.shape[1], k.shape[2], v.shape[3]
+    if tuple(k.shape) != (B, Skv, KV, D) or tuple(v.shape[:3]) != (B, Skv, KV):
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} do not match "
+                         f"q {tuple(q.shape)}")
+    if KV < 1 or H % KV:
+        raise ValueError(f"{H} query heads do not group over {KV} KV heads")
+    if D not in HEAD_DIMS or Dv not in HEAD_DIMS:
+        raise ValueError(f"head dims must be in {HEAD_DIMS}, got D={D}, Dv={Dv}")
+    if B * H > 65535:
+        raise ValueError(f"B * H = {B * H} exceeds one launch's grid")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != dev or t.dtype != q.dtype or not t.is_contiguous():
+            raise ValueError(f"{name}: must be a contiguous {q.dtype} tensor on {dev}")
+    out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=dev)
+    if out.numel() == 0:
+        return out
+    if Skv == 0:
+        raise ValueError("attention over zero keys")
+    err = LIBRARY.load().flash_attention_launch(
+        ptr(q), ptr(k), ptr(v), ptr(out), B, H, KV, Sq, Skv, D, Dv,
+        DTYPES[q.dtype], int(causal), D ** -0.5, stream(dev))
+    if err != 0:
+        raise RuntimeError(f"flash-attention kernel launch failed: CUDA error {err}")
+    LAUNCHES["flash_attention"] += 1
+    return out

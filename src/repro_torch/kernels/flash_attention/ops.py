@@ -1,0 +1,20 @@
+"""Public flash-attention entry point in the JAX wrapper's ``[B, S, H, D]``
+layout with GQA, dispatched on the device: a CPU tensor runs the plain
+version (``ref``), a CUDA tensor the kernel
+(``flash_attention.flash_attention_cuda``) or raises. The counterpart of
+the JAX package's ``repro.kernels.flash_attention.ops``."""
+from __future__ import annotations
+
+from repro_torch.kernels.flash_attention.flash_attention import flash_attention_cuda
+from repro_torch.kernels.flash_attention.ref import attention_ref
+
+
+def flash_attention(q, k, v, *, causal: bool = True):
+    """q [B, Sq, H, D]; k, v [B, Skv, KV, D(v)] with H a multiple of KV ->
+    [B, Sq, H, Dv] in ``q``'s dtype, scores scaled by ``D ** -0.5``."""
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash-attention kernel for device {q.device}")
+    return flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
+                                causal=causal)

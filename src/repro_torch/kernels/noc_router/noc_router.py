@@ -25,25 +25,21 @@ One per-cycle step is an arb then an apply launch: the launch boundary is
 the arb -> link barrier (``in_space`` of every router must be visible
 before any link decision).
 
-The library is built with ``nvcc`` for ``sm_90a`` at first use on a CUDA
-tensor, keyed by a hash of the sources, into ``_build/`` beside this file;
-importing the module builds nothing. It exposes a plain C interface loaded
-with ``ctypes``. ``LAUNCHES`` counts the launches of each kernel and mode
-(``*_vc`` for ``n_vcs > 1``), so a run can show that it went through them.
+The library is built by ``repro_torch.kernels.build`` (``nvcc`` for
+``sm_90a`` at first use on a CUDA tensor, keyed by a hash of the sources,
+into ``_build/`` beside this file); importing the module builds nothing. It
+exposes a plain C interface loaded with ``ctypes``. ``LAUNCHES`` counts the
+launches of each kernel and mode (``*_vc`` for ``n_vcs > 1``), so a run can
+show that it went through them.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
 from pathlib import Path
 
 import torch
 
+from repro_torch.kernels.build import CudaLibrary, ptr as _ptr, stream as _stream
 from repro_torch.kernels.noc_router.ref import (
     NF,
     NRED,
@@ -53,9 +49,6 @@ from repro_torch.kernels.noc_router.ref import (
 
 CSRC = Path(__file__).parent / "csrc"
 SOURCES = (CSRC / "noc_router.cu",)
-BUILD_DIR = Path(__file__).parent / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
 MAX_P = 32  # slots (ports x VCs) per router the arb kernel holds per thread
 FUSED_PTRS = 40  # pointer operands of noc_fused_launch (FusedArgs)
 OFFLOAD_PTRS = 20  # pointer operands of noc_arb_offload_launch
@@ -64,69 +57,21 @@ OFFLOAD_PTRS = 20  # pointer operands of noc_arb_offload_launch
 LAUNCHES = {"arb": 0, "apply": 0, "arb_vc": 0, "apply_vc": 0, "fused": 0,
             "fused_vc": 0, "arb_offload": 0, "arb_offload_vc": 0}
 
-_lib = None
-_lib_lock = threading.Lock()
+
+def _declare(lib):
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.noc_arb_launch.argtypes = [vp] * 13 + [ci] * 7 + [vp]
+    lib.noc_arb_launch.restype = ci
+    lib.noc_apply_launch.argtypes = [vp] * 16 + [ci] * 7 + [vp]
+    lib.noc_apply_launch.restype = ci
+    lib.noc_fused_launch.argtypes = [vp, vp, vp]
+    lib.noc_fused_launch.restype = ci
+    lib.noc_arb_offload_launch.argtypes = [vp, vp, vp]
+    lib.noc_arb_offload_launch.restype = ci
 
 
-def _nvcc() -> str:
-    """Path of the CUDA compiler: ``$CUDA_HOME/bin/nvcc`` or on PATH."""
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    cand = Path(home) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the CUDA router kernels need the "
-                           "CUDA toolkit (set CUDA_HOME)")
-    return found
-
-
-def library_path() -> Path:
-    """Where the built library for the current sources lives."""
-    h = hashlib.sha256()
-    for src in SOURCES:
-        h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"noc_router_{h.hexdigest()[:16]}.so"
-
-
-def build() -> Path:
-    """Compile the kernels unless a library for these sources exists."""
-    so = library_path()
-    if so.exists():
-        return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, SOURCES)],
-                       check=True, capture_output=True, text=True)
-        os.replace(tmp, so)  # atomic: concurrent builders agree on the result
-    except subprocess.CalledProcessError as err:
-        raise RuntimeError(f"nvcc failed:\n{err.stdout}\n{err.stderr}") from err
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return so
-
-
-def _load():
-    """Build (if needed) and load the library; declare the C signatures."""
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.noc_arb_launch.argtypes = [vp] * 13 + [ci] * 7 + [vp]
-            lib.noc_arb_launch.restype = ci
-            lib.noc_apply_launch.argtypes = [vp] * 16 + [ci] * 7 + [vp]
-            lib.noc_apply_launch.restype = ci
-            lib.noc_fused_launch.argtypes = [vp, vp, vp]
-            lib.noc_fused_launch.restype = ci
-            lib.noc_arb_offload_launch.argtypes = [vp, vp, vp]
-            lib.noc_arb_offload_launch.restype = ci
-            _lib = lib
-    return _lib
+LIBRARY = CudaLibrary("noc_router", SOURCES, Path(__file__).parent / "_build",
+                      _declare)
 
 
 def _check(name, t, dtype, shape, device):
@@ -142,15 +87,6 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
-
-
-def _ptr(t):
-    """A tensor's device address (a null pointer for an absent operand)."""
-    return ctypes.c_void_p(None if t is None else t.data_ptr())
-
-
-def _stream(device):
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
 def mode(kernel: str, n_vcs: int) -> str:
@@ -221,7 +157,7 @@ def arb_cuda(in_buf, in_cnt, out_cnt, rr_ptr, wh_lock, route,
         rr_ptr=torch.empty((C, R, P), dtype=i32, device=dev),
         wh_lock=torch.empty((C, R, P), dtype=i32, device=dev),
         in_space=torch.empty((C, R, P), dtype=b, device=dev))
-    lib = _load()
+    lib = LIBRARY.load()
     err = lib.noc_arb_launch(
         _ptr(in_buf), _ptr(in_cnt), _ptr(out_cnt), _ptr(rr_ptr),
         _ptr(wh_lock), _ptr(route), _ptr(vc_out), _ptr(out.arb_pop),
@@ -279,7 +215,7 @@ def arb_offload_cuda(in_buf, in_cnt, out_cnt, rr_ptr, wh_lock, route,
     c_ptrs = (ctypes.c_void_p * OFFLOAD_PTRS)(
         *(None if t is None else t.data_ptr() for t in ptrs))
     dims = (ctypes.c_int * 8)(C, R, P, Din, Dout, E, n_vcs, G)
-    err = _load().noc_arb_offload_launch(c_ptrs, dims, _stream(dev))
+    err = LIBRARY.load().noc_arb_offload_launch(c_ptrs, dims, _stream(dev))
     _count("arb_offload", n_vcs, err)
     return out, red_acc2, red_got2
 
@@ -311,7 +247,7 @@ def apply_cuda(in_buf, in_cnt, out_buf, out_cnt, arb: ArbDecisions,
     new_in_cnt = torch.empty_like(in_cnt)
     new_out = torch.empty_like(out_buf)
     new_out_cnt = torch.empty_like(out_cnt)
-    lib = _load()
+    lib = LIBRARY.load()
     err = lib.noc_apply_launch(
         _ptr(in_buf), _ptr(in_cnt), _ptr(out_buf), _ptr(out_cnt),
         _ptr(arb.arb_pop), _ptr(arb.granted), _ptr(arb.chosen),
@@ -428,6 +364,6 @@ def router_cycles_fused_cuda(in_buf, in_cnt, out_buf, out_cnt, rr_ptr,
     c_ptrs = (ctypes.c_void_p * FUSED_PTRS)(
         *(None if t is None else t.data_ptr() for t in ptrs))
     dims = (ctypes.c_int * 10)(C, R, P, Din, Dout, E, Q, n_vcs, int(cycle0), N)
-    err = _load().noc_fused_launch(c_ptrs, dims, _stream(dev))
+    err = LIBRARY.load().noc_fused_launch(c_ptrs, dims, _stream(dev))
     _count("fused", n_vcs, err)
     return (*state, ep_flit, ep_valid, waiting)

@@ -1,0 +1,101 @@
+"""Shared layers: RMSNorm, rotary embeddings, the SwiGLU MLP, embedding.
+
+The counterparts of ``repro.models.layers``. Weights keep the JAX layouts
+(``w1`` [d, ff], ``embedding`` [V, d]); ``p`` is the layer's parameter
+module, read by key as the JAX pytree is.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.rmsnorm import ops as rms_ops
+from repro_torch.models.spec import PSpec
+
+
+# ----------------------------------------------------------------------
+# RMSNorm
+# ----------------------------------------------------------------------
+def rmsnorm_schema(d: int) -> dict:
+    """The norm's float32 scale, initialised to ones."""
+    return {"scale": PSpec((d,), ("embed",), "float32", "ones")}
+
+
+def rmsnorm(p, x, eps: float = 1e-5):
+    """float32 RMSNorm in ``x``'s dtype: the CUDA kernel on a card, its
+    plain version on the CPU."""
+    return rms_ops.rmsnorm(x, p["scale"], eps)
+
+
+# ----------------------------------------------------------------------
+# Rotary position embeddings
+# ----------------------------------------------------------------------
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    """Inverse frequencies, [head_dim // 2] (float32)."""
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: [..., S, H, D]; positions: [..., S] int. Split-half pairs, float32
+    angles, the result in ``x``'s dtype."""
+    d = x.shape[-1]
+    inv = rope_freqs(d, theta, x.device)
+    ang = positions[..., None].to(torch.float32) * inv  # [..., S, d/2]
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    xf1, xf2 = x[..., : d // 2].to(torch.float32), x[..., d // 2:].to(torch.float32)
+    out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def positions_for(cfg: ModelConfig, tokens_shape, device=None):
+    """Default positions: [B, S] int32."""
+    if cfg.rope_kind == "mrope":
+        raise NotImplementedError("M-RoPE is not ported yet (ROADMAP Queue 1 item 12)")
+    B, S = tokens_shape
+    return torch.arange(S, dtype=torch.int32, device=device)[None, :].expand(B, S)
+
+
+# ----------------------------------------------------------------------
+# SwiGLU MLP
+# ----------------------------------------------------------------------
+def mlp_schema(d: int, ff: int) -> dict:
+    """SwiGLU weights: ``w1``, ``w3`` [d, ff] and ``w2`` [ff, d]."""
+    return {
+        "w1": PSpec((d, ff), ("embed", "mlp"), init="scaled:0"),
+        "w3": PSpec((d, ff), ("embed", "mlp"), init="scaled:0"),
+        "w2": PSpec((ff, d), ("mlp", "embed"), init="scaled:0"),
+    }
+
+
+def mlp(p, x):
+    """``(silu(x @ w1) * (x @ w3)) @ w2``."""
+    h = F.silu(x @ p["w1"]) * (x @ p["w3"])
+    return h @ p["w2"]
+
+
+# ----------------------------------------------------------------------
+# Embedding / unembedding
+# ----------------------------------------------------------------------
+def embed_schema(cfg: ModelConfig) -> dict:
+    """The (tied) token embedding [V, d]."""
+    return {"embedding": PSpec((cfg.vocab_size, cfg.d_model), ("vocab", "embed"))}
+
+
+def embed(p, tokens):
+    """Rows of the embedding for ``tokens``."""
+    return p["embedding"][tokens]
+
+
+def unembed(p, x):
+    """Tied embeddings: float32 logits ``x @ E^T``, as the JAX package's
+    einsum with ``preferred_element_type=float32``. bf16 products are exact
+    in float32, so every route sums the same float32 products: on a card,
+    bf16 operands go to the tensor cores with a float32 result (``torch.mm``
+    with ``out_dtype``); elsewhere the operands are widened to float32."""
+    E = p["embedding"]
+    if x.is_cuda and x.dtype == E.dtype == torch.bfloat16:
+        x2 = x.reshape(-1, x.shape[-1])
+        return torch.mm(x2, E.t(), out_dtype=torch.float32).reshape(*x.shape[:-1], -1)
+    return torch.matmul(x.to(torch.float32), E.to(torch.float32).t())

@@ -1,0 +1,149 @@
+"""The dense GQA transformer block and the layer-stack loop.
+
+The counterparts of ``repro.models.transformer`` for the dense family:
+every block has the signature ``block(p, x, cache_layer, ctx) -> (x',
+new_cache_layer, aux)``, and ``ctx`` carries the mode ("train" |
+"prefill" | "decode") and positions. There is no mesh, so the JAX
+package's sharding constraints (``_cb``, ``_gw``) have no counterpart.
+``scan_stack`` is a Python loop over the layers' modules.
+
+Decode writes the new token's K/V into the stacked cache in place (the
+JAX package returns an updated copy): the cache is the largest live
+tensor after the weights, and no caller keeps the old one.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.attention import attention, decode_attention
+from repro_torch.models.layers import apply_rope, mlp, mlp_schema, rmsnorm, rmsnorm_schema
+from repro_torch.models.spec import PSpec, Stacked
+
+
+@dataclass
+class Ctx:
+    """What a block needs beside its weights and input."""
+
+    cfg: ModelConfig
+    mode: str  # "train" | "prefill" | "decode"
+    pos: Any = None  # [B, S]; decode: [B] write position
+
+
+def make_rope_fn(cfg: ModelConfig) -> Callable:
+    """``rope(x, pos)`` for the config's rotary kind."""
+    if cfg.rope_kind == "none":
+        return lambda x, pos: x
+    if cfg.rope_kind == "mrope":
+        raise NotImplementedError("M-RoPE is not ported yet (ROADMAP Queue 1 item 12)")
+    return lambda x, pos: apply_rope(x, pos, cfg.rope_theta)
+
+
+# ----------------------------------------------------------------------
+# GQA attention sub-layer
+# ----------------------------------------------------------------------
+def gqa_schema(cfg: ModelConfig) -> dict:
+    """Projections in the JAX layouts: ``wq`` [d, H, D], ``wk``/``wv``
+    [d, KV, D], ``wo`` [H, D, d]."""
+    H, KV, D, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, cfg.d_model
+    return {
+        "wq": PSpec((d, H, D), ("embed", "heads", "head_dim"), init="scaled:0"),
+        "wk": PSpec((d, KV, D), ("embed", "kv_heads", "head_dim"), init="scaled:0"),
+        "wv": PSpec((d, KV, D), ("embed", "kv_heads", "head_dim"), init="scaled:0"),
+        "wo": PSpec((H, D, d), ("heads", "head_dim", "embed"), init="scaled:0"),
+    }
+
+
+def _proj(x, w):
+    """einsum("bsd,dhk->bshk") as one matrix product."""
+    d, H, K = w.shape
+    return (x @ w.reshape(d, H * K)).reshape(*x.shape[:-1], H, K)
+
+
+def _out(o, w):
+    """einsum("bshk,hkd->bsd") as one matrix product."""
+    H, K, d = w.shape
+    return o.reshape(*o.shape[:-2], H * K) @ w.reshape(H * K, d)
+
+
+def gqa_attn(p, x, cache, ctx: Ctx):
+    """Returns (out, new_cache). Prefill builds ``{"k", "v"}``; decode writes
+    slot ``min(pos, S - 1)`` of the layer's cache in place and attends over
+    ``pos + 1`` entries."""
+    rope_fn = make_rope_fn(ctx.cfg)
+    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+
+    if ctx.mode in ("train", "prefill"):
+        q = rope_fn(q, ctx.pos)
+        k = rope_fn(k, ctx.pos)
+        o = attention(q, k, v)
+        out = _out(o, p["wo"])
+        return out, ({"k": k, "v": v} if ctx.mode == "prefill" else None)
+
+    posB = ctx.pos  # [B] absolute position of the new token (cache slot)
+    rpos = posB[:, None]
+    q = rope_fn(q, rpos)
+    k = rope_fn(k, rpos)
+    S = cache["k"].shape[1]
+    idx = torch.clamp(posB, max=S - 1).long()
+    bidx = torch.arange(x.shape[0], device=x.device)
+    cache["k"][bidx, idx] = k[:, 0]
+    cache["v"][bidx, idx] = v[:, 0]
+    o = decode_attention(q, cache["k"], cache["v"], posB + 1)
+    return _out(o, p["wo"]), cache
+
+
+# ----------------------------------------------------------------------
+# Blocks
+# ----------------------------------------------------------------------
+def dense_block_schema(cfg: ModelConfig, *, attn: str = "gqa", ff: int | None = None) -> dict:
+    """A pre-norm block: ``ln1``, ``attn``, ``ln2``, ``mlp``."""
+    if attn != "gqa":
+        raise NotImplementedError(
+            f"{attn!r} attention is not ported yet (ROADMAP Queue 1 item 12)")
+    d = cfg.d_model
+    return {
+        "ln1": rmsnorm_schema(d),
+        "attn": gqa_schema(cfg),
+        "ln2": rmsnorm_schema(d),
+        "mlp": mlp_schema(d, ff or cfg.d_ff),
+    }
+
+
+def dense_block(p, x, cache, ctx: Ctx):
+    """``x + attn(ln1(x))``, then ``+ mlp(ln2(.))``; the residual sums are
+    rounded to x's dtype before each norm, as in the JAX package."""
+    h = rmsnorm(p["ln1"], x, ctx.cfg.norm_eps)
+    a, new_cache = gqa_attn(p["attn"], h, cache, ctx)
+    x = x + a
+    x = x + mlp(p["mlp"], rmsnorm(p["ln2"], x, ctx.cfg.norm_eps))
+    return x, new_cache, None
+
+
+# ----------------------------------------------------------------------
+# Stack machinery
+# ----------------------------------------------------------------------
+def stack_schema(layer_schema: dict, n: int) -> Stacked:
+    """``n`` layers of one schema (one module each, in the per-layer
+    layout)."""
+    return Stacked(layer_schema, n)
+
+
+def scan_stack(block_fn, stacked_p, x, ctx: Ctx, stacked_cache=None):
+    """Run the layers in order. ``stacked_cache`` (decode) holds tensors
+    with a leading layer axis; prefill returns the layers' new caches
+    stacked the same way. Returns (x, new_stacked_cache, aux)."""
+    new_caches = []
+    for i, p in enumerate(stacked_p):
+        cache = None if stacked_cache is None else {
+            k: t[i] for k, t in stacked_cache.items()}
+        x, new_cache, _ = block_fn(p, x, cache, ctx)
+        new_caches.append(new_cache)
+    if stacked_cache is not None:
+        return x, stacked_cache, None  # the layer views were written in place
+    if new_caches[0] is None:
+        return x, None, None
+    return x, {k: torch.stack([c[k] for c in new_caches]) for k in new_caches[0]}, None

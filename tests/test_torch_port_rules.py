@@ -20,12 +20,18 @@ import torch
 
 import repro_torch
 from repro_torch import convert
+from repro_torch.configs import get_config
 from repro_torch.core.noc import sim as TS
 from repro_torch.core.noc import traffic as TT
 from repro_torch.core.noc.engine import make_tables
 from repro_torch.core.noc.params import NocParams
 from repro_torch.core.noc.topology import build_mesh
+from repro_torch.kernels.flash_attention import flash_attention as flash_kernel
 from repro_torch.kernels.noc_router import noc_router, ref
+from repro_torch.kernels.rmsnorm import rmsnorm as rmsnorm_kernel
+from repro_torch.models import model as TM
+from repro_torch.models.attention import attention
+from repro_torch.serve import Engine
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -46,14 +52,16 @@ def test_port_imports_neither_jax_nor_repro():
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
+        "from repro_torch.kernels.flash_attention import flash_attention\n"
         "from repro_torch.kernels.noc_router import noc_router\n"
-        "print(bad, noc_router._lib)\n")
+        "from repro_torch.kernels.rmsnorm import rmsnorm\n"
+        "print(bad, [k.LIBRARY.lib for k in (noc_router, flash_attention, rmsnorm)])\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=ROOT, timeout=300, env=env)
     assert out.returncode == 0, out.stderr
     # nothing of JAX, and no kernel library built or loaded by importing
-    assert out.stdout.strip() == "[] None", out.stdout
+    assert out.stdout.strip() == "[] [None, None, None]", out.stdout
 
 
 def _imported_names(path: Path):
@@ -146,3 +154,45 @@ def test_params_from_jax_fields_drop_the_pallas_knobs():
             n_channels=4, collective_offload=True)
     with pytest.raises(NotImplementedError, match="item 4"):
         convert.params_from_dict({**fields, "step_impl": "naive"})
+
+
+def test_model_kernel_wrappers_refuse_cpu_tensors():
+    x = torch.zeros((2, 64))
+    with pytest.raises(ValueError, match="CUDA"):
+        rmsnorm_kernel.rmsnorm_cuda(x, torch.ones(64), 1e-5)
+    q = torch.zeros((1, 8, 2, 32))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_kernel.flash_attention_cuda(q, q, q)
+
+
+def test_serving_entry_points_refuse_to_drop_to_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("phi4-mini-3.8b").reduced()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TM.init_params(cfg)
+    params = TM.init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Engine(cfg, params)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TM.init_cache(cfg, 1, 8)
+    assert Engine(cfg, params, device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "deepseek-v2-236b", "gemma3-4b",
+                                  "qwen2-vl-72b", "zamba2-7b", "seamless-m4t-medium",
+                                  "llama4-scout-17b-a16e"])
+def test_unported_model_families_raise(arch):
+    """Only the dense GQA family without a window runs in the port; every
+    other registered architecture is refused, naming the ROADMAP item."""
+    with pytest.raises(NotImplementedError, match="item 12"):
+        TM.init_params(get_config(arch).reduced(), device="cpu")
+
+
+def test_unported_model_options_raise():
+    q = torch.zeros((1, 8, 2, 32))
+    with pytest.raises(NotImplementedError, match="item 12"):
+        attention(q, q, q, window=4)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        TM.param_schema(get_config("phi4-mini-3.8b").replace(sliding_window=64))
+    for arch in ("phi4-mini-3.8b", "granite-8b", "mistral-large-123b"):
+        assert TM.count_params(get_config(arch)) > 0
