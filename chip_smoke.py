@@ -4,11 +4,12 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``src/repro_torch`` (``nvcc`` for ``sm_90a``,
-one compiler per source, all at once): the router cycle, flash attention
-and RMSNorm. Holds each kernel against its plain PyTorch version on the
-card, drives the simulator's main path through the port's entry points
-(``build_sim`` / ``run`` / ``stats``) and the model stack's serving path
-(``Engine.generate`` on Phi-4-mini), and checks what comes out:
+one compiler per source, all at once): the router cycle, flash attention,
+RMSNorm and the SSD scan. Holds each kernel against its plain PyTorch
+version on the card, drives the simulator's main path through the port's
+entry points (``build_sim`` / ``run`` / ``stats``) and the model stack's
+serving paths (``Engine.generate`` on Phi-4-mini, Mamba-2 and Zamba2), and
+checks what comes out:
 
 1. the card (``nvidia-smi``) and the kernels' build time;
 2. the arb and apply kernels bit-identical to the plain version on random
@@ -46,23 +47,32 @@ card, drives the simulator's main path through the port's entry points
    200 cycles (state against CPU, ms per cycle, peak device memory); the
    offload arb kernel's time against its plain version and bound; the
    8x4 all-reduce's layer split and device profile from cycle 400;
-10. the model stack (``kernels_vs_plain_model``, ``serve_phi4_mini_vs_cpu``,
-   ``serve_phi4_mini``, ``kernel_times_model``): the flash-attention kernel
-   against its plain version at the serve path's shapes (B=4, S=512, H=24,
-   KV=8, D=128, bf16), the ``tests/test_kernels.py`` sweep shapes in float32
-   and bf16, a ragged S=520 and Dv != D; both RMSNorm variants at N = 4 and
-   2048, d = 3072, float32 and bf16; inputs untouched. Phi-4-mini at full
-   width and 2 layers on the card against the CPU (one 400-token prompt, 4
-   greedy steps: logits within ``LOGIT_TOL``, tokens equal where the CPU's
-   top-2 margin exceeds it). Phi-4-mini at full width and depth through
-   ``Engine.generate``: 4 prompts of 300-500 tokens, 16 greedy tokens, twice
-   (identical tokens; 32 flash launches and 65 RMSNorm launches per prefill,
-   0 and 65 per decode step, 15 decode steps), all logits finite, prefill
-   ms, decode ms per step, tokens/s, peak device memory, and the device's
-   busy share of one prefill and one decode step
-   (``profile_serve_phi4_mini``, ``torch.profiler``); each kernel's time at
-   the path's shapes beside its bound, its plain version and one PyTorch call
-   (``library_ms``: ``scaled_dot_product_attention``, ``rms_norm``);
+10. the model stack (``kernels_vs_plain_model``, ``serve_*_vs_cpu``,
+   ``serve_*``, ``profile_serve_*``, ``kernel_times_model``): the
+   flash-attention kernel against its plain version at the serve paths'
+   shapes (B=4, S=512, bf16: H=24, KV=8, D=128; H=KV=32, D=112), the
+   ``tests/test_kernels.py`` sweep shapes in float32 and bf16, a ragged
+   S=520, Dv != D and a ragged D=112; both RMSNorm variants at N = 4 and
+   2048, d = 3072, float32 and bf16; the SSD kernel (y and final state) at
+   the sweep shapes in float32 and bf16, the Mamba-2 (H=24, P=64, N=128)
+   and Zamba2 (H=112, N=64) path shapes (B=4, S=512, Q=128, bf16), a ragged
+   S=520 and an entering state; inputs untouched. Card against CPU (one
+   prompt, 4 greedy steps: logits within ``LOGIT_TOL``, tokens equal where
+   the CPU's top-2 margin exceeds it): Phi-4-mini at full width and 2
+   layers (400 tokens), Mamba-2-130m at full width and depth (512 tokens),
+   Zamba2-7B at full width and 7 layers (one superblock, one shared
+   attention, one trailing layer; 256 tokens, two chunks). Each model at
+   full width and depth through ``Engine.generate``: 4 prompts (Phi-4-mini
+   300-500 tokens, Mamba-2 and Zamba2 512 each, no pad tail), 16 greedy
+   tokens, twice (identical tokens; launch counts exact: per prefill /
+   decode step Phi-4-mini 32 / 0 flash and 65 / 65 RMSNorm, Mamba-2 24 / 0
+   SSD and 25 / 25 RMSNorm, Zamba2 81 / 0 SSD, 13 / 0 flash and 108 / 108
+   RMSNorm; 15 decode steps), all logits finite, prefill ms, decode ms per
+   step, tokens/s, peak device memory, and the device's busy share of one
+   prefill and one decode step (``torch.profiler``); each kernel's time at
+   the paths' shapes beside its bound, its plain version and one PyTorch
+   call where there is one (``library_ms``: ``scaled_dot_product_attention``,
+   ``rms_norm``; none computes the SSD scan);
 11. one JSON line listing every kernel and mode (launches on its main
    path, mismatch, times, bounds).
 
@@ -798,8 +808,8 @@ def narrow_latency(TS, TT_epm, topo, src, dst, cycles=380):
 
 
 # ---------------------------------------------------------------------------
-# the model stack: Phi-4-mini served through the flash-attention and RMSNorm
-# kernels
+# the model stack: Phi-4-mini (dense GQA), Mamba-2 (SSM) and Zamba2 (hybrid)
+# served through the flash-attention, RMSNorm and SSD kernels
 
 # the H100 SXM's dense bf16 tensor-core peak (NVIDIA data sheet)
 BF16_FLOPS_PER_S = 989e12
@@ -808,12 +818,16 @@ BF16_FLOPS_PER_S = 989e12
 # as tests/test_kernels.py
 ATTN_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (3e-2, 3e-2)}
 RMS_TOL = {"float32": (2e-5, 1e-5), "bfloat16": (3e-2, 3e-2)}
-# card vs CPU logits of the 2-layer full-width model, both bf16: the two
-# sides round bf16 at other places (cuBLAS vs the CPU's matrix products, the
-# kernel vs the plain attention), a few bf16 ulps of logits of size ~5
+# SSD kernel vs plain: y and the final state are float32 for either input
+# dtype, so both take the float32 tolerance of tests/test_kernels.py's SSD
+# sweep (sums of up to Q * N products in another order, over up to 5 chunks)
+SSD_TOL = (1e-3, 1e-3)
+# card vs CPU logits, both bf16: the two sides round bf16 at other places
+# (cuBLAS vs the CPU's matrix products, the kernels vs the plain versions), a
+# few bf16 ulps of logits of size ~5
 LOGIT_TOL = 0.1
 RMS_EPS = 1e-5
-PHI4 = "phi4-mini-3.8b"
+PHI4, MAMBA2, ZAMBA2 = "phi4-mini-3.8b", "mamba2-130m", "zamba2-7b"
 
 
 def randn(rng, shape, dtype, dev):
@@ -831,10 +845,26 @@ def close_err(got, want, tol):
     return float(d.max()), bool((d <= atol + rtol * want.float().abs()).all())
 
 
+def ssd_inputs(rng, B, S, H, P, N, dtype, dev, init=False):
+    """The SSD sweep's input distributions (tests/test_kernels.py): x, dt
+    (post-softplus; / 20 with an entering state, so that it survives the
+    chunks), B, C, A_log, D, and the state (None unless ``init``)."""
+    import torch
+    import torch.nn.functional as F
+
+    x = randn(rng, (B, S, H, P), dtype, dev) * 0.5
+    dt = F.softplus(randn(rng, (B, S, H), torch.float32, dev)) / (20 if init else 1)
+    Bv, Cv = (randn(rng, (B, S, N), dtype, dev) * 0.5 for _ in range(2))
+    A_log = randn(rng, (H,), torch.float32, dev) * 0.2
+    D = torch.ones(H, device=dev)
+    s0 = randn(rng, (B, H, P, N), torch.float32, dev) if init else None
+    return x, dt, Bv, Cv, A_log, D, s0
+
+
 def compare_model_kernels(dev):
-    """Flash attention and RMSNorm (both variants) against their plain
-    versions on the card, inputs checked untouched. Returns the max error of
-    each kernel at the serve path's shapes."""
+    """Flash attention, RMSNorm (both variants) and the SSD scan against
+    their plain versions on the card, inputs checked untouched. Returns the
+    max error of each kernel at the serve paths' shapes."""
     import numpy as np
     import torch
 
@@ -842,16 +872,20 @@ def compare_model_kernels(dev):
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.rmsnorm import rmsnorm as RK
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref, rmsnorm_residual_ref
+    from repro_torch.kernels.ssd import ssd as SK
+    from repro_torch.kernels.ssd.ref import ssd_chunked_ref
 
     rng = np.random.default_rng(14)
     bf, f32 = "bfloat16", "float32"
     dt = {bf: torch.bfloat16, f32: torch.float32}
-    cases = [("path", 4, 512, 24, 8, 128, 128, bf)]  # (label, B, S, H, KV, D, Dv, dtype)
+    cases = [("path", 4, 512, 24, 8, 128, 128, bf),  # (label, B, S, H, KV, D, Dv, dtype)
+             ("zamba2_path", 4, 512, 32, 32, 112, 112, bf)]
     for d_ in (f32, bf):
         cases += [("sweep", 1, 128, 2, 2, 64, 64, d_), ("sweep", 2, 256, 4, 2, 64, 64, d_),
                   ("sweep_mqa", 1, 128, 8, 1, 32, 32, d_),
                   ("ragged", 1, 520, 24, 8, 128, 128, d_),
-                  ("dv_ne_d", 2, 200, 4, 2, 128, 64, d_)]
+                  ("dv_ne_d", 2, 200, 4, 2, 128, 64, d_),
+                  ("d112_ragged", 2, 130, 4, 2, 112, 112, d_)]
     errs, rows = {}, []
     for label, B, S, H, KV, D, Dv, d_ in cases:
         q, k, v = (randn(rng, sh, dt[d_], dev) for sh in
@@ -867,6 +901,8 @@ def compare_model_kernels(dev):
         check(same, "the flash-attention kernel modified its inputs")
         if label == "path":
             errs["flash_attention"] = err
+        if label == "zamba2_path":
+            errs["flash_attention_d112"] = err
     d = 3072
     for N in (4, 2048):
         for d_ in (f32, bf):
@@ -888,6 +924,34 @@ def compare_model_kernels(dev):
                   "the RMSNorm kernel modified its inputs")
             if N == 2048 and d_ == bf:
                 errs["rmsnorm"], errs["rmsnorm_residual"] = e1, max(e2, e3)
+    ssd_cases = []  # (label, B, S, H, P, N, chunk, dtype, entering state)
+    for d_ in (f32, bf):
+        ssd_cases += [("ssd_sweep", 1, 64, 2, 16, 8, 16, d_, False),
+                      ("ssd_sweep", 2, 128, 3, 16, 8, 32, d_, False),
+                      ("ssd_sweep", 1, 128, 1, 32, 16, 64, d_, False)]
+    ssd_cases += [("ssd_mamba2_path", 4, 512, 24, 64, 128, 128, bf, False),
+                  ("ssd_zamba2_path", 4, 512, 112, 64, 64, 128, bf, False),
+                  ("ssd_ragged", 2, 520, 24, 64, 128, 128, bf, False),
+                  ("ssd_state_init", 2, 200, 24, 64, 128, 128, bf, True)]
+    for label, B, S, H, P, N, Q, d_, init in ssd_cases:
+        ins = ssd_inputs(rng, B, S, H, P, N, dt[d_], dev, init)
+        x, dt_, Bv, Cv, A_log, D, s0 = ins
+        keep = [None if t is None else t.clone() for t in ins]
+        y, st = SK.ssd_cuda(x, dt_, Bv, Cv, A_log, D, Q, s0)
+        torch.cuda.synchronize()
+        want_y, want_s = ssd_chunked_ref(x, dt_, A_log, Bv, Cv, D, Q, s0)
+        ey, oky = close_err(y, want_y, SSD_TOL)
+        es, oks = close_err(st, want_s, SSD_TOL)
+        rows.append({"case": label, "shape": [B, S, H, P, N, Q], "dtype": d_,
+                     "max_abs_err": ey, "state_max_abs_err": es,
+                     "max_abs_y": float(want_y.abs().max()), "tol": SSD_TOL})
+        check(oky and oks, f"SSD disagrees with plain ({label}, {d_}): {ey}, {es}")
+        check(all(a is b or torch.equal(a, b) for a, b in zip(keep, ins)),
+              "the SSD kernel modified its inputs")
+        if label == "ssd_mamba2_path":
+            errs["ssd"] = max(ey, es)
+        if label == "ssd_zamba2_path":
+            errs["ssd_zamba2"] = max(ey, es)
     phase("kernels_vs_plain_model", cases=rows)
     return errs
 
@@ -913,25 +977,23 @@ def greedy_trace(M, cfg, p, toks, lens, n, force=None):
     return out_logits, torch.stack(out_toks, 1)
 
 
-def serve_vs_cpu(dev):
-    """Phi-4-mini at full width and 2 layers: one 400-token prompt padded
-    to 512 and 4 greedy decode steps on the card (teacher-forced with the
-    CPU's tokens) and on the CPU (plain versions), logits within
-    ``LOGIT_TOL`` and tokens equal wherever the CPU's top-2 margin exceeds
-    it."""
+def serve_vs_cpu(dev, name, cfg, prompt_len, seed):
+    """``cfg`` (full width, random weights from seed 0) on the card against
+    the CPU (plain versions): one prompt of ``prompt_len`` tokens, padded as
+    the engine pads it, and 4 greedy decode steps (the card teacher-forced
+    with the CPU's tokens); logits within ``LOGIT_TOL`` and tokens equal
+    wherever the CPU's top-2 margin exceeds it."""
     import copy
 
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.models import model as M
     from repro_torch.serve.engine import pad_prompts
 
-    cfg = get_config(PHI4).replace(n_layers=2)
     p_cpu = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     p_gpu = copy.deepcopy(p_cpu).to(dev)
-    prompt = np.random.default_rng(5).integers(0, cfg.vocab_size, 400).tolist()
+    prompt = np.random.default_rng(seed).integers(0, cfg.vocab_size, prompt_len).tolist()
     n = 4
     t0 = time.perf_counter()
     toks, lens = pad_prompts([prompt], "cpu")
@@ -946,14 +1008,26 @@ def serve_vs_cpu(dev):
         sure = (top2[:, 0] - top2[:, 1]) > LOGIT_TOL
         checked += int(sure.sum())
         equal += int((g.argmax(-1) == w.argmax(-1))[sure].sum())
-    phase("serve_phi4_mini_vs_cpu", layers=2, d_model=cfg.d_model,
+    phase(name, layers=cfg.n_layers, d_model=cfg.d_model,
           prompt_tokens=len(prompt), padded_to=int(toks.shape[1]), decode_steps=n,
           max_abs_logit_err=errs, tol=LOGIT_TOL,
           max_abs_logit=float(max(w.abs().max() for w in want)),
           tokens_checked=checked, tokens_equal=equal, cpu_s=cpu_s)
     check(all(np.isfinite(errs)) and max(errs) <= LOGIT_TOL,
-          f"card logits differ from the CPU's by {max(errs)}")
-    check(equal == checked, f"greedy tokens differ: {equal} of {checked}")
+          f"{name}: card logits differ from the CPU's by {max(errs)}")
+    check(equal == checked, f"{name}: greedy tokens differ: {equal} of {checked}")
+    del p_cpu, p_gpu
+    torch.cuda.empty_cache()
+
+
+def launch_counters():
+    """The ``LAUNCHES`` dicts of the model kernels (flash attention,
+    RMSNorm, SSD)."""
+    from repro_torch.kernels.flash_attention import flash_attention as FK
+    from repro_torch.kernels.rmsnorm import rmsnorm as RK
+    from repro_torch.kernels.ssd import ssd as SK
+
+    return (FK.LAUNCHES, RK.LAUNCHES, SK.LAUNCHES)
 
 
 def call_profile(fn, wall_ms):
@@ -966,16 +1040,13 @@ def call_profile(fn, wall_ms):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.kernels.flash_attention import flash_attention as FK
-    from repro_torch.kernels.rmsnorm import rmsnorm as RK
-
-    saved = dict(FK.LAUNCHES), dict(RK.LAUNCHES)
+    saved = [dict(c) for c in launch_counters()]
     with torch.no_grad(), profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    FK.LAUNCHES.update(saved[0])
-    RK.LAUNCHES.update(saved[1])
+    for c, s in zip(launch_counters(), saved):
+        c.update(s)
     by_name = collections.Counter()
     n_events = 0
     for e in prof.events():
@@ -990,34 +1061,31 @@ def call_profile(fn, wall_ms):
             "top_us": dict(by_name.most_common(6))}
 
 
-def serve_phi4_mini(dev):
-    """Phi-4-mini at full width and depth through ``Engine.generate``: 4
-    prompts of 300-500 tokens (padded to 512, a 529-slot cache), 16 greedy
-    tokens, twice; then the same prefill and decode steps one by one, timed
-    and counted. Returns the generate run's kernel launches."""
+def serve_model(dev, name, cfg, prompts, per_prefill, per_decode, n_new=16):
+    """``cfg`` at full width and depth through ``Engine.generate``: the
+    prompts (right-padded to a power of two), ``n_new`` greedy tokens,
+    twice, each run's kernel launches checked against one prefill's
+    (``per_prefill``) and ``n_new - 1`` decode steps' (``per_decode``);
+    then the same prefill and decode steps one by one, timed and counted.
+    Returns the generate run's kernel launches."""
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import flash_attention as FK
-    from repro_torch.kernels.rmsnorm import rmsnorm as RK
     from repro_torch.models import model as M
     from repro_torch.serve import Engine, ServeConfig
     from repro_torch.serve.engine import pad_prompts
 
-    cfg = get_config(PHI4)
-    L, n_new = cfg.n_layers, 16
-    norms = 2 * L + 1  # ln1 and ln2 of each layer, then the final norm
-
     def counts():
-        return {"flash_attention": FK.LAUNCHES["flash_attention"],
-                "rmsnorm": RK.LAUNCHES["rmsnorm"],
-                "rmsnorm_residual": RK.LAUNCHES["rmsnorm_residual"]}
+        return {k: v for c in launch_counters() for k, v in c.items()}
 
     def reset():
         torch.cuda.synchronize()
-        FK.LAUNCHES.update(dict.fromkeys(FK.LAUNCHES, 0))
-        RK.LAUNCHES.update(dict.fromkeys(RK.LAUNCHES, 0))
+        for c in launch_counters():
+            c.update(dict.fromkeys(c, 0))
+
+    def expect(n_prefill, n_decode):
+        return {k: n_prefill * per_prefill.get(k, 0) + n_decode * per_decode.get(k, 0)
+                for k in counts()}
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1027,11 +1095,8 @@ def serve_phi4_mini(dev):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     weight_bytes = sum(t.numel() * t.element_size() for t in params.parameters())
-    rng = np.random.default_rng(6)
-    prompts = [rng.integers(0, cfg.vocab_size, int(m)).tolist()
-               for m in rng.integers(300, 501, 4)]
     eng = Engine(cfg, params, scfg=ServeConfig(max_new_tokens=n_new))
-    runs, launches = [], None
+    runs = []
     for _ in range(2):
         reset()
         t0 = time.perf_counter()
@@ -1040,15 +1105,15 @@ def serve_phi4_mini(dev):
         runs.append((outs, time.perf_counter() - t0, counts()))
     (outs, gen1_s, launches), (outs2, gen2_s, launches2) = runs
     # one prefill and a decode step after each new token but the last
-    want = {"flash_attention": L, "rmsnorm": norms * n_new, "rmsnorm_residual": 0}
-    check(launches == want == launches2, f"generate launched {launches} / {launches2}, "
-          f"expected {want}")
-    check(outs == outs2, "two greedy runs gave different tokens")
+    want = expect(1, n_new - 1)
+    check(launches == want == launches2, f"{name}: generate launched {launches} / "
+          f"{launches2}, expected {want}")
+    check(outs == outs2, f"{name}: two greedy runs gave different tokens")
     check(all(len(o) == n_new and all(0 <= t < cfg.vocab_size for t in o) for o in outs),
-          "generate returned malformed tokens")
+          f"{name}: generate returned malformed tokens")
 
-    # the same work one call at a time: prefill, then the 15 decode steps
-    # fed the engine's tokens, each checked against the engine and timed
+    # the same work one call at a time: prefill, then the decode steps fed
+    # the engine's tokens, each checked against the engine and timed
     toks, lens = pad_prompts(prompts, dev)
     B, S = toks.shape
     reset()
@@ -1056,8 +1121,7 @@ def serve_phi4_mini(dev):
     logits, cache = M.prefill(cfg, params, {"tokens": toks}, pad_to=S + n_new + 1)
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
-    check(counts() == {"flash_attention": L, "rmsnorm": norms, "rmsnorm_residual": 0},
-          f"prefill launched {counts()}")
+    check(counts() == expect(1, 0), f"{name}: prefill launched {counts()}")
     finite = bool(torch.isfinite(logits).all())
     cache["len"] = lens
     cur = logits[torch.arange(B, device=dev), lens.long() - 1]
@@ -1071,8 +1135,7 @@ def serve_phi4_mini(dev):
         lg, cache = M.decode_step(cfg, params, cache, gen[:, i:i + 1])
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
-        check(counts() == {"flash_attention": 0, "rmsnorm": norms, "rmsnorm_residual": 0},
-              f"decode step launched {counts()}")
+        check(counts() == expect(0, 1), f"{name}: decode step launched {counts()}")
         finite &= bool(torch.isfinite(lg).all())
         agree &= bool((lg[:, 0].argmax(-1) == gen[:, i + 1]).all())
     peak = torch.cuda.max_memory_allocated()
@@ -1081,24 +1144,71 @@ def serve_phi4_mini(dev):
         cfg, params, {"tokens": toks}, pad_to=S + n_new + 1), prefill_ms)
     prof_decode = call_profile(lambda: M.decode_step(
         cfg, params, cache, gen[:, -1:]), decode_ms)
-    kv_bytes = sum(t.numel() * t.element_size() for t in cache["blocks"].values())
-    phase("serve_phi4_mini", layers=L, d_model=cfg.d_model, batch=B,
-          prompt_tokens=[len(p_) for p_ in prompts], padded_to=S,
-          cache_slots=int(cache["blocks"]["k"].shape[2]), new_tokens=n_new,
+
+    def nbytes(tree, kv):
+        """Bytes of the cache's K/V leaves (``kv``), or of its SSM leaves."""
+        total = 0
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                total += nbytes(v, kv)
+            elif k != "len" and (k in ("k", "v")) == kv:
+                total += v.numel() * v.element_size()
+        return total
+
+    phase(name, layers=cfg.n_layers, d_model=cfg.d_model, batch=B,
+          prompt_tokens=[len(p_) for p_ in prompts], padded_to=S, new_tokens=n_new,
           launches_per_generate=launches, tokens_identical_two_runs=True,
           steps_reproduce_engine_tokens=agree, logits_finite=finite,
           init_s=init_s, generate_s=[gen1_s, gen2_s], prefill_ms=prefill_ms,
           decode_ms_per_step=decode_ms, decode_ms_per_step_all=step_ms,
           decode_tokens_per_s=B / decode_ms * 1e3,
           generate_tokens_per_s=B * n_new / gen2_s,
-          weight_bytes=weight_bytes, kv_cache_bytes=kv_bytes,
+          weight_bytes=weight_bytes, kv_cache_bytes=nbytes(cache, True),
+          ssm_cache_bytes=nbytes(cache, False),
           peak_device_bytes=peak, peak_above_earlier_phases_bytes=peak - held)
-    phase("profile_serve_phi4_mini", prefill=prof_prefill, decode_step=prof_decode)
-    check(finite, "non-finite logits")
-    check(agree, "one-call-at-a-time steps do not reproduce the engine's tokens")
+    phase("profile_" + name, prefill=prof_prefill, decode_step=prof_decode)
+    check(finite, f"{name}: non-finite logits")
+    check(agree, f"{name}: one-call-at-a-time steps do not reproduce the engine's tokens")
     del params, cache, eng
     torch.cuda.empty_cache()
     return launches
+
+
+def serve_models(dev):
+    """The three serving paths at full width and depth, each driven with
+    the launch counts set to 0 just before it and read just after. Returns
+    each path's generate launches."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+
+    out = {}
+    cfg = get_config(PHI4)
+    L = cfg.n_layers
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, cfg.vocab_size, int(m)).tolist()
+               for m in rng.integers(300, 501, 4)]
+    # ln1 and ln2 of each layer, then the final norm
+    out["serve_phi4_mini"] = serve_model(dev, "serve_phi4_mini", cfg, prompts,
+                                         {"flash_attention": L, "rmsnorm": 2 * L + 1},
+                                         {"rmsnorm": 2 * L + 1})
+    # equal 512-token prompts: no pad tail for the SSM state to absorb
+    cfg = get_config(MAMBA2)
+    L = cfg.n_layers
+    rng = np.random.default_rng(10)
+    prompts = [rng.integers(0, cfg.vocab_size, 512).tolist() for _ in range(4)]
+    out["serve_mamba2_130m"] = serve_model(dev, "serve_mamba2_130m", cfg, prompts,
+                                           {"ssd": L, "rmsnorm": L + 1},
+                                           {"rmsnorm": L + 1})
+    cfg = get_config(ZAMBA2)
+    L, n_attn = cfg.n_layers, cfg.n_layers // cfg.shared_attn_period
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, cfg.vocab_size, 512).tolist() for _ in range(4)]
+    norms = L + 2 * n_attn + 1  # each SSM layer's, ln1 and ln2 per attention, final
+    out["serve_zamba2_7b"] = serve_model(dev, "serve_zamba2_7b", cfg, prompts,
+                                         {"ssd": L, "flash_attention": n_attn,
+                                          "rmsnorm": norms}, {"rmsnorm": norms})
+    return out
 
 
 def attn_bound(B, S, H, KV, D, Dv, itemsize):
@@ -1110,14 +1220,30 @@ def attn_bound(B, S, H, KV, D, Dv, itemsize):
     return bound_fields(nbytes, flops, BF16_FLOPS_PER_S)
 
 
+def ssd_bound(B, S, H, P, N, Q, itemsize):
+    """Least time of the SSD scan (S a multiple of Q, no entering state):
+    x, dt, B, C, A_log and D read once, y and the final state written once
+    in float32; or the products at the bf16 tensor-core peak: C.B^T's
+    causal pairs once per (batch, chunk) (the heads share B and C), and per
+    head the masked M x, C.S_prev (chunks after the first) and the state
+    update, whichever is larger."""
+    nC = S // Q
+    pairs = Q * (Q + 1) // 2
+    flops = 2 * B * (nC * pairs * N + H * (nC * pairs * P + (2 * nC - 1) * Q * N * P))
+    nbytes = (B * S * H * P * itemsize + B * S * H * 4 + 2 * B * S * N * itemsize
+              + 2 * H * 4 + B * S * H * P * 4 + B * H * P * N * 4)
+    return bound_fields(nbytes, flops, BF16_FLOPS_PER_S)
+
+
 def bound_fields(nbytes, nops, ops_per_s=SCALAR_OPS_PER_S):
     """``bound`` as the ``bound_ms`` / ``bound_by`` fields of a row."""
     return dict(zip(("bound_ms", "bound_by"), bound(nbytes, nops, ops_per_s)))
 
 
 def time_model_kernels(dev):
-    """Each kernel at the serve path's shapes: kernel, plain version and one
-    PyTorch call (the yardstick the port never calls), with the bound."""
+    """Each kernel at the serve paths' shapes: kernel, plain version and one
+    PyTorch call where there is one (the yardstick the port never calls),
+    with the bound."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1126,20 +1252,25 @@ def time_model_kernels(dev):
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.rmsnorm import rmsnorm as RK
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref, rmsnorm_residual_ref
+    from repro_torch.kernels.ssd import ssd as SK
+    from repro_torch.kernels.ssd.ref import ssd_chunked_ref
 
     rng = np.random.default_rng(7)
     bf = torch.bfloat16
-    B, S, H, KV, D = 4, 512, 24, 8, 128
-    q, k, v = (randn(rng, sh, bf, dev) for sh in ((B, S, H, D), (B, S, KV, D), (B, S, KV, D)))
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))  # [B, heads, S, D]
-    out = {"flash_attention": {
-        "ms": graph_ms(lambda: FK.flash_attention_cuda(q, k, v), reps=20),
-        "plain_ms": graph_ms(lambda: attention_ref(q, k, v), reps=20),
-        "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), reps=20),
-        **attn_bound(B, S, H, KV, D, D, 2),
-        "shape": f"B={B}, S={S}, H={H}, KV={KV}, D=Dv={D}, bf16, causal"}}
-    d = 3072
+    out = {}
+    for key, B, S, H, KV, D in (("flash_attention", 4, 512, 24, 8, 128),
+                                ("flash_attention_d112", 4, 512, 32, 32, 112)):
+        q, k, v = (randn(rng, sh, bf, dev) for sh in
+                   ((B, S, H, D), (B, S, KV, D), (B, S, KV, D)))
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))  # [B, heads, S, D]
+        out[key] = {
+            "ms": graph_ms(lambda: FK.flash_attention_cuda(q, k, v), reps=20),
+            "plain_ms": graph_ms(lambda: attention_ref(q, k, v), reps=20),
+            "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), reps=20),
+            **attn_bound(B, S, H, KV, D, D, 2),
+            "shape": f"B={B}, S={S}, H={H}, KV={KV}, D=Dv={D}, bf16, causal"}
+    d, B, S = 3072, 4, 512
     w = randn(rng, (d,), torch.float32, dev) * 0.1 + 1
     wb = w.to(bf)
     for N, tag in ((B * S, ""), (B, "_decode")):
@@ -1155,6 +1286,15 @@ def time_model_kernels(dev):
             "plain_ms": graph_ms(lambda: rmsnorm_residual_ref(x, r, w, RMS_EPS)),
             "library_ms": None,
             **bound_fields(4 * row + d * 4, 5 * N * d), "shape": f"N={N}, d={d}, bf16"}
+    # no single PyTorch call computes the scan: library_ms is None
+    for key, H, N in (("ssd", 24, 128), ("ssd_zamba2", 112, 64)):
+        x, dt, Bv, Cv, A_log, D, _ = ssd_inputs(rng, B, S, H, 64, N, bf, dev)
+        out[key] = {
+            "ms": graph_ms(lambda: SK.ssd_cuda(x, dt, Bv, Cv, A_log, D, 128), reps=20),
+            "plain_ms": graph_ms(lambda: ssd_chunked_ref(x, dt, A_log, Bv, Cv, D, 128),
+                                 reps=5),
+            "library_ms": None, **ssd_bound(B, S, H, 64, N, 128, 2),
+            "shape": f"B={B}, S={S}, H={H}, P=64, N={N}, Q=128, bf16 x / B / C"}
     phase("kernel_times_model", **out)
     return out
 
@@ -1179,9 +1319,15 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import flash_attention as FK
     from repro_torch.kernels.noc_router import noc_router as K
     from repro_torch.kernels.rmsnorm import rmsnorm as RK
+    from repro_torch.kernels.ssd import ssd as SK
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
+    # float32 matrix products in full float32, as the plain versions' einsums
+    # are compared with the kernels (PyTorch's default, set here: TF32 keeps
+    # about three decimal digits)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     kind = torch.cuda.get_device_name(0)
 
     # ---- 1. card + build --------------------------------------------------
@@ -1189,13 +1335,13 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     card = smi.splitlines()[0]
-    libs = (K.LIBRARY, FK.LIBRARY, RK.LIBRARY)
+    libs = (K.LIBRARY, FK.LIBRARY, RK.LIBRARY, SK.LIBRARY)
     fresh = [not lib.path().exists() for lib in libs]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc per source, together
         built = list(pool.map(lambda lib: lib.build(), libs))
     build_s = time.perf_counter() - t0
-    phase("card", nvidia_smi=card, torch=torch.__version__,
+    phase("card", nvidia_smi=card, torch=torch.__version__, tf32=False,
           cuda=torch.version.cuda, libraries=[str(so.relative_to(ROOT)) for so in built],
           built_now=fresh, build_s=build_s)
 
@@ -1519,10 +1665,18 @@ def main() -> int:
     offload_32 = time_offload(big_mid.fabric, big_sim.tables)
     phase("kernel_times_offload_32x32", at_cycle=100, **offload_32)
 
-    # ---- 10. the model stack: Phi-4-mini served on the card ----------------
+    # ---- 10. the model stack: Phi-4-mini, Mamba-2 and Zamba2 served ---------
+    from repro_torch.configs import get_config
+
     model_errs = compare_model_kernels(dev)
-    serve_vs_cpu(dev)
-    serve_launches = serve_phi4_mini(dev)
+    serve_vs_cpu(dev, "serve_phi4_mini_vs_cpu", get_config(PHI4).replace(n_layers=2),
+                 400, 5)
+    serve_vs_cpu(dev, "serve_mamba2_130m_vs_cpu", get_config(MAMBA2), 512, 8)
+    # one superblock of 6 SSM layers, the shared attention once, one trailing
+    # layer; 256 tokens are two chunks, so the state's carry is exercised
+    serve_vs_cpu(dev, "serve_zamba2_7b_vs_cpu", get_config(ZAMBA2).replace(n_layers=7),
+                 256, 9)
+    serve_launches = serve_models(dev)
     model_times = time_model_kernels(dev)
 
     # ---- 11. the kernels line ----------------------------------------------
@@ -1566,24 +1720,40 @@ def main() -> int:
         })
     model_src = "src/repro_torch/kernels/{0}/csrc/{0}.cu"
     model_tpu = "src/repro/kernels/{0}/{0}.py:{1}"
-    for key, pkg, line, on_path in (("flash_attention", "flash_attention", 23, True),
-                                    ("rmsnorm", "rmsnorm", 16, True),
-                                    ("rmsnorm_residual", "rmsnorm", 24, False)):
+    by_path = {path: {k: n for k, n in counts.items() if n}
+               for path, counts in serve_launches.items()}
+    # (kernel, its timing and error key, package, TPU kernel line, paths
+    #  whose launches it counts)
+    model_rows = (
+        ("flash_attention_kernel", "flash_attention", "flash_attention", 23,
+         ("serve_phi4_mini",)),
+        ("flash_attention_kernel[D=112]", "flash_attention_d112", "flash_attention", 23,
+         ("serve_zamba2_7b",)),
+        ("rmsnorm_kernel", "rmsnorm", "rmsnorm", 16,
+         ("serve_phi4_mini", "serve_mamba2_130m", "serve_zamba2_7b")),
+        ("rmsnorm_residual_kernel", "rmsnorm_residual", "rmsnorm", 24, ()),
+        ("ssd_kernel", "ssd", "ssd", 21, ("serve_mamba2_130m",)),
+        ("ssd_kernel[zamba2]", "ssd_zamba2", "ssd", 21, ("serve_zamba2_7b",)),
+    )
+    for name, key, pkg, line, paths in model_rows:
         t = model_times[key]
-        if on_path:
-            check(serve_launches[key] > 0, f"{key} was not launched on its main path")
+        count = key.removesuffix("_d112").removesuffix("_zamba2")
+        launches = {path: serve_launches[path][count] for path in paths}
+        for path, n in launches.items():
+            check(n > 0, f"{name} was not launched on its main path {path}")
         kernels.append({
-            "name": f"{key}_kernel", "route": "cuda", "source": model_src.format(pkg),
-            "replaces": model_tpu.format(pkg, line), "launches": serve_launches[key],
+            "name": name, "route": "cuda", "source": model_src.format(pkg),
+            "replaces": model_tpu.format(pkg, line), "launches": sum(launches.values()),
             "max_abs_err": model_errs[key], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "shape": t["shape"],
-            "main_path": "serve_phi4_mini" if on_path else
-                         "none (the serve path rounds x + a before its norm)",
-            "decode": None if key == "flash_attention" else {
+            "main_path": launches or
+                         "none (the serve paths round x + a before their norms)",
+            "decode": None if key + "_decode" not in model_times else {
                 k_: model_times[key + "_decode"][k_] for k_ in
                 ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
         })
+    phase("launches_by_path", **by_path)
     phase("total", seconds=time.perf_counter() - t_start)
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -199,6 +199,7 @@ int launch_dv(const void* q, const void* k, const void* v, void* o, int B, int H
   switch (Dv) {
     case 32: return launch_t<T, 32>(q, k, v, o, B, H, KV, Sq, Skv, D, scale, causal, s);
     case 64: return launch_t<T, 64>(q, k, v, o, B, H, KV, Sq, Skv, D, scale, causal, s);
+    case 112: return launch_t<T, 112>(q, k, v, o, B, H, KV, Sq, Skv, D, scale, causal, s);
     case 128: return launch_t<T, 128>(q, k, v, o, B, H, KV, Sq, Skv, D, scale, causal, s);
   }
   return (int)cudaErrorInvalidValue;
@@ -208,13 +209,13 @@ int launch_dv(const void* q, const void* k, const void* v, void* o, int B, int H
 
 // q [B, Sq, H, D], k [B, Skv, KV, D], v [B, Skv, KV, Dv] contiguous, float32
 // (dtype 0) or bfloat16 (dtype 1); o [B, Sq, H, Dv] of the same type.
-// D, Dv in {32, 64, 128}; H a multiple of KV; B * H <= 65535. Returns the
+// D, Dv in {32, 64, 112, 128}; H a multiple of KV; B * H <= 65535. Returns the
 // launch's CUDA error code (0 on success).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                                       int B, int H, int KV, int Sq, int Skv, int D, int Dv,
                                       int dtype, int causal, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D != 32 && D != 64 && D != 128) return (int)cudaErrorInvalidValue;
+  if (D != 32 && D != 64 && D != 112 && D != 128) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return launch_dv<float>(q, k, v, o, B, H, KV, Sq, Skv, D, Dv, scale, causal, s);
   if (dtype == 1)

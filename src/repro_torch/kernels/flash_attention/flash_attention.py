@@ -24,7 +24,7 @@ from repro_torch.kernels.build import CudaLibrary, ptr, stream
 
 SOURCES = (Path(__file__).parent / "csrc" / "flash_attention.cu",)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)  # D and Dv the kernel is built for
+HEAD_DIMS = (32, 64, 112, 128)  # D and Dv the kernel is built for (112: Zamba2)
 
 # launches, counted where the wrapper launches the kernel
 LAUNCHES = {"flash_attention": 0}

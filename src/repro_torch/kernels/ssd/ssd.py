@@ -1,0 +1,100 @@
+"""CUDA SSD chunked scan for Hopper: build, ctypes binding and wrapper.
+
+The kernel (``csrc/ssd.cu``) replaces the JAX package's Pallas kernel
+``_kernel`` (``src/repro/kernels/ssd/ssd.py:21``, launched by ``ssd_bhqp``
+behind ``ops.ssd``) and computes ``repro.models.ssm.ssd_chunked``'s
+function, the state carried in and out. It reads x [B, S, H, P] and the
+head-shared B and C [B, S, N] in place (the JAX wrapper transposes x and
+broadcasts B and C to every head) and handles any S, positions past S
+counting as dt = 0. It is bound by bytes (y is written in float32); this
+version computes its products with scalar float32 FMAs.
+
+The library is built by ``repro_torch.kernels.build`` at first use on a
+CUDA tensor, into ``_build/`` beside this file; importing builds nothing.
+``LAUNCHES`` counts the launches.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels.build import CudaLibrary, ptr, stream
+
+SOURCES = (Path(__file__).parent / "csrc" / "ssd.cu",)
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_CHUNK = MAX_STATE = 128  # the kernel's register tiles
+P_TILES = (64, 32, 16)  # P columns per CTA the kernel is built for
+SMEM_LIMIT = 232_448  # shared memory one CTA may opt in to on an H100
+
+# launches, counted where the wrapper launches the kernel
+LAUNCHES = {"ssd": 0}
+
+
+def _declare(lib):
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.ssd_launch.argtypes = [vp] * 9 + [ci] * 8 + [vp]
+    lib.ssd_launch.restype = ci
+    lib.ssd_smem_bytes.argtypes = [ci] * 3
+    lib.ssd_smem_bytes.restype = ctypes.c_size_t
+
+
+LIBRARY = CudaLibrary("ssd", SOURCES, Path(__file__).parent / "_build", _declare)
+
+
+def _check(name, t, shape, dtype, device):
+    if t.device != device or t.dtype != dtype:
+        raise TypeError(f"{name}: {t.dtype} on {t.device}, expected {dtype} on {device}")
+    if tuple(t.shape) != shape or not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous {list(shape)} tensor, "
+                         f"got {list(t.shape)}")
+
+
+def ssd_cuda(x, dt, Bv, Cv, A_log, D, chunk: int, state_init=None):
+    """Launch the kernel on contiguous CUDA tensors: x [B, S, H, P] (float32
+    or bfloat16), dt [B, S, H] float32 (post-softplus), Bv and Cv [B, S, N]
+    in x's dtype, A_log and D [H] float32, state_init [B, H, P, N] float32
+    or None (zeros); chunks of ``min(chunk, S)`` steps. Returns fresh
+    (y [B, S, H, P] float32, final state [B, H, P, N] float32); the inputs
+    are only read."""
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"ssd_cuda needs CUDA tensors, got {dev}")
+    if x.dtype not in DTYPES:
+        raise TypeError(f"the SSD kernel takes float32 or bfloat16, got {x.dtype}")
+    if x.dim() != 4 or Bv.dim() != 3:
+        raise ValueError("x must be [B, S, H, P] and Bv, Cv [B, S, N]")
+    B, S, H, P = x.shape
+    N = Bv.shape[2]
+    _check("x", x, (B, S, H, P), x.dtype, dev)
+    _check("dt", dt, (B, S, H), torch.float32, dev)
+    _check("Bv", Bv, (B, S, N), x.dtype, dev)
+    _check("Cv", Cv, (B, S, N), x.dtype, dev)
+    _check("A_log", A_log, (H,), torch.float32, dev)
+    _check("D", D, (H,), torch.float32, dev)
+    if state_init is not None:
+        _check("state_init", state_init, (B, H, P, N), torch.float32, dev)
+    Q = min(chunk, S)
+    if not (1 <= N <= MAX_STATE and 1 <= Q <= MAX_CHUNK):
+        raise ValueError(f"the SSD kernel takes N <= {MAX_STATE} and chunks of at "
+                         f"most {MAX_CHUNK} steps, got N={N}, chunk={chunk}")
+    if B * S * H * P == 0:
+        raise ValueError(f"empty input {list(x.shape)}")
+    if B * H >= 2**31:
+        raise ValueError(f"B * H = {B * H} exceeds one launch's grid")
+    lib = LIBRARY.load()
+    fits = [pt for pt in P_TILES if lib.ssd_smem_bytes(Q, N, pt) <= SMEM_LIMIT]
+    # the narrowest tile that covers P, else the widest that fits
+    PT = min((pt for pt in fits if pt >= P), default=fits[0] if fits else None)
+    if PT is None:
+        raise ValueError(f"no P tile fits shared memory at chunk {Q}, N={N}")
+    y = torch.empty((B, S, H, P), dtype=torch.float32, device=dev)
+    state = torch.empty((B, H, P, N), dtype=torch.float32, device=dev)
+    err = lib.ssd_launch(ptr(x), ptr(dt), ptr(Bv), ptr(Cv), ptr(A_log), ptr(D),
+                         ptr(state_init), ptr(y), ptr(state), B, S, H, P, N, Q, PT,
+                         DTYPES[x.dtype], stream(dev))
+    if err != 0:
+        raise RuntimeError(f"SSD kernel launch failed: CUDA error {err}")
+    LAUNCHES["ssd"] += 1
+    return y, state

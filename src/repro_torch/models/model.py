@@ -1,10 +1,13 @@
 """Model assembly for the port: ``param_schema`` / ``forward`` /
 ``prefill`` / ``decode_step``, driven by ``ModelConfig``.
 
-The counterpart of ``repro.models.model`` for the dense GQA family
-without local:global attention (Phi-4-mini, Granite, Mistral-Large). Every
-other family and attention kind raises ``NotImplementedError`` naming
-ROADMAP Queue 1 item 12.
+The counterpart of ``repro.models.model`` for three families: dense GQA
+without local:global attention (Phi-4-mini, Granite, Mistral-Large),
+``ssm`` (Mamba-2) and ``hybrid`` (Zamba2: superblocks of
+``shared_attn_period`` Mamba-2 layers, each followed by one tied dense GQA
+block with its own KV cache per application, then the trailing Mamba-2
+layers). Every other family and attention kind raises
+``NotImplementedError`` naming ROADMAP Queue 1 item 12.
 """
 from __future__ import annotations
 
@@ -22,29 +25,45 @@ from repro_torch.models.layers import (
     rmsnorm_schema,
     unembed,
 )
-from repro_torch.models.spec import DTYPES, PSpec, build_tree, count_params_tree, init_tree
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.spec import (
+    DTYPES,
+    PSpec,
+    build_tree,
+    count_params_tree,
+    init_tree,
+    stacked_shapes,
+)
 from repro_torch.models.transformer import (
     Ctx,
     dense_block,
     dense_block_schema,
     scan_stack,
+    ssm_block,
+    ssm_block_schema,
     stack_schema,
+    tree_index,
+    tree_stack,
 )
+
+FAMILIES = ("dense", "ssm", "hybrid")  # the families the port runs
 
 
 def check_supported(cfg: ModelConfig):
     """Raise ``NotImplementedError`` unless the port runs ``cfg``."""
     why = None
-    if cfg.family != "dense":
+    if cfg.family not in FAMILIES:
         why = f"the {cfg.family!r} family"
+    elif cfg.modality != "text":
+        why = f"the {cfg.modality!r} front end"
+    elif cfg.family == "ssm":
+        pass  # attention-free
     elif cfg.local_global_period or cfg.sliding_window:
         why = "sliding-window / local:global attention"
     elif cfg.attn_kind != "gqa":
         why = f"{cfg.attn_kind!r} attention"
     elif cfg.rope_kind == "mrope":
         why = "M-RoPE"
-    elif cfg.modality != "text":
-        why = f"the {cfg.modality!r} front end"
     if why:
         raise NotImplementedError(
             f"{cfg.name}: {why} is not ported yet (ROADMAP Queue 1 item 12)")
@@ -53,19 +72,35 @@ def check_supported(cfg: ModelConfig):
 # ======================================================================
 # Schema
 # ======================================================================
+def _hybrid_split(cfg: ModelConfig) -> tuple[int, int, int]:
+    """(layers per superblock, superblocks, trailing layers) of a hybrid."""
+    per = cfg.shared_attn_period
+    n_super = cfg.n_layers // per
+    return per, n_super, cfg.n_layers - n_super * per
+
+
 def param_schema(cfg: ModelConfig) -> dict:
-    """The model's parameter schema: embedding, final norm, the blocks."""
+    """The model's parameter schema: embedding, final norm, the blocks
+    (for a hybrid: ``superblocks`` [n_super][per], one ``shared_attn``
+    block and the ``trailing`` layers)."""
     check_supported(cfg)
-    return {
-        "embed": embed_schema(cfg),
-        "final_norm": rmsnorm_schema(cfg.d_model),
-        "blocks": stack_schema(dense_block_schema(cfg), cfg.n_layers),
-    }
+    sch = {"embed": embed_schema(cfg), "final_norm": rmsnorm_schema(cfg.d_model)}
+    if cfg.family == "dense":
+        sch["blocks"] = stack_schema(dense_block_schema(cfg), cfg.n_layers)
+    elif cfg.family == "ssm":
+        sch["blocks"] = stack_schema(ssm_block_schema(cfg), cfg.n_layers)
+    else:
+        per, n_super, trailing = _hybrid_split(cfg)
+        sch["superblocks"] = stack_schema(stack_schema(ssm_block_schema(cfg), per), n_super)
+        sch["shared_attn"] = dense_block_schema(cfg)  # tied weights (one copy)
+        if trailing:
+            sch["trailing"] = stack_schema(ssm_block_schema(cfg), trailing)
+    return sch
 
 
 def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
     """Parameters of ``cfg``'s schema."""
-    return count_params_tree(param_schema(cfg))  # dense: every weight is active
+    return count_params_tree(param_schema(cfg))  # no MoE: every weight is active
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
@@ -81,10 +116,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
 def params_from_numpy(cfg: ModelConfig, tree: dict, device=None):
     """The port's parameter modules for ``cfg`` from the JAX package's
     parameters as numpy arrays keyed by pytree path, stacked layers with
-    their leading layer axis (``"blocks.attn.wq"`` [L, d, H, D]). Every
-    leaf is checked against the schema's shape and cast to its dtype; keys
-    the schema lacks, or lacks in ``tree``, raise."""
+    their leading layer axes (``"blocks.attn.wq"`` [L, d, H, D],
+    ``"superblocks.mixer.wz"`` [n_super, per, d, H, P], ``"shared_attn.
+    attn.wq"`` unstacked). Every leaf is checked against the schema's
+    stacked shape and cast to its dtype; keys the schema lacks, or lacks in
+    ``tree``, raise."""
     dev = resolve_device(device)
+    schema = param_schema(cfg)
+    shapes = stacked_shapes(schema)
     used = set()
 
     def leaf(path, spec):
@@ -95,12 +134,12 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device=None):
             raise KeyError(f"{cfg.name}: no parameter {key!r} in the tree")
         used.add(key)
         arr = np.asarray(tree[key])
-        want = (cfg.n_layers,) * len(layer) + spec.shape
+        want = shapes[key]
         if arr.shape != want:
             raise ValueError(f"{key}: shape {arr.shape}, expected {want}")
         return torch.as_tensor(np.array(arr[layer], np.float32)).to(DTYPES[spec.dtype]).to(dev)
 
-    params = build_tree(param_schema(cfg), leaf)
+    params = build_tree(schema, leaf)
     extra = sorted(set(tree) - used)
     if extra:
         raise KeyError(f"{cfg.name}: parameters the port does not have: {extra}")
@@ -118,11 +157,32 @@ def _embed_input(cfg: ModelConfig, p, batch):
 
 
 def _run_lm_stacks(cfg: ModelConfig, p, x, ctx: Ctx, caches=None):
-    """The dense branch of the JAX package's ``_run_lm_stacks``. Returns
-    (x, new_caches, aux)."""
+    """The dense, ssm and hybrid branches of the JAX package's
+    ``_run_lm_stacks``. Returns (x, new_caches, aux)."""
     c = caches or {}
-    x, bc, _ = scan_stack(dense_block, p["blocks"], x, ctx, stacked_cache=c.get("blocks"))
-    return x, {"blocks": bc}, None
+    if cfg.family in ("dense", "ssm"):
+        block = dense_block if cfg.family == "dense" else ssm_block
+        x, bc, _ = scan_stack(block, p["blocks"], x, ctx, stacked_cache=c.get("blocks"))
+        return x, {"blocks": bc}, None
+    # hybrid: each superblock's SSM layers, then the shared attention block
+    # with this application's KV cache
+    sc = c.get("superblocks")
+    outs = []
+    for i, sp in enumerate(p["superblocks"]):
+        scache = None if sc is None else tree_index(sc, i)
+        x, ssm_c, _ = scan_stack(ssm_block, sp, x, ctx,
+                                 stacked_cache=None if scache is None else scache["ssm"])
+        x, attn_c, _ = dense_block(p["shared_attn"], x,
+                                   None if scache is None else scache["attn"], ctx)
+        outs.append({"ssm": ssm_c, "attn": attn_c})
+    if sc is None and ctx.mode == "prefill":
+        sc = tree_stack(outs)
+    new_caches = {"superblocks": sc}  # decode: the views were written in place
+    if "trailing" in p:
+        x, tc, _ = scan_stack(ssm_block, p["trailing"], x, ctx,
+                              stacked_cache=c.get("trailing"))
+        new_caches["trailing"] = tc
+    return x, new_caches, None
 
 
 def forward(cfg: ModelConfig, p, batch, mode: str = "train"):
@@ -141,26 +201,61 @@ def forward(cfg: ModelConfig, p, batch, mode: str = "train"):
 # KV cache + decode
 # ======================================================================
 def cache_schema(cfg: ModelConfig, B: int, S: int) -> dict:
-    """PSpec tree mirroring what prefill/decode produce. S = max context."""
+    """PSpec tree mirroring what prefill/decode produce. S = max context.
+    KV caches are [layers, B, S, KV, D] bf16; an SSM layer holds its state
+    [B, H, P, N] float32 and the last W - 1 raw conv inputs in bf16."""
     check_supported(cfg)
-    L, KV, D = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim
-    kv = PSpec((L, B, S, KV, D), ("layers", "batch", None, "kv_heads", None), init="zeros")
-    return {"len": PSpec((B,), ("batch",), "int32", "zeros"),
-            "blocks": {"k": kv, "v": kv}}
+    KV, D = cfg.n_kv_heads, cfg.resolved_head_dim
+
+    def kv(n):
+        spec = PSpec((n, B, S, KV, D), ("layers", "batch", None, "kv_heads", None),
+                     init="zeros")
+        return {"k": spec, "v": spec}
+
+    def ssm_cache(*lead):
+        _, H, P_, N = ssm_mod.ssm_dims(cfg)
+        W = cfg.ssm_conv_width
+        ax = ("layers", "layers2")[: len(lead)]
+        return {
+            "state": PSpec(lead + (B, H, P_, N), ax + ("batch", "ssm_heads", None, None),
+                           "float32", "zeros"),
+            "conv": {
+                "x": PSpec(lead + (B, W - 1, H, P_), ax + ("batch", None, "ssm_heads", None),
+                           init="zeros"),
+                "B": PSpec(lead + (B, W - 1, N), ax + ("batch", None, None), init="zeros"),
+                "C": PSpec(lead + (B, W - 1, N), ax + ("batch", None, None), init="zeros"),
+            },
+        }
+
+    sch = {"len": PSpec((B,), ("batch",), "int32", "zeros")}
+    if cfg.family == "dense":
+        sch["blocks"] = kv(cfg.n_layers)
+    elif cfg.family == "ssm":
+        sch["blocks"] = ssm_cache(cfg.n_layers)
+    else:
+        per, n_super, trailing = _hybrid_split(cfg)
+        sch["superblocks"] = {"ssm": ssm_cache(n_super, per), "attn": kv(n_super)}
+        if trailing:
+            sch["trailing"] = ssm_cache(trailing)
+    return sch
+
+
+def _tree_map(fn, tree):
+    return {k: _tree_map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
 
 
 def init_cache(cfg: ModelConfig, B: int, S: int, device=None):
-    """An empty cache (zeros; the JAX package fills the unwritten slots
+    """An empty cache (zeros; the JAX package fills the unwritten KV slots
     with random values, which decode masks either way)."""
     dev = resolve_device(device)
-    sch = cache_schema(cfg, B, S)
-    z = lambda s: torch.zeros(s.shape, dtype=getattr(torch, s.dtype), device=dev)
-    return {"len": z(sch["len"]), "blocks": {k: z(s) for k, s in sch["blocks"].items()}}
+    return _tree_map(lambda s: torch.zeros(s.shape, dtype=DTYPES[s.dtype], device=dev),
+                     cache_schema(cfg, B, S))
 
 
 def decode_step(cfg: ModelConfig, p, cache, tokens):
     """One decode step. tokens: [B, 1]. Returns (logits [B, 1, V],
-    new_cache); the cache's K/V tensors are updated in place."""
+    new_cache); the cache's K/V, SSM state and conv tensors are updated in
+    place."""
     posB = cache["len"]  # [B] current length == write position
     x = embed(p["embed"], tokens)
     ctx = Ctx(cfg=cfg, mode="decode", pos=posB)
@@ -174,12 +269,18 @@ def decode_step(cfg: ModelConfig, p, cache, tokens):
 
 
 def pad_cache(cfg: ModelConfig, cache, extra: int):
-    """Grow the sequence dim of the KV caches by ``extra`` decode slots
-    (prefill sizes them to the prompt)."""
+    """Grow the sequence dim (-3) of the KV caches (every ``k`` / ``v``
+    leaf) by ``extra`` decode slots (prefill sizes them to the prompt); SSM
+    states and conv prefixes are fixed-size and stay as they are."""
     if extra <= 0:
         return cache
-    grown = {k: F.pad(t, (0, 0, 0, 0, 0, extra)) for k, t in cache["blocks"].items()}
-    return {**cache, "blocks": grown}
+
+    def grow(tree):
+        return {k: grow(v) if isinstance(v, dict)
+                else F.pad(v, (0, 0, 0, 0, 0, extra)) if k in ("k", "v") else v
+                for k, v in tree.items()}
+
+    return grow(cache)
 
 
 def prefill(cfg: ModelConfig, p, batch, *, pad_to: int = 0):

@@ -51,6 +51,9 @@ class ParamTree(nn.Module):
     def __getitem__(self, key: str):
         return getattr(self, key)
 
+    def __contains__(self, key: str) -> bool:
+        return key in self._modules or key in self._parameters
+
 
 def leaves(schema, prefix: str = ""):
     """``(path, PSpec)`` pairs in schema order; a ``Stacked`` level adds the
@@ -63,6 +66,20 @@ def leaves(schema, prefix: str = ""):
     else:
         for k, v in schema.items():
             yield from leaves(v, f"{prefix}.{k}" if prefix else k)
+
+
+def stacked_shapes(schema, prefix: str = "", lead: tuple[int, ...] = ()) -> dict:
+    """Each leaf's path without layer indices (``superblocks.mixer.wz``)
+    mapped to its shape with the ``Stacked`` levels above it as leading
+    axes, the layout of the JAX package's stacked leaves."""
+    if isinstance(schema, PSpec):
+        return {prefix: lead + schema.shape}
+    if isinstance(schema, Stacked):
+        return stacked_shapes(schema.layer, prefix, lead + (schema.n,))
+    out = {}
+    for k, v in schema.items():
+        out.update(stacked_shapes(v, f"{prefix}.{k}" if prefix else k, lead))
+    return out
 
 
 def count_params_tree(schema) -> int:

@@ -1,15 +1,18 @@
-"""The dense GQA transformer block and the layer-stack loop.
+"""The dense GQA and the SSM (Mamba-2) blocks and the layer-stack loop.
 
-The counterparts of ``repro.models.transformer`` for the dense family:
-every block has the signature ``block(p, x, cache_layer, ctx) -> (x',
-new_cache_layer, aux)``, and ``ctx`` carries the mode ("train" |
-"prefill" | "decode") and positions. There is no mesh, so the JAX
-package's sharding constraints (``_cb``, ``_gw``) have no counterpart.
+The counterparts of ``repro.models.transformer`` for the dense, ssm and
+hybrid families: every block has the signature ``block(p, x, cache_layer,
+ctx) -> (x', new_cache_layer, aux)``, and ``ctx`` carries the mode
+("train" | "prefill" | "decode") and positions. There is no mesh, so the
+JAX package's sharding constraints (``_cb``, ``_gw``) have no counterpart.
 ``scan_stack`` is a Python loop over the layers' modules.
 
-Decode writes the new token's K/V into the stacked cache in place (the
-JAX package returns an updated copy): the cache is the largest live
-tensor after the weights, and no caller keeps the old one.
+Decode updates the stacked cache in place (the JAX package returns an
+updated copy): the new token's K/V is written into its slot, and an SSM
+layer overwrites its state and conv prefixes (``models.ssm``). The cache
+is the largest live tensor after the weights, and no caller keeps the old
+one. A layer's cache is a (nested) dict of tensors; the stacked cache has
+the same tree with a leading layer axis on every leaf.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import attention, decode_attention
 from repro_torch.models.layers import apply_rope, mlp, mlp_schema, rmsnorm, rmsnorm_schema
 from repro_torch.models.spec import PSpec, Stacked
@@ -123,6 +127,26 @@ def dense_block(p, x, cache, ctx: Ctx):
     return x, new_cache, None
 
 
+def ssm_block_schema(cfg: ModelConfig) -> dict:
+    """A pre-norm Mamba-2 block: ``ln`` and ``mixer``."""
+    return {"ln": rmsnorm_schema(cfg.d_model), "mixer": ssm_mod.ssm_schema(cfg)}
+
+
+def ssm_block(p, x, cache, ctx: Ctx):
+    """``x + mamba2(ln(x))``: the chunked scan in train and prefill (prefill
+    returns the layer's state and conv prefixes), one recurrent step in
+    decode (the layer's cache updated in place)."""
+    h = rmsnorm(p["ln"], x, ctx.cfg.norm_eps)
+    if ctx.mode == "train":
+        return x + ssm_mod.mamba2_block(p["mixer"], h, cfg=ctx.cfg), None, None
+    if ctx.mode == "prefill":
+        out, new_cache = ssm_mod.mamba2_block(p["mixer"], h, cfg=ctx.cfg, cache=cache,
+                                              return_cache=True)
+        return x + out, new_cache, None
+    out, new_cache = ssm_mod.mamba2_decode_step(p["mixer"], h, cache, cfg=ctx.cfg)
+    return x + out, new_cache, None
+
+
 # ----------------------------------------------------------------------
 # Stack machinery
 # ----------------------------------------------------------------------
@@ -132,18 +156,28 @@ def stack_schema(layer_schema: dict, n: int) -> Stacked:
     return Stacked(layer_schema, n)
 
 
+def tree_index(tree, i):
+    """Layer ``i`` of a stacked cache tree (views: writes reach the stack)."""
+    return {k: tree_index(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+
+
+def tree_stack(trees):
+    """Stack the layers' cache trees along a new leading axis."""
+    return {k: tree_stack([t[k] for t in trees]) if isinstance(v, dict)
+            else torch.stack([t[k] for t in trees]) for k, v in trees[0].items()}
+
+
 def scan_stack(block_fn, stacked_p, x, ctx: Ctx, stacked_cache=None):
     """Run the layers in order. ``stacked_cache`` (decode) holds tensors
     with a leading layer axis; prefill returns the layers' new caches
     stacked the same way. Returns (x, new_stacked_cache, aux)."""
     new_caches = []
     for i, p in enumerate(stacked_p):
-        cache = None if stacked_cache is None else {
-            k: t[i] for k, t in stacked_cache.items()}
+        cache = None if stacked_cache is None else tree_index(stacked_cache, i)
         x, new_cache, _ = block_fn(p, x, cache, ctx)
         new_caches.append(new_cache)
     if stacked_cache is not None:
         return x, stacked_cache, None  # the layer views were written in place
     if new_caches[0] is None:
         return x, None, None
-    return x, {k: torch.stack([c[k] for c in new_caches]) for k in new_caches[0]}, None
+    return x, tree_stack(new_caches), None

@@ -1,9 +1,13 @@
-"""Batched serving engine: prefill + decode with a KV cache.
+"""Batched serving engine: prefill + decode with KV / SSM-state caches.
 
 The counterpart of ``repro.serve.engine``: a batch of requests is
 prefilled together (right-padded to a power of two of at least 8 tokens),
 then decoded step by step with per-slot completion tracking (EOS / max
 tokens); finished slots keep their tokens frozen until the batch drains.
+As in the JAX engine, the pad tokens are prefilled too: attention masks
+them by the cache length, but an SSM layer's state and conv prefix absorb
+the pads of every prompt shorter than the batch's padded length, so a
+short prompt's tokens after the first follow that state.
 Greedy, or temperature sampling from a ``torch.Generator`` seeded by
 ``ServeConfig.seed`` (its draws differ from ``jax.random``'s). Runs on a
 card unless the caller passes ``device="cpu"``.

@@ -1,5 +1,5 @@
-"""The CUDA flash-attention and RMSNorm kernels against their plain PyTorch
-versions, on the card.
+"""The CUDA flash-attention, RMSNorm and SSD kernels against their plain
+PyTorch versions, on the card.
 
 These tests need a CUDA device and skip without one (the kernels have no
 CPU mode); run them on the GPU host with
@@ -8,7 +8,10 @@ This file imports neither JAX nor ``repro``. Tolerances: float32 atol
 2e-5 / rtol 1e-5 for RMSNorm (one row sum in another order) and 1e-4 /
 1e-4 for attention (exp and row sums of up to 520 keys in another order);
 bfloat16 3e-2, as ``tests/test_kernels.py`` (one bf16 rounding of outputs
-of size ~1, where the two sides may round a float32 a ulp apart).
+of size ~1, where the two sides may round a float32 a ulp apart). The SSD
+kernel's y and final state are float32 whatever x's dtype, so both dtypes
+take the float32 tolerance of the ``test_ssd_sweep`` (atol / rtol 1e-3:
+sums of up to Q * N products in another order, over up to five chunks).
 """
 import numpy as np
 import pytest
@@ -18,6 +21,8 @@ from repro_torch.kernels.flash_attention import flash_attention as fkern
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.rmsnorm import rmsnorm as rkern
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref, rmsnorm_residual_ref
+from repro_torch.kernels.ssd import ssd as skern
+from repro_torch.kernels.ssd.ref import ssd_chunked_ref
 
 DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 ATTN_TOL = {"float32": dict(atol=1e-4, rtol=1e-4), "bfloat16": dict(atol=3e-2, rtol=3e-2)}
@@ -27,6 +32,8 @@ RMS_TOL = {"float32": dict(atol=2e-5, rtol=1e-5), "bfloat16": dict(atol=3e-2, rt
 def _card(rng, shape, dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    # the plain versions' float32 einsums in full float32, not TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.as_tensor(rng.standard_normal(shape, np.float32)).to("cuda", DT[dtype])
 
 
@@ -39,6 +46,7 @@ def _card(rng, shape, dtype):
     (1, 520, 24, 8, 128, 128, True),  # ragged last tile
     (2, 200, 4, 2, 128, 64, True),  # Dv != D
     (1, 96, 4, 4, 32, 128, False),
+    (4, 512, 32, 32, 112, 112, True),  # Zamba2's shared attention
 ])
 def test_flash_attention_kernel_matches_plain(B, S, H, KV, D, Dv, causal, dtype):
     rng = np.random.default_rng(S + D + Dv)
@@ -72,3 +80,39 @@ def test_rmsnorm_kernels_match_plain(N, d, dtype):
     want_out, want_res = rmsnorm_residual_ref(x, r, w)
     torch.testing.assert_close(out_r.float(), want_out.float(), **RMS_TOL[dtype])
     torch.testing.assert_close(res.float(), want_res.float(), **RMS_TOL[dtype])
+
+
+SSD_TOL = dict(atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,P,N,chunk,init", [
+    (1, 64, 2, 16, 8, 16, False),  # the test_ssd_sweep shapes
+    (2, 128, 3, 16, 8, 32, False),
+    (1, 128, 1, 32, 16, 64, False),
+    (4, 512, 24, 64, 128, 128, False),  # Mamba-2's serve path
+    (4, 512, 112, 64, 64, 128, False),  # Zamba2's serve path
+    (2, 520, 24, 64, 128, 128, False),  # a ragged last chunk
+    (2, 40, 3, 8, 4, 16, True),  # an entering state, ragged, dt / 20
+])
+def test_ssd_kernel_matches_plain(B, S, H, P, N, chunk, init, dtype):
+    rng = np.random.default_rng(S + H + N)
+    x = _card(rng, (B, S, H, P), dtype) * 0.5
+    dt = torch.nn.functional.softplus(_card(rng, (B, S, H), "float32"))
+    if init:  # small steps, so that the entering state survives 40 of them
+        dt = dt / 20
+    Bv, Cv = _card(rng, (B, S, N), dtype) * 0.5, _card(rng, (B, S, N), dtype) * 0.5
+    A_log = _card(rng, (H,), "float32") * 0.2
+    D = torch.ones(H, device="cuda")
+    s0 = _card(rng, (B, H, P, N), "float32") if init else None
+    keep = [t.clone() for t in (x, dt, Bv, Cv, A_log, D)]
+    before = skern.LAUNCHES["ssd"]
+    y, st = skern.ssd_cuda(x, dt, Bv, Cv, A_log, D, chunk, s0)
+    torch.cuda.synchronize()
+    assert skern.LAUNCHES["ssd"] == before + 1
+    want_y, want_s = ssd_chunked_ref(x, dt, A_log, Bv, Cv, D, chunk, s0)
+    assert y.dtype == st.dtype == torch.float32
+    torch.testing.assert_close(y, want_y, **SSD_TOL)
+    torch.testing.assert_close(st, want_s, **SSD_TOL)
+    assert all(torch.equal(a, b) for a, b in zip(keep, (x, dt, Bv, Cv, A_log, D)))

@@ -6,6 +6,7 @@
   CPU silently: without a card and without ``device="cpu"`` they raise;
 * every configuration value the port does not implement yet is refused
   with ``NotImplementedError``; the ones it does are accepted.
+* every CUDA kernel's wrapper refuses CPU tensors.
 """
 import ast
 import dataclasses
@@ -29,6 +30,7 @@ from repro_torch.core.noc.topology import build_mesh
 from repro_torch.kernels.flash_attention import flash_attention as flash_kernel
 from repro_torch.kernels.noc_router import noc_router, ref
 from repro_torch.kernels.rmsnorm import rmsnorm as rmsnorm_kernel
+from repro_torch.kernels.ssd import ssd as ssd_kernel
 from repro_torch.models import model as TM
 from repro_torch.models.attention import attention
 from repro_torch.serve import Engine
@@ -55,13 +57,14 @@ def test_port_imports_neither_jax_nor_repro():
         "from repro_torch.kernels.flash_attention import flash_attention\n"
         "from repro_torch.kernels.noc_router import noc_router\n"
         "from repro_torch.kernels.rmsnorm import rmsnorm\n"
-        "print(bad, [k.LIBRARY.lib for k in (noc_router, flash_attention, rmsnorm)])\n")
+        "from repro_torch.kernels.ssd import ssd\n"
+        "print(bad, [k.LIBRARY.lib for k in (noc_router, flash_attention, rmsnorm, ssd)])\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=ROOT, timeout=300, env=env)
     assert out.returncode == 0, out.stderr
     # nothing of JAX, and no kernel library built or loaded by importing
-    assert out.stdout.strip() == "[] [None, None, None]", out.stdout
+    assert out.stdout.strip() == "[] [None, None, None, None]", out.stdout
 
 
 def _imported_names(path: Path):
@@ -163,6 +166,9 @@ def test_model_kernel_wrappers_refuse_cpu_tensors():
     q = torch.zeros((1, 8, 2, 32))
     with pytest.raises(ValueError, match="CUDA"):
         flash_kernel.flash_attention_cuda(q, q, q)
+    x, bc, h = torch.zeros((1, 8, 2, 16)), torch.zeros((1, 8, 4)), torch.zeros(2)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_kernel.ssd_cuda(x, torch.zeros((1, 8, 2)), bc, bc, h, h, 4)
 
 
 def test_serving_entry_points_refuse_to_drop_to_cpu(monkeypatch):
@@ -178,12 +184,12 @@ def test_serving_entry_points_refuse_to_drop_to_cpu(monkeypatch):
     assert Engine(cfg, params, device="cpu").device.type == "cpu"
 
 
-@pytest.mark.parametrize("arch", ["mamba2-130m", "deepseek-v2-236b", "gemma3-4b",
-                                  "qwen2-vl-72b", "zamba2-7b", "seamless-m4t-medium",
-                                  "llama4-scout-17b-a16e"])
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "gemma3-4b", "qwen2-vl-72b",
+                                  "seamless-m4t-medium", "llama4-scout-17b-a16e"])
 def test_unported_model_families_raise(arch):
-    """Only the dense GQA family without a window runs in the port; every
-    other registered architecture is refused, naming the ROADMAP item."""
+    """The dense GQA family without a window, ``ssm`` (Mamba-2) and
+    ``hybrid`` (Zamba2) run in the port; every other registered
+    architecture is refused, naming the ROADMAP item."""
     with pytest.raises(NotImplementedError, match="item 12"):
         TM.init_params(get_config(arch).reduced(), device="cpu")
 
@@ -194,5 +200,8 @@ def test_unported_model_options_raise():
         attention(q, q, q, window=4)
     with pytest.raises(NotImplementedError, match="item 12"):
         TM.param_schema(get_config("phi4-mini-3.8b").replace(sliding_window=64))
-    for arch in ("phi4-mini-3.8b", "granite-8b", "mistral-large-123b"):
+    for arch in ("phi4-mini-3.8b", "granite-8b", "mistral-large-123b", "mamba2-130m",
+                 "zamba2-7b"):
         assert TM.count_params(get_config(arch)) > 0
+    with pytest.raises(NotImplementedError, match="item 12"):
+        TM.param_schema(get_config("zamba2-7b").replace(sliding_window=64))
