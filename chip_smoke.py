@@ -5,9 +5,10 @@
 
 Builds the CUDA kernels from ``src/repro_torch`` (``nvcc`` for ``sm_90a``,
 one compiler per source, all at once): the router cycle, flash attention,
-RMSNorm and the SSD scan. Holds each kernel against its plain PyTorch
-version on the card, drives the simulator's main path through the port's
-entry points (``build_sim`` / ``run`` / ``stats``) and the model stack's
+RMSNorm, the SSD scan and the paged KV gather. Holds each kernel against
+its plain PyTorch version on the card, drives the simulator's main path
+through the port's entry points (``build_sim`` / ``run`` / ``stats``), the
+paper's figures through ``repro_torch.benchmarks`` and the model stack's
 serving paths (``Engine.generate`` on Phi-4-mini, Mamba-2 and Zamba2), and
 checks what comes out:
 
@@ -73,7 +74,22 @@ checks what comes out:
    the paths' shapes beside its bound, its plain version and one PyTorch
    call where there is one (``library_ms``: ``scaled_dot_product_attention``,
    ``rms_norm``; none computes the SSD scan);
-11. one JSON line listing every kernel and mode (launches on its main
+11. the paged KV gather (``kernels_vs_plain_kv_gather``,
+   ``kernel_times_kv_gather``): the kernel bit-equal to its plain version
+   at ``tests/test_kernels.py``'s sweep shapes in float32, bf16 and int32
+   (int32 and int64 tables), at Phi-4-mini's serving shape (a pool of 512
+   pages of 16 tokens x 2048 K|V values in bf16, 4 sequences of 512 tokens,
+   a shuffled table with one id repeated) and on a pool that is not 16-byte
+   aligned; an id out of range raises; the entry point
+   ``repro_torch.kernels.kv_gather.kv_gather`` once at the serving shape,
+   counted; its time, plain time, ``index_select`` time and bound at the
+   serving shape. Then the paper's figures (``figures_smoke_vs_cpu``):
+   every ``repro_torch.benchmarks`` module in ``--smoke`` mode on the card
+   and on the CPU, each row equal on both and to the JAX package's rows in
+   ``src/repro_torch/benchmarks/jax_rows.json``; and ``fig10_rob``, the
+   whole default-mode Fig. 10 module on the card (3 x 4000 cycles on the
+   4x4 mesh), rows and footer equal to the JAX package's, ms per cycle;
+12. one JSON line listing every kernel and mode (launches on its main
    path, mismatch, times, bounds).
 
 Each main path runs with the launch counts set to 0 just before it and
@@ -86,6 +102,7 @@ Needs one card and the CUDA toolkit; imports nothing of JAX.
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import json
 import statistics
 import subprocess
@@ -1299,6 +1316,223 @@ def time_model_kernels(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the paged KV gather, and the paper's figures through repro_torch.benchmarks
+
+# (n_pages, page, KVD, B, max_pages): tests/test_kernels.py's sweep shapes,
+# and Phi-4-mini's per-layer K|V page (2 x 8 KV heads x 128 = 2048 values
+# a token, 16 tokens a page) for 4 sequences of 512 tokens in a 512-page pool
+KV_SWEEP = ((10, 8, 32, 3, 4), (64, 16, 128, 2, 8))
+KV_SERVING = (512, 16, 2048, 4, 32)
+KV_MAIN_PATH = ("none (no path of either package calls it; entry point "
+                "`repro_torch.kernels.kv_gather.kv_gather`)")
+
+
+def kv_inputs(rng, n_pages, page, KVD, B, mp, dtype, dev, shuffled=False):
+    """A page pool and a [B, mp] int32 table on ``dev``. ``shuffled``: a
+    permutation of the pool's ids with its last slot repeating the first,
+    else uniform random ids (repeats likely), as the sweep's."""
+    import numpy as np
+    import torch
+
+    if dtype == torch.int32:
+        pages = torch.as_tensor(rng.integers(0, 100, (n_pages, page, KVD), dtype=np.int32))
+    else:
+        pages = torch.as_tensor(rng.standard_normal((n_pages, page, KVD), np.float32))
+    if shuffled:
+        table = rng.permutation(n_pages)[:B * mp].astype(np.int32)
+        table[-1] = table[0]
+    else:
+        table = rng.integers(0, n_pages, B * mp, dtype=np.int32)
+    return pages.to(dev, dtype), torch.as_tensor(table.reshape(B, mp)).to(dev)
+
+
+def compare_kv_gather(dev):
+    """The KV gather kernel bit-equal to its plain version at the sweep
+    shapes (float32, bfloat16, int32; int32 and int64 tables), the serving
+    shape and a page pool that is not 16-byte aligned; inputs untouched;
+    an id out of range raises. Then the entry point once at the serving
+    shape, counted. Returns (max error, entry-point launches)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.kv_gather import kv_gather
+    from repro_torch.kernels.kv_gather.kv_gather import LAUNCHES, kv_gather_cuda
+    from repro_torch.kernels.kv_gather.ref import kv_gather_ref
+
+    rng = np.random.default_rng(16)
+    cases = [(shape, dt_, False) for shape in KV_SWEEP
+             for dt_ in (torch.float32, torch.bfloat16, torch.int32)]
+    cases.append((KV_SERVING, torch.bfloat16, True))
+    rows, worst = [], 0.0
+    for shape, dt_, shuffled in cases:
+        pages, table = kv_inputs(rng, *shape, dt_, dev, shuffled)
+        keep = (pages.clone(), table.clone())
+        want = kv_gather_ref(pages, table)
+        for tab in (table, table.to(torch.int64)):
+            got = kv_gather_cuda(pages, tab)
+            torch.cuda.synchronize()
+            err = float((got.double() - want.double()).abs().max())
+            check(torch.equal(got, want), f"KV gather disagrees with plain at {shape}, {dt_}")
+            worst = max(worst, err)
+        check(torch.equal(pages, keep[0]) and torch.equal(table, keep[1]),
+              "the KV gather kernel modified its inputs")
+        rows.append({"shape": list(shape), "dtype": str(dt_).removeprefix("torch."),
+                     "table": "shuffled, one id repeated" if shuffled else "random",
+                     "max_abs_err": err})
+    flat = torch.arange(10 * 8 * 33 + 1, dtype=torch.float32, device=dev)
+    odd = flat[1:].view(10, 8, 33)  # 4-byte aligned, rows of 1056 bytes
+    table = torch.tensor([[3, 1, 3], [9, 0, 2]], dtype=torch.int32, device=dev)
+    check(torch.equal(kv_gather_cuda(odd, table), kv_gather_ref(odd, table)),
+          "KV gather disagrees with plain on an unaligned pool")
+    rows.append({"shape": [10, 8, 33, 2, 3], "dtype": "float32",
+                 "table": "pool at a 4-byte offset", "max_abs_err": 0.0})
+    raised = False
+    try:
+        kv_gather(odd, torch.tensor([[0, 10]], dtype=torch.int32, device=dev))
+    except ValueError:
+        raised = True
+    check(raised, "an out-of-range page id did not raise")
+    # the entry point at the serving shape, counted
+    pages, table = kv_inputs(rng, *KV_SERVING, torch.bfloat16, dev, True)
+    torch.cuda.synchronize()
+    LAUNCHES["kv_gather"] = 0
+    got = kv_gather(pages, table)
+    torch.cuda.synchronize()
+    launches = LAUNCHES["kv_gather"]
+    check(launches == 1, f"the KV gather entry point launched {launches} kernels")
+    check(torch.equal(got, kv_gather_ref(pages, table)), "the KV gather entry point")
+    phase("kernels_vs_plain_kv_gather", cases=rows, out_of_range_raises=raised,
+          entry_point_launches=launches)
+    return worst, launches
+
+
+def time_kv_gather(dev, pools=6):
+    """The KV gather at the serving shape: the kernel (launch alone, ids
+    not checked), the plain version and ``index_select`` + ``reshape``,
+    each cycling over ``pools`` pools with their own tables, so that the
+    pages come from device memory and not from the 50 MB L2. Bound: the
+    table, the distinct pages that the table names and the output, at the
+    memory rate."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.kv_gather.kv_gather import kv_gather_cuda
+    from repro_torch.kernels.kv_gather.ref import kv_gather_ref
+
+    rng = np.random.default_rng(17)
+    n_pages, page, KVD, B, mp = KV_SERVING
+    ins = [kv_inputs(rng, *KV_SERVING, torch.bfloat16, dev, True) for _ in range(pools)]
+
+    def turns(fn):
+        i = [0]
+
+        def call():
+            i[0] += 1
+            return fn(*ins[i[0] % pools])
+        return call
+
+    row = page * KVD * 2
+    distinct = len(torch.unique(ins[0][1]))
+    out = {
+        "ms": graph_ms(turns(kv_gather_cuda), reps=60),
+        "plain_ms": graph_ms(turns(kv_gather_ref), reps=60),
+        "library_ms": graph_ms(turns(lambda p, t: p.index_select(0, t.reshape(-1)).reshape(
+            B, mp * page, KVD)), reps=60),
+        **bound_fields(B * mp * 4 + distinct * row + B * mp * row, 0),
+        "shape": (f"pool {n_pages} x {page} x {KVD} bf16, B={B}, max_pages={mp}, "
+                  f"{distinct} distinct ids, {pools} pools in turn"),
+    }
+    phase("kernel_times_kv_gather", **out)
+    return out
+
+
+def figure_rows(rows):
+    """Rows as ``jax_rows.json`` stores them: name, derived, target, ok,
+    numpy scalars through ``str``."""
+    return json.loads(json.dumps([{k: r[k] for k in ("name", "derived", "target", "ok")}
+                                  for r in rows], default=str))
+
+
+def jax_rows():
+    return json.loads((ROOT / "src/repro_torch/benchmarks/jax_rows.json").read_text())
+
+
+def router_launches_reset():
+    """Set the router kernels' launch counts to 0 (after the card is idle)."""
+    import torch
+
+    from repro_torch.kernels.noc_router import noc_router as K
+
+    torch.cuda.synchronize()
+    K.LAUNCHES.update(dict.fromkeys(K.LAUNCHES, 0))
+    return K.LAUNCHES
+
+
+def figures_smoke(dev):
+    """Every module of ``repro_torch.benchmarks`` in ``--smoke`` mode on the
+    card (router launch counts from 0, read after) and on the CPU: each
+    row equal on both devices and to the JAX package's smoke rows."""
+    import torch
+
+    from repro_torch.benchmarks.run import MODULES, bench_rows
+    from repro_torch.core.noc.params import NocParams
+
+    want = jax_rows()["smoke"]
+    counts = router_launches_reset()
+    t0 = time.perf_counter()
+    gpu = {name: bench_rows(mod, False, True, dev) for name, mod in MODULES}
+    torch.cuda.synchronize()
+    gpu_s = time.perf_counter() - t0
+    launches = dict(counts)
+    t0 = time.perf_counter()
+    cpu = {name: bench_rows(mod, False, True, "cpu") for name, mod in MODULES}
+    cpu_s = time.perf_counter() - t0
+    n_rows = 0
+    for name, _ in MODULES:
+        g, c = figure_rows(gpu[name]), figure_rows(cpu[name])
+        check(g == c, f"{name}: smoke rows differ between card and CPU: {g} vs {c}")
+        check(g == want[name]["rows"], f"{name}: smoke rows differ from the JAX rows: {g}")
+        n_rows += len(g)
+    # fig7 300, fig8 600, fig10 800 and fig11 1200 cycles, one step each
+    cycles = 300 + 600 + 800 + 1200
+    check(launches == expected_launches(NocParams(), cycles),
+          f"figure smoke launches {launches}")
+    phase("figures_smoke_vs_cpu", modules=len(MODULES), rows=n_rows, cycles=cycles,
+          launches=launches, gpu_s=gpu_s, cpu_s=cpu_s, equal_to_jax_rows=True)
+    return launches
+
+
+def figure_fig10(dev):
+    """The whole default-mode Fig. 10 module on the card (three 4000-cycle
+    runs on the 4x4 mesh and the area rows), counted: rows equal to the
+    JAX package's, every target met."""
+    import torch
+
+    from repro_torch.benchmarks import fig10_rob
+    from repro_torch.benchmarks.run import bench_rows
+    from repro_torch.core.noc.params import NocParams
+
+    counts = router_launches_reset()
+    t0 = time.perf_counter()
+    rows = bench_rows(fig10_rob, False, False, dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(counts)
+    got, want = figure_rows(rows), jax_rows()["default"]["fig10_rob"]
+    check(got == want["rows"], f"Fig. 10 rows differ from the JAX rows: {got}")
+    cycles = 3 * 4000
+    check(launches == expected_launches(NocParams(), cycles), f"Fig. 10 launches {launches}")
+    checked = [r for r in rows if r["ok"] is not None]
+    footer = (f"# paper-validation: {sum(bool(r['ok']) for r in checked)}/{len(checked)} "
+              "targets matched")
+    check(footer == want["footer"], f"Fig. 10 footer {footer}")
+    phase("fig10_rob", cycles=cycles, launches=launches, seconds=wall,
+          ms_per_cycle=wall / cycles * 1e3, footer=footer, equal_to_jax_rows=True,
+          rows={r["name"]: r["derived"] for r in rows})
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1335,7 +1569,9 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     card = smi.splitlines()[0]
-    libs = (K.LIBRARY, FK.LIBRARY, RK.LIBRARY, SK.LIBRARY)
+    # the package exports its entry point under the module's own name
+    KG = importlib.import_module("repro_torch.kernels.kv_gather.kv_gather")
+    libs = (K.LIBRARY, FK.LIBRARY, RK.LIBRARY, SK.LIBRARY, KG.LIBRARY)
     fresh = [not lib.path().exists() for lib in libs]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc per source, together
@@ -1679,7 +1915,12 @@ def main() -> int:
     serve_launches = serve_models(dev)
     model_times = time_model_kernels(dev)
 
-    # ---- 11. the kernels line ----------------------------------------------
+    # ---- 11. the paged KV gather; the paper's figures through the port ----
+    kv_err, kv_launches = compare_kv_gather(dev)
+    kv_times = time_kv_gather(dev)
+    figure_launches = {"figures_smoke": figures_smoke(dev), "fig10_rob": figure_fig10(dev)}
+
+    # ---- 12. the kernels line ----------------------------------------------
     src = "src/repro_torch/kernels/noc_router/csrc/noc_router.cu"
     tpu = "src/repro/kernels/noc_router/noc_router.py:"
     rows = [  # (LAUNCHES key, kernel, TPU kernel line, main-path launches,
@@ -1753,6 +1994,17 @@ def main() -> int:
                 k_: model_times[key + "_decode"][k_] for k_ in
                 ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
         })
+    kernels.append({
+        "name": "kv_gather_kernel", "route": "cuda",
+        "source": "src/repro_torch/kernels/kv_gather/csrc/kv_gather.cu",
+        "replaces": "src/repro/kernels/kv_gather/kv_gather.py:17", "launches": kv_launches,
+        "max_abs_err": kv_err, "ms": kv_times["ms"], "plain_ms": kv_times["plain_ms"],
+        "bound_ms": kv_times["bound_ms"], "bound_by": kv_times["bound_by"],
+        "library_ms": kv_times["library_ms"], "shape": kv_times["shape"],
+        "main_path": KV_MAIN_PATH,
+    })
+    by_path.update({path: {k: n for k, n in counts.items() if n}
+                    for path, counts in figure_launches.items()})
     phase("launches_by_path", **by_path)
     phase("total", seconds=time.perf_counter() - t_start)
     print(card)

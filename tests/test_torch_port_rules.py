@@ -28,6 +28,7 @@ from repro_torch.core.noc.engine import make_tables
 from repro_torch.core.noc.params import NocParams
 from repro_torch.core.noc.topology import build_mesh
 from repro_torch.kernels.flash_attention import flash_attention as flash_kernel
+from repro_torch.kernels.kv_gather.kv_gather import kv_gather_cuda
 from repro_torch.kernels.noc_router import noc_router, ref
 from repro_torch.kernels.rmsnorm import rmsnorm as rmsnorm_kernel
 from repro_torch.kernels.ssd import ssd as ssd_kernel
@@ -58,13 +59,15 @@ def test_port_imports_neither_jax_nor_repro():
         "from repro_torch.kernels.noc_router import noc_router\n"
         "from repro_torch.kernels.rmsnorm import rmsnorm\n"
         "from repro_torch.kernels.ssd import ssd\n"
-        "print(bad, [k.LIBRARY.lib for k in (noc_router, flash_attention, rmsnorm, ssd)])\n")
+        "kv_gather = importlib.import_module('repro_torch.kernels.kv_gather.kv_gather')\n"
+        "print(bad, [k.LIBRARY.lib for k in (noc_router, flash_attention, rmsnorm, ssd,\n"
+        "                                    kv_gather)])\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=ROOT, timeout=300, env=env)
     assert out.returncode == 0, out.stderr
     # nothing of JAX, and no kernel library built or loaded by importing
-    assert out.stdout.strip() == "[] [None, None, None, None]", out.stdout
+    assert out.stdout.strip() == "[] [None, None, None, None, None]", out.stdout
 
 
 def _imported_names(path: Path):
@@ -104,6 +107,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         noc_router.arb_cuda(buf, cnt, cnt, cnt, cnt,
                             torch.zeros((1, 1), dtype=torch.int32), 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        kv_gather_cuda(torch.zeros((2, 1, 8)), torch.zeros((1, 1), dtype=torch.int32))
 
 
 @pytest.mark.parametrize("kw,item", [
