@@ -53,8 +53,11 @@ checks what comes out:
    flash-attention kernel against its plain version at the serve paths'
    shapes (B=4, S=512, bf16: H=24, KV=8, D=128; H=KV=32, D=112), the
    ``tests/test_kernels.py`` sweep shapes in float32 and bf16, a ragged
-   S=520, Dv != D and a ragged D=112; both RMSNorm variants at N = 4 and
-   2048, d = 3072, float32 and bf16; the SSD kernel (y and final state) at
+   S=520, Dv != D, a ragged D=112, partial and single-row tiles (S = 1,
+   63, 64, 65, 129), every (D, Dv) in bf16 and Sq != Skv; both RMSNorm
+   variants at N = 4 and 2048, d = 3072, at N = 1, 5 and 2047, d = 768 and
+   3584, with a weight at an odd element offset and at d = 100, float32
+   and bf16; the SSD kernel (y and final state) at
    the sweep shapes in float32 and bf16, the Mamba-2 (H=24, P=64, N=128)
    and Zamba2 (H=112, N=64) path shapes (B=4, S=512, Q=128, bf16), a ragged
    S=520 and an entering state; inputs untouched. Card against CPU (one
@@ -73,7 +76,8 @@ checks what comes out:
    prefill and one decode step (``torch.profiler``); each kernel's time at
    the paths' shapes beside its bound, its plain version and one PyTorch
    call where there is one (``library_ms``: ``scaled_dot_product_attention``,
-   ``rms_norm``; none computes the SSD scan);
+   ``rms_norm``; none computes the SSD scan), RMSNorm also at Mamba-2's and
+   Zamba2's widths (N = 2048, d = 768 and 3584);
 11. the paged KV gather (``kernels_vs_plain_kv_gather``,
    ``kernel_times_kv_gather``): the kernel bit-equal to its plain version
    at ``tests/test_kernels.py``'s sweep shapes in float32, bf16 and int32
@@ -893,38 +897,55 @@ def compare_model_kernels(dev):
     from repro_torch.kernels.ssd.ref import ssd_chunked_ref
 
     rng = np.random.default_rng(14)
+    edge_rng = np.random.default_rng(17)  # the edge cases', so rng's draws stay as they were
     bf, f32 = "bfloat16", "float32"
     dt = {bf: torch.bfloat16, f32: torch.float32}
-    cases = [("path", 4, 512, 24, 8, 128, 128, bf),  # (label, B, S, H, KV, D, Dv, dtype)
-             ("zamba2_path", 4, 512, 32, 32, 112, 112, bf)]
+    # (label, B, Sq, H, KV, D, Dv, dtype, causal, Skv)
+    cases = [("path", 4, 512, 24, 8, 128, 128, bf, True, 512),
+             ("zamba2_path", 4, 512, 32, 32, 112, 112, bf, True, 512)]
     for d_ in (f32, bf):
-        cases += [("sweep", 1, 128, 2, 2, 64, 64, d_), ("sweep", 2, 256, 4, 2, 64, 64, d_),
-                  ("sweep_mqa", 1, 128, 8, 1, 32, 32, d_),
-                  ("ragged", 1, 520, 24, 8, 128, 128, d_),
-                  ("dv_ne_d", 2, 200, 4, 2, 128, 64, d_),
-                  ("d112_ragged", 2, 130, 4, 2, 112, 112, d_)]
+        cases += [("sweep", 1, 128, 2, 2, 64, 64, d_, True, 128),
+                  ("sweep", 2, 256, 4, 2, 64, 64, d_, True, 256),
+                  ("sweep_mqa", 1, 128, 8, 1, 32, 32, d_, True, 128),
+                  ("ragged", 1, 520, 24, 8, 128, 128, d_, True, 520),
+                  ("dv_ne_d", 2, 200, 4, 2, 128, 64, d_, True, 200),
+                  ("d112_ragged", 2, 130, 4, 2, 112, 112, d_, True, 130)]
+        # partial and single-row tiles
+        cases += [("edge_s", 2, S, 4, 2, 64, 64, d_, True, S) for S in (1, 63, 64, 65, 129)]
+    # every (D, Dv) the wrapper admits, non-causal where D < Dv
+    cases += [("head_dims", 1, 100, 4, 2, D, Dv, bf, D >= Dv, 100)
+              for D in FK.HEAD_DIMS for Dv in FK.HEAD_DIMS]
+    cases += [("sq_ne_skv", 2, 70, 4, 2, 128, 128, bf, c, 130) for c in (True, False)]
     errs, rows = {}, []
-    for label, B, S, H, KV, D, Dv, d_ in cases:
-        q, k, v = (randn(rng, sh, dt[d_], dev) for sh in
-                   ((B, S, H, D), (B, S, KV, D), (B, S, KV, Dv)))
+    for label, B, S, H, KV, D, Dv, d_, causal, Skv in cases:
+        gen = edge_rng if label in ("edge_s", "head_dims", "sq_ne_skv") else rng
+        q, k, v = (randn(gen, sh, dt[d_], dev) for sh in
+                   ((B, S, H, D), (B, Skv, KV, D), (B, Skv, KV, Dv)))
         keep = [t.clone() for t in (q, k, v)]
-        got = FK.flash_attention_cuda(q, k, v)
+        got = FK.flash_attention_cuda(q, k, v, causal=causal)
         torch.cuda.synchronize()
-        err, ok = close_err(got, attention_ref(q, k, v), ATTN_TOL[d_])
+        err, ok = close_err(got, attention_ref(q, k, v, causal=causal), ATTN_TOL[d_])
         same = all(torch.equal(a, b) for a, b in zip(keep, (q, k, v)))
-        rows.append({"case": label, "shape": [B, S, H, KV, D, Dv], "dtype": d_,
-                     "max_abs_err": err, "tol": ATTN_TOL[d_]})
+        rows.append({"case": label, "shape": [B, S, H, KV, D, Dv], "skv": Skv,
+                     "causal": causal, "dtype": d_, "max_abs_err": err, "tol": ATTN_TOL[d_]})
         check(ok, f"flash attention disagrees with plain ({label}, {d_}): {err}")
         check(same, "the flash-attention kernel modified its inputs")
         if label == "path":
             errs["flash_attention"] = err
         if label == "zamba2_path":
             errs["flash_attention_d112"] = err
-    d = 3072
-    for N in (4, 2048):
+    # (N, d, weight at an odd element offset): the path widths (3072 Phi-4-mini,
+    # 768 Mamba-2, 3584 Zamba2), row counts off the rows-per-CTA grid, the
+    # scalar path (odd width; unaligned weight)
+    rms_cases = [(N, 3072, False) for N in (4, 2048)]
+    rms_cases += [(N, d, False) for d in (768, 3584) for N in (1, 5, 2047)]
+    rms_cases += [(5, 3072, True), (2047, 768, True), (5, 100, False), (2047, 100, False)]
+    for i, (N, d, odd_w) in enumerate(rms_cases):
+        gen = rng if i < 2 else edge_rng
         for d_ in (f32, bf):
-            x, r = randn(rng, (N, d), dt[d_], dev), randn(rng, (N, d), dt[d_], dev)
-            w = randn(rng, (d,), torch.float32, dev) * 0.1 + 1
+            x, r = randn(gen, (N, d), dt[d_], dev), randn(gen, (N, d), dt[d_], dev)
+            w = randn(gen, (d + odd_w,), torch.float32, dev) * 0.1 + 1
+            w = w[odd_w:]  # a view at element offset 1: 4-byte, not 16-byte, aligned
             keep = [t.clone() for t in (x, r, w)]
             out = RK.rmsnorm_cuda(x, w, RMS_EPS)
             out_r, s_ = RK.rmsnorm_cuda(x, w, RMS_EPS, res2=r)
@@ -934,12 +955,13 @@ def compare_model_kernels(dev):
             e2, ok2 = close_err(out_r, want_o, RMS_TOL[d_])
             e3, ok3 = close_err(s_, want_s, RMS_TOL[d_])
             rows.append({"case": "rmsnorm", "shape": [N, d], "dtype": d_,
+                         "weight_offset": int(odd_w),
                          "max_abs_err": e1, "residual_max_abs_err": max(e2, e3),
                          "tol": RMS_TOL[d_]})
-            check(ok1 and ok2 and ok3, f"RMSNorm disagrees with plain ({N}, {d_})")
+            check(ok1 and ok2 and ok3, f"RMSNorm disagrees with plain ({N}, {d}, {d_})")
             check(all(torch.equal(a, b) for a, b in zip(keep, (x, r, w))),
                   "the RMSNorm kernel modified its inputs")
-            if N == 2048 and d_ == bf:
+            if N == 2048 and d == 3072 and d_ == bf:
                 errs["rmsnorm"], errs["rmsnorm_residual"] = e1, max(e2, e3)
     ssd_cases = []  # (label, B, S, H, P, N, chunk, dtype, entering state)
     for d_ in (f32, bf):
@@ -1303,6 +1325,19 @@ def time_model_kernels(dev):
             "plain_ms": graph_ms(lambda: rmsnorm_residual_ref(x, r, w, RMS_EPS)),
             "library_ms": None,
             **bound_fields(4 * row + d * 4, 5 * N * d), "shape": f"N={N}, d={d}, bf16"}
+    # the other serve paths' widths, prefill rows: Mamba-2 768, Zamba2 3584
+    width_rng = np.random.default_rng(17)  # rng's draws for SSD stay as they were
+    for dw in (768, 3584):
+        N = B * S
+        x = randn(width_rng, (N, dw), bf, dev)
+        ww = randn(width_rng, (dw,), torch.float32, dev) * 0.1 + 1
+        wwb = ww.to(bf)
+        out[f"rmsnorm_d{dw}"] = {
+            "ms": graph_ms(lambda: RK.rmsnorm_cuda(x, ww, RMS_EPS)),
+            "plain_ms": graph_ms(lambda: rmsnorm_ref(x, ww, RMS_EPS)),
+            "library_ms": graph_ms(lambda: F.rms_norm(x, (dw,), wwb, RMS_EPS)),
+            **bound_fields(2 * N * dw * 2 + dw * 4, 4 * N * dw),
+            "shape": f"N={N}, d={dw}, bf16"}
     # no single PyTorch call computes the scan: library_ms is None
     for key, H, N in (("ssd", 24, 128), ("ssd_zamba2", 112, 64)):
         x, dt, Bv, Cv, A_log, D, _ = ssd_inputs(rng, B, S, H, 64, N, bf, dev)
@@ -1994,6 +2029,8 @@ def main() -> int:
                 k_: model_times[key + "_decode"][k_] for k_ in
                 ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
         })
+        if key == "rmsnorm":  # the Mamba-2 and Zamba2 widths beside Phi-4-mini's
+            kernels[-1]["other_widths"] = [model_times[f"rmsnorm_d{dw}"] for dw in (768, 3584)]
     kernels.append({
         "name": "kv_gather_kernel", "route": "cuda",
         "source": "src/repro_torch/kernels/kv_gather/csrc/kv_gather.cu",

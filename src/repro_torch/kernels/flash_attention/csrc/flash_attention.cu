@@ -5,29 +5,55 @@
 // `flash_attention_bhsd` with the GQA expansion of `ops.flash_attention`):
 // online-softmax attention with a float32 running max `m`, sum `l` and
 // accumulator, `-1e30` masking (query row i sees keys j <= i, top-left
-// aligned) and the output `acc / max(l, 1e-30)` in q's dtype.
+// aligned) and the output `acc / max(l, 1e-30)` in q's dtype. The KV head of
+// query head h is h / (H / KV): GQA reads the shared k/v rows in place, never
+// a broadcast copy. Keys are visited in ascending order from key 0, which
+// every row sees, so `m` is finite after the first tile and a masked entry
+// adds exp(-1e30 - m) = 0.
 //
-// Bound: operations at the path's shapes (S = 512, D = 128: ~128 FLOPs per
-// byte moved, each q/k/v element used by a whole tile). This first version
-// computes both products with scalar float32 FMAs out of shared memory, so
-// it runs far below the tensor-core bound; `mma.sync`/`wgmma` tiles are
-// later work. Design:
-// * one CTA (256 threads, 16 x 16) per (batch * head, 64-row q tile); the
-//   Pallas grid's sequential k axis becomes a loop inside the CTA, over
-//   64-key tiles in ascending order from key 0. Key 0 is visible to every
-//   row, so `m` is finite after the first tile and a masked entry adds
-//   exp(-1e30 - m) = 0; tiles wholly above the diagonal are skipped;
-// * q, k and v tiles are staged in shared memory as float32, k and q rows
-//   padded by one word so the 16 threads of a row hit 16 banks;
-// * each thread owns a 4 x 4 block of the score tile (rows ty + 16 i,
-//   keys tx + 16 j) and the same 4 rows x DV/16 columns of the accumulator,
-//   so a row's max and sum reduce over 16 lanes with shuffles;
-// * the KV head is h / (H / KV): GQA reads the shared k/v rows in place,
-//   never a broadcast copy;
-// * keys past Skv (a ragged last tile) are loaded as zeros and masked.
+// One kernel for each dtype (a dispatch, not a fallback).
+//
+// bfloat16: `flash_wgmma_kernel`, both products on the tensor cores through
+// `wgmma` (bf16 operands, float32 accumulation). At the serve paths' shapes
+// (B = 4, S = 512, D = 128) it is bound by bytes: q, k, v and o move ~34 MB,
+// 0.010 ms at 3.35 TB/s, against 0.0065 ms for the products at 989 TFLOP/s.
+// Design:
+// * one warpgroup (4 warps) per CTA owns 128 query rows of one (batch, head)
+//   as two 64-row halves, so every K/V tile it loads, and every wgmma B
+//   operand, serves 128 rows; each warp holds 16 rows of each half. The
+//   grid's x is batch * head, its y the query tile; with `causal` blockIdx.y
+//   counts from the last tile, so the tiles with the most keys start first;
+// * shared memory holds bf16 tiles in the 128-byte-swizzled layout that the
+//   wgmma descriptors read (64-column blocks of 64 rows x 128 bytes, chunk
+//   c of row r at c ^ (r % 8); D = 112 pads to two blocks). The Q tile is
+//   loaded once; 64-key K and V tiles go through a two-stage ring by
+//   `cp.async` (16 bytes a thread, rows past Skv zero-filled), the next
+//   tile's copy running under this tile's products; `fence.proxy.async`
+//   makes the copies visible to the tensor cores. 96 KB at D = Dv = 128:
+//   two CTAs to an SM, which is also all that ~250 registers a thread allow;
+// * S = Q K^T: `wgmma.m64n64k16`, Q and K both K-major from shared memory,
+//   one per half and 16 columns of D. The online softmax runs on the
+//   accumulator fragments in registers: a row's max and sum reduce over the
+//   4 lanes that hold the row (`shfl_xor` 1, 2), exponentials in base 2
+//   with the scale folded into one FFMA. P is rounded to bf16 in registers
+//   (the fragment layout of S is the A-operand layout of P V) and never goes
+//   through shared memory; `l` sums the unrounded float32 P;
+// * P V: `wgmma.m64nDVk16` with P from registers and V through an MN-major
+//   (transposed) descriptor of the same row-major tile;
+// * causal: key tiles wholly above the diagonal are never loaded, the first
+//   half skips the products of a tile that lies wholly above its rows, and
+//   only the diagonal tiles and a ragged last tile are masked.
+//
+// float32: `flash_fwd_kernel`, scalar float32 FMAs out of shared memory (the
+// tensor cores would compute in TF32, outside the float32 tolerance). One
+// CTA of 256 threads (16 x 16) per (64-row q tile, batch * head); each thread
+// owns a 4 x 4 block of the score tile and 4 rows x DV/16 accumulator
+// columns; q, k, v staged as float32, k and q rows padded by one word. No
+// serve path runs attention in float32 on the card.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
@@ -36,13 +62,9 @@ constexpr float NEG_INF = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 __device__ __forceinline__ float row_max16(float v) {
   for (int off = 8; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, off));
@@ -205,11 +227,388 @@ int launch_dv(const void* q, const void* k, const void* v, void* o, int B, int H
   return (int)cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16 on the tensor cores
+
+namespace wg {
+
+using bf16 = __nv_bfloat16;
+constexpr int BM = 64;        // query rows of a half; a CTA owns two halves
+constexpr int BN = 64;        // keys per K/V tile
+constexpr int THREADS = 128;  // one warpgroup
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, bypassing L1; zero-filled when !valid
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  const int n = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(n)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// registers that a wgmma writes are read only after this point
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// two floats rounded to bf16, the first in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// shared-memory matrix descriptor with the 128-byte swizzle: start address,
+// leading and stride byte offsets, all in 16-byte units
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// d[64 x 64] (+)= A[64 x 16] B[16 x 64]; A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[64 x 32] += A[64 x 16] B[16 x 32]; A in registers, B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], uint32_t a0, uint32_t a1,
+                                         uint32_t a2, uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+// d[64 x 64] += A[64 x 16] B[16 x 64]; A in registers, B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0, uint32_t a1,
+                                         uint32_t a2, uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+// d[64 x 112] += A[64 x 16] B[16 x 112]; A in registers, B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs(float (&d)[56], uint32_t a0, uint32_t a1,
+                                         uint32_t a2, uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55}, {%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+// d[64 x 128] += A[64 x 16] B[16 x 128]; A in registers, B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], uint32_t a0, uint32_t a1,
+                                         uint32_t a2, uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+// Columns a [64, COLS] tile takes in shared memory: whole 64-column blocks
+template <int COLS>
+__host__ __device__ constexpr int padded() { return (COLS + 63) / 64 * 64; }
+
+// Rows row0 .. row0 + 63 of a [rows, COLS] slab with row stride `gstride`
+// elements into the 128-byte-swizzled layout: 64-column blocks of 64 rows x
+// 128 bytes (8 KB apart), the 16-byte chunk c of row r at position
+// (c % 8) ^ (r % 8) of its row. Rows at or past `rows` are zero-filled.
+template <int COLS>
+__device__ __forceinline__ void load_tile(uint32_t sdst, const bf16* g, size_t gstride,
+                                          int row0, int rows, int tid) {
+  constexpr int CPR = COLS / 8;  // 16-byte chunks per row
+#pragma unroll
+  for (int i = 0; i < BN * CPR / THREADS; ++i) {
+    const int e = tid + i * THREADS, r = e / CPR, c = e - r * CPR, gr = row0 + r;
+    const bool ok = gr < rows;
+    cp_async16(sdst + (c >> 3) * 8192 + r * 128 + (((c & 7) ^ (r & 7)) << 4),
+               g + (size_t)(ok ? gr : 0) * gstride + c * 8, ok);
+  }
+}
+
+// the kk-th 16-column slice of a K-major [64, COLS] tile (Q, K): 32 bytes
+// apart within a block; 8-row groups 1024 bytes apart
+__device__ __forceinline__ uint64_t desc_k(uint32_t base, int kk) {
+  return desc(base + (kk >> 2) * 8192 + (kk & 3) * 32, 16, 1024);
+}
+
+// the kk-th 16-row slice of a [64, COLS] tile read as the MN-major B operand
+// (V: rows are K, columns N): 64-column blocks 8 KB apart, 8-row groups 1024
+__device__ __forceinline__ uint64_t desc_mn(uint32_t base, int kk) {
+  return desc(base + kk * 2048, 8192, 1024);
+}
+
+template <int D, int DV>
+constexpr size_t smem_bytes() {
+  return sizeof(bf16) *
+         (2 * (size_t)BM * padded<D>() + 2 * (size_t)BN * (padded<D>() + padded<DV>()));
+}
+
+// q [B, Sq, H, D], k [B, Skv, KV, D], v [B, Skv, KV, DV], o [B, Sq, H, DV];
+// grid (B * H, 128-row query tiles)
+template <int D, int DV>
+__global__ void __launch_bounds__(THREADS, 2)
+flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, bf16* __restrict__ o, int H, int KV, int Sq,
+                   int Skv, float scale_log2, int causal) {
+  constexpr int NKT = BN / 8, NVT = DV / 8, BMR = 2 * BM;
+  constexpr int DP = padded<D>(), DVP = padded<DV>();
+  constexpr uint32_t QH = BM * DP * 2, KST = BN * DP * 2, VST = BN * DVP * 2;  // bytes
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // 2 halves x [BM x DP]
+  bf16* Ks = Qs + BMR * DP;                      // [2][BN x DP]
+  bf16* Vs = Ks + 2 * BN * DP;                   // [2][BN x DVP]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gr = lane >> 2, gc = lane & 3;  // fragment row group, column pair
+  const int bh = blockIdx.x, b = bh / H, h = bh - b * H, g = h / (H / KV);
+  const int q0 = (causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * BMR;
+  const int r0 = warp * 16;  // this warp's first row in each half
+
+  const bf16* qg = q + ((size_t)b * Sq * H + h) * D;
+  const bf16* kg = k + ((size_t)b * Skv * KV + g) * D;
+  const bf16* vg = v + ((size_t)b * Skv * KV + g) * DV;
+  const size_t qstride = (size_t)H * D, kstride = (size_t)KV * D, vstride = (size_t)KV * DV;
+  // keys at or past q0 + BMR are above the diagonal for every row of the tile
+  const int kend = causal ? min(Skv, q0 + BMR) : Skv;
+  const int ntiles = (kend + BN - 1) / BN;
+  const uint32_t q_base = smem_u32(Qs), k_base = smem_u32(Ks), v_base = smem_u32(Vs);
+
+  load_tile<D>(q_base, qg, qstride, q0, Sq, tid);
+  load_tile<D>(q_base + QH, qg, qstride, q0 + BM, Sq, tid);
+  load_tile<D>(k_base, kg, kstride, 0, Skv, tid);
+  load_tile<DV>(v_base, vg, vstride, 0, Skv, tid);
+  cp_async_commit();
+
+  // per half: the accumulator fragment (acc[hf][4n + e] is row r0 + gr +
+  // 8 (e / 2) of the half, column 8n + 2gc + e % 2: the wgmma D layout; s
+  // likewise over the tile's 64 keys), the running max of the raw scores and
+  // this lane's share of the row sums
+  float acc[2][DV / 2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+    for (int i = 0; i < DV / 2; ++i) acc[hf][i] = 0.f;
+  float m[2][2] = {{NEG_INF, NEG_INF}, {NEG_INF, NEG_INF}};
+  float l[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+  fence_regs(acc[0]);
+  fence_regs(acc[1]);
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int st = t & 1;
+    if (t + 1 < ntiles) {  // the next tile's copy runs under this tile's products
+      load_tile<D>(k_base + (st ^ 1) * KST, kg, kstride, (t + 1) * BN, Skv, tid);
+      load_tile<DV>(v_base + (st ^ 1) * VST, vg, vstride, (t + 1) * BN, Skv, tid);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();   // every group but the newest: tile t has landed
+    fence_proxy_async();  // the copies' writes, visible to the tensor cores' reads
+    __syncthreads();
+
+    const int k0 = t * BN;
+    // with causal, the first half sees nothing of a tile past its last row
+    const bool live0 = !causal || k0 <= q0 + BM - 1;
+    const uint32_t kb = k_base + st * KST, vb = v_base + st * VST;
+    float s[2][BN / 2];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) s[hf][i] = 0.f;
+    // every non-wgmma definition of an accumulator register lands before the
+    // fence, or ptxas serializes the wgmmas
+    fence_regs(s[0]);
+    fence_regs(s[1]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      if (live0) wgmma_ss_n64(s[0], desc_k(q_base, kk), desc_k(kb, kk), kk > 0);
+      wgmma_ss_n64(s[1], desc_k(q_base + QH, kk), desc_k(kb, kk), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(s[0]);
+    fence_regs(s[1]);
+
+    const bool masked = (causal && k0 + BN - 1 > q0) || k0 + BN > Skv;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      if (hf == 0 && !live0) continue;
+      if (masked) {  // the raw scores of a diagonal or ragged tile
+#pragma unroll
+        for (int j = 0; j < NKT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = q0 + hf * BM + r0 + gr + (e >> 1) * 8;
+            const int key = k0 + 8 * j + 2 * gc + (e & 1);
+            if (key >= Skv || (causal && key > row)) s[hf][4 * j + e] = NEG_INF;
+          }
+      }
+      float mx[2] = {m[hf][0], m[hf][1]};
+#pragma unroll
+      for (int j = 0; j < NKT; ++j) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[hf][4 * j], s[hf][4 * j + 1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[hf][4 * j + 2], s[hf][4 * j + 3]));
+      }
+      float alpha[2], nb[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 2));
+        alpha[r] = exp2_approx((m[hf][r] - mx[r]) * scale_log2);
+        m[hf][r] = mx[r];
+        nb[r] = -mx[r] * scale_log2;
+      }
+      // P = 2^(s * scale * log2(e) - m * scale * log2(e)): one FFMA, one ex2
+      float rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) {
+        s[hf][i] = exp2_approx(fmaf(s[hf][i], scale_log2, nb[(i >> 1) & 1]));
+        rs[(i >> 1) & 1] += s[hf][i];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[hf][r] = l[hf][r] * alpha[r] + rs[r];
+#pragma unroll
+      for (int n = 0; n < NVT; ++n) {
+        acc[hf][4 * n] *= alpha[0];
+        acc[hf][4 * n + 1] *= alpha[0];
+        acc[hf][4 * n + 2] *= alpha[1];
+        acc[hf][4 * n + 3] *= alpha[1];
+      }
+    }
+
+    // acc += P V, P rounded to bf16 in registers: S's column tiles 2kk and
+    // 2kk + 1 are the A fragment of keys 16kk .. 16kk + 15
+    fence_regs(acc[0]);
+    fence_regs(acc[1]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        if (hf == 0 && !live0) continue;
+        wgmma_rs(acc[hf], pack_bf16(s[hf][8 * kk], s[hf][8 * kk + 1]),
+                 pack_bf16(s[hf][8 * kk + 2], s[hf][8 * kk + 3]),
+                 pack_bf16(s[hf][8 * kk + 4], s[hf][8 * kk + 5]),
+                 pack_bf16(s[hf][8 * kk + 6], s[hf][8 * kk + 7]), desc_mn(vb, kk));
+      }
+    }
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(acc[0]);
+    fence_regs(acc[1]);
+    __syncthreads();  // every warp is done with stage st before it is refilled
+  }
+
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float lr = l[hf][r];
+      lr += __shfl_xor_sync(FULL, lr, 1);
+      lr += __shfl_xor_sync(FULL, lr, 2);
+      const int qi = q0 + hf * BM + r0 + gr + 8 * r;
+      if (qi >= Sq) continue;
+      const float inv = 1.f / fmaxf(lr, 1e-30f);
+      bf16* orow = o + (((size_t)b * Sq + qi) * H + h) * DV + 2 * gc;
+#pragma unroll
+      for (int n = 0; n < NVT; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n) = __floats2bfloat162_rn(
+            acc[hf][4 * n + 2 * r] * inv, acc[hf][4 * n + 2 * r + 1] * inv);
+    }
+}
+
+template <int D, int DV>
+int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int KV, int Sq,
+           int Skv, float scale, int causal, cudaStream_t stream) {
+  auto kern = flash_wgmma_kernel<D, DV>;
+  constexpr size_t smem = smem_bytes<D, DV>();
+  // opt in to more than 48 KB of shared memory on every launch, as the
+  // scalar kernel does
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int ntiles = (Sq + 2 * BM - 1) / (2 * BM);
+  if (ntiles > 65535) return (int)cudaErrorInvalidValue;
+  kern<<<dim3(B * H, ntiles), THREADS, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), H, KV, Sq, Skv, scale * LOG2E, causal);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_dv(const void* q, const void* k, const void* v, void* o, int B, int H, int KV,
+              int Sq, int Skv, int Dv, float scale, int causal, cudaStream_t s) {
+  switch (Dv) {
+    case 32: return launch<D, 32>(q, k, v, o, B, H, KV, Sq, Skv, scale, causal, s);
+    case 64: return launch<D, 64>(q, k, v, o, B, H, KV, Sq, Skv, scale, causal, s);
+    case 112: return launch<D, 112>(q, k, v, o, B, H, KV, Sq, Skv, scale, causal, s);
+    case 128: return launch<D, 128>(q, k, v, o, B, H, KV, Sq, Skv, scale, causal, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+int launch_d(const void* q, const void* k, const void* v, void* o, int B, int H, int KV,
+             int Sq, int Skv, int D, int Dv, float scale, int causal, cudaStream_t s) {
+  switch (D) {
+    case 32: return launch_dv<32>(q, k, v, o, B, H, KV, Sq, Skv, Dv, scale, causal, s);
+    case 64: return launch_dv<64>(q, k, v, o, B, H, KV, Sq, Skv, Dv, scale, causal, s);
+    case 112: return launch_dv<112>(q, k, v, o, B, H, KV, Sq, Skv, Dv, scale, causal, s);
+    case 128: return launch_dv<128>(q, k, v, o, B, H, KV, Sq, Skv, Dv, scale, causal, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace wg
+
 }  // namespace
 
 // q [B, Sq, H, D], k [B, Skv, KV, D], v [B, Skv, KV, Dv] contiguous, float32
-// (dtype 0) or bfloat16 (dtype 1); o [B, Sq, H, Dv] of the same type.
-// D, Dv in {32, 64, 112, 128}; H a multiple of KV; B * H <= 65535. Returns the
+// (dtype 0, the scalar kernel) or bfloat16 (dtype 1, the wgmma kernel; every
+// pointer 16-byte aligned); o [B, Sq, H, Dv] of the same type. D, Dv in
+// {32, 64, 112, 128}; H a multiple of KV; B * H <= 65535. Returns the
 // launch's CUDA error code (0 on success).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                                       int B, int H, int KV, int Sq, int Skv, int D, int Dv,
@@ -218,7 +617,6 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   if (D != 32 && D != 64 && D != 112 && D != 128) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return launch_dv<float>(q, k, v, o, B, H, KV, Sq, Skv, D, Dv, scale, causal, s);
-  if (dtype == 1)
-    return launch_dv<__nv_bfloat16>(q, k, v, o, B, H, KV, Sq, Skv, D, Dv, scale, causal, s);
+  if (dtype == 1) return wg::launch_d(q, k, v, o, B, H, KV, Sq, Skv, D, Dv, scale, causal, s);
   return (int)cudaErrorInvalidValue;
 }

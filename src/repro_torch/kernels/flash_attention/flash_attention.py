@@ -5,9 +5,12 @@ kernel ``_kernel`` (``src/repro/kernels/flash_attention/flash_attention.py:23``,
 launched by ``flash_attention_bhsd`` behind ``ops.flash_attention``). It
 reads the ``[B, S, H, D]`` layout directly and indexes KV head
 ``h // (H // KV)``, so neither the transpose nor the GQA broadcast of the
-JAX wrapper is materialised. It is bound by operations (the causal
-products); this version computes them with scalar float32 FMAs, far from
-the tensor-core bound.
+JAX wrapper is materialised. bfloat16 runs on the tensor cores through
+``wgmma`` (float32 accumulation; P rounded to bf16 in registers before
+``P V``): one warpgroup per 128 query rows, bf16 tiles in shared memory in
+the 128-byte-swizzled layout, fed by a two-stage ``cp.async`` ring; at the
+serve paths' shapes it is bound by bytes. float32 keeps a kernel of scalar
+float32 FMAs, since the tensor cores would compute in TF32.
 
 The library is built by ``repro_torch.kernels.build`` at first use on a
 CUDA tensor, into ``_build/`` beside this file; importing builds nothing.
@@ -42,7 +45,8 @@ LIBRARY = CudaLibrary("flash_attention", SOURCES, Path(__file__).parent / "_buil
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True):
     """Launch the kernel on contiguous CUDA tensors q [B, Sq, H, D], k
-    [B, Skv, KV, D], v [B, Skv, KV, Dv] (float32 or bfloat16, one dtype).
+    [B, Skv, KV, D], v [B, Skv, KV, Dv] (float32 or bfloat16, one dtype;
+    bf16 tensors 16-byte aligned, as every fresh allocation is).
     Scores scale by ``D ** -0.5``. Returns a fresh [B, Sq, H, Dv] tensor;
     the inputs are only read."""
     dev = q.device
@@ -66,6 +70,9 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != dev or t.dtype != q.dtype or not t.is_contiguous():
             raise ValueError(f"{name}: must be a contiguous {q.dtype} tensor on {dev}")
+        if q.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"{name}: the bf16 kernel copies 16-byte rows; the tensor "
+                             "must start 16-byte aligned")
     out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=dev)
     if out.numel() == 0:
         return out

@@ -2,9 +2,13 @@
 
 The kernel (``csrc/rmsnorm.cu``) replaces the JAX package's Pallas
 kernels ``_kernel`` (``src/repro/kernels/rmsnorm/rmsnorm.py:16``, plain)
-and ``_kernel_res`` (``:24``, with the residual add). It is bound by bytes:
-one CTA per row reads the row once for the float32 sum of squares (16-byte
-vector loads) and once more, from L2, to scale and write it.
+and ``_kernel_res`` (``:24``, with the residual add). It is bound by bytes
+and reads each row from device memory once: one warp per row (several
+warps for a wide row, or for few rows), the row held in registers across
+the float32 sum of squares, which reduces with warp shuffles, then scaled
+from those registers. Rows, outputs and the float32 weight move as 16-byte
+vectors when ``d`` is a multiple of ``16 / itemsize`` and every pointer,
+the weight's too, is 16-byte aligned; otherwise element by element.
 
 The library is built by ``repro_torch.kernels.build`` at first use on a
 CUDA tensor, into ``_build/`` beside this file; importing builds nothing.
@@ -69,7 +73,7 @@ def rmsnorm_cuda(x2, w, eps: float, res2=None):
         raise ValueError("too many rows for one launch")
     vec = 16 // x2.element_size()
     vector = d % vec == 0 and all(
-        t is None or t.data_ptr() % 16 == 0 for t in (x2, res2, out, res_out))
+        t is None or t.data_ptr() % 16 == 0 for t in (x2, res2, out, res_out, w))
     err = LIBRARY.load().rmsnorm_launch(
         ptr(x2), ptr(res2), ptr(w), ptr(out), ptr(res_out), N, d,
         DTYPES[x2.dtype], int(vector), float(eps), stream(dev))

@@ -8,7 +8,10 @@ This file imports neither JAX nor ``repro``. Tolerances: float32 atol
 2e-5 / rtol 1e-5 for RMSNorm (one row sum in another order) and 1e-4 /
 1e-4 for attention (exp and row sums of up to 520 keys in another order);
 bfloat16 3e-2, as ``tests/test_kernels.py`` (one bf16 rounding of outputs
-of size ~1, where the two sides may round a float32 a ulp apart). The SSD
+of size ~1, where the two sides may round a float32 a ulp apart; the
+tensor-core attention kernel also rounds P to bf16 before ``P V``, which
+``test_torch_flash_tensorcore_numerics.py`` holds to the same tolerance
+on the CPU). The SSD
 kernel's y and final state are float32 whatever x's dtype, so both dtypes
 take the float32 tolerance of the ``test_ssd_sweep`` (atol / rtol 1e-3:
 sums of up to Q * N products in another order, over up to five chunks).
@@ -49,6 +52,10 @@ def _card(rng, shape, dtype):
     (4, 512, 32, 32, 112, 112, True),  # Zamba2's shared attention
 ])
 def test_flash_attention_kernel_matches_plain(B, S, H, KV, D, Dv, causal, dtype):
+    _flash_matches_plain(B, S, H, KV, D, Dv, causal, dtype)
+
+
+def _flash_matches_plain(B, S, H, KV, D, Dv, causal, dtype):
     rng = np.random.default_rng(S + D + Dv)
     q = _card(rng, (B, S, H, D), dtype)
     k = _card(rng, (B, S, KV, D), dtype)
@@ -64,13 +71,64 @@ def test_flash_attention_kernel_matches_plain(B, S, H, KV, D, Dv, causal, dtype)
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 129])
+def test_flash_attention_kernel_partial_tiles(S, dtype):
+    """Single-row, just-short, exact and just-over 64-row tiles."""
+    _flash_matches_plain(2, S, 4, 2, 64, 64, True, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Dv", fkern.HEAD_DIMS)
+@pytest.mark.parametrize("D", fkern.HEAD_DIMS)
+def test_flash_attention_kernel_head_dims(D, Dv):
+    """Every (D, Dv) the wrapper admits, in bf16 (the tensor-core kernel);
+    non-causal where D < Dv, so (32, 128) runs non-causal and (128, 64)
+    causal."""
+    _flash_matches_plain(1, 100, 4, 2, D, Dv, D >= Dv, "bfloat16")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_kernel_sq_ne_skv(causal):
+    """Fewer queries than keys (top-left aligned causal mask)."""
+    rng = np.random.default_rng(70 + causal)
+    q = _card(rng, (2, 70, 4, 128), "bfloat16")
+    k = _card(rng, (2, 130, 2, 128), "bfloat16")
+    v = _card(rng, (2, 130, 2, 128), "bfloat16")
+    got = fkern.flash_attention_cuda(q, k, v, causal=causal)
+    want = attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL["bfloat16"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("N,d", [(4, 3072), (2048, 3072), (64, 128), (3, 100)])
 def test_rmsnorm_kernels_match_plain(N, d, dtype):
     """Both variants; d = 100 takes the scalar (non-vector) path."""
+    _rmsnorm_matches_plain(N, d, 0, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("N,d,w_offset", [
+    (1, 768, 0), (5, 768, 0), (2047, 768, 0),  # Mamba-2's width
+    (1, 3584, 0), (5, 3584, 0), (2047, 3584, 0),  # Zamba2's width
+    (5, 3072, 1), (2047, 768, 1),  # a weight at an odd element offset
+])
+def test_rmsnorm_kernels_edges(N, d, w_offset, dtype):
+    """N in {1, 5, 2047} are off the rows-per-CTA grid; a weight that
+    starts at an odd element offset (4-byte, not 16-byte, aligned) takes
+    the scalar (non-vector) path."""
+    _rmsnorm_matches_plain(N, d, w_offset, dtype)
+
+
+def _rmsnorm_matches_plain(N, d, w_offset, dtype):
     rng = np.random.default_rng(N + d)
     x = _card(rng, (N, d), dtype)
     r = _card(rng, (N, d), dtype)
-    w = torch.as_tensor(rng.standard_normal(d, np.float32) * 0.1 + 1, device="cuda")
+    w = torch.as_tensor(rng.standard_normal(d + w_offset, np.float32) * 0.1 + 1,
+                        device="cuda")[w_offset:]
+    keep = [t.clone() for t in (x, r, w)]
     before = dict(rkern.LAUNCHES)
     out = rkern.rmsnorm_cuda(x, w, 1e-5)
     out_r, res = rkern.rmsnorm_cuda(x, w, 1e-5, res2=r)
@@ -80,6 +138,7 @@ def test_rmsnorm_kernels_match_plain(N, d, dtype):
     want_out, want_res = rmsnorm_residual_ref(x, r, w)
     torch.testing.assert_close(out_r.float(), want_out.float(), **RMS_TOL[dtype])
     torch.testing.assert_close(res.float(), want_res.float(), **RMS_TOL[dtype])
+    assert all(torch.equal(a, b) for a, b in zip(keep, (x, r, w)))
 
 
 SSD_TOL = dict(atol=1e-3, rtol=1e-3)
