@@ -9,36 +9,59 @@
 //         + exp(cs_i) C_i . S_prev + D x_i                      (inter, skip)
 //   S_new = exp(cs_Q) S_prev + sum_j exp(cs_Q - cs_j) dt_j B_j x_j^T
 // Positions past S count as dt = 0 (decay 1, no contribution), so a ragged
-// tail needs no padded copy and leaves the final state exact.
+// tail needs no padded copy and leaves the final state exact. Every input is
+// read in place: x [B, S, H, P], dt [B, S, H], B and C [B, S, N] shared by
+// all heads (the JAX wrapper broadcasts them to [BH, S, N]); y and the final
+// state are written once, in float32.
 //
-// Bound: bytes at the serve paths' shapes. Mamba-2 (B=4, S=512, H=24, P=64,
-// N=128, bf16 x) moves ~23 MB per launch, Zamba2 (H=112, N=64) ~97 MB, most
-// of it y written in float32; the products need ~2 GFLOP / ~5 GFLOP, far
-// below the tensor cores' share of that time. Design:
-// * the Pallas grid (BH, n_chunks) carries the state in VMEM across its
-//   sequential chunk axis; CUDA blocks run in no order, so one CTA owns a
-//   (batch, head, P tile) and loops over the chunks itself, the state tile
-//   [N, PT] float32 resident in shared memory from the first chunk to the
-//   last. P columns of the state and of y are independent, so P may split
-//   over CTAs (PT = 16, 32 or 64: the narrowest tile that covers P, else
-//   the widest that fits shared memory). At P = 64 one tile covers P: 96
-//   CTAs for Mamba-2 (a split would recompute C.B^T per tile, on a second
-//   wave, since one CTA fills an SM's shared memory), 448 for Zamba2;
-// * every input is read once, in place: x [B, S, H, P], dt [B, S, H],
-//   B and C [B, S, N] shared by all heads (the JAX wrapper broadcasts them
-//   to [BH, S, N]); y is written once, and the final state once;
-// * per chunk, B and C are staged transposed as float32 [N][Q + 1] (the
-//   pad keeps the transposing stores free of bank conflicts), x as
-//   [Q][PT]; one pass over n accumulates C.B^T (an 8 x 8 register tile per
-//   thread) and C.S_prev (the inter-chunk term) together; the masked
-//   decay matrix M then overwrites C's staging area, exp evaluated only
-//   where j <= i;
-// * scalar float32 FMAs throughout; `mma.sync`/`wgmma` tiles are later
-//   work. Bytes stay the bound: C.B^T is recomputed per (head, P tile), a
-//   few MFLOP per chunk on data already in shared memory.
+// One kernel for each dtype (a dispatch, not a fallback).
+//
+// bfloat16: `ssd_tc_kernel`, the four products on the tensor cores through
+// `mma.sync.m16n8k16` (bf16 in, float32 accumulate) with `ldmatrix`. Bound
+// by bytes at the serve paths' shapes: Mamba-2 (B=4, S=512, H=24, P=64,
+// N=128) moves ~23 MB, Zamba2 (H=112, N=64) ~97 MB, most of it y in
+// float32; the products at the bf16 peak take a fraction of that time.
+// Design:
+// * precision: x, B and C are bf16, so C.B^T and every product with x as
+//   one operand are exact. The three operands made in float32 (the masked
+//   decay matrix M, the entering state S_prev, the weighted x w of the
+//   update) enter as bf16 hi + bf16 lo, two products into one float32
+//   accumulator (~16 bits of each; one bf16 or TF32 rounding misses the
+//   1e-3 tolerance by 5-100x);
+// * a CTA of four warps owns (batch, head, PT columns of P) for a run of
+//   chunks. x, B and C are staged as bf16 by `cp.async` (rows padded by
+//   16 bytes, so an ldmatrix's 8 rows fall on distinct banks; past S, past
+//   Q, past N and past P zero-filled); 88 KB at N = 128, 57 KB at N = 64,
+//   so two or three CTAs share an SM and one's copies run under another's
+//   products;
+// * (1) y = M x: each warp owns the 16-row blocks w and 7 - w (equal causal
+//   work) and walks their column blocks j <= i; C.B^T of a 16 x 16 tile
+//   lands in the accumulator, the decay exp(cs_i - cs_j) dt_j is applied
+//   there, and the accumulator layout is the A-operand layout of M x, so M
+//   never touches shared memory. Tiles above the diagonal are skipped;
+// * (2) the chunk's own state [PT, N] = (x w)^T B: the A operand is x read
+//   transposed by ldmatrix, weighted by w_j = exp(cs_Q - cs_j) dt_j in
+//   registers; the state is kept with P as rows, as s0 and s_out are laid
+//   out;
+// * (3) S_prev comes from s0 (or zeros), from this CTA's previous chunk
+//   (shared memory), or from the CTA of the previous run through `handoff`:
+//   CTAs take a ticket from an atomic counter as they start and map it to
+//   their work run-major, so a CTA waits (on a flag with acquire / release)
+//   only on one that started before it. S_prev's hi / lo halves replace B
+//   in shared memory, and S_new = exp(cs_Q) S_prev + (2) is handed on;
+// * (4) y += exp(cs_i) C S_prev + D x, written once as float2.
+// The wrapper picks the P tile and the run length (`ssd.py`).
+//
+// float32: `ssd_kernel`, scalar float32 FMAs out of shared memory (the
+// tensor cores would round to TF32, outside the float32 tolerance). One CTA
+// of 16 x 16 threads per (batch, head, P tile) loops over the chunks, the
+// state tile [N, PT] resident in shared memory; B and C staged transposed
+// as float32 [N][Q + 1]; one pass over n accumulates C.B^T and C.S_prev.
+// No serve path runs the scan in float32.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
@@ -46,9 +69,6 @@ constexpr int NT = 256;  // 16 x 16 threads
 constexpr int QMAX = 128, NMAX = 128;
 constexpr int RQ = QMAX / 16, RN = NMAX / 16;  // rows per thread
 constexpr unsigned FULL = 0xffffffffu;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 size_t smem_floats(int Q, int N, int PT) {
   const size_t QS = Q + 1;
@@ -60,13 +80,14 @@ size_t smem_floats(int Q, int N, int PT) {
          + 2 * (size_t)Q; // dt, cs
 }
 
-// x [B, S, H, P] (T), dt [B, S, H] f32, Bv / Cv [B, S, N] (T), A_log / D [H]
-// f32, s0 [B, H, P, N] f32 or null; y [B, S, H, P] f32, s_out [B, H, P, N] f32.
+// x [B, S, H, P], dt [B, S, H], Bv / Cv [B, S, N], A_log / D [H], s0
+// [B, H, P, N] or null; y [B, S, H, P], s_out [B, H, P, N]; all float32.
 // Grid (B * H, ceil(P / PT)).
-template <typename T, int PT>
+template <int PT>
 __global__ void __launch_bounds__(NT)
-ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt, const T* __restrict__ Bv,
-           const T* __restrict__ Cv, const float* __restrict__ A_log,
+ssd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
+           const float* __restrict__ Bv, const float* __restrict__ Cv,
+           const float* __restrict__ A_log,
            const float* __restrict__ Dp, const float* __restrict__ s0, float* __restrict__ y,
            float* __restrict__ s_out, int S, int H, int P, int N, int Q) {
   constexpr int RP = PT / 16;  // P columns per thread
@@ -104,12 +125,12 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt, const T* __res
     for (int e = tid; e < Q * N; e += NT) {
       const int j = e / N, n = e - j * N, s = c0 + j;
       const size_t g = ((size_t)b * S + s) * N + n;
-      Bt[n * QS + j] = s < S ? to_f(Bv[g]) : 0.f;
-      CtM[n * QS + j] = s < S ? to_f(Cv[g]) : 0.f;
+      Bt[n * QS + j] = s < S ? Bv[g] : 0.f;
+      CtM[n * QS + j] = s < S ? Cv[g] : 0.f;
     }
     for (int e = tid; e < Q * PT; e += NT) {
       const int j = e / PT, pp = e - j * PT, s = c0 + j, p = p0 + pp;
-      xs[e] = (s < S && p < P) ? to_f(x[(((size_t)b * S + s) * H + h) * P + p]) : 0.f;
+      xs[e] = (s < S && p < P) ? x[(((size_t)b * S + s) * H + h) * P + p] : 0.f;
     }
     __syncthreads();
 
@@ -246,52 +267,477 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt, const T* __res
   }
 }
 
-template <typename T, int PT>
-int launch_t(const void* x, const float* dt, const void* Bv, const void* Cv,
-             const float* A_log, const float* D, const float* s0, float* y, float* s_out,
-             int B, int S, int H, int P, int N, int Q, cudaStream_t stream) {
-  auto kern = ssd_kernel<T, PT>;
+int launch_scalar(int PT, const float* x, const float* dt, const float* Bv, const float* Cv,
+                  const float* A_log, const float* D, const float* s0, float* y,
+                  float* s_out, int B, int S, int H, int P, int N, int Q, cudaStream_t stream) {
+  auto kern = PT == 16 ? ssd_kernel<16> : PT == 32 ? ssd_kernel<32> : ssd_kernel<64>;
+  if (PT != 16 && PT != 32 && PT != 64) return (int)cudaErrorInvalidValue;
   const size_t smem = smem_floats(Q, N, PT) * sizeof(float);
   // opt in to more than 48 KB on every launch (the attribute is per device)
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(B * H, (P + PT - 1) / PT);
-  kern<<<grid, NT, smem, stream>>>(static_cast<const T*>(x), dt, static_cast<const T*>(Bv),
-                                   static_cast<const T*>(Cv), A_log, D, s0, y, s_out, S, H,
-                                   P, N, Q);
+  kern<<<grid, NT, smem, stream>>>(x, dt, Bv, Cv, A_log, D, s0, y, s_out, S, H, P, N, Q);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_pt(int PT, const void* x, const float* dt, const void* Bv, const void* Cv,
-              const float* A_log, const float* D, const float* s0, float* y, float* s_out,
-              int B, int S, int H, int P, int N, int Q, cudaStream_t s) {
-  switch (PT) {
-    case 16: return launch_t<T, 16>(x, dt, Bv, Cv, A_log, D, s0, y, s_out, B, S, H, P, N, Q, s);
-    case 32: return launch_t<T, 32>(x, dt, Bv, Cv, A_log, D, s0, y, s_out, B, S, H, P, N, Q, s);
-    case 64: return launch_t<T, 64>(x, dt, Bv, Cv, A_log, D, s0, y, s_out, B, S, H, P, N, Q, s);
-  }
-  return (int)cudaErrorInvalidValue;
+// ---------------------------------------------------------------------------
+// bfloat16 on the tensor cores
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr int THREADS = 128;  // four warps
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
+
+// 16 bytes global -> shared, bypassing L1; zero-filled when !valid
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const int n = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(n)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+// four 8 x 8 bf16 matrices; lane l gives the address of a row of matrix l / 8
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// d[16 x 8] += a[16 x 16] b[16 x 8], bf16 in, float32 accumulate
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// (u, v) as two bf16 terms: hi = bf16(u, v), lo = bf16((u, v) - hi); the
+// pair keeps ~16 bits of each float32
+__device__ __forceinline__ void split(float u, float v, uint32_t& hi, uint32_t& lo) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(u, v);
+  const float2 hf = __bfloat1622float2(h);
+  __nv_bfloat162 l = __floats2bfloat162_rn(u - hf.x, v - hf.y);
+  hi = *reinterpret_cast<uint32_t*>(&h);
+  lo = *reinterpret_cast<uint32_t*>(&l);
+}
+
+__device__ __forceinline__ float2 unpack(uint32_t r) {
+  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&r));
+}
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
+}
+
+__host__ __device__ constexpr int round16(int v) { return (v + 15) / 16 * 16; }
+
+// Shared memory of one CTA, in bytes. Rows of C, B and x are padded by 16
+// bytes, so the 8 rows an ldmatrix reads fall on distinct banks.
+__host__ __device__ inline size_t smem_bytes(int Q, int N, int PT, bool multi) {
+  const size_t QP = round16(Q), NP = round16(N), CS = NP + 8, XS = PT + 8;
+  const size_t bs = QP * CS > 2 * PT * CS ? QP * CS : 2 * PT * CS;
+  return 2 * (QP * CS + bs + QP * XS)      // C, B (then S_prev hi / lo), x
+         + 4 * 4 * QP                      // dt, cs, w, exp(cs)
+         + (multi ? 4 * (size_t)PT * NP : 0)  // the state between a CTA's chunks
+         + 16;                             // the ticket
+}
+
+// x [B, S, H, P], Bv / Cv [B, S, N] bf16; dt [B, S, H], A_log / D [H], s0
+// [B, H, P, N] (or null) float32; y [B, S, H, P], s_out [B, H, P, N] float32.
+// A CTA owns (batch, head, PT columns of P) for a run of `run` chunks; the
+// runs of one (batch, head, P tile) hand the state on through `handoff`
+// ([n_runs - 1, B, H, P, N] float32) and `work` (int32: a ticket counter,
+// then a flag per (run, batch, head, P tile)), both zeroed by the caller.
+// One-dimensional grid of n_runs * B * H * n_ptiles CTAs.
+template <int PT>
+__global__ void __launch_bounds__(THREADS, 2)
+ssd_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
+              const bf16* __restrict__ Bv, const bf16* __restrict__ Cv,
+              const float* __restrict__ A_log, const float* __restrict__ Dp,
+              const float* __restrict__ s0, float* __restrict__ y, float* __restrict__ s_out,
+              float* __restrict__ handoff, int* __restrict__ work, int B, int S, int H,
+              int P, int N, int Q, int run, int vec) {
+  constexpr int MBS = PT / 16;  // 16-row blocks of the state's P rows
+  constexpr int WPM = 4 / MBS;  // warps sharing one of them
+  constexpr int NQ = 8 / WPM;   // 16-column blocks of N per warp, at most
+  constexpr int NPT8 = PT / 8;  // 8-column tiles of y
+  const int QP = round16(Q), NP = round16(N), QB = QP / 16, NB = NP / 16;
+  const int CS = NP + 8, XS = PT + 8;
+  const int nC = (S + Q - 1) / Q, n_runs = (nC + run - 1) / run;
+  const int nPT = (P + PT - 1) / PT, BHT = B * H * nPT;
+  const bool multi = run > 1;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Cs = reinterpret_cast<bf16*>(smem_raw);  // [QP][CS]
+  bf16* Bs = Cs + QP * CS;  // [QP][CS]; after the state update S_prev hi, lo [PT][CS] each
+  bf16* xs = Bs + (QP * CS > 2 * PT * CS ? QP * CS : 2 * PT * CS);  // [QP][XS]
+  float* dts = reinterpret_cast<float*>(xs + QP * XS);  // [QP]
+  float* cs = dts + QP;   // inclusive cumsum of dt * A
+  float* ws = cs + QP;    // exp(cs_last - cs_j) dt_j
+  float* es = ws + QP;    // exp(cs_i)
+  float* Sf = es + QP;    // [PT][NP] the state between chunks of one CTA
+  int* ticket = reinterpret_cast<int*>(Sf + (multi ? PT * NP : 0));
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gr = lane >> 2, gc = lane & 3;  // fragment row, column pair
+
+  // CTAs take their work in the order they start, so a CTA waits only on
+  // one that started before it: no deadlock, however many are resident
+  int t = blockIdx.x;
+  if (n_runs > 1) {
+    if (tid == 0) *ticket = atomicAdd(work, 1);
+    __syncthreads();
+    t = *ticket;
+  }
+  const int r = t / BHT, rem = t - r * BHT;
+  const int bh = rem / nPT, pt = rem - bh * nPT, b = bh / H, h = bh - b * H;
+  const int p0 = pt * PT;
+  const float A = -expf(A_log[h]);
+  const float Dh = Dp[h];
+  const size_t PN = (size_t)P * N, BHPN = (size_t)B * H * PN;
+  const int c_begin = r * run, c_end = min(c_begin + run, nC);
+
+  // the warp's 16-row blocks of y (w and 7 - w: equal causal work) and
+  // its share of the state [PT, NP]: P rows 16 * (warp % MBS) + .., and
+  // the 16-column blocks of N congruent to warp / MBS modulo WPM
+  const int rbs[2] = {warp, 7 - warp};
+  const int mb = warp % MBS, nb0 = warp / MBS;
+
+#pragma unroll 1
+  for (int c = c_begin; c < c_end; ++c) {
+    const int c0 = c * Q, rows = min(Q, S - c0);
+    __syncthreads();  // the previous chunk's readers are done with the staging
+    if (vec) {
+      const int cpr = NP / 8, xpr = PT / 8;
+      for (int e = tid; e < QP * cpr; e += THREADS) {
+        const int i = e / cpr, k = e - i * cpr;
+        const bool ok = i < rows && 8 * k < N;
+        const size_t g = ok ? ((size_t)b * S + c0 + i) * N + 8 * k : 0;
+        cp_async16(Cs + i * CS + 8 * k, Cv + g, ok);
+        cp_async16(Bs + i * CS + 8 * k, Bv + g, ok);
+      }
+      for (int e = tid; e < QP * xpr; e += THREADS) {
+        const int i = e / xpr, k = e - i * xpr;
+        const bool ok = i < rows && p0 + 8 * k < P;
+        const size_t g = ok ? (((size_t)b * S + c0 + i) * H + h) * P + p0 + 8 * k : 0;
+        cp_async16(xs + i * XS + 8 * k, x + g, ok);
+      }
+    } else {  // N or P not a multiple of 8, or an operand not 16-byte aligned
+      const bf16 zero = __float2bfloat16(0.f);
+      for (int e = tid; e < QP * NP; e += THREADS) {
+        const int i = e / NP, n = e - i * NP;
+        const bool ok = i < rows && n < N;
+        const size_t g = ((size_t)b * S + c0 + i) * N + n;
+        Cs[i * CS + n] = ok ? Cv[g] : zero;
+        Bs[i * CS + n] = ok ? Bv[g] : zero;
+      }
+      for (int e = tid; e < QP * PT; e += THREADS) {
+        const int i = e / PT, pp = e - i * PT;
+        const bool ok = i < rows && p0 + pp < P;
+        xs[i * XS + pp] = ok ? x[(((size_t)b * S + c0 + i) * H + h) * P + p0 + pp] : zero;
+      }
+    }
+    for (int j = tid; j < QP; j += THREADS)
+      dts[j] = j < rows ? dt[((size_t)b * S + c0 + j) * H + h] : 0.f;
+    cp_async_wait_all();
+    __syncthreads();
+
+    // warp 0: the inclusive cumsum of dt * A, 32 steps at a time, then the
+    // state-update weights and the inter-chunk decays
+    if (warp == 0) {
+      float carry = 0.f;
+      for (int j0 = 0; j0 < QP; j0 += 32) {
+        const int j = j0 + lane;
+        float v = j < QP ? dts[j] * A : 0.f;
+#pragma unroll
+        for (int off = 1; off < 32; off <<= 1) {
+          const float u = __shfl_up_sync(FULL, v, off);
+          if (lane >= off) v += u;
+        }
+        v += carry;
+        if (j < QP) cs[j] = v;
+        carry = __shfl_sync(FULL, v, 31);
+      }
+      __syncwarp();
+      for (int j = lane; j < QP; j += 32) {
+        ws[j] = expf(carry - cs[j]) * dts[j];
+        es[j] = expf(cs[j]);
+      }
+    }
+    __syncthreads();
+
+    // (1) y = M x, M = (C B^T) o decay, a 16 x 16 tile at a time: C B^T in
+    // the accumulator, the decay exp(cs_i - cs_j) dt_j (j <= i) applied in
+    // registers, M split into bf16 hi + lo as the A operand of M x
+    float yacc[2][NPT8][4];
+#pragma unroll
+    for (int ri = 0; ri < 2; ++ri)
+#pragma unroll
+      for (int n = 0; n < NPT8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) yacc[ri][n][e] = 0.f;
+#pragma unroll
+    for (int ri = 0; ri < 2; ++ri) {
+      const int rb = rbs[ri];
+      if (rb >= QB) continue;
+      const int i0 = 16 * rb + gr;
+      const float csi[2] = {cs[i0], cs[i0 + 8]};
+      uint32_t cf[8][4];  // C's A fragments of these 16 rows
+#pragma unroll
+      for (int nk = 0; nk < 8; ++nk)
+        if (nk < NB) ldsm4(cf[nk], Cs + (16 * rb + (lane & 15)) * CS + 16 * nk + (lane >> 4) * 8);
+      for (int kb = 0; kb <= rb; ++kb) {
+        float cb[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+        for (int nk = 0; nk < 8; ++nk) {
+          if (nk >= NB) break;
+          uint32_t bb[4];
+          ldsm4(bb, Bs + (16 * kb + (lane & 7) + ((lane >> 4) << 3)) * CS + 16 * nk +
+                        ((lane >> 3) & 1) * 8);
+          mma(cb[0], cf[nk], bb[0], bb[1]);
+          mma(cb[1], cf[nk], bb[2], bb[3]);
+        }
+        uint32_t ahi[4], alo[4];
+#pragma unroll
+        for (int tt = 0; tt < 2; ++tt) {
+          const int j = 16 * kb + 8 * tt + 2 * gc;
+          const float csj[2] = {cs[j], cs[j + 1]}, dtj[2] = {dts[j], dts[j + 1]};
+          float v[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int ii = i0 + 8 * (e >> 1), jj = j + (e & 1);
+            v[e] = jj <= ii ? cb[tt][e] * exp2_approx((csi[e >> 1] - csj[e & 1]) * LOG2E) *
+                                  dtj[e & 1]
+                            : 0.f;
+          }
+          split(v[0], v[1], ahi[2 * tt], alo[2 * tt]);
+          split(v[2], v[3], ahi[2 * tt + 1], alo[2 * tt + 1]);
+        }
+#pragma unroll
+        for (int np = 0; np < PT / 16; ++np) {
+          uint32_t xb[4];
+          ldsm4t(xb, xs + (16 * kb + (lane & 7) + ((lane >> 3) & 1) * 8) * XS + 16 * np +
+                         (lane >> 4) * 8);
+          mma(yacc[ri][2 * np], ahi, xb[0], xb[1]);
+          mma(yacc[ri][2 * np], alo, xb[0], xb[1]);
+          mma(yacc[ri][2 * np + 1], ahi, xb[2], xb[3]);
+          mma(yacc[ri][2 * np + 1], alo, xb[2], xb[3]);
+        }
+      }
+    }
+
+    // (2) the chunk's own state [PT, NP] += (x w)^T B: the A operand is x
+    // (transposed) weighted by w_j in registers, split into hi + lo
+    float sacc[NQ][2][4];
+#pragma unroll
+    for (int q = 0; q < NQ; ++q)
+#pragma unroll
+      for (int tt = 0; tt < 2; ++tt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sacc[q][tt][e] = 0.f;
+    for (int kb = 0; kb < QB; ++kb) {
+      uint32_t xa[4], ahi[4], alo[4];
+      ldsm4t(xa, xs + (16 * kb + (lane & 7) + (lane >> 4) * 8) * XS + 16 * mb +
+                     ((lane >> 3) & 1) * 8);
+      const int j = 16 * kb + 2 * gc;
+      const float2 w0 = make_float2(ws[j], ws[j + 1]), w8 = make_float2(ws[j + 8], ws[j + 9]);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float2 v = unpack(xa[k]), w = k < 2 ? w0 : w8;
+        split(v.x * w.x, v.y * w.y, ahi[k], alo[k]);
+      }
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) {
+        const int nb = nb0 + q * WPM;
+        if (nb >= NB) break;
+        uint32_t bb[4];
+        ldsm4t(bb, Bs + (16 * kb + (lane & 7) + ((lane >> 3) & 1) * 8) * CS + 16 * nb +
+                       (lane >> 4) * 8);
+        mma(sacc[q][0], ahi, bb[0], bb[1]);
+        mma(sacc[q][0], alo, bb[0], bb[1]);
+        mma(sacc[q][1], ahi, bb[2], bb[3]);
+        mma(sacc[q][1], alo, bb[2], bb[3]);
+      }
+    }
+    __syncthreads();  // B is read for the last time: its space takes S_prev
+
+    // (3) the entering state: s0 or the previous run's hand-off at a run's
+    // first chunk, else this CTA's own; the state leaving is decay * S_prev
+    // + the chunk's own, kept for the next chunk or handed on
+    const bool first = c == c_begin, last = c == c_end - 1;
+    if (first && r > 0 && tid == 0) {
+      const int* flag = work + 1 + (size_t)(r - 1) * BHT + rem;
+      while (ld_acquire(flag) == 0) __nanosleep(64);
+    }
+    __syncthreads();
+    const float* src = !first ? nullptr
+                       : r == 0 ? (s0 == nullptr ? nullptr : s0 + bh * PN)
+                                : handoff + (size_t)(r - 1) * BHPN + bh * PN;
+    float* dst = !last ? nullptr : c == nC - 1 ? s_out + bh * PN : handoff + r * BHPN + bh * PN;
+    const float g = es[QP - 1];
+    bf16* Shi = Bs;
+    bf16* Slo = Bs + PT * CS;
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      const int nb = nb0 + q * WPM;
+      if (nb >= NB) break;
+#pragma unroll
+      for (int tt = 0; tt < 2; ++tt)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int pl = 16 * mb + gr + 8 * hr, n = 16 * nb + 8 * tt + 2 * gc;
+          const int p = p0 + pl;
+          float sp[2];
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const bool ok = p < P && n + u < N;
+            sp[u] = !first ? Sf[pl * NP + n + u]
+                    : (src != nullptr && ok) ? __ldcg(src + (size_t)p * N + n + u) : 0.f;
+            const float so = fmaf(g, sp[u], sacc[q][tt][2 * hr + u]);
+            if (!last) Sf[pl * NP + n + u] = so;
+            else if (ok) __stcg(dst + (size_t)p * N + n + u, so);
+          }
+          uint32_t hi, lo;
+          split(sp[0], sp[1], hi, lo);
+          *reinterpret_cast<uint32_t*>(Shi + pl * CS + n) = hi;
+          *reinterpret_cast<uint32_t*>(Slo + pl * CS + n) = lo;
+        }
+    }
+    if (last && c != nC - 1) __threadfence();
+    __syncthreads();
+    if (last && c != nC - 1 && tid == 0) st_release(work + 1 + (size_t)r * BHT + rem, 1);
+
+    // (4) y += exp(cs_i) C S_prev (S_prev as hi + lo), plus D x; written once
+#pragma unroll
+    for (int ri = 0; ri < 2; ++ri) {
+      const int rb = rbs[ri];
+      if (rb >= QB) continue;
+      float z[NPT8][4];
+#pragma unroll
+      for (int n = 0; n < NPT8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) z[n][e] = 0.f;
+#pragma unroll
+      for (int nk = 0; nk < 8; ++nk) {
+        if (nk >= NB) break;
+        uint32_t a[4];
+        ldsm4(a, Cs + (16 * rb + (lane & 15)) * CS + 16 * nk + (lane >> 4) * 8);
+#pragma unroll
+        for (int np = 0; np < PT / 16; ++np) {
+          uint32_t bh_[4], bl_[4];
+          const int off = (16 * np + (lane & 7) + ((lane >> 4) << 3)) * CS + 16 * nk +
+                          ((lane >> 3) & 1) * 8;
+          ldsm4(bh_, Shi + off);
+          ldsm4(bl_, Slo + off);
+          mma(z[2 * np], a, bh_[0], bh_[1]);
+          mma(z[2 * np], a, bl_[0], bl_[1]);
+          mma(z[2 * np + 1], a, bh_[2], bh_[3]);
+          mma(z[2 * np + 1], a, bl_[2], bl_[3]);
+        }
+      }
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int i = 16 * rb + gr + 8 * hr, s = c0 + i;
+        if (i >= rows) continue;
+        const float e_i = es[i];
+        float* yrow = y + (((size_t)b * S + s) * H + h) * P;
+#pragma unroll
+        for (int n = 0; n < NPT8; ++n) {
+          const int pl = 8 * n + 2 * gc, p = p0 + pl;
+          const float2 xv = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(xs + i * XS + pl));
+          const float v0 = fmaf(Dh, xv.x, fmaf(e_i, z[n][2 * hr], yacc[ri][n][2 * hr]));
+          const float v1 = fmaf(Dh, xv.y, fmaf(e_i, z[n][2 * hr + 1], yacc[ri][n][2 * hr + 1]));
+          if (p + 1 < P && (P & 1) == 0) {
+            *reinterpret_cast<float2*>(yrow + p) = make_float2(v0, v1);
+          } else {
+            if (p < P) yrow[p] = v0;
+            if (p + 1 < P) yrow[p + 1] = v1;
+          }
+        }
+      }
+    }
+  }
+}
+
+template <int PT>
+int launch(const bf16* x, const float* dt, const bf16* Bv, const bf16* Cv,
+           const float* A_log, const float* D, const float* s0, float* y, float* s_out,
+           float* handoff, int* work, int B, int S, int H, int P, int N, int Q, int run,
+           cudaStream_t stream) {
+  auto kern = ssd_tc_kernel<PT>;
+  const int nC = (S + Q - 1) / Q;
+  run = run < nC ? run : nC;
+  const int n_runs = (nC + run - 1) / run;
+  const long long grid = (long long)n_runs * B * H * ((P + PT - 1) / PT);
+  if (grid >= (1ll << 31) || (n_runs > 1 && (work == nullptr || handoff == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(Q, N, PT, run > 1);
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const bool aligned =
+      ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(Bv) |
+        reinterpret_cast<uintptr_t>(Cv)) & 15) == 0;
+  const int vec = aligned && N % 8 == 0 && P % 8 == 0;
+  kern<<<(unsigned)grid, THREADS, smem, stream>>>(x, dt, Bv, Cv, A_log, D, s0, y, s_out,
+                                                  handoff, work, B, S, H, P, N, Q, run, vec);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
 
 }  // namespace
 
-// Shared memory of one CTA, in bytes, for chunk Q, state width N and P tile PT.
+// Shared memory of one CTA, in bytes: the float32 kernel's for chunk Q,
+// state width N and P tile PT.
 extern "C" size_t ssd_smem_bytes(int Q, int N, int PT) {
   return smem_floats(Q, N, PT) * sizeof(float);
 }
 
-// x [B, S, H, P], Bv / Cv [B, S, N] contiguous, float32 (dtype 0) or bfloat16
-// (dtype 1); dt [B, S, H], A_log / D [H], s0 [B, H, P, N] (or null: zeros)
-// float32; y [B, S, H, P] and s_out [B, H, P, N] float32. 1 <= Q <= 128,
-// N <= 128, PT in {16, 32, 64}. Returns the launch's CUDA error code.
+// x [B, S, H, P], Bv / Cv [B, S, N] contiguous, float32 (dtype 0, the
+// scalar kernel) or bfloat16 (dtype 1, the tensor-core kernel); dt [B, S, H],
+// A_log / D [H], s0 [B, H, P, N] (or null: zeros) float32; y [B, S, H, P] and
+// s_out [B, H, P, N] float32. 1 <= Q <= 128, N <= 128. PT: P columns per CTA
+// (float32 16, 32 or 64; bfloat16 32 or 64). bfloat16 only: each CTA scans
+// `run` consecutive chunks; with fewer than ceil(S / Q) the runs hand the
+// state on through `handoff` (float32, [n_runs - 1, B, H, P, N]) and `work`
+// (int32, 1 + (n_runs - 1) * B * H * ceil(P / PT), zeroed). Returns the
+// launch's CUDA error code.
 extern "C" int ssd_launch(const void* x, const void* dt, const void* Bv, const void* Cv,
                           const void* A_log, const void* D, const void* s0, void* y,
-                          void* s_out, int B, int S, int H, int P, int N, int Q, int PT,
-                          int dtype, void* stream) {
+                          void* s_out, void* handoff, void* work, int B, int S, int H, int P,
+                          int N, int Q, int PT, int run, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (Q < 1 || Q > QMAX || N < 1 || N > NMAX) return (int)cudaErrorInvalidValue;
+  if (Q < 1 || Q > QMAX || N < 1 || N > NMAX || run < 1) return (int)cudaErrorInvalidValue;
   const float* dtf = static_cast<const float*>(dt);
   const float* al = static_cast<const float*>(A_log);
   const float* dp = static_cast<const float*>(D);
@@ -299,9 +745,17 @@ extern "C" int ssd_launch(const void* x, const void* dt, const void* Bv, const v
   float* yf = static_cast<float*>(y);
   float* so = static_cast<float*>(s_out);
   if (dtype == 0)
-    return launch_pt<float>(PT, x, dtf, Bv, Cv, al, dp, s0f, yf, so, B, S, H, P, N, Q, s);
-  if (dtype == 1)
-    return launch_pt<__nv_bfloat16>(PT, x, dtf, Bv, Cv, al, dp, s0f, yf, so, B, S, H, P, N,
-                                    Q, s);
+    return launch_scalar(PT, static_cast<const float*>(x), dtf, static_cast<const float*>(Bv),
+                         static_cast<const float*>(Cv), al, dp, s0f, yf, so, B, S, H, P, N,
+                         Q, s);
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  using tc::bf16;
+  const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* bb = static_cast<const bf16*>(Bv);
+  const bf16* cb = static_cast<const bf16*>(Cv);
+  float* ho = static_cast<float*>(handoff);
+  int* wk = static_cast<int*>(work);
+  if (PT == 64) return tc::launch<64>(xb, dtf, bb, cb, al, dp, s0f, yf, so, ho, wk, B, S, H, P, N, Q, run, s);
+  if (PT == 32) return tc::launch<32>(xb, dtf, bb, cb, al, dp, s0f, yf, so, ho, wk, B, S, H, P, N, Q, run, s);
   return (int)cudaErrorInvalidValue;
 }

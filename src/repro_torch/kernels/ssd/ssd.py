@@ -1,17 +1,25 @@
 """CUDA SSD chunked scan for Hopper: build, ctypes binding and wrapper.
 
-The kernel (``csrc/ssd.cu``) replaces the JAX package's Pallas kernel
+The kernels (``csrc/ssd.cu``) replace the JAX package's Pallas kernel
 ``_kernel`` (``src/repro/kernels/ssd/ssd.py:21``, launched by ``ssd_bhqp``
-behind ``ops.ssd``) and computes ``repro.models.ssm.ssd_chunked``'s
-function, the state carried in and out. It reads x [B, S, H, P] and the
+behind ``ops.ssd``) and compute ``repro.models.ssm.ssd_chunked``'s
+function, the state carried in and out. They read x [B, S, H, P] and the
 head-shared B and C [B, S, N] in place (the JAX wrapper transposes x and
-broadcasts B and C to every head) and handles any S, positions past S
-counting as dt = 0. It is bound by bytes (y is written in float32); this
-version computes its products with scalar float32 FMAs.
+broadcasts B and C to every head) and handle any S, positions past S
+counting as dt = 0. One kernel for each dtype:
 
-The library is built by ``repro_torch.kernels.build`` at first use on a
-CUDA tensor, into ``_build/`` beside this file; importing builds nothing.
-``LAUNCHES`` counts the launches.
+* bfloat16 runs ``ssd_tc_kernel``: the four products (C·Bᵀ, M·x, C·S_prev
+  and the state update) on the tensor cores through ``mma.sync``, the
+  operands made in float32 (M, S_prev, x·w) split into bf16 hi + lo. A CTA
+  owns (batch, head, ``TC_P_TILE`` columns of P) for a run of
+  ``TC_CHUNKS_PER_CTA`` chunks; runs hand the state on through a float32
+  workspace and a flag per run, both allocated here;
+* float32 runs ``ssd_kernel``, scalar float32 FMAs (no serve path).
+
+Every shape the wrapper admits goes to its dtype's kernel; a CUDA tensor
+launches it or raises. The library is built by ``repro_torch.kernels.build``
+at first use on a CUDA tensor, into ``_build/`` beside this file; importing
+builds nothing. ``LAUNCHES`` counts the launches.
 """
 from __future__ import annotations
 
@@ -24,9 +32,12 @@ from repro_torch.kernels.build import CudaLibrary, ptr, stream
 
 SOURCES = (Path(__file__).parent / "csrc" / "ssd.cu",)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_CHUNK = MAX_STATE = 128  # the kernel's register tiles
-P_TILES = (64, 32, 16)  # P columns per CTA the kernel is built for
+MAX_CHUNK = MAX_STATE = 128  # the kernels' register tiles
+P_TILES = (64, 32, 16)  # P columns per CTA the float32 kernel is built for
 SMEM_LIMIT = 232_448  # shared memory one CTA may opt in to on an H100
+# the bf16 kernel's P columns per CTA (32 or 64) and chunks per CTA
+TC_P_TILE = 64
+TC_CHUNKS_PER_CTA = 1
 
 # launches, counted where the wrapper launches the kernel
 LAUNCHES = {"ssd": 0}
@@ -34,7 +45,7 @@ LAUNCHES = {"ssd": 0}
 
 def _declare(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.ssd_launch.argtypes = [vp] * 9 + [ci] * 8 + [vp]
+    lib.ssd_launch.argtypes = [vp] * 11 + [ci] * 9 + [vp]
     lib.ssd_launch.restype = ci
     lib.ssd_smem_bytes.argtypes = [ci] * 3
     lib.ssd_smem_bytes.restype = ctypes.c_size_t
@@ -84,16 +95,36 @@ def ssd_cuda(x, dt, Bv, Cv, A_log, D, chunk: int, state_init=None):
     if B * H >= 2**31:
         raise ValueError(f"B * H = {B * H} exceeds one launch's grid")
     lib = LIBRARY.load()
+    if x.dtype == torch.bfloat16:
+        return _launch(lib, x, dt, Bv, Cv, A_log, D, Q, state_init,
+                       TC_P_TILE, TC_CHUNKS_PER_CTA)
     fits = [pt for pt in P_TILES if lib.ssd_smem_bytes(Q, N, pt) <= SMEM_LIMIT]
     # the narrowest tile that covers P, else the widest that fits
     PT = min((pt for pt in fits if pt >= P), default=fits[0] if fits else None)
     if PT is None:
         raise ValueError(f"no P tile fits shared memory at chunk {Q}, N={N}")
+    return _launch(lib, x, dt, Bv, Cv, A_log, D, Q, state_init, PT, 1)
+
+
+def _launch(lib, x, dt, Bv, Cv, A_log, D, Q, state_init, p_tile, run):
+    """One launch on checked tensors: ``p_tile`` P columns per CTA and, in
+    bf16, ``run`` chunks per CTA (the hand-off workspace sized to match)."""
+    B, S, H, P = x.shape
+    N = Bv.shape[2]
+    dev = x.device
     y = torch.empty((B, S, H, P), dtype=torch.float32, device=dev)
     state = torch.empty((B, H, P, N), dtype=torch.float32, device=dev)
+    n_chunks = -(-S // Q)
+    n_runs = -(-n_chunks // min(run, n_chunks))
+    work = handoff = None
+    if x.dtype == torch.bfloat16 and n_runs > 1:
+        # a ticket counter, then a flag per (run, batch, head, P tile)
+        work = torch.zeros(1 + (n_runs - 1) * B * H * -(-P // p_tile), dtype=torch.int32,
+                           device=dev)
+        handoff = torch.empty((n_runs - 1, B, H, P, N), dtype=torch.float32, device=dev)
     err = lib.ssd_launch(ptr(x), ptr(dt), ptr(Bv), ptr(Cv), ptr(A_log), ptr(D),
-                         ptr(state_init), ptr(y), ptr(state), B, S, H, P, N, Q, PT,
-                         DTYPES[x.dtype], stream(dev))
+                         ptr(state_init), ptr(y), ptr(state), ptr(handoff), ptr(work),
+                         B, S, H, P, N, Q, p_tile, run, DTYPES[x.dtype], stream(dev))
     if err != 0:
         raise RuntimeError(f"SSD kernel launch failed: CUDA error {err}")
     LAUNCHES["ssd"] += 1
