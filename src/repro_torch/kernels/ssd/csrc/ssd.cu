@@ -302,8 +302,19 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool vali
                "l"(src), "r"(n)
                : "memory");
 }
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+// 4 bytes global -> shared, through L1; zero-filled when !valid
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  const int n = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(n)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // four 8 x 8 bf16 matrices; lane l gives the address of a row of matrix l / 8
@@ -318,10 +329,12 @@ __device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], const bf16* p) {
                : "r"(smem_u32(p)));
 }
 
-// d[16 x 8] += a[16 x 16] b[16 x 8], bf16 in, float32 accumulate
+// d[16 x 8] += a[16 x 16] b[16 x 8], bf16 in, float32 accumulate. Not
+// volatile: a pure function of its registers, so the compiler may interleave
+// independent products instead of stalling on each dependent pair
 __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                     uint32_t b1) {
-  asm volatile(
+  asm(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
@@ -348,102 +361,92 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
-__device__ __forceinline__ int ld_acquire(const int* p) {
-  int v;
-  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-__device__ __forceinline__ void st_release(int* p, int v) {
-  asm volatile("st.release.gpu.global.b32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
-}
-
 __host__ __device__ constexpr int round16(int v) { return (v + 15) / 16 * 16; }
 
-// Shared memory of one CTA, in bytes. Rows of C, B and x are padded by 16
-// bytes, so the 8 rows an ldmatrix reads fall on distinct banks.
-__host__ __device__ inline size_t smem_bytes(int Q, int N, int PT, bool multi) {
-  const size_t QP = round16(Q), NP = round16(N), CS = NP + 8, XS = PT + 8;
-  const size_t bs = QP * CS > 2 * PT * CS ? QP * CS : 2 * PT * CS;
-  return 2 * (QP * CS + bs + QP * XS)      // C, B (then S_prev hi / lo), x
-         + 4 * 4 * QP                      // dt, cs, w, exp(cs)
-         + (multi ? 4 * (size_t)PT * NP : 0)  // the state between a CTA's chunks
-         + 16;                             // the ticket
+// Shared memory of one CTA, in bytes: per stage C, B [QP][N + pad] and x
+// [QP][PT + pad] bf16 and dt [QP]; S_prev hi, lo [PT][N + pad] bf16; cs, w,
+// exp(cs) [QP]. Rows are padded by 16 bytes, so the 8 rows an ldmatrix
+// reads fall on distinct banks.
+__host__ __device__ inline size_t smem_bytes(int Q, int N, int PT, int stages) {
+  const size_t QP = round16(Q), CS = round16(N) + 8, XS = PT + 8;
+  return stages * (2 * (2 * QP * CS + QP * XS) + 4 * QP) + 2 * 2 * PT * CS + 3 * 4 * QP;
 }
 
 // x [B, S, H, P], Bv / Cv [B, S, N] bf16; dt [B, S, H], A_log / D [H], s0
 // [B, H, P, N] (or null) float32; y [B, S, H, P], s_out [B, H, P, N] float32.
-// A CTA owns (batch, head, PT columns of P) for a run of `run` chunks; the
-// runs of one (batch, head, P tile) hand the state on through `handoff`
-// ([n_runs - 1, B, H, P, N] float32) and `work` (int32: a ticket counter,
-// then a flag per (run, batch, head, P tile)), both zeroed by the caller.
-// One-dimensional grid of n_runs * B * H * n_ptiles CTAs.
-template <int PT>
+// A CTA owns (batch, head, PT columns of P) and scans its chunks in order,
+// the state in registers; with STAGES = 2 the next chunk's copies run
+// under this chunk's products. Grid: B * H * ceil(P / PT) CTAs.
+template <int PT, int STAGES>
 __global__ void __launch_bounds__(THREADS, 2)
 ssd_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
               const bf16* __restrict__ Bv, const bf16* __restrict__ Cv,
               const float* __restrict__ A_log, const float* __restrict__ Dp,
               const float* __restrict__ s0, float* __restrict__ y, float* __restrict__ s_out,
-              float* __restrict__ handoff, int* __restrict__ work, int B, int S, int H,
-              int P, int N, int Q, int run, int vec) {
+              int S, int H, int P, int N, int Q, int vec) {
   constexpr int MBS = PT / 16;  // 16-row blocks of the state's P rows
   constexpr int WPM = 4 / MBS;  // warps sharing one of them
   constexpr int NQ = 8 / WPM;   // 16-column blocks of N per warp, at most
   constexpr int NPT8 = PT / 8;  // 8-column tiles of y
   const int QP = round16(Q), NP = round16(N), QB = QP / 16, NB = NP / 16;
   const int CS = NP + 8, XS = PT + 8;
-  const int nC = (S + Q - 1) / Q, n_runs = (nC + run - 1) / run;
-  const int nPT = (P + PT - 1) / PT, BHT = B * H * nPT;
-  const bool multi = run > 1;
+  const int nC = (S + Q - 1) / Q, nPT = (P + PT - 1) / PT;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Cs = reinterpret_cast<bf16*>(smem_raw);  // [QP][CS]
-  bf16* Bs = Cs + QP * CS;  // [QP][CS]; after the state update S_prev hi, lo [PT][CS] each
-  bf16* xs = Bs + (QP * CS > 2 * PT * CS ? QP * CS : 2 * PT * CS);  // [QP][XS]
-  float* dts = reinterpret_cast<float*>(xs + QP * XS);  // [QP]
-  float* cs = dts + QP;   // inclusive cumsum of dt * A
-  float* ws = cs + QP;    // exp(cs_last - cs_j) dt_j
-  float* es = ws + QP;    // exp(cs_i)
-  float* Sf = es + QP;    // [PT][NP] the state between chunks of one CTA
-  int* ticket = reinterpret_cast<int*>(Sf + (multi ? PT * NP : 0));
+  const int stage_elems = 2 * QP * CS + QP * XS;  // bf16 of one stage's C, B, x
+  bf16* Shi = reinterpret_cast<bf16*>(smem_raw) + STAGES * stage_elems;  // [PT][CS]
+  bf16* Slo = Shi + PT * CS;                                              // [PT][CS]
+  float* dts0 = reinterpret_cast<float*>(Slo + PT * CS);  // [STAGES][QP]
+  float* cs = dts0 + STAGES * QP;  // inclusive cumsum of dt * A
+  float* ws = cs + QP;             // exp(cs_last - cs_j) dt_j
+  float* es = ws + QP;             // exp(cs_i)
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gr = lane >> 2, gc = lane & 3;  // fragment row, column pair
-
-  // CTAs take their work in the order they start, so a CTA waits only on
-  // one that started before it: no deadlock, however many are resident
-  int t = blockIdx.x;
-  if (n_runs > 1) {
-    if (tid == 0) *ticket = atomicAdd(work, 1);
-    __syncthreads();
-    t = *ticket;
-  }
-  const int r = t / BHT, rem = t - r * BHT;
-  const int bh = rem / nPT, pt = rem - bh * nPT, b = bh / H, h = bh - b * H;
-  const int p0 = pt * PT;
+  const int bh = blockIdx.x / nPT, pt = blockIdx.x - bh * nPT;
+  const int b = bh / H, h = bh - b * H, p0 = pt * PT;
   const float A = -expf(A_log[h]);
   const float Dh = Dp[h];
-  const size_t PN = (size_t)P * N, BHPN = (size_t)B * H * PN;
-  const int c_begin = r * run, c_end = min(c_begin + run, nC);
+  const size_t PN = (size_t)P * N;
 
-  // the warp's 16-row blocks of y (w and 7 - w: equal causal work) and
-  // its share of the state [PT, NP]: P rows 16 * (warp % MBS) + .., and
-  // the 16-column blocks of N congruent to warp / MBS modulo WPM
+  // the warp's 16-row blocks of y, w and 7 - w (equal causal work), and its
+  // share of the state [PT, NP]: P rows 16 * (warp % MBS) + .., and the
+  // 16-column blocks of N congruent to warp / MBS modulo WPM
   const int rbs[2] = {warp, 7 - warp};
   const int mb = warp % MBS, nb0 = warp / MBS;
 
-#pragma unroll 1
-  for (int c = c_begin; c < c_end; ++c) {
-    const int c0 = c * Q, rows = min(Q, S - c0);
-    __syncthreads();  // the previous chunk's readers are done with the staging
-    if (vec) {
-      const int cpr = NP / 8, xpr = PT / 8;
-      for (int e = tid; e < QP * cpr; e += THREADS) {
-        const int i = e / cpr, k = e - i * cpr;
-        const bool ok = i < rows && 8 * k < N;
-        const size_t g = ok ? ((size_t)b * S + c0 + i) * N + 8 * k : 0;
-        cp_async16(Cs + i * CS + 8 * k, Cv + g, ok);
-        cp_async16(Bs + i * CS + 8 * k, Bv + g, ok);
+  // the state, float32, in the accumulator layout of (x w)^T B: element e of
+  // sreg[q][t] is P row 16 mb + gr + 8 (e / 2), N column 16 (nb0 + q WPM) +
+  // 8 t + 2 gc + e % 2
+  float sreg[NQ][2][4];
+#pragma unroll
+  for (int q = 0; q < NQ; ++q)
+#pragma unroll
+    for (int tt = 0; tt < 2; ++tt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int p = p0 + 16 * mb + gr + 8 * (e >> 1);
+        const int n = 16 * (nb0 + q * WPM) + 8 * tt + 2 * gc + (e & 1);
+        sreg[q][tt][e] = s0 != nullptr && p < P && n < N ? s0[bh * PN + (size_t)p * N + n] : 0.f;
       }
+
+  // chunk c's x, B, C and dt into stage st, zero past S, Q, N and P
+  auto stage = [&](int c, int st) {
+    bf16* Cs = reinterpret_cast<bf16*>(smem_raw) + st * stage_elems;
+    bf16* Bs = Cs + QP * CS;
+    bf16* xs = Bs + QP * CS;
+    float* dts = dts0 + st * QP;
+    const int c0 = c * Q, rows = min(Q, S - c0);
+    if (vec) {  // 16-byte chunk k of row i; THREADS / 16 rows at a time
+      const int k = tid & 15;
+      if (k < NP / 8)
+        for (int i = tid >> 4; i < QP; i += THREADS / 16) {
+          const bool ok = i < rows && 8 * k < N;
+          const size_t g = ok ? ((size_t)b * S + c0 + i) * N + 8 * k : 0;
+          cp_async16(Cs + i * CS + 8 * k, Cv + g, ok);
+          cp_async16(Bs + i * CS + 8 * k, Bv + g, ok);
+        }
+      constexpr int xpr = PT / 8;
       for (int e = tid; e < QP * xpr; e += THREADS) {
         const int i = e / xpr, k = e - i * xpr;
         const bool ok = i < rows && p0 + 8 * k < P;
@@ -465,13 +468,36 @@ ssd_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
         xs[i * XS + pp] = ok ? x[(((size_t)b * S + c0 + i) * H + h) * P + p0 + pp] : zero;
       }
     }
-    for (int j = tid; j < QP; j += THREADS)
-      dts[j] = j < rows ? dt[((size_t)b * S + c0 + j) * H + h] : 0.f;
-    cp_async_wait_all();
+    for (int j = tid; j < QP; j += THREADS) {
+      const bool ok = j < rows;
+      cp_async4(dts + j, dt + (ok ? ((size_t)b * S + c0 + j) * H + h : 0), ok);
+    }
+    cp_async_commit();
+  };
+
+  stage(0, 0);
+#pragma unroll 1
+  for (int c = 0; c < nC; ++c) {
+    const int st = STAGES == 2 ? c & 1 : 0;
+    const int c0 = c * Q, rows = min(Q, S - c0);
+    const bf16* Cs = reinterpret_cast<bf16*>(smem_raw) + st * stage_elems;
+    const bf16* Bs = Cs + QP * CS;
+    const bf16* xs = Bs + QP * CS;
+    const float* dts = dts0 + st * QP;
+    if (STAGES == 2) {
+      // the other stage was last read in chunk c - 1, before its closing barrier
+      if (c + 1 < nC) stage(c + 1, st ^ 1);
+      else cp_async_commit();  // an empty group keeps the count
+      cp_async_wait<1>();      // every group but the newest: chunk c has landed
+    } else {
+      if (c > 0) stage(c, 0);  // the stage was last read before the previous barrier
+      cp_async_wait<0>();
+    }
     __syncthreads();
 
     // warp 0: the inclusive cumsum of dt * A, 32 steps at a time, then the
-    // state-update weights and the inter-chunk decays
+    // state-update weights and the inter-chunk decays; meanwhile every
+    // thread writes its part of S_prev as bf16 hi + lo
     if (warp == 0) {
       float carry = 0.f;
       for (int j0 = 0; j0 < QP; j0 += 32) {
@@ -492,77 +518,33 @@ ssd_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
         es[j] = expf(cs[j]);
       }
     }
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      const int nb = nb0 + q * WPM;
+      if (nb >= NB) break;
+#pragma unroll
+      for (int tt = 0; tt < 2; ++tt)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int off = (16 * mb + gr + 8 * hr) * CS + 16 * nb + 8 * tt + 2 * gc;
+          uint32_t hi, lo;
+          split(sreg[q][tt][2 * hr], sreg[q][tt][2 * hr + 1], hi, lo);
+          *reinterpret_cast<uint32_t*>(Shi + off) = hi;
+          *reinterpret_cast<uint32_t*>(Slo + off) = lo;
+        }
+    }
     __syncthreads();
 
-    // (1) y = M x, M = (C B^T) o decay, a 16 x 16 tile at a time: C B^T in
-    // the accumulator, the decay exp(cs_i - cs_j) dt_j (j <= i) applied in
-    // registers, M split into bf16 hi + lo as the A operand of M x
-    float yacc[2][NPT8][4];
-#pragma unroll
-    for (int ri = 0; ri < 2; ++ri)
-#pragma unroll
-      for (int n = 0; n < NPT8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) yacc[ri][n][e] = 0.f;
-#pragma unroll
-    for (int ri = 0; ri < 2; ++ri) {
-      const int rb = rbs[ri];
-      if (rb >= QB) continue;
-      const int i0 = 16 * rb + gr;
-      const float csi[2] = {cs[i0], cs[i0 + 8]};
-      uint32_t cf[8][4];  // C's A fragments of these 16 rows
-#pragma unroll
-      for (int nk = 0; nk < 8; ++nk)
-        if (nk < NB) ldsm4(cf[nk], Cs + (16 * rb + (lane & 15)) * CS + 16 * nk + (lane >> 4) * 8);
-      for (int kb = 0; kb <= rb; ++kb) {
-        float cb[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll
-        for (int nk = 0; nk < 8; ++nk) {
-          if (nk >= NB) break;
-          uint32_t bb[4];
-          ldsm4(bb, Bs + (16 * kb + (lane & 7) + ((lane >> 4) << 3)) * CS + 16 * nk +
-                        ((lane >> 3) & 1) * 8);
-          mma(cb[0], cf[nk], bb[0], bb[1]);
-          mma(cb[1], cf[nk], bb[2], bb[3]);
-        }
-        uint32_t ahi[4], alo[4];
-#pragma unroll
-        for (int tt = 0; tt < 2; ++tt) {
-          const int j = 16 * kb + 8 * tt + 2 * gc;
-          const float csj[2] = {cs[j], cs[j + 1]}, dtj[2] = {dts[j], dts[j + 1]};
-          float v[4];
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int ii = i0 + 8 * (e >> 1), jj = j + (e & 1);
-            v[e] = jj <= ii ? cb[tt][e] * exp2_approx((csi[e >> 1] - csj[e & 1]) * LOG2E) *
-                                  dtj[e & 1]
-                            : 0.f;
-          }
-          split(v[0], v[1], ahi[2 * tt], alo[2 * tt]);
-          split(v[2], v[3], ahi[2 * tt + 1], alo[2 * tt + 1]);
-        }
-#pragma unroll
-        for (int np = 0; np < PT / 16; ++np) {
-          uint32_t xb[4];
-          ldsm4t(xb, xs + (16 * kb + (lane & 7) + ((lane >> 3) & 1) * 8) * XS + 16 * np +
-                         (lane >> 4) * 8);
-          mma(yacc[ri][2 * np], ahi, xb[0], xb[1]);
-          mma(yacc[ri][2 * np], alo, xb[0], xb[1]);
-          mma(yacc[ri][2 * np + 1], ahi, xb[2], xb[3]);
-          mma(yacc[ri][2 * np + 1], alo, xb[2], xb[3]);
-        }
-      }
-    }
-
-    // (2) the chunk's own state [PT, NP] += (x w)^T B: the A operand is x
-    // (transposed) weighted by w_j in registers, split into hi + lo
-    float sacc[NQ][2][4];
+    // (1) the state: S = exp(cs_Q) S_prev + (x w)^T B. The A operand is x
+    // read transposed, weighted by w_j in registers and split into hi + lo;
+    // the products accumulate onto the decayed state in place
+    const float g = es[QP - 1];
 #pragma unroll
     for (int q = 0; q < NQ; ++q)
 #pragma unroll
       for (int tt = 0; tt < 2; ++tt)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) sacc[q][tt][e] = 0.f;
+        for (int e = 0; e < 4; ++e) sreg[q][tt][e] *= g;
     for (int kb = 0; kb < QB; ++kb) {
       uint32_t xa[4], ahi[4], alo[4];
       ldsm4t(xa, xs + (16 * kb + (lane & 7) + (lane >> 4) * 8) * XS + 16 * mb +
@@ -574,72 +556,125 @@ ssd_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
         const float2 v = unpack(xa[k]), w = k < 2 ? w0 : w8;
         split(v.x * w.x, v.y * w.y, ahi[k], alo[k]);
       }
+      uint32_t bb[NQ][4];
 #pragma unroll
-      for (int q = 0; q < NQ; ++q) {
-        const int nb = nb0 + q * WPM;
-        if (nb >= NB) break;
-        uint32_t bb[4];
-        ldsm4t(bb, Bs + (16 * kb + (lane & 7) + ((lane >> 3) & 1) * 8) * CS + 16 * nb +
-                       (lane >> 4) * 8);
-        mma(sacc[q][0], ahi, bb[0], bb[1]);
-        mma(sacc[q][0], alo, bb[0], bb[1]);
-        mma(sacc[q][1], ahi, bb[2], bb[3]);
-        mma(sacc[q][1], alo, bb[2], bb[3]);
-      }
-    }
-    __syncthreads();  // B is read for the last time: its space takes S_prev
-
-    // (3) the entering state: s0 or the previous run's hand-off at a run's
-    // first chunk, else this CTA's own; the state leaving is decay * S_prev
-    // + the chunk's own, kept for the next chunk or handed on
-    const bool first = c == c_begin, last = c == c_end - 1;
-    if (first && r > 0 && tid == 0) {
-      const int* flag = work + 1 + (size_t)(r - 1) * BHT + rem;
-      while (ld_acquire(flag) == 0) __nanosleep(64);
-    }
-    __syncthreads();
-    const float* src = !first ? nullptr
-                       : r == 0 ? (s0 == nullptr ? nullptr : s0 + bh * PN)
-                                : handoff + (size_t)(r - 1) * BHPN + bh * PN;
-    float* dst = !last ? nullptr : c == nC - 1 ? s_out + bh * PN : handoff + r * BHPN + bh * PN;
-    const float g = es[QP - 1];
-    bf16* Shi = Bs;
-    bf16* Slo = Bs + PT * CS;
+      for (int q = 0; q < NQ; ++q)
+        if (nb0 + q * WPM < NB)
+          ldsm4t(bb[q], Bs + (16 * kb + (lane & 7) + ((lane >> 3) & 1) * 8) * CS +
+                            16 * (nb0 + q * WPM) + (lane >> 4) * 8);
 #pragma unroll
-    for (int q = 0; q < NQ; ++q) {
-      const int nb = nb0 + q * WPM;
-      if (nb >= NB) break;
+      for (int q = 0; q < NQ; ++q)
+        if (nb0 + q * WPM < NB) {
+          mma(sreg[q][0], ahi, bb[q][0], bb[q][1]);
+          mma(sreg[q][1], ahi, bb[q][2], bb[q][3]);
+        }
 #pragma unroll
-      for (int tt = 0; tt < 2; ++tt)
-#pragma unroll
-        for (int hr = 0; hr < 2; ++hr) {
-          const int pl = 16 * mb + gr + 8 * hr, n = 16 * nb + 8 * tt + 2 * gc;
-          const int p = p0 + pl;
-          float sp[2];
-#pragma unroll
-          for (int u = 0; u < 2; ++u) {
-            const bool ok = p < P && n + u < N;
-            sp[u] = !first ? Sf[pl * NP + n + u]
-                    : (src != nullptr && ok) ? __ldcg(src + (size_t)p * N + n + u) : 0.f;
-            const float so = fmaf(g, sp[u], sacc[q][tt][2 * hr + u]);
-            if (!last) Sf[pl * NP + n + u] = so;
-            else if (ok) __stcg(dst + (size_t)p * N + n + u, so);
-          }
-          uint32_t hi, lo;
-          split(sp[0], sp[1], hi, lo);
-          *reinterpret_cast<uint32_t*>(Shi + pl * CS + n) = hi;
-          *reinterpret_cast<uint32_t*>(Slo + pl * CS + n) = lo;
+      for (int q = 0; q < NQ; ++q)
+        if (nb0 + q * WPM < NB) {
+          mma(sreg[q][0], alo, bb[q][0], bb[q][1]);
+          mma(sreg[q][1], alo, bb[q][2], bb[q][3]);
         }
     }
-    if (last && c != nC - 1) __threadfence();
-    __syncthreads();
-    if (last && c != nC - 1 && tid == 0) st_release(work + 1 + (size_t)r * BHT + rem, 1);
 
-    // (4) y += exp(cs_i) C S_prev (S_prev as hi + lo), plus D x; written once
+    // (2) y = M x, M = (C B^T) o decay, 16 x 16 tiles of both row blocks
+    // side by side (independent chains; B's and x's fragments shared): C B^T
+    // in the accumulator, the decay exp(cs_i - cs_j) dt_j (j <= i) applied in
+    // registers, and the accumulator layout is the A-operand layout of M x,
+    // so M, split into hi + lo, never touches shared memory
+    float yacc[2][NPT8][4];
+#pragma unroll
+    for (int ri = 0; ri < 2; ++ri)
+#pragma unroll
+      for (int n = 0; n < NPT8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) yacc[ri][n][e] = 0.f;
+    const bool act[2] = {rbs[0] < QB, rbs[1] < QB};
+    const int kmax = act[1] ? rbs[1] : act[0] ? rbs[0] : -1;
+    float csi[2][2];
+#pragma unroll
+    for (int ri = 0; ri < 2; ++ri)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) csi[ri][hr] = act[ri] ? cs[16 * rbs[ri] + gr + 8 * hr] : 0.f;
+    for (int kb = 0; kb <= kmax; ++kb) {
+      const bool live[2] = {act[0] && kb <= rbs[0], act[1]};
+      float cb[2][2][2][4];  // [row block][column tile][parity of the N step]
+#pragma unroll
+      for (int ri = 0; ri < 2; ++ri)
+#pragma unroll
+        for (int tt = 0; tt < 2; ++tt)
+#pragma unroll
+          for (int u = 0; u < 2; ++u)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) cb[ri][tt][u][e] = 0.f;
+#pragma unroll
+      for (int nk0 = 0; nk0 < 8; nk0 += 2) {
+        if (nk0 >= NB) break;
+        uint32_t bb[2][4], a[2][2][4];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int nk = nk0 + u;
+          if (nk >= NB) break;
+          ldsm4(bb[u], Bs + (16 * kb + (lane & 7) + ((lane >> 4) << 3)) * CS + 16 * nk +
+                           ((lane >> 3) & 1) * 8);
+#pragma unroll
+          for (int ri = 0; ri < 2; ++ri)
+            if (live[ri])
+              ldsm4(a[u][ri], Cs + (16 * rbs[ri] + (lane & 15)) * CS + 16 * nk + (lane >> 4) * 8);
+        }
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          if (nk0 + u >= NB) break;
+#pragma unroll
+          for (int ri = 0; ri < 2; ++ri)
+            if (live[ri]) {
+              mma(cb[ri][0][u], a[u][ri], bb[u][0], bb[u][1]);
+              mma(cb[ri][1][u], a[u][ri], bb[u][2], bb[u][3]);
+            }
+        }
+      }
+      uint32_t ahi[2][4], alo[2][4];
+#pragma unroll
+      for (int tt = 0; tt < 2; ++tt) {
+        const int j = 16 * kb + 8 * tt + 2 * gc;
+        const float csj[2] = {cs[j], cs[j + 1]}, dtj[2] = {dts[j], dts[j + 1]};
+#pragma unroll
+        for (int ri = 0; ri < 2; ++ri) {
+          float v[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int ii = 16 * rbs[ri] + gr + 8 * (e >> 1), jj = j + (e & 1);
+            v[e] = jj <= ii ? (cb[ri][tt][0][e] + cb[ri][tt][1][e]) *
+                                  exp2_approx((csi[ri][e >> 1] - csj[e & 1]) * LOG2E) *
+                                  dtj[e & 1]
+                            : 0.f;
+          }
+          split(v[0], v[1], ahi[ri][2 * tt], alo[ri][2 * tt]);
+          split(v[2], v[3], ahi[ri][2 * tt + 1], alo[ri][2 * tt + 1]);
+        }
+      }
+      uint32_t xb[PT / 16][4];
+#pragma unroll
+      for (int np = 0; np < PT / 16; ++np)
+        ldsm4t(xb[np], xs + (16 * kb + (lane & 7) + ((lane >> 3) & 1) * 8) * XS + 16 * np +
+                           (lane >> 4) * 8);
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+#pragma unroll
+        for (int ri = 0; ri < 2; ++ri) {
+          if (!live[ri]) continue;
+#pragma unroll
+          for (int np = 0; np < PT / 16; ++np) {
+            mma(yacc[ri][2 * np], half ? alo[ri] : ahi[ri], xb[np][0], xb[np][1]);
+            mma(yacc[ri][2 * np + 1], half ? alo[ri] : ahi[ri], xb[np][2], xb[np][3]);
+          }
+        }
+    }
+
+    // (3) y += exp(cs_i) C S_prev (S_prev as hi + lo), plus D x; written once
 #pragma unroll
     for (int ri = 0; ri < 2; ++ri) {
+      if (!act[ri]) continue;
       const int rb = rbs[ri];
-      if (rb >= QB) continue;
       float z[NPT8][4];
 #pragma unroll
       for (int n = 0; n < NPT8; ++n)
@@ -650,18 +685,21 @@ ssd_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
         if (nk >= NB) break;
         uint32_t a[4];
         ldsm4(a, Cs + (16 * rb + (lane & 15)) * CS + 16 * nk + (lane >> 4) * 8);
+        uint32_t sb[2][PT / 16][4];  // [hi, lo][16 P rows]
 #pragma unroll
         for (int np = 0; np < PT / 16; ++np) {
-          uint32_t bh_[4], bl_[4];
           const int off = (16 * np + (lane & 7) + ((lane >> 4) << 3)) * CS + 16 * nk +
                           ((lane >> 3) & 1) * 8;
-          ldsm4(bh_, Shi + off);
-          ldsm4(bl_, Slo + off);
-          mma(z[2 * np], a, bh_[0], bh_[1]);
-          mma(z[2 * np], a, bl_[0], bl_[1]);
-          mma(z[2 * np + 1], a, bh_[2], bh_[3]);
-          mma(z[2 * np + 1], a, bl_[2], bl_[3]);
+          ldsm4(sb[0][np], Shi + off);
+          ldsm4(sb[1][np], Slo + off);
         }
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+#pragma unroll
+          for (int np = 0; np < PT / 16; ++np) {
+            mma(z[2 * np], a, sb[half][np][0], sb[half][np][1]);
+            mma(z[2 * np + 1], a, sb[half][np][2], sb[half][np][3]);
+          }
       }
 #pragma unroll
       for (int hr = 0; hr < 2; ++hr) {
@@ -685,22 +723,29 @@ ssd_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
         }
       }
     }
+    __syncthreads();  // every warp is done with this stage, S_prev and cs
   }
+
+#pragma unroll
+  for (int q = 0; q < NQ; ++q)
+#pragma unroll
+    for (int tt = 0; tt < 2; ++tt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int p = p0 + 16 * mb + gr + 8 * (e >> 1);
+        const int n = 16 * (nb0 + q * WPM) + 8 * tt + 2 * gc + (e & 1);
+        if (p < P && n < N) s_out[bh * PN + (size_t)p * N + n] = sreg[q][tt][e];
+      }
 }
 
-template <int PT>
+template <int PT, int STAGES>
 int launch(const bf16* x, const float* dt, const bf16* Bv, const bf16* Cv,
            const float* A_log, const float* D, const float* s0, float* y, float* s_out,
-           float* handoff, int* work, int B, int S, int H, int P, int N, int Q, int run,
-           cudaStream_t stream) {
-  auto kern = ssd_tc_kernel<PT>;
-  const int nC = (S + Q - 1) / Q;
-  run = run < nC ? run : nC;
-  const int n_runs = (nC + run - 1) / run;
-  const long long grid = (long long)n_runs * B * H * ((P + PT - 1) / PT);
-  if (grid >= (1ll << 31) || (n_runs > 1 && (work == nullptr || handoff == nullptr)))
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(Q, N, PT, run > 1);
+           int B, int S, int H, int P, int N, int Q, cudaStream_t stream) {
+  auto kern = ssd_tc_kernel<PT, STAGES>;
+  const long long grid = (long long)B * H * ((P + PT - 1) / PT);
+  if (grid >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(Q, N, PT, STAGES);
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -708,8 +753,8 @@ int launch(const bf16* x, const float* dt, const bf16* Bv, const bf16* Cv,
       ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(Bv) |
         reinterpret_cast<uintptr_t>(Cv)) & 15) == 0;
   const int vec = aligned && N % 8 == 0 && P % 8 == 0;
-  kern<<<(unsigned)grid, THREADS, smem, stream>>>(x, dt, Bv, Cv, A_log, D, s0, y, s_out,
-                                                  handoff, work, B, S, H, P, N, Q, run, vec);
+  kern<<<(unsigned)grid, THREADS, smem, stream>>>(x, dt, Bv, Cv, A_log, D, s0, y, s_out, S,
+                                                  H, P, N, Q, vec);
   return (int)cudaGetLastError();
 }
 
@@ -727,17 +772,15 @@ extern "C" size_t ssd_smem_bytes(int Q, int N, int PT) {
 // scalar kernel) or bfloat16 (dtype 1, the tensor-core kernel); dt [B, S, H],
 // A_log / D [H], s0 [B, H, P, N] (or null: zeros) float32; y [B, S, H, P] and
 // s_out [B, H, P, N] float32. 1 <= Q <= 128, N <= 128. PT: P columns per CTA
-// (float32 16, 32 or 64; bfloat16 32 or 64). bfloat16 only: each CTA scans
-// `run` consecutive chunks; with fewer than ceil(S / Q) the runs hand the
-// state on through `handoff` (float32, [n_runs - 1, B, H, P, N]) and `work`
-// (int32, 1 + (n_runs - 1) * B * H * ceil(P / PT), zeroed). Returns the
-// launch's CUDA error code.
+// (float32 16, 32 or 64; bfloat16 32 or 64). stages: bfloat16 only, 1 or 2
+// chunks staged in shared memory (2: the next chunk's copies overlap this
+// chunk's products). Returns the launch's CUDA error code.
 extern "C" int ssd_launch(const void* x, const void* dt, const void* Bv, const void* Cv,
                           const void* A_log, const void* D, const void* s0, void* y,
-                          void* s_out, void* handoff, void* work, int B, int S, int H, int P,
-                          int N, int Q, int PT, int run, int dtype, void* stream) {
+                          void* s_out, int B, int S, int H, int P, int N, int Q, int PT,
+                          int stages, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (Q < 1 || Q > QMAX || N < 1 || N > NMAX || run < 1) return (int)cudaErrorInvalidValue;
+  if (Q < 1 || Q > QMAX || N < 1 || N > NMAX) return (int)cudaErrorInvalidValue;
   const float* dtf = static_cast<const float*>(dt);
   const float* al = static_cast<const float*>(A_log);
   const float* dp = static_cast<const float*>(D);
@@ -753,9 +796,10 @@ extern "C" int ssd_launch(const void* x, const void* dt, const void* Bv, const v
   const bf16* xb = static_cast<const bf16*>(x);
   const bf16* bb = static_cast<const bf16*>(Bv);
   const bf16* cb = static_cast<const bf16*>(Cv);
-  float* ho = static_cast<float*>(handoff);
-  int* wk = static_cast<int*>(work);
-  if (PT == 64) return tc::launch<64>(xb, dtf, bb, cb, al, dp, s0f, yf, so, ho, wk, B, S, H, P, N, Q, run, s);
-  if (PT == 32) return tc::launch<32>(xb, dtf, bb, cb, al, dp, s0f, yf, so, ho, wk, B, S, H, P, N, Q, run, s);
+#define SSD_TC(pt, st)                                                                  \
+  if (PT == pt && stages == st)                                                         \
+    return tc::launch<pt, st>(xb, dtf, bb, cb, al, dp, s0f, yf, so, B, S, H, P, N, Q, s);
+  SSD_TC(64, 1) SSD_TC(64, 2) SSD_TC(32, 1) SSD_TC(32, 2)
+#undef SSD_TC
   return (int)cudaErrorInvalidValue;
 }

@@ -35,9 +35,10 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_CHUNK = MAX_STATE = 128  # the kernels' register tiles
 P_TILES = (64, 32, 16)  # P columns per CTA the float32 kernel is built for
 SMEM_LIMIT = 232_448  # shared memory one CTA may opt in to on an H100
-# the bf16 kernel's P columns per CTA (32 or 64) and chunks per CTA
+# the bf16 kernel's P columns per CTA (32 or 64) and chunks staged in shared
+# memory at once (1, or 2: the next chunk's copies under this one's products)
 TC_P_TILE = 64
-TC_CHUNKS_PER_CTA = 1
+TC_STAGES = 2
 
 # launches, counted where the wrapper launches the kernel
 LAUNCHES = {"ssd": 0}
@@ -45,7 +46,7 @@ LAUNCHES = {"ssd": 0}
 
 def _declare(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.ssd_launch.argtypes = [vp] * 11 + [ci] * 9 + [vp]
+    lib.ssd_launch.argtypes = [vp] * 9 + [ci] * 9 + [vp]
     lib.ssd_launch.restype = ci
     lib.ssd_smem_bytes.argtypes = [ci] * 3
     lib.ssd_smem_bytes.restype = ctypes.c_size_t
@@ -96,8 +97,7 @@ def ssd_cuda(x, dt, Bv, Cv, A_log, D, chunk: int, state_init=None):
         raise ValueError(f"B * H = {B * H} exceeds one launch's grid")
     lib = LIBRARY.load()
     if x.dtype == torch.bfloat16:
-        return _launch(lib, x, dt, Bv, Cv, A_log, D, Q, state_init,
-                       TC_P_TILE, TC_CHUNKS_PER_CTA)
+        return _launch(lib, x, dt, Bv, Cv, A_log, D, Q, state_init, TC_P_TILE, TC_STAGES)
     fits = [pt for pt in P_TILES if lib.ssd_smem_bytes(Q, N, pt) <= SMEM_LIMIT]
     # the narrowest tile that covers P, else the widest that fits
     PT = min((pt for pt in fits if pt >= P), default=fits[0] if fits else None)
@@ -106,25 +106,16 @@ def ssd_cuda(x, dt, Bv, Cv, A_log, D, chunk: int, state_init=None):
     return _launch(lib, x, dt, Bv, Cv, A_log, D, Q, state_init, PT, 1)
 
 
-def _launch(lib, x, dt, Bv, Cv, A_log, D, Q, state_init, p_tile, run):
+def _launch(lib, x, dt, Bv, Cv, A_log, D, Q, state_init, p_tile, stages):
     """One launch on checked tensors: ``p_tile`` P columns per CTA and, in
-    bf16, ``run`` chunks per CTA (the hand-off workspace sized to match)."""
+    bf16, ``stages`` chunks staged in shared memory at once."""
     B, S, H, P = x.shape
     N = Bv.shape[2]
-    dev = x.device
-    y = torch.empty((B, S, H, P), dtype=torch.float32, device=dev)
-    state = torch.empty((B, H, P, N), dtype=torch.float32, device=dev)
-    n_chunks = -(-S // Q)
-    n_runs = -(-n_chunks // min(run, n_chunks))
-    work = handoff = None
-    if x.dtype == torch.bfloat16 and n_runs > 1:
-        # a ticket counter, then a flag per (run, batch, head, P tile)
-        work = torch.zeros(1 + (n_runs - 1) * B * H * -(-P // p_tile), dtype=torch.int32,
-                           device=dev)
-        handoff = torch.empty((n_runs - 1, B, H, P, N), dtype=torch.float32, device=dev)
+    y = torch.empty((B, S, H, P), dtype=torch.float32, device=x.device)
+    state = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
     err = lib.ssd_launch(ptr(x), ptr(dt), ptr(Bv), ptr(Cv), ptr(A_log), ptr(D),
-                         ptr(state_init), ptr(y), ptr(state), ptr(handoff), ptr(work),
-                         B, S, H, P, N, Q, p_tile, run, DTYPES[x.dtype], stream(dev))
+                         ptr(state_init), ptr(y), ptr(state), B, S, H, P, N, Q, p_tile,
+                         stages, DTYPES[x.dtype], stream(x.device))
     if err != 0:
         raise RuntimeError(f"SSD kernel launch failed: CUDA error {err}")
     LAUNCHES["ssd"] += 1
