@@ -288,7 +288,9 @@ int launch_scalar(int PT, const float* x, const float* dt, const float* Bv, cons
 namespace tc {
 
 using bf16 = __nv_bfloat16;
-constexpr int THREADS = 128;  // four warps
+constexpr int THREADS = 128;  // one warpgroup
+constexpr int ROWS = 128;     // chunk rows staged (Q <= 128, zero past Q)
+constexpr int PT = 64;        // P columns per CTA
 constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -296,17 +298,15 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 }
 
 // 16 bytes global -> shared, bypassing L1; zero-filled when !valid
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
   const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(n)
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(n)
                : "memory");
 }
 // 4 bytes global -> shared, through L1; zero-filled when !valid
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
   const int n = valid ? 4 : 0;
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(n)
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(n)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
@@ -316,29 +316,41 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
-
-// four 8 x 8 bf16 matrices; lane l gives the address of a row of matrix l / 8
-__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
+// shared-memory writes (copies and stores), visible to the tensor cores' reads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
-__device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], const bf16* p) {
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// registers that a wgmma writes are read, and written by other instructions,
+// only on the far side of this point
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) asm volatile("" : "+r"(r[i][k])::"memory");
+}
+
+// four 8 x 8 bf16 matrices, transposed; lane l gives the address of a row
+// of matrix l / 8
+__device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// d[16 x 8] += a[16 x 16] b[16 x 8], bf16 in, float32 accumulate. Not
-// volatile: a pure function of its registers, so the compiler may interleave
-// independent products instead of stalling on each dependent pair
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+               : "r"(addr));
 }
 
 // (u, v) as two bf16 terms: hi = bf16(u, v), lo = bf16((u, v) - hi); the
@@ -361,116 +373,246 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
-__host__ __device__ constexpr int round16(int v) { return (v + 15) / 16 * 16; }
+// Tiles live in the 128-byte-swizzled layout that the wgmma descriptors
+// read: 64-column blocks of `rows` rows x 128 bytes, the 16-byte chunk c of
+// row r at position (c % 8) ^ (r % 8) of its row. Byte offset of chunk c
+// (8 bf16 from column 8 c) of row r:
+__device__ __forceinline__ uint32_t swz(int rows, int r, int c) {
+  return (c >> 3) * rows * 128 + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+}
 
-// Shared memory of one CTA, in bytes: per stage C, B [QP][N + pad] and x
-// [QP][PT + pad] bf16 and dt [QP]; S_prev hi, lo [PT][N + pad] bf16; cs, w,
-// exp(cs) [QP]. Rows are padded by 16 bytes, so the 8 rows an ldmatrix
-// reads fall on distinct banks.
-__host__ __device__ inline size_t smem_bytes(int Q, int N, int PT, int stages) {
-  const size_t QP = round16(Q), CS = round16(N) + 8, XS = PT + 8;
-  return stages * (2 * (2 * QP * CS + QP * XS) + 4 * QP) + 2 * 2 * PT * CS + 3 * 4 * QP;
+// shared-memory matrix descriptor with the 128-byte swizzle: start address,
+// leading and stride byte offsets, all in 16-byte units
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+// the kk-th 16-column slice of a K-major tile of `rows` rows, from row r0
+__device__ __forceinline__ uint64_t desc_k(uint32_t base, int rows, int r0, int kk) {
+  return desc(base + (kk >> 2) * rows * 128 + r0 * 128 + (kk & 3) * 32, 16, 1024);
+}
+// the kk-th 16-row slice of a tile of `rows` rows read as the MN-major B
+// operand (rows are K, columns N): 64-column blocks rows * 128 bytes apart
+__device__ __forceinline__ uint64_t desc_mn(uint32_t base, int rows, int kk) {
+  return desc(base + kk * 2048, rows * 128, 1024);
+}
+
+// d[64 x 64] (+)= A[64 x 16] B[16 x 64]; A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[64 x 64] (+)= A[64 x 16] B[16 x 64]; A in registers, B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                         int accumulate = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// d[64 x 128] += A[64 x 16] B[16 x 128]; A in registers, B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// s = C B^T of the 64 x 64 block (row half hf, column block cb)
+template <int NB>
+__device__ __forceinline__ void cbt(float (&s)[32], uint32_t Cs, uint32_t Bs, int hf, int cb) {
+#pragma unroll
+  for (int kk = 0; kk < 4 * NB; ++kk)
+    wgmma_ss(s, desc_k(Cs, ROWS, 64 * hf, kk), desc_k(Bs, ROWS, 64 * cb, kk), kk > 0);
+}
+
+// M = s o exp(cs_i - cs_j) dt_j (j <= i, else 0) as the A fragments of M x,
+// split into hi + lo: A fragment kk holds columns 16 kk .. 16 kk + 15 of the
+// block, its registers q = (column half, row half); row: the thread's first
+// accumulator row of the block's row half
+__device__ __forceinline__ void decay(const float (&s)[32], uint32_t (&mhi)[4][4],
+                                      uint32_t (&mlo)[4][4], const float* cs,
+                                      const float* dts, int hf, int cb, int row, int gc) {
+  const int ib = 64 * hf + row, jb = 64 * cb + 2 * gc;
+  const float csi[2] = {cs[ib], cs[ib + 8]};
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int t = 2 * kk + (q >> 1), hr = q & 1;
+      const int i = ib + 8 * hr, j = jb + 8 * t;
+      float v[2];
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+        v[u] = j + u <= i
+                   ? s[4 * t + 2 * hr + u] * exp2_approx((csi[hr] - cs[j + u]) * LOG2E) * dts[j + u]
+                   : 0.f;
+      split(v[0], v[1], mhi[kk][q], mlo[kk][q]);
+    }
+}
+
+// y (+)= M x over the 64 rows of column block cb of x (MN-major), hi then lo
+__device__ __forceinline__ void mx(float (&y)[32], const uint32_t (&mhi)[4][4],
+                                   const uint32_t (&mlo)[4][4], uint32_t xs, int cb,
+                                   bool first) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    wgmma_rs(y, mhi[kk], desc_mn(xs, ROWS, 4 * cb + kk), !(first && kk == 0));
+    wgmma_rs(y, mlo[kk], desc_mn(xs, ROWS, 4 * cb + kk));
+  }
+}
+
+// z = C S_prev for the row half hf, S_prev K-major [PT x N] as hi then lo
+template <int NB>
+__device__ __forceinline__ void cs_prev(float (&z)[32], uint32_t Cs, uint32_t sp_hi,
+                                        uint32_t sp_lo, int hf) {
+#pragma unroll
+  for (int kk = 0; kk < 4 * NB; ++kk)
+    wgmma_ss(z, desc_k(Cs, ROWS, 64 * hf, kk), desc_k(sp_hi, PT, 0, kk), kk > 0);
+#pragma unroll
+  for (int kk = 0; kk < 4 * NB; ++kk)
+    wgmma_ss(z, desc_k(Cs, ROWS, 64 * hf, kk), desc_k(sp_lo, PT, 0, kk), 1);
+}
+
+// 64 rows of y = M x + exp(cs_i) z + D x, written once: y from the half's
+// first row, es and x (swizzled, bytes) likewise; rows: the half's rows in S
+__device__ __forceinline__ void write_y(float* y, const float (&yacc)[32], const float (&z)[32],
+                                        const float* es, const unsigned char* gx, float Dh,
+                                        int b, int h, int S, int H, int P, int p0, int c0,
+                                        int rows, int row, int gc) {
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int i = row + 8 * hr;
+    if (i >= rows) continue;
+    const float e_i = es[i];
+    float* yrow = y + (((size_t)b * S + c0 + i) * H + h) * P;
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      const int p = p0 + 8 * t + 2 * gc;
+      const float2 xv = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(gx + swz(ROWS, i, t) + 4 * gc));
+      const float v0 = fmaf(Dh, xv.x, fmaf(e_i, z[4 * t + 2 * hr], yacc[4 * t + 2 * hr]));
+      const float v1 = fmaf(Dh, xv.y, fmaf(e_i, z[4 * t + 2 * hr + 1], yacc[4 * t + 2 * hr + 1]));
+      if (p + 1 < P && (P & 1) == 0) {
+        *reinterpret_cast<float2*>(yrow + p) = make_float2(v0, v1);
+      } else {
+        if (p < P) yrow[p] = v0;
+        if (p + 1 < P) yrow[p + 1] = v1;
+      }
+    }
+  }
+}
+
+// Shared memory of one CTA, in bytes: per stage C and B [ROWS x 64 NB] and
+// x [ROWS x 64] bf16 and dt [ROWS]; S_prev hi, lo [PT x 64 NB] bf16; cs, w,
+// exp(cs) [ROWS]. NB 64-column blocks of N.
+constexpr size_t smem_bytes(int NB, int stages) {
+  return (size_t)stages * (2 * (2 * ROWS * 64 * NB + ROWS * 64) + 4 * ROWS) +
+         2 * 2 * PT * 64 * NB + 3 * 4 * ROWS + 1024;  // + alignment slack
 }
 
 // x [B, S, H, P], Bv / Cv [B, S, N] bf16; dt [B, S, H], A_log / D [H], s0
-// [B, H, P, N] (or null) float32; y [B, S, H, P], s_out [B, H, P, N] float32.
-// A CTA owns (batch, head, PT columns of P) and scans its chunks in order,
-// the state in registers; with STAGES = 2 the next chunk's copies run
-// under this chunk's products. Grid: B * H * ceil(P / PT) CTAs.
-template <int PT, int STAGES>
-__global__ void __launch_bounds__(THREADS, 2)
+// [B, H, P, N] (or null) float32; y [B, S, H, P], s_out [B, H, P, N] float32;
+// N <= 64 NB. A CTA (one warpgroup) owns (batch, head, 64 columns of P) and
+// scans its chunks in order, the state in registers; with STAGES = 2 the
+// next chunk's copies run under this chunk's products. Grid: B * H *
+// ceil(P / 64) CTAs.
+template <int NB, int STAGES>
+__global__ void __launch_bounds__(THREADS, 1)
 ssd_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
               const bf16* __restrict__ Bv, const bf16* __restrict__ Cv,
               const float* __restrict__ A_log, const float* __restrict__ Dp,
               const float* __restrict__ s0, float* __restrict__ y, float* __restrict__ s_out,
               int S, int H, int P, int N, int Q, int vec) {
-  constexpr int MBS = PT / 16;  // 16-row blocks of the state's P rows
-  constexpr int WPM = 4 / MBS;  // warps sharing one of them
-  constexpr int NQ = 8 / WPM;   // 16-column blocks of N per warp, at most
-  constexpr int NPT8 = PT / 8;  // 8-column tiles of y
-  const int QP = round16(Q), NP = round16(N), QB = QP / 16, NB = NP / 16;
-  const int CS = NP + 8, XS = PT + 8;
+  constexpr int NS = 32 * NB;                       // state registers: [64 x 64 NB] / 128
+  constexpr uint32_t CB_BYTES = ROWS * 128 * NB;    // one of C, B
+  constexpr uint32_t X_BYTES = ROWS * 128;          // x
+  constexpr uint32_t STAGE_BYTES = 2 * CB_BYTES + X_BYTES;
+  constexpr uint32_t SP_BYTES = PT * 128 * NB;      // one of S_prev hi, lo
   const int nC = (S + Q - 1) / Q, nPT = (P + PT - 1) / PT;
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int stage_elems = 2 * QP * CS + QP * XS;  // bf16 of one stage's C, B, x
-  bf16* Shi = reinterpret_cast<bf16*>(smem_raw) + STAGES * stage_elems;  // [PT][CS]
-  bf16* Slo = Shi + PT * CS;                                              // [PT][CS]
-  float* dts0 = reinterpret_cast<float*>(Slo + PT * CS);  // [STAGES][QP]
-  float* cs = dts0 + STAGES * QP;  // inclusive cumsum of dt * A
-  float* ws = cs + QP;             // exp(cs_last - cs_j) dt_j
-  float* es = ws + QP;             // exp(cs_i)
+  extern __shared__ unsigned char smem_raw[];
+  // the swizzle repeats every 1024 bytes: align the tiles to it
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - smem_u32(smem_raw));
+  const uint32_t sp_hi = base + STAGES * STAGE_BYTES, sp_lo = sp_hi + SP_BYTES;
+  float* dts0 = reinterpret_cast<float*>(gbase + STAGES * STAGE_BYTES + 2 * SP_BYTES);
+  float* cs = dts0 + STAGES * ROWS;  // inclusive cumsum of dt * A
+  float* ws = cs + ROWS;             // exp(cs_last - cs_j) dt_j
+  float* es = ws + ROWS;             // exp(cs_i)
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gr = lane >> 2, gc = lane & 3;  // fragment row, column pair
+  const int gr = lane >> 2, gc = lane & 3;  // accumulator row, column pair
+  const int r0 = 16 * warp;                 // the warp's first row of a 64-row tile
   const int bh = blockIdx.x / nPT, pt = blockIdx.x - bh * nPT;
   const int b = bh / H, h = bh - b * H, p0 = pt * PT;
   const float A = -expf(A_log[h]);
   const float Dh = Dp[h];
   const size_t PN = (size_t)P * N;
 
-  // the warp's 16-row blocks of y, w and 7 - w (equal causal work), and its
-  // share of the state [PT, NP]: P rows 16 * (warp % MBS) + .., and the
-  // 16-column blocks of N congruent to warp / MBS modulo WPM
-  const int rbs[2] = {warp, 7 - warp};
-  const int mb = warp % MBS, nb0 = warp / MBS;
-
-  // the state, float32, in the accumulator layout of (x w)^T B: element e of
-  // sreg[q][t] is P row 16 mb + gr + 8 (e / 2), N column 16 (nb0 + q WPM) +
+  // the state [64 P rows x 64 NB N columns], float32, in the accumulator
+  // layout of (x w)^T B: st[4 t + e] is P row r0 + gr + 8 (e / 2), N column
   // 8 t + 2 gc + e % 2
-  float sreg[NQ][2][4];
+  float st[NS];
 #pragma unroll
-  for (int q = 0; q < NQ; ++q)
+  for (int t = 0; t < NS / 4; ++t)
 #pragma unroll
-    for (int tt = 0; tt < 2; ++tt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int p = p0 + 16 * mb + gr + 8 * (e >> 1);
-        const int n = 16 * (nb0 + q * WPM) + 8 * tt + 2 * gc + (e & 1);
-        sreg[q][tt][e] = s0 != nullptr && p < P && n < N ? s0[bh * PN + (size_t)p * N + n] : 0.f;
-      }
+    for (int e = 0; e < 4; ++e) {
+      const int p = p0 + r0 + gr + 8 * (e >> 1), n = 8 * t + 2 * gc + (e & 1);
+      st[4 * t + e] = s0 != nullptr && p < P && n < N ? s0[bh * PN + (size_t)p * N + n] : 0.f;
+    }
 
-  // chunk c's x, B, C and dt into stage st, zero past S, Q, N and P
-  auto stage = [&](int c, int st) {
-    bf16* Cs = reinterpret_cast<bf16*>(smem_raw) + st * stage_elems;
-    bf16* Bs = Cs + QP * CS;
-    bf16* xs = Bs + QP * CS;
-    float* dts = dts0 + st * QP;
+  // chunk c's C, B, x and dt into stage sg, zero past S, Q, N and P
+  auto stage = [&](int c, int sg) {
+    const uint32_t Cs = base + sg * STAGE_BYTES, Bs = Cs + CB_BYTES, xs = Bs + CB_BYTES;
     const int c0 = c * Q, rows = min(Q, S - c0);
-    if (vec) {  // 16-byte chunk k of row i; THREADS / 16 rows at a time
-      const int k = tid & 15;
-      if (k < NP / 8)
-        for (int i = tid >> 4; i < QP; i += THREADS / 16) {
-          const bool ok = i < rows && 8 * k < N;
-          const size_t g = ok ? ((size_t)b * S + c0 + i) * N + 8 * k : 0;
-          cp_async16(Cs + i * CS + 8 * k, Cv + g, ok);
-          cp_async16(Bs + i * CS + 8 * k, Bv + g, ok);
-        }
-      constexpr int xpr = PT / 8;
-      for (int e = tid; e < QP * xpr; e += THREADS) {
-        const int i = e / xpr, k = e - i * xpr;
-        const bool ok = i < rows && p0 + 8 * k < P;
-        const size_t g = ok ? (((size_t)b * S + c0 + i) * H + h) * P + p0 + 8 * k : 0;
-        cp_async16(xs + i * XS + 8 * k, x + g, ok);
+    if (vec) {  // 16-byte chunk k of row i, THREADS / (8 NB) rows at a time
+      const int k = tid % (8 * NB);
+      for (int i = tid / (8 * NB); i < ROWS; i += THREADS / (8 * NB)) {
+        const bool ok = i < rows && 8 * k < N;
+        const size_t g = ok ? ((size_t)b * S + c0 + i) * N + 8 * k : 0;
+        cp_async16(Cs + swz(ROWS, i, k), Cv + g, ok);
+        cp_async16(Bs + swz(ROWS, i, k), Bv + g, ok);
+      }
+      const int kx = tid & 7;
+      for (int i = tid >> 3; i < ROWS; i += THREADS / 8) {
+        const bool ok = i < rows && p0 + 8 * kx < P;
+        const size_t g = ok ? (((size_t)b * S + c0 + i) * H + h) * P + p0 + 8 * kx : 0;
+        cp_async16(xs + swz(ROWS, i, kx), x + g, ok);
       }
     } else {  // N or P not a multiple of 8, or an operand not 16-byte aligned
       const bf16 zero = __float2bfloat16(0.f);
-      for (int e = tid; e < QP * NP; e += THREADS) {
-        const int i = e / NP, n = e - i * NP;
+      unsigned char* gC = gbase + sg * STAGE_BYTES;
+      for (int e = tid; e < ROWS * 64 * NB; e += THREADS) {
+        const int i = e / (64 * NB), n = e - i * (64 * NB);
         const bool ok = i < rows && n < N;
         const size_t g = ((size_t)b * S + c0 + i) * N + n;
-        Cs[i * CS + n] = ok ? Cv[g] : zero;
-        Bs[i * CS + n] = ok ? Bv[g] : zero;
+        const uint32_t off = swz(ROWS, i, n >> 3) + 2 * (n & 7);
+        *reinterpret_cast<bf16*>(gC + off) = ok ? Cv[g] : zero;
+        *reinterpret_cast<bf16*>(gC + CB_BYTES + off) = ok ? Bv[g] : zero;
       }
-      for (int e = tid; e < QP * PT; e += THREADS) {
-        const int i = e / PT, pp = e - i * PT;
+      for (int e = tid; e < ROWS * 64; e += THREADS) {
+        const int i = e >> 6, pp = e & 63;
         const bool ok = i < rows && p0 + pp < P;
-        xs[i * XS + pp] = ok ? x[(((size_t)b * S + c0 + i) * H + h) * P + p0 + pp] : zero;
+        *reinterpret_cast<bf16*>(gC + 2 * CB_BYTES + swz(ROWS, i, pp >> 3) + 2 * (pp & 7)) =
+            ok ? x[(((size_t)b * S + c0 + i) * H + h) * P + p0 + pp] : zero;
       }
     }
-    for (int j = tid; j < QP; j += THREADS) {
+    float* dts = dts0 + sg * ROWS;
+    for (int j = tid; j < ROWS; j += THREADS) {
       const bool ok = j < rows;
-      cp_async4(dts + j, dt + (ok ? ((size_t)b * S + c0 + j) * H + h : 0), ok);
+      cp_async4(smem_u32(dts + j), dt + (ok ? ((size_t)b * S + c0 + j) * H + h : 0), ok);
     }
     cp_async_commit();
   };
@@ -478,15 +620,14 @@ ssd_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
   stage(0, 0);
 #pragma unroll 1
   for (int c = 0; c < nC; ++c) {
-    const int st = STAGES == 2 ? c & 1 : 0;
+    const int sg = STAGES == 2 ? c & 1 : 0;
     const int c0 = c * Q, rows = min(Q, S - c0);
-    const bf16* Cs = reinterpret_cast<bf16*>(smem_raw) + st * stage_elems;
-    const bf16* Bs = Cs + QP * CS;
-    const bf16* xs = Bs + QP * CS;
-    const float* dts = dts0 + st * QP;
+    const uint32_t Cs = base + sg * STAGE_BYTES, Bs = Cs + CB_BYTES, xs = Bs + CB_BYTES;
+    const unsigned char* gx = gbase + sg * STAGE_BYTES + 2 * CB_BYTES;
+    const float* dts = dts0 + sg * ROWS;
     if (STAGES == 2) {
       // the other stage was last read in chunk c - 1, before its closing barrier
-      if (c + 1 < nC) stage(c + 1, st ^ 1);
+      if (c + 1 < nC) stage(c + 1, sg ^ 1);
       else cp_async_commit();  // an empty group keeps the count
       cp_async_wait<1>();      // every group but the newest: chunk c has landed
     } else {
@@ -497,255 +638,159 @@ ssd_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
 
     // warp 0: the inclusive cumsum of dt * A, 32 steps at a time, then the
     // state-update weights and the inter-chunk decays; meanwhile every
-    // thread writes its part of S_prev as bf16 hi + lo
+    // thread writes its part of S_prev as bf16 hi + lo (K-major [P x N])
     if (warp == 0) {
       float carry = 0.f;
-      for (int j0 = 0; j0 < QP; j0 += 32) {
+      for (int j0 = 0; j0 < ROWS; j0 += 32) {
         const int j = j0 + lane;
-        float v = j < QP ? dts[j] * A : 0.f;
+        float v = dts[j] * A;
 #pragma unroll
         for (int off = 1; off < 32; off <<= 1) {
           const float u = __shfl_up_sync(FULL, v, off);
           if (lane >= off) v += u;
         }
         v += carry;
-        if (j < QP) cs[j] = v;
+        cs[j] = v;
         carry = __shfl_sync(FULL, v, 31);
       }
       __syncwarp();
-      for (int j = lane; j < QP; j += 32) {
+      for (int j = lane; j < ROWS; j += 32) {
         ws[j] = expf(carry - cs[j]) * dts[j];
         es[j] = expf(cs[j]);
       }
     }
 #pragma unroll
-    for (int q = 0; q < NQ; ++q) {
-      const int nb = nb0 + q * WPM;
-      if (nb >= NB) break;
+    for (int t = 0; t < NS / 4; ++t)
 #pragma unroll
-      for (int tt = 0; tt < 2; ++tt)
-#pragma unroll
-        for (int hr = 0; hr < 2; ++hr) {
-          const int off = (16 * mb + gr + 8 * hr) * CS + 16 * nb + 8 * tt + 2 * gc;
-          uint32_t hi, lo;
-          split(sreg[q][tt][2 * hr], sreg[q][tt][2 * hr + 1], hi, lo);
-          *reinterpret_cast<uint32_t*>(Shi + off) = hi;
-          *reinterpret_cast<uint32_t*>(Slo + off) = lo;
-        }
-    }
+      for (int hr = 0; hr < 2; ++hr) {
+        const int p = r0 + gr + 8 * hr;
+        const uint32_t off = swz(PT, p, t) + 4 * gc;
+        uint32_t hi, lo;
+        split(st[4 * t + 2 * hr], st[4 * t + 2 * hr + 1], hi, lo);
+        asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(sp_hi + off), "r"(hi) : "memory");
+        asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(sp_lo + off), "r"(lo) : "memory");
+      }
+    fence_proxy_async();  // copies and S_prev, visible to the tensor cores
     __syncthreads();
 
-    // (1) the state: S = exp(cs_Q) S_prev + (x w)^T B. The A operand is x
-    // read transposed, weighted by w_j in registers and split into hi + lo;
-    // the products accumulate onto the decayed state in place
-    const float g = es[QP - 1];
+    // (1) the state: S = exp(cs_Q) S_prev + (x w)^T B, onto the decayed
+    // state in place. The A operand is x read transposed by ldmatrix,
+    // weighted by w_j and split into hi + lo in registers; B is read
+    // MN-major
+    const float g = es[ROWS - 1];
 #pragma unroll
-    for (int q = 0; q < NQ; ++q)
+    for (int i = 0; i < NS; ++i) st[i] *= g;
+    uint32_t xa_hi[ROWS / 16][4], xa_lo[ROWS / 16][4];
 #pragma unroll
-      for (int tt = 0; tt < 2; ++tt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sreg[q][tt][e] *= g;
-    for (int kb = 0; kb < QB; ++kb) {
-      uint32_t xa[4], ahi[4], alo[4];
-      ldsm4t(xa, xs + (16 * kb + (lane & 7) + (lane >> 4) * 8) * XS + 16 * mb +
-                     ((lane >> 3) & 1) * 8);
+    for (int kb = 0; kb < ROWS / 16; ++kb) {
+      uint32_t xa[4];
+      const int row = 16 * kb + (lane & 7) + (lane >> 4) * 8;
+      ldsm4t(xa, xs + swz(ROWS, row, 2 * warp + ((lane >> 3) & 1)));
       const int j = 16 * kb + 2 * gc;
       const float2 w0 = make_float2(ws[j], ws[j + 1]), w8 = make_float2(ws[j + 8], ws[j + 9]);
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         const float2 v = unpack(xa[k]), w = k < 2 ? w0 : w8;
-        split(v.x * w.x, v.y * w.y, ahi[k], alo[k]);
+        split(v.x * w.x, v.y * w.y, xa_hi[kb][k], xa_lo[kb][k]);
       }
-      uint32_t bb[NQ][4];
-#pragma unroll
-      for (int q = 0; q < NQ; ++q)
-        if (nb0 + q * WPM < NB)
-          ldsm4t(bb[q], Bs + (16 * kb + (lane & 7) + ((lane >> 3) & 1) * 8) * CS +
-                            16 * (nb0 + q * WPM) + (lane >> 4) * 8);
-#pragma unroll
-      for (int q = 0; q < NQ; ++q)
-        if (nb0 + q * WPM < NB) {
-          mma(sreg[q][0], ahi, bb[q][0], bb[q][1]);
-          mma(sreg[q][1], ahi, bb[q][2], bb[q][3]);
-        }
-#pragma unroll
-      for (int q = 0; q < NQ; ++q)
-        if (nb0 + q * WPM < NB) {
-          mma(sreg[q][0], alo, bb[q][0], bb[q][1]);
-          mma(sreg[q][1], alo, bb[q][2], bb[q][3]);
-        }
     }
 
-    // (2) y = M x, M = (C B^T) o decay, 16 x 16 tiles of both row blocks
-    // side by side (independent chains; B's and x's fragments shared): C B^T
-    // in the accumulator, the decay exp(cs_i - cs_j) dt_j (j <= i) applied in
-    // registers, and the accumulator layout is the A-operand layout of M x,
-    // so M, split into hi + lo, never touches shared memory
-    float yacc[2][NPT8][4];
+    // (2) y = M x, M = (C B^T) o decay, by 64 x 64 blocks (row half hf,
+    // column block cb <= hf): C B^T in the accumulator s, the decay
+    // exp(cs_i - cs_j) dt_j (j <= i) applied in registers, and the
+    // accumulator layout is the A-operand layout of M x, so M, split into
+    // hi + lo, never touches shared memory. Each wgmma group pairs one
+    // block's M x with the next block's C B^T (or, last, the state update
+    // with the first C B^T, and C S_prev with the last M x)
+    float s[32], yacc[2][32], z[32];
+    uint32_t mhi[4][4], mlo[4][4];
+    // the state update and C B^T of block (0, 0)
+    fence_regs(st);
+    fence_regs(xa_hi);
+    fence_regs(xa_lo);
+    wgmma_fence();
 #pragma unroll
-    for (int ri = 0; ri < 2; ++ri)
-#pragma unroll
-      for (int n = 0; n < NPT8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) yacc[ri][n][e] = 0.f;
-    const bool act[2] = {rbs[0] < QB, rbs[1] < QB};
-    const int kmax = act[1] ? rbs[1] : act[0] ? rbs[0] : -1;
-    float csi[2][2];
-#pragma unroll
-    for (int ri = 0; ri < 2; ++ri)
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) csi[ri][hr] = act[ri] ? cs[16 * rbs[ri] + gr + 8 * hr] : 0.f;
-    for (int kb = 0; kb <= kmax; ++kb) {
-      const bool live[2] = {act[0] && kb <= rbs[0], act[1]};
-      float cb[2][2][2][4];  // [row block][column tile][parity of the N step]
-#pragma unroll
-      for (int ri = 0; ri < 2; ++ri)
-#pragma unroll
-        for (int tt = 0; tt < 2; ++tt)
-#pragma unroll
-          for (int u = 0; u < 2; ++u)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) cb[ri][tt][u][e] = 0.f;
-#pragma unroll
-      for (int nk0 = 0; nk0 < 8; nk0 += 2) {
-        if (nk0 >= NB) break;
-        uint32_t bb[2][4], a[2][2][4];
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          const int nk = nk0 + u;
-          if (nk >= NB) break;
-          ldsm4(bb[u], Bs + (16 * kb + (lane & 7) + ((lane >> 4) << 3)) * CS + 16 * nk +
-                           ((lane >> 3) & 1) * 8);
-#pragma unroll
-          for (int ri = 0; ri < 2; ++ri)
-            if (live[ri])
-              ldsm4(a[u][ri], Cs + (16 * rbs[ri] + (lane & 15)) * CS + 16 * nk + (lane >> 4) * 8);
-        }
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          if (nk0 + u >= NB) break;
-#pragma unroll
-          for (int ri = 0; ri < 2; ++ri)
-            if (live[ri]) {
-              mma(cb[ri][0][u], a[u][ri], bb[u][0], bb[u][1]);
-              mma(cb[ri][1][u], a[u][ri], bb[u][2], bb[u][3]);
-            }
-        }
-      }
-      uint32_t ahi[2][4], alo[2][4];
-#pragma unroll
-      for (int tt = 0; tt < 2; ++tt) {
-        const int j = 16 * kb + 8 * tt + 2 * gc;
-        const float csj[2] = {cs[j], cs[j + 1]}, dtj[2] = {dts[j], dts[j + 1]};
-#pragma unroll
-        for (int ri = 0; ri < 2; ++ri) {
-          float v[4];
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int ii = 16 * rbs[ri] + gr + 8 * (e >> 1), jj = j + (e & 1);
-            v[e] = jj <= ii ? (cb[ri][tt][0][e] + cb[ri][tt][1][e]) *
-                                  exp2_approx((csi[ri][e >> 1] - csj[e & 1]) * LOG2E) *
-                                  dtj[e & 1]
-                            : 0.f;
-          }
-          split(v[0], v[1], ahi[ri][2 * tt], alo[ri][2 * tt]);
-          split(v[2], v[3], ahi[ri][2 * tt + 1], alo[ri][2 * tt + 1]);
-        }
-      }
-      uint32_t xb[PT / 16][4];
-#pragma unroll
-      for (int np = 0; np < PT / 16; ++np)
-        ldsm4t(xb[np], xs + (16 * kb + (lane & 7) + ((lane >> 3) & 1) * 8) * XS + 16 * np +
-                           (lane >> 4) * 8);
-#pragma unroll
-      for (int half = 0; half < 2; ++half)
-#pragma unroll
-        for (int ri = 0; ri < 2; ++ri) {
-          if (!live[ri]) continue;
-#pragma unroll
-          for (int np = 0; np < PT / 16; ++np) {
-            mma(yacc[ri][2 * np], half ? alo[ri] : ahi[ri], xb[np][0], xb[np][1]);
-            mma(yacc[ri][2 * np + 1], half ? alo[ri] : ahi[ri], xb[np][2], xb[np][3]);
-          }
-        }
+    for (int kb = 0; kb < ROWS / 16; ++kb) {
+      wgmma_rs(st, xa_hi[kb], desc_mn(Bs, ROWS, kb));
+      wgmma_rs(st, xa_lo[kb], desc_mn(Bs, ROWS, kb));
     }
+    cbt<NB>(s, Cs, Bs, 0, 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(st);
+    fence_regs(xa_hi);
+    fence_regs(xa_lo);
+    fence_regs(s);
+    // block (0, 0)'s M x with block (1, 0)'s C B^T
+    decay(s, mhi, mlo, cs, dts, 0, 0, r0 + gr, gc);
+    fence_regs(mhi);
+    fence_regs(mlo);
+    wgmma_fence();
+    mx(yacc[0], mhi, mlo, xs, 0, true);
+    cbt<NB>(s, Cs, Bs, 1, 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(mhi);
+    fence_regs(mlo);
+    fence_regs(yacc[0]);
+    // block (1, 0)'s M x with block (1, 1)'s C B^T
+    decay(s, mhi, mlo, cs, dts, 1, 0, r0 + gr, gc);
+    fence_regs(mhi);
+    fence_regs(mlo);
+    wgmma_fence();
+    mx(yacc[1], mhi, mlo, xs, 0, true);
+    cbt<NB>(s, Cs, Bs, 1, 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(mhi);
+    fence_regs(mlo);
+    fence_regs(yacc[1]);
+    // block (1, 1)'s M x with C S_prev of the first half
+    decay(s, mhi, mlo, cs, dts, 1, 1, r0 + gr, gc);
+    fence_regs(mhi);
+    fence_regs(mlo);
+    wgmma_fence();
+    mx(yacc[1], mhi, mlo, xs, 1, false);
+    cs_prev<NB>(z, Cs, sp_hi, sp_lo, 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(mhi);
+    fence_regs(mlo);
+    fence_regs(yacc[1]);
+    fence_regs(z);
 
-    // (3) y += exp(cs_i) C S_prev (S_prev as hi + lo), plus D x; written once
-#pragma unroll
-    for (int ri = 0; ri < 2; ++ri) {
-      if (!act[ri]) continue;
-      const int rb = rbs[ri];
-      float z[NPT8][4];
-#pragma unroll
-      for (int n = 0; n < NPT8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) z[n][e] = 0.f;
-#pragma unroll
-      for (int nk = 0; nk < 8; ++nk) {
-        if (nk >= NB) break;
-        uint32_t a[4];
-        ldsm4(a, Cs + (16 * rb + (lane & 15)) * CS + 16 * nk + (lane >> 4) * 8);
-        uint32_t sb[2][PT / 16][4];  // [hi, lo][16 P rows]
-#pragma unroll
-        for (int np = 0; np < PT / 16; ++np) {
-          const int off = (16 * np + (lane & 7) + ((lane >> 4) << 3)) * CS + 16 * nk +
-                          ((lane >> 3) & 1) * 8;
-          ldsm4(sb[0][np], Shi + off);
-          ldsm4(sb[1][np], Slo + off);
-        }
-#pragma unroll
-        for (int half = 0; half < 2; ++half)
-#pragma unroll
-          for (int np = 0; np < PT / 16; ++np) {
-            mma(z[2 * np], a, sb[half][np][0], sb[half][np][1]);
-            mma(z[2 * np + 1], a, sb[half][np][2], sb[half][np][3]);
-          }
-      }
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        const int i = 16 * rb + gr + 8 * hr, s = c0 + i;
-        if (i >= rows) continue;
-        const float e_i = es[i];
-        float* yrow = y + (((size_t)b * S + s) * H + h) * P;
-#pragma unroll
-        for (int n = 0; n < NPT8; ++n) {
-          const int pl = 8 * n + 2 * gc, p = p0 + pl;
-          const float2 xv = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(xs + i * XS + pl));
-          const float v0 = fmaf(Dh, xv.x, fmaf(e_i, z[n][2 * hr], yacc[ri][n][2 * hr]));
-          const float v1 = fmaf(Dh, xv.y, fmaf(e_i, z[n][2 * hr + 1], yacc[ri][n][2 * hr + 1]));
-          if (p + 1 < P && (P & 1) == 0) {
-            *reinterpret_cast<float2*>(yrow + p) = make_float2(v0, v1);
-          } else {
-            if (p < P) yrow[p] = v0;
-            if (p + 1 < P) yrow[p + 1] = v1;
-          }
-        }
-      }
-    }
+    // (3) y += exp(cs_i) C S_prev + D x, a half at a time
+    write_y(y, yacc[0], z, es, gx, Dh, b, h, S, H, P, p0, c0, rows, r0 + gr, gc);
+    fence_regs(z);
+    wgmma_fence();
+    cs_prev<NB>(z, Cs, sp_hi, sp_lo, 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(z);
+    write_y(y + (size_t)64 * H * P, yacc[1], z, es + 64, gx + 64 * 128, Dh, b, h, S, H, P, p0,
+            c0, rows - 64, r0 + gr, gc);
     __syncthreads();  // every warp is done with this stage, S_prev and cs
   }
 
 #pragma unroll
-  for (int q = 0; q < NQ; ++q)
+  for (int t = 0; t < NS / 4; ++t)
 #pragma unroll
-    for (int tt = 0; tt < 2; ++tt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int p = p0 + 16 * mb + gr + 8 * (e >> 1);
-        const int n = 16 * (nb0 + q * WPM) + 8 * tt + 2 * gc + (e & 1);
-        if (p < P && n < N) s_out[bh * PN + (size_t)p * N + n] = sreg[q][tt][e];
-      }
+    for (int e = 0; e < 4; ++e) {
+      const int p = p0 + r0 + gr + 8 * (e >> 1), n = 8 * t + 2 * gc + (e & 1);
+      if (p < P && n < N) s_out[bh * PN + (size_t)p * N + n] = st[4 * t + e];
+    }
 }
 
-template <int PT, int STAGES>
+template <int NB, int STAGES>
 int launch(const bf16* x, const float* dt, const bf16* Bv, const bf16* Cv,
            const float* A_log, const float* D, const float* s0, float* y, float* s_out,
            int B, int S, int H, int P, int N, int Q, cudaStream_t stream) {
-  auto kern = ssd_tc_kernel<PT, STAGES>;
+  auto kern = ssd_tc_kernel<NB, STAGES>;
   const long long grid = (long long)B * H * ((P + PT - 1) / PT);
   if (grid >= (1ll << 31)) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(Q, N, PT, STAGES);
+  constexpr size_t smem = smem_bytes(NB, STAGES);
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -771,9 +816,9 @@ extern "C" size_t ssd_smem_bytes(int Q, int N, int PT) {
 // x [B, S, H, P], Bv / Cv [B, S, N] contiguous, float32 (dtype 0, the
 // scalar kernel) or bfloat16 (dtype 1, the tensor-core kernel); dt [B, S, H],
 // A_log / D [H], s0 [B, H, P, N] (or null: zeros) float32; y [B, S, H, P] and
-// s_out [B, H, P, N] float32. 1 <= Q <= 128, N <= 128. PT: P columns per CTA
-// (float32 16, 32 or 64; bfloat16 32 or 64). stages: bfloat16 only, 1 or 2
-// chunks staged in shared memory (2: the next chunk's copies overlap this
+// s_out [B, H, P, N] float32. 1 <= Q <= 128, N <= 128. PT: the float32
+// kernel's P columns per CTA (16, 32 or 64). stages: bfloat16 only, 1 or 2
+// chunks staged in shared memory (2: the next chunk's copies run under this
 // chunk's products). Returns the launch's CUDA error code.
 extern "C" int ssd_launch(const void* x, const void* dt, const void* Bv, const void* Cv,
                           const void* A_log, const void* D, const void* s0, void* y,
@@ -796,10 +841,11 @@ extern "C" int ssd_launch(const void* x, const void* dt, const void* Bv, const v
   const bf16* xb = static_cast<const bf16*>(x);
   const bf16* bb = static_cast<const bf16*>(Bv);
   const bf16* cb = static_cast<const bf16*>(Cv);
-#define SSD_TC(pt, st)                                                                  \
-  if (PT == pt && stages == st)                                                         \
-    return tc::launch<pt, st>(xb, dtf, bb, cb, al, dp, s0f, yf, so, B, S, H, P, N, Q, s);
-  SSD_TC(64, 1) SSD_TC(64, 2) SSD_TC(32, 1) SSD_TC(32, 2)
+  const int nb = N <= 64 ? 1 : 2;
+#define SSD_TC(nb_, st_)                                                                 \
+  if (nb == nb_ && stages == st_)                                                        \
+    return tc::launch<nb_, st_>(xb, dtf, bb, cb, al, dp, s0f, yf, so, B, S, H, P, N, Q, s);
+  SSD_TC(1, 1) SSD_TC(1, 2) SSD_TC(2, 1) SSD_TC(2, 2)
 #undef SSD_TC
   return (int)cudaErrorInvalidValue;
 }

@@ -35,9 +35,8 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_CHUNK = MAX_STATE = 128  # the kernels' register tiles
 P_TILES = (64, 32, 16)  # P columns per CTA the float32 kernel is built for
 SMEM_LIMIT = 232_448  # shared memory one CTA may opt in to on an H100
-# the bf16 kernel's P columns per CTA (32 or 64) and chunks staged in shared
-# memory at once (1, or 2: the next chunk's copies under this one's products)
-TC_P_TILE = 64
+# the bf16 kernel's chunks staged in shared memory at once (1, or 2: the
+# next chunk's copies under this one's products)
 TC_STAGES = 2
 
 # launches, counted where the wrapper launches the kernel
@@ -97,7 +96,7 @@ def ssd_cuda(x, dt, Bv, Cv, A_log, D, chunk: int, state_init=None):
         raise ValueError(f"B * H = {B * H} exceeds one launch's grid")
     lib = LIBRARY.load()
     if x.dtype == torch.bfloat16:
-        return _launch(lib, x, dt, Bv, Cv, A_log, D, Q, state_init, TC_P_TILE, TC_STAGES)
+        return _launch(lib, x, dt, Bv, Cv, A_log, D, Q, state_init, 0, TC_STAGES)
     fits = [pt for pt in P_TILES if lib.ssd_smem_bytes(Q, N, pt) <= SMEM_LIMIT]
     # the narrowest tile that covers P, else the widest that fits
     PT = min((pt for pt in fits if pt >= P), default=fits[0] if fits else None)

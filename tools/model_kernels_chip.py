@@ -85,7 +85,7 @@ def ptxas_report(lib):
     return out
 
 
-SSD_VARIANTS = ((64, 1), (64, 2), (32, 1), (32, 2))  # (P tile, stages)
+SSD_VARIANTS = ((0, 1), (0, 2))  # (P tile: the bf16 kernel's own, stages)
 
 
 def ssd_variants(dev):
