@@ -288,7 +288,7 @@ int launch_scalar(int PT, const float* x, const float* dt, const float* Bv, cons
 namespace tc {
 
 using bf16 = __nv_bfloat16;
-constexpr int THREADS = 128;  // one warpgroup
+constexpr int WG = 128;  // threads of a warpgroup
 constexpr int ROWS = 128;     // chunk rows staged (Q <= 128, zero past Q)
 constexpr int PT = 64;        // P columns per CTA
 constexpr float LOG2E = 1.4426950408889634f;
@@ -440,24 +440,36 @@ __device__ __forceinline__ void cbt(float (&s)[32], uint32_t Cs, uint32_t Bs, in
 // M = s o exp(cs_i - cs_j) dt_j (j <= i, else 0) as the A fragments of M x,
 // split into hi + lo: A fragment kk holds columns 16 kk .. 16 kk + 15 of the
 // block, its registers q = (column half, row half); row: the thread's first
-// accumulator row of the block's row half
+// accumulator row of the block's row half. A diagonal block (hf == cb)
+// takes cs2 = cs log2(e) and dt and masks j > i; the block below it takes
+// exp2(cs2_i - cs2_63) from the caller (`erow`, both rows) and
+// exp2(cs2_63 - cs2_j) dt_j from `ecol`: each factor at most 1, and no
+// exponential per element
 __device__ __forceinline__ void decay(const float (&s)[32], uint32_t (&mhi)[4][4],
-                                      uint32_t (&mlo)[4][4], const float* cs,
-                                      const float* dts, int hf, int cb, int row, int gc) {
+                                      uint32_t (&mlo)[4][4], const float* cs2,
+                                      const float* dts, const float* ecol,
+                                      const float (&erow)[2], int hf, int cb, int row,
+                                      int gc) {
   const int ib = 64 * hf + row, jb = 64 * cb + 2 * gc;
-  const float csi[2] = {cs[ib], cs[ib + 8]};
+  const float csi[2] = {cs2[ib], cs2[ib + 8]};
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int t = 2 * kk + (q >> 1), hr = q & 1;
       const int i = ib + 8 * hr, j = jb + 8 * t;
+      const float* sv = s + 4 * t + 2 * hr;
       float v[2];
-#pragma unroll
-      for (int u = 0; u < 2; ++u)
-        v[u] = j + u <= i
-                   ? s[4 * t + 2 * hr + u] * exp2_approx((csi[hr] - cs[j + u]) * LOG2E) * dts[j + u]
-                   : 0.f;
+      if (hf != cb) {
+        const float2 ec = *reinterpret_cast<const float2*>(ecol + j);
+        v[0] = sv[0] * erow[hr] * ec.x;
+        v[1] = sv[1] * erow[hr] * ec.y;
+      } else {
+        const float2 cj = *reinterpret_cast<const float2*>(cs2 + j);
+        const float2 dj = *reinterpret_cast<const float2*>(dts + j);
+        v[0] = j <= i ? sv[0] * exp2_approx(csi[hr] - cj.x) * dj.x : 0.f;
+        v[1] = j + 1 <= i ? sv[1] * exp2_approx(csi[hr] - cj.y) * dj.y : 0.f;
+      }
       split(v[0], v[1], mhi[kk][q], mlo[kk][q]);
     }
 }
@@ -515,11 +527,12 @@ __device__ __forceinline__ void write_y(float* y, const float (&yacc)[32], const
 }
 
 // Shared memory of one CTA, in bytes: per stage C and B [ROWS x 64 NB] and
-// x [ROWS x 64] bf16 and dt [ROWS]; S_prev hi, lo [PT x 64 NB] bf16; cs, w,
-// exp(cs) [ROWS]. NB 64-column blocks of N.
+// x [ROWS x 64] bf16 and dt [ROWS]; S_prev hi, lo [PT x 64 NB] bf16; cs,
+// cs log2(e), w, exp(cs) [ROWS], the decays of column block 0 [64] and four
+// segment sums. NB 64-column blocks of N.
 constexpr size_t smem_bytes(int NB, int stages) {
   return (size_t)stages * (2 * (2 * ROWS * 64 * NB + ROWS * 64) + 4 * ROWS) +
-         2 * 2 * PT * 64 * NB + 3 * 4 * ROWS + 1024;  // + alignment slack
+         2 * 2 * PT * 64 * NB + 4 * 4 * ROWS + 64 * 4 + 16 + 1024;  // + alignment slack
 }
 
 // x [B, S, H, P], Bv / Cv [B, S, N] bf16; dt [B, S, H], A_log / D [H], s0
@@ -528,13 +541,14 @@ constexpr size_t smem_bytes(int NB, int stages) {
 // scans its chunks in order, the state in registers; with STAGES = 2 the
 // next chunk's copies run under this chunk's products. Grid: B * H *
 // ceil(P / 64) CTAs.
-template <int NB, int STAGES>
-__global__ void __launch_bounds__(THREADS, 1)
+template <int NB, int STAGES, int WGS>
+__global__ void __launch_bounds__(WG * WGS, 1)
 ssd_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
               const bf16* __restrict__ Bv, const bf16* __restrict__ Cv,
               const float* __restrict__ A_log, const float* __restrict__ Dp,
               const float* __restrict__ s0, float* __restrict__ y, float* __restrict__ s_out,
               int S, int H, int P, int N, int Q, int vec) {
+  constexpr int THREADS = WG * WGS;
   constexpr int NS = 32 * NB;                       // state registers: [64 x 64 NB] / 128
   constexpr uint32_t CB_BYTES = ROWS * 128 * NB;    // one of C, B
   constexpr uint32_t X_BYTES = ROWS * 128;          // x
@@ -548,13 +562,15 @@ ssd_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
   unsigned char* gbase = smem_raw + (base - smem_u32(smem_raw));
   const uint32_t sp_hi = base + STAGES * STAGE_BYTES, sp_lo = sp_hi + SP_BYTES;
   float* dts0 = reinterpret_cast<float*>(gbase + STAGES * STAGE_BYTES + 2 * SP_BYTES);
-  float* cs = dts0 + STAGES * ROWS;  // inclusive cumsum of dt * A
-  float* ws = cs + ROWS;             // exp(cs_last - cs_j) dt_j
-  float* es = ws + ROWS;             // exp(cs_i)
+  float* cs2 = dts0 + STAGES * ROWS;  // inclusive cumsum of dt * A, times log2(e)
+  float* ws = cs2 + ROWS;             // exp(cs_last - cs_j) dt_j
+  float* es = ws + ROWS;              // exp(cs_i)
+  float* ecol = es + ROWS;            // exp(cs_63 - cs_j) dt_j, j < 64
+  float* seg = ecol + 64;             // sums of dt * A over 32 steps
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, wg = tid / WG;
   const int gr = lane >> 2, gc = lane & 3;  // accumulator row, column pair
-  const int r0 = 16 * warp;                 // the warp's first row of a 64-row tile
+  const int r0 = 16 * (warp & 3);           // the warp's first row of a 64-row tile
   const int bh = blockIdx.x / nPT, pt = blockIdx.x - bh * nPT;
   const int b = bh / H, h = bh - b * H, p0 = pt * PT;
   const float A = -expf(A_log[h]);
@@ -570,7 +586,8 @@ ssd_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int p = p0 + r0 + gr + 8 * (e >> 1), n = 8 * t + 2 * gc + (e & 1);
-      st[4 * t + e] = s0 != nullptr && p < P && n < N ? s0[bh * PN + (size_t)p * N + n] : 0.f;
+      st[4 * t + e] = wg == 0 && s0 != nullptr && p < P && n < N
+                          ? s0[bh * PN + (size_t)p * N + n] : 0.f;
     }
 
   // chunk c's C, B, x and dt into stage sg, zero past S, Q, N and P
@@ -636,33 +653,28 @@ ssd_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
     }
     __syncthreads();
 
-    // warp 0: the inclusive cumsum of dt * A, 32 steps at a time, then the
-    // state-update weights and the inter-chunk decays; meanwhile every
-    // thread writes its part of S_prev as bf16 hi + lo (K-major [P x N])
-    if (warp == 0) {
-      float carry = 0.f;
-      for (int j0 = 0; j0 < ROWS; j0 += 32) {
-        const int j = j0 + lane;
-        float v = dts[j] * A;
+    // the inclusive cumsum of dt * A: warp w scans steps 32 w .. 32 w + 31,
+    // then adds the sums of the segments before it; from it the decays
+    // (cs in log2 units, the state-update weights w, exp(cs_i), column
+    // block 0's exp(cs_63 - cs_j) dt_j), and every thread writes its part of
+    // S_prev as bf16 hi + lo (K-major [P x N])
+    float cj = 0.f, dtj = 0.f;
+    if (wg == 0) {
+      dtj = dts[tid];
+      float v = dtj * A;
 #pragma unroll
-        for (int off = 1; off < 32; off <<= 1) {
-          const float u = __shfl_up_sync(FULL, v, off);
-          if (lane >= off) v += u;
-        }
-        v += carry;
-        cs[j] = v;
-        carry = __shfl_sync(FULL, v, 31);
+      for (int off = 1; off < 32; off <<= 1) {
+        const float u = __shfl_up_sync(FULL, v, off);
+        if (lane >= off) v += u;
       }
-      __syncwarp();
-      for (int j = lane; j < ROWS; j += 32) {
-        ws[j] = expf(carry - cs[j]) * dts[j];
-        es[j] = expf(cs[j]);
-      }
+      if (lane == 31) seg[warp] = v;
+      cj = v;
     }
 #pragma unroll
     for (int t = 0; t < NS / 4; ++t)
 #pragma unroll
       for (int hr = 0; hr < 2; ++hr) {
+        if (wg != 0) break;
         const int p = r0 + gr + 8 * hr;
         const uint32_t off = swz(PT, p, t) + 4 * gc;
         uint32_t hi, lo;
@@ -670,6 +682,18 @@ ssd_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
         asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(sp_hi + off), "r"(hi) : "memory");
         asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(sp_lo + off), "r"(lo) : "memory");
       }
+    __syncthreads();  // the segment sums
+    if (wg == 0) {
+      float before = 0.f;
+#pragma unroll
+      for (int w = 0; w < 4; ++w) before += w < warp ? seg[w] : 0.f;
+      const float last = seg[0] + seg[1] + seg[2] + seg[3], mid = seg[0] + seg[1];
+      cj += before;
+      cs2[tid] = cj * LOG2E;
+      ws[tid] = expf(last - cj) * dtj;
+      es[tid] = expf(cj);
+      if (tid < 64) ecol[tid] = exp2_approx((mid - cj) * LOG2E) * dtj;
+    }
     fence_proxy_async();  // copies and S_prev, visible to the tensor cores
     __syncthreads();
 
@@ -683,11 +707,13 @@ ssd_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
     uint32_t xa_hi[ROWS / 16][4], xa_lo[ROWS / 16][4];
 #pragma unroll
     for (int kb = 0; kb < ROWS / 16; ++kb) {
+      if (wg != 0) break;
       uint32_t xa[4];
       const int row = 16 * kb + (lane & 7) + (lane >> 4) * 8;
       ldsm4t(xa, xs + swz(ROWS, row, 2 * warp + ((lane >> 3) & 1)));
       const int j = 16 * kb + 2 * gc;
-      const float2 w0 = make_float2(ws[j], ws[j + 1]), w8 = make_float2(ws[j + 8], ws[j + 9]);
+      const float2 w0 = *reinterpret_cast<const float2*>(ws + j);
+      const float2 w8 = *reinterpret_cast<const float2*>(ws + j + 8);
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         const float2 v = unpack(xa[k]), w = k < 2 ? w0 : w8;
@@ -699,78 +725,149 @@ ssd_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
     // column block cb <= hf): C B^T in the accumulator s, the decay
     // exp(cs_i - cs_j) dt_j (j <= i) applied in registers, and the
     // accumulator layout is the A-operand layout of M x, so M, split into
-    // hi + lo, never touches shared memory. Each wgmma group pairs one
-    // block's M x with the next block's C B^T (or, last, the state update
-    // with the first C B^T, and C S_prev with the last M x)
-    float s[32], yacc[2][32], z[32];
+    // hi + lo, never touches shared memory. One warpgroup: each wgmma
+    // group pairs one block's M x with the next block's C B^T (first, the
+    // state update with the first C B^T; last, C S_prev with the last M x).
+    // Two: the first takes the state, block (0, 0) and the first half of
+    // y, the second blocks (1, 0), (1, 1) and the second half
+    float s[32], yacc[WGS == 1 ? 2 : 1][32], z[32];
     uint32_t mhi[4][4], mlo[4][4];
-    // the state update and C B^T of block (0, 0)
-    fence_regs(st);
-    fence_regs(xa_hi);
-    fence_regs(xa_lo);
-    wgmma_fence();
+    const float c63 = cs2[63];
+    const float erow[2] = {exp2_approx(cs2[64 + r0 + gr] - c63),
+                           exp2_approx(cs2[72 + r0 + gr] - c63)};
+    if constexpr (WGS == 2) {
+     if (wg == 0) {
+      fence_regs(st);
+      fence_regs(xa_hi);
+      fence_regs(xa_lo);
+      wgmma_fence();
 #pragma unroll
-    for (int kb = 0; kb < ROWS / 16; ++kb) {
-      wgmma_rs(st, xa_hi[kb], desc_mn(Bs, ROWS, kb));
-      wgmma_rs(st, xa_lo[kb], desc_mn(Bs, ROWS, kb));
-    }
-    cbt<NB>(s, Cs, Bs, 0, 0);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(st);
-    fence_regs(xa_hi);
-    fence_regs(xa_lo);
-    fence_regs(s);
-    // block (0, 0)'s M x with block (1, 0)'s C B^T
-    decay(s, mhi, mlo, cs, dts, 0, 0, r0 + gr, gc);
-    fence_regs(mhi);
-    fence_regs(mlo);
-    wgmma_fence();
-    mx(yacc[0], mhi, mlo, xs, 0, true);
-    cbt<NB>(s, Cs, Bs, 1, 0);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(s);
-    fence_regs(mhi);
-    fence_regs(mlo);
-    fence_regs(yacc[0]);
-    // block (1, 0)'s M x with block (1, 1)'s C B^T
-    decay(s, mhi, mlo, cs, dts, 1, 0, r0 + gr, gc);
-    fence_regs(mhi);
-    fence_regs(mlo);
-    wgmma_fence();
-    mx(yacc[1], mhi, mlo, xs, 0, true);
-    cbt<NB>(s, Cs, Bs, 1, 1);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(s);
-    fence_regs(mhi);
-    fence_regs(mlo);
-    fence_regs(yacc[1]);
-    // block (1, 1)'s M x with C S_prev of the first half
-    decay(s, mhi, mlo, cs, dts, 1, 1, r0 + gr, gc);
-    fence_regs(mhi);
-    fence_regs(mlo);
-    wgmma_fence();
-    mx(yacc[1], mhi, mlo, xs, 1, false);
-    cs_prev<NB>(z, Cs, sp_hi, sp_lo, 0);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(mhi);
-    fence_regs(mlo);
-    fence_regs(yacc[1]);
-    fence_regs(z);
+      for (int kb = 0; kb < ROWS / 16; ++kb) {
+        wgmma_rs(st, xa_hi[kb], desc_mn(Bs, ROWS, kb));
+        wgmma_rs(st, xa_lo[kb], desc_mn(Bs, ROWS, kb));
+      }
+      cbt<NB>(s, Cs, Bs, 0, 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(xa_hi);
+      fence_regs(xa_lo);
+      fence_regs(s);
+      decay(s, mhi, mlo, cs2, dts, ecol, erow, 0, 0, r0 + gr, gc);
+      fence_regs(mhi);
+      fence_regs(mlo);
+      wgmma_fence();
+      mx(yacc[0], mhi, mlo, xs, 0, true);
+      cs_prev<NB>(z, Cs, sp_hi, sp_lo, 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(mhi);
+      fence_regs(mlo);
+      fence_regs(yacc[0]);
+      fence_regs(z);
+      write_y(y, yacc[0], z, es, gx, Dh, b, h, S, H, P, p0, c0, rows, r0 + gr, gc);
+     } else {
+      wgmma_fence();
+      cbt<NB>(s, Cs, Bs, 1, 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      decay(s, mhi, mlo, cs2, dts, ecol, erow, 1, 0, r0 + gr, gc);
+      fence_regs(mhi);
+      fence_regs(mlo);
+      wgmma_fence();
+      mx(yacc[0], mhi, mlo, xs, 0, true);
+      cbt<NB>(s, Cs, Bs, 1, 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(mhi);
+      fence_regs(mlo);
+      fence_regs(yacc[0]);
+      decay(s, mhi, mlo, cs2, dts, ecol, erow, 1, 1, r0 + gr, gc);
+      fence_regs(mhi);
+      fence_regs(mlo);
+      wgmma_fence();
+      mx(yacc[0], mhi, mlo, xs, 1, false);
+      cs_prev<NB>(z, Cs, sp_hi, sp_lo, 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(mhi);
+      fence_regs(mlo);
+      fence_regs(yacc[0]);
+      fence_regs(z);
+      write_y(y + (size_t)64 * H * P, yacc[0], z, es + 64, gx + 64 * 128, Dh, b, h, S, H, P,
+              p0, c0, rows - 64, r0 + gr, gc);
+     }
+    } else {
+      // the state update and C B^T of block (0, 0)
+      fence_regs(st);
+      fence_regs(xa_hi);
+      fence_regs(xa_lo);
+      wgmma_fence();
+  #pragma unroll
+      for (int kb = 0; kb < ROWS / 16; ++kb) {
+        wgmma_rs(st, xa_hi[kb], desc_mn(Bs, ROWS, kb));
+        wgmma_rs(st, xa_lo[kb], desc_mn(Bs, ROWS, kb));
+      }
+      cbt<NB>(s, Cs, Bs, 0, 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(xa_hi);
+      fence_regs(xa_lo);
+      fence_regs(s);
+      // block (0, 0)'s M x with block (1, 0)'s C B^T
+      decay(s, mhi, mlo, cs2, dts, ecol, erow, 0, 0, r0 + gr, gc);
+      fence_regs(mhi);
+      fence_regs(mlo);
+      wgmma_fence();
+      mx(yacc[0], mhi, mlo, xs, 0, true);
+      cbt<NB>(s, Cs, Bs, 1, 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(mhi);
+      fence_regs(mlo);
+      fence_regs(yacc[0]);
+      // block (1, 0)'s M x with block (1, 1)'s C B^T
+      decay(s, mhi, mlo, cs2, dts, ecol, erow, 1, 0, r0 + gr, gc);
+      fence_regs(mhi);
+      fence_regs(mlo);
+      wgmma_fence();
+      mx(yacc[1], mhi, mlo, xs, 0, true);
+      cbt<NB>(s, Cs, Bs, 1, 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(mhi);
+      fence_regs(mlo);
+      fence_regs(yacc[1]);
+      // block (1, 1)'s M x with C S_prev of the first half
+      decay(s, mhi, mlo, cs2, dts, ecol, erow, 1, 1, r0 + gr, gc);
+      fence_regs(mhi);
+      fence_regs(mlo);
+      wgmma_fence();
+      mx(yacc[1], mhi, mlo, xs, 1, false);
+      cs_prev<NB>(z, Cs, sp_hi, sp_lo, 0);
+      wgmma_commit();
+      fence_regs(s);  // s is free: it takes C S_prev of the second half
+      cs_prev<NB>(s, Cs, sp_hi, sp_lo, 1);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(mhi);
+      fence_regs(mlo);
+      fence_regs(yacc[1]);
+      fence_regs(z);
 
-    // (3) y += exp(cs_i) C S_prev + D x, a half at a time
-    write_y(y, yacc[0], z, es, gx, Dh, b, h, S, H, P, p0, c0, rows, r0 + gr, gc);
-    fence_regs(z);
-    wgmma_fence();
-    cs_prev<NB>(z, Cs, sp_hi, sp_lo, 1);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(z);
-    write_y(y + (size_t)64 * H * P, yacc[1], z, es + 64, gx + 64 * 128, Dh, b, h, S, H, P, p0,
-            c0, rows - 64, r0 + gr, gc);
+      // (3) y += exp(cs_i) C S_prev + D x, a half at a time, the second
+      // half's C S_prev running under the first half's writes
+      write_y(y, yacc[0], z, es, gx, Dh, b, h, S, H, P, p0, c0, rows, r0 + gr, gc);
+      wgmma_wait<0>();
+      fence_regs(s);
+      write_y(y + (size_t)64 * H * P, yacc[1], s, es + 64, gx + 64 * 128, Dh, b, h, S, H, P, p0,
+              c0, rows - 64, r0 + gr, gc);
+    }
     __syncthreads();  // every warp is done with this stage, S_prev and cs
   }
 
@@ -779,15 +876,15 @@ ssd_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int p = p0 + r0 + gr + 8 * (e >> 1), n = 8 * t + 2 * gc + (e & 1);
-      if (p < P && n < N) s_out[bh * PN + (size_t)p * N + n] = st[4 * t + e];
+      if (wg == 0 && p < P && n < N) s_out[bh * PN + (size_t)p * N + n] = st[4 * t + e];
     }
 }
 
-template <int NB, int STAGES>
+template <int NB, int STAGES, int WGS>
 int launch(const bf16* x, const float* dt, const bf16* Bv, const bf16* Cv,
            const float* A_log, const float* D, const float* s0, float* y, float* s_out,
            int B, int S, int H, int P, int N, int Q, cudaStream_t stream) {
-  auto kern = ssd_tc_kernel<NB, STAGES>;
+  auto kern = ssd_tc_kernel<NB, STAGES, WGS>;
   const long long grid = (long long)B * H * ((P + PT - 1) / PT);
   if (grid >= (1ll << 31)) return (int)cudaErrorInvalidValue;
   constexpr size_t smem = smem_bytes(NB, STAGES);
@@ -798,7 +895,7 @@ int launch(const bf16* x, const float* dt, const bf16* Bv, const bf16* Cv,
       ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(Bv) |
         reinterpret_cast<uintptr_t>(Cv)) & 15) == 0;
   const int vec = aligned && N % 8 == 0 && P % 8 == 0;
-  kern<<<(unsigned)grid, THREADS, smem, stream>>>(x, dt, Bv, Cv, A_log, D, s0, y, s_out, S,
+  kern<<<(unsigned)grid, WG * WGS, smem, stream>>>(x, dt, Bv, Cv, A_log, D, s0, y, s_out, S,
                                                   H, P, N, Q, vec);
   return (int)cudaGetLastError();
 }
@@ -823,7 +920,7 @@ extern "C" size_t ssd_smem_bytes(int Q, int N, int PT) {
 extern "C" int ssd_launch(const void* x, const void* dt, const void* Bv, const void* Cv,
                           const void* A_log, const void* D, const void* s0, void* y,
                           void* s_out, int B, int S, int H, int P, int N, int Q, int PT,
-                          int stages, int dtype, void* stream) {
+                          int stages, int wgs, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Q < 1 || Q > QMAX || N < 1 || N > NMAX) return (int)cudaErrorInvalidValue;
   const float* dtf = static_cast<const float*>(dt);
@@ -842,10 +939,11 @@ extern "C" int ssd_launch(const void* x, const void* dt, const void* Bv, const v
   const bf16* bb = static_cast<const bf16*>(Bv);
   const bf16* cb = static_cast<const bf16*>(Cv);
   const int nb = N <= 64 ? 1 : 2;
-#define SSD_TC(nb_, st_)                                                                 \
-  if (nb == nb_ && stages == st_)                                                        \
-    return tc::launch<nb_, st_>(xb, dtf, bb, cb, al, dp, s0f, yf, so, B, S, H, P, N, Q, s);
-  SSD_TC(1, 1) SSD_TC(1, 2) SSD_TC(2, 1) SSD_TC(2, 2)
+#define SSD_TC(nb_, st_, wg_)                                                          \
+  if (nb == nb_ && stages == st_ && wgs == wg_)                                        \
+    return tc::launch<nb_, st_, wg_>(xb, dtf, bb, cb, al, dp, s0f, yf, so, B, S, H, P, N, Q, s);
+  SSD_TC(1, 1, 1) SSD_TC(1, 2, 1) SSD_TC(2, 1, 1) SSD_TC(2, 2, 1)
+  SSD_TC(1, 1, 2) SSD_TC(1, 2, 2) SSD_TC(2, 1, 2) SSD_TC(2, 2, 2)
 #undef SSD_TC
   return (int)cudaErrorInvalidValue;
 }

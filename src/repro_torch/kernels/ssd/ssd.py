@@ -45,7 +45,7 @@ LAUNCHES = {"ssd": 0}
 
 def _declare(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.ssd_launch.argtypes = [vp] * 9 + [ci] * 9 + [vp]
+    lib.ssd_launch.argtypes = [vp] * 9 + [ci] * 10 + [vp]
     lib.ssd_launch.restype = ci
     lib.ssd_smem_bytes.argtypes = [ci] * 3
     lib.ssd_smem_bytes.restype = ctypes.c_size_t
@@ -96,16 +96,16 @@ def ssd_cuda(x, dt, Bv, Cv, A_log, D, chunk: int, state_init=None):
         raise ValueError(f"B * H = {B * H} exceeds one launch's grid")
     lib = LIBRARY.load()
     if x.dtype == torch.bfloat16:
-        return _launch(lib, x, dt, Bv, Cv, A_log, D, Q, state_init, 0, TC_STAGES)
+        return _launch(lib, x, dt, Bv, Cv, A_log, D, Q, state_init, 0, TC_STAGES, 1)
     fits = [pt for pt in P_TILES if lib.ssd_smem_bytes(Q, N, pt) <= SMEM_LIMIT]
     # the narrowest tile that covers P, else the widest that fits
     PT = min((pt for pt in fits if pt >= P), default=fits[0] if fits else None)
     if PT is None:
         raise ValueError(f"no P tile fits shared memory at chunk {Q}, N={N}")
-    return _launch(lib, x, dt, Bv, Cv, A_log, D, Q, state_init, PT, 1)
+    return _launch(lib, x, dt, Bv, Cv, A_log, D, Q, state_init, PT, 1, 1)
 
 
-def _launch(lib, x, dt, Bv, Cv, A_log, D, Q, state_init, p_tile, stages):
+def _launch(lib, x, dt, Bv, Cv, A_log, D, Q, state_init, p_tile, stages, warpgroups):
     """One launch on checked tensors: ``p_tile`` P columns per CTA and, in
     bf16, ``stages`` chunks staged in shared memory at once."""
     B, S, H, P = x.shape
@@ -114,7 +114,7 @@ def _launch(lib, x, dt, Bv, Cv, A_log, D, Q, state_init, p_tile, stages):
     state = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
     err = lib.ssd_launch(ptr(x), ptr(dt), ptr(Bv), ptr(Cv), ptr(A_log), ptr(D),
                          ptr(state_init), ptr(y), ptr(state), B, S, H, P, N, Q, p_tile,
-                         stages, DTYPES[x.dtype], stream(x.device))
+                         stages, warpgroups, DTYPES[x.dtype], stream(x.device))
     if err != 0:
         raise RuntimeError(f"SSD kernel launch failed: CUDA error {err}")
     LAUNCHES["ssd"] += 1

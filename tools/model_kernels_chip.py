@@ -14,8 +14,8 @@ Needs a CUDA device and ``nvcc``. For each model kernel package
    unless ``--skip-times``, ``chip_smoke.time_model_kernels`` (kernel,
    plain and one PyTorch call, with the bound), printing their phase lines.
 
-With ``--ssd-variants`` it also runs the bf16 SSD kernel at each (P
-columns per CTA, chunks staged at once) it is built for, against the plain
+With ``--ssd-variants`` it also runs the bf16 SSD kernel at each (chunks
+staged at once, warpgroups per CTA) it is built for, against the plain
 version and then timed at both serve paths' shapes, as one
 ``{"ssd_variants": ...}`` line.
 
@@ -85,11 +85,11 @@ def ptxas_report(lib):
     return out
 
 
-SSD_VARIANTS = ((0, 1), (0, 2))  # (P tile: the bf16 kernel's own, stages)
+SSD_VARIANTS = ((1, 1), (2, 1), (1, 2), (2, 2))  # (stages, warpgroups)
 
 
 def ssd_variants(dev):
-    """Each (P tile, stages) of the bf16 SSD kernel: max error
+    """Each (stages, warpgroups) of the bf16 SSD kernel: max error
     against the plain version (path shapes, a ragged tail with an entering
     state) and device time at both path shapes."""
     import numpy as np
@@ -106,21 +106,21 @@ def ssd_variants(dev):
     inputs = {k: CS.ssd_inputs(rng, B, S, H, P, N, torch.bfloat16, dev, init)
               for k, (B, S, H, P, N, init) in shapes.items()}
     out = {}
-    for pt, stages in SSD_VARIANTS:
+    for stages, wgs in SSD_VARIANTS:
         row = {}
         for key, (x, dt, Bv, Cv, A_log, D, s0) in inputs.items():
-            y, st = SK._launch(lib, x, dt, Bv, Cv, A_log, D, 128, s0, pt, stages)
+            y, st = SK._launch(lib, x, dt, Bv, Cv, A_log, D, 128, s0, 0, stages, wgs)
             torch.cuda.synchronize()
             want_y, want_s = ssd_chunked_ref(x, dt, A_log, Bv, Cv, D, 128, s0)
             ey, oky = CS.close_err(y, want_y, CS.SSD_TOL)
             es, oks = CS.close_err(st, want_s, CS.SSD_TOL)
             row[key + "_err"] = [ey, es]
-            CS.check(oky and oks, f"SSD variant {pt}, {stages} disagrees ({key}): {ey}, {es}")
+            CS.check(oky and oks, f"SSD variant {stages}, {wgs} disagrees ({key}): {ey}, {es}")
             if key != "ragged_init":
                 row[key + "_ms"] = CS.graph_ms(
-                    lambda: SK._launch(lib, x, dt, Bv, Cv, A_log, D, 128, s0, pt, stages),
+                    lambda: SK._launch(lib, x, dt, Bv, Cv, A_log, D, 128, s0, 0, stages, wgs),
                     reps=20)
-        out[f"pt{pt}_stages{stages}"] = row
+        out[f"stages{stages}_wg{wgs}"] = row
     print(json.dumps({"ssd_variants": out}))
 
 
