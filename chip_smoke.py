@@ -972,6 +972,12 @@ def compare_model_kernels(dev):
                   ("ssd_zamba2_path", 4, 512, 112, 64, 64, 128, bf, False),
                   ("ssd_ragged", 2, 520, 24, 64, 128, 128, bf, False),
                   ("ssd_state_init", 2, 200, 24, 64, 128, 128, bf, True)]
+    # off the bf16 kernel's tiles (zero padding of Q, P and N), narrow states
+    # (N 4 stages element by element), a single step
+    ssd_cases += [("ssd_pad_q100_p40_n72", 1, 300, 3, 40, 72, 100, bf, False),
+                  ("ssd_n16", 2, 128, 4, 64, 16, 128, bf, False),
+                  ("ssd_n4", 2, 130, 4, 64, 4, 128, bf, False),
+                  ("ssd_s1", 2, 1, 4, 64, 128, 128, bf, False)]
     for label, B, S, H, P, N, Q, d_, init in ssd_cases:
         ins = ssd_inputs(rng, B, S, H, P, N, dt[d_], dev, init)
         x, dt_, Bv, Cv, A_log, D, s0 = ins

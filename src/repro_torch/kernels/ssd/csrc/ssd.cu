@@ -16,41 +16,44 @@
 //
 // One kernel for each dtype (a dispatch, not a fallback).
 //
-// bfloat16: `ssd_tc_kernel`, the four products on the tensor cores through
-// `mma.sync.m16n8k16` (bf16 in, float32 accumulate) with `ldmatrix`. Bound
-// by bytes at the serve paths' shapes: Mamba-2 (B=4, S=512, H=24, P=64,
-// N=128) moves ~23 MB, Zamba2 (H=112, N=64) ~97 MB, most of it y in
-// float32; the products at the bf16 peak take a fraction of that time.
-// Design:
+// bfloat16: `ssd_tc_kernel`, the four products (C.B^T, M x, C.S_prev and
+// the state update) on the tensor cores through `wgmma` (bf16 in, float32
+// accumulate). At the serve paths' shapes it is bound by bytes: Mamba-2
+// (B=4, S=512, H=24, P=64, N=128) moves ~23 MB, Zamba2 (H=112, N=64) ~97
+// MB, most of it y in float32; the products at the bf16 peak take a
+// fraction of that time. Measured (tools/model_kernels_chip.py, H100 80GB
+// HBM3, 700 W): 0.028 ms for Mamba-2 and 0.082 ms for Zamba2. Design:
 // * precision: x, B and C are bf16, so C.B^T and every product with x as
 //   one operand are exact. The three operands made in float32 (the masked
 //   decay matrix M, the entering state S_prev, the weighted x w of the
 //   update) enter as bf16 hi + bf16 lo, two products into one float32
 //   accumulator (~16 bits of each; one bf16 or TF32 rounding misses the
 //   1e-3 tolerance by 5-100x);
-// * a CTA of four warps owns (batch, head, PT columns of P) for a run of
-//   chunks. x, B and C are staged as bf16 by `cp.async` (rows padded by
-//   16 bytes, so an ldmatrix's 8 rows fall on distinct banks; past S, past
-//   Q, past N and past P zero-filled); 88 KB at N = 128, 57 KB at N = 64,
-//   so two or three CTAs share an SM and one's copies run under another's
-//   products;
-// * (1) y = M x: each warp owns the 16-row blocks w and 7 - w (equal causal
-//   work) and walks their column blocks j <= i; C.B^T of a 16 x 16 tile
-//   lands in the accumulator, the decay exp(cs_i - cs_j) dt_j is applied
-//   there, and the accumulator layout is the A-operand layout of M x, so M
-//   never touches shared memory. Tiles above the diagonal are skipped;
-// * (2) the chunk's own state [PT, N] = (x w)^T B: the A operand is x read
-//   transposed by ldmatrix, weighted by w_j = exp(cs_Q - cs_j) dt_j in
-//   registers; the state is kept with P as rows, as s0 and s_out are laid
-//   out;
-// * (3) S_prev comes from s0 (or zeros), from this CTA's previous chunk
-//   (shared memory), or from the CTA of the previous run through `handoff`:
-//   CTAs take a ticket from an atomic counter as they start and map it to
-//   their work run-major, so a CTA waits (on a flag with acquire / release)
-//   only on one that started before it. S_prev's hi / lo halves replace B
-//   in shared memory, and S_new = exp(cs_Q) S_prev + (2) is handed on;
-// * (4) y += exp(cs_i) C S_prev + D x, written once as float2.
-// The wrapper picks the P tile and the run length (`ssd.py`).
+// * a CTA owns (batch, head, 64 columns of P) and scans its chunks in
+//   order, the state [64 x N] in the accumulator registers of its update
+//   (Mamba-2's 96 CTAs and Zamba2's 448 each fit 132 SMs in 1 and 3.4
+//   waves). A chunk's C, B and x [128 rows] are staged by `cp.async` in the
+//   128-byte-swizzled layout the wgmma descriptors read, zero past S, Q, N
+//   and P, two stages deep: the next chunk's copies run under this chunk's
+//   products (200 KB of shared memory at N = 128, 115 KB at N = 64);
+// * two warpgroups split each chunk. The first keeps the state: S =
+//   exp(cs_Q) S_prev + (x w)^T B, its A operand x read transposed by
+//   ldmatrix and weighted by w_j = exp(cs_Q - cs_j) dt_j in registers, B
+//   read MN-major, accumulated onto the decayed state in place; then the
+//   upper half of y. The second takes the lower half. A half's y = M x +
+//   exp(cs_i) C S_prev + D x: C.B^T of a 64 x 64 block (only blocks on or
+//   below the diagonal) lands in the accumulator, the decay exp(cs_i -
+//   cs_j) dt_j is applied there (below the diagonal as exp(cs_i - cs_63)
+//   exp(cs_63 - cs_j) dt_j, each factor at most 1, no exponential per
+//   element), and the accumulator layout is the A-operand layout of M x,
+//   so M never touches shared memory. S_prev goes through shared memory
+//   once per chunk, as hi and lo K-major tiles for C S_prev. Each wgmma
+//   group pairs independent products (the state update with a C.B^T
+//   block, M x with the next block's C.B^T or with C S_prev);
+// * y is written once, as float2 per thread, and the final state once.
+// Route: `mma.sync` with `ldmatrix` came first (0.065 / 0.146 ms at its
+// best); every warp re-read its operands from shared memory and stalled on
+// each product's result, and `wgmma` read them once per warpgroup.
 //
 // float32: `ssd_kernel`, scalar float32 FMAs out of shared memory (the
 // tensor cores would round to TF32, outside the float32 tolerance). One CTA
@@ -288,7 +291,8 @@ int launch_scalar(int PT, const float* x, const float* dt, const float* Bv, cons
 namespace tc {
 
 using bf16 = __nv_bfloat16;
-constexpr int WG = 128;  // threads of a warpgroup
+constexpr int WG = 128;           // threads of a warpgroup
+constexpr int THREADS = 2 * WG;  // two warpgroups
 constexpr int ROWS = 128;     // chunk rows staged (Q <= 128, zero past Q)
 constexpr int PT = 64;        // P columns per CTA
 constexpr float LOG2E = 1.4426950408889634f;
@@ -526,66 +530,62 @@ __device__ __forceinline__ void write_y(float* y, const float (&yacc)[32], const
   }
 }
 
-// Shared memory of one CTA, in bytes: per stage C and B [ROWS x 64 NB] and
-// x [ROWS x 64] bf16 and dt [ROWS]; S_prev hi, lo [PT x 64 NB] bf16; cs,
-// cs log2(e), w, exp(cs) [ROWS], the decays of column block 0 [64] and four
+// Shared memory of one CTA, in bytes: two stages of C and B [ROWS x 64 NB]
+// and x [ROWS x 64] bf16 and dt [ROWS]; S_prev hi, lo [PT x 64 NB] bf16;
+// cs log2(e), w, exp(cs) [ROWS], column block 0's decays [64] and four
 // segment sums. NB 64-column blocks of N.
-constexpr size_t smem_bytes(int NB, int stages) {
-  return (size_t)stages * (2 * (2 * ROWS * 64 * NB + ROWS * 64) + 4 * ROWS) +
-         2 * 2 * PT * 64 * NB + 4 * 4 * ROWS + 64 * 4 + 16 + 1024;  // + alignment slack
+constexpr size_t smem_bytes(int NB) {
+  return 2 * (2 * (2 * ROWS * 64 * NB + ROWS * 64) + 4 * ROWS) + 2 * 2 * PT * 64 * NB +
+         3 * 4 * ROWS + 64 * 4 + 16;
 }
 
 // x [B, S, H, P], Bv / Cv [B, S, N] bf16; dt [B, S, H], A_log / D [H], s0
 // [B, H, P, N] (or null) float32; y [B, S, H, P], s_out [B, H, P, N] float32;
-// N <= 64 NB. A CTA (one warpgroup) owns (batch, head, 64 columns of P) and
-// scans its chunks in order, the state in registers; with STAGES = 2 the
-// next chunk's copies run under this chunk's products. Grid: B * H *
-// ceil(P / 64) CTAs.
-template <int NB, int STAGES, int WGS>
-__global__ void __launch_bounds__(WG * WGS, 1)
+// N <= 64 NB. A CTA of two warpgroups owns (batch, head, 64 columns of P)
+// and scans its chunks in order; the next chunk's copies run under this
+// chunk's products. Grid: B * H * ceil(P / 64) CTAs.
+template <int NB>
+__global__ void __launch_bounds__(THREADS, 1)
 ssd_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
               const bf16* __restrict__ Bv, const bf16* __restrict__ Cv,
               const float* __restrict__ A_log, const float* __restrict__ Dp,
               const float* __restrict__ s0, float* __restrict__ y, float* __restrict__ s_out,
               int S, int H, int P, int N, int Q, int vec) {
-  constexpr int THREADS = WG * WGS;
-  constexpr int NS = 32 * NB;                       // state registers: [64 x 64 NB] / 128
-  constexpr uint32_t CB_BYTES = ROWS * 128 * NB;    // one of C, B
-  constexpr uint32_t X_BYTES = ROWS * 128;          // x
-  constexpr uint32_t STAGE_BYTES = 2 * CB_BYTES + X_BYTES;
-  constexpr uint32_t SP_BYTES = PT * 128 * NB;      // one of S_prev hi, lo
+  constexpr int NS = 32 * NB;                     // state registers: [64 x 64 NB] / 128
+  constexpr uint32_t CB_BYTES = ROWS * 128 * NB;  // one of C, B
+  constexpr uint32_t STAGE_BYTES = 2 * CB_BYTES + ROWS * 128;
+  constexpr uint32_t SP_BYTES = PT * 128 * NB;    // one of S_prev hi, lo
   const int nC = (S + Q - 1) / Q, nPT = (P + PT - 1) / PT;
 
-  extern __shared__ unsigned char smem_raw[];
-  // the swizzle repeats every 1024 bytes: align the tiles to it
-  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
-  unsigned char* gbase = smem_raw + (base - smem_u32(smem_raw));
-  const uint32_t sp_hi = base + STAGES * STAGE_BYTES, sp_lo = sp_hi + SP_BYTES;
-  float* dts0 = reinterpret_cast<float*>(gbase + STAGES * STAGE_BYTES + 2 * SP_BYTES);
-  float* cs2 = dts0 + STAGES * ROWS;  // inclusive cumsum of dt * A, times log2(e)
-  float* ws = cs2 + ROWS;             // exp(cs_last - cs_j) dt_j
-  float* es = ws + ROWS;              // exp(cs_i)
-  float* ecol = es + ROWS;            // exp(cs_63 - cs_j) dt_j, j < 64
-  float* seg = ecol + 64;             // sums of dt * A over 32 steps
+  // 1024-byte alignment: the swizzle repeats every 1024 bytes
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = smem_u32(smem_raw);
+  const uint32_t sp_hi = base + 2 * STAGE_BYTES, sp_lo = sp_hi + SP_BYTES;
+  float* dts0 = reinterpret_cast<float*>(smem_raw + 2 * STAGE_BYTES + 2 * SP_BYTES);
+  float* cs2 = dts0 + 2 * ROWS;  // inclusive cumsum of dt * A, times log2(e)
+  float* ws = cs2 + ROWS;        // exp(cs_last - cs_j) dt_j
+  float* es = ws + ROWS;         // exp(cs_i)
+  float* ecol = es + ROWS;       // exp(cs_63 - cs_j) dt_j, j < 64
+  float* seg = ecol + 64;        // sums of dt * A over 32 steps
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, wg = tid / WG;
   const int gr = lane >> 2, gc = lane & 3;  // accumulator row, column pair
-  const int r0 = 16 * (warp & 3);           // the warp's first row of a 64-row tile
+  const int row = 16 * (warp & 3) + gr;     // the thread's first row of a 64-row tile
   const int bh = blockIdx.x / nPT, pt = blockIdx.x - bh * nPT;
   const int b = bh / H, h = bh - b * H, p0 = pt * PT;
   const float A = -expf(A_log[h]);
   const float Dh = Dp[h];
   const size_t PN = (size_t)P * N;
 
-  // the state [64 P rows x 64 NB N columns], float32, in the accumulator
-  // layout of (x w)^T B: st[4 t + e] is P row r0 + gr + 8 (e / 2), N column
-  // 8 t + 2 gc + e % 2
+  // the state [64 P rows x 64 NB N columns], float32, held by the first
+  // warpgroup in the accumulator layout of (x w)^T B: st[4 t + e] is P row
+  // row + 8 (e / 2), N column 8 t + 2 gc + e % 2
   float st[NS];
 #pragma unroll
   for (int t = 0; t < NS / 4; ++t)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int p = p0 + r0 + gr + 8 * (e >> 1), n = 8 * t + 2 * gc + (e & 1);
+      const int p = p0 + row + 8 * (e >> 1), n = 8 * t + 2 * gc + (e & 1);
       st[4 * t + e] = wg == 0 && s0 != nullptr && p < P && n < N
                           ? s0[bh * PN + (size_t)p * N + n] : 0.f;
     }
@@ -610,7 +610,7 @@ ssd_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
       }
     } else {  // N or P not a multiple of 8, or an operand not 16-byte aligned
       const bf16 zero = __float2bfloat16(0.f);
-      unsigned char* gC = gbase + sg * STAGE_BYTES;
+      unsigned char* gC = smem_raw + sg * STAGE_BYTES;
       for (int e = tid; e < ROWS * 64 * NB; e += THREADS) {
         const int i = e / (64 * NB), n = e - i * (64 * NB);
         const bool ok = i < rows && n < N;
@@ -637,27 +637,21 @@ ssd_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
   stage(0, 0);
 #pragma unroll 1
   for (int c = 0; c < nC; ++c) {
-    const int sg = STAGES == 2 ? c & 1 : 0;
-    const int c0 = c * Q, rows = min(Q, S - c0);
+    const int sg = c & 1, c0 = c * Q, rows = min(Q, S - c0);
     const uint32_t Cs = base + sg * STAGE_BYTES, Bs = Cs + CB_BYTES, xs = Bs + CB_BYTES;
-    const unsigned char* gx = gbase + sg * STAGE_BYTES + 2 * CB_BYTES;
+    const unsigned char* gx = smem_raw + sg * STAGE_BYTES + 2 * CB_BYTES;
     const float* dts = dts0 + sg * ROWS;
-    if (STAGES == 2) {
-      // the other stage was last read in chunk c - 1, before its closing barrier
-      if (c + 1 < nC) stage(c + 1, sg ^ 1);
-      else cp_async_commit();  // an empty group keeps the count
-      cp_async_wait<1>();      // every group but the newest: chunk c has landed
-    } else {
-      if (c > 0) stage(c, 0);  // the stage was last read before the previous barrier
-      cp_async_wait<0>();
-    }
+    // the other stage was last read in chunk c - 1, before its closing barrier
+    if (c + 1 < nC) stage(c + 1, sg ^ 1);
+    else cp_async_commit();  // an empty group keeps the count
+    cp_async_wait<1>();      // every group but the newest: chunk c has landed
     __syncthreads();
 
-    // the inclusive cumsum of dt * A: warp w scans steps 32 w .. 32 w + 31,
-    // then adds the sums of the segments before it; from it the decays
-    // (cs in log2 units, the state-update weights w, exp(cs_i), column
-    // block 0's exp(cs_63 - cs_j) dt_j), and every thread writes its part of
-    // S_prev as bf16 hi + lo (K-major [P x N])
+    // the inclusive cumsum of dt * A on the first warpgroup: warp w scans
+    // steps 32 w .. 32 w + 31, then adds the sums of the segments before
+    // it; from it the decays (cs in log2 units, the state-update weights
+    // w, exp(cs_i), column block 0's exp(cs_63 - cs_j) dt_j). Meanwhile the
+    // first warpgroup writes S_prev as bf16 hi + lo (K-major [P x N])
     float cj = 0.f, dtj = 0.f;
     if (wg == 0) {
       dtj = dts[tid];
@@ -669,19 +663,17 @@ ssd_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
       }
       if (lane == 31) seg[warp] = v;
       cj = v;
+#pragma unroll
+      for (int t = 0; t < NS / 4; ++t)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const uint32_t off = swz(PT, row + 8 * hr, t) + 4 * gc;
+          uint32_t hi, lo;
+          split(st[4 * t + 2 * hr], st[4 * t + 2 * hr + 1], hi, lo);
+          asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(sp_hi + off), "r"(hi) : "memory");
+          asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(sp_lo + off), "r"(lo) : "memory");
+        }
     }
-#pragma unroll
-    for (int t = 0; t < NS / 4; ++t)
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        if (wg != 0) break;
-        const int p = r0 + gr + 8 * hr;
-        const uint32_t off = swz(PT, p, t) + 4 * gc;
-        uint32_t hi, lo;
-        split(st[4 * t + 2 * hr], st[4 * t + 2 * hr + 1], hi, lo);
-        asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(sp_hi + off), "r"(hi) : "memory");
-        asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(sp_lo + off), "r"(lo) : "memory");
-      }
     __syncthreads();  // the segment sums
     if (wg == 0) {
       float before = 0.f;
@@ -697,46 +689,38 @@ ssd_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
     fence_proxy_async();  // copies and S_prev, visible to the tensor cores
     __syncthreads();
 
-    // (1) the state: S = exp(cs_Q) S_prev + (x w)^T B, onto the decayed
-    // state in place. The A operand is x read transposed by ldmatrix,
-    // weighted by w_j and split into hi + lo in registers; B is read
-    // MN-major
-    const float g = es[ROWS - 1];
-#pragma unroll
-    for (int i = 0; i < NS; ++i) st[i] *= g;
-    uint32_t xa_hi[ROWS / 16][4], xa_lo[ROWS / 16][4];
-#pragma unroll
-    for (int kb = 0; kb < ROWS / 16; ++kb) {
-      if (wg != 0) break;
-      uint32_t xa[4];
-      const int row = 16 * kb + (lane & 7) + (lane >> 4) * 8;
-      ldsm4t(xa, xs + swz(ROWS, row, 2 * warp + ((lane >> 3) & 1)));
-      const int j = 16 * kb + 2 * gc;
-      const float2 w0 = *reinterpret_cast<const float2*>(ws + j);
-      const float2 w8 = *reinterpret_cast<const float2*>(ws + j + 8);
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const float2 v = unpack(xa[k]), w = k < 2 ? w0 : w8;
-        split(v.x * w.x, v.y * w.y, xa_hi[kb][k], xa_lo[kb][k]);
-      }
-    }
-
-    // (2) y = M x, M = (C B^T) o decay, by 64 x 64 blocks (row half hf,
-    // column block cb <= hf): C B^T in the accumulator s, the decay
-    // exp(cs_i - cs_j) dt_j (j <= i) applied in registers, and the
-    // accumulator layout is the A-operand layout of M x, so M, split into
-    // hi + lo, never touches shared memory. One warpgroup: each wgmma
-    // group pairs one block's M x with the next block's C B^T (first, the
-    // state update with the first C B^T; last, C S_prev with the last M x).
-    // Two: the first takes the state, block (0, 0) and the first half of
-    // y, the second blocks (1, 0), (1, 1) and the second half
-    float s[32], yacc[WGS == 1 ? 2 : 1][32], z[32];
+    // y = M x + exp(cs_i) C S_prev + D x, M = (C B^T) o decay, by 64 x 64
+    // blocks (row half hf, column block cb <= hf): C B^T in the accumulator
+    // s, the decay exp(cs_i - cs_j) dt_j (j <= i) applied in registers, and
+    // the accumulator layout is the A-operand layout of M x, so M, split
+    // into hi + lo, never touches shared memory. Each wgmma group pairs
+    // independent products. The first warpgroup takes the state, block
+    // (0, 0) and the upper half of y; the second blocks (1, 0) and (1, 1)
+    // and the lower half.
+    float s[32], yacc[32], z[32];
     uint32_t mhi[4][4], mlo[4][4];
-    const float c63 = cs2[63];
-    const float erow[2] = {exp2_approx(cs2[64 + r0 + gr] - c63),
-                           exp2_approx(cs2[72 + r0 + gr] - c63)};
-    if constexpr (WGS == 2) {
-     if (wg == 0) {
+    if (wg == 0) {
+      // the state: S = exp(cs_Q) S_prev + (x w)^T B, onto the decayed state
+      // in place. The A operand is x read transposed by ldmatrix, weighted
+      // by w_j and split into hi + lo in registers; B is read MN-major
+      const float g = es[ROWS - 1];
+#pragma unroll
+      for (int i = 0; i < NS; ++i) st[i] *= g;
+      uint32_t xa_hi[ROWS / 16][4], xa_lo[ROWS / 16][4];
+#pragma unroll
+      for (int kb = 0; kb < ROWS / 16; ++kb) {
+        uint32_t xa[4];
+        const int r = 16 * kb + (lane & 7) + (lane >> 4) * 8;
+        ldsm4t(xa, xs + swz(ROWS, r, 2 * warp + ((lane >> 3) & 1)));
+        const int j = 16 * kb + 2 * gc;
+        const float2 w0 = *reinterpret_cast<const float2*>(ws + j);
+        const float2 w8 = *reinterpret_cast<const float2*>(ws + j + 8);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float2 v = unpack(xa[k]), w = k < 2 ? w0 : w8;
+          split(v.x * w.x, v.y * w.y, xa_hi[kb][k], xa_lo[kb][k]);
+        }
+      }
       fence_regs(st);
       fence_regs(xa_hi);
       fence_regs(xa_lo);
@@ -753,141 +737,77 @@ ssd_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
       fence_regs(xa_hi);
       fence_regs(xa_lo);
       fence_regs(s);
-      decay(s, mhi, mlo, cs2, dts, ecol, erow, 0, 0, r0 + gr, gc);
+      const float erow[2] = {0.f, 0.f};  // unused on the diagonal
+      decay(s, mhi, mlo, cs2, dts, ecol, erow, 0, 0, row, gc);
       fence_regs(mhi);
       fence_regs(mlo);
       wgmma_fence();
-      mx(yacc[0], mhi, mlo, xs, 0, true);
+      mx(yacc, mhi, mlo, xs, 0, true);
       cs_prev<NB>(z, Cs, sp_hi, sp_lo, 0);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(mhi);
       fence_regs(mlo);
-      fence_regs(yacc[0]);
+      fence_regs(yacc);
       fence_regs(z);
-      write_y(y, yacc[0], z, es, gx, Dh, b, h, S, H, P, p0, c0, rows, r0 + gr, gc);
-     } else {
+      write_y(y, yacc, z, es, gx, Dh, b, h, S, H, P, p0, c0, rows, row, gc);
+    } else {
       wgmma_fence();
       cbt<NB>(s, Cs, Bs, 1, 0);
       wgmma_commit();
+      const float c63 = cs2[63];
+      const float erow[2] = {exp2_approx(cs2[64 + row] - c63), exp2_approx(cs2[72 + row] - c63)};
       wgmma_wait<0>();
       fence_regs(s);
-      decay(s, mhi, mlo, cs2, dts, ecol, erow, 1, 0, r0 + gr, gc);
+      decay(s, mhi, mlo, cs2, dts, ecol, erow, 1, 0, row, gc);
       fence_regs(mhi);
       fence_regs(mlo);
       wgmma_fence();
-      mx(yacc[0], mhi, mlo, xs, 0, true);
+      mx(yacc, mhi, mlo, xs, 0, true);
       cbt<NB>(s, Cs, Bs, 1, 1);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(s);
       fence_regs(mhi);
       fence_regs(mlo);
-      fence_regs(yacc[0]);
-      decay(s, mhi, mlo, cs2, dts, ecol, erow, 1, 1, r0 + gr, gc);
+      fence_regs(yacc);
+      decay(s, mhi, mlo, cs2, dts, ecol, erow, 1, 1, row, gc);
       fence_regs(mhi);
       fence_regs(mlo);
       wgmma_fence();
-      mx(yacc[0], mhi, mlo, xs, 1, false);
+      mx(yacc, mhi, mlo, xs, 1, false);
       cs_prev<NB>(z, Cs, sp_hi, sp_lo, 1);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(mhi);
       fence_regs(mlo);
-      fence_regs(yacc[0]);
+      fence_regs(yacc);
       fence_regs(z);
-      write_y(y + (size_t)64 * H * P, yacc[0], z, es + 64, gx + 64 * 128, Dh, b, h, S, H, P,
-              p0, c0, rows - 64, r0 + gr, gc);
-     }
-    } else {
-      // the state update and C B^T of block (0, 0)
-      fence_regs(st);
-      fence_regs(xa_hi);
-      fence_regs(xa_lo);
-      wgmma_fence();
-  #pragma unroll
-      for (int kb = 0; kb < ROWS / 16; ++kb) {
-        wgmma_rs(st, xa_hi[kb], desc_mn(Bs, ROWS, kb));
-        wgmma_rs(st, xa_lo[kb], desc_mn(Bs, ROWS, kb));
-      }
-      cbt<NB>(s, Cs, Bs, 0, 0);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(st);
-      fence_regs(xa_hi);
-      fence_regs(xa_lo);
-      fence_regs(s);
-      // block (0, 0)'s M x with block (1, 0)'s C B^T
-      decay(s, mhi, mlo, cs2, dts, ecol, erow, 0, 0, r0 + gr, gc);
-      fence_regs(mhi);
-      fence_regs(mlo);
-      wgmma_fence();
-      mx(yacc[0], mhi, mlo, xs, 0, true);
-      cbt<NB>(s, Cs, Bs, 1, 0);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(s);
-      fence_regs(mhi);
-      fence_regs(mlo);
-      fence_regs(yacc[0]);
-      // block (1, 0)'s M x with block (1, 1)'s C B^T
-      decay(s, mhi, mlo, cs2, dts, ecol, erow, 1, 0, r0 + gr, gc);
-      fence_regs(mhi);
-      fence_regs(mlo);
-      wgmma_fence();
-      mx(yacc[1], mhi, mlo, xs, 0, true);
-      cbt<NB>(s, Cs, Bs, 1, 1);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(s);
-      fence_regs(mhi);
-      fence_regs(mlo);
-      fence_regs(yacc[1]);
-      // block (1, 1)'s M x with C S_prev of the first half
-      decay(s, mhi, mlo, cs2, dts, ecol, erow, 1, 1, r0 + gr, gc);
-      fence_regs(mhi);
-      fence_regs(mlo);
-      wgmma_fence();
-      mx(yacc[1], mhi, mlo, xs, 1, false);
-      cs_prev<NB>(z, Cs, sp_hi, sp_lo, 0);
-      wgmma_commit();
-      fence_regs(s);  // s is free: it takes C S_prev of the second half
-      cs_prev<NB>(s, Cs, sp_hi, sp_lo, 1);
-      wgmma_commit();
-      wgmma_wait<1>();
-      fence_regs(mhi);
-      fence_regs(mlo);
-      fence_regs(yacc[1]);
-      fence_regs(z);
-
-      // (3) y += exp(cs_i) C S_prev + D x, a half at a time, the second
-      // half's C S_prev running under the first half's writes
-      write_y(y, yacc[0], z, es, gx, Dh, b, h, S, H, P, p0, c0, rows, r0 + gr, gc);
-      wgmma_wait<0>();
-      fence_regs(s);
-      write_y(y + (size_t)64 * H * P, yacc[1], s, es + 64, gx + 64 * 128, Dh, b, h, S, H, P, p0,
-              c0, rows - 64, r0 + gr, gc);
+      write_y(y + (size_t)64 * H * P, yacc, z, es + 64, gx + 64 * 128, Dh, b, h, S, H, P, p0,
+              c0, rows - 64, row, gc);
     }
-    __syncthreads();  // every warp is done with this stage, S_prev and cs
+    __syncthreads();  // every warp is done with this stage, S_prev and the decays
   }
 
+  if (wg == 0) {
 #pragma unroll
-  for (int t = 0; t < NS / 4; ++t)
+    for (int t = 0; t < NS / 4; ++t)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int p = p0 + r0 + gr + 8 * (e >> 1), n = 8 * t + 2 * gc + (e & 1);
-      if (wg == 0 && p < P && n < N) s_out[bh * PN + (size_t)p * N + n] = st[4 * t + e];
-    }
+      for (int e = 0; e < 4; ++e) {
+        const int p = p0 + row + 8 * (e >> 1), n = 8 * t + 2 * gc + (e & 1);
+        if (p < P && n < N) s_out[bh * PN + (size_t)p * N + n] = st[4 * t + e];
+      }
+  }
 }
 
-template <int NB, int STAGES, int WGS>
+template <int NB>
 int launch(const bf16* x, const float* dt, const bf16* Bv, const bf16* Cv,
            const float* A_log, const float* D, const float* s0, float* y, float* s_out,
            int B, int S, int H, int P, int N, int Q, cudaStream_t stream) {
-  auto kern = ssd_tc_kernel<NB, STAGES, WGS>;
+  auto kern = ssd_tc_kernel<NB>;
   const long long grid = (long long)B * H * ((P + PT - 1) / PT);
   if (grid >= (1ll << 31)) return (int)cudaErrorInvalidValue;
-  constexpr size_t smem = smem_bytes(NB, STAGES);
+  constexpr size_t smem = smem_bytes(NB);
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -895,8 +815,8 @@ int launch(const bf16* x, const float* dt, const bf16* Bv, const bf16* Cv,
       ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(Bv) |
         reinterpret_cast<uintptr_t>(Cv)) & 15) == 0;
   const int vec = aligned && N % 8 == 0 && P % 8 == 0;
-  kern<<<(unsigned)grid, WG * WGS, smem, stream>>>(x, dt, Bv, Cv, A_log, D, s0, y, s_out, S,
-                                                  H, P, N, Q, vec);
+  kern<<<(unsigned)grid, THREADS, smem, stream>>>(x, dt, Bv, Cv, A_log, D, s0, y, s_out, S, H,
+                                                  P, N, Q, vec);
   return (int)cudaGetLastError();
 }
 
@@ -910,17 +830,20 @@ extern "C" size_t ssd_smem_bytes(int Q, int N, int PT) {
   return smem_floats(Q, N, PT) * sizeof(float);
 }
 
+// Dynamic shared memory of one CTA of the bfloat16 kernel, in bytes, at state
+// width N.
+extern "C" size_t ssd_tc_smem_bytes(int N) { return tc::smem_bytes(N <= 64 ? 1 : 2); }
+
 // x [B, S, H, P], Bv / Cv [B, S, N] contiguous, float32 (dtype 0, the
 // scalar kernel) or bfloat16 (dtype 1, the tensor-core kernel); dt [B, S, H],
 // A_log / D [H], s0 [B, H, P, N] (or null: zeros) float32; y [B, S, H, P] and
 // s_out [B, H, P, N] float32. 1 <= Q <= 128, N <= 128. PT: the float32
-// kernel's P columns per CTA (16, 32 or 64). stages: bfloat16 only, 1 or 2
-// chunks staged in shared memory (2: the next chunk's copies run under this
-// chunk's products). Returns the launch's CUDA error code.
+// kernel's P columns per CTA (16, 32 or 64; the bfloat16 kernel's are 64).
+// Returns the launch's CUDA error code.
 extern "C" int ssd_launch(const void* x, const void* dt, const void* Bv, const void* Cv,
                           const void* A_log, const void* D, const void* s0, void* y,
                           void* s_out, int B, int S, int H, int P, int N, int Q, int PT,
-                          int stages, int wgs, int dtype, void* stream) {
+                          int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Q < 1 || Q > QMAX || N < 1 || N > NMAX) return (int)cudaErrorInvalidValue;
   const float* dtf = static_cast<const float*>(dt);
@@ -938,12 +861,6 @@ extern "C" int ssd_launch(const void* x, const void* dt, const void* Bv, const v
   const bf16* xb = static_cast<const bf16*>(x);
   const bf16* bb = static_cast<const bf16*>(Bv);
   const bf16* cb = static_cast<const bf16*>(Cv);
-  const int nb = N <= 64 ? 1 : 2;
-#define SSD_TC(nb_, st_, wg_)                                                          \
-  if (nb == nb_ && stages == st_ && wgs == wg_)                                        \
-    return tc::launch<nb_, st_, wg_>(xb, dtf, bb, cb, al, dp, s0f, yf, so, B, S, H, P, N, Q, s);
-  SSD_TC(1, 1, 1) SSD_TC(1, 2, 1) SSD_TC(2, 1, 1) SSD_TC(2, 2, 1)
-  SSD_TC(1, 1, 2) SSD_TC(1, 2, 2) SSD_TC(2, 1, 2) SSD_TC(2, 2, 2)
-#undef SSD_TC
-  return (int)cudaErrorInvalidValue;
+  return N <= 64 ? tc::launch<1>(xb, dtf, bb, cb, al, dp, s0f, yf, so, B, S, H, P, N, Q, s)
+                 : tc::launch<2>(xb, dtf, bb, cb, al, dp, s0f, yf, so, B, S, H, P, N, Q, s);
 }

@@ -9,11 +9,11 @@ broadcasts B and C to every head) and handle any S, positions past S
 counting as dt = 0. One kernel for each dtype:
 
 * bfloat16 runs ``ssd_tc_kernel``: the four products (C·Bᵀ, M·x, C·S_prev
-  and the state update) on the tensor cores through ``mma.sync``, the
-  operands made in float32 (M, S_prev, x·w) split into bf16 hi + lo. A CTA
-  owns (batch, head, ``TC_P_TILE`` columns of P) for a run of
-  ``TC_CHUNKS_PER_CTA`` chunks; runs hand the state on through a float32
-  workspace and a flag per run, both allocated here;
+  and the state update) on the tensor cores through ``wgmma``, the operands
+  made in float32 (M, S_prev, x·w) split into bf16 hi + lo. A CTA of two
+  warpgroups owns (batch, head, 64 columns of P) and scans the chunks in
+  order, the state in registers, the next chunk's copies under this
+  chunk's products;
 * float32 runs ``ssd_kernel``, scalar float32 FMAs (no serve path).
 
 Every shape the wrapper admits goes to its dtype's kernel; a CUDA tensor
@@ -35,9 +35,6 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_CHUNK = MAX_STATE = 128  # the kernels' register tiles
 P_TILES = (64, 32, 16)  # P columns per CTA the float32 kernel is built for
 SMEM_LIMIT = 232_448  # shared memory one CTA may opt in to on an H100
-# the bf16 kernel's chunks staged in shared memory at once (1, or 2: the
-# next chunk's copies under this one's products)
-TC_STAGES = 2
 
 # launches, counted where the wrapper launches the kernel
 LAUNCHES = {"ssd": 0}
@@ -45,10 +42,12 @@ LAUNCHES = {"ssd": 0}
 
 def _declare(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.ssd_launch.argtypes = [vp] * 9 + [ci] * 10 + [vp]
+    lib.ssd_launch.argtypes = [vp] * 9 + [ci] * 8 + [vp]
     lib.ssd_launch.restype = ci
     lib.ssd_smem_bytes.argtypes = [ci] * 3
     lib.ssd_smem_bytes.restype = ctypes.c_size_t
+    lib.ssd_tc_smem_bytes.argtypes = [ci]
+    lib.ssd_tc_smem_bytes.restype = ctypes.c_size_t
 
 
 LIBRARY = CudaLibrary("ssd", SOURCES, Path(__file__).parent / "_build", _declare)
@@ -96,25 +95,25 @@ def ssd_cuda(x, dt, Bv, Cv, A_log, D, chunk: int, state_init=None):
         raise ValueError(f"B * H = {B * H} exceeds one launch's grid")
     lib = LIBRARY.load()
     if x.dtype == torch.bfloat16:
-        return _launch(lib, x, dt, Bv, Cv, A_log, D, Q, state_init, 0, TC_STAGES, 1)
+        return _launch(lib, x, dt, Bv, Cv, A_log, D, Q, state_init, 0)
     fits = [pt for pt in P_TILES if lib.ssd_smem_bytes(Q, N, pt) <= SMEM_LIMIT]
     # the narrowest tile that covers P, else the widest that fits
     PT = min((pt for pt in fits if pt >= P), default=fits[0] if fits else None)
     if PT is None:
         raise ValueError(f"no P tile fits shared memory at chunk {Q}, N={N}")
-    return _launch(lib, x, dt, Bv, Cv, A_log, D, Q, state_init, PT, 1, 1)
+    return _launch(lib, x, dt, Bv, Cv, A_log, D, Q, state_init, PT)
 
 
-def _launch(lib, x, dt, Bv, Cv, A_log, D, Q, state_init, p_tile, stages, warpgroups):
-    """One launch on checked tensors: ``p_tile`` P columns per CTA and, in
-    bf16, ``stages`` chunks staged in shared memory at once."""
+def _launch(lib, x, dt, Bv, Cv, A_log, D, Q, state_init, p_tile):
+    """One launch on checked tensors; ``p_tile``: the float32 kernel's P
+    columns per CTA (the bf16 kernel's are fixed)."""
     B, S, H, P = x.shape
     N = Bv.shape[2]
     y = torch.empty((B, S, H, P), dtype=torch.float32, device=x.device)
     state = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
     err = lib.ssd_launch(ptr(x), ptr(dt), ptr(Bv), ptr(Cv), ptr(A_log), ptr(D),
                          ptr(state_init), ptr(y), ptr(state), B, S, H, P, N, Q, p_tile,
-                         stages, warpgroups, DTYPES[x.dtype], stream(x.device))
+                         DTYPES[x.dtype], stream(x.device))
     if err != 0:
         raise RuntimeError(f"SSD kernel launch failed: CUDA error {err}")
     LAUNCHES["ssd"] += 1

@@ -154,6 +154,10 @@ SSD_TOL = dict(atol=1e-3, rtol=1e-3)
     (4, 512, 112, 64, 64, 128, False),  # Zamba2's serve path
     (2, 520, 24, 64, 128, 128, False),  # a ragged last chunk
     (2, 40, 3, 8, 4, 16, True),  # an entering state, ragged, dt / 20
+    (1, 300, 3, 40, 72, 100, False),  # Q, P and N off the tiles: zero padding
+    (2, 128, 4, 64, 16, 128, False),  # N 16
+    (2, 130, 4, 64, 4, 128, False),  # N 4 (unaligned rows: element-wise staging)
+    (2, 1, 4, 64, 128, 128, False),  # S 1
 ])
 def test_ssd_kernel_matches_plain(B, S, H, P, N, chunk, init, dtype):
     rng = np.random.default_rng(S + H + N)

@@ -1,6 +1,6 @@
 """The model kernels alone on the card: resources, agreement and times.
 
-    PYTHONPATH=src python tools/model_kernels_chip.py [--skip-times] [--ssd-variants]
+    PYTHONPATH=src python tools/model_kernels_chip.py [--skip-times]
 
 Needs a CUDA device and ``nvcc``. For each model kernel package
 (flash attention, RMSNorm, SSD) it
@@ -8,16 +8,12 @@ Needs a CUDA device and ``nvcc``. For each model kernel package
 1. compiles the package's sources with ``chip_smoke.py``'s ``nvcc`` flags
    plus ``-Xptxas -v`` and prints, for each kernel instantiation, its
    registers, spill stores and loads, and static shared memory, as one
-   JSON line ``{"ptxas": {...}}``;
+   JSON line ``{"ptxas": {...}}`` (and the bf16 SSD kernel's dynamic
+   shared memory at N <= 64 and N <= 128);
 2. runs ``chip_smoke.compare_model_kernels`` (every kernel against its
    plain version, at the serve paths' shapes and the edge cases) and,
    unless ``--skip-times``, ``chip_smoke.time_model_kernels`` (kernel,
    plain and one PyTorch call, with the bound), printing their phase lines.
-
-With ``--ssd-variants`` it also runs the bf16 SSD kernel at each (chunks
-staged at once, warpgroups per CTA) it is built for, against the plain
-version and then timed at both serve paths' shapes, as one
-``{"ssd_variants": ...}`` line.
 
 It is the quick check of a model-kernel change; ``chip_smoke.py`` runs the
 same two phases inside the whole run.
@@ -85,45 +81,6 @@ def ptxas_report(lib):
     return out
 
 
-SSD_VARIANTS = ((1, 1), (2, 1), (1, 2), (2, 2))  # (stages, warpgroups)
-
-
-def ssd_variants(dev):
-    """Each (stages, warpgroups) of the bf16 SSD kernel: max error
-    against the plain version (path shapes, a ragged tail with an entering
-    state) and device time at both path shapes."""
-    import numpy as np
-    import torch
-
-    import chip_smoke as CS
-    from repro_torch.kernels.ssd import ssd as SK
-    from repro_torch.kernels.ssd.ref import ssd_chunked_ref
-
-    lib = SK.LIBRARY.load()
-    rng = np.random.default_rng(18)
-    shapes = {"mamba2": (4, 512, 24, 64, 128, False), "zamba2": (4, 512, 112, 64, 64, False),
-              "ragged_init": (2, 520, 24, 64, 128, True)}
-    inputs = {k: CS.ssd_inputs(rng, B, S, H, P, N, torch.bfloat16, dev, init)
-              for k, (B, S, H, P, N, init) in shapes.items()}
-    out = {}
-    for stages, wgs in SSD_VARIANTS:
-        row = {}
-        for key, (x, dt, Bv, Cv, A_log, D, s0) in inputs.items():
-            y, st = SK._launch(lib, x, dt, Bv, Cv, A_log, D, 128, s0, 0, stages, wgs)
-            torch.cuda.synchronize()
-            want_y, want_s = ssd_chunked_ref(x, dt, A_log, Bv, Cv, D, 128, s0)
-            ey, oky = CS.close_err(y, want_y, CS.SSD_TOL)
-            es, oks = CS.close_err(st, want_s, CS.SSD_TOL)
-            row[key + "_err"] = [ey, es]
-            CS.check(oky and oks, f"SSD variant {stages}, {wgs} disagrees ({key}): {ey}, {es}")
-            if key != "ragged_init":
-                row[key + "_ms"] = CS.graph_ms(
-                    lambda: SK._launch(lib, x, dt, Bv, Cv, A_log, D, 128, s0, 0, stages, wgs),
-                    reps=20)
-        out[f"stages{stages}_wg{wgs}"] = row
-    print(json.dumps({"ssd_variants": out}))
-
-
 def main() -> int:
     import torch
 
@@ -139,12 +96,13 @@ def main() -> int:
     libs = (FK.LIBRARY, RK.LIBRARY, SK.LIBRARY)
     with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc per source, together
         reports = {lib.name: r for lib, r in zip(libs, pool.map(ptxas_report, libs))}
+    # the bf16 SSD kernel's shared memory is dynamic: its size by state width
+    reports["ssd"]["bf16_dynamic_smem"] = {
+        f"N<={n}": SK.LIBRARY.load().ssd_tc_smem_bytes(n) for n in (64, 128)}
     print(json.dumps({"ptxas": reports}))
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     CS.compare_model_kernels(dev)
-    if "--ssd-variants" in sys.argv:
-        ssd_variants(dev)
     if "--skip-times" not in sys.argv:
         CS.time_model_kernels(dev)
     smi = subprocess.run(
