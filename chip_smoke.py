@@ -60,7 +60,8 @@ checks what comes out:
    and bf16; the SSD kernel (y and final state) at
    the sweep shapes in float32 and bf16, the Mamba-2 (H=24, P=64, N=128)
    and Zamba2 (H=112, N=64) path shapes (B=4, S=512, Q=128, bf16), a ragged
-   S=520 and an entering state; inputs untouched. Card against CPU (one
+   S=520, an entering state, and in bf16 Q=100, P=40, N=72 (off the
+   tensor-core kernel's tiles), N = 16 and 4, and S = 1; inputs untouched. Card against CPU (one
    prompt, 4 greedy steps: logits within ``LOGIT_TOL``, tokens equal where
    the CPU's top-2 margin exceeds it): Phi-4-mini at full width and 2
    layers (400 tokens), Mamba-2-130m at full width and depth (512 tokens),
@@ -841,7 +842,9 @@ ATTN_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (3e-2, 3e-2)}
 RMS_TOL = {"float32": (2e-5, 1e-5), "bfloat16": (3e-2, 3e-2)}
 # SSD kernel vs plain: y and the final state are float32 for either input
 # dtype, so both take the float32 tolerance of tests/test_kernels.py's SSD
-# sweep (sums of up to Q * N products in another order, over up to 5 chunks)
+# sweep (sums of up to Q * N products in another order, over up to 5 chunks;
+# in bf16 the tensor-core kernel's float32 operands go in as two bf16 terms,
+# ~16 bits each: tests/test_torch_ssd_tensorcore_numerics.py)
 SSD_TOL = (1e-3, 1e-3)
 # card vs CPU logits, both bf16: the two sides round bf16 at other places
 # (cuBLAS vs the CPU's matrix products, the kernels vs the plain versions), a
@@ -2014,8 +2017,8 @@ def main() -> int:
         ("rmsnorm_kernel", "rmsnorm", "rmsnorm", 16,
          ("serve_phi4_mini", "serve_mamba2_130m", "serve_zamba2_7b")),
         ("rmsnorm_residual_kernel", "rmsnorm_residual", "rmsnorm", 24, ()),
-        ("ssd_kernel", "ssd", "ssd", 21, ("serve_mamba2_130m",)),
-        ("ssd_kernel[zamba2]", "ssd_zamba2", "ssd", 21, ("serve_zamba2_7b",)),
+        ("ssd_tc_kernel", "ssd", "ssd", 21, ("serve_mamba2_130m",)),
+        ("ssd_tc_kernel[zamba2]", "ssd_zamba2", "ssd", 21, ("serve_zamba2_7b",)),
     )
     for name, key, pkg, line, paths in model_rows:
         t = model_times[key]

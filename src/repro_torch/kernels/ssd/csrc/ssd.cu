@@ -22,7 +22,8 @@
 // (B=4, S=512, H=24, P=64, N=128) moves ~23 MB, Zamba2 (H=112, N=64) ~97
 // MB, most of it y in float32; the products at the bf16 peak take a
 // fraction of that time. Measured (tools/model_kernels_chip.py, H100 80GB
-// HBM3, 700 W): 0.028 ms for Mamba-2 and 0.082 ms for Zamba2. Design:
+// HBM3, 700 W): 0.030 ms for Mamba-2 and 0.083 ms for Zamba2, 4.3x and 2.9x
+// the bound. Design:
 // * precision: x, B and C are bf16, so C.B^T and every product with x as
 //   one operand are exact. The three operands made in float32 (the masked
 //   decay matrix M, the entering state S_prev, the weighted x w of the
@@ -35,7 +36,7 @@
 //   waves). A chunk's C, B and x [128 rows] are staged by `cp.async` in the
 //   128-byte-swizzled layout the wgmma descriptors read, zero past S, Q, N
 //   and P, two stages deep: the next chunk's copies run under this chunk's
-//   products (200 KB of shared memory at N = 128, 115 KB at N = 64);
+//   products (195 KB of shared memory at N = 128, 115 KB at N = 64);
 // * two warpgroups split each chunk. The first keeps the state: S =
 //   exp(cs_Q) S_prev + (x w)^T B, its A operand x read transposed by
 //   ldmatrix and weighted by w_j = exp(cs_Q - cs_j) dt_j in registers, B
@@ -51,9 +52,9 @@
 //   group pairs independent products (the state update with a C.B^T
 //   block, M x with the next block's C.B^T or with C S_prev);
 // * y is written once, as float2 per thread, and the final state once.
-// Route: `mma.sync` with `ldmatrix` came first (0.065 / 0.146 ms at its
-// best); every warp re-read its operands from shared memory and stalled on
-// each product's result, and `wgmma` read them once per warpgroup.
+// Route: `wgmma`. `mma.sync` with `ldmatrix` measured 0.065 / 0.146 ms at
+// its best: each warp re-read its operands from shared memory and stalled
+// on each product's result, where `wgmma` reads them once per warpgroup.
 //
 // float32: `ssd_kernel`, scalar float32 FMAs out of shared memory (the
 // tensor cores would round to TF32, outside the float32 tolerance). One CTA
@@ -291,10 +292,10 @@ int launch_scalar(int PT, const float* x, const float* dt, const float* Bv, cons
 namespace tc {
 
 using bf16 = __nv_bfloat16;
-constexpr int WG = 128;           // threads of a warpgroup
+constexpr int WG = 128;          // threads of a warpgroup
 constexpr int THREADS = 2 * WG;  // two warpgroups
-constexpr int ROWS = 128;     // chunk rows staged (Q <= 128, zero past Q)
-constexpr int PT = 64;        // P columns per CTA
+constexpr int ROWS = 128;        // chunk rows staged (Q <= 128, zero past Q)
+constexpr int PT = 64;           // P columns per CTA
 constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {

@@ -14,7 +14,10 @@ tensor-core attention kernel also rounds P to bf16 before ``P V``, which
 on the CPU). The SSD
 kernel's y and final state are float32 whatever x's dtype, so both dtypes
 take the float32 tolerance of the ``test_ssd_sweep`` (atol / rtol 1e-3:
-sums of up to Q * N products in another order, over up to five chunks).
+sums of up to Q * N products in another order, over up to five chunks; in
+bf16 the tensor-core kernel's float32 operands go in as two bf16 terms,
+which ``test_torch_ssd_tensorcore_numerics.py`` holds to the same
+tolerance on the CPU).
 """
 import numpy as np
 import pytest
