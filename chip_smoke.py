@@ -17,7 +17,9 @@ checks what comes out:
    consistent snapshots at 8x4 (R=32) and 32x32 (R=1024), depths 2 and 4;
    the same at ``n_vcs=2`` on the 8x4 and 32x32 tori and Occamy (28
    slots); the fused window (N = 1, 4, 16; V = 1, 2) against N plain
-   cycles with random circular egress queues;
+   cycles with random circular egress queues, on the 8x4 and 32x32 fabrics,
+   a 23x19 mesh whose routers split unevenly over an 8-CTA cluster, and a
+   48x48 torus too large for a 16-CTA cluster (the global-memory kernel);
 3. the paper's 8x4 compute mesh: the GPU state after 1200 cycles equal,
    leaf for leaf, to the same run on the CPU; Fig. 7 (22 / 26 / 58
    cycles); the golden stat pins of the 4x2 mesh;
@@ -36,7 +38,10 @@ checks what comes out:
 8. the 32x32 torus at ``n_vcs=2``, one cycle per step and at
    ``fused_cycles=4`` (200 cycles each): GPU state equal to CPU state, ms
    per cycle, peak device memory; VC and fused kernel times against their
-   plain versions and bounds;
+   plain versions and bounds (each fused time with its plan: cluster size,
+   shared memory and threads per CTA, and kernel; the global-memory kernel's
+   time on the same state; and the per-cycle arb + apply pair at the same
+   shape);
 9. in-network collective offload (``collective_offload=True``): the
    offload arb kernel against its plain version on random snapshots with
    random reduction-ALU state (8x4 mesh and torus, 32x32 mesh, Occamy's 28
@@ -281,8 +286,9 @@ def fused_args(state, egress, tables, ep_space, cycle0, N):
 
 
 def compare_fused(snap, egress, tables, cycle0, N):
-    """One launch of the fused kernel against N plain cycles on the card;
-    also checks that the kernel leaves its inputs as they were."""
+    """One launch of the fused window (as the wrapper plans it) against N
+    plain cycles on the card; also checks that the kernel leaves its inputs
+    as they were."""
     import torch
 
     from repro_torch.kernels.noc_router import noc_router as K
@@ -551,10 +557,25 @@ def time_kernels(st, tables, ep_space):
     return out
 
 
-def time_fused(st, eps, tables, ep_space, cycle0, N=4):
+def fused_kernel_name(plan):
+    """The CUDA kernel a fused plan runs."""
+    return ("noc_fused_cluster_kernel" if plan.kernel == "cluster"
+            else "noc_fused_global_kernel")
+
+
+def plan_fields(plan):
+    """A fused plan's fields for a phase line."""
+    return {"kernel": fused_kernel_name(plan), "cluster": plan.cluster,
+            "smem_bytes_per_cta": plan.smem_bytes, "threads": plan.threads,
+            "slots_per_thread": plan.slots_per_thread}
+
+
+def time_fused(st, eps, tables, ep_space, cycle0, pair, N=4):
     """Device time of one fused window of N cycles (the main path's k) on
-    a simulator state, its plain version's, and the bound; per launch and
-    per simulated cycle."""
+    a simulator state, its plan, its plain version's time, the
+    global-memory kernel's time on the same state, and the bound; per launch
+    and per simulated cycle, beside the per-cycle arb + apply pair's time
+    at the same shape (``pair``: ``time_kernels`` of this run)."""
     from repro_torch.kernels.noc_router import noc_router as K
     from repro_torch.kernels.noc_router import ref
 
@@ -562,16 +583,24 @@ def time_fused(st, eps, tables, ep_space, cycle0, N=4):
     egress = {k: getattr(eps, k) for k in EGRESS}
     args = fused_args(state, egress, tables, ep_space, cycle0, N)
     vc = dict(vc_out=tables.vc_out, n_vcs=tables.n_vcs)
+    C, R, P, Din = st.in_buf.shape[:4]
+    plan = K.fused_plan(R, P, Din, st.out_buf.shape[3], tables.n_vcs)
     saved = dict(K.LAUNCHES)
     ms = graph_ms(lambda: K.router_cycles_fused_cuda(*args, **vc), reps=20)
     plain = graph_ms(lambda: ref.router_cycles_scan(*args, **vc), reps=5)
     eager = eager_ms(lambda: K.router_cycles_fused_cuda(*args, **vc), reps=50)
+    global_ms = graph_ms(
+        lambda: K.router_cycles_fused_cuda(*args, **vc, plan=K.global_plan(R)),
+        reps=5)
     K.LAUNCHES.update(saved)
     nbytes = fused_bytes(st, egress, tables, N)
     nops = N * sum(kernel_ops(st).values())
     b_ms, b_by = bound(nbytes, nops)
+    pair_ms = pair["arb"]["ms"] + pair["apply"]["ms"]
     return {"n_cycles": N, "ms": ms, "plain_ms": plain, "eager_ms": eager,
-            "ms_per_cycle": ms / N, "bytes": nbytes, "ops": nops,
+            "ms_per_cycle": ms / N, "per_cycle_pair_ms": pair_ms,
+            "beats_pair": ms / N < pair_ms, "global_kernel_ms": global_ms,
+            **plan_fields(plan), "bytes": nbytes, "ops": nops,
             "bound_ms": b_ms, "bound_by": b_by}
 
 
@@ -1654,21 +1683,28 @@ def main() -> int:
         errs["apply_vc"] = max(errs["apply_vc"], e["apply"], e["cycle"])
 
     # ---- 2c. the fused window against N plain cycles ------------------------
+    # the 8x4 and 32x32 fabrics; a 23x19 mesh split unevenly over 8 CTAs;
+    # a 48x48 torus past a 16-CTA cluster (the global-memory kernel)
     Q = NocParams().egress_depth
-    for nx, ny in ((4, 8), (32, 32)):
-        for V in (1, 2):
-            ftopo = (build_mesh if V == 1 else build_torus)(nx=nx, ny=ny)
-            tables = make_tables(ftopo, n_vcs=V, device=dev)
-            for N in (1, 4, 16):
-                snap = to_device(random_snapshot(rng, tables, 3, 2), dev)
-                egress = to_device(random_egress(rng, 3, ftopo.n_endpoints, Q,
-                                                 1000, N), dev)
-                err = compare_fused(snap, egress, tables, 1000, N)
-                phase("fused_vs_plain", fabric=ftopo.name,
-                      n_vcs=V, n_cycles=N, max_abs_err=err)
-                check(err == 0, f"fused kernel disagrees with plain: {err}")
-                key = K.mode("fused", V)
-                errs[key] = max(errs[key], err)
+    fused_cases = [((build_mesh if V == 1 else build_torus)(nx=nx, ny=ny), V,
+                    (1, 4, 16)) for nx, ny in ((4, 8), (32, 32)) for V in (1, 2)]
+    fused_cases += [(build_mesh(nx=23, ny=19), 1, (1, 4, 16)),
+                    (build_torus(nx=48, ny=48), 2, (1, 4))]
+    for ftopo, V, n_list in fused_cases:
+        tables = make_tables(ftopo, n_vcs=V, device=dev)
+        R, P = tables.port_ep.shape
+        plan = K.fused_plan(R, P, 2, 2, V)
+        for N in n_list:
+            snap = to_device(random_snapshot(rng, tables, 3, 2), dev)
+            egress = to_device(random_egress(rng, 3, ftopo.n_endpoints, Q,
+                                             1000, N), dev)
+            err = compare_fused(snap, egress, tables, 1000, N)
+            phase("fused_vs_plain", fabric=ftopo.name, R=int(R),
+                  n_vcs=V, n_cycles=N, max_abs_err=err, **plan_fields(plan),
+                  ranges=[plan.ranges[0], plan.ranges[-1]])
+            check(err == 0, f"fused kernel disagrees with plain: {err}")
+            key = K.mode("fused", V)
+            errs[key] = max(errs[key], err)
 
     # ---- 2d. the offload arb kernel with random reduction-ALU state --------
     # tables: the in-fabric all-reduce's two groups (one tree, so they share
@@ -1802,9 +1838,11 @@ def main() -> int:
     phase("k1_vs_k4_8x4", order="k1,k4,k4,k1", gpu_ms_per_cycle=turns)
     phase("profile_super_8x4", **device_profile(ssim, sst, ms_super, n=10))
     ones = lambda T: torch.ones((3, T.n_endpoints), dtype=torch.bool, device=dev)
-    fused_8x4 = time_fused(sst.fabric, sst.eps, ssim.tables, ones(topo), 1200)
+    fused_8x4 = time_fused(sst.fabric, sst.eps, ssim.tables, ones(topo), 1200,
+                           timing_8x4)
     phase("kernel_times_fused_8x4", **fused_8x4)
-    fused_32 = time_fused(bst.fabric, bst.eps, bsim.tables, ones(btopo), 200)
+    fused_32 = time_fused(bst.fabric, bst.eps, bsim.tables, ones(btopo), 200,
+                          timing_32)
     phase("kernel_times_fused_32x32", **fused_32)
 
     # ---- 6. the 8x4 torus with dateline VCs, per cycle and in super-steps --
@@ -1845,7 +1883,7 @@ def main() -> int:
           narrow_lat_mean=float(tout["narrow_lat_mean"].mean()))
     phase("profile_torus_8x4", **device_profile(tsim, tst, ms_torus, n=10))
     fused_vc_8x4 = time_fused(tst.fabric, tst.eps, tsim.tables, ones(ttopo),
-                              1200)
+                              1200, vc_8x4)
     phase("kernel_times_fused_vc_8x4", **fused_vc_8x4)
 
     # ---- 7. the 8x1 ring: wedged without VCs, drained with two ------------
@@ -1919,7 +1957,7 @@ def main() -> int:
           peak_device_bytes=gpeak, beats_rcvd=int(gout["beats_rcvd"].sum()))
     phase("profile_32x32_torus", **device_profile(gsim_t, gst_t, ms_gtor, n=5))
     fused_vc_32 = time_fused(gst_t.fabric, gst_t.eps, gsim_t.tables,
-                             ones(gtor), 200)
+                             ones(gtor), 200, vc_32)
     phase("kernel_times_fused_vc_32x32", **fused_vc_32)
 
     # ---- 9. in-network collective offload -----------------------------------
@@ -1978,9 +2016,9 @@ def main() -> int:
         ("apply_vc", "noc_apply_kernel[n_vcs=2]", 172, vc_launches,
          vc_8x4["apply"], vc_32["apply"],
          "8x4 torus, C=3, R=32, P=10 slots, D=2"),
-        ("fused", "noc_fused_kernel", 414, super_launches, fused_8x4,
+        ("fused", fused_8x4["kernel"], 414, super_launches, fused_8x4,
          fused_32, "8x4 mesh, C=3, R=32, P=5, D=2, window N=4"),
-        ("fused_vc", "noc_fused_kernel[n_vcs=2]", 419, torus_launches,
+        ("fused_vc", fused_vc_8x4["kernel"] + "[n_vcs=2]", 419, torus_launches,
          fused_vc_8x4, fused_vc_32,
          "8x4 torus, C=3, R=32, P=10 slots, D=2, window N=4"),
         ("arb_offload", "noc_arb_offload_kernel", 120, ar_launches,
@@ -2000,9 +2038,13 @@ def main() -> int:
             "bound_ms": t8["bound_ms"], "bound_by": t8["bound_by"],
             "library_ms": None, "shape": shape,
             "scale_32x32": None if t32 is None else {
-                "ms": t32["ms"], "plain_ms": t32["plain_ms"],
-                "bound_ms": t32["bound_ms"], "bound_by": t32["bound_by"]},
+                k_: t32[k_] for k_ in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                       "kernel", "cluster") if k_ in t32},
         })
+        if "cluster" in t8:  # the fused rows: the plan, the pair, PR 12's kernel
+            kernels[-1].update({k_: t8[k_] for k_ in (
+                "cluster", "smem_bytes_per_cta", "threads", "per_cycle_pair_ms",
+                "global_kernel_ms")})
     model_src = "src/repro_torch/kernels/{0}/csrc/{0}.cu"
     model_tpu = "src/repro/kernels/{0}/{0}.py:{1}"
     by_path = {path: {k: n for k, n in counts.items() if n}

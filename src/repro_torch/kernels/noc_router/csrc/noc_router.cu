@@ -7,8 +7,11 @@
 //   * noc_apply_kernel <- `_apply_kernel` (its `n_vcs` argument covers
 //                         both); plain version: ref.apply_phase, i.e.
 //                         link_inputs + sent_mask + fused apply_cycle
-//   * noc_fused_kernel <- `_fused_kernel` (V = 1) and `_fused_kernel_vc`
-//                         (V > 1); plain version: ref.router_cycles_scan
+//   * noc_fused_cluster_kernel <- `_fused_kernel` (V = 1) and
+//                         `_fused_kernel_vc` (V > 1); plain version:
+//                         ref.router_cycles_scan. noc_fused_global_kernel
+//                         runs the same window for a channel whose state
+//                         does not fit a 16-CTA cluster's shared memory.
 //   * noc_arb_offload_kernel <- `_arb_kernel_offload` (any V); plain
 //                         version: ref.offload_decisions (multicast fork,
 //                         reduction ALU, emission pre-emption). Its merged
@@ -20,19 +23,35 @@
 // arb -> link barrier: link acceptance depends on the *downstream*
 // router's post-pop input space, so every router's `in_space` must be
 // visible fabric-wide before any link decision. The per-cycle path makes
-// each phase its own launch, which works at any mesh size. The fused
-// window runs N cycles in one launch with one CTA per channel (the Pallas
-// grid is (C,) too): the block's threads stride over the routers and
-// slots, `__syncthreads()` is the barrier, and the state stays in global
-// memory (at 32x32 `in_buf` alone is 287 KB per channel, over the 227 KB
-// a block can hold in shared memory), ping-ponging between the output
-// buffers and a scratch set so that no phase reads what it writes.
+// each phase its own launch, which works at any mesh size.
+//
+// The fused window runs N cycles in one launch. Like the Pallas kernel,
+// which keeps a channel's carry in VMEM across its loop, it keeps the
+// channel's fabric state on chip for the whole window: one thread-block
+// cluster per channel, each CTA owning a contiguous range of routers whose
+// state sits in its shared memory (loaded once with cp.async, written back
+// once). A warp holds whole routers, one lane per slot, so arbitration's
+// request exchange and pop masks are warp shuffles and the per-router
+// phases need only `__syncwarp()`. The apply phase reads other routers'
+// output heads and counts and post-pop input space, possibly in another
+// CTA, through distributed shared memory (`mapa` + `ld.shared::cluster`);
+// one cluster barrier per cycle separates arbitration from those reads.
+// The output side, which other routers read, ping-pongs between two
+// copies; the input side, read only by its own router's warp, updates in
+// place after the warp has read its operands. (One copy of both sides,
+// updated in place behind a second cluster barrier per cycle, measured
+// slower; PERF.md.) `fused_plan` in noc_router.py sizes the cluster
+// (1-16 CTAs) from the shared memory a CTA needs; a channel too large for
+// 16 CTAs runs noc_fused_global_kernel: one CTA per channel, state in
+// global memory, ping-ponging between the outputs and a scratch set.
 //
 // Bound on an H100. All kernels do a few integer operations per byte, so
 // bytes bound them: at a 32x32 mesh the apply phase reads and rewrites
 // both FIFO buffers, about 3.4 MB per cycle, ~1 us at 3.35 TB/s. The
-// per-cycle kernels are launch-latency bound at these sizes; the fused
-// kernel keeps only C SMs busy. Making them fast is later work.
+// per-cycle kernels are launch-latency bound at these sizes. The fused
+// window reads and writes the state once, so its bytes are a small floor;
+// what sets its time is the cluster barrier and the dependent shared and
+// L2 loads (the route lookup) of each cycle.
 //
 // Layouts (all int32 unless noted, C-contiguous; P counts slots, P = Pp*V):
 //   in_buf  [C, R, P, Din, NF]   out_buf [C, R, P, Dout, NF]
@@ -484,9 +503,9 @@ __global__ void noc_arb_offload_kernel(
                      G);
 }
 
-// Operands of the fused window. `*0` are the inputs (never written); the
-// ten state outputs double as one half of the ping-pong pair, `s_*` is the
-// other half; `arb_*` is the per-cycle arbitration scratch.
+// Operands of the global-memory fused window. `*0` are the inputs (never
+// written); the ten state outputs double as one half of the ping-pong pair,
+// `s_*` is the other half; `arb_*` is the per-cycle arbitration scratch.
 struct FusedArgs {
   const int *in_buf0, *in_cnt0, *out_buf0, *out_cnt0, *rr0, *wh0;
   const int *eg0, *eg_ready0, *eg_head0, *eg_cnt0;
@@ -507,12 +526,13 @@ static_assert(offsetof(FusedArgs, R) == kFusedPtrs * sizeof(void*),
 
 static const int kFusedThreads = 512;
 
-// N fabric cycles of one channel (blockIdx.x), each ref.fused_cycle_body:
-// deliveries and req_waiting from the cycle-start snapshot, arbitration,
-// apply into the other half of the ping-pong pair, then egress injection
-// (skipped on the window's last cycle). Cycle i writes the outputs when
-// N - 1 - i is even, so the last cycle lands in them.
-__global__ void __launch_bounds__(kFusedThreads) noc_fused_kernel(FusedArgs a) {
+// N fabric cycles of one channel (blockIdx.x), each ref.fused_cycle_body,
+// with the state in global memory (for a channel too large for a cluster's
+// shared memory): deliveries and req_waiting from the cycle-start snapshot,
+// arbitration, apply into the other half of the ping-pong pair, then egress
+// injection (skipped on the window's last cycle). Cycle i writes the
+// outputs when N - 1 - i is even, so the last cycle lands in them.
+__global__ void __launch_bounds__(kFusedThreads) noc_fused_global_kernel(FusedArgs a) {
   const int c = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
   const int R = a.R, P = a.P, E = a.E, Q = a.Q, N = a.N;
   const int Din = a.Din, Dout = a.Dout, V = a.V;
@@ -590,6 +610,550 @@ __global__ void __launch_bounds__(kFusedThreads) noc_fused_kernel(FusedArgs a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// The fused window on a thread-block cluster (one cluster per channel).
+
+#define FULL_MASK 0xffffffffu
+#define NO_LINK 0xffffffffu  // a slot's remote address where it has no link
+
+// Operands of the cluster window: the inputs (`*0`, never written), the
+// shared tables, the ten state outputs and the per-cycle endpoint outputs.
+// Each CTA owns routers [rank * Rc, min(R, (rank + 1) * Rc)); each warp
+// lane is one slot of a router, a warp holding 32 / P routers, K router
+// groups per warp.
+struct ClusterArgs {
+  const int *in_buf0, *in_cnt0, *out_buf0, *out_cnt0, *rr0, *wh0;
+  const int *eg0, *eg_ready0, *eg_head0, *eg_cnt0;
+  const int *route, *vc_out, *link_src, *link_dst, *port_ep, *ep_attach;
+  const bool* ep_space;
+  int *in_buf, *in_cnt, *out_buf, *out_cnt, *rr, *wh;
+  int *eg, *eg_ready, *eg_head, *eg_cnt;
+  int* ep_flit;
+  bool *ep_valid, *req_waiting;
+  int R, P, Din, Dout, E, Q, V, cycle0, N, Rc, K;
+};
+static const int kClusterPtrs = 30;  // pointer members of ClusterArgs
+static_assert(offsetof(ClusterArgs, R) == kClusterPtrs * sizeof(void*),
+              "ClusterArgs: pointers first, then the ints");
+static const int kClusterMaxThreads = 768;  // 24 warps: up to 85 registers
+
+// Byte offsets of a CTA's shared-memory arrays for S = Rc * P slots. Every
+// CTA of a cluster has the same layout, so a slot's offset in its owner's
+// memory is the same expression everywhere. The output side and in_space,
+// which other CTAs read, have two copies (ping-pong). fused_plan
+// (noc_router.py) mirrors this arithmetic; the launcher checks that the
+// two agree.
+struct SmemLayout {
+  size_t in_buf, out_buf, in_cnt, out_cnt, rr, wh, up_cnt, up_head, dn_space,
+      ep_at, egh, egc, egf, egr, vc, dec, in_space, flags, total;
+};
+
+__host__ __device__ inline size_t take16(size_t& at, size_t bytes) {
+  size_t o = at;
+  at += (bytes + 15) / 16 * 16;
+  return o;
+}
+
+__host__ __device__ inline SmemLayout smem_layout(int S, int Din, int Dout,
+                                                  int V, int Pp) {
+  SmemLayout m;
+  const int copies = 2;
+  size_t at = 0, s = (size_t)S;
+  m.in_buf = take16(at, s * Din * NF * 4);
+  m.out_buf = take16(at, copies * s * Dout * NF * 4);
+  m.in_cnt = take16(at, s * 4);
+  m.out_cnt = take16(at, copies * s * 4);
+  m.rr = take16(at, s * 4);
+  m.wh = take16(at, s * 4);
+  // addresses (copy 0) of the upstream slot group's first output count, of
+  // the upstream slot's output head and of the downstream slot group's
+  // first in_space: shared::cta when this CTA owns the router (flags 4 and
+  // 8), else shared::cluster; NO_LINK where the port has no link
+  m.up_cnt = take16(at, s * 4);
+  m.up_head = take16(at, s * 4);
+  m.dn_space = take16(at, s * 4);
+  m.ep_at = take16(at, s * 4);  // the endpoint attached here (ep_attach), or -1
+  m.egh = take16(at, s * 4);    // that endpoint's egress head and count,
+  m.egc = take16(at, s * 4);
+  m.egf = take16(at, s * NF * 4);  // its head entry and ready stamp,
+  m.egr = take16(at, s * 4);       // copied in ahead of their use
+  m.vc = take16(at, V > 1 ? s * Pp * 4 : 0);  // vc_out[r, p, :]
+  m.dec = take16(at, s);        // arbitration: 0x80 granted, 0x40 popped, winner
+  m.in_space = take16(at, copies * s);
+  m.flags = take16(at, s);      // 1: a port_ep endpoint with ep_space, 2: ep_attach's,
+                                // 4: upstream local, 8: downstream local
+  m.total = at;
+  return m;
+}
+
+__device__ __forceinline__ int cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return (int)r;
+}
+
+__device__ __forceinline__ int cluster_ctas() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(r));
+  return (int)r;
+}
+
+// A cluster barrier in two halves: every thread of every CTA arrives
+// (release: its shared and global writes become visible cluster-wide),
+// may do work that reads nothing another CTA writes, then waits (acquire).
+// A one-CTA cluster takes the block barrier at the arrival.
+__device__ __forceinline__ void cluster_arrive(int ctas) {
+  if (ctas == 1) {
+    __syncthreads();
+  } else {
+    __syncwarp();
+    asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+  }
+}
+
+__device__ __forceinline__ void cluster_wait(int ctas) {
+  if (ctas > 1) asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_sync(int ctas) {
+  cluster_arrive(ctas);
+  cluster_wait(ctas);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// The address of the same shared-memory location in CTA `rank`.
+__device__ __forceinline__ uint32_t in_rank(uint32_t addr, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ int ld_cluster(uint32_t addr) {
+  int v;
+  asm volatile("ld.shared::cluster.s32 %0, [%1];" : "=r"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ int ld_cluster_u8(uint32_t addr) {
+  unsigned v;
+  asm volatile("ld.shared::cluster.u8 %0, [%1];" : "=r"(v) : "r"(addr) : "memory");
+  return (int)v;
+}
+
+// A load from this CTA's shared memory (`local`) or another's.
+__device__ __forceinline__ int ld_any(uint32_t addr, bool local) {
+  if (local) {
+    int v;
+    asm volatile("ld.shared.s32 %0, [%1];" : "=r"(v) : "r"(addr) : "memory");
+    return v;
+  }
+  return ld_cluster(addr);
+}
+
+__device__ __forceinline__ int ld_any_u8(uint32_t addr, bool local) {
+  if (local) {
+    unsigned v;
+    asm volatile("ld.shared.u8 %0, [%1];" : "=r"(v) : "r"(addr) : "memory");
+    return (int)v;
+  }
+  return ld_cluster_u8(addr);
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
+               :: "r"(smem_addr(dst)), "l"(__cvta_generic_to_global(src))
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// n ints from src to dst by the block, four loads in flight per thread;
+// 16 bytes at a time where both ends are 16-byte aligned
+__device__ __forceinline__ void copy_ints(int* __restrict__ dst,
+                                          const int* __restrict__ src,
+                                          size_t n, int tid, int nt) {
+  if (((uintptr_t)dst | (uintptr_t)src) % 16 == 0) {
+    const size_t n4 = n / 4;
+    int4* d4 = (int4*)dst;
+    const int4* s4 = (const int4*)src;
+    size_t k = tid;
+    for (; k + 3 * (size_t)nt < n4; k += 4 * (size_t)nt) {
+      const int4 a0 = s4[k], a1 = s4[k + nt], a2 = s4[k + 2 * nt], a3 = s4[k + 3 * nt];
+      d4[k] = a0;
+      d4[k + nt] = a1;
+      d4[k + 2 * nt] = a2;
+      d4[k + 3 * nt] = a3;
+    }
+    for (; k < n4; k += nt) d4[k] = s4[k];
+    for (k = n4 * 4 + tid; k < n; k += nt) dst[k] = src[k];
+    return;
+  }
+  size_t k = tid;
+  for (; k + 3 * (size_t)nt < n; k += 4 * (size_t)nt) {
+    const int a0 = src[k], a1 = src[k + nt], a2 = src[k + 2 * nt], a3 = src[k + 3 * nt];
+    dst[k] = a0;
+    dst[k + nt] = a1;
+    dst[k + 2 * nt] = a2;
+    dst[k + 3 * nt] = a3;
+  }
+  for (; k < n; k += nt) dst[k] = src[k];
+}
+
+__device__ __forceinline__ size_t min_size(size_t a, size_t b) { return a < b ? a : b; }
+
+// The entry `h` of endpoint e's egress queue (flit and ready stamp) into a
+// slot's shared copy, asynchronously: it is waited for one cycle later.
+__device__ __forceinline__ void fetch_egress(int* egf, int* egr,
+                                             const ClusterArgs& a, size_t entry) {
+  for (int f = 0; f < NF; ++f) cp_async4(egf + f, a.eg0 + entry * NF + f);
+  cp_async4(egr, a.eg_ready0 + entry);
+}
+
+// N fabric cycles of channel blockIdx.x / cluster size, each
+// ref.fused_cycle_body, with the channel's state in the cluster's shared
+// memory. Per cycle:
+//  1. arbitration, local to each router's warp: lane p computes input p's
+//     request, then, as output p, the first-min round-robin winner over the
+//     router's requests (shuffled in); the granted winners' bits are OR-ed
+//     across the router's lanes into the pop mask. rr/wh update in place
+//     (only their own lane reads them); in_space goes to the copy other
+//     CTAs read this cycle;
+//  2. cluster barrier, arrival: every router's post-pop in_space is
+//     published. Before the wait each lane reads what its own router holds
+//     (the winner's head, its counts, the own side of both links) and
+//     delivers the attached endpoint's head;
+//  3. after the wait, the upstream output counts and head and the
+//     downstream in_space (through distributed shared memory when the
+//     router is another CTA's); then (after __syncwarp) pop/push the
+//     input FIFO in place, inject the endpoint's ready egress head (not on
+//     the window's last cycle; the next entry is copied in asynchronously),
+//     and pop/push the output FIFO into the other copy.
+// A CTA writes output copy i % 2 ^ 1 in cycle i
+// while others read copy i % 2; it can reach cycle i + 1's writes to copy
+// i % 2 only after the barrier of cycle i + 1, which every CTA reaches
+// after its cycle-i reads. in_space alternates the same way. DIN and DOUT
+// fix the FIFO depths at compile time (0: taken from the arguments).
+template <int DIN, int DOUT>
+__global__ void __launch_bounds__(kClusterMaxThreads, 1)
+    noc_fused_cluster_kernel(ClusterArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int R = a.R, P = a.P, E = a.E, Q = a.Q;
+  const int Din = DIN ? DIN : a.Din, Dout = DOUT ? DOUT : a.Dout;
+  const int V = a.V, N = a.N, Rc = a.Rc, K = a.K;
+  const int ctas = cluster_ctas(), rank = cluster_rank();
+  const int c = blockIdx.x / ctas;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = nt >> 5;
+  const int S = Rc * P, Pp = P / V;
+  const int r0 = rank * Rc;
+  const int nr = max(0, min(R, r0 + Rc) - r0), ns = nr * P;
+  const int fin = Din * NF, fout = Dout * NF;
+  const SmemLayout L = smem_layout(S, Din, Dout, V, Pp);
+  int* s_in = (int*)(smem + L.in_buf);
+  int* s_out = (int*)(smem + L.out_buf);
+  int* s_ic = (int*)(smem + L.in_cnt);
+  int* s_oc = (int*)(smem + L.out_cnt);
+  int* s_rr = (int*)(smem + L.rr);
+  int* s_wh = (int*)(smem + L.wh);
+  uint32_t* s_upc = (uint32_t*)(smem + L.up_cnt);
+  uint32_t* s_uph = (uint32_t*)(smem + L.up_head);
+  uint32_t* s_dns = (uint32_t*)(smem + L.dn_space);
+  int* s_epat = (int*)(smem + L.ep_at);
+  int* s_egh = (int*)(smem + L.egh);
+  int* s_egc = (int*)(smem + L.egc);
+  int* s_egf = (int*)(smem + L.egf);
+  int* s_egr = (int*)(smem + L.egr);
+  int* s_vc = (int*)(smem + L.vc);
+  uint8_t* s_dec = smem + L.dec;
+  uint8_t* s_isp = smem + L.in_space;
+  uint8_t* s_flags = smem + L.flags;
+  const size_t g0 = ((size_t)c * R + r0) * P;  // this CTA's first slot
+  const size_t ce = (size_t)c * E, ceq = ce * Q;
+  // byte strides between the two copies of what other CTAs read
+  const uint32_t cnt_copy = (uint32_t)S * 4, buf_copy = (uint32_t)S * fout * 4;
+
+  // ---- the state in, the tables of each slot ----
+  for (int k = tid; k < ns * fin; k += nt) cp_async4(s_in + k, a.in_buf0 + g0 * fin + k);
+  for (int k = tid; k < ns * fout; k += nt) cp_async4(s_out + k, a.out_buf0 + g0 * fout + k);
+  for (int k = tid; k < ns; k += nt) {
+    cp_async4(s_ic + k, a.in_cnt0 + g0 + k);
+    cp_async4(s_oc + k, a.out_cnt0 + g0 + k);
+    cp_async4(s_rr + k, a.rr0 + g0 + k);
+    cp_async4(s_wh + k, a.wh0 + g0 + k);
+  }
+  if (V > 1)
+    for (int k = tid; k < ns * Pp; k += nt) cp_async4(s_vc + k, a.vc_out + (size_t)r0 * P * Pp + k);
+  for (int t = tid; t < ns; t += nt) {
+    const int r = r0 + t / P, p = t % P, v = p % V;
+    const size_t lp = ((size_t)r * Pp + p / V) * 2;
+    // clamped into range as the reference gathers; a missing link is -1
+    const int src_r = a.link_src[lp], src_p = a.link_src[lp + 1];
+    const int dst_r = a.link_dst[lp], dst_p = a.link_dst[lp + 1];
+    const int pe = a.port_ep[(size_t)r * P + p];
+    int fl = 0, e = -1;
+    if (pe >= 0) {
+      // port_ep is ep_attach's inverse (attach slots are unique): the
+      // endpoint of this port is served by this slot's lane if it attaches
+      // here; its egress head entry comes in asynchronously
+      const int pc = min(pe, E - 1);
+      const int ar = a.ep_attach[pc * 2], ap = a.ep_attach[pc * 2 + 1];
+      const int h = a.eg_head0[ce + pc], cq = a.eg_cnt0[ce + pc];
+      const bool ep_ok = a.ep_space[ce + pc];
+      fl = ep_ok ? 1 : 0;
+      if (pe < E && ar == r && ap == p) {
+        e = pe;
+        fl |= ep_ok ? 2 : 0;
+        s_egh[t] = h;
+        s_egc[t] = cq;
+        fetch_egress(s_egf + t * NF, s_egr + t, a, ceq + (size_t)e * Q + h);
+      }
+    }
+    s_upc[t] = s_uph[t] = s_dns[t] = NO_LINK;
+    if (src_r >= 0) {
+      const int up = clampi(src_r, 0, R - 1) * P + clampi(src_p, 0, Pp - 1) * V;
+      const int ru = up / S, lu = up - ru * S;
+      const uint32_t cnt = smem_addr(s_oc + lu);
+      const uint32_t head = smem_addr(s_out + (size_t)(lu + v) * fout);
+      s_upc[t] = ru == rank ? cnt : in_rank(cnt, ru);
+      s_uph[t] = ru == rank ? head : in_rank(head, ru);
+      fl |= ru == rank ? 4 : 0;
+    }
+    if (dst_r >= 0) {
+      const int dn = clampi(dst_r, 0, R - 1) * P + clampi(dst_p, 0, Pp - 1) * V;
+      const int rd = dn / S;
+      const uint32_t space = smem_addr(s_isp + (dn - rd * S));
+      s_dns[t] = rd == rank ? space : in_rank(space, rd);
+      fl |= rd == rank ? 8 : 0;
+    }
+    s_epat[t] = e;
+    s_flags[t] = (uint8_t)fl;
+  }
+  // the egress queues pass through, split over the cluster; the attached
+  // endpoints' heads and counts are written again by their lanes at the end
+  // (after the last cluster barrier, so those writes land last)
+  {
+    const size_t n = (size_t)E * Q, chunk = ((n + ctas - 1) / ctas + 3) / 4 * 4;
+    const size_t lo = min_size((size_t)rank * chunk, n), hi = min_size(lo + chunk, n);
+    copy_ints(a.eg + (ceq + lo) * NF, a.eg0 + (ceq + lo) * NF, (hi - lo) * NF, tid, nt);
+    copy_ints(a.eg_ready + ceq + lo, a.eg_ready0 + ceq + lo, hi - lo, tid, nt);
+    const int echunk = (E + ctas - 1) / ctas;
+    for (int e = rank * echunk + tid; e < min(E, (rank + 1) * echunk); e += nt) {
+      const int h = a.eg_head0[ce + e], cq = a.eg_cnt0[ce + e];
+      a.eg_head[ce + e] = h;
+      a.eg_cnt[ce + e] = cq;
+    }
+  }
+  cp_async_wait_all();
+  cluster_sync(ctas);  // every CTA's state is in before any remote read
+
+  const int rpw = 32 / P;  // routers per warp
+  const int sub = lane / P, p = lane % P, v = p % V, base = sub * P;
+  const int gofs = (p / V) * V;  // my router's first slot of port p / V
+  int cur = 0;  // the output copy holding the cycle-start snapshot
+  for (int i = 0; i < N; ++i) {
+    const int par = i & 1;
+    const int* oc = s_oc + cur * S;
+    const int* ob = s_out + (size_t)cur * S * fout;
+    uint8_t* isp = s_isp + par * S;
+
+    // ---- 1. arbitration (this router's lanes only) ----
+    for (int k = 0; k < K; ++k) {
+      const int lr = (k * nwarps + warp) * rpw + sub;
+      const bool live = sub < rpw && lr < nr;
+      const int t = lr * P + p;
+      int req = -1, cnt = 0, lock = -1, ptr = 0, q = 0;
+      bool space = false;
+      if (live) {
+        const int r = r0 + lr;
+        cnt = s_ic[t];
+        // Dead heads (count 0) hold stale contents and request nothing; a
+        // destination past the table reads JAX's INT_MIN gather fill.
+        const int dst = max(s_in[t * fin + F_DST], 0);
+        int port = dst < E ? __ldg(a.route + (size_t)r * E + dst) : INT_MIN;
+        if (V > 1) {
+          const int vout = s_vc[t * Pp + clampi(port, 0, Pp - 1)];
+          port = (int)((uint32_t)port * (uint32_t)V + (uint32_t)vout);
+        }
+        req = cnt > 0 ? port : -1;
+        lock = s_wh[t];
+        ptr = s_rr[t];
+        q = floor_mod(-ptr, P);  // score of input pin: (pin - ptr) mod P
+        space = oc[t] < Dout;
+      }
+      int best = 0, winner = 0;
+      for (int pin = 0; pin < P; ++pin) {
+        const int rq = __shfl_sync(FULL_MASK, req, (base + pin) & 31);
+        const bool elig = rq == p && (lock < 0 || lock == pin) && space;
+        const int s = pin + q >= P ? pin + q - P : pin + q;
+        const int score = elig ? s : P + 1;
+        if (pin == 0 || score < best) {  // first minimum, as the reference
+          best = score;
+          winner = pin;
+        }
+      }
+      const bool g = live && best <= P;
+      const unsigned bit = g ? 1u << winner : 0u;
+      unsigned pops = 0;
+      for (int j = 0; j < P; ++j) pops |= __shfl_sync(FULL_MASK, bit, (base + j) & 31);
+      if (live) {
+        const bool tail = s_in[(lr * P + winner) * fin + F_LAST] > 0;
+        s_rr[t] = g ? (winner + 1 == P ? 0 : winner + 1) : ptr;
+        s_wh[t] = g ? (tail ? -1 : winner) : lock;
+        const bool pop = (pops >> p) & 1u;
+        s_dec[t] = (uint8_t)((g ? 0x80 : 0) | (pop ? 0x40 : 0) | winner);
+        isp[t] = (cnt - (pop ? 1 : 0)) < Din;
+      }
+    }
+    cluster_arrive(ctas);
+
+    // ---- 2. link resolution and FIFO updates ----
+    const int nxt = cur ^ 1;
+    int* noc = s_oc + nxt * S;
+    int* nob = s_out + (size_t)nxt * S * fout;
+    for (int k = 0; k < K; ++k) {
+      const int lr = (k * nwarps + warp) * rpw + sub;
+      const bool live = sub < rpw && lr < nr;
+      const int t = lr * P + p;
+      const int gb = lr * P + gofs;
+      bool accept = false, sent = false;
+      int flit[NF], chosen[NF];
+      int icnt = 0, ocnt = 0, dec = 0, e = -1, fl = 0;
+      unsigned in_ok = 0, out_ok = 0;  // by VC u <= v: my input space, my output valid
+      if (live) {
+        icnt = s_ic[t];
+        ocnt = oc[t];
+        dec = s_dec[t];
+        fl = s_flags[t];
+        for (int u = 0; u <= v; ++u) {
+          in_ok |= (isp[gb + u] ? 1u : 0u) << u;
+          out_ok |= (oc[gb + u] > 0 ? 1u : 0u) << u;
+        }
+        if ((fl & 1) && ocnt > 0) sent = true;  // to the endpoint
+        // `chosen` is the winner's head (stale when nothing was granted)
+        const int* wh_head = s_in + (lr * P + (dec & 31)) * fin;
+#pragma unroll
+        for (int f = 0; f < NF; ++f) chosen[f] = wh_head[f];
+        e = s_epat[t];
+        if (e >= 0) {  // deliveries and req_waiting: the cycle-start snapshot
+          const size_t o = ((size_t)c * N + i) * E + e;
+#pragma unroll
+          for (int f = 0; f < NF; ++f) a.ep_flit[o * NF + f] = ob[(size_t)t * fout + f];
+          a.ep_valid[o] = ocnt > 0 && (fl & 2);
+          a.req_waiting[o] = ocnt > 0;
+        }
+      }
+      if (k == 0) cluster_wait(ctas);
+      if (live) {
+        // the wire from upstream: VC u is eligible when the upstream head on
+        // u is valid and my input u has space; the lowest eligible VC wins
+        const uint32_t upc = s_upc[t];
+        if (upc != NO_LINK) {
+          for (int u = 0; u <= v; ++u) {
+            if (((in_ok >> u) & 1u) && ld_any(upc + cur * cnt_copy + 4 * u, fl & 4) > 0) {
+              accept = u == v;
+              break;
+            }
+          }
+          if (accept) {
+            const uint32_t head = s_uph[t] + cur * buf_copy;
+#pragma unroll
+            for (int f = 0; f < NF; ++f) flit[f] = ld_any(head + 4 * f, fl & 4);
+          }
+        }
+        // the wire downstream, decided from my side with the same snapshot
+        const uint32_t dns = s_dns[t];
+        if (dns != NO_LINK) {
+          for (int u = 0; u <= v; ++u) {
+            if (((out_ok >> u) & 1u) && ld_any_u8(dns + par * S + u, fl & 8)) {
+              sent = sent || u == v;
+              break;
+            }
+          }
+        }
+      }
+      __syncwarp();  // the router's lanes have read each other's heads
+      if (live) {
+        // input FIFO in place: slot d takes slot min(d + pop, D - 1) unless
+        // it is the push target (ascending d reads only slots not yet written)
+        int* ib = s_in + t * fin;
+        const bool pop_in = dec & 0x40;
+        const int c1 = icnt - (pop_in ? 1 : 0), tail = clampi(c1, 0, Din - 1);
+#pragma unroll
+        for (int d = 0; d < Din; ++d) {
+          if (accept && d == tail) {
+#pragma unroll
+            for (int f = 0; f < NF; ++f) ib[d * NF + f] = flit[f];
+          } else if (pop_in) {
+            const int sd = min(d + 1, Din - 1);
+#pragma unroll
+            for (int f = 0; f < NF; ++f) ib[d * NF + f] = ib[sd * NF + f];
+          }
+        }
+        int nic = c1 + (accept ? 1 : 0);
+        // egress injection: the endpoint's ready head onto its attach slot
+        if (e >= 0 && i < N - 1) {
+          cp_async_wait_all();  // the head entry fetched when it became head
+          const int h = s_egh[t], cq = s_egc[t];
+          const bool want = cq > 0 && s_egr[t] <= a.cycle0 + i;
+          if (want && nic < Din) {
+#pragma unroll
+            for (int f = 0; f < NF; ++f) ib[nic * NF + f] = s_egf[t * NF + f];
+            nic += 1;
+            const int h1 = h + 1 == Q ? 0 : h + 1;
+            s_egh[t] = h1;
+            s_egc[t] = cq - 1;
+            fetch_egress(s_egf + t * NF, s_egr + t, a, ceq + (size_t)e * Q + h1);
+          }
+        }
+        s_ic[t] = nic;
+        // output FIFO into the other copy
+        const bool grant = dec & 0x80;
+        const int* o0 = ob + (size_t)t * fout;
+        int* o1 = nob + (size_t)t * fout;
+        const int c2 = ocnt - (sent ? 1 : 0), otail = clampi(c2, 0, Dout - 1);
+#pragma unroll
+        for (int d = 0; d < Dout; ++d) {
+          if (grant && d == otail) {
+#pragma unroll
+            for (int f = 0; f < NF; ++f) o1[d * NF + f] = chosen[f];
+          } else {
+            const int sd = min(d + (sent ? 1 : 0), Dout - 1);
+#pragma unroll
+            for (int f = 0; f < NF; ++f) o1[d * NF + f] = o0[sd * NF + f];
+          }
+        }
+        noc[t] = c2 + (grant ? 1 : 0);
+      }
+    }
+    cur = nxt;
+    __syncwarp();  // the next arbitration reads the router's other slots
+  }
+
+  // no CTA leaves while another may read its memory; then the state out
+  cluster_sync(ctas);
+  const int* ob = s_out + (size_t)cur * S * fout;
+  copy_ints(a.in_buf + g0 * fin, s_in, (size_t)ns * fin, tid, nt);
+  copy_ints(a.out_buf + g0 * fout, ob, (size_t)ns * fout, tid, nt);
+  copy_ints(a.in_cnt + g0, s_ic, ns, tid, nt);
+  copy_ints(a.out_cnt + g0, s_oc + cur * S, ns, tid, nt);
+  copy_ints(a.rr + g0, s_rr, ns, tid, nt);
+  copy_ints(a.wh + g0, s_wh, ns, tid, nt);
+  for (int k = tid; k < ns; k += nt) {
+    const int e = s_epat[k];
+    if (e >= 0) {
+      a.eg_head[ce + e] = s_egh[k];
+      a.eg_cnt[ce + e] = s_egc[k];
+    }
+  }
+  cp_async_wait_all();  // no copy into shared memory outlives the block
+}
+
 static const int kThreads = 128;
 
 extern "C" int noc_arb_launch(
@@ -648,14 +1212,98 @@ extern "C" int noc_arb_offload_launch(void* const* ptrs, const int* dims,
 
 // `ptrs` holds the kFusedPtrs pointers of FusedArgs in declaration order,
 // `dims` (C, R, P, Din, Dout, E, Q, V, cycle0, N).
-extern "C" int noc_fused_launch(void* const* ptrs, const int* dims,
-                                void* stream) {
+extern "C" int noc_fused_global_launch(void* const* ptrs, const int* dims,
+                                       void* stream) {
   FusedArgs a;
   memcpy(&a, ptrs, kFusedPtrs * sizeof(void*));
   int C = dims[0];
   a.R = dims[1]; a.P = dims[2]; a.Din = dims[3]; a.Dout = dims[4];
   a.E = dims[5]; a.Q = dims[6]; a.V = dims[7]; a.cycle0 = dims[8];
   a.N = dims[9];
-  noc_fused_kernel<<<C, kFusedThreads, 0, (cudaStream_t)stream>>>(a);
+  noc_fused_global_kernel<<<C, kFusedThreads, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The plan of a cluster launch: `dims` (C, R, P, Din, Dout, E, Q, V, cycle0,
+// N, cluster, Rc, threads, K, smem). Errors of the plan itself are
+// returned as 1000 + a reason.
+enum { kPlanSmem = 1001, kPlanShape = 1002 };
+
+static int check_plan(const int* d) {
+  const int R = d[1], P = d[2], Din = d[3], Dout = d[4], V = d[7];
+  const int cl = d[10], Rc = d[11], threads = d[12], K = d[13];
+  if (cl < 1 || cl > 16 || Rc < 1 || (long)cl * Rc < R || P < 1 || P > MAX_P ||
+      V < 1 || P % V || threads < 32 || threads > kClusterMaxThreads ||
+      threads % 32 || K < 1)
+    return kPlanShape;
+  const int groups = (Rc + 32 / P - 1) / (32 / P);  // router groups of a warp
+  if ((long)(threads / 32) * K < groups) return kPlanShape;
+  if (smem_layout(Rc * P, Din, Dout, V, P / V).total != (size_t)d[14]) return kPlanSmem;
+  return 0;
+}
+
+// The kernel of a plan: depths of 2 (every configuration's default) fixed
+// at compile time, or any depths.
+typedef void (*ClusterKernel)(ClusterArgs);
+static int kernel_index(const int* d) { return d[3] == 2 && d[4] == 2 ? 1 : 0; }
+static const ClusterKernel kClusterKernels[2] = {noc_fused_cluster_kernel<0, 0>,
+                                                 noc_fused_cluster_kernel<2, 2>};
+
+static void cluster_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
+                           const int* d, void* stream) {
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3((unsigned)(d[0] * d[10]));
+  cfg->blockDim = dim3((unsigned)d[12]);
+  cfg->dynamicSmemBytes = (size_t)d[14];
+  cfg->stream = (cudaStream_t)stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = (unsigned)d[10];
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+}
+
+// Allow the plan's shared memory (never lowering what an earlier plan was
+// allowed) and cluster size, then ask how many of its clusters the card can
+// place at once (`*clusters`; 0: none).
+extern "C" int noc_fused_cluster_prepare(const int* dims, int* clusters) {
+  static int allowed[2] = {0, 0};
+  int err = check_plan(dims);
+  if (err) return err;
+  const int ki = kernel_index(dims), smem = dims[14];
+  const void* fn = (const void*)kClusterKernels[ki];
+  if (smem > allowed[ki]) {
+    err = (int)cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err) return err;
+    allowed[ki] = smem;
+  }
+  if (dims[10] > 8) {
+    err = (int)cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err) return err;
+  }
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cluster_config(&cfg, &attr, dims, nullptr);
+  return (int)cudaOccupancyMaxActiveClusters(clusters, fn, &cfg);
+}
+
+// `ptrs` holds the kClusterPtrs pointers of ClusterArgs in declaration
+// order; `dims` as for noc_fused_cluster_prepare, which must have accepted
+// the plan first.
+extern "C" int noc_fused_cluster_launch(void* const* ptrs, const int* dims,
+                                        void* stream) {
+  int err = check_plan(dims);
+  if (err) return err;
+  ClusterArgs a;
+  memcpy(&a, ptrs, kClusterPtrs * sizeof(void*));
+  a.R = dims[1]; a.P = dims[2]; a.Din = dims[3]; a.Dout = dims[4];
+  a.E = dims[5]; a.Q = dims[6]; a.V = dims[7]; a.cycle0 = dims[8];
+  a.N = dims[9]; a.Rc = dims[11]; a.K = dims[13];
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cluster_config(&cfg, &attr, dims, stream);
+  cudaError_t e = cudaLaunchKernelEx(&cfg, kClusterKernels[kernel_index(dims)], a);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -12,8 +12,12 @@ package's Pallas router kernels:
    against the fabric-wide snapshot plus the fused FIFO update of both
    sides, into freshly allocated output buffers (never in place).
    Replaces ``_apply_kernel`` at any ``n_vcs``.
-3. **fused** — one CTA per channel runs an N-cycle window (arb, apply and
-   egress injection per cycle, ``__syncthreads()`` between the phases).
+3. **fused** — one thread-block cluster per channel runs an N-cycle window
+   with the channel's state in the cluster's shared memory (arb, apply and
+   egress injection per cycle, one cluster barrier between the phases;
+   other CTAs' routers read through distributed shared memory).
+   ``fused_plan`` sizes the cluster; a channel too large for 16 CTAs runs
+   the same window with its state in global memory (one CTA per channel).
    Replaces ``_fused_kernel`` and, with ``n_vcs > 1``, ``_fused_kernel_vc``.
 4. **arb_offload** — one thread per (channel, router): the collective-
    offload arbitration (multicast fork, reduction ALU, emission
@@ -35,6 +39,7 @@ show that it went through them.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from pathlib import Path
 
 import torch
@@ -50,7 +55,8 @@ from repro_torch.kernels.noc_router.ref import (
 CSRC = Path(__file__).parent / "csrc"
 SOURCES = (CSRC / "noc_router.cu",)
 MAX_P = 32  # slots (ports x VCs) per router the arb kernel holds per thread
-FUSED_PTRS = 40  # pointer operands of noc_fused_launch (FusedArgs)
+FUSED_PTRS = 40  # pointer operands of noc_fused_global_launch (FusedArgs)
+CLUSTER_PTRS = 30  # pointer operands of noc_fused_cluster_launch (ClusterArgs)
 OFFLOAD_PTRS = 20  # pointer operands of noc_arb_offload_launch
 
 # launches of each kernel and mode, counted where the wrapper launches it
@@ -64,14 +70,144 @@ def _declare(lib):
     lib.noc_arb_launch.restype = ci
     lib.noc_apply_launch.argtypes = [vp] * 16 + [ci] * 7 + [vp]
     lib.noc_apply_launch.restype = ci
-    lib.noc_fused_launch.argtypes = [vp, vp, vp]
-    lib.noc_fused_launch.restype = ci
+    lib.noc_fused_global_launch.argtypes = [vp, vp, vp]
+    lib.noc_fused_global_launch.restype = ci
+    lib.noc_fused_cluster_prepare.argtypes = [vp, vp]
+    lib.noc_fused_cluster_prepare.restype = ci
+    lib.noc_fused_cluster_launch.argtypes = [vp, vp, vp]
+    lib.noc_fused_cluster_launch.restype = ci
     lib.noc_arb_offload_launch.argtypes = [vp, vp, vp]
     lib.noc_arb_offload_launch.restype = ci
 
 
 LIBRARY = CudaLibrary("noc_router", SOURCES, Path(__file__).parent / "_build",
                       _declare)
+
+
+# ---------------------------------------------------------------------------
+# the fused window's plan: one thread-block cluster per channel
+
+SMEM_PER_CTA = 232_448  # an H100 block's shared memory (227 KB)
+CLUSTER_SIZES = (1, 2, 4, 8, 16)  # 16 is a non-portable cluster size
+MAX_THREADS = 768  # noc_fused_cluster_kernel's bound (up to 85 registers)
+PREFERRED_WARPS = 12  # per CTA: more is slower than a larger cluster (PERF.md)
+GLOBAL_THREADS = 512  # noc_fused_global_kernel's CTA
+
+
+@dataclass(frozen=True)
+class FusedPlan:
+    """How one fused window runs: ``kernel`` "cluster" (``cluster`` CTAs
+    per channel, CTA k owning routers ``ranges[k]``, ``smem_bytes`` of
+    shared memory and ``threads`` threads each, a lane per slot and
+    ``slots_per_thread`` routers' slots per lane) or "global" (one CTA per
+    channel, the state in global memory)."""
+
+    kernel: str
+    cluster: int
+    routers_per_cta: int
+    ranges: tuple
+    smem_bytes: int
+    threads: int
+    slots_per_thread: int
+
+
+def smem_bytes(slots: int, depth_in: int, depth_out: int, n_vcs: int = 1,
+               ports: int = 0) -> int:
+    """Shared memory of one CTA holding ``slots`` router slots: the
+    arithmetic of ``smem_layout`` in ``noc_fused_cluster_kernel``'s source
+    (every array rounded up to 16 bytes). Per slot: the input FIFO, the
+    output FIFO and its count (two copies, ping-pong), the input count,
+    ``rr``/``wh``, three link addresses, the attached endpoint with its
+    egress head, count, head entry and ready stamp, the ``vc_out`` row
+    (``ports`` physical ports, with ``n_vcs > 1``), the arbitration byte,
+    ``in_space`` (two copies) and the endpoint flags."""
+    copies = 2
+    r16 = lambda n: -(-n // 16) * 16
+    ints = 4 * slots
+    return (r16(depth_in * NF * ints) + r16(copies * depth_out * NF * ints)
+            + r16(ints) + r16(copies * ints) + 8 * r16(ints) + r16(NF * ints)
+            + r16(ints) + r16(ports * ints if n_vcs > 1 else 0)
+            + r16(slots) + r16(copies * slots) + r16(slots))
+
+
+def fused_plan(R: int, P: int, depth_in: int, depth_out: int, n_vcs: int = 1,
+               cluster: int | None = None,
+               slots_per_thread: int | None = None) -> FusedPlan:
+    """The plan of a fused window over ``R`` routers of ``P`` slots.
+
+    By default the smallest cluster (1, 2, 4, 8 or 16 CTAs per channel)
+    whose CTAs each hold their share of the routers in at most
+    ``SMEM_PER_CTA`` bytes with a lane per slot in at most
+    ``PREFERRED_WARPS`` warps; failing that, the smallest whose share fits
+    at all, with as few router groups per warp as ``MAX_THREADS`` allow. A
+    channel that no 16-CTA cluster holds runs the global-memory kernel.
+    ``cluster`` and ``slots_per_thread`` pin a variant (for timing and
+    tests); a pinned variant that does not fit raises.
+    """
+    if not 1 <= P <= MAX_P or n_vcs < 1 or P % n_vcs:
+        raise ValueError(f"{P} slots in n_vcs={n_vcs} (at most {MAX_P} slots)")
+    rpw = 32 // P  # routers per warp
+    fits = []
+    for cl in CLUSTER_SIZES if cluster is None else (cluster,):
+        if cl not in CLUSTER_SIZES:
+            raise ValueError(f"cluster must be one of {CLUSTER_SIZES}, got {cl}")
+        rc = -(-R // cl)
+        smem = smem_bytes(rc * P, depth_in, depth_out, n_vcs, P // n_vcs)
+        groups = -(-rc // rpw)
+        k = slots_per_thread or -(-groups // (MAX_THREADS // 32))
+        warps = -(-groups // k)
+        if smem > SMEM_PER_CTA or warps > MAX_THREADS // 32:
+            if cluster is not None:
+                raise ValueError(
+                    f"cluster {cl} ({k} slots per thread) does not "
+                    f"fit R={R}, P={P}: {smem} bytes of shared memory, "
+                    f"{warps} warps per CTA")
+            continue
+        ranges = tuple((min(R, r0), min(R, r0 + rc))
+                       for r0 in range(0, cl * rc, rc))
+        fits.append(FusedPlan("cluster", cl, rc, ranges, smem, warps * 32, k))
+    for plan in fits:
+        if plan.threads <= PREFERRED_WARPS * 32:
+            return plan
+    if fits:
+        return fits[0]
+    return global_plan(R)
+
+
+def global_plan(R: int) -> FusedPlan:
+    """The global-memory kernel's plan: one CTA per channel."""
+    return FusedPlan("global", 1, R, ((0, R),), 0, GLOBAL_THREADS, 1)
+
+
+_PLACED = {}  # cluster plans the card has accepted: (device, dims) -> clusters
+
+
+def _cluster_dims(plan: FusedPlan, C, R, P, Din, Dout, E, Q, V, cycle0, N):
+    return (ctypes.c_int * 15)(
+        C, R, P, Din, Dout, E, Q, V, cycle0, N, plan.cluster,
+        plan.routers_per_cta, plan.threads, plan.slots_per_thread,
+        plan.smem_bytes)
+
+
+def _place(lib, plan: FusedPlan, dims, dev) -> int:
+    """Allow the plan's shared memory and cluster size on the kernel and
+    check, once per plan, that the card can place its clusters; raise with
+    the numbers if it cannot."""
+    key = (dev.index, plan, dims[0])
+    if key not in _PLACED:
+        n = ctypes.c_int(0)
+        err = lib.noc_fused_cluster_prepare(dims, ctypes.byref(n))
+        if err != 0:
+            raise RuntimeError(f"noc_fused_cluster_kernel: plan {plan} refused "
+                               f"(error {err})")
+        if n.value < 1:
+            raise RuntimeError(
+                f"noc_fused_cluster_kernel: plan {plan} cannot be placed: "
+                f"cudaOccupancyMaxActiveClusters = {n.value} for clusters of "
+                f"{plan.cluster} CTAs x {plan.threads} threads x "
+                f"{plan.smem_bytes} bytes of shared memory")
+        _PLACED[key] = n.value
+    return _PLACED[key]
 
 
 def _check(name, t, dtype, shape, device):
@@ -311,14 +447,19 @@ def router_cycles_fused_cuda(in_buf, in_cnt, out_buf, out_cnt, rr_ptr,
                              wh_lock, eg, eg_ready, eg_head, eg_cnt, route,
                              link_src, link_dst, port_ep, ep_attach,
                              ep_space, cycle0: int, n_cycles: int,
-                             vc_out=None, n_vcs: int = 1):
-    """``n_cycles`` fused fabric cycles in one launch of the fused kernel
-    (one CTA per channel).
+                             vc_out=None, n_vcs: int = 1,
+                             plan: FusedPlan | None = None):
+    """``n_cycles`` fused fabric cycles in one launch: one thread-block
+    cluster per channel with the state in shared memory, or, for a channel
+    that no 16-CTA cluster holds, one CTA per channel with the state in
+    global memory. ``plan`` (default ``fused_plan`` of the shapes) chooses;
+    a plan the card cannot place, or a refused launch, raises.
 
     Same contract as ``ref.router_cycles_scan`` over channel-batched state:
     returns the 10 updated state tensors (fresh; the inputs are not
     modified) plus ``(ep_flit [C, N, E, NF], ep_valid [C, N, E],
-    req_waiting [C, N, E])``.
+    req_waiting [C, N, E])``. Endpoints attach at unique slots, and
+    ``port_ep`` is the inverse of ``ep_attach``, as on every topology.
     """
     dev = in_buf.device
     if dev.type != "cuda":
@@ -345,25 +486,39 @@ def router_cycles_fused_cuda(in_buf, in_cnt, out_buf, out_cnt, rr_ptr,
     _check("port_ep", port_ep, i32, (R, P), dev)
     _check("ep_attach", ep_attach, i32, (E, 2), dev)
     _check("ep_space", ep_space, b, (C, E), dev)
+    plan = plan or fused_plan(R, P, Din, Dout, n_vcs)
     state = [torch.empty_like(t) for t in (in_buf, in_cnt, out_buf, out_cnt,
                                            rr_ptr, wh_lock, eg, eg_ready,
                                            eg_head, eg_cnt)]
     ep_flit = torch.empty((C, N, E, NF), dtype=i32, device=dev)
     ep_valid = torch.empty((C, N, E), dtype=b, device=dev)
     waiting = torch.empty((C, N, E), dtype=b, device=dev)
-    scratch = [torch.empty_like(t) for t in (in_buf, in_cnt, out_buf,
-                                             out_cnt, rr_ptr, wh_lock)]
-    arb = [torch.empty((C, R, P), dtype=b, device=dev) for _ in range(3)]
-    chosen = torch.empty((C, R, P, NF), dtype=i32, device=dev)
-    # FusedArgs, in declaration order
     ptrs = [in_buf, in_cnt, out_buf, out_cnt, rr_ptr, wh_lock,
             eg, eg_ready, eg_head, eg_cnt,
             route, vc_out, link_src, link_dst, port_ep, ep_attach, ep_space,
-            *state, ep_flit, ep_valid, waiting, *scratch, *arb, chosen]
-    assert len(ptrs) == FUSED_PTRS
-    c_ptrs = (ctypes.c_void_p * FUSED_PTRS)(
-        *(None if t is None else t.data_ptr() for t in ptrs))
-    dims = (ctypes.c_int * 10)(C, R, P, Din, Dout, E, Q, n_vcs, int(cycle0), N)
-    err = LIBRARY.load().noc_fused_launch(c_ptrs, dims, _stream(dev))
+            *state, ep_flit, ep_valid, waiting]
+    lib = LIBRARY.load()
+    if plan.kernel == "cluster":
+        # ClusterArgs, in declaration order
+        assert len(ptrs) == CLUSTER_PTRS
+        dims = _cluster_dims(plan, C, R, P, Din, Dout, E, Q, n_vcs,
+                             int(cycle0), N)
+        _place(lib, plan, dims, dev)
+        c_ptrs = (ctypes.c_void_p * CLUSTER_PTRS)(
+            *(None if t is None else t.data_ptr() for t in ptrs))
+        err = lib.noc_fused_cluster_launch(c_ptrs, dims, _stream(dev))
+    else:
+        # FusedArgs, in declaration order: the ping-pong half and the
+        # arbitration scratch follow
+        ptrs += [torch.empty_like(t) for t in (in_buf, in_cnt, out_buf,
+                                               out_cnt, rr_ptr, wh_lock)]
+        ptrs += [torch.empty((C, R, P), dtype=b, device=dev) for _ in range(3)]
+        ptrs.append(torch.empty((C, R, P, NF), dtype=i32, device=dev))
+        assert len(ptrs) == FUSED_PTRS
+        c_ptrs = (ctypes.c_void_p * FUSED_PTRS)(
+            *(None if t is None else t.data_ptr() for t in ptrs))
+        dims = (ctypes.c_int * 10)(C, R, P, Din, Dout, E, Q, n_vcs,
+                                   int(cycle0), N)
+        err = lib.noc_fused_global_launch(c_ptrs, dims, _stream(dev))
     _count("fused", n_vcs, err)
     return (*state, ep_flit, ep_valid, waiting)

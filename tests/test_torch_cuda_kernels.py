@@ -163,14 +163,12 @@ def test_cuda_kernels_match_plain(R, depth, V):
         assert tkern.LAUNCHES[k] == before[k] + 1
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("R,N,V", [(32, 1, 1), (32, 4, 1), (32, 16, 2),
-                                   (1024, 4, 1), (1024, 4, 2)])
-def test_cuda_fused_matches_plain(R, N, V):
-    """One launch of the fused kernel against N cycles of the plain
-    ``router_cycles_scan``, bit for bit; its inputs stay untouched."""
-    rng = np.random.default_rng(7 * R + N + V)
-    E, C, Q, cycle0 = (40 if R == 32 else 1056), 3, 8, 50
+def _fused_case(R, N, V, seed, plan=None):
+    """One launch of the fused kernel (``plan``, default the wrapper's)
+    against N cycles of the plain ``router_cycles_scan`` on random state,
+    bit for bit; its inputs stay untouched and it counts one launch."""
+    rng = np.random.default_rng(seed)
+    E, C, Q, cycle0 = (40 if R <= 32 else min(1056, 2 * R)), 3, 8, 50
     tb = _on_card(_tables(rng, R, E, V))
     s = _on_card(_snapshot(rng, (C,), R, E, 2, 2, V))
     q = _on_card(_egress(rng, C, E, Q, cycle0, N))
@@ -181,7 +179,7 @@ def test_cuda_fused_matches_plain(R, N, V):
     kw = dict(vc_out=tb.get("vc_out"), n_vcs=V)
     copies = [a.clone() for a in args[:10]]
     before = dict(tkern.LAUNCHES)
-    got = tkern.router_cycles_fused_cuda(*args, **kw)
+    got = tkern.router_cycles_fused_cuda(*args, **kw, plan=plan)
     torch.cuda.synchronize()
     want = tref.router_cycles_scan(*args, **kw)
     for i, (a, b) in enumerate(zip(want, got)):
@@ -190,6 +188,43 @@ def test_cuda_fused_matches_plain(R, N, V):
         assert torch.equal(a, b), f"input {i} modified"
     key = "fused" if V == 1 else "fused_vc"
     assert tkern.LAUNCHES[key] == before[key] + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,N,V", [(32, 1, 1), (32, 4, 1), (32, 16, 2),
+                                   (1024, 4, 1), (1024, 4, 2), (256, 4, 1),
+                                   (512, 4, 1), (437, 4, 1), (1024, 16, 1),
+                                   (1024, 16, 2), (4096, 4, 1), (128, 4, 1)])
+def test_cuda_fused_matches_plain(R, N, V):
+    """The fused window as the wrapper plans it, at every cluster size the
+    plan picks (1: R = 32; 2: 128; 4: 256; 8: 512 and the ragged 437; 16:
+    1024) and past a 16-CTA cluster (4096: the global-memory kernel),
+    against the plain version."""
+    P = 5 * V
+    plan = tkern.fused_plan(R, P, 2, 2, V)
+    want = {32: 1, 128: 2, 256: 4, 437: 8, 512: 8, 1024: 16}
+    if R in want:
+        assert (plan.kernel, plan.cluster) == ("cluster", want[R]), plan
+    else:
+        assert plan.kernel == "global", plan
+    if R == 437:
+        assert plan.ranges[-1] == (385, 437)
+    _fused_case(R, N, V, 7 * R + N + V)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,V,cluster,k", [
+    (32, 1, 2, 1), (32, 2, 4, 1), (1024, 1, 8, 1), (1024, 1, 8, 2),
+    (1024, 2, 16, 2), (20, 1, 16, 1), (256, 2, 16, 2), (437, 1, 4, 2)],
+    ids=lambda x: str(x))
+def test_cuda_fused_variants_match_plain(R, V, cluster, k):
+    """The window at other cluster sizes and router groups per warp than
+    the plan's (the variants ``tools/fused_chip.py`` times), CTAs with no
+    routers (R = 20 on 16 CTAs) and a ragged split with two groups a warp
+    (437 on 4 CTAs) included, against the plain version at N = 4."""
+    plan = tkern.fused_plan(R, 5 * V, 2, 2, V, cluster=cluster,
+                            slots_per_thread=k)
+    _fused_case(R, 4, V, 13 * R + V + cluster, plan)
 
 
 @pytest.mark.gpu
