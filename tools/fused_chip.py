@@ -1,6 +1,7 @@
 """The fused router window alone on the card: variants, agreement and times.
 
     PYTHONPATH=src python tools/fused_chip.py [--check-only] [--sections] [--shapes NAME ...]
+    python tools/fused_chip.py --path-time [--root CHECKOUT]
 
 Needs a CUDA device and ``nvcc``. It
 
@@ -33,6 +34,15 @@ shape, the SM cycles that thread 0 of each CTA spends per window of 16 in
 the prologue, in arbitration, from the barrier's arrival to its wait (the
 local reads between), in the remote reads, in the writes, and in the
 epilogue, averaged over the CTAs: ``[fused_sections] {...}``.
+
+``--path-time`` measures only the main path that the window carries most:
+``chip_smoke.py``'s ``scale_32x32_torus`` (the 32x32 torus, ``n_vcs=2``,
+``fused_cycles=4``, 200 cycles from a fresh state, then 10 super-steps
+under ``torch.profiler``), printing the host's ms per cycle and the device
+time per cycle, the fused kernel's and the rest's:
+``[path_device_time] {...}``. ``--root`` runs it on another checkout (its
+``src`` and ``chip_smoke.py``), such as a parent commit unpacked with
+``git archive``, to compare two commits in turns within one call.
 """
 from __future__ import annotations
 
@@ -43,10 +53,11 @@ import tempfile
 from pathlib import Path
 from types import SimpleNamespace
 
-ROOT = Path(__file__).resolve().parents[1]
+ROOT = (Path(sys.argv[sys.argv.index("--root") + 1]).resolve()
+        if "--root" in sys.argv else Path(__file__).resolve().parents[1])
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
-sys.path.insert(0, str(ROOT / "tools"))
+sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 SHAPES = {  # name: (builder, nx, ny, n_vcs)
     "mesh_8x4": ("mesh", 4, 8, 1),
@@ -240,6 +251,44 @@ def run_sections(name, lib, n_cycles=16):
              threads=plan.threads, cycles=dict(zip(SECTION_NAMES, per.tolist())))
 
 
+def path_device_time(cycles=200, steps=10):
+    """scale_32x32_torus on the checkout at ROOT: host ms per cycle over
+    ``cycles``, then device us per cycle over ``steps`` profiled
+    super-steps, split into the fused kernel and the rest."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as CS
+    from repro_torch.core.noc import sim as TS
+    from repro_torch.core.noc import traffic as TT
+    from repro_torch.core.noc.params import NocParams
+    from repro_torch.core.noc.topology import build_torus
+    from repro_torch.kernels.noc_router import noc_router as K
+
+    K.LIBRARY.build()
+    gtor = build_torus(nx=32, ny=32)
+    wl = CS.mesh_workload(TT, gtor, transfer_kb=8, narrow_rate=0.0)
+    sim = TS.build_sim(gtor, NocParams(n_vcs=2, fused_cycles=4), wl)
+    st, dt, _ = CS.run_counted(TS, sim, cycles)
+    cyc, s = int(st.cycle), st
+    with torch.no_grad(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            s, _, k = sim._advance(s, cyc)
+            cyc += k
+        torch.cuda.synchronize()
+    n = cyc - int(st.cycle)
+    us = collections.Counter()
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us["fused" if "noc_fused" in e.name else "other"] += e.time_range.elapsed_us()
+    CS.phase("path_device_time", root=str(ROOT), gpu_ms_per_cycle=dt / cycles * 1e3,
+             device_us_per_cycle=sum(us.values()) / n,
+             fused_us_per_cycle=us["fused"] / n, other_us_per_cycle=us["other"] / n)
+
+
 def variants(R, P, V):
     """(label, plan) of every variant of the window at R routers of P slots."""
     from repro_torch.kernels.noc_router import noc_router as K
@@ -319,6 +368,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("fused_chip: no CUDA device available", file=sys.stderr)
         return 1
+    if "--path-time" in sys.argv:
+        path_device_time()
+        return 0
     from model_kernels_chip import ptxas_report
     from repro_torch.kernels.noc_router import noc_router as K
 
