@@ -39,9 +39,9 @@ checks what comes out:
    ``fused_cycles=4`` (200 cycles each): GPU state equal to CPU state, ms
    per cycle, peak device memory; VC and fused kernel times against their
    plain versions and bounds (each fused time with its plan: cluster size,
-   shared memory and threads per CTA, and kernel; the global-memory kernel's
-   time on the same state; and the per-cycle arb + apply pair at the same
-   shape);
+   shared memory and threads per CTA, layout and kernel; the global-memory
+   kernel's time on the same state; and the per-cycle arb + apply pair at
+   the same shape);
 9. in-network collective offload (``collective_offload=True``): the
    offload arb kernel against its plain version on random snapshots with
    random reduction-ALU state (8x4 mesh and torus, 32x32 mesh, Occamy's 28
@@ -564,10 +564,12 @@ def fused_kernel_name(plan):
 
 
 def plan_fields(plan):
-    """A fused plan's fields for a phase line."""
+    """A fused plan's fields for a phase line (the cluster kernel's layout
+    is ping-pong: PERF.md, PR 19)."""
     return {"kernel": fused_kernel_name(plan), "cluster": plan.cluster,
-            "smem_bytes_per_cta": plan.smem_bytes, "threads": plan.threads,
-            "slots_per_thread": plan.slots_per_thread}
+            "smem_bytes_per_cta": plan.smem_bytes,
+            "layout": "pingpong" if plan.kernel == "cluster" else "global",
+            "threads": plan.threads, "slots_per_thread": plan.slots_per_thread}
 
 
 def time_fused(st, eps, tables, ep_space, cycle0, pair, N=4):
@@ -2043,8 +2045,8 @@ def main() -> int:
         })
         if "cluster" in t8:  # the fused rows: the plan, the pair, PR 12's kernel
             kernels[-1].update({k_: t8[k_] for k_ in (
-                "cluster", "smem_bytes_per_cta", "threads", "per_cycle_pair_ms",
-                "global_kernel_ms")})
+                "cluster", "smem_bytes_per_cta", "layout", "threads",
+                "per_cycle_pair_ms", "global_kernel_ms")})
     model_src = "src/repro_torch/kernels/{0}/csrc/{0}.cu"
     model_tpu = "src/repro/kernels/{0}/{0}.py:{1}"
     by_path = {path: {k: n for k, n in counts.items() if n}
