@@ -14,10 +14,13 @@ checks what comes out:
 
 1. the card (``nvidia-smi``) and the kernels' build time;
 2. the arb and apply kernels bit-identical to the plain version on random
-   consistent snapshots at 8x4 (R=32) and 32x32 (R=1024), depths 2 and 4;
-   the same at ``n_vcs=2`` on the 8x4 and 32x32 tori and Occamy (28
-   slots); the fused window (N = 1, 4, 16; V = 1, 2) against N plain
-   cycles with random circular egress queues, on the 8x4 and 32x32 fabrics,
+   consistent snapshots at 8x4 (R=32), 32x32 (R=1024) and 7x1 (R=7: the
+   arb kernel's last warp holds 3 of its 6 routers), depths 2 and 4; the
+   same at ``n_vcs=2`` on the 8x4 and 32x32 tori and Occamy (28 slots), at
+   ``n_vcs=6`` on the 8x4 torus (30 slots), and on synthetic tables of 32
+   slots (32 ports, and 16 ports at ``n_vcs=2``); the fused window (N = 1,
+   4, 16; V = 1, 2) against N plain cycles with random circular egress
+   queues, on the 8x4 and 32x32 fabrics,
    a 23x19 mesh whose routers split unevenly over an 8-CTA cluster, and a
    48x48 torus too large for a 16-CTA cluster (the global-memory kernel);
 3. the paper's 8x4 compute mesh: the GPU state after 1200 cycles equal,
@@ -45,9 +48,10 @@ checks what comes out:
 9. in-network collective offload (``collective_offload=True``): the
    offload arb kernel against its plain version on random snapshots with
    random reduction-ALU state (8x4 mesh and torus, 32x32 mesh, Occamy's 28
-   slots); the in-fabric all-reduce (16 kB, 2 streams) on the 8x4 mesh
-   and the 8x4 torus at ``n_vcs=2`` and the offloaded tree multicast
-   (16 kB, 4 streams) on the 8x4 mesh, each delivering exactly its
+   slots, the 7x1 mesh; 40 groups on the 8x4 mesh and torus); the
+   in-fabric all-reduce (16 kB, 2 streams) on the 8x4 mesh and the 8x4
+   torus at ``n_vcs=2`` and the offloaded tree multicast (16 kB, 4
+   streams) on the 8x4 mesh, each delivering exactly its
    ``expect_rx`` at the CPU run's completion cycle (693 / 673 / 278) with
    the GPU state equal to the CPU's; the all-reduce on the 32x32 mesh for
    200 cycles (state against CPU, ms per cycle, peak device memory); the
@@ -100,7 +104,9 @@ checks what comes out:
    whole default-mode Fig. 10 module on the card (3 x 4000 cycles on the
    4x4 mesh), rows and footer equal to the JAX package's, ms per cycle;
 12. one JSON line listing every kernel and mode (launches on its main
-   path, mismatch, times, bounds).
+   path, mismatch, times, bounds; the per-cycle kernels' rows also the
+   launch floor: an empty kernel's time at the same grid, timed the same
+   way in the same run).
 
 Each main path runs with the launch counts set to 0 just before it and
 checked just after.
@@ -117,9 +123,11 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -188,6 +196,34 @@ def random_snapshot(rng, tables, C, depth):
                 out_buf=flits(), out_cnt=rng.integers(0, depth + 1, s),
                 rr_ptr=rng.integers(0, P, s), wh_lock=wh,
                 ep_space=rng.random((C, E)) < 0.7)
+
+
+def synthetic_tables(rng, R, E, ports, V, dev):
+    """Random routing and wiring tables of ``ports`` physical ports at
+    ``n_vcs=V``, for slot counts no topology of the port reaches (32):
+    routes biased to port 0, links missing on 30% of the ports, unique
+    endpoint attach slots with ``port_ep`` their inverse, a random
+    dateline table."""
+    import numpy as np
+    import torch
+
+    route = rng.integers(0, ports, (R, E))
+    route[:, : E // 3] = 0
+
+    def links():
+        t = np.stack([rng.integers(0, R, (R, ports)), rng.integers(0, ports, (R, ports))], -1)
+        t[rng.random((R, ports)) < 0.3] = -1
+        return t
+
+    at = rng.permutation(R * ports)[:E]
+    ep_attach = np.stack([at // ports, at % ports * V], -1)
+    port_ep = np.full((R, ports * V), -1)
+    port_ep[ep_attach[:, 0], ep_attach[:, 1]] = np.arange(E)
+    i32 = lambda x: torch.as_tensor(x.astype(np.int32), device=dev)
+    vc_out = rng.integers(0, V, (R, ports * V, ports)) if V > 1 else None
+    return SimpleNamespace(route=i32(route), link_src=i32(links()), link_dst=i32(links()),
+                           port_ep=i32(port_ep), ep_attach=i32(ep_attach), n_vcs=V,
+                           vc_out=None if vc_out is None else i32(vc_out))
 
 
 def to_device(d, dev):
@@ -473,6 +509,59 @@ def eager_ms(fn, reps=200):
     return a.elapsed_time(b) / reps
 
 
+# an empty kernel behind a C launcher: the launch floor of a grid
+EMPTY_KERNEL = r"""
+#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int empty_launch(int blocks, int threads, void* stream) {
+  empty_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+"""
+_EMPTY = []  # the loaded probe library, once built
+
+
+def build_empty_kernel():
+    """Compile the launch-floor probe (not part of the port) with the
+    kernels' ``nvcc`` flags and load it; the library outlives its
+    temporary directory."""
+    import ctypes
+
+    from repro_torch.kernels.build import NVCC_FLAGS, nvcc
+
+    with tempfile.TemporaryDirectory() as tmp:
+        src, so = Path(tmp) / "empty.cu", Path(tmp) / "empty.so"
+        src.write_text(EMPTY_KERNEL)
+        subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(so), str(src)], check=True,
+                       capture_output=True, text=True)
+        lib = ctypes.CDLL(str(so))
+    lib.empty_launch.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    _EMPTY[:] = [lib]
+
+
+def launch_floor_ms(blocks, threads=128):
+    """Device time of an empty kernel launched at this grid, timed as the
+    kernels are (``graph_ms``): the least a launch of that grid costs."""
+    import torch
+
+    if not _EMPTY:
+        build_empty_kernel()
+    lib = _EMPTY[0]
+
+    def launch():
+        err = lib.empty_launch(blocks, threads, torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"empty kernel launch failed: CUDA error {err}")
+
+    return graph_ms(launch)
+
+
+def arb_blocks(C, R, P):
+    """CTAs of a per-cycle arbitration launch (``arb_blocks`` in the
+    source): 32 // P routers a warp, four warps of 32 lanes a CTA."""
+    warps = -(-C * R // (32 // P))
+    return -(-warps * 32 // 128)
+
+
 def kernel_bytes(st, tables, ep_space):
     """Bytes each per-cycle kernel must move on this state, each input read
     once and each output written once. The arb phase reads only the input
@@ -550,6 +639,9 @@ def time_kernels(st, tables, ep_space):
                   "eager_ms": eager_ms(lambda: K.apply_cuda(*app_args, n_vcs=V))},
     }
     K.LAUNCHES.update(saved)  # timing launches are not main-path launches
+    C, R, P = st.in_cnt.shape
+    out["arb"]["launch_floor_ms"] = launch_floor_ms(arb_blocks(C, R, P))
+    out["apply"]["launch_floor_ms"] = launch_floor_ms(-(-C * R * P // 128))
     nbytes, nops = kernel_bytes(st, tables, ep_space), kernel_ops(st)
     for k, v in out.items():
         b_ms, b_by = bound(nbytes[k], nops[k])
@@ -648,7 +740,8 @@ def time_offload(st, tables):
     saved = dict(K.LAUNCHES)
     out = {"ms": graph_ms(lambda: K.arb_offload_cuda(*args, **kw)),
            "plain_ms": graph_ms(lambda: ref.offload_decisions(*args, **kw)),
-           "eager_ms": eager_ms(lambda: K.arb_offload_cuda(*args, **kw))}
+           "eager_ms": eager_ms(lambda: K.arb_offload_cuda(*args, **kw)),
+           "launch_floor_ms": launch_floor_ms(arb_blocks(C, R, P))}
     K.LAUNCHES.update(saved)  # timing launches are not main-path launches
     nbytes = offload_bytes(st, tables)
     nops = C * R * (P * P * 12 + P * (st.in_buf.shape[-1] + 12)
@@ -1649,8 +1742,10 @@ def main() -> int:
     libs = (K.LIBRARY, FK.LIBRARY, RK.LIBRARY, SK.LIBRARY, KG.LIBRARY)
     fresh = [not lib.path().exists() for lib in libs]
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc per source, together
+    with ThreadPoolExecutor(len(libs) + 1) as pool:  # one nvcc per source, together
+        probe = pool.submit(build_empty_kernel)
         built = list(pool.map(lambda lib: lib.build(), libs))
+        probe.result()
     build_s = time.perf_counter() - t0
     phase("card", nvidia_smi=card, torch=torch.__version__, tf32=False,
           cuda=torch.version.cuda, libraries=[str(so.relative_to(ROOT)) for so in built],
@@ -1659,7 +1754,7 @@ def main() -> int:
     # ---- 2. kernels vs plain on random snapshots --------------------------
     errs = dict.fromkeys(K.LAUNCHES, 0)
     rng = np.random.default_rng(0)
-    for nx, ny in ((4, 8), (32, 32)):
+    for nx, ny in ((4, 8), (32, 32), (7, 1)):
         tables = make_tables(build_mesh(nx=nx, ny=ny), device=dev)
         for depth in (2, 4):
             snap = to_device(random_snapshot(rng, tables, 3, depth), dev)
@@ -1670,19 +1765,32 @@ def main() -> int:
             errs["arb"] = max(errs["arb"], e["arb"], e["cycle"])
             errs["apply"] = max(errs["apply"], e["apply"], e["cycle"])
 
-    # ---- 2b. the VC modes (V = 2): tori 8x4, 32x32 and 8x1, Occamy's 28 slots
-    vc_cases = [(f"torus {nx}x{ny}", build_torus(nx=nx, ny=ny), depth)
+    # ---- 2b. the VC modes (V = 2): tori 8x4, 32x32 and 8x1, Occamy's 28
+    # slots; V = 6 on the 8x4 torus (30 slots: one router a warp)
+    vc_cases = [(f"torus {nx}x{ny}", build_torus(nx=nx, ny=ny), 2, depth)
                 for nx, ny in ((4, 8), (32, 32), (8, 1)) for depth in (2, 4)]
-    vc_cases.append(("occamy", build_occamy(), 2))
-    for name, vtopo, depth in vc_cases:
-        tables = make_tables(vtopo, n_vcs=2, device=dev)
+    vc_cases += [("occamy", build_occamy(), 2, 2), ("torus 4x8", build_torus(nx=4, ny=8), 6, 2)]
+    for name, vtopo, V, depth in vc_cases:
+        tables = make_tables(vtopo, n_vcs=V, device=dev)
         snap = to_device(random_snapshot(rng, tables, 3, depth), dev)
         e = compare_kernels(snap, tables)
         phase("kernels_vs_plain_vc", fabric=name, R=int(tables.route.shape[0]),
-              slots=int(tables.port_ep.shape[1]), depth=depth, max_abs_err=e)
+              slots=int(tables.port_ep.shape[1]), n_vcs=V, depth=depth, max_abs_err=e)
         check(max(e.values()) == 0, f"VC kernel disagrees with plain: {e}")
         errs["arb_vc"] = max(errs["arb_vc"], e["arb"], e["cycle"])
         errs["apply_vc"] = max(errs["apply_vc"], e["apply"], e["cycle"])
+
+    # ---- 2b'. 32 slots, the most a warp holds: synthetic tables -------------
+    for ports, V in ((32, 1), (16, 2)):
+        tables = synthetic_tables(rng, 11, 40, ports, V, dev)
+        snap = to_device(random_snapshot(rng, tables, 3, 2), dev)
+        e = compare_kernels(snap, tables)
+        phase("kernels_vs_plain_32_slots", R=11, ports=ports, n_vcs=V, depth=2,
+              max_abs_err=e)
+        check(max(e.values()) == 0, f"32-slot kernel disagrees with plain: {e}")
+        arb, app = K.mode("arb", V), K.mode("apply", V)
+        errs[arb] = max(errs[arb], e["arb"], e["cycle"])
+        errs[app] = max(errs[app], e["apply"], e["cycle"])
 
     # ---- 2c. the fused window against N plain cycles ------------------------
     # the 8x4 and 32x32 fabrics; a 23x19 mesh split unevenly over 8 CTAs;
@@ -1709,16 +1817,21 @@ def main() -> int:
             errs[key] = max(errs[key], err)
 
     # ---- 2d. the offload arb kernel with random reduction-ALU state --------
-    # tables: the in-fabric all-reduce's two groups (one tree, so they share
-    # every parent port) plus a multicast group rooted elsewhere
+    # tables: the in-fabric all-reduce's groups (one tree, so they share
+    # every parent port; 2 streams, or 39 for 40 groups) plus a multicast
+    # group rooted elsewhere; the 7x1 mesh's arb warps are ragged
     reached = dict.fromkeys(("shared_parent", "contested_emission",
                              "cancelled_mc_win"), 0)
-    for name, otopo, V in (("mesh 8x4", build_mesh(nx=4, ny=8), 1),
-                           ("torus 8x4", build_torus(nx=4, ny=8), 2),
-                           ("mesh 32x32", build_mesh(nx=32, ny=32), 1),
-                           ("occamy", build_occamy(), 2)):
-        groups = (CT.all_reduce(otopo, data_kb=16, streams=2,
-                                algo="infabric").meta["groups"]
+    mesh8x4, torus8x4 = build_mesh(nx=4, ny=8), build_torus(nx=4, ny=8)
+    for name, otopo, V, streams in (("mesh 8x4", mesh8x4, 1, 2),
+                                    ("torus 8x4", torus8x4, 2, 2),
+                                    ("mesh 32x32", build_mesh(nx=32, ny=32), 1, 2),
+                                    ("occamy", build_occamy(), 2, 2),
+                                    ("mesh 7x1", build_mesh(nx=7, ny=1), 1, 2),
+                                    ("mesh 8x4", mesh8x4, 1, 39),
+                                    ("torus 8x4", torus8x4, 2, 39)):
+        groups = (CT.all_reduce(otopo, data_kb=40 if streams > 2 else 16,
+                                streams=streams, algo="infabric").meta["groups"]
                   + CT.multicast(otopo, root=1, offload=True).meta["groups"])
         tables = make_tables(otopo, n_vcs=V, groups=groups, device=dev)
         for depth in (2, 4):
@@ -2041,8 +2154,11 @@ def main() -> int:
             "library_ms": None, "shape": shape,
             "scale_32x32": None if t32 is None else {
                 k_: t32[k_] for k_ in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                       "kernel", "cluster") if k_ in t32},
+                                       "launch_floor_ms", "kernel", "cluster")
+                if k_ in t32},
         })
+        if "launch_floor_ms" in t8:  # the per-cycle rows: an empty launch's time
+            kernels[-1]["launch_floor_ms"] = t8["launch_floor_ms"]
         if "cluster" in t8:  # the fused rows: the plan, the pair, PR 12's kernel
             kernels[-1].update({k_: t8[k_] for k_ in (
                 "cluster", "smem_bytes_per_cta", "layout", "threads",

@@ -23,7 +23,11 @@
 // arb -> link barrier: link acceptance depends on the *downstream*
 // router's post-pop input space, so every router's `in_space` must be
 // visible fabric-wide before any link decision. The per-cycle path makes
-// each phase its own launch, which works at any mesh size.
+// each phase its own launch, which works at any mesh size. Both per-cycle
+// arbitration kernels give a warp 32 / P whole routers, a lane per slot
+// (`SlotLane`): each lane loads its own slot, requests and pop masks are
+// warp shuffles and segmented reductions over the router's lanes, and the
+// stores of a warp are contiguous.
 //
 // The fused window runs N cycles in one launch. Like the Pallas kernel,
 // which keeps a channel's carry in VMEM across its loop, it keeps the
@@ -79,6 +83,7 @@
 #define F_TS 5
 #define F_META 6
 #define MAX_P 32
+#define FULL_MASK 0xffffffffu
 // collective offload: flit kinds and the reduction-ALU slot layout
 #define KIND_MC 6
 #define KIND_RED 7
@@ -107,7 +112,10 @@ __device__ __forceinline__ int wrap_sub(int a, int b) {
 }
 
 // Round-robin output arbitration for one (channel, router) `cr = c*R + r`:
-// P input heads against P output slots, all from the cycle-start snapshot.
+// P input heads against P output slots, all from the cycle-start snapshot,
+// by one thread. Only noc_fused_global_kernel calls it (a channel's
+// routers spread over one CTA's threads); the per-cycle noc_arb_kernel
+// runs the same decisions a lane per slot.
 __device__ __forceinline__ void arb_router(
     const int* __restrict__ in_buf, const int* __restrict__ in_cnt,
     const int* __restrict__ out_cnt, const int* __restrict__ rr,
@@ -258,8 +266,62 @@ __device__ __forceinline__ void apply_slot(
                                chosen + t * NF, Dout);
 }
 
-// One thread per (channel, router).
-__global__ void noc_arb_kernel(
+// A lane of the per-cycle arbitration kernels. With P slots a warp holds
+// 32 / P whole routers: lane sub * P + p is slot p of router `cr`, the
+// warp's sub-th. Lanes past the last whole router (sub >= 32 / P) and the
+// routers past C * R in the last warp are not `live`: they run every
+// shuffle (their source lanes wrap into the warp), but load and write
+// nothing. Every shuffle and vote names the full warp: a `__reduce_*_sync`
+// over each router's own member mask serialises over the warp's distinct
+// masks (PERF.md, section 6).
+struct SlotLane {
+  int p, base, cr, r;
+  bool live;
+  unsigned group;  // the lanes of my router
+};
+
+static const int kArbThreads = 128;  // four warps a CTA
+
+__device__ __forceinline__ SlotLane slot_lane(int C, int R, int P) {
+  const int lane = threadIdx.x & 31;
+  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int rpw = 32 / P, sub = lane / P;
+  SlotLane s;
+  s.p = lane - sub * P;
+  s.base = sub * P;
+  s.cr = warp * rpw + sub;
+  s.live = sub < rpw && s.cr < C * R;
+  s.r = s.cr % R;
+  s.group = P == 32 ? FULL_MASK : ((1u << P) - 1u) << s.base;
+  return s;
+}
+
+// Segmented reductions over each router's lanes base .. base + P - 1, the
+// result at every lane of the router: shuffles down in log steps, a lane
+// taking its partner only while the partner is in its router (so lane
+// base ends with the whole router's), then a broadcast from lane base.
+__device__ __forceinline__ uint32_t seg_or(uint32_t v, const SlotLane& s, int P) {
+  for (int d = 1; d < P; d <<= 1) {
+    const uint32_t o = __shfl_down_sync(FULL_MASK, v, d);
+    if (s.p + d < P) v |= o;
+  }
+  return __shfl_sync(FULL_MASK, v, s.base);
+}
+
+// The first-minimum round-robin winner over the eligible inputs `m` (bit
+// pin): the lowest score (pin - ptr) floor-mod P is the first eligible pin
+// at or after the pointer, cyclically; 0 when nothing is eligible.
+__device__ __forceinline__ int rr_winner(uint32_t m, int ptr, int P) {
+  const uint32_t late = m & (FULL_MASK << floor_mod(ptr, P));
+  return late ? __ffs(late) - 1 : (m ? __ffs(m) - 1 : 0);
+}
+
+// Round-robin output arbitration (ref.arb_decisions), a lane per slot: as
+// input p the lane computes its head's request, as output p its winner
+// over the router's requests (shuffled in); the granted winners' bits are
+// OR-ed over the router's lanes into the pop mask, and `chosen` is the
+// winner's head, shuffled from the winner's lane.
+__global__ void __launch_bounds__(kArbThreads) noc_arb_kernel(
     const int* __restrict__ in_buf, const int* __restrict__ in_cnt,
     const int* __restrict__ out_cnt, const int* __restrict__ rr,
     const int* __restrict__ wh, const int* __restrict__ route,
@@ -268,11 +330,61 @@ __global__ void noc_arb_kernel(
     int* __restrict__ rr_out, int* __restrict__ wh_out,
     bool* __restrict__ in_space, int C, int R, int P, int Din, int Dout,
     int E, int V) {
-  int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= C * R) return;
-  arb_router(in_buf, in_cnt, out_cnt, rr, wh, route, vc_out, arb_pop,
-             granted, chosen, rr_out, wh_out, in_space, t, t % R, P, Din,
-             Dout, E, V);
+  const SlotLane s = slot_lane(C, R, P);
+  const size_t t = (size_t)s.cr * P + s.p;
+  int head[NF], cnt = 0, lock = -1, ptr = 0, req = -1;
+  bool space = false;
+#pragma unroll
+  for (int f = 0; f < NF; ++f) head[f] = 0;
+  if (s.live) {
+    // every head, live or dead: `chosen` is the winner's head even when
+    // nothing was granted (winner 0), stale contents included
+    const int* h = in_buf + t * Din * NF;
+#pragma unroll
+    for (int f = 0; f < NF; ++f) head[f] = h[f];
+    cnt = in_cnt[t];
+    lock = wh[t];
+    ptr = rr[t];
+    space = out_cnt[t] < Dout;  // no same-cycle fall-through
+    // Clamping: the reference gathers route[r, clip(dst, 0, None)], and
+    // JAX's gather fills a destination past the table with INT_MIN.
+    const int dst = max(head[F_DST], 0);
+    int port = dst < E ? __ldg(route + (size_t)s.r * E + dst) : INT_MIN;
+    if (V > 1) {
+      // Dateline VC switching: the physical out port expands to slot
+      // phys * V + vc_out[r, pin, clip(phys)], in int32 wraparound as JAX
+      // computes it (INT_MIN * 2 wraps to 0; the multiply runs on uint32_t).
+      const int Pp = P / V;
+      const int vout = __ldg(vc_out + ((size_t)s.r * P + s.p) * Pp + clampi(port, 0, Pp - 1));
+      port = (int)((uint32_t)port * (uint32_t)V + (uint32_t)vout);
+    }
+    req = cnt > 0 ? port : -1;  // dead heads request nothing
+  }
+  // as output p: the inputs that request me and may take me
+  uint32_t m = 0;
+  for (int pin = 0; pin < P; ++pin)
+    m |= (__shfl_sync(FULL_MASK, req, (s.base + pin) & 31) == s.p ? 1u : 0u) << pin;
+  if (lock >= 0) m &= lock < P ? 1u << lock : 0u;
+  if (!space) m = 0;
+  const int winner = rr_winner(m, ptr, P);
+  const bool g = m != 0;
+  const uint32_t pops = seg_or(g ? 1u << winner : 0u, s, P);
+  int ch[NF];
+#pragma unroll
+  for (int f = 0; f < NF; ++f) ch[f] = __shfl_sync(FULL_MASK, head[f], (s.base + winner) & 31);
+  if (s.live) {
+    const bool pop = (pops >> s.p) & 1u;
+    arb_pop[t] = pop;
+    // space after this cycle's arb pops (a slot freed this cycle is reusable)
+    in_space[t] = (cnt - (pop ? 1 : 0)) < Din;
+    granted[t] = g;
+    rr_out[t] = g ? (winner + 1 == P ? 0 : winner + 1) : ptr;
+    // Tail release: a granted tail flit frees the wormhole lock; a granted
+    // body flit locks the output to its input port.
+    wh_out[t] = g ? (ch[F_LAST] > 0 ? -1 : winner) : lock;
+#pragma unroll
+    for (int f = 0; f < NF; ++f) chosen[t * NF + f] = ch[f];
+  }
 }
 
 // One thread per (channel, router, slot).
@@ -294,195 +406,32 @@ __global__ void noc_apply_kernel(
              t % P, R, P, Din, Dout, E, V);
 }
 
-// Collective-offload arbitration for one (channel, router) `cr = c*R + r`:
-// ref.offload_decisions. All decisions come from the cycle-start snapshot.
+// Collective-offload arbitration (ref.offload_decisions), a lane per slot
+// as in noc_arb_kernel. All decisions come from the cycle-start snapshot.
 //
-//  1. Reduction ALU, one pass over the G groups in order (G is not bounded:
-//     no per-thread array is sized by it). A group on the tree is `full`
-//     once its count reaches `red_need`; it emits into its parent slot if
-//     that slot has output space and no wormhole lock, and no lower group
-//     took the port this cycle (the reference's `cumsum == 1`). A RED head
-//     of group g at a slot that has not contributed to the current beat
-//     is consumed when the slot is not full or is emitting this cycle; the
-//     accumulator sums F_META and the count (int32 wrap), max-merges the
-//     rest, and zero-clears on emission.
-//  2. Arbitration over uint32_t request masks (P <= 32 slots): a unicast
-//     head requests its routed slot, a multicast head every fork slot of
-//     its group. Ports an emission owns are not eligible. The first-min
-//     round-robin winner per output; a multicast head fires only if it won
-//     every requested branch, and grants won by a multicast head that did
-//     not fire are cancelled (their rr/wh stay). Emissions are merged into
-//     `granted` / `chosen` after the rr/wh updates, as the reference does.
-__device__ __forceinline__ void arb_router_offload(
-    const int* __restrict__ in_buf, const int* __restrict__ in_cnt,
-    const int* __restrict__ out_cnt, const int* __restrict__ rr,
-    const int* __restrict__ wh, const int* __restrict__ route,
-    const int* __restrict__ vc_out, const bool* __restrict__ fork_out,
-    const int* __restrict__ red_parent, const int* __restrict__ red_need,
-    const int* __restrict__ red_acc, const bool* __restrict__ red_got,
-    bool* __restrict__ arb_pop, bool* __restrict__ granted,
-    int* __restrict__ chosen, int* __restrict__ rr_out,
-    int* __restrict__ wh_out, bool* __restrict__ in_space,
-    int* __restrict__ red_acc_out, bool* __restrict__ red_got_out, int cr,
-    int r, int P, int Din, int Dout, int E, int V, int G) {
-  const size_t base = (size_t)cr * P;
-  const size_t rg = (size_t)r * G, crg = (size_t)cr * G;
-  int g_of[MAX_P];
-  uint32_t is_mc = 0, is_red = 0, uni = 0;
-  for (int pin = 0; pin < P; ++pin) {
-    const int* head = in_buf + (base + pin) * Din * NF;
-    // group addresses are E + g; anything else clamps into [0, G - 1]
-    g_of[pin] = clampi(wrap_sub(head[F_DST], E), 0, G - 1);
-    if (in_cnt[base + pin] > 0) {
-      uint32_t bit = 1u << pin;
-      if (head[F_KIND] == KIND_MC) is_mc |= bit;
-      else if (head[F_KIND] == KIND_RED) is_red |= bit;
-      else uni |= bit;
-    }
-  }
-
-  // ---- 1. reduction ALU ----
-  uint32_t emit_mask = 0, red_pop = 0;
-  int emit_g[MAX_P];
-  for (int g = 0; g < G; ++g) {
-    const int need = red_need[rg + g], par = red_parent[rg + g];
-    const int* acc = red_acc + (crg + g) * NRED;
-    const bool on_tree = need > 0;
-    const bool full = on_tree && acc[A_CNT] >= need;
-    const int pc = clampi(par, 0, P - 1);
-    const bool can_emit = full && par >= 0 && out_cnt[base + pc] < Dout &&
-                          wh[base + pc] < 0;
-    bool emitting = false;
-    if (can_emit && !((emit_mask >> pc) & 1u)) {
-      emit_mask |= 1u << pc;
-      emit_g[pc] = g;
-      emitting = true;
-    }
-    const bool accept = on_tree && (!full || emitting);
-    const bool* got = red_got + (crg + g) * P;
-    bool* got_out = red_got_out + (crg + g) * P;
-    uint32_t sum = 0, n = 0;
-    // the reference maxes over every slot, 0 standing in for the slots
-    // that do not contribute
-    int m_nlast = INT_MIN, m_txn = INT_MIN, m_ts = INT_MIN, m_src = INT_MIN;
-    for (int pin = 0; pin < P; ++pin) {
-      const bool take = ((is_red >> pin) & 1u) && g_of[pin] == g &&
-                        !got[pin] && accept;
-      int v_nlast = 0, v_txn = 0, v_ts = 0, v_src = 0;
-      if (take) {
-        const int* head = in_buf + (base + pin) * Din * NF;
-        sum += (uint32_t)head[F_META];
-        n += 1;
-        v_nlast = wrap_sub(1, head[F_LAST]);
-        v_txn = head[F_TXN];
-        v_ts = head[F_TS];
-        v_src = head[F_SRC];
-        red_pop |= 1u << pin;
-      }
-      m_nlast = max(m_nlast, v_nlast);
-      m_txn = max(m_txn, v_txn);
-      m_ts = max(m_ts, v_ts);
-      m_src = max(m_src, v_src);
-      got_out[pin] = (got[pin] && !emitting) || take;
-    }
-    int* acc_out = red_acc_out + (crg + g) * NRED;
-    acc_out[A_VAL] = (int)((emitting ? 0u : (uint32_t)acc[A_VAL]) + sum);
-    acc_out[A_CNT] = (int)((emitting ? 0u : (uint32_t)acc[A_CNT]) + n);
-    acc_out[A_NLAST] = max(emitting ? 0 : acc[A_NLAST], m_nlast);
-    acc_out[A_TXN] = max(emitting ? 0 : acc[A_TXN], m_txn);
-    acc_out[A_TS] = max(emitting ? 0 : acc[A_TS], m_ts);
-    acc_out[A_SRC] = max(emitting ? 0 : acc[A_SRC], m_src);
-  }
-
-  // ---- 2. arbitration with multicast fork requests ----
-  uint32_t req[MAX_P];
-  for (int pin = 0; pin < P; ++pin) {
-    uint32_t m = 0;
-    if ((uni >> pin) & 1u) {
-      // the destination is clipped into the table before the lookup
-      const int* head = in_buf + (base + pin) * Din * NF;
-      int port = route[(size_t)r * E + clampi(head[F_DST], 0, E - 1)];
-      if (V > 1) {
-        int Pp = P / V;
-        int vout = vc_out[((size_t)r * P + pin) * Pp + clampi(port, 0, Pp - 1)];
-        port = (int)((uint32_t)port * (uint32_t)V + (uint32_t)vout);
-      }
-      if (port >= 0 && port < P) m = 1u << port;
-    }
-    if ((is_mc >> pin) & 1u) {
-      const bool* fork = fork_out + (rg + g_of[pin]) * P;
-      for (int pout = 0; pout < P; ++pout)
-        if (fork[pout]) m |= 1u << pout;
-    }
-    req[pin] = m;
-  }
-
-  uint32_t granted0 = 0, win[MAX_P];
-  int winner[MAX_P];
-  for (int pin = 0; pin < P; ++pin) win[pin] = 0;
-  for (int pout = 0; pout < P; ++pout) {
-    const int lock = wh[base + pout], ptr = rr[base + pout];
-    const bool open = out_cnt[base + pout] < Dout && !((emit_mask >> pout) & 1u);
-    int best = 0, w = 0;
-    for (int pin = 0; pin < P; ++pin) {
-      bool elig = ((req[pin] >> pout) & 1u) && (lock < 0 || lock == pin) && open;
-      int score = elig ? floor_mod(pin - ptr, P) : P + 1;
-      if (pin == 0 || score < best) {  // first minimum, as the reference
-        best = score;
-        w = pin;
-      }
-    }
-    winner[pout] = w;
-    if (best <= P) {
-      granted0 |= 1u << pout;
-      win[w] |= 1u << pout;
-    }
-  }
-
-  uint32_t fire = 0, pop = red_pop;
-  for (int pin = 0; pin < P; ++pin) {
-    const uint32_t bit = 1u << pin;
-    if ((is_mc & bit) && req[pin] != 0 && (req[pin] & ~win[pin]) == 0) fire |= bit;
-    if ((uni & bit) && win[pin] != 0) pop |= bit;
-  }
-  pop |= fire;
-
-  for (int pout = 0; pout < P; ++pout) {
-    const int w = winner[pout], lock = wh[base + pout], ptr = rr[base + pout];
-    const uint32_t wbit = 1u << w;
-    const bool g = ((granted0 >> pout) & 1u) && (!(is_mc & wbit) || (fire & wbit));
-    const bool emit = (emit_mask >> pout) & 1u;
-    const int* wh_head = in_buf + (base + w) * Din * NF;
-    int* ch = chosen + (base + pout) * NF;
-    if (emit) {
-      // the combined flit stays group-addressed for the next hop
-      const int ge = emit_g[pout];
-      const int* acc = red_acc + (crg + ge) * NRED;
-      ch[F_DST] = E + ge;
-      ch[F_SRC] = acc[A_SRC];
-      ch[F_KIND] = KIND_RED;
-      ch[F_TXN] = acc[A_TXN];
-      ch[F_LAST] = wrap_sub(1, acc[A_NLAST]);
-      ch[F_TS] = acc[A_TS];
-      ch[F_META] = acc[A_VAL];
-    } else {
-      for (int f = 0; f < NF; ++f) ch[f] = wh_head[f];
-    }
-    granted[base + pout] = g || emit;
-    rr_out[base + pout] = g ? (w + 1) % P : ptr;
-    const bool is_tail = wh_head[F_LAST] > 0;
-    wh_out[base + pout] = g ? (is_tail ? -1 : w) : lock;
-  }
-
-  for (int pin = 0; pin < P; ++pin) {
-    const bool p = (pop >> pin) & 1u;
-    arb_pop[base + pin] = p;
-    in_space[base + pin] = (in_cnt[base + pin] - (p ? 1 : 0)) < Din;
-  }
-}
-
-// One thread per (channel, router).
-__global__ void noc_arb_offload_kernel(
+//  1. Each lane classifies its head: multicast, reduction or unicast; its
+//     group g_of (addresses are E + g; anything else clamps into [0, G-1]);
+//     its request as a uint32_t mask (P <= 32 slots): a unicast head its
+//     routed slot, a multicast head its group's fork row.
+//  2. Reduction ALU, one pass over the G groups in order with all of a
+//     router's lanes in step (G is not bounded: nothing is sized by it). A
+//     group on the tree is `full` once its count reaches `red_need`; it
+//     emits into its parent slot if that slot has output space and no
+//     wormhole lock (both shuffled from the parent's lane), and no lower
+//     group took the port this cycle (the reference's `cumsum == 1`;
+//     `emit_mask`). A RED head of group g at a slot that has not
+//     contributed to the current beat is taken when the group is not full
+//     or is emitting this cycle; the accumulator sums F_META and the count
+//     (int32 wrap) and max-merges the rest over the router's lanes, 0
+//     standing in for the lanes that take nothing, and zero-clears on
+//     emission. The parent's lane keeps the emitted accumulator.
+//  3. Arbitration over the request masks, emission-owned ports not
+//     eligible: the first-min round-robin winner per output. A multicast
+//     head fires only if it won every requested branch; grants won by a
+//     multicast head that did not fire are cancelled (their rr/wh stay).
+//     Emissions are merged into `granted` / `chosen` after the rr/wh
+//     updates, as the reference does.
+__global__ void __launch_bounds__(kArbThreads) noc_arb_offload_kernel(
     const int* __restrict__ in_buf, const int* __restrict__ in_cnt,
     const int* __restrict__ out_cnt, const int* __restrict__ rr,
     const int* __restrict__ wh, const int* __restrict__ route,
@@ -494,13 +443,164 @@ __global__ void noc_arb_offload_kernel(
     int* __restrict__ wh_out, bool* __restrict__ in_space,
     int* __restrict__ red_acc_out, bool* __restrict__ red_got_out, int C,
     int R, int P, int Din, int Dout, int E, int V, int G) {
-  int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= C * R) return;
-  arb_router_offload(in_buf, in_cnt, out_cnt, rr, wh, route, vc_out,
-                     fork_out, red_parent, red_need, red_acc, red_got,
-                     arb_pop, granted, chosen, rr_out, wh_out, in_space,
-                     red_acc_out, red_got_out, t, t % R, P, Din, Dout, E, V,
-                     G);
+  const SlotLane s = slot_lane(C, R, P);
+  const size_t t = (size_t)s.cr * P + s.p;
+  const size_t rg = (size_t)s.r * G, crg = (size_t)s.cr * G;
+  int head[NF], cnt = 0, oc = 0, lock = -1, ptr = 0, g_of = 0;
+  bool is_mc = false, is_red = false, uni = false;
+  uint32_t req = 0;
+#pragma unroll
+  for (int f = 0; f < NF; ++f) head[f] = 0;
+  if (s.live) {
+    const int* h = in_buf + t * Din * NF;  // dead heads too: see noc_arb_kernel
+#pragma unroll
+    for (int f = 0; f < NF; ++f) head[f] = h[f];
+    cnt = in_cnt[t];
+    oc = out_cnt[t];
+    lock = wh[t];
+    ptr = rr[t];
+    g_of = clampi(wrap_sub(head[F_DST], E), 0, G - 1);
+    if (cnt > 0) {
+      is_mc = head[F_KIND] == KIND_MC;
+      is_red = head[F_KIND] == KIND_RED;
+      uni = !is_mc && !is_red;
+    }
+    if (uni) {
+      // the destination is clipped into the table before the lookup
+      int port = __ldg(route + (size_t)s.r * E + clampi(head[F_DST], 0, E - 1));
+      if (V > 1) {
+        const int Pp = P / V;
+        const int vout = __ldg(vc_out + ((size_t)s.r * P + s.p) * Pp + clampi(port, 0, Pp - 1));
+        port = (int)((uint32_t)port * (uint32_t)V + (uint32_t)vout);
+      }
+      if (port >= 0 && port < P) req = 1u << port;
+    }
+    if (is_mc) {
+      const bool* fork = fork_out + (rg + g_of) * P;
+      for (int pout = 0; pout < P; ++pout) req |= (fork[pout] ? 1u : 0u) << pout;
+    }
+  }
+
+  // ---- the reduction ALU ----
+  uint32_t emit_mask = 0;
+  bool red_pop = false;
+  int emit_g = 0, emit_acc[NRED];  // at the parent's lane: what it emits
+#pragma unroll
+  for (int f = 0; f < NRED; ++f) emit_acc[f] = 0;
+  for (int g = 0; g < G; ++g) {
+    int need = 0, par = -1, acc[NRED];
+    bool got = false;
+#pragma unroll
+    for (int f = 0; f < NRED; ++f) acc[f] = 0;
+    if (s.live) {
+      need = red_need[rg + g];
+      par = red_parent[rg + g];
+#pragma unroll
+      for (int f = 0; f < NRED; ++f) acc[f] = red_acc[(crg + g) * NRED + f];
+      got = red_got[(crg + g) * P + s.p];
+    }
+    const bool on_tree = need > 0;
+    const bool full = on_tree && acc[A_CNT] >= need;
+    const int pc = clampi(par, 0, P - 1);
+    const int par_cnt = __shfl_sync(FULL_MASK, oc, (s.base + pc) & 31);
+    const int par_lock = __shfl_sync(FULL_MASK, lock, (s.base + pc) & 31);
+    const bool emitting = full && par >= 0 && par_cnt < Dout && par_lock < 0 &&
+                          !((emit_mask >> pc) & 1u);
+    if (emitting) {
+      emit_mask |= 1u << pc;
+      if (s.p == pc) {
+        emit_g = g;
+#pragma unroll
+        for (int f = 0; f < NRED; ++f) emit_acc[f] = acc[f];
+      }
+    }
+    const bool accept = on_tree && (!full || emitting);
+    const bool take = is_red && g_of == g && !got && accept;
+    red_pop = red_pop || take;
+    // the router's contributions: F_META summed on uint32_t, the count, and
+    // the maxima of the other fields with 0 for the lanes that take nothing
+    uint32_t sum = take ? (uint32_t)head[F_META] : 0u;
+    int mx[4] = {0, 0, 0, 0};  // A_NLAST, A_TXN, A_TS, A_SRC
+    if (take) {
+      mx[0] = wrap_sub(1, head[F_LAST]);
+      mx[1] = head[F_TXN];
+      mx[2] = head[F_TS];
+      mx[3] = head[F_SRC];
+    }
+    const uint32_t takers = __ballot_sync(FULL_MASK, take);
+    if (takers) {  // warp-uniform: a warp with no taker adds and maxes zeros
+      for (int d = 1; d < P; d <<= 1) {
+        const uint32_t o = __shfl_down_sync(FULL_MASK, sum, d);
+        int om[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) om[k] = __shfl_down_sync(FULL_MASK, mx[k], d);
+        if (s.p + d < P) {
+          sum += o;
+#pragma unroll
+          for (int k = 0; k < 4; ++k) mx[k] = max(mx[k], om[k]);
+        }
+      }
+      sum = __shfl_sync(FULL_MASK, sum, s.base);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) mx[k] = __shfl_sync(FULL_MASK, mx[k], s.base);
+    }
+    const uint32_t n = __popc(takers & s.group);
+    int out[NRED];
+    out[A_VAL] = (int)((emitting ? 0u : (uint32_t)acc[A_VAL]) + sum);
+    out[A_CNT] = (int)((emitting ? 0u : (uint32_t)acc[A_CNT]) + n);
+    out[A_NLAST] = max(emitting ? 0 : acc[A_NLAST], mx[0]);
+    out[A_TXN] = max(emitting ? 0 : acc[A_TXN], mx[1]);
+    out[A_TS] = max(emitting ? 0 : acc[A_TS], mx[2]);
+    out[A_SRC] = max(emitting ? 0 : acc[A_SRC], mx[3]);
+    if (s.live) {
+      red_got_out[(crg + g) * P + s.p] = (got && !emitting) || take;
+      // the router's lanes share the accumulator's fields: lane p writes f = p mod P
+#pragma unroll
+      for (int f = 0; f < NRED; ++f)
+        if (f % P == s.p) red_acc_out[(crg + g) * NRED + f] = out[f];
+    }
+  }
+
+  // ---- arbitration with multicast fork requests ----
+  uint32_t m = 0;  // as output p: the inputs that request me and may take me
+  for (int pin = 0; pin < P; ++pin)
+    m |= ((__shfl_sync(FULL_MASK, req, (s.base + pin) & 31) >> s.p) & 1u) << pin;
+  if (lock >= 0) m &= lock < P ? 1u << lock : 0u;
+  const bool emit = (emit_mask >> s.p) & 1u;  // a reduction emission owns the port
+  if (oc >= Dout || emit) m = 0;
+  const int winner = rr_winner(m, ptr, P);
+  const bool granted0 = m != 0;
+  uint32_t win = 0;  // as input p: the outputs I won
+  for (int pout = 0; pout < P; ++pout)
+    win |= (__shfl_sync(FULL_MASK, granted0 ? winner : -1, (s.base + pout) & 31) == s.p
+                ? 1u : 0u) << pout;
+  const bool fire = is_mc && req != 0 && (req & ~win) == 0;
+  const bool pop = red_pop || fire || (uni && win != 0);
+  const int wkind = __shfl_sync(FULL_MASK, (is_mc ? 1 : 0) | (fire ? 2 : 0),
+                                (s.base + winner) & 31);
+  const bool g = granted0 && (!(wkind & 1) || (wkind & 2));
+  int ch[NF];
+#pragma unroll
+  for (int f = 0; f < NF; ++f) ch[f] = __shfl_sync(FULL_MASK, head[f], (s.base + winner) & 31);
+  if (s.live) {
+    arb_pop[t] = pop;
+    in_space[t] = (cnt - (pop ? 1 : 0)) < Din;
+    granted[t] = g || emit;
+    rr_out[t] = g ? (winner + 1 == P ? 0 : winner + 1) : ptr;
+    wh_out[t] = g ? (ch[F_LAST] > 0 ? -1 : winner) : lock;
+    if (emit) {
+      // the combined flit stays group-addressed for the next hop
+      ch[F_DST] = E + emit_g;
+      ch[F_SRC] = emit_acc[A_SRC];
+      ch[F_KIND] = KIND_RED;
+      ch[F_TXN] = emit_acc[A_TXN];
+      ch[F_LAST] = wrap_sub(1, emit_acc[A_NLAST]);
+      ch[F_TS] = emit_acc[A_TS];
+      ch[F_META] = emit_acc[A_VAL];
+    }
+#pragma unroll
+    for (int f = 0; f < NF; ++f) chosen[t * NF + f] = ch[f];
+  }
 }
 
 // Operands of the global-memory fused window. `*0` are the inputs (never
@@ -613,7 +713,6 @@ __global__ void __launch_bounds__(kFusedThreads) noc_fused_global_kernel(FusedAr
 // ---------------------------------------------------------------------------
 // The fused window on a thread-block cluster (one cluster per channel).
 
-#define FULL_MASK 0xffffffffu
 #define NO_LINK 0xffffffffu  // a slot's remote address where it has no link
 
 // Operands of the cluster window: the inputs (`*0`, never written), the
@@ -1156,15 +1255,20 @@ __global__ void __launch_bounds__(kClusterMaxThreads, 1)
 
 static const int kThreads = 128;
 
+// CTAs of a per-cycle arbitration launch: 32 / P routers a warp, four
+// warps a CTA.
+static int arb_blocks(int C, int R, int P) {
+  const long rpw = 32 / P, warps = ((long)C * R + rpw - 1) / rpw;
+  return (int)((warps * 32 + kArbThreads - 1) / kArbThreads);
+}
+
 extern "C" int noc_arb_launch(
     const void* in_buf, const void* in_cnt, const void* out_cnt,
     const void* rr, const void* wh, const void* route, const void* vc_out,
     void* arb_pop, void* granted, void* chosen, void* rr_out, void* wh_out,
     void* in_space, int C, int R, int P, int Din, int Dout, int E, int V,
     void* stream) {
-  int n = C * R;
-  int blocks = (n + kThreads - 1) / kThreads;
-  noc_arb_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+  noc_arb_kernel<<<arb_blocks(C, R, P), kArbThreads, 0, (cudaStream_t)stream>>>(
       (const int*)in_buf, (const int*)in_cnt, (const int*)out_cnt,
       (const int*)rr, (const int*)wh, (const int*)route,
       (const int*)vc_out, (bool*)arb_pop, (bool*)granted, (int*)chosen,
@@ -1197,9 +1301,8 @@ extern "C" int noc_arb_offload_launch(void* const* ptrs, const int* dims,
                                       void* stream) {
   const int C = dims[0], R = dims[1], P = dims[2], Din = dims[3];
   const int Dout = dims[4], E = dims[5], V = dims[6], G = dims[7];
-  int n = C * R;
-  int blocks = (n + kThreads - 1) / kThreads;
-  noc_arb_offload_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+  noc_arb_offload_kernel<<<arb_blocks(C, R, P), kArbThreads, 0,
+                           (cudaStream_t)stream>>>(
       (const int*)ptrs[0], (const int*)ptrs[1], (const int*)ptrs[2],
       (const int*)ptrs[3], (const int*)ptrs[4], (const int*)ptrs[5],
       (const int*)ptrs[6], (const bool*)ptrs[7], (const int*)ptrs[8],

@@ -3,8 +3,8 @@
 The kernels (``csrc/noc_router.cu``) are the counterparts of the JAX
 package's Pallas router kernels:
 
-1. **arb** — one thread per (channel, router): round-robin output
-   arbitration from the cycle-start snapshot, written to scratch tensors
+1. **arb** — a warp per 32 / P routers, a lane per slot: round-robin
+   output arbitration from the cycle-start snapshot, written to scratch tensors
    (``arb_pop``, ``granted``, ``chosen``, ``rr_ptr'``, ``wh_lock'``,
    post-pop ``in_space``). Replaces ``_arb_kernel``; with ``n_vcs > 1``
    (dateline slot expansion through ``vc_out``) ``_arb_kernel_vc``.
@@ -19,7 +19,7 @@ package's Pallas router kernels:
    ``fused_plan`` sizes the cluster; a channel too large for 16 CTAs runs
    the same window with its state in global memory (one CTA per channel).
    Replaces ``_fused_kernel`` and, with ``n_vcs > 1``, ``_fused_kernel_vc``.
-4. **arb_offload** — one thread per (channel, router): the collective-
+4. **arb_offload** — a lane per slot, as arb: the collective-
    offload arbitration (multicast fork, reduction ALU, emission
    pre-emption) at any ``n_vcs``, with the ALU state ``red_acc`` /
    ``red_got`` in and out. Replaces ``_arb_kernel_offload``; its merged
@@ -54,7 +54,7 @@ from repro_torch.kernels.noc_router.ref import (
 
 CSRC = Path(__file__).parent / "csrc"
 SOURCES = (CSRC / "noc_router.cu",)
-MAX_P = 32  # slots (ports x VCs) per router the arb kernel holds per thread
+MAX_P = 32  # slots (ports x VCs) per router: a warp's lanes, a request mask's bits
 FUSED_PTRS = 40  # pointer operands of noc_fused_global_launch (FusedArgs)
 CLUSTER_PTRS = 30  # pointer operands of noc_fused_cluster_launch (ClusterArgs)
 OFFLOAD_PTRS = 20  # pointer operands of noc_arb_offload_launch

@@ -30,11 +30,12 @@ from repro_torch.kernels.noc_router.ref import (
 P = 5
 
 
-def _tables(rng, R, E, V=1):
-    """Random routing/wiring tables for ``P`` physical ports and ``V``
-    virtual channels; endpoint attachments are unique VC0 slots and
+def _tables(rng, R, E, V=1, n_ports=P):
+    """Random routing/wiring tables for ``n_ports`` physical ports (P) and
+    ``V`` virtual channels; endpoint attachments are unique VC0 slots and
     ``port_ep`` (slot-level) is their inverse, as on every real topology.
     With ``V > 1`` a random dateline table ``vc_out`` [R, P * V, P]."""
+    P = n_ports
     route = rng.integers(0, P, (R, E)).astype(np.int32)
     # bias a third of the destinations to port 0 so heads contend for it
     route[:, : E // 3] = 0
@@ -54,8 +55,9 @@ def _tables(rng, R, E, V=1):
     return tb
 
 
-def _snapshot(rng, lead, R, E, din, dout, V=1):
-    """Random consistent state of shape ``lead + [R, P * V, ...]``."""
+def _snapshot(rng, lead, R, E, din, dout, V=1, n_ports=P):
+    """Random consistent state of shape ``lead + [R, n_ports * V, ...]``."""
+    P = n_ports
     s = tuple(lead) + (R, P * V)
 
     def flits(d):
@@ -86,7 +88,7 @@ def _egress(rng, C, E, Q, cycle0, N):
                 eg_cnt=rng.integers(0, Q + 1, (C, E)).astype(np.int32))
 
 
-def _offload(rng, s, R, E, G, V=1):
+def _offload(rng, s, R, E, G, V=1, n_ports=P):
     """Random collective-offload tables and ALU state for the snapshot
     ``s`` (made by ``_snapshot``), whose input heads it turns into
     group-addressed multicast and reduction heads in part.
@@ -98,7 +100,7 @@ def _offload(rng, s, R, E, G, V=1):
     contributions already taken, and heads of every kind addressed to
     groups past ``G``. Returns ``(tables, state)`` dicts of numpy arrays.
     """
-    PV = P * V
+    PV = n_ports * V
     heads = s["in_buf"][..., 0, :]
     roll = rng.random(heads.shape[:-1])
     heads[..., F_KIND] = np.where(roll < 0.3, KIND_MC,
@@ -136,19 +138,24 @@ def _on_card(d):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("R,depth,V", [(32, 2, 1), (32, 4, 1), (1024, 2, 1),
-                                       (32, 2, 2), (32, 4, 2), (1024, 2, 2),
-                                       (32, 2, 6)],
-                         ids=["32-2", "32-4", "1024-2", "32-2-vc2", "32-4-vc2",
-                              "1024-2-vc2", "32-2-vc6"])
-def test_cuda_kernels_match_plain(R, depth, V):
+@pytest.mark.parametrize("R,depth,V,n_ports", [
+    (32, 2, 1, P), (32, 4, 1, P), (1024, 2, 1, P), (32, 2, 2, P), (32, 4, 2, P),
+    (1024, 2, 2, P), (32, 2, 6, P), (7, 2, 1, P), (7, 2, 1, 1), (11, 2, 1, 32),
+    (11, 2, 2, 16), (5, 2, 6, P)],
+    ids=["32-2", "32-4", "1024-2", "32-2-vc2", "32-4-vc2", "1024-2-vc2", "32-2-vc6",
+         "7-2-ragged", "7-2-p1", "11-2-p32", "11-2-p32-vc2", "5-2-vc6"])
+def test_cuda_kernels_match_plain(R, depth, V, n_ports):
     """The CUDA arb and apply kernels against the plain version on the
-    card, bit for bit, and one launch of each per router cycle (V = 6 is
-    30 slots, near the arb kernel's limit)."""
+    card, bit for bit, and one launch of each per router cycle; the arb
+    kernel's lane layouts at their edges (a warp holds 32 // P routers, a
+    lane per slot): a ragged last warp (3 x 7 routers over warps of 6 at
+    P = 5, over one warp of 32 at P = 1), 30 slots (V = 6: two unused
+    lanes) and 32 (one router a warp, every lane used; 32 ports, and 16 at
+    n_vcs=2)."""
     rng = np.random.default_rng(R + depth + 100 * V)
-    E = 40 if R == 32 else 1056
-    tb = _on_card(_tables(rng, R, E, V))
-    s = _on_card(_snapshot(rng, (3,), R, E, depth, depth, V))
+    E = 1056 if R == 1024 else min(40, R * n_ports)
+    tb = _on_card(_tables(rng, R, E, V, n_ports=n_ports))
+    s = _on_card(_snapshot(rng, (3,), R, E, depth, depth, V, n_ports=n_ports))
     args = (s["in_buf"], s["in_cnt"], s["out_buf"], s["out_cnt"], s["rr_ptr"],
             s["wh_lock"], tb["route"], tb["link_src"], tb["link_dst"],
             tb["port_ep"], tb["ep_attach"], s["ep_space"])
@@ -228,20 +235,24 @@ def test_cuda_fused_variants_match_plain(R, V, cluster, k):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("R,G,V", [(32, 1, 1), (32, 3, 1), (32, 2, 2),
-                                   (1024, 2, 1), (1024, 1, 2), (32, 3, 6)],
-                         ids=["32-1", "32-3", "32-2-vc2", "1024-2",
-                              "1024-1-vc2", "32-3-vc6"])
-def test_cuda_offload_arb_matches_plain(R, G, V):
+@pytest.mark.parametrize("R,G,V,n_ports", [
+    (32, 1, 1, P), (32, 3, 1, P), (32, 2, 2, P), (1024, 2, 1, P), (1024, 1, 2, P),
+    (32, 3, 6, P), (7, 40, 1, P), (7, 40, 2, P), (7, 3, 1, 1), (11, 3, 1, 32),
+    (5, 40, 6, P)],
+    ids=["32-1", "32-3", "32-2-vc2", "1024-2", "1024-1-vc2", "32-3-vc6", "7-40-ragged",
+         "7-40-ragged-vc2", "7-3-p1", "11-3-p32", "5-40-vc6"])
+def test_cuda_offload_arb_matches_plain(R, G, V, n_ports):
     """The offload arb kernel and the offload router cycle (offload arb +
     the unchanged apply kernel) against the plain version on the card, bit
     for bit, with random reduction-ALU state; the inputs stay untouched,
-    and one launch of each kernel per cycle."""
+    and one launch of each kernel per cycle. Also at the lane layouts'
+    edges (a ragged last warp; 1, 30 and 32 slots) and with 40 groups,
+    walked by each router's lanes in step."""
     rng = np.random.default_rng(11 * R + G + 100 * V)
-    E = 40 if R == 32 else 1056
-    tb = _tables(rng, R, E, V)
-    s = _snapshot(rng, (3,), R, E, 2, 2, V)
-    otb, ost = _offload(rng, s, R, E, G, V)
+    E = 1056 if R == 1024 else min(40, R * n_ports)
+    tb = _tables(rng, R, E, V, n_ports=n_ports)
+    s = _snapshot(rng, (3,), R, E, 2, 2, V, n_ports=n_ports)
+    otb, ost = _offload(rng, s, R, E, G, V, n_ports=n_ports)
     tb, s, otb, ost = (_on_card(d) for d in (tb, s, otb, ost))
     args = (s["in_buf"], s["in_cnt"], s["out_buf"], s["out_cnt"], s["rr_ptr"],
             s["wh_lock"], tb["route"], tb["link_src"], tb["link_dst"],

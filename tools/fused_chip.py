@@ -1,7 +1,8 @@
-"""The fused router window alone on the card: variants, agreement and times.
+"""The router kernels alone on the card: variants, agreement and times.
 
     PYTHONPATH=src python tools/fused_chip.py [--check-only] [--sections] [--shapes NAME ...]
-    python tools/fused_chip.py --path-time [--root CHECKOUT]
+    python tools/fused_chip.py --path-time [--cell NAME ...] [--root CHECKOUT]
+    python tools/fused_chip.py --arb-times [--root CHECKOUT]
 
 Needs a CUDA device and ``nvcc``. It
 
@@ -35,14 +36,19 @@ the prologue, in arbitration, from the barrier's arrival to its wait (the
 local reads between), in the remote reads, in the writes, and in the
 epilogue, averaged over the CTAs: ``[fused_sections] {...}``.
 
-``--path-time`` measures only the main path that the window carries most:
-``chip_smoke.py``'s ``scale_32x32_torus`` (the 32x32 torus, ``n_vcs=2``,
-``fused_cycles=4``, 200 cycles from a fresh state, then 10 super-steps
-under ``torch.profiler``), printing the host's ms per cycle and the device
-time per cycle, the fused kernel's and the rest's:
-``[path_device_time] {...}``. ``--root`` runs it on another checkout (its
-``src`` and ``chip_smoke.py``), such as a parent commit unpacked with
-``git archive``, to compare two commits in turns within one call.
+``--path-time`` measures only main paths of ``chip_smoke.py``, each
+``--cell`` in turn (``CELLS``; default ``scale_32x32_torus``): the cell's
+first cycles from a fresh state (host ms per cycle), then its profiled
+(super-)steps under ``torch.profiler``: the device time per cycle, the
+fused kernel's and the rest's, and by kernel (the per-cycle arbitration
+kernels, the apply kernel, the fused window, the rest):
+``[path_device_time] {...}``. ``--arb-times`` prints ``ptxas -v`` of the
+router library and times the per-cycle arbitration kernels at the shapes
+of ``chip_smoke.py``'s ``kernels`` line on simulator states, beside an
+empty kernel's launch at the same grid: ``[arb_times] {...}``. ``--root``
+runs either on another checkout (its ``src`` and ``chip_smoke.py``), such
+as a parent commit unpacked with ``git archive``, to compare two commits
+in turns within one call.
 """
 from __future__ import annotations
 
@@ -53,8 +59,9 @@ import tempfile
 from pathlib import Path
 from types import SimpleNamespace
 
+HERE = Path(__file__).resolve().parents[1]
 ROOT = (Path(sys.argv[sys.argv.index("--root") + 1]).resolve()
-        if "--root" in sys.argv else Path(__file__).resolve().parents[1])
+        if "--root" in sys.argv else HERE)
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(Path(__file__).resolve().parent))
@@ -251,10 +258,44 @@ def run_sections(name, lib, n_cycles=16):
              threads=plan.threads, cycles=dict(zip(SECTION_NAMES, per.tolist())))
 
 
-def path_device_time(cycles=200, steps=10):
-    """scale_32x32_torus on the checkout at ROOT: host ms per cycle over
-    ``cycles``, then device us per cycle over ``steps`` profiled
-    super-steps, split into the fused kernel and the rest."""
+# --path-time cells: name -> (nx, ny, NocParams fields, cycles before the
+# profile, profiled steps)
+CELLS = {
+    "main_8x4": (4, 8, dict(), 400, 20),
+    "torus_vc_8x4": (4, 8, dict(n_vcs=2), 400, 20),
+    "allreduce_infabric_8x4": (4, 8, dict(collective_offload=True), 400, 20),
+    "scale_32x32_torus": (32, 32, dict(n_vcs=2, fused_cycles=4), 200, 10),
+}
+KERNEL_GROUPS = (("noc_arb", "arb"), ("noc_apply", "apply"), ("noc_fused", "fused"))
+
+
+def cell_sim(nx, ny, **params):
+    """A simulator built as ``chip_smoke.py`` builds its main paths: the
+    torus with virtual channels, else the mesh; with collective offload the
+    in-fabric all-reduce (16 kB, 2 streams), else uniform 8 kB DMA reads
+    (plus narrow requests below 32x32)."""
+    import chip_smoke as CS
+    from repro_torch.core.noc import collective_traffic as CT
+    from repro_torch.core.noc import sim as TS
+    from repro_torch.core.noc import traffic as TT
+    from repro_torch.core.noc.params import NocParams
+    from repro_torch.core.noc.topology import build_mesh, build_torus
+
+    p = NocParams(**params)
+    topo = (build_torus if p.n_vcs > 1 else build_mesh)(nx=nx, ny=ny)
+    if p.collective_offload:
+        sched = CT.all_reduce(topo, data_kb=16, streams=2, algo="infabric")
+        return TS.build_sim(topo, p, CT.to_workload(topo, sched), groups=sched.meta["groups"])
+    wl = CS.mesh_workload(TT, topo, transfer_kb=8, narrow_rate=0.0 if nx == 32 else 0.05)
+    return TS.build_sim(topo, p, wl)
+
+
+def path_device_time(name):
+    """A main path on the checkout at ROOT: host ms per cycle over the
+    cell's first cycles, then device us per cycle over its profiled
+    (super-)steps, split by kernel: the per-cycle arbitration kernels
+    (``noc_arb*``), ``noc_apply``, the fused window (``noc_fused*``) and the
+    rest."""
     import collections
 
     import torch
@@ -262,15 +303,11 @@ def path_device_time(cycles=200, steps=10):
 
     import chip_smoke as CS
     from repro_torch.core.noc import sim as TS
-    from repro_torch.core.noc import traffic as TT
-    from repro_torch.core.noc.params import NocParams
-    from repro_torch.core.noc.topology import build_torus
     from repro_torch.kernels.noc_router import noc_router as K
 
     K.LIBRARY.build()
-    gtor = build_torus(nx=32, ny=32)
-    wl = CS.mesh_workload(TT, gtor, transfer_kb=8, narrow_rate=0.0)
-    sim = TS.build_sim(gtor, NocParams(n_vcs=2, fused_cycles=4), wl)
+    nx, ny, params, cycles, steps = CELLS[name]
+    sim = cell_sim(nx, ny, **params)
     st, dt, _ = CS.run_counted(TS, sim, cycles)
     cyc, s = int(st.cycle), st
     with torch.no_grad(), profile(
@@ -283,10 +320,56 @@ def path_device_time(cycles=200, steps=10):
     us = collections.Counter()
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            us["fused" if "noc_fused" in e.name else "other"] += e.time_range.elapsed_us()
-    CS.phase("path_device_time", root=str(ROOT), gpu_ms_per_cycle=dt / cycles * 1e3,
-             device_us_per_cycle=sum(us.values()) / n,
-             fused_us_per_cycle=us["fused"] / n, other_us_per_cycle=us["other"] / n)
+            group = next((g for key, g in KERNEL_GROUPS if key in e.name), "other")
+            us[group] += e.time_range.elapsed_us()
+    CS.phase("path_device_time", cell=name, package=str(Path(K.__file__).parents[2]),
+             gpu_ms_per_cycle=dt / cycles * 1e3, device_us_per_cycle=sum(us.values()) / n,
+             fused_us_per_cycle=us["fused"] / n,
+             other_us_per_cycle=(sum(us.values()) - us["fused"]) / n,
+             by_kernel_us_per_cycle={g: us[g] / n for _, g in (*KERNEL_GROUPS, ("", "other"))})
+
+
+def arb_times():
+    """The per-cycle arbitration kernels of the checkout at ROOT at the
+    shapes of ``chip_smoke.py``'s ``kernels`` line, on the states its main
+    paths reach (8x4 and 32x32 mesh and torus after 400 and 100 cycles;
+    the in-fabric all-reduce on the 8x4 mesh and torus at cycle 400 and on
+    the 32x32 mesh at cycle 100): device ms per launch (CUDA graph of 50,
+    median of 7) beside an empty kernel's at the same grid, timed by this
+    checkout's ``chip_smoke.py``. One ``[arb_times]`` line."""
+    import importlib.util
+
+    import chip_smoke as CS
+    from repro_torch.core.noc import sim as TS
+    from repro_torch.kernels.noc_router import noc_router as K
+
+    spec = importlib.util.spec_from_file_location("chip_smoke_here", HERE / "chip_smoke.py")
+    here = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(here)
+    out = {}
+    for name, nx, params, cycles in (
+            ("mesh_8x4", 4, dict(), 400), ("mesh_32x32", 32, dict(), 100),
+            ("torus_vc_8x4", 4, dict(n_vcs=2), 400), ("torus_vc_32x32", 32, dict(n_vcs=2), 100),
+            ("offload_8x4", 4, dict(collective_offload=True), 400),
+            ("offload_32x32", 32, dict(collective_offload=True), 100),
+            ("offload_vc_8x4", 4, dict(collective_offload=True, n_vcs=2), 400)):
+        sim = cell_sim(nx, 8 if nx == 4 else nx, **params)
+        st, _, _ = CS.run_counted(TS, sim, cycles)
+        f, tb = st.fabric, sim.tables
+        args = (f.in_buf, f.in_cnt, f.out_cnt, f.rr_ptr, f.wh_lock, tb.route)
+        kw = dict(depth_out=f.out_buf.shape[-2], vc_out=tb.vc_out, n_vcs=sim.params.n_vcs)
+        if sim.params.collective_offload:
+            kw.update(fork_out=tb.fork_out, red_parent=tb.red_parent, red_need=tb.red_need,
+                      red_acc=f.red_acc, red_got=f.red_got, n_endpoints=tb.route.shape[1])
+            fn = lambda: K.arb_offload_cuda(*args, **kw)
+        else:
+            fn = lambda: K.arb_cuda(*args, **kw)
+        C, R, P = f.in_cnt.shape
+        saved = dict(K.LAUNCHES)
+        out[name] = {"cycle": cycles, "ms": CS.graph_ms(fn),
+                     "launch_floor_ms": here.launch_floor_ms(here.arb_blocks(C, R, P))}
+        K.LAUNCHES.update(saved)
+    CS.phase("arb_times", package=str(Path(K.__file__).parents[2]), **out)
 
 
 def variants(R, P, V):
@@ -368,11 +451,22 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("fused_chip: no CUDA device available", file=sys.stderr)
         return 1
-    if "--path-time" in sys.argv:
-        path_device_time()
-        return 0
-    from model_kernels_chip import ptxas_report
+    # ROOT's package and smoke script first: importing model_kernels_chip
+    # puts this checkout at the front of sys.path
+    import chip_smoke  # noqa: F401
     from repro_torch.kernels.noc_router import noc_router as K
+    from model_kernels_chip import ptxas_report
+
+    if "--path-time" in sys.argv:
+        cells = [a for i, a in enumerate(sys.argv) if i and sys.argv[i - 1] == "--cell"]
+        for name in cells or ["scale_32x32_torus"]:
+            path_device_time(name)
+        return 0
+    if "--arb-times" in sys.argv:
+        print(json.dumps({"ptxas": ptxas_report(K.LIBRARY), "sources": str(K.SOURCES[0])}),
+              flush=True)
+        arb_times()
+        return 0
 
     check_only = "--check-only" in sys.argv
     names = list(SHAPES)
