@@ -556,8 +556,8 @@ def launch_floor_ms(blocks, threads=128):
 
 
 def arb_blocks(C, R, P):
-    """CTAs of a per-cycle arbitration launch (``arb_blocks`` in the
-    source): 32 // P routers a warp, four warps of 32 lanes a CTA."""
+    """CTAs of a per-cycle arbitration or apply launch (``arb_blocks`` in
+    the source): 32 // P routers a warp, four warps of 32 lanes a CTA."""
     warps = -(-C * R // (32 // P))
     return -(-warps * 32 // 128)
 
@@ -584,8 +584,8 @@ def kernel_bytes(st, tables, ep_space):
 
 def kernel_ops(st):
     """Scalar integer operations of each per-cycle kernel (counted
-    generously): the arb thread scores P inputs for each of P outputs, the
-    apply thread moves (Din + Dout) * NF words."""
+    generously): the arb lanes score P inputs for each of P outputs, the
+    apply lane moves (Din + Dout) * NF words."""
     C, R, P, Din, NF = st.in_buf.shape
     Dout = st.out_buf.shape[3]
     return {"arb": C * R * (P * P * 12 + P * (NF + 12)),
@@ -640,8 +640,8 @@ def time_kernels(st, tables, ep_space):
     }
     K.LAUNCHES.update(saved)  # timing launches are not main-path launches
     C, R, P = st.in_cnt.shape
-    out["arb"]["launch_floor_ms"] = launch_floor_ms(arb_blocks(C, R, P))
-    out["apply"]["launch_floor_ms"] = launch_floor_ms(-(-C * R * P // 128))
+    floor = launch_floor_ms(arb_blocks(C, R, P))  # both kernels' grid
+    out["arb"]["launch_floor_ms"] = out["apply"]["launch_floor_ms"] = floor
     nbytes, nops = kernel_bytes(st, tables, ep_space), kernel_ops(st)
     for k, v in out.items():
         b_ms, b_by = bound(nbytes[k], nops[k])
@@ -2159,6 +2159,9 @@ def main() -> int:
         })
         if "launch_floor_ms" in t8:  # the per-cycle rows: an empty launch's time
             kernels[-1]["launch_floor_ms"] = t8["launch_floor_ms"]
+        if key.startswith("apply"):  # the collective cells launch it too
+            kernels[-1]["offload_path_launches"] = (ar_launches if key == "apply"
+                                                    else tar_launches)[key]
         if "cluster" in t8:  # the fused rows: the plan, the pair, PR 12's kernel
             kernels[-1].update({k_: t8[k_] for k_ in (
                 "cluster", "smem_bytes_per_cta", "layout", "threads",

@@ -15,7 +15,7 @@
 //   * noc_arb_offload_kernel <- `_arb_kernel_offload` (any V); plain
 //                         version: ref.offload_decisions (multicast fork,
 //                         reduction ALU, emission pre-emption). Its merged
-//                         decisions feed the unchanged noc_apply_kernel.
+//                         decisions feed the same noc_apply_kernel.
 // All are held bit for bit against the plain PyTorch versions in
 // src/repro_torch/kernels/noc_router/ref.py.
 //
@@ -23,11 +23,13 @@
 // arb -> link barrier: link acceptance depends on the *downstream*
 // router's post-pop input space, so every router's `in_space` must be
 // visible fabric-wide before any link decision. The per-cycle path makes
-// each phase its own launch, which works at any mesh size. Both per-cycle
-// arbitration kernels give a warp 32 / P whole routers, a lane per slot
+// each phase its own launch, which works at any mesh size. All three
+// per-cycle kernels give a warp 32 / P whole routers, a lane per slot
 // (`SlotLane`): each lane loads its own slot, requests and pop masks are
-// warp shuffles and segmented reductions over the router's lanes, and the
-// stores of a warp are contiguous.
+// warp shuffles and segmented reductions over the router's lanes, a
+// wire's VC choice is a ballot over the port group's lanes, and the
+// stores of a warp are contiguous (the apply kernel's FIFO rows go through
+// shared memory to be written coalesced).
 //
 // The fused window runs N cycles in one launch. Like the Pallas kernel,
 // which keeps a channel's carry in VMEM across its loop, it keeps the
@@ -52,7 +54,10 @@
 // Bound on an H100. All kernels do a few integer operations per byte, so
 // bytes bound them: at a 32x32 mesh the apply phase reads and rewrites
 // both FIFO buffers, about 3.4 MB per cycle, ~1 us at 3.35 TB/s. The
-// per-cycle kernels are launch-latency bound at these sizes. The fused
+// per-cycle kernels are launch-latency bound at these sizes: what is left
+// above an empty launch is their chains of dependent loads, which the
+// lane-per-slot shape cuts to two levels in the apply kernel (own slot and
+// tables, then one remote load per side). The fused
 // window reads and writes the state once, so its bytes are a small floor;
 // what sets its time is the cluster barrier and the dependent shared and
 // L2 loads (the route lookup) of each cycle.
@@ -109,6 +114,21 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
 // (signed overflow is undefined in C++, so it runs on uint32_t).
 __device__ __forceinline__ int wrap_sub(int a, int b) {
   return (int)((uint32_t)a - (uint32_t)b);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 4 bytes from global to shared memory, asynchronously (cp.async).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
+               :: "r"(smem_addr(dst)), "l"(__cvta_generic_to_global(src))
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
 }
 
 // Round-robin output arbitration for one (channel, router) `cr = c*R + r`:
@@ -215,7 +235,10 @@ __device__ __forceinline__ bool lowest_vc_wins(
   return false;
 }
 
-// Link resolution + FIFO update for one (channel, router, slot).
+// Link resolution + FIFO update for one (channel, router, slot), by one
+// thread. Only noc_fused_global_kernel calls it (a channel's slots spread
+// over one CTA's threads); the per-cycle noc_apply_kernel runs the same
+// decisions a lane per slot.
 //
 // Write race: a thread reads *other* routers' output heads (link_inputs)
 // and post-pop input space (sent_mask) while those routers update their
@@ -387,8 +410,94 @@ __global__ void __launch_bounds__(kArbThreads) noc_arb_kernel(
   }
 }
 
-// One thread per (channel, router, slot).
-__global__ void noc_apply_kernel(
+// A warp's span of n ints in global memory, read with consecutive lanes on
+// consecutive ints into shared memory. With ROUNDS > 0 (n <= 32 * ROUNDS)
+// each lane loads its ROUNDS words into registers (`load`; plain loads,
+// one 128-byte request each) and parks them (`park`) once they are needed;
+// with ROUNDS 0 (any n) `load` copies them with cp.async and `park` does
+// nothing (4-byte cp.async copies are slow to dispatch: PERF.md, section 6).
+template <int ROUNDS>
+struct WarpSpan {
+  int w[ROUNDS > 0 ? ROUNDS : 1];
+
+  __device__ __forceinline__ void load(int* dst, const int* __restrict__ src, int n,
+                                       int lane) {
+    if (ROUNDS) {
+#pragma unroll
+      for (int i = 0; i < ROUNDS; ++i)
+        w[i] = i * 32 + lane < n ? src[i * 32 + lane] : 0;
+    } else {
+      for (int k = lane; k < n; k += 32) cp_async4(dst + k, src + k);
+    }
+  }
+
+  __device__ __forceinline__ void park(int* dst, int n, int lane) const {
+#pragma unroll
+    for (int i = 0; i < ROUNDS; ++i)
+      if (i * 32 + lane < n) dst[i * 32 + lane] = w[i];
+  }
+};
+
+// n ints from shared to global memory by a warp, consecutive lanes on
+// consecutive ints: at most 32 * ROUNDS of them, unrolled (ROUNDS 0: any n).
+template <int ROUNDS>
+__device__ __forceinline__ void warp_store(int* __restrict__ dst, const int* src, int n,
+                                           int lane) {
+  if (ROUNDS) {
+#pragma unroll
+    for (int i = 0; i < ROUNDS; ++i)
+      if (i * 32 + lane < n) dst[i * 32 + lane] = src[i * 32 + lane];
+  } else {
+    for (int k = lane; k < n; k += 32) dst[k] = src[k];
+  }
+}
+
+// Fused pop-then-push of one FIFO's D rows in place (D = DC, or `d` when
+// DC is 0): row r takes row min(r + pop, D - 1) unless it is the push
+// target, fifo_update's general form; ascending r reads only rows not yet
+// written. Returns the new count.
+template <int DC>
+__device__ __forceinline__ int fifo_rows(int* rows, int d, int cnt, bool pop, bool push,
+                                         const int* flit) {
+  const int D = DC ? DC : d;
+  const int c1 = cnt - (pop ? 1 : 0), tail = clampi(c1, 0, D - 1);
+#pragma unroll
+  for (int r = 0; r < D; ++r) {
+    if (push && r == tail) {
+#pragma unroll
+      for (int f = 0; f < NF; ++f) rows[r * NF + f] = flit[f];
+    } else if (pop && r + 1 < D) {
+#pragma unroll
+      for (int f = 0; f < NF; ++f) rows[r * NF + f] = rows[(r + 1) * NF + f];
+    }
+  }
+  return c1 + (push ? 1 : 0);
+}
+
+// Link resolution + fused FIFO update (ref.apply_phase), a lane per slot
+// as in noc_arb_kernel. The warp's live slots are contiguous in every
+// [C, R, P, ...] array (lane j holds the warp's j-th slot), so:
+//  1. each lane loads its table rows, its counts and arb scratch and its
+//     `chosen`, and the warp reads its old FIFO rows, both sides, with
+//     consecutive lanes on consecutive ints (WarpSpan), all independent;
+//  2. each lane makes one remote load per side for its own VC v: the
+//     upstream output count out_cnt[up + v] and the downstream post-pop
+//     in_space[down + v] (plus, speculatively, the upstream head: its
+//     clamped address is always valid, and it is pushed only on accept);
+//  3. a wire's lowest-eligible-VC choice needs VCs u <= v of the port
+//     group: one ballot per side gives every lane its group's eligibility
+//     bits (the own-side halves, my in_space and my out_cnt > 0, are the
+//     group lanes' own loads, so nothing is reloaded);
+//  4. the old rows go to the warp's span of shared memory; each lane pops
+//     and pushes its slot's rows there in place (fifo_rows, dead slots
+//     included), and the warp writes its spans back coalesced.
+// Unused lanes and a ragged last warp's routers take part in the ballots
+// and copy nothing. Nothing is written in place: every read is of the
+// cycle-start snapshot or the arb scratch. DIN and DOUT fix the depths at
+// compile time, which holds the old rows in registers and unrolls the
+// copies and the row updates (0: taken from the arguments).
+template <int DIN, int DOUT>
+__global__ void __launch_bounds__(kArbThreads) noc_apply_kernel(
     const int* __restrict__ in_buf, const int* __restrict__ in_cnt,
     const int* __restrict__ out_buf, const int* __restrict__ out_cnt,
     const bool* __restrict__ arb_pop, const bool* __restrict__ granted,
@@ -397,13 +506,85 @@ __global__ void noc_apply_kernel(
     const int* __restrict__ port_ep, const bool* __restrict__ ep_space,
     int* __restrict__ new_in_buf, int* __restrict__ new_in_cnt,
     int* __restrict__ new_out_buf, int* __restrict__ new_out_cnt,
-    int C, int R, int P, int Din, int Dout, int E, int V) {
-  int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= C * R * P) return;
-  apply_slot(in_buf, in_cnt, out_buf, out_cnt, arb_pop, granted, chosen,
-             in_space, link_src, link_dst, port_ep, ep_space, new_in_buf,
-             new_in_cnt, new_out_buf, new_out_cnt, t / (P * R), (t / P) % R,
-             t % P, R, P, Din, Dout, E, V);
+    int C, int R, int P, int din, int dout, int E, int V) {
+  extern __shared__ __align__(16) int apply_smem[];
+  const int Din = DIN ? DIN : din, Dout = DOUT ? DOUT : dout;
+  const SlotLane s = slot_lane(C, R, P);
+  const int lane = threadIdx.x & 31;
+  const int fin = Din * NF, fout = Dout * NF;
+  const size_t t = (size_t)s.cr * P + s.p;
+  const int Pp = P / V, pp = s.p / V, v = s.p - pp * V;
+  int src_r = -1, src_p = 0, dst_r = -1, dst_p = 0, pe = -1, icnt = 0, ocnt = 0;
+  bool pop_in = false, grant = false, space = false;
+  int ch[NF];
+#pragma unroll
+  for (int f = 0; f < NF; ++f) ch[f] = 0;
+  if (s.live) {
+    const int* ls = link_src + (size_t)(s.r * Pp + pp) * 2;
+    const int* ld = link_dst + (size_t)(s.r * Pp + pp) * 2;
+    src_r = __ldg(ls);
+    src_p = __ldg(ls + 1);
+    dst_r = __ldg(ld);
+    dst_p = __ldg(ld + 1);
+    pe = __ldg(port_ep + (size_t)s.r * P + s.p);
+    icnt = in_cnt[t];
+    ocnt = out_cnt[t];
+    pop_in = arb_pop[t];
+    grant = granted[t];
+    space = in_space[t];
+#pragma unroll
+    for (int f = 0; f < NF; ++f) ch[f] = chosen[t * NF + f];
+  }
+
+  // the warp's live slots, slot0 .. slot0 + ns - 1, and their old rows
+  int* s_in = apply_smem + (threadIdx.x >> 5) * 32 * (fin + fout);
+  int* s_out = s_in + 32 * fin;
+  const int rpw = 32 / P, cr0 = s.cr - lane / P;
+  const int ns = max(0, min(rpw, C * R - cr0)) * P;
+  const size_t slot0 = (size_t)cr0 * P;
+  WarpSpan<DIN * NF> old_in;
+  WarpSpan<DOUT * NF> old_out;
+  old_in.load(s_in, in_buf + slot0 * fin, ns * fin, lane);
+  old_out.load(s_out, out_buf + slot0 * fout, ns * fout, lane);
+
+  // Clamping: link coordinates are clipped into range before the gather,
+  // as the reference does; a missing link (row < 0) moves nothing.
+  int up_cnt = 0, flit[NF];
+  bool dn_space = false, ep_ok = false;
+#pragma unroll
+  for (int f = 0; f < NF; ++f) flit[f] = 0;
+  if (s.live) {
+    const size_t chan = (size_t)(s.cr - s.r) * P;  // c * R * P
+    const size_t up = chan + (size_t)clampi(src_r, 0, R - 1) * P + clampi(src_p, 0, Pp - 1) * V + v;
+    const size_t down = chan + (size_t)clampi(dst_r, 0, R - 1) * P + clampi(dst_p, 0, Pp - 1) * V + v;
+    up_cnt = out_cnt[up];
+    dn_space = in_space[down];
+#pragma unroll
+    for (int f = 0; f < NF; ++f) flit[f] = out_buf[up * fout + f];
+    // endpoints attach at VC0 slots, so the endpoint leg is slot-level
+    if (pe >= 0) ep_ok = ep_space[(size_t)(s.cr / R) * E + clampi(pe, 0, E - 1)];
+  }
+  // VC u of a wire is eligible when the upstream head on u is valid and the
+  // downstream input u has space; the lowest eligible VC wins. My group's
+  // bits sit at lanes lane - v .. lane - v + V - 1; I win if, of u <= v,
+  // only bit v is set.
+  const uint32_t in_elig = __ballot_sync(FULL_MASK, src_r >= 0 && up_cnt > 0 && space);
+  const uint32_t out_elig = __ballot_sync(FULL_MASK, dst_r >= 0 && ocnt > 0 && dn_space);
+  const uint32_t upto = (2u << v) - 1u, me = 1u << v;
+  const bool accept = ((in_elig >> (lane - v)) & upto) == me;
+  const bool sent = ((out_elig >> (lane - v)) & upto) == me || (ocnt > 0 && ep_ok);
+
+  old_in.park(s_in, ns * fin, lane);
+  old_out.park(s_out, ns * fout, lane);
+  cp_async_wait_all();
+  __syncwarp();  // the warp's old rows are all in shared memory
+  if (s.live) {
+    new_in_cnt[t] = fifo_rows<DIN>(s_in + lane * fin, Din, icnt, pop_in, accept, flit);
+    new_out_cnt[t] = fifo_rows<DOUT>(s_out + lane * fout, Dout, ocnt, sent, grant, ch);
+  }
+  __syncwarp();  // the warp's rows are final
+  warp_store<DIN * NF>(new_in_buf + slot0 * fin, s_in, ns * fin, lane);
+  warp_store<DOUT * NF>(new_out_buf + slot0 * fout, s_out, ns * fout, lane);
 }
 
 // Collective-offload arbitration (ref.offload_decisions), a lane per slot
@@ -819,10 +1000,6 @@ __device__ __forceinline__ void cluster_sync(int ctas) {
   cluster_wait(ctas);
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
 // The address of the same shared-memory location in CTA `rank`.
 __device__ __forceinline__ uint32_t in_rank(uint32_t addr, int rank) {
   uint32_t r;
@@ -860,16 +1037,6 @@ __device__ __forceinline__ int ld_any_u8(uint32_t addr, bool local) {
     return (int)v;
   }
   return ld_cluster_u8(addr);
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
-               :: "r"(smem_addr(dst)), "l"(__cvta_generic_to_global(src))
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;" ::: "memory");
 }
 
 // n ints from src to dst by the block, four loads in flight per thread;
@@ -1253,10 +1420,8 @@ __global__ void __launch_bounds__(kClusterMaxThreads, 1)
   cp_async_wait_all();  // no copy into shared memory outlives the block
 }
 
-static const int kThreads = 128;
-
-// CTAs of a per-cycle arbitration launch: 32 / P routers a warp, four
-// warps a CTA.
+// CTAs of a per-cycle arbitration or apply launch: 32 / P routers a warp,
+// four warps a CTA.
 static int arb_blocks(int C, int R, int P) {
   const long rpw = 32 / P, warps = ((long)C * R + rpw - 1) / rpw;
   return (int)((warps * 32 + kArbThreads - 1) / kArbThreads);
@@ -1283,9 +1448,18 @@ extern "C" int noc_apply_launch(
     const void* link_dst, const void* port_ep, const void* ep_space,
     void* new_in_buf, void* new_in_cnt, void* new_out_buf, void* new_out_cnt,
     int C, int R, int P, int Din, int Dout, int E, int V, void* stream) {
-  int n = C * R * P;
-  int blocks = (n + kThreads - 1) / kThreads;
-  noc_apply_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+  // each warp's old and new FIFO rows, both sides: 14 KB a CTA at depth 2
+  // (every configuration's default, fixed at compile time), any depth else
+  static size_t allowed = 48 * 1024;
+  const size_t smem = (size_t)kArbThreads * (Din + Dout) * NF * sizeof(int);
+  const auto kernel = Din == 2 && Dout == 2 ? noc_apply_kernel<2, 2> : noc_apply_kernel<0, 0>;
+  if (smem > allowed) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        noc_apply_kernel<0, 0>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    allowed = smem;
+  }
+  kernel<<<arb_blocks(C, R, P), kArbThreads, smem, (cudaStream_t)stream>>>(
       (const int*)in_buf, (const int*)in_cnt, (const int*)out_buf,
       (const int*)out_cnt, (const bool*)arb_pop, (const bool*)granted,
       (const int*)chosen, (const bool*)in_space, (const int*)link_src,

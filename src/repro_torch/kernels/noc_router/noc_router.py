@@ -8,10 +8,12 @@ package's Pallas router kernels:
    (``arb_pop``, ``granted``, ``chosen``, ``rr_ptr'``, ``wh_lock'``,
    post-pop ``in_space``). Replaces ``_arb_kernel``; with ``n_vcs > 1``
    (dateline slot expansion through ``vc_out``) ``_arb_kernel_vc``.
-2. **apply** — one thread per (channel, router, slot): link resolution
-   against the fabric-wide snapshot plus the fused FIFO update of both
-   sides, into freshly allocated output buffers (never in place).
-   Replaces ``_apply_kernel`` at any ``n_vcs``.
+2. **apply** — a lane per slot, as arb: link resolution against the
+   fabric-wide snapshot (one remote load per side and lane, a wire's VC
+   choice by a ballot over the port group's lanes) plus the fused FIFO
+   update of both sides, staged in shared memory and written coalesced
+   into freshly allocated output buffers (never in place). Replaces
+   ``_apply_kernel`` at any ``n_vcs``.
 3. **fused** — one thread-block cluster per channel runs an N-cycle window
    with the channel's state in the cluster's shared memory (arb, apply and
    egress injection per cycle, one cluster barrier between the phases;
@@ -23,7 +25,7 @@ package's Pallas router kernels:
    offload arbitration (multicast fork, reduction ALU, emission
    pre-emption) at any ``n_vcs``, with the ALU state ``red_acc`` /
    ``red_got`` in and out. Replaces ``_arb_kernel_offload``; its merged
-   decisions go to the unchanged apply kernel.
+   decisions go to the same apply kernel.
 
 One per-cycle step is an arb then an apply launch: the launch boundary is
 the arb -> link barrier (``in_space`` of every router must be visible
@@ -55,6 +57,9 @@ from repro_torch.kernels.noc_router.ref import (
 CSRC = Path(__file__).parent / "csrc"
 SOURCES = (CSRC / "noc_router.cu",)
 MAX_P = 32  # slots (ports x VCs) per router: a warp's lanes, a request mask's bits
+# Din + Dout at most: the apply kernel stages 128 slots' FIFO rows, both
+# sides, in a CTA's 227 KB of shared memory
+MAX_APPLY_DEPTH = 64
 FUSED_PTRS = 40  # pointer operands of noc_fused_global_launch (FusedArgs)
 CLUSTER_PTRS = 30  # pointer operands of noc_fused_cluster_launch (ClusterArgs)
 OFFLOAD_PTRS = 20  # pointer operands of noc_arb_offload_launch
@@ -366,6 +371,9 @@ def apply_cuda(in_buf, in_cnt, out_buf, out_cnt, arb: ArbDecisions,
     if dev.type != "cuda":
         raise ValueError(f"apply_cuda needs CUDA tensors, got {dev}")
     C, R, P, Din, Dout = _dims(in_buf, out_buf, n_vcs=n_vcs)
+    if Din + Dout > MAX_APPLY_DEPTH:
+        raise ValueError(f"the CUDA apply kernel takes depths summing to at most "
+                         f"{MAX_APPLY_DEPTH}, got {Din} + {Dout}")
     E = ep_space.shape[-1]
     i32, b = torch.int32, torch.bool
     _check("in_buf", in_buf, i32, (C, R, P, Din, NF), dev)
@@ -422,7 +430,7 @@ def router_cycle_offload_cuda(in_buf, in_cnt, out_buf, out_cnt, rr_ptr,
                               red_need, red_acc, red_got, n_endpoints: int,
                               vc_out=None, n_vcs: int = 1):
     """One fabric cycle of every channel with collective offload: the
-    offload arb kernel, then the unchanged apply kernel (fork copies and
+    offload arb kernel, then the same apply kernel (fork copies and
     emitted reduction flits reach it through the merged ``granted`` /
     ``chosen``). Same contract as ``ref.router_cycle_offload_reference(...,
     fused=True)`` over channel-batched state: returns ``(in_buf, in_cnt,

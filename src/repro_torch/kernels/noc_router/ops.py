@@ -16,7 +16,7 @@ decide where they run:
 ``n_vcs > 1`` selects the virtual-channel datapath (slot-level P axis,
 ``vc_out`` [R, P, Pp] the dateline table). Passing ``fork_out`` selects
 the collective-offload datapath of ``router_cycle`` (on a CUDA device the
-offload arb kernel with the unchanged apply kernel). This module does not import
+offload arb kernel with the same apply kernel). This module does not import
 ``repro_torch.core.noc``: the engine layers on top of it.
 """
 from __future__ import annotations

@@ -170,6 +170,65 @@ def test_cuda_kernels_match_plain(R, depth, V, n_ports):
         assert tkern.LAUNCHES[k] == before[k] + 1
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,din,dout,V,n_ports,links", [
+    (32, 2, 2, 1, P, "random"), (32, 4, 4, 1, P, "random"), (32, 4, 2, 2, P, "random"),
+    (1024, 2, 2, 2, P, "random"), (7, 2, 2, 1, P, "random"), (7, 2, 2, 1, 1, "random"),
+    (11, 2, 2, 1, 32, "random"), (5, 2, 2, 6, P, "random"), (32, 2, 2, 1, P, "none"),
+    (32, 2, 4, 2, P, "half"), (32, 16, 16, 1, P, "random")],
+    ids=["32-2", "32-4", "32-42-vc2", "1024-2-vc2", "7-2-ragged", "7-2-p1", "11-2-p32",
+         "5-2-vc6", "32-2-no-links", "32-24-vc2-half-links", "32-16-deep"])
+def test_cuda_apply_matches_plain(R, din, dout, V, n_ports, links):
+    """The apply kernel alone against ``ref.apply_phase(fused=True)`` on
+    the card, bit for bit (dead FIFO slots included), on the plain arb
+    decisions of a random snapshot: its inputs untouched and one launch
+    counted. At the warp layout's edges (a ragged last warp, 1, 30 and 32
+    slots), at depths 4 and 2 + 4, with no links at all and with half of
+    them missing, and at depths 16 + 16, whose staged rows need more than
+    48 KB of shared memory a CTA."""
+    rng = np.random.default_rng(17 * R + din + 10 * dout + 100 * V)
+    E = 1056 if R == 1024 else min(40, R * n_ports)
+    tb = _tables(rng, R, E, V, n_ports=n_ports)
+    if links != "random":
+        cut = rng.random(tb["link_src"].shape[:2]) < (1.0 if links == "none" else 0.5)
+        tb["link_src"][cut] = -1
+        tb["link_dst"][cut[::-1]] = -1
+    tb = _on_card(tb)
+    s = _on_card(_snapshot(rng, (3,), R, E, din, dout, V, n_ports=n_ports))
+    vc = dict(vc_out=tb.get("vc_out"), n_vcs=V)
+    arb = tref.arb_decisions(s["in_buf"], s["in_cnt"], s["out_cnt"], s["rr_ptr"],
+                             s["wh_lock"], tb["route"], depth_out=dout, **vc)
+    args = (s["in_buf"], s["in_cnt"], s["out_buf"], s["out_cnt"], arb, tb["link_src"],
+            tb["link_dst"], tb["port_ep"], s["ep_space"])
+    copies = [t.clone() for t in (*args[:4], *arb, *args[5:])]
+    key = tkern.mode("apply", V)
+    before = tkern.LAUNCHES[key]
+    got = tkern.apply_cuda(*args, n_vcs=V)
+    torch.cuda.synchronize()
+    assert tkern.LAUNCHES[key] == before + 1
+    want = tref.apply_phase(*args, fused=True, n_vcs=V)
+    for i, (a, b) in enumerate(zip(want, got)):
+        assert torch.equal(a, b), f"output {i} differs"
+    for i, (a, b) in enumerate(zip(copies, (*args[:4], *arb, *args[5:]))):
+        assert torch.equal(a, b), f"input {i} modified"
+
+
+@pytest.mark.gpu
+def test_cuda_apply_refuses_deep_fifos():
+    """Depths past what a CTA's shared memory stages raise before any
+    launch."""
+    rng = np.random.default_rng(3)
+    tb = _on_card(_tables(rng, 4, 8))
+    s = _on_card(_snapshot(rng, (1,), 4, 8, 40, 40))
+    arb = tref.arb_decisions(s["in_buf"], s["in_cnt"], s["out_cnt"], s["rr_ptr"],
+                             s["wh_lock"], tb["route"], depth_out=40)
+    before = tkern.LAUNCHES["apply"]
+    with pytest.raises(ValueError, match="depths"):
+        tkern.apply_cuda(s["in_buf"], s["in_cnt"], s["out_buf"], s["out_cnt"], arb,
+                         tb["link_src"], tb["link_dst"], tb["port_ep"], s["ep_space"])
+    assert tkern.LAUNCHES["apply"] == before
+
+
 def _fused_case(R, N, V, seed, plan=None):
     """One launch of the fused kernel (``plan``, default the wrapper's)
     against N cycles of the plain ``router_cycles_scan`` on random state,

@@ -3,6 +3,7 @@
     PYTHONPATH=src python tools/fused_chip.py [--check-only] [--sections] [--shapes NAME ...]
     python tools/fused_chip.py --path-time [--cell NAME ...] [--root CHECKOUT]
     python tools/fused_chip.py --arb-times [--root CHECKOUT]
+    python tools/fused_chip.py --apply-times [--apply-sections] [--root CHECKOUT]
 
 Needs a CUDA device and ``nvcc``. It
 
@@ -45,10 +46,18 @@ kernels, the apply kernel, the fused window, the rest):
 ``[path_device_time] {...}``. ``--arb-times`` prints ``ptxas -v`` of the
 router library and times the per-cycle arbitration kernels at the shapes
 of ``chip_smoke.py``'s ``kernels`` line on simulator states, beside an
-empty kernel's launch at the same grid: ``[arb_times] {...}``. ``--root``
-runs either on another checkout (its ``src`` and ``chip_smoke.py``), such
-as a parent commit unpacked with ``git archive``, to compare two commits
-in turns within one call.
+empty kernel's launch at the same grid: ``[arb_times] {...}``.
+``--apply-times`` does the same for the apply kernel on those states (fed
+the arbitration kernel's decisions), beside an empty kernel at the
+lane-per-slot grid: ``[apply_times] {...}``; with ``--apply-sections`` it
+also builds a copy of the apply kernel with ``clock64`` reads at its
+phase boundaries (edits anchored on source lines, one set for the kernel
+of a thread per slot and one for a lane per slot, whichever the source
+has) and prints the SM cycles a live thread spends in each, averaged:
+``[apply_sections] {...}``. ``--root`` runs any of these on another
+checkout (its ``src`` and ``chip_smoke.py``), such as a parent commit
+unpacked with ``git archive``, to compare two commits in turns within one
+call.
 """
 from __future__ import annotations
 
@@ -185,15 +194,16 @@ SECTION_NAMES = ("prologue", "arbitration", "arrive_to_wait", "remote_reads",
                  "writes", "epilogue")
 
 
-def sections_library():
-    """The router library built from an instrumented copy of its source."""
+def sections_library(edits=SECTION_EDITS):
+    """The router library built from a copy of its source instrumented by
+    ``edits`` (the first defines ``g_sections`` and its accessors)."""
     import ctypes
 
     from repro_torch.kernels.build import NVCC_FLAGS, nvcc
     from repro_torch.kernels.noc_router import noc_router as K
 
     src = K.SOURCES[0].read_text()
-    for anchor, code in SECTION_EDITS:
+    for anchor, code in edits:
         if src.count(anchor + "\n") != 1:
             raise RuntimeError(f"section anchor not found once: {anchor!r}")
         src = src.replace(anchor + "\n", anchor + "\n" + code + "\n")
@@ -329,30 +339,27 @@ def path_device_time(name):
              by_kernel_us_per_cycle={g: us[g] / n for _, g in (*KERNEL_GROUPS, ("", "other"))})
 
 
-def arb_times():
-    """The per-cycle arbitration kernels of the checkout at ROOT at the
-    shapes of ``chip_smoke.py``'s ``kernels`` line, on the states its main
-    paths reach (8x4 and 32x32 mesh and torus after 400 and 100 cycles;
-    the in-fabric all-reduce on the 8x4 mesh and torus at cycle 400 and on
-    the 32x32 mesh at cycle 100): device ms per launch (CUDA graph of 50,
-    median of 7) beside an empty kernel's at the same grid, timed by this
-    checkout's ``chip_smoke.py``. One ``[arb_times]`` line."""
-    import importlib.util
+# the per-cycle kernels' states: (name, nx, NocParams fields, cycles run)
+CYCLE_STATES = (
+    ("mesh_8x4", 4, dict(), 400), ("mesh_32x32", 32, dict(), 100),
+    ("torus_vc_8x4", 4, dict(n_vcs=2), 400), ("torus_vc_32x32", 32, dict(n_vcs=2), 100),
+    ("offload_8x4", 4, dict(collective_offload=True), 400),
+    ("offload_32x32", 32, dict(collective_offload=True), 100),
+    ("offload_vc_8x4", 4, dict(collective_offload=True, n_vcs=2), 400))
+
+
+def cycle_calls():
+    """(name, cycles, arb, apply, n_vcs) at each of ``CYCLE_STATES`` on the
+    checkout at ROOT: the state its main path reaches, ``arb()`` one launch
+    of its arbitration kernel, ``apply`` the apply kernel's arguments (that
+    kernel's decisions, every endpoint with ingress space) and the VCs."""
+    import torch
 
     import chip_smoke as CS
     from repro_torch.core.noc import sim as TS
     from repro_torch.kernels.noc_router import noc_router as K
 
-    spec = importlib.util.spec_from_file_location("chip_smoke_here", HERE / "chip_smoke.py")
-    here = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(here)
-    out = {}
-    for name, nx, params, cycles in (
-            ("mesh_8x4", 4, dict(), 400), ("mesh_32x32", 32, dict(), 100),
-            ("torus_vc_8x4", 4, dict(n_vcs=2), 400), ("torus_vc_32x32", 32, dict(n_vcs=2), 100),
-            ("offload_8x4", 4, dict(collective_offload=True), 400),
-            ("offload_32x32", 32, dict(collective_offload=True), 100),
-            ("offload_vc_8x4", 4, dict(collective_offload=True, n_vcs=2), 400)):
+    for name, nx, params, cycles in CYCLE_STATES:
         sim = cell_sim(nx, 8 if nx == 4 else nx, **params)
         st, _, _ = CS.run_counted(TS, sim, cycles)
         f, tb = st.fabric, sim.tables
@@ -361,15 +368,143 @@ def arb_times():
         if sim.params.collective_offload:
             kw.update(fork_out=tb.fork_out, red_parent=tb.red_parent, red_need=tb.red_need,
                       red_acc=f.red_acc, red_got=f.red_got, n_endpoints=tb.route.shape[1])
-            fn = lambda: K.arb_offload_cuda(*args, **kw)
+            arb = lambda args=args, kw=kw: K.arb_offload_cuda(*args, **kw)[0]
         else:
-            fn = lambda: K.arb_cuda(*args, **kw)
-        C, R, P = f.in_cnt.shape
-        saved = dict(K.LAUNCHES)
+            arb = lambda args=args, kw=kw: K.arb_cuda(*args, **kw)
+        dec = arb()
+        ep_space = torch.ones(tb.route.shape[1], dtype=torch.bool,  # as chip_smoke.py's
+                              device=f.in_cnt.device).expand(f.in_cnt.shape[0], -1).contiguous()
+        app = (f.in_buf, f.in_cnt, f.out_buf, f.out_cnt, dec, tb.link_src, tb.link_dst,
+               tb.port_ep, ep_space)
+        yield name, cycles, arb, app, sim.params.n_vcs
+
+
+def chip_smoke_here():
+    """This checkout's ``chip_smoke.py`` (its launch-floor probe), whatever
+    ROOT is."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke_here", HERE / "chip_smoke.py")
+    here = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(here)
+    return here
+
+
+def kernel_times(which):
+    """The per-cycle arbitration kernels (``which`` "arb") or the apply
+    kernel ("apply") of the checkout at ROOT at the shapes of
+    ``chip_smoke.py``'s ``kernels`` line, on the states its main paths
+    reach (8x4 and 32x32 mesh and torus after 400 and 100 cycles; the
+    in-fabric all-reduce on the 8x4 mesh and torus at cycle 400 and on the
+    32x32 mesh at cycle 100): device ms per launch (CUDA graph of 50,
+    median of 7) beside an empty kernel's at the lane-per-slot grid, timed
+    by this checkout's ``chip_smoke.py``. One ``[arb_times]`` or
+    ``[apply_times]`` line."""
+    import chip_smoke as CS
+    from repro_torch.kernels.noc_router import noc_router as K
+
+    here = chip_smoke_here()
+    out = {}
+    saved = dict(K.LAUNCHES)
+    for name, cycles, arb, app, V in cycle_calls():
+        fn = arb if which == "arb" else lambda app=app, V=V: K.apply_cuda(*app, n_vcs=V)
+        C, R, P = app[1].shape
         out[name] = {"cycle": cycles, "ms": CS.graph_ms(fn),
                      "launch_floor_ms": here.launch_floor_ms(here.arb_blocks(C, R, P))}
+    K.LAUNCHES.update(saved)
+    CS.phase(f"{which}_times", package=str(Path(K.__file__).parents[2]), **out)
+
+
+# clock64 edits of the apply kernel, (anchor line, code inserted after it):
+# a thread per slot (apply_slot) and a lane per slot (noc_apply_kernel).
+# Each live thread sums its sections into g_sections[0..4] (warp sums, one
+# atomic each) and counts itself into g_sections[7].
+_SEC_OPEN = "long long sec_t = clock64(), sec[5] = {0, 0, 0, 0, 0}; unsigned sec_sink = 0;"
+
+
+def _sec(j, sink=""):
+    return (f"{{ {sink} const long long sec_c = clock64(); sec[{j}] = sec_c - sec_t; "
+            "sec_t = sec_c; }")
+
+
+_SEC_CLOSE = (
+    _sec(4) + "\n"
+    "{ const unsigned m = __activemask(); const bool lead = (threadIdx.x & 31) == __ffs(m) - 1;\n"
+    "  for (int j = 0; j < 5; ++j) {\n"
+    "    const unsigned x = __reduce_add_sync(m, (unsigned)sec[j]);\n"
+    "    if (lead) atomicAdd(&g_sections[j], (unsigned long long)x); }\n"
+    "  if (lead) atomicAdd(&g_sections[7], (unsigned long long)__popc(m));\n"
+    "  if (sec_sink == 0x7fffffffu) g_sections[6] = 1; }")
+APPLY_SECTION_EDITS = {
+    "thread": (
+        SECTION_EDITS[0],
+        ("  size_t group = chan + (size_t)r * P + pp * V;  // my slots of port pp", _SEC_OPEN),
+        ("  int src_r = link_src[lp * 2], src_p = link_src[lp * 2 + 1];",
+         _sec(0, "sec_sink += src_r + src_p;")),
+        ("  bool accept = src_r >= 0 && lowest_vc_wins(out_cnt, in_space, up, group, v);",
+         _sec(1, "sec_sink += accept;")),
+        ("                              out_buf + (up + v) * Dout * NF, Din);", _sec(2)),
+        ("                 ep_space[(size_t)c * E + clampi(pe, 0, E - 1)];",
+         _sec(3, "sec_sink += sent_link + sent_ep;")),
+        ("                               chosen + t * NF, Dout);", _SEC_CLOSE),
+    ),
+    "lane": (
+        SECTION_EDITS[0],
+        ("  extern __shared__ __align__(16) int apply_smem[];", _SEC_OPEN),
+        ("  old_out.load(s_out, out_buf + slot0 * fout, ns * fout, lane);",
+         _sec(0, "sec_sink += src_r + src_p + dst_r + dst_p + pe + icnt + ocnt + pop_in"
+                 " + grant + space + ch[0] + ch[6];")),
+        ("    if (pe >= 0) ep_ok = ep_space[(size_t)(s.cr / R) * E + clampi(pe, 0, E - 1)];",
+         _sec(1, "sec_sink += up_cnt + dn_space + flit[0] + flit[6] + ep_ok;")),
+        ("  const bool sent = ((out_elig >> (lane - v)) & upto) == me || (ocnt > 0 && ep_ok);",
+         _sec(2, "sec_sink += accept + sent;")),
+        ("  __syncwarp();  // the warp's rows are final", _sec(3)),
+        ("  warp_store<DOUT * NF>(new_out_buf + slot0 * fout, s_out, ns * fout, lane);",
+         "if (s.live) {\n" + _SEC_CLOSE + "\n}"),
+    ),
+}
+APPLY_SECTION_NAMES = {
+    "thread": ("tables", "input_chain", "input_fifo", "output_chain", "output_fifo"),
+    "lane": ("own_and_old_row_loads", "remote_loads", "ballots", "rows_to_smem_and_fifo",
+             "coalesced_stores"),
+}
+
+
+def apply_sections():
+    """SM cycles a live thread of the apply kernel (of the checkout at
+    ROOT) spends in each section, averaged over the threads of one launch
+    at each of ``CYCLE_STATES`` after a warm-up: one ``[apply_sections]``
+    line."""
+    import ctypes
+
+    import torch
+
+    import chip_smoke as CS
+    from repro_torch.kernels.noc_router import noc_router as K
+
+    src = K.SOURCES[0].read_text()
+    shape = "thread" if "  if (t >= C * R * P) return;\n" in src else "lane"
+    lib = sections_library(APPLY_SECTION_EDITS[shape])
+    out = {}
+    saved_lib, saved = K.LIBRARY.lib, dict(K.LAUNCHES)
+    K.LIBRARY.lib = lib
+    try:
+        for name, _, _, app, V in cycle_calls():
+            K.apply_cuda(*app, n_vcs=V)  # warm-up
+            torch.cuda.synchronize()
+            lib.sections_clear()
+            K.apply_cuda(*app, n_vcs=V)
+            torch.cuda.synchronize()
+            buf = (ctypes.c_ulonglong * (4096 * 8))()
+            lib.sections_read(ctypes.cast(buf, ctypes.c_void_p))
+            n = max(1, buf[7])
+            out[name] = {"threads": buf[7], "cycles": dict(zip(
+                APPLY_SECTION_NAMES[shape], (buf[j] / n for j in range(5))))}
+    finally:
+        K.LIBRARY.lib = saved_lib
         K.LAUNCHES.update(saved)
-    CS.phase("arb_times", package=str(Path(K.__file__).parents[2]), **out)
+    CS.phase("apply_sections", package=str(Path(K.__file__).parents[2]), shape=shape, **out)
+
 
 
 def variants(R, P, V):
@@ -462,11 +597,14 @@ def main() -> int:
         for name in cells or ["scale_32x32_torus"]:
             path_device_time(name)
         return 0
-    if "--arb-times" in sys.argv:
-        print(json.dumps({"ptxas": ptxas_report(K.LIBRARY), "sources": str(K.SOURCES[0])}),
-              flush=True)
-        arb_times()
-        return 0
+    for which in ("arb", "apply"):
+        if f"--{which}-times" in sys.argv:
+            print(json.dumps({"ptxas": ptxas_report(K.LIBRARY), "sources": str(K.SOURCES[0])}),
+                  flush=True)
+            kernel_times(which)
+            if which == "apply" and "--apply-sections" in sys.argv:
+                apply_sections()
+            return 0
 
     check_only = "--check-only" in sys.argv
     names = list(SHAPES)
