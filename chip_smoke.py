@@ -103,6 +103,18 @@ checks what comes out:
    ``src/repro_torch/benchmarks/jax_rows.json``; and ``fig10_rob``, the
    whole default-mode Fig. 10 module on the card (3 x 4000 cycles on the
    4x4 mesh), rows and footer equal to the JAX package's, ms per cycle;
+11b. the batched sweep and the design-space exploration: the per-cycle
+   arb, apply and offload arb kernels against their plain versions on
+   random snapshots of B x C = 12 channels (``kernels_vs_plain_sweep``;
+   8x4 mesh V = 1, 8x4 torus V = 2, the all-reduce's offload groups);
+   ``sweep_8x4``: ``run_sweep`` on ``preset("mesh", big=True)`` over uniform
+   1 / 4 / 16 / 32 kB x 4 DMA reads, B = 4 as one state, 1 200 cycles,
+   router launches equal to one configuration's, each configuration's state
+   equal to its own sequential run on the card and configuration 0's to
+   the CPU's, batched and single ms per cycle and their ratio;
+   ``dse_smoke``: ``run_dse(default_grid(smoke=True))`` on the card, the
+   frontier artifact equal byte for byte to the JAX package's
+   (``src/repro_torch/benchmarks/dse_smoke_jax.json``), wall seconds;
 12. one JSON line listing every kernel and mode (launches on its main
    path, mismatch, times, bounds; the per-cycle kernels' rows also the
    launch floor: an empty kernel's time at the same grid, timed the same
@@ -1701,6 +1713,133 @@ def figure_fig10(dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the batched sweep and the design-space exploration
+
+SWEEP_KB = (1, 4, 16, 32)  # the explorer's pattern sweep: uniform, 4 transfers each
+SWEEP_CYCLES = 1200
+
+
+def sweep_kernels(rng, dev):
+    """The per-cycle kernels at a batched sweep's grid: random snapshots of
+    B x C = 4 x 3 = 12 channels over one fabric's tables, V = 1 (8x4 mesh)
+    and V = 2 (8x4 torus), and the offload arb kernel on the 8x4 mesh's
+    all-reduce groups, each against its plain version. Returns the largest
+    error per ``LAUNCHES`` key."""
+    from repro_torch.core.noc import collective_traffic as CT
+    from repro_torch.core.noc.engine import make_tables
+    from repro_torch.core.noc.topology import build_mesh, build_torus
+    from repro_torch.kernels.noc_router import noc_router as K
+
+    BC = 4 * 3
+    errs = {}
+    for name, topo, V in (("mesh 8x4", build_mesh(nx=4, ny=8), 1),
+                          ("torus 8x4", build_torus(nx=4, ny=8), 2)):
+        tables = make_tables(topo, n_vcs=V, device=dev)
+        for depth in (2, 4):
+            e = compare_kernels(to_device(random_snapshot(rng, tables, BC, depth), dev),
+                                tables)
+            phase("kernels_vs_plain_sweep", fabric=name, channels=BC, n_vcs=V,
+                  depth=depth, max_abs_err=e)
+            check(max(e.values()) == 0, f"kernel disagrees with plain at B x C: {e}")
+            for k, key in (("arb", K.mode("arb", V)), ("apply", K.mode("apply", V))):
+                errs[key] = max(errs.get(key, 0), e[k], e["cycle"])
+    topo = build_mesh(nx=4, ny=8)
+    groups = CT.all_reduce(topo, data_kb=16, streams=2, algo="infabric").meta["groups"]
+    tables = make_tables(topo, groups=groups, device=dev)
+    raw = random_snapshot(rng, tables, BC, 2)
+    red = random_offload(rng, raw, tables)
+    e, seen = compare_offload(to_device(raw, dev), to_device(red, dev), tables)
+    phase("kernels_vs_plain_sweep", fabric="mesh 8x4", channels=BC, groups=len(groups),
+          depth=2, max_abs_err=e, cases=seen)
+    check(max(e.values()) == 0, f"offload kernel disagrees with plain at B x C: {e}")
+    errs["arb_offload"] = max(e.values())
+    return errs
+
+
+def sweep_8x4(dev):
+    """``run_sweep`` on ``preset("mesh", big=True)`` (the paper's 8x4
+    compute mesh) over the explorer's uniform 1 / 4 / 16 / 32 kB x 4 DMA
+    reads, B = 4 as one state for 1 200 cycles, counted: the router kernels
+    launched as for one configuration; each configuration's state equal,
+    leaf for leaf, to its own sequential run on the card, and
+    configuration 0's to the CPU's. Prints the batched and the single
+    configuration's ms per cycle and their ratio."""
+    import torch
+
+    from repro_torch.core.noc import sim as TS
+    from repro_torch.core.noc import traffic as TT
+    from repro_torch.core.noc.spec import preset
+
+    topo, params = preset("mesh", big=True).lower()
+    wls = [TT.dma_workload(topo, "uniform", transfer_kb=kb, n_txns=4) for kb in SWEEP_KB]
+    n = SWEEP_CYCLES
+    sim = TS.build_sim(topo, params, wls[0], device=dev)
+    counts = router_launches_reset()
+    t0 = time.perf_counter()
+    swept = TS.run_sweep(sim, wls, n)
+    torch.cuda.synchronize()
+    batched_s = time.perf_counter() - t0
+    launches = dict(counts)
+    check(launches == expected_launches(params, n),
+          f"sweep launches {launches}, one configuration makes "
+          f"{expected_launches(params, n)}")
+    single_s = []
+    for i, wl in enumerate(wls):
+        st, dt, _ = run_counted(TS, TS.build_sim(topo, params, wl, device=dev), n)
+        single_s.append(dt)
+        bad = states_equal(swept[i], st)
+        check(not bad, f"sweep configuration {i} differs from its own run in {bad}")
+    cpu = TS.run(TS.build_sim(topo, params, wls[0], device="cpu"), n)
+    bad = states_equal(swept[0], cpu)
+    check(not bad, f"sweep configuration 0 differs from the CPU run in {bad}")
+    done = [int(TS.stats(sim, st)["dma_done"].sum()) for st in swept]
+    check(all(d > 0 for d in done), f"a sweep configuration completed nothing: {done}")
+    batched_ms = batched_s / n * 1e3
+    single_ms = statistics.mean(single_s) / n * 1e3
+    phase("sweep_8x4", configurations=len(wls), transfer_kb=list(SWEEP_KB), cycles=n,
+          launches=launches, batched_ms_per_cycle=batched_ms,
+          single_ms_per_cycle=single_ms,
+          single_ms_per_cycle_each=[t / n * 1e3 for t in single_s],
+          batched_over_single=batched_ms / single_ms,
+          states_equal_sequential=True, config0_equals_cpu=True, dma_done=done)
+    return launches
+
+
+def dse_smoke(dev):
+    """``run_dse(default_grid(smoke=True))`` on the card, counted: the
+    frontier artifact, dumped as the explorer writes it, equal byte for
+    byte to the JAX package's (``dse_smoke_jax.json``). Prints wall
+    seconds."""
+    import torch
+
+    from repro_torch.core.noc import dse
+    from repro_torch.core.noc.params import NocParams
+
+    specs = dse.default_grid(smoke=True)
+    jobs = dse.build_jobs(specs)
+    counts = router_launches_reset()
+    t0 = time.perf_counter()
+    results = dse.run_dse(specs, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(counts)
+    art = dse.frontier_artifact(results, grid="smoke")
+    got = json.dumps(art, indent=1, sort_keys=True)
+    want = (ROOT / "src/repro_torch/benchmarks/dse_smoke_jax.json").read_text()
+    check(got == want, "DSE smoke artifact differs from the JAX package's")
+    cycles = [max(dse._wl_cycles_budget(wl) for _, _, wl in m) for _, _, m in jobs]
+    want_l = dict.fromkeys(launches, 0)
+    for (_, params, _), c in zip(jobs, cycles):
+        for k, v in expected_launches(params, c).items():
+            want_l[k] += v
+    check(launches == want_l, f"DSE launches {launches}, expected {want_l}")
+    phase("dse_smoke", points=len(specs), groups=len(jobs), cycles=cycles,
+          launches=launches, wall_s=wall, delivered=art["n_delivered"],
+          frontier=art["frontier"], equal_to_jax_artifact=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2117,6 +2256,11 @@ def main() -> int:
     kv_times = time_kv_gather(dev)
     figure_launches = {"figures_smoke": figures_smoke(dev), "fig10_rob": figure_fig10(dev)}
 
+    # ---- 11b. the batched sweep and the design-space exploration ----------
+    for key, e in sweep_kernels(rng, dev).items():
+        errs[key] = max(errs[key], e)
+    sweep_launches = {"sweep_8x4": sweep_8x4(dev), "dse_smoke": dse_smoke(dev)}
+
     # ---- 12. the kernels line ----------------------------------------------
     src = "src/repro_torch/kernels/noc_router/csrc/noc_router.cu"
     tpu = "src/repro/kernels/noc_router/noc_router.py:"
@@ -2159,6 +2303,9 @@ def main() -> int:
         })
         if "launch_floor_ms" in t8:  # the per-cycle rows: an empty launch's time
             kernels[-1]["launch_floor_ms"] = t8["launch_floor_ms"]
+        for path, counts in sweep_launches.items():  # B x C channels as one state
+            if counts[key]:
+                kernels[-1][f"{path}_launches"] = counts[key]
         if key.startswith("apply"):  # the collective cells launch it too
             kernels[-1]["offload_path_launches"] = (ar_launches if key == "apply"
                                                     else tar_launches)[key]
@@ -2213,7 +2360,7 @@ def main() -> int:
         "main_path": KV_MAIN_PATH,
     })
     by_path.update({path: {k: n for k, n in counts.items() if n}
-                    for path, counts in figure_launches.items()})
+                    for path, counts in {**figure_launches, **sweep_launches}.items()})
     phase("launches_by_path", **by_path)
     phase("total", seconds=time.perf_counter() - t_start)
     print(card)

@@ -18,9 +18,9 @@ of an open-loop traffic pattern.
 
 Ring builders take an ``order`` that may be a *subset* of the tiles (a
 parallelism group's ring) and ``merge_disjoint`` fuses disjoint groups
-into one concurrent schedule; the JAX package's ``ml_traffic`` builds on
-that to compile whole training-step phases (DDP / TP / MoE / PP — see
-docs/WORKLOADS.md; not ported yet).
+into one concurrent schedule; ``repro_torch.core.noc.ml_traffic`` builds
+on that to compile whole training-step phases (DDP / TP / MoE / PP — see
+docs/WORKLOADS.md).
 
 Streams split the data: with S streams every tile runs S independent ring
 pipelines under distinct TxnIDs (the paper's multi-stream DMA), which both

@@ -8,6 +8,12 @@ router cycle runs on the device's kernels (``ops.router_cycle``, or
 ``ops.router_cycles_fused`` for a ``fused_cycles > 1`` super-step); the
 endpoint phases are plain tensor code. ``run`` keeps the cycle number a
 Python int, so stepping never waits on the device.
+
+``run_sweep`` steps B workloads of one fabric as one state: the fabric's
+channel axis holds B x C channels (configuration-major, over the shared
+tables, so the router kernels launch once per cycle whatever B is) and
+the endpoint axis B x E rows (row ``b * E + e`` is endpoint ``e`` of
+configuration ``b``). A Sim's own workload is the batch of one.
 """
 from __future__ import annotations
 
@@ -62,15 +68,15 @@ def _full(E, value, device):
 
 
 def _ingest(st: epm.EndpointState, flits, valid, cycle: int,
-            params: NocParams):
+            params: NocParams, eidx):
     """Process delivered flits on all channels at once.
 
-    flits: [C, E, NF]; valid: [C, E]. Narrow requests / responses ride their
+    flits: [C, E, NF]; valid: [C, E]; ``eidx`` [E] each row's endpoint
+    index within its configuration. Narrow requests / responses ride their
     role channels (CH_REQ / CH_RSP); wide kinds are recognized by kind on any
     wide channel, so counters are summed over the channel axis."""
     E = st.lat_sum.shape[0]
     dev = flits.device
-    eidx = torch.arange(E, dtype=I32, device=dev)
     kind = flits[..., F_KIND]  # [C, E]
 
     # ---- req channel: we are the target ----
@@ -170,35 +176,73 @@ def _ingest(st: epm.EndpointState, flits, valid, cycle: int,
 
 @dataclass(frozen=True)
 class WorkloadTensors:
-    """The array fields of a Workload as device tensors (made once)."""
+    """The array fields of B workloads of one fabric as device tensors
+    (made once), with the per-row constants the endpoint phases read.
 
-    narrow_rate: torch.Tensor  # [E] f32
-    narrow_dst: torch.Tensor  # [E] i32
-    dma_dst: torch.Tensor  # [E, S] i32
-    dma_alt_dst: torch.Tensor  # [E, S] i32
-    dma_dst_seq: torch.Tensor | None  # [E, S, K] i32
+    Row ``b * E + e`` is endpoint ``e`` of configuration ``b``; a Sim's own
+    workload is B = 1. ``dma_beats`` and ``dma_txns``, a scalar and the
+    initial ``d_txns_left`` of a Workload, are per-row tensors here, so a
+    sweep over transfer sizes batches them like the other fields."""
+
+    narrow_rate: torch.Tensor  # [B*E] f32
+    narrow_dst: torch.Tensor  # [B*E] i32
+    dma_dst: torch.Tensor  # [B*E, S] i32
+    dma_alt_dst: torch.Tensor  # [B*E, S] i32
+    dma_txns: torch.Tensor  # [B*E, S] i32
+    dma_beats: torch.Tensor  # [B*E, 1] i32 beats per (unscheduled) transfer
+    dma_dst_seq: torch.Tensor | None  # [B*E, S, K] i32
     dma_gate: torch.Tensor | None
     dma_beats_seq: torch.Tensor | None
+    eidx: torch.Tensor  # [B*E] i32 endpoint index within the configuration
+    is_hbm: torch.Tensor  # [B*E] bool
+    is_mem: torch.Tensor  # [B*E] bool
+    n_endpoints: int  # E
+
+    @property
+    def batch(self) -> int:
+        """B, the number of configurations."""
+        return self.eidx.shape[0] // self.n_endpoints
 
     @classmethod
-    def of(cls, wl: epm.Workload, device) -> "WorkloadTensors":
-        """Copy ``wl``'s arrays to ``device``."""
-        i32 = lambda a: (None if a is None else
-                         torch.as_tensor(np.array(a, np.int32), device=device))
+    def stack(cls, wls: list[epm.Workload], is_hbm: np.ndarray,
+              is_mem: np.ndarray, device) -> "WorkloadTensors":
+        """The rows of ``wls`` (one fabric, ``is_hbm`` / ``is_mem`` [E])
+        on ``device``."""
+        B, E = len(wls), len(is_hbm)
+
+        def rows(f, dtype):
+            vals = [getattr(w, f) for w in wls]
+            if vals[0] is None:
+                return None
+            return torch.as_tensor(np.concatenate(
+                [np.asarray(v, dtype) for v in vals]), device=device)
+
+        beats = np.repeat(np.array([w.dma_beats for w in wls], np.int32), E)
+        tile = lambda a: torch.as_tensor(np.tile(np.asarray(a, bool), B),
+                                         device=device)
         return cls(
-            narrow_rate=torch.as_tensor(np.array(wl.narrow_rate, np.float32),
-                                        device=device),
-            narrow_dst=i32(wl.narrow_dst), dma_dst=i32(wl.dma_dst),
-            dma_alt_dst=i32(wl.dma_alt_dst), dma_dst_seq=i32(wl.dma_dst_seq),
-            dma_gate=i32(wl.dma_gate), dma_beats_seq=i32(wl.dma_beats_seq))
+            narrow_rate=rows("narrow_rate", np.float32),
+            narrow_dst=rows("narrow_dst", np.int32),
+            dma_dst=rows("dma_dst", np.int32),
+            dma_alt_dst=rows("dma_alt_dst", np.int32),
+            dma_txns=rows("dma_txns", np.int32),
+            dma_beats=torch.as_tensor(beats[:, None], device=device),
+            dma_dst_seq=rows("dma_dst_seq", np.int32),
+            dma_gate=rows("dma_gate", np.int32),
+            dma_beats_seq=rows("dma_beats_seq", np.int32),
+            eidx=torch.as_tensor(np.tile(np.arange(E, dtype=np.int32), B),
+                                 device=device),
+            is_hbm=tile(is_hbm), is_mem=tile(is_mem), n_endpoints=E)
 
 
 def _generators(st: epm.EndpointState, cycle: int, params: NocParams,
                 wl: epm.Workload, wt: WorkloadTensors):
-    """Narrow + DMA request generation into egress queues."""
-    E = st.lat_sum.shape[0]
+    """Narrow + DMA request generation into egress queues. ``wl`` gives the
+    static attributes, ``wt`` the rows' arrays."""
+    E = wt.n_endpoints  # per configuration: the group-address base
+    n_rows = st.lat_sum.shape[0]
     dev = st.lat_sum.device
-    eidx = torch.arange(E, dtype=I32, device=dev)
+    eidx = wt.eidx
     eg, eg_ready, eg_cnt = st.eg, st.eg_ready, st.eg_cnt
     EQ = eg_ready.shape[-1]
     T = st.ni_cnt.shape[1]
@@ -212,7 +256,7 @@ def _generators(st: epm.EndpointState, cycle: int, params: NocParams,
                         _uniform_dst(eidx, st.n_seq, n_tiles),
                         wt.narrow_dst).to(I32)
     txn_n = torch.remainder(st.n_seq, T)
-    ones = torch.ones((E,), dtype=I32, device=dev)
+    ones = torch.ones((n_rows,), dtype=I32, device=dev)
     ok_n = epm._ni_check(st, txn_n, dst_n, params, ones)
     space_n = eg_cnt[CH_REQ] < EQ
     fire_n = want_n & ok_n & space_n
@@ -220,7 +264,7 @@ def _generators(st: epm.EndpointState, cycle: int, params: NocParams,
     flit_n = eng.pack_flit(dst_n, eidx, NARROW_REQ, txn_n, 1, cycle, 1)
     eg, eg_ready, eg_cnt = epm._eg_push(
         eg, eg_ready, st.eg_head, eg_cnt, CH_REQ, fire_n, flit_n,
-        _full(E, cycle + src_delay, dev))
+        _full(n_rows, cycle + src_delay, dev))
     ni_cnt, ni_dst, rob = epm._ni_issue(st, fire_n, txn_n, dst_n, ones,
                                         params)
     n_acc = torch.where(fire_n, n_acc - 1.0, n_acc.clamp(max=4.0))
@@ -231,9 +275,9 @@ def _generators(st: epm.EndpointState, cycle: int, params: NocParams,
     S = st.d_outst.shape[1]
     s_idx = torch.arange(S, dtype=I32, device=dev)
     if wl.unique_txn_per_stream:
-        txn_of_stream = torch.remainder(s_idx, T)[None, :].expand(E, S)
+        txn_of_stream = torch.remainder(s_idx, T)[None, :].expand(n_rows, S)
     else:
-        txn_of_stream = torch.zeros((E, S), dtype=I32, device=dev)
+        txn_of_stream = torch.zeros((n_rows, S), dtype=I32, device=dev)
     if wt.dma_dst_seq is not None:
         # scheduled multi-phase DMA: destination, beats and receive gate
         # are looked up per issue index
@@ -253,8 +297,8 @@ def _generators(st: epm.EndpointState, cycle: int, params: NocParams,
             _uniform_dst(eidx[:, None], st.d_seq * S + s_idx[None, :],
                          n_tiles),
             dst_es).to(I32)
-        beats = torch.full((E, S), wl.dma_beats, dtype=I32, device=dev)
-        gate_ok = torch.ones((E, S), dtype=torch.bool, device=dev)
+        beats = wt.dma_beats.expand(n_rows, S)
+        gate_ok = torch.ones((n_rows, S), dtype=torch.bool, device=dev)
         enabled = wt.dma_dst != -1
     st_tmp = dataclasses.replace(st, ni_cnt=ni_cnt, ni_dst=ni_dst,
                                  rob_credit=rob)
@@ -285,7 +329,7 @@ def _generators(st: epm.EndpointState, cycle: int, params: NocParams,
     any_pick = best <= S
     stall_d = (want_es & ~ok_es).any(dim=1) & ~any_pick
 
-    e64 = eidx.long()
+    e64 = torch.arange(n_rows, device=dev)
     pick_dst = dst_es[e64, pick]
     pick_txn = txn_of_stream[e64, pick]
     pick_beats = beats[e64, pick]
@@ -298,7 +342,7 @@ def _generators(st: epm.EndpointState, cycle: int, params: NocParams,
                                 pick_beats)
         eg, eg_ready, eg_cnt = epm._eg_push(
             eg, eg_ready, st.eg_head, eg_cnt, CH_REQ, fire_d, flit_ar,
-            _full(E, cycle + src_delay, dev))
+            _full(n_rows, cycle + src_delay, dev))
         w_stream, w_left, w_beats, w_dst, w_txn, w_ts = (
             st.w_stream, st.w_left, st.w_beats, st.w_dst, st.w_txn, st.w_ts)
     else:
@@ -309,7 +353,7 @@ def _generators(st: epm.EndpointState, cycle: int, params: NocParams,
         w_beats = torch.where(fire_d, pick_beats, st.w_beats)
         w_dst = torch.where(fire_d, pick_dst, st.w_dst)
         w_txn = torch.where(fire_d, pick_txn, st.w_txn)
-        w_ts = torch.where(fire_d, _full(E, cycle, dev), st.w_ts)
+        w_ts = torch.where(fire_d, _full(n_rows, cycle, dev), st.w_ts)
 
     d_done = st.d_done
     if n_off:
@@ -354,7 +398,7 @@ def _generators(st: epm.EndpointState, cycle: int, params: NocParams,
                                    w_beats)
         eg, eg_ready, eg_cnt = epm._eg_push(
             eg, eg_ready, st.eg_head, eg_cnt, wch, emit, flit_w,
-            _full(E, cycle + 1, dev))
+            _full(n_rows, cycle + 1, dev))
         beats_sent = beats_sent + emit.to(I32)
         w_left = torch.where(emit, w_left - 1, w_left)
         done_w = emit & (w_left == 0)
@@ -379,11 +423,12 @@ def _uniform_dst(e, seq, n_tiles: int):
 
 
 def _memory(st: epm.EndpointState, cycle: int, params: NocParams,
-            is_hbm, is_mem):
-    """Memory server: pop requests, serve after latency, emit response beats."""
+            wt: WorkloadTensors):
+    """Memory server: pop requests, serve after latency, emit response beats
+    (``wt``: the rows' endpoint indices and HBM / memory maps)."""
     E = st.lat_sum.shape[0]
     dev = st.lat_sum.device
-    eidx = torch.arange(E, dtype=I32, device=dev)
+    eidx, is_hbm, is_mem = wt.eidx, wt.is_hbm, wt.is_mem
     EQ = st.eg_ready.shape[-1]
 
     # the refill is one float32 value, as JAX's weak-typed scalar becomes
@@ -439,6 +484,23 @@ def _memory(st: epm.EndpointState, cycle: int, params: NocParams,
     )
 
 
+def _to_rows(x, B: int):
+    """Fabric-side ``[B*C, E, ...]`` (configuration-major channels) to the
+    endpoint phases' ``[C, B*E, ...]`` (channel, then row); views at
+    B = 1."""
+    BC, E = x.shape[:2]
+    x = x.reshape(B, BC // B, E, *x.shape[2:]).transpose(0, 1)
+    return x.reshape(BC // B, B * E, *x.shape[3:])
+
+
+def _to_fabric(x, B: int):
+    """The inverse of :func:`_to_rows`: ``[C, B*E, ...]`` to
+    ``[B*C, E, ...]``."""
+    C, BE = x.shape[:2]
+    x = x.reshape(C, B, BE // B, *x.shape[2:]).transpose(0, 1)
+    return x.reshape(B * C, BE // B, *x.shape[3:])
+
+
 @dataclass
 class Sim:
     """A built simulator: topology + params + workload + derived tables,
@@ -453,54 +515,66 @@ class Sim:
     wt: WorkloadTensors
     device: torch.device
 
-    def init_state(self) -> SimState:
-        """Fresh SimState at cycle 0 on the sim's device."""
+    def init_state(self, wt: WorkloadTensors | None = None) -> SimState:
+        """Fresh SimState at cycle 0 on the sim's device: of the sim's own
+        workload, or of the B configurations of ``wt`` (``B * C`` fabric
+        channels and ``B * E`` endpoint rows)."""
+        wt = self.wt if wt is None else wt
+        B = wt.batch
         fabric = eng.init_fabric(self.topo, self.params.depth_in,
                                  self.params.depth_out,
-                                 self.params.n_channels, self.params.n_vcs,
+                                 B * self.params.n_channels, self.params.n_vcs,
                                  n_groups=self.tables.n_groups,
                                  device=self.device)
-        eps = epm.init_endpoints(self.topo.n_endpoints, self.params,
+        eps = epm.init_endpoints(B * self.topo.n_endpoints, self.params,
                                  self.wl.n_streams, self.device)
-        eps = dataclasses.replace(eps, d_txns_left=torch.as_tensor(
-            np.asarray(self.wl.dma_txns, np.int32), device=self.device))
+        eps = dataclasses.replace(eps, d_txns_left=wt.dma_txns.clone())
         return SimState(fabric=fabric, eps=eps,
                         cycle=torch.zeros((), dtype=I32, device=self.device))
 
     @torch.no_grad()
-    def step(self, st: SimState, cycle: int | None = None):
+    def step(self, st: SimState, cycle: int | None = None,
+             wt: WorkloadTensors | None = None):
         """One simulated cycle. ``cycle`` is ``st.cycle`` as a Python int
-        (read from the state, with a device sync, when omitted). Returns
-        ``(state', (ep_flit [C, E, NF], ep_valid [C, E]))``."""
+        (read from the state, with a device sync, when omitted); ``wt`` the
+        batch of workloads ``st`` holds (the sim's own by default). Returns
+        ``(state', (ep_flit [C, B*E, NF], ep_valid [C, B*E]))``."""
         if cycle is None:
             cycle = int(st.cycle)
+        wt = self.wt if wt is None else wt
+        B = wt.batch
         E = self.topo.n_endpoints
         C = self.params.n_channels
         EQ = st.eps.eg_ready.shape[-1]
-        # 1) fabric cycle, all channels at once. A delivered narrow request
-        #    pushes its response into the CH_RSP egress queue, so
-        #    req-channel delivery is held while that queue is full.
+        # 1) fabric cycle, all channels of all configurations at once. A
+        #    delivered narrow request pushes its response into the CH_RSP
+        #    egress queue, so req-channel delivery is held while that queue
+        #    is full.
         rsp_free = st.eps.eg_cnt[CH_RSP] < EQ
-        space = torch.ones((C, E), dtype=torch.bool, device=self.device)
-        space[CH_REQ] = rsp_free
+        space = torch.ones((B, C, E), dtype=torch.bool, device=self.device)
+        space[:, CH_REQ] = rsp_free.view(B, E)
         er = self.tables.ep_attach[:, 0].long()
         ep_p = self.tables.ep_attach[:, 1].long()
-        req_waiting = st.fabric.out_cnt[CH_REQ, er, ep_p] > 0
-        fabric, ep_flit, ep_valid = eng.fabric_cycle(st.fabric, self.tables,
-                                                     space)
+        out_cnt = st.fabric.out_cnt.reshape(B, C, *st.fabric.out_cnt.shape[1:])
+        req_waiting = out_cnt[:, CH_REQ, er, ep_p].reshape(B * E) > 0
+        fabric, ep_flit, ep_valid = eng.fabric_cycle(
+            st.fabric, self.tables, space.view(B * C, E))
+        ep_flit, ep_valid = _to_rows(ep_flit, B), _to_rows(ep_valid, B)
         # 2) endpoint processing
-        eps = _ingest(st.eps, ep_flit, ep_valid, cycle, self.params)
+        eps = _ingest(st.eps, ep_flit, ep_valid, cycle, self.params, wt.eidx)
         eps = dataclasses.replace(
             eps, eg_overflow=eps.eg_overflow
             + (req_waiting & ~rsp_free).to(I32))
-        eps = _generators(eps, cycle, self.params, self.wl, self.wt)
-        eps = _memory(eps, cycle, self.params, self.is_hbm, self.is_mem)
+        eps = _generators(eps, cycle, self.params, self.wl, wt)
+        eps = _memory(eps, cycle, self.params, wt)
         # 3) egress -> injection: every channel's head whose ready time came
         head, ready_ts = epm._eg_peek(eps.eg, eps.eg_ready, eps.eg_head)
-        ready = (eps.eg_cnt > 0) & (ready_ts <= cycle)  # [C, E]
-        fabric, accepted = eng.inject(fabric, self.tables, head, ready)
+        ready = (eps.eg_cnt > 0) & (ready_ts <= cycle)  # [C, B*E]
+        fabric, accepted = eng.inject(fabric, self.tables,
+                                      _to_fabric(head, B), _to_fabric(ready, B))
         eg, eg_ready, eg_head, eg_cnt = epm._eg_pop(
-            eps.eg, eps.eg_ready, eps.eg_head, eps.eg_cnt, accepted)
+            eps.eg, eps.eg_ready, eps.eg_head, eps.eg_cnt,
+            _to_rows(accepted, B))
         eps = dataclasses.replace(eps, eg=eg, eg_ready=eg_ready,
                                   eg_head=eg_head, eg_cnt=eg_cnt)
         return (SimState(fabric=fabric, eps=eps, cycle=st.cycle + 1),
@@ -541,13 +615,13 @@ class Sim:
         # [C, k, ...] -> [k, C, ...] for the per-cycle endpoint replay
         dF, dV, dW = (x.transpose(0, 1) for x in (dF, dV, dW))
         for j in range(k):
-            eps = _ingest(eps, dF[j], dV[j], cycle + j, self.params)
+            eps = _ingest(eps, dF[j], dV[j], cycle + j, self.params,
+                          self.wt.eidx)
             eps = dataclasses.replace(
                 eps, eg_overflow=eps.eg_overflow
                 + (dW[j, CH_REQ] & ~rsp_free).to(I32))
             eps = _generators(eps, cycle + j, self.params, self.wl, self.wt)
-            eps = _memory(eps, cycle + j, self.params, self.is_hbm,
-                          self.is_mem)
+            eps = _memory(eps, cycle + j, self.params, self.wt)
         head, ready_ts = epm._eg_peek(eps.eg, eps.eg_ready, eps.eg_head)
         ready = (eps.eg_cnt > 0) & (ready_ts <= cycle + (k - 1))
         fabric, accepted = eng.inject(fabric, self.tables, head, ready)
@@ -605,7 +679,7 @@ def build_sim(topo: Topology, params: NocParams, wl: epm.Workload,
         tables=eng.make_tables(topo, params.n_vcs, groups=groups, device=dev),
         is_hbm=torch.as_tensor(is_hbm, device=dev),
         is_mem=torch.as_tensor(is_mem, device=dev),
-        wt=WorkloadTensors.of(wl, dev), device=dev,
+        wt=WorkloadTensors.stack([wl], is_hbm, is_mem, dev), device=dev,
     )
 
 
@@ -622,6 +696,81 @@ def run(sim: Sim, n_cycles: int, state: SimState | None = None) -> SimState:
         st, _, k = sim._advance(st, cyc)
         cyc += k
     return st
+
+
+# workload fields that may vary across a sweep batch; everything else
+# (dma_write, unique_txn_per_stream, n_tiles, stream count, group count,
+# schedule presence and length) must match across the batch
+SWEEP_FIELDS = ("narrow_rate", "narrow_dst", "dma_dst", "dma_alt_dst",
+                "dma_txns", "dma_beats", "dma_dst_seq", "dma_gate",
+                "dma_beats_seq")
+
+# EndpointState leaves whose leading axis is the channel (the rest lead
+# with the endpoint rows)
+_CHANNEL_LEAVES = ("eg", "eg_ready", "eg_head", "eg_cnt")
+
+
+def _split(st: SimState, B: int, C: int, E: int) -> list[SimState]:
+    """The B configurations' own SimStates of a batched one."""
+    out = []
+    for b in range(B):
+        fabric = {}
+        for f in dataclasses.fields(st.fabric):
+            v = getattr(st.fabric, f.name)
+            fabric[f.name] = (None if v is None else
+                              v.reshape(B, C, *v.shape[1:])[b].clone())
+        eps = {}
+        for f in dataclasses.fields(st.eps):
+            v = getattr(st.eps, f.name)
+            if f.name in _CHANNEL_LEAVES:
+                v = v.reshape(C, B, E, *v.shape[2:])[:, b]
+            else:
+                v = v.reshape(B, E, *v.shape[1:])[b]
+            eps[f.name] = v.clone()
+        out.append(SimState(fabric=eng.FabricState(**fabric),
+                            eps=epm.EndpointState(**eps),
+                            cycle=st.cycle.clone()))
+    return out
+
+
+@torch.no_grad()
+def run_sweep(sim: Sim, wls: list[epm.Workload], n_cycles: int) -> list[SimState]:
+    """Run N workload configurations of one fabric as ONE batched state.
+
+    All workloads must share ``sim.topo`` / ``sim.params`` and every static
+    workload attribute (read/write mode, stream count, n_tiles, group
+    count, schedule shape); their array fields (``SWEEP_FIELDS``) become the
+    batch's rows. Each cycle is one ``Sim.step`` of the whole batch, so the
+    router kernels launch as often as for one configuration. The sweep
+    steps cycle by cycle whatever ``params.fused_cycles`` is, as the JAX
+    package's ``run_sweep`` does. Returns one final SimState per workload,
+    equal to a sequential per-cycle run of it.
+    """
+    ref = sim.wl
+    for w in wls:
+        if (w.dma_write != ref.dma_write
+                or w.unique_txn_per_stream != ref.unique_txn_per_stream
+                or w.n_tiles != ref.n_tiles or w.n_streams != ref.n_streams
+                or w.n_groups != ref.n_groups):
+            raise ValueError("sweep workloads must share static workload attributes")
+        # the swept-field list is derived from the REFERENCE workload, so a
+        # field the reference leaves unset would be silently dropped for the
+        # whole batch (the config would run with the wrong traffic): require
+        # presence agreement for every sweepable field, not just the
+        # schedule triple
+        for f in SWEEP_FIELDS:
+            if (getattr(w, f) is None) != (getattr(ref, f) is None):
+                raise ValueError(
+                    f"sweep workloads must agree on {f} presence (swept "
+                    "fields are taken from the reference sim.wl, so a field "
+                    "only some workloads set would be silently ignored)")
+    E, C = sim.topo.n_endpoints, sim.params.n_channels
+    wt = WorkloadTensors.stack(wls, sim.is_hbm.cpu().numpy(),
+                               sim.is_mem.cpu().numpy(), sim.device)
+    st = sim.init_state(wt)
+    for cyc in range(n_cycles):
+        st, _ = sim.step(st, cyc, wt)
+    return _split(st, len(wls), C, E)
 
 
 # selectable per-cycle trace fields for run_trace: "deliver" (the endpoint

@@ -2,10 +2,13 @@
 
 * ``repro_torch`` and ``chip_smoke.py`` import neither JAX nor anything of
   the JAX package ``repro``;
-* importing the port builds nothing and the entry points never drop to the
-  CPU silently: without a card and without ``device="cpu"`` they raise;
+* importing the port builds nothing and the entry points (the simulator,
+  the design-space driver, the traffic compiler's replay, the explorer and
+  serving) never drop to the CPU silently: without a card and without
+  ``device="cpu"`` they raise;
 * every configuration value the port does not implement yet is refused
-  with ``NotImplementedError``; the ones it does are accepted.
+  with ``NotImplementedError`` (through ``NocParams`` and through
+  ``FabricSpec``); the ones it does are accepted.
 * every CUDA kernel's wrapper refuses CPU tensors.
 """
 import ast
@@ -22,10 +25,13 @@ import torch
 import repro_torch
 from repro_torch import convert
 from repro_torch.configs import get_config
+from repro_torch.core.noc import dse
+from repro_torch.core.noc import ml_traffic as ML
 from repro_torch.core.noc import sim as TS
 from repro_torch.core.noc import traffic as TT
 from repro_torch.core.noc.engine import make_tables
 from repro_torch.core.noc.params import NocParams
+from repro_torch.core.noc.spec import FabricSpec, preset
 from repro_torch.core.noc.topology import build_mesh
 from repro_torch.kernels.flash_attention import flash_attention as flash_kernel
 from repro_torch.kernels.kv_gather.kv_gather import kv_gather_cuda
@@ -34,6 +40,7 @@ from repro_torch.kernels.rmsnorm import rmsnorm as rmsnorm_kernel
 from repro_torch.kernels.ssd import ssd as ssd_kernel
 from repro_torch.models import model as TM
 from repro_torch.models.attention import attention
+from repro_torch.noc_explore import main as explore
 from repro_torch.serve import Engine
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -49,6 +56,8 @@ def test_port_imports_neither_jax_nor_repro():
     process itself has JAX loaded)."""
     mods = _port_modules()
     assert "repro_torch.core.noc.sim" in mods and len(mods) >= 15
+    assert {"repro_torch.core.noc.ml_traffic", "repro_torch.core.noc.spec",
+            "repro_torch.core.noc.dse", "repro_torch.noc_explore"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -99,6 +108,15 @@ def test_entry_points_refuse_to_drop_to_cpu(monkeypatch):
         make_tables(topo)
     sim = TS.build_sim(topo, NocParams(), wl, device="cpu")
     assert sim.init_state().fabric.in_buf.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dse.run_dse([preset("mesh", workload="neighbor")])
+    phase = ML.compile_traffic(get_config("phi4-mini-3.8b").reduced(),
+                               ML.ParallelismSpec(tp=4), build_mesh(nx=4, ny=4),
+                               workloads=["tp"])[0]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ML.validate_phase(build_mesh(nx=4, ny=4), phase, NocParams())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        explore(["--sweep"])  # the explorer's default device is cuda
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -124,9 +142,12 @@ def test_unported_params_raise(kw, item):
     if item is None:
         params = NocParams(**kw)
         assert all(getattr(params, k) == v for k, v in kw.items())
+        assert FabricSpec(**kw).params() == params
         return
     with pytest.raises(NotImplementedError, match=item):
         NocParams(**kw)
+    with pytest.raises(NotImplementedError, match=item):  # through FabricSpec.params()
+        FabricSpec(**kw)
 
 
 def test_unported_groups_raise():
