@@ -21,6 +21,7 @@ is the JAX package's, byte for byte, when dumped with ``sort_keys=True``.
 """
 from __future__ import annotations
 
+import contextlib
 from collections import OrderedDict
 
 import numpy as np
@@ -194,8 +195,11 @@ def run_dse(specs, *, n_cycles: int | None = None, workers: int | None = None,
             log(f"[dse] group {j + 1}/{len(jobs)}: {topo.name} "
                 f"C={params.n_channels} V={params.n_vcs} "
                 f"x{len(members)} points, {budget} cycles on {dev}")
-        sim = S.build_sim(topo, params, members[0][2], device=dev)
-        finals = S.run_sweep(sim, [wl for _, _, wl in members], budget)
+        # the kernels launch on the current device's stream: make it dev
+        with (torch.cuda.device(dev) if dev.type == "cuda"
+              else contextlib.nullcontext()):
+            sim = S.build_sim(topo, params, members[0][2], device=dev)
+            finals = S.run_sweep(sim, [wl for _, _, wl in members], budget)
         done.append((sim, budget, finals))
     results: list = [None] * len(specs)
     for (topo, params, members), (sim, budget, finals) in zip(jobs, done):

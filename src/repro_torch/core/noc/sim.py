@@ -10,10 +10,13 @@ endpoint phases are plain tensor code. ``run`` keeps the cycle number a
 Python int, so stepping never waits on the device.
 
 ``run_sweep`` steps B workloads of one fabric as one state: the fabric's
-channel axis holds B x C channels (configuration-major, over the shared
+channel axis holds C x B channels (channel-major: fabric channel
+``c * B + b`` is channel ``c`` of configuration ``b``, over the shared
 tables, so the router kernels launch once per cycle whatever B is) and
 the endpoint axis B x E rows (row ``b * E + e`` is endpoint ``e`` of
-configuration ``b``). A Sim's own workload is the batch of one.
+configuration ``b``). So the fabric's ``[C*B, E, ...]`` and the endpoint
+phases' ``[C, B*E, ...]`` are one memory layout. A Sim's own workload is
+the batch of one.
 """
 from __future__ import annotations
 
@@ -204,11 +207,16 @@ class WorkloadTensors:
         return self.eidx.shape[0] // self.n_endpoints
 
     @classmethod
-    def stack(cls, wls: list[epm.Workload], is_hbm: np.ndarray,
-              is_mem: np.ndarray, device) -> "WorkloadTensors":
-        """The rows of ``wls`` (one fabric, ``is_hbm`` / ``is_mem`` [E])
-        on ``device``."""
-        B, E = len(wls), len(is_hbm)
+    def stack(cls, wls: list[epm.Workload], topo: Topology,
+              device) -> "WorkloadTensors":
+        """The rows of ``wls`` (workloads of ``topo``) on ``device``, with
+        ``topo``'s HBM / memory maps."""
+        B, E = len(wls), topo.n_endpoints
+        is_hbm = np.zeros((E,), bool)
+        n_hbm = topo.meta.get("n_hbm", 0)
+        if n_hbm:
+            is_hbm[E - n_hbm:] = True
+        is_mem = np.ones((E,), bool)  # every endpoint can serve (tiles: SPM)
 
         def rows(f, dtype):
             vals = [getattr(w, f) for w in wls]
@@ -218,8 +226,7 @@ class WorkloadTensors:
                 [np.asarray(v, dtype) for v in vals]), device=device)
 
         beats = np.repeat(np.array([w.dma_beats for w in wls], np.int32), E)
-        tile = lambda a: torch.as_tensor(np.tile(np.asarray(a, bool), B),
-                                         device=device)
+        tile = lambda a: torch.as_tensor(np.tile(a, B), device=device)
         return cls(
             narrow_rate=rows("narrow_rate", np.float32),
             narrow_dst=rows("narrow_dst", np.int32),
@@ -484,23 +491,6 @@ def _memory(st: epm.EndpointState, cycle: int, params: NocParams,
     )
 
 
-def _to_rows(x, B: int):
-    """Fabric-side ``[B*C, E, ...]`` (configuration-major channels) to the
-    endpoint phases' ``[C, B*E, ...]`` (channel, then row); views at
-    B = 1."""
-    BC, E = x.shape[:2]
-    x = x.reshape(B, BC // B, E, *x.shape[2:]).transpose(0, 1)
-    return x.reshape(BC // B, B * E, *x.shape[3:])
-
-
-def _to_fabric(x, B: int):
-    """The inverse of :func:`_to_rows`: ``[C, B*E, ...]`` to
-    ``[B*C, E, ...]``."""
-    C, BE = x.shape[:2]
-    x = x.reshape(C, B, BE // B, *x.shape[2:]).transpose(0, 1)
-    return x.reshape(B * C, BE // B, *x.shape[3:])
-
-
 @dataclass
 class Sim:
     """A built simulator: topology + params + workload + derived tables,
@@ -510,14 +500,12 @@ class Sim:
     params: NocParams
     wl: epm.Workload
     tables: eng.FabricTables
-    is_hbm: torch.Tensor
-    is_mem: torch.Tensor
     wt: WorkloadTensors
     device: torch.device
 
     def init_state(self, wt: WorkloadTensors | None = None) -> SimState:
         """Fresh SimState at cycle 0 on the sim's device: of the sim's own
-        workload, or of the B configurations of ``wt`` (``B * C`` fabric
+        workload, or of the B configurations of ``wt`` (``C * B`` fabric
         channels and ``B * E`` endpoint rows)."""
         wt = self.wt if wt is None else wt
         B = wt.batch
@@ -551,15 +539,17 @@ class Sim:
         #    egress queue, so req-channel delivery is held while that queue
         #    is full.
         rsp_free = st.eps.eg_cnt[CH_RSP] < EQ
-        space = torch.ones((B, C, E), dtype=torch.bool, device=self.device)
-        space[:, CH_REQ] = rsp_free.view(B, E)
+        space = torch.ones((C, B * E), dtype=torch.bool, device=self.device)
+        space[CH_REQ] = rsp_free
         er = self.tables.ep_attach[:, 0].long()
         ep_p = self.tables.ep_attach[:, 1].long()
-        out_cnt = st.fabric.out_cnt.reshape(B, C, *st.fabric.out_cnt.shape[1:])
-        req_waiting = out_cnt[:, CH_REQ, er, ep_p].reshape(B * E) > 0
+        out_cnt = st.fabric.out_cnt.unflatten(0, (C, B))
+        req_waiting = out_cnt[CH_REQ][:, er, ep_p].reshape(B * E) > 0
+        # [C*B, E, ...] and [C, B*E, ...] are views of one another
         fabric, ep_flit, ep_valid = eng.fabric_cycle(
-            st.fabric, self.tables, space.view(B * C, E))
-        ep_flit, ep_valid = _to_rows(ep_flit, B), _to_rows(ep_valid, B)
+            st.fabric, self.tables, space.view(C * B, E))
+        ep_flit = ep_flit.reshape(C, B * E, *ep_flit.shape[2:])
+        ep_valid = ep_valid.reshape(C, B * E)
         # 2) endpoint processing
         eps = _ingest(st.eps, ep_flit, ep_valid, cycle, self.params, wt.eidx)
         eps = dataclasses.replace(
@@ -570,11 +560,12 @@ class Sim:
         # 3) egress -> injection: every channel's head whose ready time came
         head, ready_ts = epm._eg_peek(eps.eg, eps.eg_ready, eps.eg_head)
         ready = (eps.eg_cnt > 0) & (ready_ts <= cycle)  # [C, B*E]
-        fabric, accepted = eng.inject(fabric, self.tables,
-                                      _to_fabric(head, B), _to_fabric(ready, B))
+        fabric, accepted = eng.inject(
+            fabric, self.tables, head.reshape(C * B, E, *head.shape[2:]),
+            ready.reshape(C * B, E))
         eg, eg_ready, eg_head, eg_cnt = epm._eg_pop(
             eps.eg, eps.eg_ready, eps.eg_head, eps.eg_cnt,
-            _to_rows(accepted, B))
+            accepted.reshape(C, B * E))
         eps = dataclasses.replace(eps, eg=eg, eg_ready=eg_ready,
                                   eg_head=eg_head, eg_cnt=eg_cnt)
         return (SimState(fabric=fabric, eps=eps, cycle=st.cycle + 1),
@@ -668,18 +659,10 @@ def build_sim(topo: Topology, params: NocParams, wl: epm.Workload,
         raise ValueError(
             f"workload addresses {wl.n_groups} collective group(s) but the "
             f"fabric was built with {0 if groups is None else len(groups)}")
-    E = topo.n_endpoints
-    is_hbm = np.zeros((E,), bool)
-    n_hbm = topo.meta.get("n_hbm", 0)
-    if n_hbm:
-        is_hbm[E - n_hbm:] = True
-    is_mem = np.ones((E,), bool)  # every endpoint can serve (tiles: SPM)
     return Sim(
         topo=topo, params=params, wl=wl,
         tables=eng.make_tables(topo, params.n_vcs, groups=groups, device=dev),
-        is_hbm=torch.as_tensor(is_hbm, device=dev),
-        is_mem=torch.as_tensor(is_mem, device=dev),
-        wt=WorkloadTensors.stack([wl], is_hbm, is_mem, dev), device=dev,
+        wt=WorkloadTensors.stack([wl], topo, dev), device=dev,
     )
 
 
@@ -718,7 +701,7 @@ def _split(st: SimState, B: int, C: int, E: int) -> list[SimState]:
         for f in dataclasses.fields(st.fabric):
             v = getattr(st.fabric, f.name)
             fabric[f.name] = (None if v is None else
-                              v.reshape(B, C, *v.shape[1:])[b].clone())
+                              v.unflatten(0, (C, B))[:, b].clone())
         eps = {}
         for f in dataclasses.fields(st.eps):
             v = getattr(st.eps, f.name)
@@ -765,8 +748,7 @@ def run_sweep(sim: Sim, wls: list[epm.Workload], n_cycles: int) -> list[SimState
                     "fields are taken from the reference sim.wl, so a field "
                     "only some workloads set would be silently ignored)")
     E, C = sim.topo.n_endpoints, sim.params.n_channels
-    wt = WorkloadTensors.stack(wls, sim.is_hbm.cpu().numpy(),
-                               sim.is_mem.cpu().numpy(), sim.device)
+    wt = WorkloadTensors.stack(wls, sim.topo, sim.device)
     st = sim.init_state(wt)
     for cyc in range(n_cycles):
         st, _ = sim.step(st, cyc, wt)
@@ -927,7 +909,7 @@ def stats(sim: Sim, st: SimState) -> dict:
         "wide_util": eps["beats_rcvd"][:n_tiles].sum() / max(cyc * n_tiles, 1),
         "hbm_util": (
             eps["hbm_served"].sum()
-            / max(cyc * max(int(sim.is_hbm.sum()), 1), 1)
+            / max(cyc * max(int(sim.wt.is_hbm.sum()), 1), 1)
             / sim.params.hbm_rate
         ),
     }

@@ -2,12 +2,15 @@
 state against each workload's own sequential run on the card, leaf for
 leaf, with the router kernels launched as for one configuration.
 
-These tests need a CUDA device and skip without one; run them on the GPU
+These tests need a CUDA device and skip without one (the design-space
+run over several cards skips with fewer than two); run them on the GPU
 host with ``PYTHONPATH=src python -m pytest -q -m gpu
 tests/test_torch_cuda_sweep.py``. This file imports neither JAX nor
 ``repro``. Integer state, so the tolerance is exact equality.
 """
 import dataclasses
+import json
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -15,11 +18,14 @@ import torch
 
 from repro_torch import convert
 from repro_torch.core.noc import collective_traffic as CT
+from repro_torch.core.noc import dse
 from repro_torch.core.noc import sim as TS
 from repro_torch.core.noc import traffic as TT
 from repro_torch.core.noc.params import NocParams
 from repro_torch.core.noc.topology import build_mesh, build_torus
 from repro_torch.kernels.noc_router import noc_router as K
+
+ROOT = Path(__file__).resolve().parents[1]
 
 pytestmark = [
     pytest.mark.gpu,
@@ -89,3 +95,18 @@ def test_sweep_on_card_steps_per_cycle_at_fused_cycles_4():
         a, b = convert.sim_state_to_numpy(st), convert.sim_state_to_numpy(one)
         for k in a:
             np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+@pytest.mark.skipif(torch.cuda.device_count() < 2, reason="needs two CUDA devices")
+def test_dse_spreads_groups_over_the_cards():
+    """``run_dse`` on ``cuda`` sends group j to card j mod the card count:
+    the smoke grid's two groups (mesh, dateline torus) run on cards 0 and
+    1, each while its card is the current device, and the frontier
+    artifact equals the JAX package's byte for byte."""
+    specs = dse.default_grid(smoke=True)
+    assert len(dse.build_jobs(specs)) == 2
+    results = dse.run_dse(specs, device="cuda", return_states=True)
+    assert {r.pop("state").cycle.device.index for r in results} == {0, 1}
+    got = json.dumps(dse.frontier_artifact(results, grid="smoke"), indent=1,
+                     sort_keys=True)
+    assert got == (ROOT / "src/repro_torch/benchmarks/dse_smoke_jax.json").read_text()

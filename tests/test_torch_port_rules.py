@@ -231,3 +231,16 @@ def test_unported_model_options_raise():
         assert TM.count_params(get_config(arch)) > 0
     with pytest.raises(NotImplementedError, match="item 12"):
         TM.param_schema(get_config("zamba2-7b").replace(sliding_window=64))
+
+
+def test_explorer_refuses_the_unported_ddp_workload(capsys):
+    """``--workload ddp`` needs the MoE demo model's parameter count, which
+    the port lacks: the explorer refuses it before any work, naming the
+    ROADMAP item, and says so in its help."""
+    with pytest.raises(SystemExit) as exc:
+        explore(["--workload", "ddp", "--device", "cpu"])
+    assert exc.value.code == 2
+    assert "item 12" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        explore(["--help"])
+    assert "ddp is not ported yet" in " ".join(capsys.readouterr().out.split())
