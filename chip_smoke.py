@@ -9,8 +9,8 @@ RMSNorm, the SSD scan and the paged KV gather. Holds each kernel against
 its plain PyTorch version on the card, drives the simulator's main path
 through the port's entry points (``build_sim`` / ``run`` / ``stats``), the
 paper's figures through ``repro_torch.benchmarks`` and the model stack's
-serving paths (``Engine.generate`` on Phi-4-mini, Mamba-2 and Zamba2), and
-checks what comes out:
+serving paths (``Engine.generate`` on Phi-4-mini, Mamba-2, Zamba2 and
+Llama-4-Scout), and checks what comes out:
 
 1. the card (``nvidia-smi``) and the kernels' build time;
 2. the arb and apply kernels bit-identical to the plain version on random
@@ -60,12 +60,13 @@ checks what comes out:
 10. the model stack (``kernels_vs_plain_model``, ``serve_*_vs_cpu``,
    ``serve_*``, ``profile_serve_*``, ``kernel_times_model``): the
    flash-attention kernel against its plain version at the serve paths'
-   shapes (B=4, S=512, bf16: H=24, KV=8, D=128; H=KV=32, D=112), the
+   shapes (B=4, S=512, bf16: H=24, KV=8, D=128; H=KV=32, D=112; H=40,
+   KV=8, D=128), the
    ``tests/test_kernels.py`` sweep shapes in float32 and bf16, a ragged
    S=520, Dv != D, a ragged D=112, partial and single-row tiles (S = 1,
    63, 64, 65, 129), every (D, Dv) in bf16 and Sq != Skv; both RMSNorm
-   variants at N = 4 and 2048, d = 3072, at N = 1, 5 and 2047, d = 768 and
-   3584, with a weight at an odd element offset and at d = 100, float32
+   variants at N = 4 and 2048, d = 3072 and 5120, at N = 1, 5 and 2047,
+   d = 768 and 3584, with a weight at an odd element offset and at d = 100, float32
    and bf16; the SSD kernel (y and final state) at
    the sweep shapes in float32 and bf16, the Mamba-2 (H=24, P=64, N=128)
    and Zamba2 (H=112, N=64) path shapes (B=4, S=512, Q=128, bf16), a ragged
@@ -75,19 +76,32 @@ checks what comes out:
    the CPU's top-2 margin exceeds it): Phi-4-mini at full width and 2
    layers (400 tokens), Mamba-2-130m at full width and depth (512 tokens),
    Zamba2-7B at full width and 7 layers (one superblock, one shared
-   attention, one trailing layer; 256 tokens, two chunks). Each model at
-   full width and depth through ``Engine.generate``: 4 prompts (Phi-4-mini
-   300-500 tokens, Mamba-2 and Zamba2 512 each, no pad tail), 16 greedy
-   tokens, twice (identical tokens; launch counts exact: per prefill /
-   decode step Phi-4-mini 32 / 0 flash and 65 / 65 RMSNorm, Mamba-2 24 / 0
-   SSD and 25 / 25 RMSNorm, Zamba2 81 / 0 SSD, 13 / 0 flash and 108 / 108
-   RMSNorm; 15 decode steps), all logits finite, prefill ms, decode ms per
-   step, tokens/s, peak device memory, and the device's busy share of one
-   prefill and one decode step (``torch.profiler``); each kernel's time at
+   attention, one trailing layer; 256 tokens, two chunks), Llama-4-Scout
+   at full width and 2 layers (120 tokens; bf16 and float32 under the
+   routing rule: float32 routes every token alike in every layer, bf16
+   only near-ties may route differently, logits and tokens compared at
+   the positions routed alike, ``serve_llama4_scout_vs_cpu``); one
+   Llama-4-Scout MoE layer at full width in float32 with capacity factor
+   0.25 on the card and the CPU (``dropped_frac`` 0.75 on both, routing
+   equal, output within ``MOE_TOL``), and in bf16 with no host
+   synchronisation inside (``moe_drop_vs_cpu``). Each model at full width
+   through ``Engine.generate``, at full depth but for Llama-4-Scout (12 of
+   48 layers, ``LLAMA4_LAYERS``: the whole model does not fit the card): 4
+   prompts (Phi-4-mini and Llama-4-Scout 300-500 tokens, Mamba-2 and
+   Zamba2 512 each, no pad tail), 16 greedy tokens, twice (identical
+   tokens; launch counts exact: per prefill / decode step Phi-4-mini 32 /
+   0 flash and 65 / 65 RMSNorm, Mamba-2 24 / 0 SSD and 25 / 25 RMSNorm,
+   Zamba2 81 / 0 SSD, 13 / 0 flash and 108 / 108 RMSNorm, Llama-4-Scout
+   12 / 0 flash and 25 / 25 RMSNorm; 15 decode steps), all logits finite,
+   prefill ms, decode ms per step, tokens/s, peak device memory, and the
+   device's busy share of one prefill and one decode step
+   (``torch.profiler``); Llama-4-Scout's decode step beside its bytes
+   bound (the routed experts that step's tokens pick); each kernel's time at
    the paths' shapes beside its bound, its plain version and one PyTorch
    call where there is one (``library_ms``: ``scaled_dot_product_attention``,
-   ``rms_norm``; none computes the SSD scan), RMSNorm also at Mamba-2's and
-   Zamba2's widths (N = 2048, d = 768 and 3584);
+   ``rms_norm``; none computes the SSD scan), flash attention also at
+   Llama-4-Scout's 40 / 8 heads, RMSNorm also at Mamba-2's, Zamba2's and
+   Llama-4-Scout's widths (N = 2048, d = 768, 3584 and 5120);
 11. the paged KV gather (``kernels_vs_plain_kv_gather``,
    ``kernel_times_kv_gather``): the kernel bit-equal to its plain version
    at ``tests/test_kernels.py``'s sweep shapes in float32, bf16 and int32
@@ -115,6 +129,9 @@ checks what comes out:
    ``dse_smoke``: ``run_dse(default_grid(smoke=True))`` on the card, the
    frontier artifact equal byte for byte to the JAX package's
    (``src/repro_torch/benchmarks/dse_smoke_jax.json``), wall seconds;
+   ``ddp_demo``: ``noc_explore --workload ddp`` on the mesh (the gradient
+   all-reduce of ``llama4-scout-17b-a16e`` reduced) through
+   ``ml_traffic.validate_phase`` on the card, counted, equal to the CPU's;
 12. one JSON line listing every kernel and mode (launches on its main
    path, mismatch, times, bounds; the per-cycle kernels' rows also the
    launch floor: an empty kernel's time at the same grid, timed the same
@@ -129,6 +146,7 @@ Needs one card and the CUDA toolkit; imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib
 import json
@@ -988,6 +1006,29 @@ SSD_TOL = (1e-3, 1e-3)
 LOGIT_TOL = 0.1
 RMS_EPS = 1e-5
 PHI4, MAMBA2, ZAMBA2 = "phi4-mini-3.8b", "mamba2-130m", "zamba2-7b"
+LLAMA4 = "llama4-scout-17b-a16e"
+# Llama-4-Scout served at full width, cut to 12 of its 48 layers: the whole
+# model (~106.7 B parameters, ~213 GB in bf16) does not fit an 80 GB card;
+# 12 layers of ~4.40 GB and the 2.07 GB embedding are ~55 GB
+LLAMA4_LAYERS = 12
+# the routing rule of a MoE model, card against CPU: in float32 every token
+# is routed alike in every layer; in bf16 a token may go to another expert
+# only where its router margin (the k-th probability less the next, on the
+# CPU) is below ROUTE_MARGIN in the first layer that differs, at most
+# MAX_FLIP_SHARE of the positions may, and logits and tokens are compared
+# at the positions routed alike
+ROUTE_MARGIN = 1e-2
+MAX_FLIP_SHARE = 0.05
+# one MoE layer at full width in float32, card against CPU (capacity factor
+# 0.25): sums of 5 120- and 8 192-term products in another order on outputs
+# of size ~1 (TF32 off)
+MOE_TOL = (1e-4, 1e-4)
+# Llama-4-Scout card against CPU logits: float32 as LOGIT_TOL; bf16 wider
+# than Phi-4-mini's: each layer also rounds the routed and the shared
+# expert's SwiGLU products of 8 192 and the MoE sum to bf16, and on the CPU
+# alone the bf16 logits of the 2-layer model lie up to ~0.09 from its
+# float32 logits (of size up to ~7.3), so two bf16 runs may lie ~0.2 apart
+MOE_LOGIT_TOL = {"float32": LOGIT_TOL, "bfloat16": 0.25}
 
 
 def randn(rng, shape, dtype, dev):
@@ -1037,11 +1078,13 @@ def compare_model_kernels(dev):
 
     rng = np.random.default_rng(14)
     edge_rng = np.random.default_rng(17)  # the edge cases', so rng's draws stay as they were
+    llama4_rng = np.random.default_rng(19)  # Llama-4-Scout's shapes, likewise
     bf, f32 = "bfloat16", "float32"
     dt = {bf: torch.bfloat16, f32: torch.float32}
     # (label, B, Sq, H, KV, D, Dv, dtype, causal, Skv)
     cases = [("path", 4, 512, 24, 8, 128, 128, bf, True, 512),
-             ("zamba2_path", 4, 512, 32, 32, 112, 112, bf, True, 512)]
+             ("zamba2_path", 4, 512, 32, 32, 112, 112, bf, True, 512),
+             ("llama4_path", 4, 512, 40, 8, 128, 128, bf, True, 512)]
     for d_ in (f32, bf):
         cases += [("sweep", 1, 128, 2, 2, 64, 64, d_, True, 128),
                   ("sweep", 2, 256, 4, 2, 64, 64, d_, True, 256),
@@ -1057,7 +1100,8 @@ def compare_model_kernels(dev):
     cases += [("sq_ne_skv", 2, 70, 4, 2, 128, 128, bf, c, 130) for c in (True, False)]
     errs, rows = {}, []
     for label, B, S, H, KV, D, Dv, d_, causal, Skv in cases:
-        gen = edge_rng if label in ("edge_s", "head_dims", "sq_ne_skv") else rng
+        gen = (edge_rng if label in ("edge_s", "head_dims", "sq_ne_skv") else
+               llama4_rng if label == "llama4_path" else rng)
         q, k, v = (randn(gen, sh, dt[d_], dev) for sh in
                    ((B, S, H, D), (B, Skv, KV, D), (B, Skv, KV, Dv)))
         keep = [t.clone() for t in (q, k, v)]
@@ -1073,14 +1117,18 @@ def compare_model_kernels(dev):
             errs["flash_attention"] = err
         if label == "zamba2_path":
             errs["flash_attention_d112"] = err
+        if label == "llama4_path":
+            errs["flash_attention_llama4"] = err
     # (N, d, weight at an odd element offset): the path widths (3072 Phi-4-mini,
-    # 768 Mamba-2, 3584 Zamba2), row counts off the rows-per-CTA grid, the
-    # scalar path (odd width; unaligned weight)
+    # 768 Mamba-2, 3584 Zamba2, 5120 Llama-4-Scout at its prefill and decode
+    # rows), row counts off the rows-per-CTA grid, the scalar path (odd width;
+    # unaligned weight)
     rms_cases = [(N, 3072, False) for N in (4, 2048)]
     rms_cases += [(N, d, False) for d in (768, 3584) for N in (1, 5, 2047)]
     rms_cases += [(5, 3072, True), (2047, 768, True), (5, 100, False), (2047, 100, False)]
+    rms_cases += [(2048, 5120, False), (4, 5120, False)]
     for i, (N, d, odd_w) in enumerate(rms_cases):
-        gen = rng if i < 2 else edge_rng
+        gen = rng if i < 2 else llama4_rng if d == 5120 else edge_rng
         for d_ in (f32, bf):
             x, r = randn(gen, (N, d), dt[d_], dev), randn(gen, (N, d), dt[d_], dev)
             w = randn(gen, (d + odd_w,), torch.float32, dev) * 0.1 + 1
@@ -1102,6 +1150,9 @@ def compare_model_kernels(dev):
                   "the RMSNorm kernel modified its inputs")
             if N == 2048 and d == 3072 and d_ == bf:
                 errs["rmsnorm"], errs["rmsnorm_residual"] = e1, max(e2, e3)
+            if d in (768, 3584, 5120) and not odd_w and d_ == bf:  # the other paths' widths
+                key = f"rmsnorm_d{d}"
+                errs[key] = max(errs.get(key, 0.0), e1)
     ssd_cases = []  # (label, B, S, H, P, N, chunk, dtype, entering state)
     for d_ in (f32, bf):
         ssd_cases += [("ssd_sweep", 1, 64, 2, 16, 8, 16, d_, False),
@@ -1204,6 +1255,251 @@ def serve_vs_cpu(dev, name, cfg, prompt_len, seed):
     torch.cuda.empty_cache()
 
 
+@contextlib.contextmanager
+def routing_recorded():
+    """Within the block, each call of the port's ``models.moe.moe_block``
+    first appends to the list yielded its routing, recomputed from the same
+    input and router: the top-k expert ids [T, k] and each token's router
+    margin [T] (the k-th probability less the next one), on the CPU."""
+    import torch
+
+    from repro_torch.models import moe as MOE
+
+    records, inner = [], MOE.moe_block
+
+    def recorded(p, x, *, cfg, **kw):
+        probs = torch.softmax(MOE.router_logits(x.reshape(-1, x.shape[-1]), p["router"]), -1)
+        k = cfg.moe_top_k
+        top = torch.topk(probs, k + 1, dim=-1)
+        records.append((top.indices[:, :k].cpu(),
+                        (top.values[:, k - 1] - top.values[:, k]).cpu()))
+        return inner(p, x, cfg=cfg, **kw)
+
+    MOE.moe_block = recorded
+    try:
+        yield records
+    finally:
+        MOE.moe_block = inner
+
+
+def routing_agreement(got, want, n_layers, exact):
+    """The card's routing records (``models.moe``: top-k ids and margin a
+    MoE layer and call) against the CPU's: per call, per position, whether
+    every layer routed it alike. ``exact`` (float32) demands every position;
+    otherwise a position routed differently must have had a CPU margin below
+    ``ROUTE_MARGIN`` in the first layer that differs, and at most
+    ``MAX_FLIP_SHARE`` of the positions may. Returns (agree per call,
+    positions routed differently, layer decisions below the margin)."""
+    import numpy as np
+
+    check(len(got) == len(want), f"{len(got)} routing records on the card, {len(want)} on the CPU")
+    agree, flips, near = [], 0, 0
+    for c in range(0, len(want), n_layers):
+        same = np.stack([(np.sort(g[0].numpy(), -1) == np.sort(w[0].numpy(), -1)).all(-1)
+                         for g, w in zip(got[c:c + n_layers], want[c:c + n_layers])])
+        margin = np.stack([w[1].numpy() for w in want[c:c + n_layers]])  # [layers, T]
+        near += int((margin < ROUTE_MARGIN).sum())
+        ok = same.all(0)
+        bad = np.nonzero(~ok)[0]
+        first = np.argmin(same[:, bad], axis=0)
+        check(exact and not len(bad) or not exact and (margin[first, bad] < ROUTE_MARGIN).all(),
+              f"routing differs at positions {bad.tolist()} (margins "
+              f"{margin[first, bad].tolist()}; float32: {exact})")
+        flips += len(bad)
+        agree.append(ok)
+    total = sum(a.size for a in agree)
+    check(flips <= MAX_FLIP_SHARE * total,
+          f"{flips} of {total} positions routed differently on the card")
+    return agree, flips, near
+
+
+def moe_serve_vs_cpu(dev, name, cfg, prompt_len, seed):
+    """A MoE ``cfg`` (full width, random weights drawn on the card from seed
+    0 and copied to the CPU) on the card against the CPU, as
+    ``serve_vs_cpu`` (one prompt, 4 decode steps, the card teacher-forced
+    with the CPU's tokens) in bf16 and in float32 (the same weights,
+    widened), under the routing rule (``routing_agreement``): logits within
+    ``MOE_LOGIT_TOL[dtype]`` at each step whose position was routed alike in
+    every layer, tokens equal there where the CPU's top-2 margin exceeds
+    it."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import pad_prompts
+
+    L = cfg.n_layers - cfg.first_k_dense
+    n = 4
+    p_gpu = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    p_cpu = copy.deepcopy(p_gpu).to("cpu")
+    prompt = np.random.default_rng(seed).integers(0, cfg.vocab_size, prompt_len).tolist()
+    toks, lens = pad_prompts([prompt], "cpu")
+    toks_g, lens_g = pad_prompts([prompt], dev)
+    last = int(lens[0]) - 1
+    legs, failed = {}, []
+    for dtype in ("bfloat16", "float32"):
+        if dtype == "float32":
+            p_cpu, p_gpu = p_cpu.float(), p_gpu.float()
+        tol = MOE_LOGIT_TOL[dtype]
+        t0 = time.perf_counter()
+        with routing_recorded() as r_cpu:
+            want, cpu_toks = greedy_trace(M, cfg, p_cpu, toks, lens, n)
+        cpu_s = time.perf_counter() - t0
+        with routing_recorded() as r_gpu:
+            got, _ = greedy_trace(M, cfg, p_gpu, toks_g, lens_g, n, force=cpu_toks)
+        agree, flips, near = routing_agreement(r_gpu, r_cpu, L, dtype == "float32")
+        # the prefill's logits are its last valid position's
+        routed = [bool(agree[0][last])] + [bool(a[0]) for a in agree[1:]]
+        errs, checked, equal = [], 0, 0
+        for g, w, ok in zip(got, want, routed):
+            if not ok:
+                continue
+            errs.append(float((g - w).abs().max()))
+            top2 = w.topk(2, dim=-1).values
+            sure = (top2[:, 0] - top2[:, 1]) > tol
+            checked += int(sure.sum())
+            equal += int((g.argmax(-1) == w.argmax(-1))[sure].sum())
+        legs[dtype] = dict(max_abs_logit_err=errs, tol=tol, steps_compared=len(errs),
+                           max_abs_logit=float(max(w.abs().max() for w in want)),
+                           positions_routed_differently=flips,
+                           decisions_below_margin=near,
+                           positions=sum(a.size for a in agree),
+                           tokens_checked=checked, tokens_equal=equal, cpu_s=cpu_s)
+        if not (len(errs) >= n and all(np.isfinite(errs)) and max(errs) <= tol):
+            failed.append(f"{dtype}: card logits differ from the CPU's: {errs}")
+        if equal != checked:
+            failed.append(f"{dtype}: greedy tokens differ: {equal} of {checked}")
+    phase(name, layers=cfg.n_layers, d_model=cfg.d_model, experts=cfg.n_experts,
+          top_k=cfg.moe_top_k, prompt_tokens=len(prompt), padded_to=int(toks.shape[1]),
+          decode_steps=n, route_margin=ROUTE_MARGIN, max_flip_share=MAX_FLIP_SHARE, **legs)
+    check(not failed, f"{name}: {failed}")
+    del p_cpu, p_gpu
+    torch.cuda.empty_cache()
+
+
+def moe_drop_vs_cpu(dev, cfg, B=4, S=128):
+    """One MoE layer of ``cfg`` at full width in float32 with capacity
+    factor 0.25 (three quarters of the assignments past capacity), on the
+    card and on the CPU: routing equal, ``dropped_frac`` equal, the output
+    within ``MOE_TOL``. Then the same layer in its serving dtypes (bf16, the
+    router float32) on the card under ``torch.cuda.set_sync_debug_mode
+    ("error")``: no host read inside the layer (the float32 grouped product
+    is PyTorch's fallback, which reads the offsets; bf16 is one kernel)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.spec import init_tree
+
+    p_bf = init_tree(MOE.moe_schema(cfg), torch.Generator(device=dev).manual_seed(3), dev)
+    p_gpu = copy.deepcopy(p_bf).float()
+    p_cpu = copy.deepcopy(p_gpu).to("cpu")
+    x = randn(np.random.default_rng(14), (B, S, cfg.d_model), torch.float32, "cpu")
+    t0 = time.perf_counter()
+    with routing_recorded() as r_cpu:
+        want, aux_w = MOE.moe_block(p_cpu, x, cfg=cfg, capacity_factor=0.25)
+    cpu_s = time.perf_counter() - t0
+    with routing_recorded() as r_gpu:
+        got, aux_g = MOE.moe_block(p_gpu, x.to(dev), cfg=cfg, capacity_factor=0.25)
+    routing_agreement(r_gpu, r_cpu, 1, True)
+    del p_gpu, p_cpu
+    xb = x.to(dev, torch.bfloat16)
+    MOE.moe_block(p_bf, xb, cfg=cfg, capacity_factor=0.25)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        MOE.moe_block(p_bf, xb, cfg=cfg, capacity_factor=0.25)
+        MOE.moe_block(p_bf, xb[:, :1], cfg=cfg)  # a decode step's shape
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    err, ok = close_err(got.cpu(), want, MOE_TOL)
+    dropped = (float(aux_g["dropped_frac"]), float(aux_w["dropped_frac"]))
+    phase("moe_drop_vs_cpu", d_model=cfg.d_model, experts=cfg.n_experts, tokens=B * S,
+          capacity_factor=0.25,
+          rows=MOE.capacity_rows(0.25, B * S, cfg.moe_top_k, cfg.n_experts),
+          dropped_frac=dropped, max_abs_err=err, tol=MOE_TOL,
+          max_abs_out=float(want.abs().max()),
+          aux_card={k: float(v) for k, v in aux_g.items()},
+          aux_cpu={k: float(v) for k, v in aux_w.items()}, cpu_s=cpu_s,
+          bf16_no_host_sync=True)
+    check(dropped[0] == dropped[1] == 0.75, f"moe_drop_vs_cpu: dropped {dropped}")
+    check(ok, f"moe_drop_vs_cpu: card output differs from the CPU's by {err}")
+    del p_bf
+    torch.cuda.empty_cache()
+
+
+def moe_decode_bound(cfg, params, cache, tokens):
+    """Bytes one decode step of the MoE ``cfg`` must move, counted for this
+    step's data: each layer's norms, attention weights, router, the shared
+    expert and the routed experts this step's B tokens pick (read once
+    each), the KV cache's valid prefix read and the new K/V written; the
+    embedding rows, the final norm, the tied embedding read for the logits
+    and the logits written. Runs one decode step with routing recorded (on
+    a copy of the cache). Returns the bound fields and the experts read a
+    layer."""
+    import copy
+
+    from repro_torch.models import model as M
+
+    with routing_recorded() as routing:
+        M.decode_step(cfg, params, copy.deepcopy(cache), tokens)
+    experts = [len(set(e.reshape(-1).tolist())) for e, _ in routing]
+    d, ff, V = cfg.d_model, cfg.moe_d_ff or cfg.d_ff, cfg.vocab_size
+    H, KV, D, E = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, cfg.n_experts
+    B = tokens.shape[0]
+    lens = cache["len"].tolist()
+    attn = (d * H * D * 2 + d * KV * D * 2) * 2
+    kv = sum((n + 1) * KV * D * 2 * 2 for n in lens)  # read, with the new slot
+    shared = 3 * d * ff * cfg.n_shared_experts * 2
+    per_layer = [2 * d * 4 + attn + kv + d * E * 4 + shared + 3 * d * ff * 2 * n_e
+                 for n_e in experts]
+    nbytes = sum(per_layer) + B * d * 2 + d * 4 + V * d * 2 + B * V * 4
+    active = sum(attn // 2 + shared // 2 + 3 * d * ff * n_e for n_e in experts) + V * d
+    return {**bound_fields(nbytes, 2 * B * active, BF16_FLOPS_PER_S),
+            "bound_bytes": nbytes, "routed_experts_read_per_layer": experts,
+            "embedding_bytes": V * d * 2}
+
+
+def ddp_demo(dev):
+    """``noc_explore --workload ddp`` on the mesh: the gradient all-reduce of
+    ``llama4-scout-17b-a16e`` (reduced; its bytes from the MoE parameter
+    count) through ``ml_traffic.validate_phase`` on the card, counted, and
+    on the CPU: measured cycles, model estimate and delivery equal, every
+    byte delivered; the step report beside them."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.noc import ml_traffic as ML
+    from repro_torch.core.noc import collective_traffic as CT
+    from repro_torch.core.noc.spec import preset
+
+    topo, params = preset("mesh").lower()
+    cfg = get_config(LLAMA4).reduced()
+    par_kw, tokens = ML.DEMO_SPECS["ddp"]
+    (ph,) = ML.compile_traffic(cfg, ML.ParallelismSpec(**par_kw), topo,
+                               tokens_per_device=tokens, sim_cap_kb=16, workloads=["ddp"])
+    counts = router_launches_reset()
+    t0 = time.perf_counter()
+    got = ML.validate_phase(topo, ph, params, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(counts)
+    want = ML.validate_phase(topo, ph, params, device="cpu")
+    cycles = int(CT.analytical_cycles(ph.sim_schedule, params, topo) * 1.5) + 500
+    check(launches == expected_launches(params, cycles),
+          f"ddp demo launches {launches}, expected {expected_launches(params, cycles)}")
+    check(got == want and got["delivered"], f"ddp demo on the card {got}, on the CPU {want}")
+    phase("ddp_demo", model=cfg.name, params=cfg.n_params(), fabric=topo.name,
+          cycles=cycles, launches=launches, card=got, cpu=want,
+          step_report=ML.step_report([ph], params, topo), wall_s=wall,
+          ms_per_cycle=wall / cycles * 1e3)
+    return launches
+
+
 def launch_counters():
     """The ``LAUNCHES`` dicts of the model kernels (flash attention,
     RMSNorm, SSD)."""
@@ -1245,13 +1541,16 @@ def call_profile(fn, wall_ms):
             "top_us": dict(by_name.most_common(6))}
 
 
-def serve_model(dev, name, cfg, prompts, per_prefill, per_decode, n_new=16):
-    """``cfg`` at full width and depth through ``Engine.generate``: the
-    prompts (right-padded to a power of two), ``n_new`` greedy tokens,
-    twice, each run's kernel launches checked against one prefill's
-    (``per_prefill``) and ``n_new - 1`` decode steps' (``per_decode``);
-    then the same prefill and decode steps one by one, timed and counted.
-    Returns the generate run's kernel launches."""
+def serve_model(dev, name, cfg, prompts, per_prefill, per_decode, n_new=16,
+                decode_bound=None):
+    """``cfg`` at full width (and depth, unless the caller cut it) through
+    ``Engine.generate``: the prompts (right-padded to a power of two),
+    ``n_new`` greedy tokens, twice, each run's kernel launches checked
+    against one prefill's (``per_prefill``) and ``n_new - 1`` decode steps'
+    (``per_decode``); then the same prefill and decode steps one by one,
+    timed and counted. ``decode_bound(cfg, params, cache, tokens)``, when
+    given, adds a decode step's bound to the line. Returns the generate
+    run's kernel launches."""
     import numpy as np
     import torch
 
@@ -1328,6 +1627,7 @@ def serve_model(dev, name, cfg, prompts, per_prefill, per_decode, n_new=16):
         cfg, params, {"tokens": toks}, pad_to=S + n_new + 1), prefill_ms)
     prof_decode = call_profile(lambda: M.decode_step(
         cfg, params, cache, gen[:, -1:]), decode_ms)
+    bound = {} if decode_bound is None else decode_bound(cfg, params, cache, gen[:, -1:])
 
     def nbytes(tree, kv):
         """Bytes of the cache's K/V leaves (``kv``), or of its SSM leaves."""
@@ -1349,7 +1649,8 @@ def serve_model(dev, name, cfg, prompts, per_prefill, per_decode, n_new=16):
           generate_tokens_per_s=B * n_new / gen2_s,
           weight_bytes=weight_bytes, kv_cache_bytes=nbytes(cache, True),
           ssm_cache_bytes=nbytes(cache, False),
-          peak_device_bytes=peak, peak_above_earlier_phases_bytes=peak - held)
+          peak_device_bytes=peak, peak_above_earlier_phases_bytes=peak - held,
+          **({"decode_step_bound": bound} if bound else {}))
     phase("profile_" + name, prefill=prof_prefill, decode_step=prof_decode)
     check(finite, f"{name}: non-finite logits")
     check(agree, f"{name}: one-call-at-a-time steps do not reproduce the engine's tokens")
@@ -1359,9 +1660,10 @@ def serve_model(dev, name, cfg, prompts, per_prefill, per_decode, n_new=16):
 
 
 def serve_models(dev):
-    """The three serving paths at full width and depth, each driven with
-    the launch counts set to 0 just before it and read just after. Returns
-    each path's generate launches."""
+    """The four serving paths at full width (and depth, but for
+    Llama-4-Scout's ``LLAMA4_LAYERS``), each driven with the launch counts
+    set to 0 just before it and read just after. Returns each path's
+    generate launches."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -1392,6 +1694,17 @@ def serve_models(dev):
     out["serve_zamba2_7b"] = serve_model(dev, "serve_zamba2_7b", cfg, prompts,
                                          {"ssd": L, "flash_attention": n_attn,
                                           "rmsnorm": norms}, {"rmsnorm": norms})
+    # full width, cut to LLAMA4_LAYERS of 48 layers (the whole model does not
+    # fit the card); the earlier models are freed
+    cfg = get_config(LLAMA4).replace(n_layers=LLAMA4_LAYERS)
+    L = cfg.n_layers
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(0, cfg.vocab_size, int(m)).tolist()
+               for m in rng.integers(300, 501, 4)]
+    out["serve_llama4_scout"] = serve_model(dev, "serve_llama4_scout", cfg, prompts,
+                                            {"flash_attention": L, "rmsnorm": 2 * L + 1},
+                                            {"rmsnorm": 2 * L + 1},
+                                            decode_bound=moe_decode_bound)
     return out
 
 
@@ -1443,7 +1756,8 @@ def time_model_kernels(dev):
     bf = torch.bfloat16
     out = {}
     for key, B, S, H, KV, D in (("flash_attention", 4, 512, 24, 8, 128),
-                                ("flash_attention_d112", 4, 512, 32, 32, 112)):
+                                ("flash_attention_d112", 4, 512, 32, 32, 112),
+                                ("flash_attention_llama4", 4, 512, 40, 8, 128)):
         q, k, v = (randn(rng, sh, bf, dev) for sh in
                    ((B, S, H, D), (B, S, KV, D), (B, S, KV, D)))
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))  # [B, heads, S, D]
@@ -1470,9 +1784,10 @@ def time_model_kernels(dev):
             "plain_ms": graph_ms(lambda: rmsnorm_residual_ref(x, r, w, RMS_EPS)),
             "library_ms": None,
             **bound_fields(4 * row + d * 4, 5 * N * d), "shape": f"N={N}, d={d}, bf16"}
-    # the other serve paths' widths, prefill rows: Mamba-2 768, Zamba2 3584
+    # the other serve paths' widths, prefill rows: Mamba-2 768, Zamba2 3584,
+    # Llama-4-Scout 5120
     width_rng = np.random.default_rng(17)  # rng's draws for SSD stay as they were
-    for dw in (768, 3584):
+    for dw in (768, 3584, 5120):
         N = B * S
         x = randn(width_rng, (N, dw), bf, dev)
         ww = randn(width_rng, (dw,), torch.float32, dev) * 0.1 + 1
@@ -2248,6 +2563,10 @@ def main() -> int:
     # layer; 256 tokens are two chunks, so the state's carry is exercised
     serve_vs_cpu(dev, "serve_zamba2_7b_vs_cpu", get_config(ZAMBA2).replace(n_layers=7),
                  256, 9)
+    # Llama-4-Scout at full width, cut to 2 layers; one MoE layer past capacity
+    moe_serve_vs_cpu(dev, "serve_llama4_scout_vs_cpu",
+                     get_config(LLAMA4).replace(n_layers=2), 120, 13)
+    moe_drop_vs_cpu(dev, get_config(LLAMA4))
     serve_launches = serve_models(dev)
     model_times = time_model_kernels(dev)
 
@@ -2259,7 +2578,8 @@ def main() -> int:
     # ---- 11b. the batched sweep and the design-space exploration ----------
     for key, e in sweep_kernels(rng, dev).items():
         errs[key] = max(errs[key], e)
-    sweep_launches = {"sweep_8x4": sweep_8x4(dev), "dse_smoke": dse_smoke(dev)}
+    sweep_launches = {"sweep_8x4": sweep_8x4(dev), "dse_smoke": dse_smoke(dev),
+                      "ddp_demo": ddp_demo(dev)}
 
     # ---- 12. the kernels line ----------------------------------------------
     src = "src/repro_torch/kernels/noc_router/csrc/noc_router.cu"
@@ -2318,14 +2638,15 @@ def main() -> int:
     by_path = {path: {k: n for k, n in counts.items() if n}
                for path, counts in serve_launches.items()}
     # (kernel, its timing and error key, package, TPU kernel line, paths
-    #  whose launches it counts)
+    #  whose launches it counts); max_abs_err is the largest over the paths'
+    #  shapes, each path shape's also beside its time
     model_rows = (
         ("flash_attention_kernel", "flash_attention", "flash_attention", 23,
-         ("serve_phi4_mini",)),
+         ("serve_phi4_mini", "serve_llama4_scout")),
         ("flash_attention_kernel[D=112]", "flash_attention_d112", "flash_attention", 23,
          ("serve_zamba2_7b",)),
         ("rmsnorm_kernel", "rmsnorm", "rmsnorm", 16,
-         ("serve_phi4_mini", "serve_mamba2_130m", "serve_zamba2_7b")),
+         ("serve_phi4_mini", "serve_mamba2_130m", "serve_zamba2_7b", "serve_llama4_scout")),
         ("rmsnorm_residual_kernel", "rmsnorm_residual", "rmsnorm", 24, ()),
         ("ssd_tc_kernel", "ssd", "ssd", 21, ("serve_mamba2_130m",)),
         ("ssd_tc_kernel[zamba2]", "ssd_zamba2", "ssd", 21, ("serve_zamba2_7b",)),
@@ -2336,10 +2657,15 @@ def main() -> int:
         launches = {path: serve_launches[path][count] for path in paths}
         for path, n in launches.items():
             check(n > 0, f"{name} was not launched on its main path {path}")
+        err = model_errs[key]
+        if key == "flash_attention":
+            err = max(err, model_errs["flash_attention_llama4"])
+        if key == "rmsnorm":
+            err = max(err, *(model_errs[f"rmsnorm_d{dw}"] for dw in (768, 3584, 5120)))
         kernels.append({
             "name": name, "route": "cuda", "source": model_src.format(pkg),
             "replaces": model_tpu.format(pkg, line), "launches": sum(launches.values()),
-            "max_abs_err": model_errs[key], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "shape": t["shape"],
             "main_path": launches or
@@ -2348,8 +2674,13 @@ def main() -> int:
                 k_: model_times[key + "_decode"][k_] for k_ in
                 ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
         })
-        if key == "rmsnorm":  # the Mamba-2 and Zamba2 widths beside Phi-4-mini's
-            kernels[-1]["other_widths"] = [model_times[f"rmsnorm_d{dw}"] for dw in (768, 3584)]
+        if key == "rmsnorm":  # the Mamba-2, Zamba2 and Llama-4 widths beside Phi-4-mini's
+            kernels[-1]["other_widths"] = [
+                {**model_times[f"rmsnorm_d{dw}"], "max_abs_err": model_errs[f"rmsnorm_d{dw}"]}
+                for dw in (768, 3584, 5120)]
+        if key == "flash_attention":  # Llama-4-Scout's 40 / 8 heads
+            kernels[-1]["llama4_shape"] = {**model_times["flash_attention_llama4"],
+                                           "max_abs_err": model_errs["flash_attention_llama4"]}
     kernels.append({
         "name": "kv_gather_kernel", "route": "cuda",
         "source": "src/repro_torch/kernels/kv_gather/csrc/kv_gather.cu",

@@ -4,8 +4,9 @@ The port's own copy of the JAX package's config system (pure data, so the
 port never imports ``repro``). Every assigned architecture is a
 ``ModelConfig`` registered in ``REGISTRY`` (one module per arch under
 ``repro_torch.configs``). ``ModelConfig.reduced()`` produces a small
-same-family config for CPU smoke tests. Only the dense GQA family without
-a sliding window runs in the port so far (``repro_torch.models.model``).
+same-family config for CPU smoke tests. The port runs the dense GQA
+family without a sliding window, ``moe`` with GQA attention, ``ssm`` and
+``hybrid`` so far (``repro_torch.models.model.FAMILIES``).
 """
 from __future__ import annotations
 

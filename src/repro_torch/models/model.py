@@ -1,12 +1,14 @@
 """Model assembly for the port: ``param_schema`` / ``forward`` /
 ``prefill`` / ``decode_step``, driven by ``ModelConfig``.
 
-The counterpart of ``repro.models.model`` for three families: dense GQA
+The counterpart of ``repro.models.model`` for four families: dense GQA
 without local:global attention (Phi-4-mini, Granite, Mistral-Large),
+``moe`` with GQA attention and gather dispatch (Llama-4-Scout: MoE blocks
+after ``first_k_dense`` dense ones, sharing the dense KV cache layout),
 ``ssm`` (Mamba-2) and ``hybrid`` (Zamba2: superblocks of
 ``shared_attn_period`` Mamba-2 layers, each followed by one tied dense GQA
 block with its own KV cache per application, then the trailing Mamba-2
-layers). Every other family and attention kind raises
+layers). Every other family and attention kind (MLA among them) raises
 ``NotImplementedError`` naming ROADMAP Queue 1 item 12.
 """
 from __future__ import annotations
@@ -38,6 +40,8 @@ from repro_torch.models.transformer import (
     Ctx,
     dense_block,
     dense_block_schema,
+    moe_layer_block,
+    moe_layer_schema,
     scan_stack,
     ssm_block,
     ssm_block_schema,
@@ -46,7 +50,7 @@ from repro_torch.models.transformer import (
     tree_stack,
 )
 
-FAMILIES = ("dense", "ssm", "hybrid")  # the families the port runs
+FAMILIES = ("dense", "moe", "ssm", "hybrid")  # the families the port runs
 
 
 def check_supported(cfg: ModelConfig):
@@ -81,12 +85,17 @@ def _hybrid_split(cfg: ModelConfig) -> tuple[int, int, int]:
 
 def param_schema(cfg: ModelConfig) -> dict:
     """The model's parameter schema: embedding, final norm, the blocks
-    (for a hybrid: ``superblocks`` [n_super][per], one ``shared_attn``
-    block and the ``trailing`` layers)."""
+    (for a moe model: ``dense_blocks`` when ``first_k_dense > 0``, then
+    the MoE ``blocks``; for a hybrid: ``superblocks`` [n_super][per], one
+    ``shared_attn`` block and the ``trailing`` layers)."""
     check_supported(cfg)
     sch = {"embed": embed_schema(cfg), "final_norm": rmsnorm_schema(cfg.d_model)}
     if cfg.family == "dense":
         sch["blocks"] = stack_schema(dense_block_schema(cfg), cfg.n_layers)
+    elif cfg.family == "moe":
+        if cfg.first_k_dense:
+            sch["dense_blocks"] = stack_schema(dense_block_schema(cfg), cfg.first_k_dense)
+        sch["blocks"] = stack_schema(moe_layer_schema(cfg), cfg.n_layers - cfg.first_k_dense)
     elif cfg.family == "ssm":
         sch["blocks"] = stack_schema(ssm_block_schema(cfg), cfg.n_layers)
     else:
@@ -99,8 +108,15 @@ def param_schema(cfg: ModelConfig) -> dict:
 
 
 def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
-    """Parameters of ``cfg``'s schema."""
-    return count_params_tree(param_schema(cfg))  # no MoE: every weight is active
+    """Parameters of ``cfg``'s schema; ``active_only`` counts a MoE
+    model's routed experts at ``moe_top_k / n_experts`` of their weights
+    (the JAX package's formula)."""
+    total = count_params_tree(param_schema(cfg))
+    if active_only and cfg.family == "moe":
+        d, ff = cfg.d_model, cfg.moe_d_ff or cfg.d_ff
+        routed = 3 * cfg.n_experts * d * ff * (cfg.n_layers - cfg.first_k_dense)
+        total = total - routed + int(routed * cfg.moe_top_k / cfg.n_experts)
+    return total
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
@@ -117,6 +133,7 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device=None):
     """The port's parameter modules for ``cfg`` from the JAX package's
     parameters as numpy arrays keyed by pytree path, stacked layers with
     their leading layer axes (``"blocks.attn.wq"`` [L, d, H, D],
+    ``"blocks.moe.w1"`` [L, E, d, ff], ``"blocks.moe.router"`` [L, d, E],
     ``"superblocks.mixer.wz"`` [n_super, per, d, H, P], ``"shared_attn.
     attn.wq"`` unstacked). Every leaf is checked against the schema's
     stacked shape and cast to its dtype; keys the schema lacks, or lacks in
@@ -157,9 +174,18 @@ def _embed_input(cfg: ModelConfig, p, batch):
 
 
 def _run_lm_stacks(cfg: ModelConfig, p, x, ctx: Ctx, caches=None):
-    """The dense, ssm and hybrid branches of the JAX package's
-    ``_run_lm_stacks``. Returns (x, new_caches, aux)."""
+    """The dense, moe, ssm and hybrid branches of the JAX package's
+    ``_run_lm_stacks``. Returns (x, new_caches, aux): aux is the MoE
+    blocks' aux summed over the layers, ``None`` for the other families."""
     c = caches or {}
+    if cfg.family == "moe":
+        new_caches = {}
+        if "dense_blocks" in p:
+            x, new_caches["dense_blocks"], _ = scan_stack(
+                dense_block, p["dense_blocks"], x, ctx, stacked_cache=c.get("dense_blocks"))
+        x, new_caches["blocks"], aux = scan_stack(moe_layer_block, p["blocks"], x, ctx,
+                                                  stacked_cache=c.get("blocks"))
+        return x, new_caches, aux
     if cfg.family in ("dense", "ssm"):
         block = dense_block if cfg.family == "dense" else ssm_block
         x, bc, _ = scan_stack(block, p["blocks"], x, ctx, stacked_cache=c.get("blocks"))
@@ -202,7 +228,8 @@ def forward(cfg: ModelConfig, p, batch, mode: str = "train"):
 # ======================================================================
 def cache_schema(cfg: ModelConfig, B: int, S: int) -> dict:
     """PSpec tree mirroring what prefill/decode produce. S = max context.
-    KV caches are [layers, B, S, KV, D] bf16; an SSM layer holds its state
+    KV caches are [layers, B, S, KV, D] bf16 (a moe model's as a dense
+    model's: ``dense_blocks`` and ``blocks``); an SSM layer holds its state
     [B, H, P, N] float32 and the last W - 1 raw conv inputs in bf16."""
     check_supported(cfg)
     KV, D = cfg.n_kv_heads, cfg.resolved_head_dim
@@ -228,8 +255,11 @@ def cache_schema(cfg: ModelConfig, B: int, S: int) -> dict:
         }
 
     sch = {"len": PSpec((B,), ("batch",), "int32", "zeros")}
-    if cfg.family == "dense":
-        sch["blocks"] = kv(cfg.n_layers)
+    if cfg.family in ("dense", "moe"):
+        n_dense = cfg.first_k_dense if cfg.family == "moe" else 0
+        sch["blocks"] = kv(cfg.n_layers - n_dense)
+        if n_dense:
+            sch["dense_blocks"] = kv(n_dense)
     elif cfg.family == "ssm":
         sch["blocks"] = ssm_cache(cfg.n_layers)
     else:

@@ -1,11 +1,13 @@
-"""The dense GQA and the SSM (Mamba-2) blocks and the layer-stack loop.
+"""The dense GQA, MoE and SSM (Mamba-2) blocks and the layer-stack loop.
 
-The counterparts of ``repro.models.transformer`` for the dense, ssm and
-hybrid families: every block has the signature ``block(p, x, cache_layer,
-ctx) -> (x', new_cache_layer, aux)``, and ``ctx`` carries the mode
-("train" | "prefill" | "decode") and positions. There is no mesh, so the
-JAX package's sharding constraints (``_cb``, ``_gw``) have no counterpart.
-``scan_stack`` is a Python loop over the layers' modules.
+The counterparts of ``repro.models.transformer`` for the dense, moe (GQA
+attention), ssm and hybrid families: every block has the signature
+``block(p, x, cache_layer, ctx) -> (x', new_cache_layer, aux)``, and
+``ctx`` carries the mode ("train" | "prefill" | "decode") and positions.
+There is no mesh, so the JAX package's sharding constraints (``_cb``,
+``_gw``) have no counterpart. ``scan_stack`` is a Python loop over the
+layers' modules; it sums a MoE block's aux (load-balance loss, router
+z-loss, dropped share) over the layers, as the JAX package's scan does.
 
 Decode updates the stacked cache in place (the JAX package returns an
 updated copy): the new token's K/V is written into its slot, and an SSM
@@ -22,6 +24,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import attention, decode_attention
 from repro_torch.models.layers import apply_rope, mlp, mlp_schema, rmsnorm, rmsnorm_schema
@@ -127,6 +130,27 @@ def dense_block(p, x, cache, ctx: Ctx):
     return x, new_cache, None
 
 
+def moe_layer_schema(cfg: ModelConfig) -> dict:
+    """A pre-norm MoE block: ``ln1``, GQA ``attn``, ``ln2``, ``moe``."""
+    d = cfg.d_model
+    return {
+        "ln1": rmsnorm_schema(d),
+        "attn": gqa_schema(cfg),
+        "ln2": rmsnorm_schema(d),
+        "moe": moe_mod.moe_schema(cfg),
+    }
+
+
+def moe_layer_block(p, x, cache, ctx: Ctx):
+    """``x + attn(ln1(x))``, then ``+ moe(ln2(.))``. Returns the MoE
+    layer's aux."""
+    h = rmsnorm(p["ln1"], x, ctx.cfg.norm_eps)
+    a, new_cache = gqa_attn(p["attn"], h, cache, ctx)
+    x = x + a
+    mo, aux = moe_mod.moe_block(p["moe"], rmsnorm(p["ln2"], x, ctx.cfg.norm_eps), cfg=ctx.cfg)
+    return x + mo, new_cache, aux
+
+
 def ssm_block_schema(cfg: ModelConfig) -> dict:
     """A pre-norm Mamba-2 block: ``ln`` and ``mixer``."""
     return {"ln": rmsnorm_schema(cfg.d_model), "mixer": ssm_mod.ssm_schema(cfg)}
@@ -170,14 +194,19 @@ def tree_stack(trees):
 def scan_stack(block_fn, stacked_p, x, ctx: Ctx, stacked_cache=None):
     """Run the layers in order. ``stacked_cache`` (decode) holds tensors
     with a leading layer axis; prefill returns the layers' new caches
-    stacked the same way. Returns (x, new_stacked_cache, aux)."""
+    stacked the same way. Returns (x, new_stacked_cache, aux): aux is the
+    sum over the layers of each entry of the blocks' aux (MoE blocks), or
+    ``None`` for blocks without one."""
     new_caches = []
+    aux = None
     for i, p in enumerate(stacked_p):
         cache = None if stacked_cache is None else tree_index(stacked_cache, i)
-        x, new_cache, _ = block_fn(p, x, cache, ctx)
+        x, new_cache, a = block_fn(p, x, cache, ctx)
         new_caches.append(new_cache)
+        if a is not None:
+            aux = a if aux is None else {k: aux[k] + v for k, v in a.items()}
     if stacked_cache is not None:
-        return x, stacked_cache, None  # the layer views were written in place
+        return x, stacked_cache, aux  # the layer views were written in place
     if new_caches[0] is None:
-        return x, None, None
-    return x, tree_stack(new_caches), None
+        return x, None, aux
+    return x, tree_stack(new_caches), aux

@@ -14,14 +14,14 @@ mode, on the card unless ``--device cpu`` is given:
     PYTHONPATH=src python -m repro_torch.noc_explore --sweep
     PYTHONPATH=src python -m repro_torch.noc_explore --topology torus --collectives
     PYTHONPATH=src python -m repro_torch.noc_explore --workload moe
+    PYTHONPATH=src python -m repro_torch.noc_explore --workload ddp
     PYTHONPATH=src python -m repro_torch.noc_explore --dse --json frontier.json
 
 ``--dse --json`` writes the frontier artifact with ``json.dump(...,
 indent=1, sort_keys=True)``, as the JAX script does, so the two files of
-one grid are equal byte for byte. ``--workload ddp`` is refused before
-any work: its gradient bytes come from the demo model's parameter count,
-and the port does not count the parameters of that MoE config yet
-(ROADMAP Queue 1 item 12).
+one grid are equal byte for byte. ``--workload`` compiles the demo
+model ``llama4-scout-17b-a16e`` (reduced); the ddp gradient bytes are its
+parameter count.
 """
 from __future__ import annotations
 
@@ -291,8 +291,7 @@ def main(argv=None):
                     help="run the collectives-on-fabric demo")
     ap.add_argument("--workload", default=None, choices=ML.WORKLOADS,
                     help="run one compiled ML-parallelism phase "
-                         "(tp/moe/pp) on the fabric; ddp is not ported yet "
-                         "(ROADMAP Queue 1 item 12)")
+                         "(ddp/tp/moe/pp) on the fabric")
     ap.add_argument("--sweep", action="store_true",
                     help="run the batched multi-config sweep demo")
     ap.add_argument("--dse", action="store_true",
@@ -310,11 +309,6 @@ def main(argv=None):
                          "raises without a card; cpu runs the plain "
                          "PyTorch version)")
     args = ap.parse_args(argv)
-    if args.workload == "ddp":
-        ap.error("--workload ddp is not ported yet: its gradient bytes come "
-                 "from the parameter count of the MoE demo model "
-                 "llama4-scout-17b-a16e, which the port does not have "
-                 "(ROADMAP Queue 1 item 12)")
     dev = resolve_device(args.device)
     if args.dse:
         dse_demo(smoke=args.smoke, json_path=args.json, workers=args.workers,

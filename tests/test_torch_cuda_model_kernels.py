@@ -53,6 +53,7 @@ def _card(rng, shape, dtype):
     (2, 200, 4, 2, 128, 64, True),  # Dv != D
     (1, 96, 4, 4, 32, 128, False),
     (4, 512, 32, 32, 112, 112, True),  # Zamba2's shared attention
+    (4, 512, 40, 8, 128, 128, True),  # Llama-4-Scout's query-head groups of 5
 ])
 def test_flash_attention_kernel_matches_plain(B, S, H, KV, D, Dv, causal, dtype):
     _flash_matches_plain(B, S, H, KV, D, Dv, causal, dtype)
@@ -105,7 +106,8 @@ def test_flash_attention_kernel_sq_ne_skv(causal):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("N,d", [(4, 3072), (2048, 3072), (64, 128), (3, 100)])
+@pytest.mark.parametrize("N,d", [(4, 3072), (2048, 3072), (4, 5120), (2048, 5120),
+                                 (64, 128), (3, 100)])
 def test_rmsnorm_kernels_match_plain(N, d, dtype):
     """Both variants; d = 100 takes the scalar (non-vector) path."""
     _rmsnorm_matches_plain(N, d, 0, dtype)

@@ -8,16 +8,20 @@
   sim-capped one), counts, notes and ``step_report`` rows equal to JAX's on
   the 4x4 mesh and torus, wrap-safety refusals alike;
 * ``validate_phase`` (the port's simulator on the CPU) equal to JAX's;
+* the explorer's ``--workload ddp`` output equal to the JAX explorer's on
+  the 4x4 mesh and torus;
 * the MoE sweep: the port's ``run_sweep`` over two compiled MoE configs
   equal to its sequential runs and to JAX's ``run_sweep``.
 
-The MoE phases use ``llama4-scout-17b-a16e`` reduced, as the JAX tests do;
-the data-parallel phase needs the model's parameter count, which the port
-has for the dense family only (the MoE schema is ROADMAP Queue 1 item 12),
-so ddp / tp / pp use ``phi4-mini-3.8b`` reduced in both packages. Integer
-schedules and state, the JAX package's float formulas: exact equality.
+The moe and ddp phases use ``llama4-scout-17b-a16e`` reduced, as the JAX
+tests and both explorers do (the ddp gradient bytes are its parameter
+count, ``count_params`` of the MoE schema); tp / pp and the torus's ddp
+use ``phi4-mini-3.8b`` reduced in both packages. Integer schedules and
+state, the JAX package's float formulas: exact equality.
 """
 import dataclasses
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -37,12 +41,14 @@ from repro_torch.core.noc import ml_traffic as ML
 from repro_torch.core.noc import sim as TS
 from repro_torch.core.noc.params import NocParams
 from repro_torch.core.noc.topology import build_mesh, build_torus
+from repro_torch.noc_explore import main as explore
 from test_torch_noc_sim import assert_states_equal, jax_state_dict
 
 torch.set_num_threads(1)
 
 MOE = "llama4-scout-17b-a16e"
 DENSE = "phi4-mini-3.8b"
+ROOT = Path(__file__).resolve().parents[1]
 
 
 def _plain(x):
@@ -125,14 +131,14 @@ def test_all_to_all_auto_picks_ring_on_torus():
 # ----------------------------------------------------------------------
 def test_dense_parameter_counts_agree():
     assert tget(DENSE).reduced().n_params() == jget(DENSE).reduced().n_params()
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tget(MOE).reduced().n_params()
+    assert tget(MOE).reduced().n_params() == jget(MOE).reduced().n_params()
 
 
 @pytest.mark.parametrize("workload", ML.WORKLOADS)
 def test_demo_phase_equal_jax_on_mesh(workload):
-    """The shared demo jobs (``DEMO_SPECS``) on the 4x4 mesh."""
-    arch = MOE if workload == "moe" else DENSE
+    """The shared demo jobs (``DEMO_SPECS``) on the 4x4 mesh (ddp and moe
+    on the explorer's MoE model)."""
+    arch = MOE if workload in ("moe", "ddp") else DENSE
     par_kw, tokens = ML.DEMO_SPECS[workload]
     assert JML.DEMO_SPECS[workload] == (par_kw, tokens)
     kw = dict(tokens_per_device=tokens, sim_cap_kb=16, workloads=[workload])
@@ -181,11 +187,12 @@ def test_wrap_safety_rejects_strided_groups_on_torus():
                            workloads=["moe"])
 
 
-@pytest.mark.parametrize("workload", ["tp", "moe"])
+@pytest.mark.parametrize("workload", ["tp", "moe", "ddp"])
 def test_validate_phase_equal_jax(workload):
     """The shared simulate-and-compare step on the port's simulator (CPU):
-    measured cycles, model estimate and delivery equal to JAX's."""
-    arch = MOE if workload == "moe" else DENSE
+    measured cycles, model estimate and delivery equal to JAX's (ddp and
+    moe on the explorer's MoE model)."""
+    arch = MOE if workload in ("moe", "ddp") else DENSE
     par_kw, tokens = ML.DEMO_SPECS[workload]
     kw = dict(tokens_per_device=tokens, sim_cap_kb=4, workloads=[workload])
     (jph,) = JML.compile_traffic(jget(arch).reduced(), JML.ParallelismSpec(**par_kw),
@@ -195,6 +202,23 @@ def test_validate_phase_equal_jax(workload):
     want = JML.validate_phase(jmesh(nx=4, ny=4), jph, JParams())
     got = ML.validate_phase(build_mesh(nx=4, ny=4), tph, NocParams(), device="cpu")
     assert got == want and got["delivered"]
+
+
+@pytest.mark.parametrize("topology", ["mesh", "torus"])
+def test_explorer_ddp_prints_what_the_jax_explorer_prints(topology, capsys):
+    """``--workload ddp`` on the MoE demo model: the port's explorer (CPU)
+    and the JAX package's ``examples/noc_explore.py`` print the same
+    phases, cycles, notes and step report."""
+    spec = importlib.util.spec_from_file_location(
+        "jax_noc_explore", ROOT / "examples" / "noc_explore.py")
+    jexplore = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jexplore)
+    jexplore.workload_demo("ddp", topology)
+    want = capsys.readouterr().out
+    explore(["--workload", "ddp", "--topology", topology, "--device", "cpu"])
+    got = capsys.readouterr().out
+    assert "llama4-scout-17b-a16e-reduced" in got and "delivered=yes" in got
+    assert got == want
 
 
 # ----------------------------------------------------------------------

@@ -57,7 +57,8 @@ def test_port_imports_neither_jax_nor_repro():
     mods = _port_modules()
     assert "repro_torch.core.noc.sim" in mods and len(mods) >= 15
     assert {"repro_torch.core.noc.ml_traffic", "repro_torch.core.noc.spec",
-            "repro_torch.core.noc.dse", "repro_torch.noc_explore"} <= set(mods)
+            "repro_torch.core.noc.dse", "repro_torch.noc_explore",
+            "repro_torch.models.moe"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -210,14 +211,24 @@ def test_serving_entry_points_refuse_to_drop_to_cpu(monkeypatch):
     assert Engine(cfg, params, device="cpu").device.type == "cpu"
 
 
+def _config(arch):
+    """A registered config, or for ``<arch>-mla`` that config with MLA
+    attention."""
+    if arch.endswith("-mla"):
+        return get_config(arch.removesuffix("-mla")).replace(attn_kind="mla")
+    return get_config(arch)
+
+
 @pytest.mark.parametrize("arch", ["deepseek-v2-236b", "gemma3-4b", "qwen2-vl-72b",
-                                  "seamless-m4t-medium", "llama4-scout-17b-a16e"])
+                                  "seamless-m4t-medium", "llama4-scout-17b-a16e-mla"])
 def test_unported_model_families_raise(arch):
-    """The dense GQA family without a window, ``ssm`` (Mamba-2) and
-    ``hybrid`` (Zamba2) run in the port; every other registered
-    architecture is refused, naming the ROADMAP item."""
+    """The dense GQA family without a window, ``moe`` with GQA attention
+    (Llama-4-Scout), ``ssm`` (Mamba-2) and ``hybrid`` (Zamba2) run in the
+    port; every other registered architecture is refused, naming the
+    ROADMAP item, and so is a MoE model with MLA attention (DeepSeek-V2's,
+    and Llama-4-Scout's widths with MLA)."""
     with pytest.raises(NotImplementedError, match="item 12"):
-        TM.init_params(get_config(arch).reduced(), device="cpu")
+        TM.init_params(_config(arch).reduced(), device="cpu")
 
 
 def test_unported_model_options_raise():
@@ -227,20 +238,23 @@ def test_unported_model_options_raise():
     with pytest.raises(NotImplementedError, match="item 12"):
         TM.param_schema(get_config("phi4-mini-3.8b").replace(sliding_window=64))
     for arch in ("phi4-mini-3.8b", "granite-8b", "mistral-large-123b", "mamba2-130m",
-                 "zamba2-7b"):
+                 "zamba2-7b", "llama4-scout-17b-a16e"):
         assert TM.count_params(get_config(arch)) > 0
     with pytest.raises(NotImplementedError, match="item 12"):
         TM.param_schema(get_config("zamba2-7b").replace(sliding_window=64))
 
 
-def test_explorer_refuses_the_unported_ddp_workload(capsys):
-    """``--workload ddp`` needs the MoE demo model's parameter count, which
-    the port lacks: the explorer refuses it before any work, naming the
-    ROADMAP item, and says so in its help."""
-    with pytest.raises(SystemExit) as exc:
-        explore(["--workload", "ddp", "--device", "cpu"])
-    assert exc.value.code == 2
-    assert "item 12" in capsys.readouterr().err
+def test_explorer_runs_the_ddp_workload(capsys):
+    """``--workload ddp`` prices and simulates the gradient all-reduce of
+    the MoE demo model (its parameter count from the MoE schema) on the
+    CPU when asked to, delivering every byte; the help lists it.
+    ``tests/test_torch_noc_ml_traffic.py`` holds its output to the JAX
+    explorer's."""
+    explore(["--workload", "ddp", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "== ddp traffic of llama4-scout-17b-a16e-reduced on mesh4x4" in out
+    assert "delivered=yes" in out and "delivered=NO" not in out
     with pytest.raises(SystemExit):
         explore(["--help"])
-    assert "ddp is not ported yet" in " ".join(capsys.readouterr().out.split())
+    help_text = " ".join(capsys.readouterr().out.split())
+    assert "(ddp/tp/moe/pp)" in help_text and "not ported" not in help_text
