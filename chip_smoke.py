@@ -23,6 +23,10 @@ Llama-4-Scout), and checks what comes out:
    queues, on the 8x4 and 32x32 fabrics,
    a 23x19 mesh whose routers split unevenly over an 8-CTA cluster, and a
    48x48 torus too large for a 16-CTA cluster (the global-memory kernel);
+   at every arb / apply shape above and after the offload arb kernel (9),
+   the apply kernel's unfused FIFO mode (the naive step's pop then push)
+   bit-equal to ``apply_phase(fused=False)``, dead slots included, its
+   inputs untouched (``kernels_vs_plain_unfused``);
 3. the paper's 8x4 compute mesh: the GPU state after 1200 cycles equal,
    leaf for leaf, to the same run on the CPU; Fig. 7 (22 / 26 / 58
    cycles); the golden stat pins of the 4x2 mesh;
@@ -57,6 +61,15 @@ Llama-4-Scout), and checks what comes out:
    200 cycles (state against CPU, ms per cycle, peak device memory); the
    offload arb kernel's time against its plain version and bound; the
    8x4 all-reduce's layer split and device profile from cycle 400;
+9b. the naive reference step (``step_impl="naive"``): the 8x4 mesh under
+   ``main_8x4``'s workload (1200 cycles), the 32x32 scaling point (200),
+   the 8x4 torus at ``n_vcs=2`` (1200) and the in-fabric all-reduce on the
+   8x4 mesh (delivering exactly ``expect_rx`` at cycle 693), each with one
+   arb and one unfused apply launch a cycle and no fused-mode apply; the
+   card state equal to the CPU's naive state leaf for leaf and, under
+   ``canonical_state(scrub=True)``, to the fast cell's card state; Fig. 7
+   (22 / 26 / 58) under naive; ms per cycle beside the fast cell's, and
+   fast against naive in turns on the 8x4 mesh;
 10. the model stack (``kernels_vs_plain_model``, ``serve_*_vs_cpu``,
    ``serve_*``, ``profile_serve_*``, ``kernel_times_model``): the
    flash-attention kernel against its plain version at the serve paths'
@@ -135,7 +148,8 @@ Llama-4-Scout), and checks what comes out:
 12. one JSON line listing every kernel and mode (launches on its main
    path, mismatch, times, bounds; the per-cycle kernels' rows also the
    launch floor: an empty kernel's time at the same grid, timed the same
-   way in the same run).
+   way in the same run; the unfused apply mode's rows its launches on the
+   naive paths and the fused mode's time beside its own).
 
 Each main path runs with the launch counts set to 0 just before it and
 checked just after.
@@ -293,10 +307,14 @@ def max_abs_err(want, got):
     return err
 
 
-def compare_kernels(snap, tables):
+def compare_kernels(snap, tables, seen=None):
     """Each kernel and the whole cycle against the plain version, on the
     card, in the tables' VC mode: ``{"arb": err, "apply": err, "cycle":
-    err}``."""
+    err, "apply_unfused": err, "cycle_unfused": err}`` (the apply kernel
+    in both FIFO modes; the unfused mode also checked to leave its inputs
+    as they were). ``seen`` (a dict, if given) counts the cases and those
+    on which the unfused result differs from the fused one (the modes
+    really differ there)."""
     import torch
 
     from repro_torch.kernels.noc_router import noc_router as K
@@ -317,10 +335,24 @@ def compare_kernels(snap, tables):
                 t.link_dst, t.port_ep, t.ep_attach, s["ep_space"])
     cyc_k = K.router_cycle_cuda(*cyc_args, **vc)
     cyc_p = ref.router_cycle_reference(*cyc_args, fused=True, **vc)
+    inputs = [*app_args, *arb_p, *tab]
+    before = [a.clone() for a in inputs]
+    unf_k = K.apply_cuda(*app_args, arb_p, *tab, n_vcs=t.n_vcs, fused=False)
+    unf_p = ref.apply_phase(*app_args, arb_p, *tab, fused=False, n_vcs=t.n_vcs)
+    ucyc_k = K.router_cycle_cuda(*cyc_args, **vc, fused=False)
+    ucyc_p = ref.router_cycle_reference(*cyc_args, fused=False, **vc)
     torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(before, inputs)),
+          "the unfused apply kernel modified its inputs")
+    if seen is not None:
+        seen["cases"] += 1
+        seen["differs_from_fused"] += any(
+            not torch.equal(a, b) for a, b in zip(app_p, unf_p))
     return {"arb": max_abs_err(arb_p, arb_k),
             "apply": max_abs_err(app_p, app_k),
-            "cycle": max_abs_err(cyc_p, cyc_k)}
+            "cycle": max_abs_err(cyc_p, cyc_k),
+            "apply_unfused": max_abs_err(unf_p, unf_k),
+            "cycle_unfused": max_abs_err(ucyc_p, ucyc_k)}
 
 
 def random_egress(rng, C, E, Q, cycle0, N):
@@ -484,11 +516,24 @@ def compare_offload(snap, red, tables):
         *cyc[:6], red["red_acc"], red["red_got"], *cyc[6:11], t.fork_out,
         t.red_parent, t.red_need, s["ep_space"], n_endpoints=E, fused=True,
         vc_out=t.vc_out, n_vcs=t.n_vcs)
+    # the unfused apply mode on the offload arb kernel's decisions, and the
+    # naive offload cycle
+    app = (s["in_buf"], s["in_cnt"], s["out_buf"], s["out_cnt"])
+    tab = (t.link_src, t.link_dst, t.port_ep, s["ep_space"])
+    unf_k = K.apply_cuda(*app, arb_k, *tab, n_vcs=t.n_vcs, fused=False)
+    unf_p = ref.apply_phase(*app, arb_p, *tab, fused=False, n_vcs=t.n_vcs)
+    ucyc_k = K.router_cycle_offload_cuda(*cyc, **off, fused=False)
+    ucyc_p = ref.router_cycle_offload_reference(
+        *cyc[:6], red["red_acc"], red["red_got"], *cyc[6:11], t.fork_out,
+        t.red_parent, t.red_need, s["ep_space"], n_endpoints=E, fused=False,
+        vc_out=t.vc_out, n_vcs=t.n_vcs)
     torch.cuda.synchronize()
     check(all(torch.equal(a, b) for a, b in zip(before, inputs)),
           "the offload kernels modified their inputs")
     errs = {"arb": max_abs_err((*arb_p, acc_p, got_p), (*arb_k, acc_k, got_k)),
-            "cycle": max_abs_err(cyc_p, cyc_k)}
+            "cycle": max_abs_err(cyc_p, cyc_k),
+            "apply_unfused": max_abs_err(unf_p, unf_k),
+            "cycle_unfused": max_abs_err(ucyc_p, ucyc_k)}
     return errs, offload_cases(s, red, t, arb_p.granted)
 
 
@@ -667,12 +712,20 @@ def time_kernels(st, tables, ep_space):
         "apply": {"ms": graph_ms(lambda: K.apply_cuda(*app_args, n_vcs=V)),
                   "plain_ms": graph_ms(lambda: ref.apply_phase(*app_args, fused=True, n_vcs=V)),
                   "eager_ms": eager_ms(lambda: K.apply_cuda(*app_args, n_vcs=V))},
+        "apply_unfused": {
+            "ms": graph_ms(lambda: K.apply_cuda(*app_args, n_vcs=V, fused=False)),
+            "plain_ms": graph_ms(lambda: ref.apply_phase(*app_args, fused=False, n_vcs=V)),
+            "eager_ms": eager_ms(lambda: K.apply_cuda(*app_args, n_vcs=V, fused=False))},
     }
     K.LAUNCHES.update(saved)  # timing launches are not main-path launches
     C, R, P = st.in_cnt.shape
-    floor = launch_floor_ms(arb_blocks(C, R, P))  # both kernels' grid
-    out["arb"]["launch_floor_ms"] = out["apply"]["launch_floor_ms"] = floor
+    floor = launch_floor_ms(arb_blocks(C, R, P))  # the kernels' one grid
+    for v in out.values():
+        v["launch_floor_ms"] = floor
+    out["apply_unfused"]["fused_mode_ms"] = out["apply"]["ms"]
     nbytes, nops = kernel_bytes(st, tables, ep_space), kernel_ops(st)
+    # the unfused mode moves the same rows as the fused one
+    nbytes["apply_unfused"], nops["apply_unfused"] = nbytes["apply"], nops["apply"]
     for k, v in out.items():
         b_ms, b_by = bound(nbytes[k], nops[k])
         v.update(bytes=nbytes[k], ops=nops[k], bound_ms=b_ms, bound_by=b_by)
@@ -795,8 +848,9 @@ def layer_times(eng, sim, st, n=100):
     with torch.no_grad():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
+        fused = sim.params.step_impl == "fast"
         for _ in range(n):
-            eng.fabric_cycle(st.fabric, sim.tables, space)
+            eng.fabric_cycle(st.fabric, sim.tables, space, fused_fifo=fused)
         torch.cuda.synchronize()
         fabric_ms = (time.perf_counter() - t0) / n * 1e3
         c0, s = int(st.cycle), st
@@ -863,18 +917,33 @@ def states_equal(a, b):
             or not np.array_equal(na[k], nb[k])]
 
 
+def naive_vs_fast(TS, name, naive, cpu_state, fast):
+    """A naive card run (``(sim, state)``) held against the same run on the
+    CPU leaf for leaf, and against the fast cell's card run (``(sim,
+    state)``) under ``canonical_state(scrub=True)``; raises on a
+    difference."""
+    bad = states_equal(naive[1], cpu_state)
+    check(not bad, f"{name} GPU state differs from CPU state in {bad}")
+    bad = states_equal(TS.canonical_state(*naive, scrub=True),
+                       TS.canonical_state(*fast, scrub=True))
+    check(not bad, f"{name} canonical state differs from the fast run's in {bad}")
+    check(not naive[1].eps.eg_head.any() and not naive[1].eps.mq_head.any(),
+          f"{name}: a naive queue's head left slot 0")
+
+
 def expected_launches(params, n):
     """Launches of each kernel and mode that ``n`` cycles must make: one
     arb (the offload arb under ``collective_offload``) and one apply per
-    cycle, or one fused window per ``fused_cycles``, in the params' VC
-    mode, and none of any other."""
+    cycle (the unfused mode on the naive step), or one fused window per
+    ``fused_cycles``, in the params' VC mode, and none of any other."""
     from repro_torch.kernels.noc_router import noc_router as K
 
     want = dict.fromkeys(K.LAUNCHES, 0)
     k, V = params.fused_cycles, params.n_vcs
     if k == 1:
         arb = "arb_offload" if params.collective_offload else "arb"
-        want.update({K.mode(arb, V): n, K.mode("apply", V): n})
+        apply = "apply" if params.step_impl == "fast" else "apply_unfused"
+        want.update({K.mode(arb, V): n, K.mode(apply, V): n})
     else:
         want[K.mode("fused", V)] = n // k
     return want
@@ -899,12 +968,12 @@ def run_counted(TS, sim, n, state=None):
     return st, dt, launches
 
 
-def offload_run(name, otopo, V, sched, n, mid, done_at=None):
+def offload_run(name, otopo, V, sched, n, mid, done_at=None, step_impl="fast"):
     """One offloaded collective on the card through ``build_sim`` /
     ``run`` (two counted runs: ``mid`` cycles, then the rest), held
     against the same run on the CPU; with ``done_at`` also the
     exactly-once delivery and the completion cycle. Returns the state
-    at ``mid``, the sim and the launch counts."""
+    at ``mid``, the sim, the launch counts and the final state."""
     import numpy as np
     import torch
 
@@ -912,7 +981,7 @@ def offload_run(name, otopo, V, sched, n, mid, done_at=None):
     from repro_torch.core.noc import sim as TS
     from repro_torch.core.noc.params import NocParams
 
-    op = NocParams(collective_offload=True, n_vcs=V)
+    op = NocParams(collective_offload=True, n_vcs=V, step_impl=step_impl)
     owl = CT.to_workload(otopo, sched)
     groups = sched.meta["groups"]
     osim = TS.build_sim(otopo, op, owl, groups=groups)
@@ -949,7 +1018,7 @@ def offload_run(name, otopo, V, sched, n, mid, done_at=None):
         check(done == cpu_done == done_at,
               f"{name} completes at {done} (CPU {cpu_done}), "
               f"expected {done_at}")
-    return st_mid, osim, launches
+    return st_mid, osim, launches, st
 
 
 def ring_workload(TT_epm, topo, beats=64):
@@ -965,8 +1034,9 @@ def ring_workload(TT_epm, topo, beats=64):
                                dma_beats=beats, dma_write=True)
 
 
-def narrow_latency(TS, TT_epm, topo, src, dst, cycles=380):
-    """Mean narrow round-trip latency src -> dst at zero load, on the card."""
+def narrow_latency(TS, TT_epm, topo, src, dst, cycles=380, params=None):
+    """Mean narrow round-trip latency src -> dst at zero load, on the card
+    (``params``: default ``NocParams()``)."""
     import numpy as np
 
     E = topo.n_endpoints
@@ -976,7 +1046,7 @@ def narrow_latency(TS, TT_epm, topo, src, dst, cycles=380):
     nd = np.full((E,), -1, np.int32)
     nd[src] = dst
     wl = dataclasses.replace(wl, narrow_rate=nr, narrow_dst=nd)
-    sim = TS.build_sim(topo, TS.NocParams(), wl)
+    sim = TS.build_sim(topo, params or TS.NocParams(), wl)
     st, _, _ = run_counted(TS, sim, cycles)
     out = TS.stats(sim, st)
     check(out["narrow_lat_cnt"][src] > 5, "too few narrow round trips")
@@ -2039,8 +2109,8 @@ def sweep_kernels(rng, dev):
     """The per-cycle kernels at a batched sweep's grid: random snapshots of
     B x C = 4 x 3 = 12 channels over one fabric's tables, V = 1 (8x4 mesh)
     and V = 2 (8x4 torus), and the offload arb kernel on the 8x4 mesh's
-    all-reduce groups, each against its plain version. Returns the largest
-    error per ``LAUNCHES`` key."""
+    all-reduce groups, each against its plain version (the apply kernel in
+    both FIFO modes). Returns the largest error per ``LAUNCHES`` key."""
     from repro_torch.core.noc import collective_traffic as CT
     from repro_torch.core.noc.engine import make_tables
     from repro_torch.core.noc.topology import build_mesh, build_torus
@@ -2059,6 +2129,8 @@ def sweep_kernels(rng, dev):
             check(max(e.values()) == 0, f"kernel disagrees with plain at B x C: {e}")
             for k, key in (("arb", K.mode("arb", V)), ("apply", K.mode("apply", V))):
                 errs[key] = max(errs.get(key, 0), e[k], e["cycle"])
+            key = K.mode("apply_unfused", V)
+            errs[key] = max(errs.get(key, 0), e["apply_unfused"], e["cycle_unfused"])
     topo = build_mesh(nx=4, ny=8)
     groups = CT.all_reduce(topo, data_kb=16, streams=2, algo="infabric").meta["groups"]
     tables = make_tables(topo, groups=groups, device=dev)
@@ -2068,7 +2140,9 @@ def sweep_kernels(rng, dev):
     phase("kernels_vs_plain_sweep", fabric="mesh 8x4", channels=BC, groups=len(groups),
           depth=2, max_abs_err=e, cases=seen)
     check(max(e.values()) == 0, f"offload kernel disagrees with plain at B x C: {e}")
-    errs["arb_offload"] = max(e.values())
+    errs["arb_offload"] = max(e["arb"], e["cycle"])
+    errs["apply_unfused"] = max(errs["apply_unfused"], e["apply_unfused"],
+                                e["cycle_unfused"])
     return errs
 
 
@@ -2208,16 +2282,27 @@ def main() -> int:
     # ---- 2. kernels vs plain on random snapshots --------------------------
     errs = dict.fromkeys(K.LAUNCHES, 0)
     rng = np.random.default_rng(0)
+    unfused_rows = []  # the apply kernel's unfused mode, at every case below
+    unfused_seen = {"cases": 0, "differs_from_fused": 0}
+
+    def note_unfused(case, e, V):
+        """Record a case's unfused-mode errors (the apply kernel alone on
+        the plain decisions, and the naive router cycle)."""
+        key = K.mode("apply_unfused", V)
+        errs[key] = max(errs[key], e["apply_unfused"], e["cycle_unfused"])
+        unfused_rows.append({**case, "apply": e["apply_unfused"],
+                             "cycle": e["cycle_unfused"]})
     for nx, ny in ((4, 8), (32, 32), (7, 1)):
         tables = make_tables(build_mesh(nx=nx, ny=ny), device=dev)
         for depth in (2, 4):
             snap = to_device(random_snapshot(rng, tables, 3, depth), dev)
-            e = compare_kernels(snap, tables)
+            e = compare_kernels(snap, tables, unfused_seen)
             phase("kernels_vs_plain", mesh=f"{nx}x{ny}",
                   R=int(tables.route.shape[0]), depth=depth, max_abs_err=e)
             check(max(e.values()) == 0, f"kernel disagrees with plain: {e}")
             errs["arb"] = max(errs["arb"], e["arb"], e["cycle"])
             errs["apply"] = max(errs["apply"], e["apply"], e["cycle"])
+            note_unfused({"fabric": f"mesh {nx}x{ny}", "depth": depth}, e, 1)
 
     # ---- 2b. the VC modes (V = 2): tori 8x4, 32x32 and 8x1, Occamy's 28
     # slots; V = 6 on the 8x4 torus (30 slots: one router a warp)
@@ -2227,24 +2312,27 @@ def main() -> int:
     for name, vtopo, V, depth in vc_cases:
         tables = make_tables(vtopo, n_vcs=V, device=dev)
         snap = to_device(random_snapshot(rng, tables, 3, depth), dev)
-        e = compare_kernels(snap, tables)
+        e = compare_kernels(snap, tables, unfused_seen)
         phase("kernels_vs_plain_vc", fabric=name, R=int(tables.route.shape[0]),
               slots=int(tables.port_ep.shape[1]), n_vcs=V, depth=depth, max_abs_err=e)
         check(max(e.values()) == 0, f"VC kernel disagrees with plain: {e}")
         errs["arb_vc"] = max(errs["arb_vc"], e["arb"], e["cycle"])
         errs["apply_vc"] = max(errs["apply_vc"], e["apply"], e["cycle"])
+        note_unfused({"fabric": name, "n_vcs": V, "depth": depth}, e, V)
 
     # ---- 2b'. 32 slots, the most a warp holds: synthetic tables -------------
     for ports, V in ((32, 1), (16, 2)):
         tables = synthetic_tables(rng, 11, 40, ports, V, dev)
         snap = to_device(random_snapshot(rng, tables, 3, 2), dev)
-        e = compare_kernels(snap, tables)
+        e = compare_kernels(snap, tables, unfused_seen)
         phase("kernels_vs_plain_32_slots", R=11, ports=ports, n_vcs=V, depth=2,
               max_abs_err=e)
         check(max(e.values()) == 0, f"32-slot kernel disagrees with plain: {e}")
         arb, app = K.mode("arb", V), K.mode("apply", V)
         errs[arb] = max(errs[arb], e["arb"], e["cycle"])
         errs[app] = max(errs[app], e["apply"], e["cycle"])
+        note_unfused({"fabric": f"synthetic 32 slots ({ports} ports)", "n_vcs": V,
+                      "depth": 2}, e, V)
 
     # ---- 2c. the fused window against N plain cycles ------------------------
     # the 8x4 and 32x32 fabrics; a 23x19 mesh split unevenly over 8 CTAs;
@@ -2302,7 +2390,14 @@ def main() -> int:
             key = K.mode("arb_offload", V)
             errs[key] = max(errs[key], e["arb"], e["cycle"])
             reached = {k: reached[k] + seen[k] for k in reached}
+            note_unfused({"fabric": name, "n_vcs": V, "depth": depth,
+                          "after": "offload arb", "groups": len(groups)}, e, V)
     check(all(reached.values()), f"offload cases not all reached: {reached}")
+    phase("kernels_vs_plain_unfused", rows=unfused_rows, **unfused_seen)
+    check(all(r["apply"] == r["cycle"] == 0 for r in unfused_rows),
+          "the unfused apply mode disagrees with plain")
+    check(unfused_seen["differs_from_fused"] > 0,
+          "the unfused mode never differed from the fused one")
 
     # ---- 3. main path on the paper's 8x4 mesh -----------------------------
     topo = build_mesh(nx=4, ny=8)
@@ -2531,7 +2626,7 @@ def main() -> int:
 
     # ---- 9. in-network collective offload -----------------------------------
     ar = lambda t: CT.all_reduce(t, data_kb=16, streams=2, algo="infabric")
-    ar_mid, ar_sim, ar_launches = offload_run(
+    ar_mid, ar_sim, ar_launches, ar_end = offload_run(
         "allreduce_infabric_8x4", topo, 1, ar(topo), 1000, 400, done_at=693)
     offload_8x4 = time_offload(ar_mid.fabric, ar_sim.tables)
     phase("kernel_times_offload_8x4", at_cycle=400, **offload_8x4)
@@ -2542,15 +2637,81 @@ def main() -> int:
     offload_run("multicast_tree_8x4", topo, 1,
                 CT.multicast(topo, data_kb=16, streams=4, offload=True),
                 450, 150, done_at=278)
-    tar_mid, tar_sim, tar_launches = offload_run(
+    tar_mid, tar_sim, tar_launches, _ = offload_run(
         "allreduce_infabric_torus_vc_8x4", ttopo, 2, ar(ttopo), 1000, 400,
         done_at=673)
     offload_vc_8x4 = time_offload(tar_mid.fabric, tar_sim.tables)
     phase("kernel_times_offload_vc_8x4", at_cycle=400, **offload_vc_8x4)
-    big_mid, big_sim, _ = offload_run(
+    big_mid, big_sim, _, _ = offload_run(
         "scale_32x32_allreduce_infabric", btopo, 1, ar(btopo), 200, 100)
     offload_32 = time_offload(big_mid.fabric, big_sim.tables)
     phase("kernel_times_offload_32x32", at_cycle=100, **offload_32)
+
+    # ---- 9b. the naive reference step (step_impl="naive") ------------------
+    # the fast paths' cells again on the naive step: the apply kernel's
+    # unfused mode once a cycle; card state equal to the CPU's naive state
+    # and, under canonical_state(scrub=True), to the fast cell's card state
+    naive = NocParams(step_impl="naive")
+    nsim = TS.build_sim(topo, naive, wl)
+    nst, ndt, naive_launches = run_counted(TS, nsim, 1200)
+    nsim_cpu = TS.build_sim(topo, naive, wl, device="cpu")
+    t0 = time.perf_counter()
+    nst_cpu = TS.run(nsim_cpu, 1200)
+    ndt_cpu = time.perf_counter() - t0
+    naive_vs_fast(TS, "naive_8x4", (nsim, nst), nst_cpu, (sim, st_gpu))
+    nout = TS.stats(nsim, nst)
+    ms_naive = ndt / 1200 * 1e3
+    # fast against naive in turns (fast, naive, naive, fast), 200 cycles each
+    # from a fresh state: the host's speed drifts within a call
+    turns = []
+    for s_ in (sim, nsim, nsim, sim):
+        _, t_, _ = run_counted(TS, s_, 200)
+        turns.append(t_ / 200 * 1e3)
+    nlat = {d: narrow_latency(TS, epm, topo, 0, d, params=naive) for d in (1, 2, 31)}
+    phase("naive_8x4", cycles=1200, launches=naive_launches,
+          gpu_ms_per_cycle=ms_naive, main_8x4_gpu_ms_per_cycle=ms_8x4,
+          cpu_ms_per_cycle=ndt_cpu / 1200 * 1e3, gpu_state_equals_cpu=True,
+          canonical_equals_main_8x4=True, fast_vs_naive_order="fast,naive,naive,fast",
+          fast_vs_naive_gpu_ms_per_cycle=turns, fig7_latency=nlat,
+          wide_util=float(nout["wide_util"]),
+          narrow_lat_mean=float(nout["narrow_lat_mean"].mean()))
+    check(nlat == {1: 22.0, 2: 26.0, 31: 58.0}, f"Fig. 7 latencies under naive {nlat}")
+    layers_naive = layer_times(eng, nsim, nst)
+    phase("layers_naive_8x4", **layers_naive)
+    phase("profile_naive_8x4", **device_profile(nsim, nst, layers_naive["step_ms"]))
+
+    nbsim = TS.build_sim(btopo, naive, bwl)
+    nbst, nbdt, naive_big_launches = run_counted(TS, nbsim, 200)
+    t0 = time.perf_counter()
+    nbst_cpu = TS.run(TS.build_sim(btopo, naive, bwl, device="cpu"), 200)
+    nbdt_cpu = time.perf_counter() - t0
+    naive_vs_fast(TS, "naive_32x32", (nbsim, nbst), nbst_cpu, (bsim, bst))
+    phase("naive_32x32", cycles=200, launches=naive_big_launches,
+          gpu_ms_per_cycle=nbdt / 200 * 1e3,
+          scale_32x32_gpu_ms_per_cycle=bdt / 200 * 1e3,
+          cpu_ms_per_cycle=nbdt_cpu / 200 * 1e3, gpu_state_equals_cpu=True,
+          canonical_equals_scale_32x32=True,
+          beats_rcvd=int(TS.stats(nbsim, nbst)["beats_rcvd"].sum()))
+    del nbsim, nbst, nbst_cpu
+
+    nvp = NocParams(step_impl="naive", n_vcs=2)
+    nvsim = TS.build_sim(ttopo, nvp, twl)
+    nvst, nvdt, naive_vc_launches = run_counted(TS, nvsim, 1200)
+    nvst_cpu = TS.run(TS.build_sim(ttopo, nvp, twl, device="cpu"), 1200)
+    naive_vs_fast(TS, "naive_torus_vc_8x4", (nvsim, nvst), nvst_cpu, (vsim, vst))
+    phase("naive_torus_vc_8x4", cycles=1200, n_vcs=2, launches=naive_vc_launches,
+          gpu_ms_per_cycle=nvdt / 1200 * 1e3, torus_vc_8x4_gpu_ms_per_cycle=ms_vc,
+          gpu_state_equals_cpu=True, canonical_equals_torus_vc_8x4=True,
+          wide_util=float(TS.stats(nvsim, nvst)["wide_util"]))
+
+    _, nar_sim, naive_ar_launches, nar_end = offload_run(
+        "naive_allreduce_infabric_8x4", topo, 1, ar(topo), 1000, 400, done_at=693,
+        step_impl="naive")
+    bad = states_equal(TS.canonical_state(nar_sim, nar_end, scrub=True),
+                       TS.canonical_state(ar_sim, ar_end, scrub=True))
+    check(not bad, f"naive_allreduce_infabric_8x4 canonical state differs from the "
+                   f"fast run's in {bad}")
+    phase("naive_allreduce_infabric_8x4_vs_fast", canonical_equals_fast=True)
 
     # ---- 10. the model stack: Phi-4-mini, Mamba-2 and Zamba2 served ---------
     from repro_torch.configs import get_config
@@ -2606,7 +2767,25 @@ def main() -> int:
         ("arb_offload_vc", "noc_arb_offload_kernel[n_vcs=2]", 120,
          tar_launches, offload_vc_8x4, None,
          "8x4 torus, C=3, R=32, P=10 slots, D=2, G=2 (in-fabric all-reduce)"),
+        ("apply_unfused", "noc_apply_kernel[unfused]", 172, naive_launches,
+         timing_8x4["apply_unfused"], timing_32["apply_unfused"],
+         "8x4 mesh, C=3, R=32, P=5, D=2 (main_8x4's state)"),
+        ("apply_unfused_vc", "noc_apply_kernel[unfused, n_vcs=2]", 172,
+         naive_vc_launches, vc_8x4["apply_unfused"], vc_32["apply_unfused"],
+         "8x4 torus, C=3, R=32, P=10 slots, D=2 (torus_vc_8x4's state)"),
     ]
+    # the naive paths that launch the unfused mode, per LAUNCHES key
+    naive_paths = {
+        "apply_unfused": {"naive_8x4": naive_launches,
+                          "naive_32x32": naive_big_launches,
+                          "naive_allreduce_infabric_8x4": naive_ar_launches},
+        "apply_unfused_vc": {"naive_torus_vc_8x4": naive_vc_launches}}
+    # the naive paths launch the other kernels once a cycle too
+    naive_others = {"arb": ("naive_8x4", "naive_32x32"), "arb_vc": ("naive_torus_vc_8x4",),
+                    "arb_offload": ("naive_allreduce_infabric_8x4",)}
+    naive_counts = {"naive_8x4": naive_launches, "naive_32x32": naive_big_launches,
+                    "naive_torus_vc_8x4": naive_vc_launches,
+                    "naive_allreduce_infabric_8x4": naive_ar_launches}
     kernels = []
     for key, name, line, launches, t8, t32, shape in rows:
         check(launches[key] > 0, f"{name} was not launched on its main path")
@@ -2626,9 +2805,17 @@ def main() -> int:
         for path, counts in sweep_launches.items():  # B x C channels as one state
             if counts[key]:
                 kernels[-1][f"{path}_launches"] = counts[key]
-        if key.startswith("apply"):  # the collective cells launch it too
+        if key in ("apply", "apply_vc"):  # the collective cells launch it too
             kernels[-1]["offload_path_launches"] = (ar_launches if key == "apply"
                                                     else tar_launches)[key]
+        if key in naive_paths:  # its paths, and the fused mode's time beside
+            kernels[-1]["naive_path_launches"] = {
+                path: counts[key] for path, counts in naive_paths[key].items()}
+            kernels[-1]["fused_mode_ms"] = t8["fused_mode_ms"]
+            kernels[-1]["scale_32x32"]["fused_mode_ms"] = t32["fused_mode_ms"]
+        if key in naive_others:
+            kernels[-1]["naive_path_launches"] = {
+                path: naive_counts[path][key] for path in naive_others[key]}
         if "cluster" in t8:  # the fused rows: the plan, the pair, PR 12's kernel
             kernels[-1].update({k_: t8[k_] for k_ in (
                 "cluster", "smem_bytes_per_cta", "layout", "threads",
@@ -2691,7 +2878,8 @@ def main() -> int:
         "main_path": KV_MAIN_PATH,
     })
     by_path.update({path: {k: n for k, n in counts.items() if n}
-                    for path, counts in {**figure_launches, **sweep_launches}.items()})
+                    for path, counts in {**figure_launches, **sweep_launches,
+                                         **naive_counts}.items()})
     phase("launches_by_path", **by_path)
     phase("total", seconds=time.perf_counter() - t_start)
     print(card)

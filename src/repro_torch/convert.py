@@ -30,8 +30,8 @@ DROPPED_PARAMS = ("backend", "router_tile")
 
 def params_from_dict(fields: dict) -> NocParams:
     """The port's NocParams from a dict of the JAX NocParams' fields
-    (``dataclasses.asdict``). Raises ``NotImplementedError`` for values
-    the port does not implement yet (``step_impl="naive"``)."""
+    (``dataclasses.asdict``), both ``step_impl`` values included; the
+    Pallas dispatch knobs (``DROPPED_PARAMS``) are dropped."""
     return NocParams(**{k: v for k, v in fields.items()
                         if k not in DROPPED_PARAMS})
 

@@ -10,11 +10,15 @@ NI ordering (paper Sec. III-A):
 The multi-stream DMA (paper Sec. IV-A) gives each backend its own TxnID, so
 RoB-less ordering never stalls across streams.
 
-The PyTorch counterpart of ``repro.core.noc.endpoints`` on its fast path
-(circular queues). Everything is vectorized over endpoints *and* physical
-channels; state is int32 (float32 for the token buckets and latency sums,
-bool for flags), indices used for gathers are int64. No function here
-synchronises with the device.
+The PyTorch counterpart of ``repro.core.noc.endpoints``: the queue helpers
+take ``circular`` (True: the fast step's circular queues; False: the naive
+step's roll-based queues, head always at slot 0). The NI trackers' scatter
+forms of the naive step (``_col_add``, ``_ni_issue``, the three-call
+``_ni_retire``) are exact integer adds into distinct cells, the same math
+as the one-hot forms here, so both steps share them. Everything is
+vectorized over endpoints *and* physical channels; state is int32 (float32
+for the token buckets and latency sums, bool for flags), indices used for
+gathers are int64. No function here synchronises with the device.
 """
 from __future__ import annotations
 
@@ -84,8 +88,9 @@ class EndpointState:
     Field for field the JAX ``EndpointState``: NI ordering trackers,
     narrow/DMA generators, the write-burst serializer, the memory request
     queue + server, per-channel egress queues, and the statistics counters
-    surfaced by ``sim.stats``. The queues are circular (head pointer
-    advances on pop; pushes land at ``(head + cnt) % Q``).
+    surfaced by ``sim.stats``. On the fast step the queues are circular
+    (head pointer advances on pop; pushes land at ``(head + cnt) % Q``); on
+    the naive step the head stays at slot 0 and a pop rolls the queue.
     """
 
     # NI ordering
@@ -221,17 +226,27 @@ def _pack_mq(src, txn, beats, kind, ts, meta) -> torch.Tensor:
     return broadcast_fields(src.to(I32), txn, beats, kind, ts, meta)
 
 
-def _mq_push(mq, mq_head, mq_cnt, mask, src, txn, beats, kind, ts, meta):
-    """Push one request per endpoint where ``mask`` [E] at the circular
-    tail ``(head + cnt) % Q``. mq: [E, Q, NMQ].
+def _mq_push(mq, mq_head, mq_cnt, mask, src, txn, beats, kind, ts, meta,
+             circular: bool = True):
+    """Push one request per endpoint where ``mask`` [E]. mq: [E, Q, NMQ].
 
-    The reference drops the masked rows of a scatter. Here every row writes
-    exactly once (unique indices, so the write order cannot matter on any
-    device): a masked row rewrites its own head slot with the value it
-    already holds. The head never moves on a push.
+    ``circular=True`` (the fast step) writes the circular tail ``(head +
+    cnt) % Q``. The reference drops the masked rows of a scatter; here
+    every row writes exactly once (unique indices, so the write order
+    cannot matter on any device): a masked row rewrites its own head slot
+    with the value it already holds. ``circular=False`` (the naive step,
+    head always 0) writes slot ``clip(cnt, 0, Q - 1)`` through a one-hot
+    select, so on overflow it overwrites the newest slot where the circular
+    push wraps onto the oldest; callers keep ``mq_cnt < Q``. The head
+    never moves on a push.
     """
     E, Q = mq.shape[:2]
     vals = _pack_mq(src, txn, beats, kind, ts, meta)  # [E, NMQ]
+    if not circular:
+        q = torch.arange(Q, device=mq.device)
+        onehot = (q == mq_cnt.clamp(0, Q - 1)[:, None]) & mask[:, None]
+        mq = torch.where(onehot[..., None], vals[:, None, :], mq)
+        return mq, mq_cnt + mask.to(I32)
     slot = torch.where(mask, torch.remainder(mq_head + mq_cnt, Q),
                        mq_head).long()
     e = torch.arange(E, device=mq.device)
@@ -241,50 +256,76 @@ def _mq_push(mq, mq_head, mq_cnt, mask, src, txn, beats, kind, ts, meta):
 
 
 def _mq_push_multi(mq, mq_head, mq_cnt, mask, src, txn, beats, kind, ts,
-                   meta):
+                   meta, circular: bool = True):
     """Push up to one request per (channel, endpoint) where ``mask`` [C, E];
     same-endpoint pushes from different channels land in consecutive slots
     (channel order). All value args are [C, E] (or broadcastable scalars).
 
-    The slots of one endpoint are distinct, so the write is a one-hot
-    select: ``arange(Q) == slot`` is all false for a masked row (slot Q),
-    as the reference's dropped scatter leaves it.
+    Circular: the slots of one endpoint are distinct, so the write is a
+    one-hot select: ``arange(Q) == slot`` is all false for a masked row
+    (slot Q), as the reference's dropped scatter leaves it. Naive (head 0):
+    slot ``clip(cnt + offset, 0, Q - 1)``; on overflow the clip aliases
+    several channels onto slot Q - 1 and the highest channel's write is
+    kept (last write wins, as sequential per-channel pushes).
     """
     Q = mq.shape[1]
     m = mask.to(I32)
     offset = torch.cumsum(m, dim=0, dtype=I32) - m  # lower-channel pushes
     vals = _pack_mq(src, txn, beats, kind, ts, meta)  # [C, E, NMQ]
-    slot = torch.where(mask, torch.remainder(mq_head + mq_cnt + offset, Q), Q)
-    oh = torch.arange(Q, device=mq.device) == slot[..., None]  # [C, E, Q]
+    q = torch.arange(Q, device=mq.device)
+    if not circular:
+        idx = (mq_cnt[None] + offset).clamp(0, Q - 1)
+        oh = (q == idx[..., None]) & mask[..., None]  # [C, E, Q]
+        prio = torch.arange(mask.shape[0], device=mq.device)[:, None, None]
+        winner = torch.where(oh, prio, -1).amax(dim=0)  # [E, Q]
+        oh = oh & (winner[None] == prio)
+    else:
+        slot = torch.where(mask, torch.remainder(mq_head + mq_cnt + offset, Q), Q)
+        oh = q == slot[..., None]  # [C, E, Q]
     contrib = _isum(torch.where(oh[..., None], vals[:, :, None, :], 0), 0)
     mq = torch.where(oh.any(dim=0)[..., None], contrib, mq)
     return mq, mq_cnt + _isum(m, 0)
 
 
-def _mq_pop(mq, mq_head, mq_cnt, can_pop):
+def _mq_pop(mq, mq_head, mq_cnt, can_pop, circular: bool = True):
     """Peek + conditionally pop the head of every endpoint's memory queue.
 
-    Returns ``(head_vals [E, NMQ], mq, mq_head, mq_cnt)``; the pop is a
-    head advance (the buffer is untouched)."""
+    Returns ``(head_vals [E, NMQ], mq, mq_head, mq_cnt)``. The circular pop
+    is a head advance (the buffer is untouched); the naive pop rolls the
+    whole queue one slot toward the head (the old head lands in slot Q - 1).
+    """
     Q = mq.shape[1]
+    if not circular:
+        head_vals = mq[:, 0]
+        mq = torch.where(can_pop[:, None, None], torch.roll(mq, -1, dims=1), mq)
+        return head_vals, mq, mq_head, mq_cnt - can_pop.to(I32)
     e = torch.arange(mq.shape[0], device=mq.device)
     head_vals = mq[e, mq_head.long()]
     mq_head = torch.remainder(mq_head + can_pop.to(I32), Q)
     return head_vals, mq, mq_head, mq_cnt - can_pop.to(I32)
 
 
-def _eg_push(eg, eg_ready, eg_head, eg_cnt, ch, mask, flit, ready):
-    """Push flit [E, NF] onto the circular egress queue of channel ``ch``,
-    a static int or a per-endpoint [E] tensor (dynamic channel select).
+def _eg_push(eg, eg_ready, eg_head, eg_cnt, ch, mask, flit, ready,
+             circular: bool = True):
+    """Push flit [E, NF] onto the egress queue of channel ``ch``, a static
+    int or a per-endpoint [E] tensor (dynamic channel select).
 
-    A masked push goes to slot Q, whose one-hot row ``arange(Q) == Q`` is
-    all false, so nothing is written (``one_hot`` would raise on it)."""
+    The slot is the circular tail ``(head + cnt) % Q``, or with
+    ``circular=False`` (the naive step, head 0) ``clip(cnt, 0, Q - 1)``. A
+    masked push goes to slot Q, whose one-hot row ``arange(Q) == Q`` is all
+    false, so nothing is written (``one_hot`` would raise on it)."""
     C, E, Q = eg_ready.shape
     q = torch.arange(Q, device=eg.device)
+
+    def tail(head, cnt):
+        if circular:
+            return torch.where(mask, torch.remainder(head + cnt, Q), Q)
+        return torch.where(mask, cnt.clamp(0, Q - 1), Q)
+
     if isinstance(ch, int):
-        # static channel: rewrite only the eg[ch] slice
-        slot = torch.where(mask, torch.remainder(eg_head[ch] + eg_cnt[ch], Q), Q)
-        slot_oh = q == slot[:, None]  # [E, Q]
+        # static channel: rewrite only the eg[ch] slice (the same cells as
+        # the reference's one-hot over every channel)
+        slot_oh = q == tail(eg_head[ch], eg_cnt[ch])[:, None]  # [E, Q]
         eg = eg.clone()
         eg[ch] = torch.where(slot_oh[..., None], flit[:, None, :], eg[ch])
         eg_ready = eg_ready.clone()
@@ -292,28 +333,35 @@ def _eg_push(eg, eg_ready, eg_head, eg_cnt, ch, mask, flit, ready):
         eg_cnt = eg_cnt.clone()
         eg_cnt[ch] += mask.to(I32)
         return eg, eg_ready, eg_cnt
-    ch = torch.as_tensor(ch, dtype=torch.int64).expand((E,))
+    ch = ch.long().expand((E,))
     ch_oh = torch.arange(C, device=eg.device)[:, None] == ch  # [C, E]
     cnt_at = torch.gather(eg_cnt, 0, ch[None, :])[0]  # [E]
     head_at = torch.gather(eg_head, 0, ch[None, :])[0]
-    slot = torch.where(mask, torch.remainder(head_at + cnt_at, Q), Q)
-    m3 = ch_oh[:, :, None] & (q == slot[:, None])[None]  # [C, E, Q]
+    m3 = ch_oh[:, :, None] & (q == tail(head_at, cnt_at)[:, None])[None]  # [C, E, Q]
     eg = torch.where(m3[..., None], flit[None, :, None, :], eg)
     eg_ready = torch.where(m3, ready[None, :, None], eg_ready)
     return eg, eg_ready, eg_cnt + (ch_oh & mask[None]).to(I32)
 
 
-def _eg_peek(eg, eg_ready, eg_head):
+def _eg_peek(eg, eg_ready, eg_head, circular: bool = True):
     """Head flit + ready time of every (channel, endpoint) egress queue:
-    ``(head [C, E, NF], ready_ts [C, E])``."""
+    ``(head [C, E, NF], ready_ts [C, E])`` (slot 0 for the naive queues)."""
+    if not circular:
+        return eg[:, :, 0, :], eg_ready[:, :, 0]
     h = eg_head.long()
     head = torch.gather(eg, 2, h[:, :, None, None].expand(*h.shape, 1, NF))[:, :, 0]
     ready = torch.gather(eg_ready, 2, h[:, :, None])[:, :, 0]
     return head, ready
 
 
-def _eg_pop(eg, eg_ready, eg_head, eg_cnt, mask):
-    """Pop the head of every (channel, endpoint) queue where mask [C, E]."""
+def _eg_pop(eg, eg_ready, eg_head, eg_cnt, mask, circular: bool = True):
+    """Pop the head of every (channel, endpoint) queue where mask [C, E]: a
+    head advance, or with ``circular=False`` a roll of the queue."""
+    if not circular:
+        eg = torch.where(mask[..., None, None], torch.roll(eg, -1, dims=2), eg)
+        eg_ready = torch.where(mask[..., None], torch.roll(eg_ready, -1, dims=2),
+                               eg_ready)
+        return eg, eg_ready, eg_head, eg_cnt - mask.to(I32)
     Q = eg_ready.shape[-1]
     eg_head = torch.remainder(eg_head + mask.to(I32), Q)
     return eg, eg_ready, eg_head, eg_cnt - mask.to(I32)

@@ -7,8 +7,9 @@ fields]. The per-cycle router datapath lives in
 ``repro_torch.kernels.noc_router``: ``ops.router_cycle`` runs the plain
 PyTorch version on CPU tensors and the CUDA kernels on CUDA tensors.
 
-The counterpart of ``repro.core.noc.engine`` on its fast path: fused FIFO
-updates, gather-based endpoint injection, virtual channels with dateline
+The counterpart of ``repro.core.noc.engine``: fused or two-step FIFO
+updates (``fabric_cycle(fused_fifo=...)``: the fast and the naive step),
+gather-based endpoint injection, virtual channels with dateline
 switching (``n_vcs > 1``), fused multi-cycle windows
 (``fabric_cycles_fused``) and in-network collective offload (multicast
 fork and reduction trees from ``make_tables(groups=...)``, the reduction
@@ -246,14 +247,17 @@ def make_tables(topo: Topology, n_vcs: int = 1, groups=None,
 
 
 def fabric_cycle(st: FabricState, tb: FabricTables,
-                 ep_ingress_space: torch.Tensor):
-    """One cycle of every channel at once (fused FIFO datapath).
+                 ep_ingress_space: torch.Tensor, *, fused_fifo: bool = True):
+    """One cycle of every channel at once.
 
     ``ep_ingress_space`` [C, E] bool: the endpoint can accept one flit on
     that channel this cycle (a refused flit stays in the router's output
-    buffer). With collective groups in the tables the cycle runs the
-    offload datapath and carries the reduction state. Returns
-    ``(state', ep_flit [C, E, NF], ep_valid [C, E])``.
+    buffer). ``fused_fifo`` applies each FIFO's pop+push as one fused
+    update (the fast step); ``False`` is the naive step's two-step pop then
+    push (same live contents, other dead-slot garbage; on a CUDA device the
+    apply kernel's unfused mode). With collective groups in the tables the
+    cycle runs the offload datapath and carries the reduction state.
+    Returns ``(state', ep_flit [C, E, NF], ep_valid [C, E])``.
     """
     offload = {}
     if tb.fork_out is not None:
@@ -264,7 +268,8 @@ def fabric_cycle(st: FabricState, tb: FabricTables,
     out = router_ops.router_cycle(
         st.in_buf, st.in_cnt, st.out_buf, st.out_cnt, st.rr_ptr, st.wh_lock,
         tb.route, tb.link_src, tb.link_dst, tb.port_ep, tb.ep_attach,
-        ep_ingress_space, vc_out=tb.vc_out, n_vcs=tb.n_vcs, **offload)
+        ep_ingress_space, vc_out=tb.vc_out, n_vcs=tb.n_vcs,
+        fused_fifo=fused_fifo, **offload)
     # (state..., ep_flit, ep_valid[, red_acc', red_got'])
     return FabricState(*out[:6], *out[8:]), out[6], out[7]
 
@@ -299,10 +304,18 @@ def fabric_cycles_fused(st: FabricState, tb: FabricTables,
 
 
 def inject(st: FabricState, tb: FabricTables, flit: torch.Tensor,
-           want: torch.Tensor):
+           want: torch.Tensor, scatter: bool = True):
     """Endpoints push one flit per channel into their attached port's
     in_buf (seen by the arbiter next cycle). ``flit`` [C, E, NF]; ``want``
-    [C, E]. Returns ``(state, accepted [C, E])``."""
+    [C, E]. Returns ``(state, accepted [C, E])``.
+
+    ``scatter`` names the JAX package's two forms: the fast step's gather
+    injection and the naive step's one-hot ``fifo_push`` per attach port
+    (``scatter=False``), which it documents as bit-identical. An accepted
+    flit needs space, so the push's slot ``clip(cnt, 0, D - 1)`` is ``cnt``
+    and both forms write the same cells; the port keeps the one gather
+    form for both (held against the naive JAX state leaf for leaf in
+    ``tests/test_torch_noc_naive.py``)."""
     in_buf, in_cnt, accepted = inject_endpoints(
         st.in_buf, st.in_cnt, tb.ep_attach[:, 0], tb.ep_attach[:, 1],
         tb.port_ep, flit, want)

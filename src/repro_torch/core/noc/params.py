@@ -61,8 +61,10 @@ class NocParams:
     # channels by TxnID (PATRONoC-style parallel AXI channels).
     n_channels: int = 3
 
-    # step implementation: only "fast" (circular queues, fused FIFO
-    # updates, scatter injection) is ported
+    # step implementation: "fast" (circular queues, fused FIFO updates) or
+    # "naive", the roll-based reference (two-step FIFO pop then push, queues
+    # with their head at slot 0); both are ported and agree on all live
+    # state (sim.canonical_state)
     step_impl: str = "fast"
 
     # multi-cycle super-stepping: k fabric cycles per fabric call (one fused
@@ -75,7 +77,7 @@ class NocParams:
     collective_offload: bool = False
 
     def __post_init__(self):
-        """Validate the knobs; refuse the values the port lacks."""
+        """Validate the knobs."""
         if self.n_channels < 3:
             raise ValueError("n_channels must be >= 3 (req, rsp, >=1 wide)")
         if self.step_impl not in ("fast", "naive"):
@@ -87,9 +89,6 @@ class NocParams:
             raise ValueError("n_vcs must be >= 1")
         if self.collective_offload and self.fused_cycles != 1:
             raise ValueError("collective_offload requires fused_cycles == 1")
-        if self.step_impl == "naive":
-            raise NotImplementedError(
-                "step_impl='naive' is not ported yet (ROADMAP Queue 1 item 4)")
 
 
 # flit kinds

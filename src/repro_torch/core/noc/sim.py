@@ -2,11 +2,16 @@
 rsp / wide plus optional extra wide channels) + vectorized endpoints,
 stepped cycle by cycle from Python.
 
-The PyTorch counterpart of ``repro.core.noc.sim`` on its fast path. The
-per-cycle body contains no Python loop over channels or endpoints. The
-router cycle runs on the device's kernels (``ops.router_cycle``, or
-``ops.router_cycles_fused`` for a ``fused_cycles > 1`` super-step); the
-endpoint phases are plain tensor code. ``run`` keeps the cycle number a
+The PyTorch counterpart of ``repro.core.noc.sim``, with both of its step
+implementations: ``step_impl="fast"`` (circular queues, fused FIFO
+updates) and ``"naive"``, the roll-based reference (two-step FIFO pop then
+push, the apply kernel's unfused mode on the card; queues whose head stays
+at slot 0, per-channel memory-queue pushes, one dynamic-channel egress
+push in the memory server). The per-cycle body contains no Python loop
+over channels or endpoints. The router cycle runs on the device's kernels
+(``ops.router_cycle``, or ``ops.router_cycles_fused`` for a ``fused_cycles
+> 1`` super-step, fast step only); the endpoint phases are plain tensor
+code. ``run`` keeps the cycle number a
 Python int, so stepping never waits on the device.
 
 ``run_sweep`` steps B workloads of one fabric as one state: the fabric's
@@ -80,6 +85,7 @@ def _ingest(st: epm.EndpointState, flits, valid, cycle: int,
     wide channel, so counters are summed over the channel axis."""
     E = st.lat_sum.shape[0]
     dev = flits.device
+    circ = params.step_impl == "fast"
     kind = flits[..., F_KIND]  # [C, E]
 
     # ---- req channel: we are the target ----
@@ -95,10 +101,10 @@ def _ingest(st: epm.EndpointState, flits, valid, cycle: int,
     # Sim.step), so this push can never overflow the queue
     eg, eg_ready, eg_cnt = epm._eg_push(st.eg, st.eg_ready, st.eg_head,
                                         st.eg_cnt, CH_RSP, is_nreq, rsp_flit,
-                                        rsp_ready)
+                                        rsp_ready, circular=circ)
     mq, mq_cnt = epm._mq_push(st.mq, st.mq_head, st.mq_cnt, is_war,
                               f[:, F_SRC], f[:, F_TXN], f[:, F_META], WIDE_R,
-                              f[:, F_TS], f[:, F_META])
+                              f[:, F_TS], f[:, F_META], circular=circ)
 
     # ---- wide kinds (any channel) ----
     S = st.d_outst.shape[1]  # streams
@@ -125,9 +131,10 @@ def _ingest(st: epm.EndpointState, flits, valid, cycle: int,
     last_rx = torch.where(any_beat, cyc_e, st.last_rx)
     first_rx = torch.where(any_beat & (st.first_rx < 0), cyc_e, st.first_rx)
     w_tail = is_w & (flits[..., F_LAST] > 0)
-    if params.n_channels == 3:
+    if circ and params.n_channels == 3:
         # single wide channel: AW_W beats only ever ride CH_WIDE, so the
-        # per-channel push collapses to a single-channel push (same cells)
+        # per-channel push collapses to a single-channel push (same cells;
+        # the naive step keeps the per-channel push, as the reference does)
         fw = flits[CH_WIDE]
         mq, mq_cnt = epm._mq_push(mq, st.mq_head, mq_cnt, w_tail[CH_WIDE],
                                   fw[:, F_SRC], fw[:, F_TXN], 1, WIDE_B,
@@ -136,7 +143,7 @@ def _ingest(st: epm.EndpointState, flits, valid, cycle: int,
         mq, mq_cnt = epm._mq_push_multi(mq, st.mq_head, mq_cnt, w_tail,
                                         flits[..., F_SRC], flits[..., F_TXN],
                                         1, WIDE_B, flits[..., F_TS],
-                                        flits[..., F_META])
+                                        flits[..., F_META], circular=circ)
     # completed write bursts per stream (the scheduled DMA's gate signal);
     # offloaded collective tails count too (a root gates its multicast on
     # the in-fabric reduction arriving)
@@ -157,7 +164,8 @@ def _ingest(st: epm.EndpointState, flits, valid, cycle: int,
     d_done = epm._col_add(d_done, stream_b, is_b.to(I32))
     # the three retirements (wide-R tails on any channel, narrow and B
     # responses on CH_RSP) have disjoint masks and only add into ni_cnt /
-    # rob_credit, so one combined retire is exact. B responses and read
+    # rob_credit, so one combined retire is exact: the naive step's three
+    # sequential calls make the same integer sums. B responses and read
     # tails carry the issued beat count in F_META (exact RoB credits).
     rsp_row = (torch.arange(params.n_channels, device=dev) == CH_RSP)[:, None]
     m_all = r_done | (rsp_row & (is_nrsp | is_b)[None])
@@ -249,6 +257,7 @@ def _generators(st: epm.EndpointState, cycle: int, params: NocParams,
     E = wt.n_endpoints  # per configuration: the group-address base
     n_rows = st.lat_sum.shape[0]
     dev = st.lat_sum.device
+    circ = params.step_impl == "fast"
     eidx = wt.eidx
     eg, eg_ready, eg_cnt = st.eg, st.eg_ready, st.eg_cnt
     EQ = eg_ready.shape[-1]
@@ -271,7 +280,7 @@ def _generators(st: epm.EndpointState, cycle: int, params: NocParams,
     flit_n = eng.pack_flit(dst_n, eidx, NARROW_REQ, txn_n, 1, cycle, 1)
     eg, eg_ready, eg_cnt = epm._eg_push(
         eg, eg_ready, st.eg_head, eg_cnt, CH_REQ, fire_n, flit_n,
-        _full(n_rows, cycle + src_delay, dev))
+        _full(n_rows, cycle + src_delay, dev), circular=circ)
     ni_cnt, ni_dst, rob = epm._ni_issue(st, fire_n, txn_n, dst_n, ones,
                                         params)
     n_acc = torch.where(fire_n, n_acc - 1.0, n_acc.clamp(max=4.0))
@@ -349,7 +358,7 @@ def _generators(st: epm.EndpointState, cycle: int, params: NocParams,
                                 pick_beats)
         eg, eg_ready, eg_cnt = epm._eg_push(
             eg, eg_ready, st.eg_head, eg_cnt, CH_REQ, fire_d, flit_ar,
-            _full(n_rows, cycle + src_delay, dev))
+            _full(n_rows, cycle + src_delay, dev), circular=circ)
         w_stream, w_left, w_beats, w_dst, w_txn, w_ts = (
             st.w_stream, st.w_left, st.w_beats, st.w_dst, st.w_txn, st.w_ts)
     else:
@@ -381,7 +390,7 @@ def _generators(st: epm.EndpointState, cycle: int, params: NocParams,
     beats_sent = st.beats_sent
     if wl.dma_write:
         active = w_stream >= 0
-        if params.n_channels == 3:
+        if circ and params.n_channels == 3:
             wch = CH_WIDE  # single wide channel: static-channel push
             space_w = eg_cnt[CH_WIDE] < EQ
         else:
@@ -405,7 +414,7 @@ def _generators(st: epm.EndpointState, cycle: int, params: NocParams,
                                    w_beats)
         eg, eg_ready, eg_cnt = epm._eg_push(
             eg, eg_ready, st.eg_head, eg_cnt, wch, emit, flit_w,
-            _full(n_rows, cycle + 1, dev))
+            _full(n_rows, cycle + 1, dev), circular=circ)
         beats_sent = beats_sent + emit.to(I32)
         w_left = torch.where(emit, w_left - 1, w_left)
         done_w = emit & (w_left == 0)
@@ -437,6 +446,7 @@ def _memory(st: epm.EndpointState, cycle: int, params: NocParams,
     dev = st.lat_sum.device
     eidx, is_hbm, is_mem = wt.eidx, wt.is_hbm, wt.is_mem
     EQ = st.eg_ready.shape[-1]
+    circ = params.step_impl == "fast"
 
     # the refill is one float32 value, as JAX's weak-typed scalar becomes
     refill = float(np.float32(params.hbm_rate * params.hbm_eff))
@@ -447,7 +457,7 @@ def _memory(st: epm.EndpointState, cycle: int, params: NocParams,
     # pop next request when idle
     can_pop = ~st.m_active & (st.mq_cnt > 0) & is_mem
     head, mq, mq_head, mq_cnt = epm._mq_pop(st.mq, st.mq_head, st.mq_cnt,
-                                            can_pop)
+                                            can_pop, circular=circ)
     m_active = st.m_active | can_pop
     m_busy = torch.where(can_pop, params.mem_lat + params.ni_rsp_lat, m_busy)
     m_beats = torch.where(can_pop, head[:, epm.MQ_BEATS], st.m_beats)
@@ -469,15 +479,22 @@ def _memory(st: epm.EndpointState, cycle: int, params: NocParams,
     out[:, F_LAST] = (m_beats == 1).to(I32)
     ready = _full(E, cycle + params.ni_req_lat, dev)
 
-    # two legs (wide read beats / B responses on CH_RSP): disjoint masks per
-    # endpoint, so the writes commute; with 3 channels both are static
-    wide_ch = CH_WIDE if params.n_channels == 3 else wch
-    eg, eg_ready, eg_cnt = epm._eg_push(
-        st.eg, st.eg_ready, st.eg_head, st.eg_cnt, wide_ch,
-        emit & is_wide_r, out, ready)
-    eg, eg_ready, eg_cnt = epm._eg_push(
-        eg, eg_ready, st.eg_head, eg_cnt, CH_RSP, emit & ~is_wide_r, out,
-        ready)
+    if circ:
+        # two legs (wide read beats / B responses on CH_RSP): disjoint masks
+        # per endpoint, so the writes commute; with 3 channels both are
+        # static
+        wide_ch = CH_WIDE if params.n_channels == 3 else wch
+        eg, eg_ready, eg_cnt = epm._eg_push(
+            st.eg, st.eg_ready, st.eg_head, st.eg_cnt, wide_ch,
+            emit & is_wide_r, out, ready)
+        eg, eg_ready, eg_cnt = epm._eg_push(
+            eg, eg_ready, st.eg_head, eg_cnt, CH_RSP, emit & ~is_wide_r, out,
+            ready)
+    else:
+        # the reference's one push on the per-endpoint channel
+        eg, eg_ready, eg_cnt = epm._eg_push(
+            st.eg, st.eg_ready, st.eg_head, st.eg_cnt, ch_of_kind, emit, out,
+            ready, circular=False)
 
     hbm_tok = torch.where(is_hbm & emit & is_wide_r, hbm_tok - 1.0, hbm_tok)
     hbm_served = st.hbm_served + (emit & is_hbm & is_wide_r).to(I32)
@@ -530,6 +547,7 @@ class Sim:
         if cycle is None:
             cycle = int(st.cycle)
         wt = self.wt if wt is None else wt
+        fast = self.params.step_impl == "fast"
         B = wt.batch
         E = self.topo.n_endpoints
         C = self.params.n_channels
@@ -547,7 +565,7 @@ class Sim:
         req_waiting = out_cnt[CH_REQ][:, er, ep_p].reshape(B * E) > 0
         # [C*B, E, ...] and [C, B*E, ...] are views of one another
         fabric, ep_flit, ep_valid = eng.fabric_cycle(
-            st.fabric, self.tables, space.view(C * B, E))
+            st.fabric, self.tables, space.view(C * B, E), fused_fifo=fast)
         ep_flit = ep_flit.reshape(C, B * E, *ep_flit.shape[2:])
         ep_valid = ep_valid.reshape(C, B * E)
         # 2) endpoint processing
@@ -558,14 +576,15 @@ class Sim:
         eps = _generators(eps, cycle, self.params, self.wl, wt)
         eps = _memory(eps, cycle, self.params, wt)
         # 3) egress -> injection: every channel's head whose ready time came
-        head, ready_ts = epm._eg_peek(eps.eg, eps.eg_ready, eps.eg_head)
+        head, ready_ts = epm._eg_peek(eps.eg, eps.eg_ready, eps.eg_head,
+                                      circular=fast)
         ready = (eps.eg_cnt > 0) & (ready_ts <= cycle)  # [C, B*E]
         fabric, accepted = eng.inject(
             fabric, self.tables, head.reshape(C * B, E, *head.shape[2:]),
-            ready.reshape(C * B, E))
+            ready.reshape(C * B, E), scatter=fast)
         eg, eg_ready, eg_head, eg_cnt = epm._eg_pop(
             eps.eg, eps.eg_ready, eps.eg_head, eps.eg_cnt,
-            accepted.reshape(C, B * E))
+            accepted.reshape(C, B * E), circular=fast)
         eps = dataclasses.replace(eps, eg=eg, eg_ready=eg_ready,
                                   eg_head=eg_head, eg_cnt=eg_cnt)
         return (SimState(fabric=fabric, eps=eps, cycle=st.cycle + 1),
@@ -585,9 +604,12 @@ class Sim:
         and held, and an egress flit pushed during the window becomes
         injectable only at the window's close, as in the JAX package.
         ``cycle`` is ``st.cycle`` as a Python int (read from the state when
-        omitted). Returns ``(state', (ep_flit [k, C, E, NF], ep_valid
-        [k, C, E]))``.
+        omitted). Requires ``step_impl="fast"`` (the circular egress queues
+        are threaded through the fused window). Returns ``(state', (ep_flit
+        [k, C, E, NF], ep_valid [k, C, E]))``.
         """
+        if self.params.step_impl != "fast":
+            raise ValueError("step_super requires step_impl='fast'")
         if cycle is None:
             cycle = int(st.cycle)
         k = self.params.fused_cycles
@@ -671,7 +693,8 @@ def run(sim: Sim, n_cycles: int, state: SimState | None = None) -> SimState:
     """Advance ``sim`` by ``n_cycles`` (from ``state`` or a fresh one).
 
     ``params.fused_cycles`` > 1 advances in fused super-steps (``n_cycles``
-    must be a multiple, or ``ValueError``)."""
+    must be a multiple, or ``ValueError``; the naive step raises JAX's
+    ``ValueError`` there, as ``step_super`` does)."""
     n_steps = sim._n_steps(n_cycles)
     st = state if state is not None else sim.init_state()
     cyc = int(st.cycle)  # the only read of the device per call
@@ -725,8 +748,8 @@ def run_sweep(sim: Sim, wls: list[epm.Workload], n_cycles: int) -> list[SimState
     count, schedule shape); their array fields (``SWEEP_FIELDS``) become the
     batch's rows. Each cycle is one ``Sim.step`` of the whole batch, so the
     router kernels launch as often as for one configuration. The sweep
-    steps cycle by cycle whatever ``params.fused_cycles`` is, as the JAX
-    package's ``run_sweep`` does. Returns one final SimState per workload,
+    steps cycle by cycle whatever ``params.fused_cycles`` is, on either
+    ``step_impl``, as the JAX package's ``run_sweep`` does. Returns one final SimState per workload,
     equal to a sequential per-cycle run of it.
     """
     ref = sim.wl
@@ -834,8 +857,13 @@ def run_trace(sim: Sim, n_cycles: int, state: SimState | None = None,
 def canonical_state(sim: Sim, st: SimState, scrub: bool = False) -> SimState:
     """SimState with implementation-defined garbage masked out.
 
-    Rotates every circular queue to head 0 and zeroes all dead queue/FIFO
-    slots, as ``repro.core.noc.sim.canonical_state`` does. ``scrub=True``
+    The fast and naive steps agree on all live state but leave different
+    garbage where nothing live is stored: dead FIFO slots (index >= count)
+    after fused vs two-step updates, and rotated vs head-at-0 queues. This
+    rotates every circular queue to head 0 and zeroes all dead queue/FIFO
+    slots, as ``repro.core.noc.sim.canonical_state`` does, so the fast and
+    the naive state of one run are equal leaf for leaf after it iff the two
+    agree on all live state. ``scrub=True``
     also neutralizes the endpoint scratch registers that keep their last
     burst after going idle (``m_flit``, the ``w_*`` serializer registers,
     NI destination slots with zero outstanding count).

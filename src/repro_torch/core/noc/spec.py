@@ -31,9 +31,9 @@ compares across the packages. That includes the two Pallas dispatch knobs
 ``backend`` and ``router_tile``: they are validated as the JAX package
 validates them and kept in the schema, but :meth:`params` does not pass
 them on, because the port's ``NocParams`` has no such fields (the tensors'
-device picks the kernels). A spec with ``step_impl="naive"`` is refused
-with ``NotImplementedError`` (``NocParams``), as the port has no naive
-step yet.
+device picks the kernels). ``step_impl`` takes both of the JAX package's
+values: a ``"naive"`` spec lowers to the port's naive step and hashes as
+the JAX package's does.
 
 The design-space exploration over grids of specs lives in
 ``repro_torch.core.noc.dse``; the schema reference is
@@ -136,7 +136,7 @@ class FabricSpec:
     n_vcs: int = 1
     ni_order: str = "robless"  # "robless" | "rob"
     backend: str = "jnp"  # "jnp" | "pallas" (JAX package only; kept for the hash)
-    step_impl: str = "fast"  # "fast" ("naive" is not ported)
+    step_impl: str = "fast"  # "fast" | "naive"
     router_tile: int = 8  # JAX package only; kept for the hash
     fused_cycles: int = 1
     collective_offload: bool = False  # in-fabric multicast + reduction ALU

@@ -5,8 +5,10 @@
 //   * noc_arb_kernel   <- `_arb_kernel` (V = 1) and `_arb_kernel_vc`
 //                         (V > 1); plain version: ref.arb_decisions
 //   * noc_apply_kernel <- `_apply_kernel` (its `n_vcs` argument covers
-//                         both); plain version: ref.apply_phase, i.e.
-//                         link_inputs + sent_mask + fused apply_cycle
+//                         both; its `fused` argument both FIFO modes, the
+//                         fast step's fused update and the naive step's
+//                         pop then push); plain version: ref.apply_phase,
+//                         i.e. link_inputs + sent_mask + apply_cycle
 //   * noc_fused_cluster_kernel <- `_fused_kernel` (V = 1) and
 //                         `_fused_kernel_vc` (V > 1); plain version:
 //                         ref.router_cycles_scan. noc_fused_global_kernel
@@ -452,15 +454,22 @@ __device__ __forceinline__ void warp_store(int* __restrict__ dst, const int* src
   }
 }
 
-// Fused pop-then-push of one FIFO's D rows in place (D = DC, or `d` when
-// DC is 0): row r takes row min(r + pop, D - 1) unless it is the push
-// target, fifo_update's general form; ascending r reads only rows not yet
-// written. Returns the new count.
+// Pop-then-push of one FIFO's D rows in place (D = DC, or `d` when DC is
+// 0): row r takes row r + 1 on a pop, and the push target (row
+// clip(cnt - pop, 0, D - 1)) takes the flit. The modes differ in row
+// D - 1 on a pop that does not push there: `fused` (fifo_update's general
+// form) keeps it; unfused (fifo_pop's roll, then fifo_push) moves the old
+// head there. Ascending r reads only rows not yet written, except the old
+// head, which row 0 overwrites first: it is kept in registers. Returns
+// the new count.
 template <int DC>
 __device__ __forceinline__ int fifo_rows(int* rows, int d, int cnt, bool pop, bool push,
-                                         const int* flit) {
+                                         const int* flit, bool fused) {
   const int D = DC ? DC : d;
   const int c1 = cnt - (pop ? 1 : 0), tail = clampi(c1, 0, D - 1);
+  int head[NF];
+#pragma unroll
+  for (int f = 0; f < NF; ++f) head[f] = rows[f];
 #pragma unroll
   for (int r = 0; r < D; ++r) {
     if (push && r == tail) {
@@ -469,13 +478,16 @@ __device__ __forceinline__ int fifo_rows(int* rows, int d, int cnt, bool pop, bo
     } else if (pop && r + 1 < D) {
 #pragma unroll
       for (int f = 0; f < NF; ++f) rows[r * NF + f] = rows[(r + 1) * NF + f];
+    } else if (pop && !fused) {  // r == D - 1: the roll's wrapped head
+#pragma unroll
+      for (int f = 0; f < NF; ++f) rows[r * NF + f] = head[f];
     }
   }
   return c1 + (push ? 1 : 0);
 }
 
-// Link resolution + fused FIFO update (ref.apply_phase), a lane per slot
-// as in noc_arb_kernel. The warp's live slots are contiguous in every
+// Link resolution + FIFO update (ref.apply_phase, fused or unfused), a
+// lane per slot as in noc_arb_kernel. The warp's live slots are contiguous in every
 // [C, R, P, ...] array (lane j holds the warp's j-th slot), so:
 //  1. each lane loads its table rows, its counts and arb scratch and its
 //     `chosen`, and the warp reads its old FIFO rows, both sides, with
@@ -489,8 +501,11 @@ __device__ __forceinline__ int fifo_rows(int* rows, int d, int cnt, bool pop, bo
 //     bits (the own-side halves, my in_space and my out_cnt > 0, are the
 //     group lanes' own loads, so nothing is reloaded);
 //  4. the old rows go to the warp's span of shared memory; each lane pops
-//     and pushes its slot's rows there in place (fifo_rows, dead slots
-//     included), and the warp writes its spans back coalesced.
+//     and pushes its slot's rows there in place (fifo_rows in the mode
+//     `fused` names, a runtime argument: it only picks row D - 1's source
+//     on a pop, and is uniform over the launch, so one instantiation a
+//     depth serves both modes; dead slots included), and the warp writes
+//     its spans back coalesced.
 // Unused lanes and a ragged last warp's routers take part in the ballots
 // and copy nothing. Nothing is written in place: every read is of the
 // cycle-start snapshot or the arb scratch. DIN and DOUT fix the depths at
@@ -506,7 +521,7 @@ __global__ void __launch_bounds__(kArbThreads) noc_apply_kernel(
     const int* __restrict__ port_ep, const bool* __restrict__ ep_space,
     int* __restrict__ new_in_buf, int* __restrict__ new_in_cnt,
     int* __restrict__ new_out_buf, int* __restrict__ new_out_cnt,
-    int C, int R, int P, int din, int dout, int E, int V) {
+    int C, int R, int P, int din, int dout, int E, int V, int fused) {
   extern __shared__ __align__(16) int apply_smem[];
   const int Din = DIN ? DIN : din, Dout = DOUT ? DOUT : dout;
   const SlotLane s = slot_lane(C, R, P);
@@ -579,8 +594,8 @@ __global__ void __launch_bounds__(kArbThreads) noc_apply_kernel(
   cp_async_wait_all();
   __syncwarp();  // the warp's old rows are all in shared memory
   if (s.live) {
-    new_in_cnt[t] = fifo_rows<DIN>(s_in + lane * fin, Din, icnt, pop_in, accept, flit);
-    new_out_cnt[t] = fifo_rows<DOUT>(s_out + lane * fout, Dout, ocnt, sent, grant, ch);
+    new_in_cnt[t] = fifo_rows<DIN>(s_in + lane * fin, Din, icnt, pop_in, accept, flit, fused);
+    new_out_cnt[t] = fifo_rows<DOUT>(s_out + lane * fout, Dout, ocnt, sent, grant, ch, fused);
   }
   __syncwarp();  // the warp's rows are final
   warp_store<DIN * NF>(new_in_buf + slot0 * fin, s_in, ns * fin, lane);
@@ -1447,7 +1462,7 @@ extern "C" int noc_apply_launch(
     const void* chosen, const void* in_space, const void* link_src,
     const void* link_dst, const void* port_ep, const void* ep_space,
     void* new_in_buf, void* new_in_cnt, void* new_out_buf, void* new_out_cnt,
-    int C, int R, int P, int Din, int Dout, int E, int V, void* stream) {
+    int C, int R, int P, int Din, int Dout, int E, int V, int fused, void* stream) {
   // each warp's old and new FIFO rows, both sides: 14 KB a CTA at depth 2
   // (every configuration's default, fixed at compile time), any depth else
   static size_t allowed = 48 * 1024;
@@ -1465,7 +1480,7 @@ extern "C" int noc_apply_launch(
       (const int*)chosen, (const bool*)in_space, (const int*)link_src,
       (const int*)link_dst, (const int*)port_ep, (const bool*)ep_space,
       (int*)new_in_buf, (int*)new_in_cnt, (int*)new_out_buf,
-      (int*)new_out_cnt, C, R, P, Din, Dout, E, V);
+      (int*)new_out_cnt, C, R, P, Din, Dout, E, V, fused);
   return (int)cudaGetLastError();
 }
 

@@ -10,10 +10,12 @@ package's Pallas router kernels:
    (dateline slot expansion through ``vc_out``) ``_arb_kernel_vc``.
 2. **apply** — a lane per slot, as arb: link resolution against the
    fabric-wide snapshot (one remote load per side and lane, a wire's VC
-   choice by a ballot over the port group's lanes) plus the fused FIFO
-   update of both sides, staged in shared memory and written coalesced
-   into freshly allocated output buffers (never in place). Replaces
-   ``_apply_kernel`` at any ``n_vcs``.
+   choice by a ballot over the port group's lanes) plus the FIFO update of
+   both sides, staged in shared memory and written coalesced into freshly
+   allocated output buffers (never in place). Replaces ``_apply_kernel`` at
+   any ``n_vcs``, in both of its FIFO modes (a runtime argument): fused
+   (``fifo_update``, the fast step) and unfused (``fifo_pop`` then
+   ``fifo_push``, the naive step, counted as ``apply_unfused``).
 3. **fused** — one thread-block cluster per channel runs an N-cycle window
    with the channel's state in the cluster's shared memory (arb, apply and
    egress injection per cycle, one cluster barrier between the phases;
@@ -66,14 +68,15 @@ OFFLOAD_PTRS = 20  # pointer operands of noc_arb_offload_launch
 
 # launches of each kernel and mode, counted where the wrapper launches it
 LAUNCHES = {"arb": 0, "apply": 0, "arb_vc": 0, "apply_vc": 0, "fused": 0,
-            "fused_vc": 0, "arb_offload": 0, "arb_offload_vc": 0}
+            "fused_vc": 0, "arb_offload": 0, "arb_offload_vc": 0,
+            "apply_unfused": 0, "apply_unfused_vc": 0}
 
 
 def _declare(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.noc_arb_launch.argtypes = [vp] * 13 + [ci] * 7 + [vp]
     lib.noc_arb_launch.restype = ci
-    lib.noc_apply_launch.argtypes = [vp] * 16 + [ci] * 7 + [vp]
+    lib.noc_apply_launch.argtypes = [vp] * 16 + [ci] * 8 + [vp]
     lib.noc_apply_launch.restype = ci
     lib.noc_fused_global_launch.argtypes = [vp, vp, vp]
     lib.noc_fused_global_launch.restype = ci
@@ -231,16 +234,24 @@ def _check(name, t, dtype, shape, device):
 
 
 def mode(kernel: str, n_vcs: int) -> str:
-    """``LAUNCHES`` key of ``kernel`` ("arb", "apply", "fused",
-    "arb_offload") at ``n_vcs``."""
+    """``LAUNCHES`` key of ``kernel`` ("arb", "apply", "apply_unfused",
+    "fused", "arb_offload") at ``n_vcs``."""
     return kernel if n_vcs == 1 else f"{kernel}_vc"
 
 
-def _count(kernel: str, n_vcs: int, err: int):
-    """Raise on a refused launch, else count it."""
+def _count(kernel: str, n_vcs: int, err: int, key: str | None = None):
+    """Raise on a refused launch of ``noc_{kernel}_kernel``, else count it
+    under ``key`` (default ``kernel``) in its VC mode."""
     if err != 0:
         raise RuntimeError(f"noc_{kernel}_kernel launch failed: CUDA error {err}")
-    LAUNCHES[mode(kernel, n_vcs)] += 1
+    LAUNCHES[mode(key or kernel, n_vcs)] += 1
+
+
+def _require_cuda(name: str, dev):
+    """Raise unless the wrapper ``name`` was given CUDA tensors: a kernel
+    has no CPU mode, and no wrapper falls back to the plain version."""
+    if dev.type != "cuda":
+        raise ValueError(f"{name} needs CUDA tensors, got {dev}")
 
 
 def _dims(*bufs, n_vcs: int = 1):
@@ -277,8 +288,7 @@ def arb_cuda(in_buf, in_cnt, out_cnt, rr_ptr, wh_lock, route,
     outputs are fresh scratch tensors.
     """
     dev = in_buf.device
-    if dev.type != "cuda":
-        raise ValueError(f"arb_cuda needs CUDA tensors, got {dev}")
+    _require_cuda("arb_cuda", dev)
     C, R, P, Din = _dims(in_buf, n_vcs=n_vcs)
     Dout = int(depth_out)
     if route.dim() != 2:
@@ -317,8 +327,7 @@ def arb_offload_cuda(in_buf, in_cnt, out_cnt, rr_ptr, wh_lock, route,
     ``[C, R, P, ...]``. Returns ``(ArbDecisions, red_acc', red_got')``,
     all fresh tensors; the inputs are only read."""
     dev = in_buf.device
-    if dev.type != "cuda":
-        raise ValueError(f"arb_offload_cuda needs CUDA tensors, got {dev}")
+    _require_cuda("arb_offload_cuda", dev)
     C, R, P, Din = _dims(in_buf, n_vcs=n_vcs)
     Dout = int(depth_out)
     if route.dim() != 2 or fork_out.dim() != 3:
@@ -362,14 +371,16 @@ def arb_offload_cuda(in_buf, in_cnt, out_cnt, rr_ptr, wh_lock, route,
 
 
 def apply_cuda(in_buf, in_cnt, out_buf, out_cnt, arb: ArbDecisions,
-               link_src, link_dst, port_ep, ep_space, n_vcs: int = 1):
-    """Launch the apply kernel: the counterpart of ``ref.apply_phase``
-    (fused FIFO datapath). Returns fresh ``(in_buf', in_cnt', out_buf',
-    out_cnt')``; the inputs stay the untouched cycle-start snapshot. The
-    link tables are physical ([R, P / n_vcs, 2])."""
+               link_src, link_dst, port_ep, ep_space, n_vcs: int = 1,
+               fused: bool = True):
+    """Launch the apply kernel: the counterpart of ``ref.apply_phase(...,
+    fused=fused)``, the fused FIFO update or (``fused=False``, counted as
+    ``apply_unfused``) the two-step pop then push. Returns fresh
+    ``(in_buf', in_cnt', out_buf', out_cnt')``; the inputs stay the
+    untouched cycle-start snapshot. The link tables are physical ([R, P /
+    n_vcs, 2])."""
     dev = in_buf.device
-    if dev.type != "cuda":
-        raise ValueError(f"apply_cuda needs CUDA tensors, got {dev}")
+    _require_cuda("apply_cuda", dev)
     C, R, P, Din, Dout = _dims(in_buf, out_buf, n_vcs=n_vcs)
     if Din + Dout > MAX_APPLY_DEPTH:
         raise ValueError(f"the CUDA apply kernel takes depths summing to at most "
@@ -397,17 +408,19 @@ def apply_cuda(in_buf, in_cnt, out_buf, out_cnt, arb: ArbDecisions,
         _ptr(arb.arb_pop), _ptr(arb.granted), _ptr(arb.chosen),
         _ptr(arb.in_space), _ptr(link_src), _ptr(link_dst), _ptr(port_ep),
         _ptr(ep_space), _ptr(new_in), _ptr(new_in_cnt), _ptr(new_out),
-        _ptr(new_out_cnt), C, R, P, Din, Dout, E, n_vcs, _stream(dev))
-    _count("apply", n_vcs, err)
+        _ptr(new_out_cnt), C, R, P, Din, Dout, E, n_vcs, int(bool(fused)),
+        _stream(dev))
+    _count("apply", n_vcs, err, key="apply" if fused else "apply_unfused")
     return new_in, new_in_cnt, new_out, new_out_cnt
 
 
 def router_cycle_cuda(in_buf, in_cnt, out_buf, out_cnt, rr_ptr, wh_lock,
                       route, link_src, link_dst, port_ep, ep_attach,
-                      ep_space, vc_out=None, n_vcs: int = 1):
-    """One fabric cycle of every channel on the CUDA kernels.
+                      ep_space, vc_out=None, n_vcs: int = 1, fused: bool = True):
+    """One fabric cycle of every channel on the CUDA kernels (the apply
+    kernel in the FIFO mode ``fused`` names).
 
-    Same contract as ``ref.router_cycle_reference(..., fused=True)`` over
+    Same contract as ``ref.router_cycle_reference(..., fused=fused)`` over
     channel-batched state: returns ``(in_buf, in_cnt, out_buf, out_cnt,
     rr_ptr, wh_lock, ep_flit [C, E, NF], ep_valid [C, E])``. The endpoint
     deliveries are gathered from the cycle-start snapshot, which the apply
@@ -417,7 +430,7 @@ def router_cycle_cuda(in_buf, in_cnt, out_buf, out_cnt, rr_ptr, wh_lock,
                    depth_out=out_buf.shape[-2], vc_out=vc_out, n_vcs=n_vcs)
     in2, in_cnt2, out2, out_cnt2 = apply_cuda(
         in_buf, in_cnt, out_buf, out_cnt, arb, link_src, link_dst, port_ep,
-        ep_space, n_vcs=n_vcs)
+        ep_space, n_vcs=n_vcs, fused=fused)
     ep_flit, ep_valid = endpoint_deliveries(out_buf, out_cnt, ep_attach,
                                             ep_space)
     return (in2, in_cnt2, out2, out_cnt2, arb.rr_ptr, arb.wh_lock, ep_flit,
@@ -428,12 +441,13 @@ def router_cycle_offload_cuda(in_buf, in_cnt, out_buf, out_cnt, rr_ptr,
                               wh_lock, route, link_src, link_dst, port_ep,
                               ep_attach, ep_space, fork_out, red_parent,
                               red_need, red_acc, red_got, n_endpoints: int,
-                              vc_out=None, n_vcs: int = 1):
+                              vc_out=None, n_vcs: int = 1, fused: bool = True):
     """One fabric cycle of every channel with collective offload: the
     offload arb kernel, then the same apply kernel (fork copies and
     emitted reduction flits reach it through the merged ``granted`` /
-    ``chosen``). Same contract as ``ref.router_cycle_offload_reference(...,
-    fused=True)`` over channel-batched state: returns ``(in_buf, in_cnt,
+    ``chosen``; ``fused`` picks its FIFO mode). Same contract as
+    ``ref.router_cycle_offload_reference(..., fused=fused)`` over
+    channel-batched state: returns ``(in_buf, in_cnt,
     out_buf, out_cnt, rr_ptr, wh_lock, ep_flit, ep_valid, red_acc',
     red_got')``."""
     arb, red_acc2, red_got2 = arb_offload_cuda(
@@ -444,7 +458,7 @@ def router_cycle_offload_cuda(in_buf, in_cnt, out_buf, out_cnt, rr_ptr,
         n_vcs=n_vcs)
     in2, in_cnt2, out2, out_cnt2 = apply_cuda(
         in_buf, in_cnt, out_buf, out_cnt, arb, link_src, link_dst, port_ep,
-        ep_space, n_vcs=n_vcs)
+        ep_space, n_vcs=n_vcs, fused=fused)
     ep_flit, ep_valid = endpoint_deliveries(out_buf, out_cnt, ep_attach,
                                             ep_space)
     return (in2, in_cnt2, out2, out_cnt2, arb.rr_ptr, arb.wh_lock, ep_flit,
@@ -470,8 +484,7 @@ def router_cycles_fused_cuda(in_buf, in_cnt, out_buf, out_cnt, rr_ptr,
     ``port_ep`` is the inverse of ``ep_attach``, as on every topology.
     """
     dev = in_buf.device
-    if dev.type != "cuda":
-        raise ValueError(f"router_cycles_fused_cuda needs CUDA tensors, got {dev}")
+    _require_cuda("router_cycles_fused_cuda", dev)
     N = int(n_cycles)
     if N < 1:
         raise ValueError(f"n_cycles must be >= 1, got {N}")

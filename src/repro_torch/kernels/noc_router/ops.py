@@ -2,16 +2,17 @@
 
 ``router_cycle`` runs one cycle of the channel-batched fabric (state
 ``[C, R, P, ...]``, tables shared across channels) on the fused FIFO
-datapath; ``router_cycles_fused`` advances it N cycles with the endpoint
-egress injection threaded in (the multi-cycle super-step). The tensors
-decide where they run:
+datapath (``fused_fifo=True``, the fast step) or the two-step pop then push
+(``fused_fifo=False``, the naive step); ``router_cycles_fused`` advances it
+N cycles with the endpoint egress injection threaded in (the multi-cycle
+super-step, fused FIFO datapath). The tensors decide where they run:
 
 * on the CPU they run the plain version (``ref.router_cycle_reference``,
   ``ref.router_cycles_scan``), with the channel axis as a batch dimension
   (no Python channel loop);
 * on a CUDA device they launch the CUDA kernels
-  (``noc_router.router_cycle_cuda``, ``noc_router.router_cycles_fused_cuda``),
-  or raise.
+  (``noc_router.router_cycle_cuda``, ``noc_router.router_cycles_fused_cuda``;
+  the apply kernel in the FIFO mode asked for), or raise.
 
 ``n_vcs > 1`` selects the virtual-channel datapath (slot-level P axis,
 ``vc_out`` [R, P, Pp] the dateline table). Passing ``fork_out`` selects
@@ -43,7 +44,7 @@ def router_cycle(in_buf, in_cnt, out_buf, out_cnt, rr_ptr, wh_lock,
                  route, link_src, link_dst, port_ep, ep_attach, ep_space,
                  vc_out=None, n_vcs: int = 1, fork_out=None, red_parent=None,
                  red_need=None, red_acc=None, red_got=None,
-                 n_endpoints: int = 0):
+                 n_endpoints: int = 0, fused_fifo: bool = True):
     """One cycle of every channel at once.
 
     State is channel-batched (``in_buf`` [C, R, P, Din, NF], counters
@@ -51,7 +52,9 @@ def router_cycle(in_buf, in_cnt, out_buf, out_cnt, rr_ptr, wh_lock,
     ``link_dst`` [R, Pp, 2], ``port_ep`` [R, P], ``ep_attach`` [E, 2]);
     ``ep_space`` [C, E] bool. Returns ``(in_buf, in_cnt, out_buf, out_cnt,
     rr_ptr, wh_lock, ep_flit [C, E, NF], ep_valid [C, E])``, bit for bit
-    the JAX ``ops.router_cycle(..., fused_fifo=True)``.
+    the JAX ``ops.router_cycle(..., fused_fifo=fused_fifo)``: the fused FIFO
+    update, or the reference's two-step pop then push (same live contents,
+    other dead-slot garbage).
 
     Passing ``fork_out`` [R, G, P] (with ``red_parent`` / ``red_need``
     [R, G] and the channel-batched reduction state ``red_acc``
@@ -66,14 +69,15 @@ def router_cycle(in_buf, in_cnt, out_buf, out_cnt, rr_ptr, wh_lock,
                    red_need=red_need, red_acc=red_acc, red_got=red_got,
                    n_endpoints=n_endpoints, vc_out=vc_out, n_vcs=n_vcs)
         if _device_kind(in_buf) == "cuda":
-            return router_cycle_offload_cuda(*args, **off)
+            return router_cycle_offload_cuda(*args, **off, fused=fused_fifo)
         return router_cycle_offload_reference(
             *args[:6], red_acc, red_got, *args[6:11], fork_out, red_parent,
-            red_need, ep_space, n_endpoints=n_endpoints, fused=True,
+            red_need, ep_space, n_endpoints=n_endpoints, fused=fused_fifo,
             vc_out=vc_out, n_vcs=n_vcs)
     if _device_kind(in_buf) == "cuda":
-        return router_cycle_cuda(*args, vc_out=vc_out, n_vcs=n_vcs)
-    return router_cycle_reference(*args, fused=True, vc_out=vc_out,
+        return router_cycle_cuda(*args, vc_out=vc_out, n_vcs=n_vcs,
+                                 fused=fused_fifo)
+    return router_cycle_reference(*args, fused=fused_fifo, vc_out=vc_out,
                                   n_vcs=n_vcs)
 
 

@@ -1,6 +1,7 @@
 """The CUDA router kernels against their plain PyTorch version, on the card:
-arb and apply with and without virtual channels, the fused window, and the
-collective-offload arb kernel.
+arb and apply with and without virtual channels (apply in both FIFO modes:
+fused, and the naive step's unfused pop then push), the fused window, and
+the collective-offload arb kernel.
 
 These tests need a CUDA device and skip without one (the kernels have no
 CPU mode); run them on the GPU host with
@@ -170,14 +171,17 @@ def test_cuda_kernels_match_plain(R, depth, V, n_ports):
         assert tkern.LAUNCHES[k] == before[k] + 1
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("R,din,dout,V,n_ports,links", [
+APPLY_CASES = [
     (32, 2, 2, 1, P, "random"), (32, 4, 4, 1, P, "random"), (32, 4, 2, 2, P, "random"),
     (1024, 2, 2, 2, P, "random"), (7, 2, 2, 1, P, "random"), (7, 2, 2, 1, 1, "random"),
     (11, 2, 2, 1, 32, "random"), (5, 2, 2, 6, P, "random"), (32, 2, 2, 1, P, "none"),
-    (32, 2, 4, 2, P, "half"), (32, 16, 16, 1, P, "random")],
-    ids=["32-2", "32-4", "32-42-vc2", "1024-2-vc2", "7-2-ragged", "7-2-p1", "11-2-p32",
-         "5-2-vc6", "32-2-no-links", "32-24-vc2-half-links", "32-16-deep"])
+    (32, 2, 4, 2, P, "half"), (32, 16, 16, 1, P, "random")]
+APPLY_IDS = ["32-2", "32-4", "32-42-vc2", "1024-2-vc2", "7-2-ragged", "7-2-p1", "11-2-p32",
+             "5-2-vc6", "32-2-no-links", "32-24-vc2-half-links", "32-16-deep"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,din,dout,V,n_ports,links", APPLY_CASES, ids=APPLY_IDS)
 def test_cuda_apply_matches_plain(R, din, dout, V, n_ports, links):
     """The apply kernel alone against ``ref.apply_phase(fused=True)`` on
     the card, bit for bit (dead FIFO slots included), on the plain arb
@@ -186,6 +190,21 @@ def test_cuda_apply_matches_plain(R, din, dout, V, n_ports, links):
     slots), at depths 4 and 2 + 4, with no links at all and with half of
     them missing, and at depths 16 + 16, whose staged rows need more than
     48 KB of shared memory a CTA."""
+    _apply_case(R, din, dout, V, n_ports, links, fused=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,din,dout,V,n_ports,links", APPLY_CASES, ids=APPLY_IDS)
+def test_cuda_apply_unfused_matches_plain(R, din, dout, V, n_ports, links):
+    """The apply kernel's unfused FIFO mode (the naive step) against
+    ``ref.apply_phase(fused=False)`` at the same shapes, bit for bit, dead
+    slots included (row D - 1 takes the old head on a pop it is not pushed
+    into): inputs untouched, one ``apply_unfused`` launch counted and no
+    fused-mode launch."""
+    _apply_case(R, din, dout, V, n_ports, links, fused=False)
+
+
+def _apply_case(R, din, dout, V, n_ports, links, fused):
     rng = np.random.default_rng(17 * R + din + 10 * dout + 100 * V)
     E = 1056 if R == 1024 else min(40, R * n_ports)
     tb = _tables(rng, R, E, V, n_ports=n_ports)
@@ -201,12 +220,14 @@ def test_cuda_apply_matches_plain(R, din, dout, V, n_ports, links):
     args = (s["in_buf"], s["in_cnt"], s["out_buf"], s["out_cnt"], arb, tb["link_src"],
             tb["link_dst"], tb["port_ep"], s["ep_space"])
     copies = [t.clone() for t in (*args[:4], *arb, *args[5:])]
-    key = tkern.mode("apply", V)
-    before = tkern.LAUNCHES[key]
-    got = tkern.apply_cuda(*args, n_vcs=V)
+    key = tkern.mode("apply" if fused else "apply_unfused", V)
+    other = tkern.mode("apply_unfused" if fused else "apply", V)
+    before = dict(tkern.LAUNCHES)
+    got = tkern.apply_cuda(*args, n_vcs=V, fused=fused)
     torch.cuda.synchronize()
-    assert tkern.LAUNCHES[key] == before + 1
-    want = tref.apply_phase(*args, fused=True, n_vcs=V)
+    assert tkern.LAUNCHES[key] == before[key] + 1
+    assert tkern.LAUNCHES[other] == before[other]
+    want = tref.apply_phase(*args, fused=fused, n_vcs=V)
     for i, (a, b) in enumerate(zip(want, got)):
         assert torch.equal(a, b), f"output {i} differs"
     for i, (a, b) in enumerate(zip(copies, (*args[:4], *arb, *args[5:]))):
@@ -340,3 +361,89 @@ def test_cuda_offload_arb_matches_plain(R, G, V, n_ports):
     for k in (tkern.mode("arb_offload", V), tkern.mode("apply", V)):
         assert tkern.LAUNCHES[k] == before[k] + 1
     assert tkern.LAUNCHES[tkern.mode("arb", V)] == before[tkern.mode("arb", V)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,G,V,n_ports", [
+    (32, 3, 1, P), (32, 2, 2, P), (1024, 2, 1, P), (7, 40, 2, P), (11, 3, 1, 32),
+    (5, 40, 6, P)],
+    ids=["32-3", "32-2-vc2", "1024-2", "7-40-ragged-vc2", "11-3-p32", "5-40-vc6"])
+def test_cuda_apply_unfused_after_offload_arb(R, G, V, n_ports):
+    """The unfused apply mode on the offload arb kernel's decisions (fork
+    copies and emitted reduction flits in ``granted`` / ``chosen``): the
+    apply kernel alone against ``apply_phase(fused=False)`` and the naive
+    offload router cycle against ``router_cycle_offload_reference(fused=
+    False)``, bit for bit, inputs untouched, one ``apply_unfused`` launch
+    per cycle."""
+    rng = np.random.default_rng(13 * R + G + 100 * V)
+    E = 1056 if R == 1024 else min(40, R * n_ports)
+    tb = _tables(rng, R, E, V, n_ports=n_ports)
+    s = _snapshot(rng, (3,), R, E, 2, 2, V, n_ports=n_ports)
+    otb, ost = _offload(rng, s, R, E, G, V, n_ports=n_ports)
+    tb, s, otb, ost = (_on_card(d) for d in (tb, s, otb, ost))
+    args = (s["in_buf"], s["in_cnt"], s["out_buf"], s["out_cnt"], s["rr_ptr"],
+            s["wh_lock"], tb["route"], tb["link_src"], tb["link_dst"],
+            tb["port_ep"], tb["ep_attach"], s["ep_space"])
+    kw = dict(vc_out=tb.get("vc_out"), n_vcs=V, n_endpoints=E, **otb, **ost)
+    copies = [a.clone() for a in (*args[:6], *ost.values())]
+    arb, _, _ = tkern.arb_offload_cuda(s["in_buf"], s["in_cnt"], s["out_cnt"],
+                                       s["rr_ptr"], s["wh_lock"], tb["route"],
+                                       depth_out=2, **kw)
+    app = (s["in_buf"], s["in_cnt"], s["out_buf"], s["out_cnt"], arb, tb["link_src"],
+           tb["link_dst"], tb["port_ep"], s["ep_space"])
+    got = tkern.apply_cuda(*app, n_vcs=V, fused=False)
+    want = tref.apply_phase(*app, fused=False, n_vcs=V)
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(want, got)):
+        assert torch.equal(a, b), f"apply output {i} differs"
+    before = dict(tkern.LAUNCHES)
+    got = tkern.router_cycle_offload_cuda(*args, **kw, fused=False)
+    torch.cuda.synchronize()
+    want = tref.router_cycle_offload_reference(
+        *args[:6], ost["red_acc"], ost["red_got"], *args[6:11],
+        otb["fork_out"], otb["red_parent"], otb["red_need"], s["ep_space"],
+        n_endpoints=E, fused=False, vc_out=tb.get("vc_out"), n_vcs=V)
+    for i, (a, b) in enumerate(zip(want, got)):
+        assert torch.equal(a, b), f"cycle output {i} differs"
+    for i, (a, b) in enumerate(zip(copies, (*args[:6], *ost.values()))):
+        assert torch.equal(a, b), f"input {i} modified"
+    for k in (tkern.mode("arb_offload", V), tkern.mode("apply_unfused", V)):
+        assert tkern.LAUNCHES[k] == before[k] + 1
+    assert tkern.LAUNCHES[tkern.mode("apply", V)] == before[tkern.mode("apply", V)]
+
+
+@pytest.mark.gpu
+def test_cuda_naive_step_raises_when_unfused_launch_is_refused(monkeypatch):
+    """A naive simulator step on the card whose unfused apply launch is
+    refused raises, counts no apply launch and does not fall back to the
+    plain version or the fused mode (the library's launcher replaced by
+    one that refuses every unfused launch)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from repro_torch.core.noc import sim as TS
+    from repro_torch.core.noc import traffic as TT
+    from repro_torch.core.noc.params import NocParams
+    from repro_torch.core.noc.topology import build_mesh
+    from repro_torch.kernels.noc_router import ops as tops
+
+    lib = tkern.LIBRARY.load()
+    real = lib.noc_apply_launch
+    modes = []
+
+    def refuse_unfused(*a):
+        modes.append(a[-2])
+        return 700 if a[-2] == 0 else real(*a)
+
+    monkeypatch.setattr(lib, "noc_apply_launch", refuse_unfused)
+    for name in ("router_cycle_reference", "router_cycle_offload_reference"):
+        monkeypatch.setattr(tops, name, lambda *a, **k: pytest.fail("plain version ran"))
+    topo = build_mesh(nx=4, ny=2)
+    wl = TT.dma_workload(topo, "uniform", transfer_kb=1, n_txns=1)
+    before = dict(tkern.LAUNCHES)
+    TS.run(TS.build_sim(topo, NocParams(), wl, device="cuda"), 2)  # fused: launches
+    sim = TS.build_sim(topo, NocParams(step_impl="naive"), wl, device="cuda")
+    with pytest.raises(RuntimeError, match="noc_apply_kernel launch failed"):
+        TS.run(sim, 2)
+    assert modes == [1, 1, 0]
+    assert tkern.LAUNCHES["apply"] == before["apply"] + 2
+    assert tkern.LAUNCHES["apply_unfused"] == before["apply_unfused"]

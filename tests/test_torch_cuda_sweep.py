@@ -1,6 +1,7 @@
 """The batched sweep on the card: ``run_sweep`` of several workloads as one
 state against each workload's own sequential run on the card, leaf for
-leaf, with the router kernels launched as for one configuration.
+leaf, with the router kernels launched as for one configuration (on the
+naive step too: the apply kernel's unfused mode).
 
 These tests need a CUDA device and skip without one (the design-space
 run over several cards skips with fewer than two); run them on the GPU
@@ -47,6 +48,11 @@ CASES = [
     ("torus_vc", lambda: build_torus(nx=4, ny=8), _sizes, {"n_vcs": 2}, None),
     ("offload", lambda: build_mesh(nx=4, ny=8), _allreduce,
      {"collective_offload": True}, "groups"),
+    ("naive", lambda: build_mesh(nx=4, ny=8), _sizes, {"step_impl": "naive"}, None),
+    ("naive_torus_vc", lambda: build_torus(nx=4, ny=8), _sizes,
+     {"step_impl": "naive", "n_vcs": 2}, None),
+    ("naive_offload", lambda: build_mesh(nx=4, ny=8), _allreduce,
+     {"step_impl": "naive", "collective_offload": True}, "groups"),
 ]
 
 
@@ -66,8 +72,9 @@ def test_sweep_on_card_matches_sequential_card_runs(name, make_topo, make_wls,
     swept = TS.run_sweep(sim, wls, 300)
     torch.cuda.synchronize()
     arb = "arb_offload" if params.collective_offload else "arb"
+    apply = "apply" if params.step_impl == "fast" else "apply_unfused"
     want = dict.fromkeys(K.LAUNCHES, 0)
-    want.update({K.mode(arb, params.n_vcs): 300, K.mode("apply", params.n_vcs): 300})
+    want.update({K.mode(arb, params.n_vcs): 300, K.mode(apply, params.n_vcs): 300})
     assert dict(K.LAUNCHES) == want
     for wl, st in zip(wls, swept):
         one = TS.run(TS.build_sim(topo, params, wl, groups=grp, device="cuda"), 300)

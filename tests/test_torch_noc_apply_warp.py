@@ -17,12 +17,14 @@ its slot's rows there in place, and the warp writes its spans back
 coalesced.
 
 The emulation is held bit for bit against the port's
-``ref.apply_phase(fused=True)`` and against the JAX package's
-``link_inputs`` + ``sent_mask`` + ``apply_cycle(fused=True)`` on the same
-numpy snapshots, dead FIFO slots included, at P in {1, 5, 10, 30, 32} (V
-in {1, 2, 6}), depths 2 and 4, with missing links, endpoint slots and C * R
-not a multiple of the routers per warp. Integer state, so the tolerance is
-exact equality.
+``ref.apply_phase(fused=...)`` and against the JAX package's
+``link_inputs`` + ``sent_mask`` + ``apply_cycle(fused=...)`` on the same
+numpy snapshots, dead FIFO slots included, in both FIFO modes (fused, and
+the naive step's unfused pop then push, whose roll moves the old head,
+kept in registers before row 0 is rewritten, into row D - 1), at P in {1,
+5, 10, 30, 32} (V in {1, 2, 6}), depths 2 and 4, with missing links,
+endpoint slots and C * R not a multiple of the routers per warp. Integer
+state, so the tolerance is exact equality.
 """
 import jax
 import jax.numpy as jnp
@@ -51,11 +53,11 @@ def _rounds(W, span):
 
 
 def emulate_apply(in_buf, in_cnt, out_buf, out_cnt, arb, link_src, link_dst,
-                  port_ep, ep_space, V=1, seen=None):
-    """``noc_apply_kernel``, lane by lane; ``arb`` holds the numpy arb
-    scratch (``arb_pop``, ``granted``, ``chosen``, ``in_space``). Returns
-    ``(in_buf', in_cnt', out_buf', out_cnt')``; ``seen`` counts the cases
-    reached."""
+                  port_ep, ep_space, V=1, seen=None, fused=True):
+    """``noc_apply_kernel``, lane by lane, in the FIFO mode ``fused``;
+    ``arb`` holds the numpy arb scratch (``arb_pop``, ``granted``,
+    ``chosen``, ``in_space``). Returns ``(in_buf', in_cnt', out_buf',
+    out_cnt')``; ``seen`` counts the cases reached."""
     C, R, P, Din, _ = in_buf.shape
     Dout, E = out_buf.shape[3], ep_space.shape[-1]
     fin, fout = Din * NF, Dout * NF
@@ -124,16 +126,21 @@ def emulate_apply(in_buf, in_cnt, out_buf, out_cnt, arb, link_src, link_dst,
         own = ((in_elig >> lane) & 1) == 1
         seen["lower_vc_won"] += int((live & own & ~accept).sum())
 
-    # 5. each lane pops and pushes its rows in place (ascending d)
+    # 5. each lane pops and pushes its rows in place (ascending d); the
+    #    unfused mode's row D - 1 takes the old head, read before row 0 is
+    #    rewritten
     for sm, D, cnt, pop, push, f_ in ((s_in, Din, icnt, pop_in, accept, flit),
                                       (s_out, Dout, ocnt, sent, grant, ch)):
         rows = sm.reshape(W, 32, D, NF)
         tail = np.clip(cnt - pop, 0, D - 1)
         new = np.stack(f_, -1)
+        head = rows[:, :, 0].copy()
         for d in range(D):
+            src = rows[:, :, d + 1] if d + 1 < D else (rows[:, :, d] if fused else head)
             rows[:, :, d] = np.where((live & push & (d == tail))[..., None], new,
-                                     np.where((live & pop)[..., None],
-                                              rows[:, :, min(d + 1, D - 1)], rows[:, :, d]))
+                                     np.where((live & pop)[..., None], src, rows[:, :, d]))
+            if seen is not None and not fused and d == D - 1:
+                seen["head_wrapped"] += int((live & pop & ~(push & (tail == d))).sum())
 
     # 6. the counts by lane, the rows coalesced
     outs = []
@@ -172,6 +179,20 @@ def test_apply_warp_schedule(n_ports, V, C, R, din, dout):
     ``sent_mask`` + ``apply_cycle(fused=True)``, channel by channel, dead
     FIFO slots included; missing links, accepted flits, endpoint sends and
     (with V > 1) lower VCs winning a wire reached."""
+    _warp_case(n_ports, V, C, R, din, dout, fused=True)
+
+
+@pytest.mark.parametrize("n_ports,V,C,R,din,dout", CASES,
+                         ids=[_id(*c) for c in CASES])
+def test_apply_warp_schedule_unfused(n_ports, V, C, R, din, dout):
+    """The same in the unfused FIFO mode (the naive step): the emulation
+    equal to ``apply_phase(fused=False)`` and to JAX's ``apply_cycle(fused=
+    False)``, dead slots included; pops whose old head wraps into row
+    D - 1 reached."""
+    _warp_case(n_ports, V, C, R, din, dout, fused=False)
+
+
+def _warp_case(n_ports, V, C, R, din, dout, fused):
     P = n_ports * V
     assert not Lanes(C * R, P).live.all()  # unused lanes or a ragged last warp
     rng = np.random.default_rng(13 * P + R + V + din)
@@ -186,9 +207,10 @@ def test_apply_warp_schedule(n_ports, V, C, R, din, dout):
     a = {k: getattr(arb, k).numpy() for k in ("arb_pop", "granted", "chosen", "in_space")}
     state = (s["in_buf"], s["in_cnt"], s["out_buf"], s["out_cnt"])
     tabs = (tb["link_src"], tb["link_dst"], tb["port_ep"], s["ep_space"])
-    seen = dict.fromkeys(("missing_link", "accept", "endpoint_send", "lower_vc_won"), 0)
-    got = emulate_apply(*state, a, *tabs, V=V, seen=seen)
-    want = tref.apply_phase(*map(T, state), arb, *map(T, tabs), fused=True, n_vcs=V)
+    seen = dict.fromkeys(("missing_link", "accept", "endpoint_send", "lower_vc_won",
+                          "head_wrapped"), 0)
+    got = emulate_apply(*state, a, *tabs, V=V, seen=seen, fused=fused)
+    want = tref.apply_phase(*map(T, state), arb, *map(T, tabs), fused=fused, n_vcs=V)
     for name, x, y in zip(("in_buf", "in_cnt", "out_buf", "out_cnt"), want, got):
         np.testing.assert_array_equal(x.numpy(), y, err_msg=name)
         assert x.numpy().dtype == y.dtype, name
@@ -200,7 +222,7 @@ def test_apply_warp_schedule(n_ports, V, C, R, din, dout):
         up, acc = jref.link_inputs(jref.heads(out_buf), out_cnt > 0, ls, in_space, n_vcs=V)
         sent = jref.sent_mask(out_cnt > 0, ld, pe, in_space, ep_space, n_vcs=V)
         return jref.apply_cycle(in_buf, in_cnt, out_buf, out_cnt, arb_pop, granted,
-                                chosen, acc, up, sent, fused=True)
+                                chosen, acc, up, sent, fused=fused)
 
     j = jax.jit(jax.vmap(one))(*(jnp.asarray(x) for x in state),
                                *(jnp.asarray(a[k]) for k in ("arb_pop", "granted",
@@ -211,3 +233,5 @@ def test_apply_warp_schedule(n_ports, V, C, R, din, dout):
     assert seen["missing_link"] and seen["accept"] and seen["endpoint_send"], seen
     if V > 1:
         assert seen["lower_vc_won"], seen
+    if not fused:
+        assert seen["head_wrapped"], seen

@@ -18,13 +18,17 @@ own state:
   decrease from the mid-point to the end;
 * **differential** — the port's state equal to the JAX package's fast path
   leaf for leaf, dead slots included, with every ``stats`` entry, at the
-  mid-point and at the end (the port has no naive step, so this replaces
-  the JAX harness's fast-vs-naive leg).
+  mid-point and at the end;
+* **fast vs naive** — the JAX harness's leg: on the draws that step per
+  cycle (``fused_cycles`` 1; the naive step has no super-steps) the port's
+  naive step run to the same end reaches the fast state under
+  ``canonical_state(scrub=True)``, and conserves.
 
 A sweep leg runs shape-compatible random workloads on one fabric through
 the port's ``run_sweep`` against the JAX package's, each configuration
-equal and conserving. The draw is a seeded numpy sweep (12 cases, about
-2 min serial). Integer state: exact equality.
+equal and conserving (and, stepping per cycle, equal to the naive sweep
+under ``canonical_state(scrub=True)``). The draw is a seeded numpy sweep
+(12 cases, about 2.5 min serial). Integer state: exact equality.
 """
 import dataclasses
 
@@ -35,6 +39,7 @@ import torch
 from repro.core.noc.params import NocParams as JParams
 from repro_torch import convert
 from repro_torch.core.noc import sim as TS
+from test_torch_noc_naive import assert_fast_equals_naive
 from test_torch_noc_sim import assert_states_equal, jax_state_dict
 from torch_mirror import JAX, PORT, assert_same, build_both
 
@@ -163,6 +168,13 @@ def test_fabric_invariants_random(i):
     for f, before in counts.items():
         assert (getattr(st.eps, f) >= before).all(), f
     _conserved(st, wl)
+    if k == 1:  # the fast-vs-naive leg (scrubbed: stale scratch can't hide)
+        simn = TS.build_sim(sims[1].topo,
+                            dataclasses.replace(sims[1].params, step_impl="naive"),
+                            wl, device="cpu")
+        stn = TS.run(simn, t_end)
+        assert_fast_equals_naive((sims[1], st), (simn, stn), f"{c} fast/naive")
+        _conserved(stn, wl)
 
 
 # ----------------------------------------------------------------------
@@ -183,8 +195,15 @@ def test_fabric_invariants_random_sweep(i):
     n = 400 + 8 * max(int(_expected_rx(w)[0].sum()) for w in wls)
     want = JAX.S.run_sweep(JAX.S.build_sim(jtopo, jp, jwls[0]), jwls, n)
     got = TS.run_sweep(TS.build_sim(topo, tp, wls[0], device="cpu"), wls, n)
+    naive = None
+    if tp.fused_cycles == 1:  # the sweep steps per cycle: the naive leg
+        tn = dataclasses.replace(tp, step_impl="naive")
+        naive = TS.run_sweep(TS.build_sim(topo, tn, wls[0], device="cpu"), wls, n)
     for b, (wl, jst, st) in enumerate(zip(wls, want, got)):
         assert_states_equal(jax_state_dict(jst), convert.sim_state_to_numpy(st),
                             f"{c} config {b}")
         _counter_bounds_ok(tp, st)
         _conserved(st, wl)
+        if naive is not None:
+            sim_b = TS.build_sim(topo, tp, wl, device="cpu")
+            assert_fast_equals_naive((sim_b, st), (sim_b, naive[b]), f"{c} config {b}")

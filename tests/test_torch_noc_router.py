@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core.noc import collective_traffic as jax_ct
 from repro.core.noc.engine import make_tables as jax_make_tables
 from repro.core.noc.topology import build_mesh as jax_build_mesh
 from repro.core.noc.topology import build_torus as jax_build_torus
@@ -19,7 +20,7 @@ from repro.kernels.noc_router import ops as jops
 from repro.kernels.noc_router import ref as jref
 from repro_torch.kernels.noc_router import ops as tops
 from repro_torch.kernels.noc_router import ref as tref
-from test_torch_cuda_kernels import P, _snapshot, _tables
+from test_torch_cuda_kernels import P, _offload, _snapshot, _tables
 
 NF = jref.NF
 
@@ -178,6 +179,58 @@ def test_ops_router_cycle_matches_pallas_interpret(depth, tile, V):
     for i, (a, c, b) in enumerate(zip(want_pallas, want_jnp, got)):
         _eq(a, b, f"router_cycle[{i}] vs pallas")
         _eq(c, b, f"router_cycle[{i}] vs jnp")
+
+
+@pytest.mark.parametrize("V,offload", [(1, False), (2, False), (1, True), (2, True)],
+                         ids=["v1", "v2", "offload-v1", "offload-v2"])
+def test_ops_router_cycle_unfused_matches_pallas_interpret(V, offload):
+    """``ops.router_cycle(fused_fifo=False)``, the naive step's two-step
+    FIFO pop then push, on a [3, R, 5 * V, ...] batch at depth 2: the 8x4
+    mesh's tables (the 8x4 torus's at V = 2), or with ``offload`` the 3x3
+    mesh / torus with an in-fabric all-reduce's groups and random ALU
+    state, against the JAX Pallas kernel's unfused mode in interpret mode
+    (``_apply_kernel`` compiled with ``fused=False``) and the vmapped jnp
+    reference, dead slots included. The unfused result differs from the
+    fused one on this snapshot, so the mode is really taken."""
+    rng = np.random.default_rng(31 + V + 10 * offload)
+    if offload:
+        jtopo = jax_build_torus(3, 3) if V > 1 else jax_build_mesh(3, 3, hbm_west=False)
+        groups = jax_ct.all_reduce(jtopo, data_kb=1, streams=2,
+                                   algo="infabric").meta["groups"]
+        jt = jax_make_tables(jtopo, n_vcs=V, groups=groups)
+        tb = {k: np.array(getattr(jt, k)) for k in
+              ("route", "link_src", "link_dst", "port_ep", "ep_attach", "vc_out",
+               "fork_out", "red_parent", "red_need") if getattr(jt, k) is not None}
+        R, E = jtopo.n_routers, jtopo.n_endpoints
+        s = _snapshot(rng, (3,), R, E, 2, 2, V)
+        s.update(_offload(rng, s, R, E, len(groups), V)[1])
+    else:
+        tb = _mesh_tables(V)
+        R, E = 32, tb["route"].shape[1]
+        s = _snapshot(rng, (3,), R, E, 2, 2, V)
+    (js, ts), (jt_, tt) = _both(s), _both(tb)
+
+    def call(fn, d, t, **kw):
+        off = {}
+        if offload:
+            off = dict(fork_out=t["fork_out"], red_parent=t["red_parent"],
+                       red_need=t["red_need"], red_acc=d["red_acc"],
+                       red_got=d["red_got"], n_endpoints=E)
+        return fn(d["in_buf"], d["in_cnt"], d["out_buf"], d["out_cnt"], d["rr_ptr"],
+                  d["wh_lock"], t["route"], t["link_src"], t["link_dst"],
+                  t["port_ep"], t["ep_attach"], d["ep_space"],
+                  vc_out=t.get("vc_out"), n_vcs=V, **off, **kw)
+
+    want_pallas = call(jops.router_cycle, js, jt_, backend="pallas", interpret=True,
+                       fused_fifo=False, router_tile=8)
+    want_jnp = call(jops.router_cycle, js, jt_, backend="jnp", fused_fifo=False)
+    got = call(tops.router_cycle, ts, tt, fused_fifo=False)
+    assert len(got) == (10 if offload else 8)
+    for i, (a, c, b) in enumerate(zip(want_pallas, want_jnp, got)):
+        _eq(a, b, f"router_cycle[{i}] vs pallas")
+        _eq(c, b, f"router_cycle[{i}] vs jnp")
+    fused = call(tops.router_cycle, ts, tt)
+    assert any(not torch.equal(a, b) for a, b in zip(fused[:4], got[:4]))
 
 
 def test_ops_router_cycle_rejects_other_devices():

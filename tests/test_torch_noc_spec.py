@@ -162,8 +162,20 @@ def test_preset_knob_overrides_lower_to_params():
 
 
 def test_naive_step_is_refused_through_params():
-    with pytest.raises(NotImplementedError, match="item 4"):
-        preset("mesh", step_impl="naive")
+    """The naive step is ported: a ``step_impl="naive"`` spec is accepted,
+    serialises and hashes as the JAX package's does (its hash differs from
+    the fast spec's), and lowers to the naive ``NocParams``."""
+    for kw in ({}, {"n_vcs": 2, "workload": "uniform", "transfer_kb": 4}):
+        t = preset("mesh", step_impl="naive", **kw)
+        j = Jspec.preset("mesh", step_impl="naive", **kw)
+        assert t.to_json() == j.to_json()
+        assert t.spec_hash() == j.spec_hash()
+        assert t.spec_hash() != preset("mesh", **kw).spec_hash()
+        assert FabricSpec.from_json(t.to_json()) == t
+        topo, params = t.lower()
+        assert params == NocParams(step_impl="naive", n_vcs=kw.get("n_vcs", 1))
+        jtopo, jparams = j.lower()
+        assert convert.params_from_dict(dataclasses.asdict(jparams)) == params
 
 
 def test_group_key_batches_only_sweepables():

@@ -7,9 +7,10 @@
   serving) never drop to the CPU silently: without a card and without
   ``device="cpu"`` they raise;
 * every configuration value the port does not implement yet is refused
-  with ``NotImplementedError`` (through ``NocParams`` and through
-  ``FabricSpec``); the ones it does are accepted.
-* every CUDA kernel's wrapper refuses CPU tensors.
+  with ``NotImplementedError``; the simulator's knobs are all ported and
+  accepted (through ``NocParams``, ``FabricSpec`` and ``convert``).
+* every CUDA kernel's wrapper refuses CPU tensors, and a naive step whose
+  unfused apply launch is refused raises (no fallback).
 """
 import ast
 import dataclasses
@@ -134,21 +135,19 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     ({"n_vcs": 2}, None),
     ({"collective_offload": True}, None),
     ({"fused_cycles": 4}, None),
-    ({"step_impl": "naive"}, "item 4"),
+    ({"step_impl": "naive"}, None),
 ], ids=["kw0-item 7", "kw1-item 9", "kw2-item 6", "kw3-item 4"])
 def test_unported_params_raise(kw, item):
-    """Virtual channels, super-steps and collective offload are ported and
-    accepted (together too: ``test_params_from_jax_fields_drop_the_pallas_
-    knobs``); the naive step is still refused."""
-    if item is None:
-        params = NocParams(**kw)
-        assert all(getattr(params, k) == v for k, v in kw.items())
-        assert FabricSpec(**kw).params() == params
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        NocParams(**kw)
-    with pytest.raises(NotImplementedError, match=item):  # through FabricSpec.params()
-        FabricSpec(**kw)
+    """Virtual channels, super-steps, collective offload and the naive
+    step are ported and accepted (together too: ``test_params_from_jax_
+    fields_drop_the_pallas_knobs``), through ``NocParams`` and
+    ``FabricSpec``; an unknown step is refused as in JAX."""
+    assert item is None  # no simulator knob is refused any more
+    params = NocParams(**kw)
+    assert all(getattr(params, k) == v for k, v in kw.items())
+    assert FabricSpec(**kw).params() == params
+    with pytest.raises(ValueError, match="step_impl"):
+        NocParams(step_impl="fancy")
 
 
 def test_unported_groups_raise():
@@ -182,8 +181,57 @@ def test_params_from_jax_fields_drop_the_pallas_knobs():
     assert convert.params_from_dict(
         {**fields, "collective_offload": True}) == NocParams(
             n_channels=4, collective_offload=True)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        convert.params_from_dict({**fields, "step_impl": "naive"})
+    assert convert.params_from_dict(
+        {**fields, "step_impl": "naive", "n_vcs": 2}) == NocParams(
+            n_channels=4, step_impl="naive", n_vcs=2)
+
+
+class _RefusingLibrary:
+    """A router library whose arb launches succeed (writing nothing) and
+    whose apply launches are refused with CUDA error 700, recording each
+    apply launch's FIFO mode."""
+
+    def __init__(self):
+        self.apply_modes = []
+
+    def noc_arb_launch(self, *args):
+        return 0
+
+    def noc_apply_launch(self, *args):
+        self.apply_modes.append(args[-2])  # (..., V, fused, stream)
+        return 700
+
+
+def test_naive_step_refused_unfused_launch_raises(monkeypatch):
+    """A naive step dispatched to the CUDA kernels launches the apply
+    kernel in its unfused mode; when that launch is refused the step
+    raises, counts nothing and runs no plain version in its place. Driven
+    on CPU tensors with the device dispatch and the wrappers' CUDA check
+    patched and a stand-in library (no card here)."""
+    from repro_torch.kernels.noc_router import ops as router_ops
+
+    lib = _RefusingLibrary()
+    monkeypatch.setattr(router_ops, "_device_kind", lambda t: "cuda")
+    monkeypatch.setattr(noc_router, "_require_cuda", lambda name, dev: None)
+    monkeypatch.setattr(noc_router, "_stream", lambda dev: None)
+    monkeypatch.setattr(noc_router.LIBRARY, "load", lambda: lib)
+
+    def no_plain(*args, **kw):
+        raise AssertionError("the plain version ran in place of the kernel")
+
+    for name in ("router_cycle_reference", "router_cycle_offload_reference"):
+        monkeypatch.setattr(router_ops, name, no_plain)
+    topo = build_mesh(nx=4, ny=2)
+    wl = TT.dma_workload(topo, "uniform", transfer_kb=1, n_txns=1)
+    before = dict(noc_router.LAUNCHES)
+    for impl, mode in (("naive", 0), ("fast", 1)):
+        sim = TS.build_sim(topo, NocParams(step_impl=impl), wl, device="cpu")
+        with pytest.raises(RuntimeError, match="noc_apply_kernel launch failed"):
+            TS.run(sim, 1)
+        assert lib.apply_modes[-1] == mode
+    assert noc_router.LAUNCHES["arb"] == before["arb"] + 2
+    for key in ("apply", "apply_unfused"):
+        assert noc_router.LAUNCHES[key] == before[key]
 
 
 def test_model_kernel_wrappers_refuse_cpu_tensors():
