@@ -848,9 +848,9 @@ def layer_times(eng, sim, st, n=100):
     with torch.no_grad():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        fused = sim.params.step_impl == "fast"
         for _ in range(n):
-            eng.fabric_cycle(st.fabric, sim.tables, space, fused_fifo=fused)
+            eng.fabric_cycle(st.fabric, sim.tables, space,
+                             fused_fifo=sim.params.fast)
         torch.cuda.synchronize()
         fabric_ms = (time.perf_counter() - t0) / n * 1e3
         c0, s = int(st.cycle), st
@@ -942,8 +942,7 @@ def expected_launches(params, n):
     k, V = params.fused_cycles, params.n_vcs
     if k == 1:
         arb = "arb_offload" if params.collective_offload else "arb"
-        apply = "apply" if params.step_impl == "fast" else "apply_unfused"
-        want.update({K.mode(arb, V): n, K.mode(apply, V): n})
+        want.update({K.mode(arb, V): n, K.mode(K.apply_mode(params.fast), V): n})
     else:
         want[K.mode("fused", V)] = n // k
     return want

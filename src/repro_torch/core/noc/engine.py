@@ -304,18 +304,17 @@ def fabric_cycles_fused(st: FabricState, tb: FabricTables,
 
 
 def inject(st: FabricState, tb: FabricTables, flit: torch.Tensor,
-           want: torch.Tensor, scatter: bool = True):
+           want: torch.Tensor):
     """Endpoints push one flit per channel into their attached port's
     in_buf (seen by the arbiter next cycle). ``flit`` [C, E, NF]; ``want``
     [C, E]. Returns ``(state, accepted [C, E])``.
 
-    ``scatter`` names the JAX package's two forms: the fast step's gather
-    injection and the naive step's one-hot ``fifo_push`` per attach port
-    (``scatter=False``), which it documents as bit-identical. An accepted
-    flit needs space, so the push's slot ``clip(cnt, 0, D - 1)`` is ``cnt``
-    and both forms write the same cells; the port keeps the one gather
-    form for both (held against the naive JAX state leaf for leaf in
-    ``tests/test_torch_noc_naive.py``)."""
+    Both steps inject through this one gather form. The JAX package's
+    naive step injects with a one-hot ``fifo_push`` per attach port
+    (``_inject_one``), which it documents as bit-identical: an accepted
+    flit needs space, so the push's slot ``clip(cnt, 0, D - 1)`` is
+    ``cnt`` and both forms write the same cells (held against the naive
+    JAX state leaf for leaf in ``tests/test_torch_noc_naive.py``)."""
     in_buf, in_cnt, accepted = inject_endpoints(
         st.in_buf, st.in_cnt, tb.ep_attach[:, 0], tb.ep_attach[:, 1],
         tb.port_ep, flit, want)

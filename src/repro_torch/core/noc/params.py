@@ -90,6 +90,12 @@ class NocParams:
         if self.collective_offload and self.fused_cycles != 1:
             raise ValueError("collective_offload requires fused_cycles == 1")
 
+    @property
+    def fast(self) -> bool:
+        """The fast step: circular queues and the apply kernel's fused FIFO
+        mode (else the naive step: roll-based queues, the unfused mode)."""
+        return self.step_impl == "fast"
+
 
 # flit kinds
 NARROW_REQ = 0

@@ -85,7 +85,7 @@ def _ingest(st: epm.EndpointState, flits, valid, cycle: int,
     wide channel, so counters are summed over the channel axis."""
     E = st.lat_sum.shape[0]
     dev = flits.device
-    circ = params.step_impl == "fast"
+    circ = params.fast
     kind = flits[..., F_KIND]  # [C, E]
 
     # ---- req channel: we are the target ----
@@ -257,7 +257,7 @@ def _generators(st: epm.EndpointState, cycle: int, params: NocParams,
     E = wt.n_endpoints  # per configuration: the group-address base
     n_rows = st.lat_sum.shape[0]
     dev = st.lat_sum.device
-    circ = params.step_impl == "fast"
+    circ = params.fast
     eidx = wt.eidx
     eg, eg_ready, eg_cnt = st.eg, st.eg_ready, st.eg_cnt
     EQ = eg_ready.shape[-1]
@@ -446,7 +446,7 @@ def _memory(st: epm.EndpointState, cycle: int, params: NocParams,
     dev = st.lat_sum.device
     eidx, is_hbm, is_mem = wt.eidx, wt.is_hbm, wt.is_mem
     EQ = st.eg_ready.shape[-1]
-    circ = params.step_impl == "fast"
+    circ = params.fast
 
     # the refill is one float32 value, as JAX's weak-typed scalar becomes
     refill = float(np.float32(params.hbm_rate * params.hbm_eff))
@@ -547,7 +547,7 @@ class Sim:
         if cycle is None:
             cycle = int(st.cycle)
         wt = self.wt if wt is None else wt
-        fast = self.params.step_impl == "fast"
+        fast = self.params.fast
         B = wt.batch
         E = self.topo.n_endpoints
         C = self.params.n_channels
@@ -581,7 +581,7 @@ class Sim:
         ready = (eps.eg_cnt > 0) & (ready_ts <= cycle)  # [C, B*E]
         fabric, accepted = eng.inject(
             fabric, self.tables, head.reshape(C * B, E, *head.shape[2:]),
-            ready.reshape(C * B, E), scatter=fast)
+            ready.reshape(C * B, E))
         eg, eg_ready, eg_head, eg_cnt = epm._eg_pop(
             eps.eg, eps.eg_ready, eps.eg_head, eps.eg_cnt,
             accepted.reshape(C, B * E), circular=fast)
@@ -608,7 +608,7 @@ class Sim:
         are threaded through the fused window). Returns ``(state', (ep_flit
         [k, C, E, NF], ep_valid [k, C, E]))``.
         """
-        if self.params.step_impl != "fast":
+        if not self.params.fast:
             raise ValueError("step_super requires step_impl='fast'")
         if cycle is None:
             cycle = int(st.cycle)

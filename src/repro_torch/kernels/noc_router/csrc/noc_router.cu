@@ -460,16 +460,19 @@ __device__ __forceinline__ void warp_store(int* __restrict__ dst, const int* src
 // D - 1 on a pop that does not push there: `fused` (fifo_update's general
 // form) keeps it; unfused (fifo_pop's roll, then fifo_push) moves the old
 // head there. Ascending r reads only rows not yet written, except the old
-// head, which row 0 overwrites first: it is kept in registers. Returns
-// the new count.
+// head, which row 0 overwrites first: the unfused mode keeps it in
+// registers (`fused` is uniform over a launch, so the fused mode skips the
+// load without divergence). Returns the new count.
 template <int DC>
 __device__ __forceinline__ int fifo_rows(int* rows, int d, int cnt, bool pop, bool push,
                                          const int* flit, bool fused) {
   const int D = DC ? DC : d;
   const int c1 = cnt - (pop ? 1 : 0), tail = clampi(c1, 0, D - 1);
   int head[NF];
+  if (pop && !fused) {
 #pragma unroll
-  for (int f = 0; f < NF; ++f) head[f] = rows[f];
+    for (int f = 0; f < NF; ++f) head[f] = rows[f];
+  }
 #pragma unroll
   for (int r = 0; r < D; ++r) {
     if (push && r == tail) {

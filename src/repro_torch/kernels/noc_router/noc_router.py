@@ -239,6 +239,12 @@ def mode(kernel: str, n_vcs: int) -> str:
     return kernel if n_vcs == 1 else f"{kernel}_vc"
 
 
+def apply_mode(fused: bool) -> str:
+    """``LAUNCHES`` kernel name of the apply kernel's FIFO mode: "apply"
+    (fused, the fast step) or "apply_unfused" (the naive step)."""
+    return "apply" if fused else "apply_unfused"
+
+
 def _count(kernel: str, n_vcs: int, err: int, key: str | None = None):
     """Raise on a refused launch of ``noc_{kernel}_kernel``, else count it
     under ``key`` (default ``kernel``) in its VC mode."""
@@ -410,7 +416,7 @@ def apply_cuda(in_buf, in_cnt, out_buf, out_cnt, arb: ArbDecisions,
         _ptr(ep_space), _ptr(new_in), _ptr(new_in_cnt), _ptr(new_out),
         _ptr(new_out_cnt), C, R, P, Din, Dout, E, n_vcs, int(bool(fused)),
         _stream(dev))
-    _count("apply", n_vcs, err, key="apply" if fused else "apply_unfused")
+    _count("apply", n_vcs, err, key=apply_mode(fused))
     return new_in, new_in_cnt, new_out, new_out_cnt
 
 

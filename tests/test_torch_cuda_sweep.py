@@ -72,7 +72,7 @@ def test_sweep_on_card_matches_sequential_card_runs(name, make_topo, make_wls,
     swept = TS.run_sweep(sim, wls, 300)
     torch.cuda.synchronize()
     arb = "arb_offload" if params.collective_offload else "arb"
-    apply = "apply" if params.step_impl == "fast" else "apply_unfused"
+    apply = K.apply_mode(params.fast)
     want = dict.fromkeys(K.LAUNCHES, 0)
     want.update({K.mode(arb, params.n_vcs): 300, K.mode(apply, params.n_vcs): 300})
     assert dict(K.LAUNCHES) == want
