@@ -9,8 +9,8 @@ RMSNorm, the SSD scan and the paged KV gather. Holds each kernel against
 its plain PyTorch version on the card, drives the simulator's main path
 through the port's entry points (``build_sim`` / ``run`` / ``stats``), the
 paper's figures through ``repro_torch.benchmarks`` and the model stack's
-serving paths (``Engine.generate`` on Phi-4-mini, Mamba-2, Zamba2 and
-Llama-4-Scout), and checks what comes out:
+serving paths (``Engine.generate`` on Phi-4-mini, Mamba-2, Zamba2,
+Llama-4-Scout and Gemma 3 4B), and checks what comes out:
 
 1. the card (``nvidia-smi``) and the kernels' build time;
 2. the arb and apply kernels bit-identical to the plain version on random
@@ -77,9 +77,13 @@ Llama-4-Scout), and checks what comes out:
    KV=8, D=128), the
    ``tests/test_kernels.py`` sweep shapes in float32 and bf16, a ragged
    S=520, Dv != D, a ragged D=112, partial and single-row tiles (S = 1,
-   63, 64, 65, 129), every (D, Dv) in bf16 and Sq != Skv; both RMSNorm
+   63, 64, 65, 129), every (D, Dv) in bf16 and Sq != Skv, and the sliding
+   window and D = 256 in both dtypes (Gemma 3's B=4, S=2048, H=8, KV=4,
+   D=256 with window 1024 and without, a window below one tile at a ragged
+   S, one not a multiple of 64, a ragged S, the left edge alone); both RMSNorm
    variants at N = 4 and 2048, d = 3072 and 5120, at N = 1, 5 and 2047,
-   d = 768 and 3584, with a weight at an odd element offset and at d = 100, float32
+   d = 768 and 3584, with a weight at an odd element offset and at d = 100,
+   at d = 2560 (N = 8192 and 4), float32
    and bf16; the SSD kernel (y and final state) at
    the sweep shapes in float32 and bf16, the Mamba-2 (H=24, P=64, N=128)
    and Zamba2 (H=112, N=64) path shapes (B=4, S=512, Q=128, bf16), a ragged
@@ -93,28 +97,38 @@ Llama-4-Scout), and checks what comes out:
    at full width and 2 layers (120 tokens; bf16 and float32 under the
    routing rule: float32 routes every token alike in every layer, bf16
    only near-ties may route differently, logits and tokens compared at
-   the positions routed alike, ``serve_llama4_scout_vs_cpu``); one
+   the positions routed alike, ``serve_llama4_scout_vs_cpu``), Gemma 3 at
+   full width and 7 layers (one superblock, one trailing local layer; a
+   1 500-token prompt padded to 2048, so the rings hold pads as the
+   engine's do, ``serve_gemma3_4b_vs_cpu``); one
    Llama-4-Scout MoE layer at full width in float32 with capacity factor
    0.25 on the card and the CPU (``dropped_frac`` 0.75 on both, routing
    equal, output within ``MOE_TOL``), and in bf16 with no host
    synchronisation inside (``moe_drop_vs_cpu``). Each model at full width
    through ``Engine.generate``, at full depth but for Llama-4-Scout (12 of
-   48 layers, ``LLAMA4_LAYERS``: the whole model does not fit the card): 4
-   prompts (Phi-4-mini and Llama-4-Scout 300-500 tokens, Mamba-2 and
-   Zamba2 512 each, no pad tail), 16 greedy tokens, twice (identical
+   48 layers, ``LLAMA4_LAYERS``: the whole model does not fit the card) and
+   Zamba2 (27 of 81, ``ZAMBA2_LAYERS``: the run's time limit): 4 prompts
+   (Phi-4-mini and Llama-4-Scout 300-500 tokens, Mamba-2 and Zamba2 512
+   each, Gemma 3 2048 each, no pad tail), 16 greedy tokens, twice (identical
    tokens; launch counts exact: per prefill / decode step Phi-4-mini 32 /
    0 flash and 65 / 65 RMSNorm, Mamba-2 24 / 0 SSD and 25 / 25 RMSNorm,
-   Zamba2 81 / 0 SSD, 13 / 0 flash and 108 / 108 RMSNorm, Llama-4-Scout
-   12 / 0 flash and 25 / 25 RMSNorm; 15 decode steps), all logits finite,
+   Zamba2 (27 of 81 layers, ``ZAMBA2_LAYERS``) 27 / 0 SSD, 4 / 0 flash and
+   36 / 36 RMSNorm, Llama-4-Scout
+   12 / 0 flash and 25 / 25 RMSNorm, Gemma 3 34 / 0 flash (29 windowed)
+   and 69 / 69 RMSNorm; 15 decode steps), all logits finite,
    prefill ms, decode ms per step, tokens/s, peak device memory, and the
    device's busy share of one prefill and one decode step
    (``torch.profiler``); Llama-4-Scout's decode step beside its bytes
-   bound (the routed experts that step's tokens pick); each kernel's time at
+   bound (the routed experts that step's tokens pick), Gemma 3's beside
+   its (every weight and each layer's valid K/V read once); each kernel's time at
    the paths' shapes beside its bound, its plain version and one PyTorch
    call where there is one (``library_ms``: ``scaled_dot_product_attention``,
    ``rms_norm``; none computes the SSD scan), flash attention also at
-   Llama-4-Scout's 40 / 8 heads, RMSNorm also at Mamba-2's, Zamba2's and
-   Llama-4-Scout's widths (N = 2048, d = 768, 3584 and 5120);
+   Llama-4-Scout's 40 / 8 heads and at Gemma 3's shape with its window
+   (bound over the visible pairs only; SDPA given the band as a boolean
+   mask, the backend it picks named) and without, RMSNorm also at
+   Mamba-2's, Zamba2's, Llama-4-Scout's and Gemma 3's widths (N = 2048, d
+   = 768, 3584 and 5120; N = 8192, d = 2560);
 11. the paged KV gather (``kernels_vs_plain_kv_gather``,
    ``kernel_times_kv_gather``): the kernel bit-equal to its plain version
    at ``tests/test_kernels.py``'s sweep shapes in float32, bf16 and int32
@@ -1075,11 +1089,16 @@ SSD_TOL = (1e-3, 1e-3)
 LOGIT_TOL = 0.1
 RMS_EPS = 1e-5
 PHI4, MAMBA2, ZAMBA2 = "phi4-mini-3.8b", "mamba2-130m", "zamba2-7b"
+GEMMA3 = "gemma3-4b"
 LLAMA4 = "llama4-scout-17b-a16e"
 # Llama-4-Scout served at full width, cut to 12 of its 48 layers: the whole
 # model (~106.7 B parameters, ~213 GB in bf16) does not fit an 80 GB card;
 # 12 layers of ~4.40 GB and the 2.07 GB embedding are ~55 GB
 LLAMA4_LAYERS = 12
+# Zamba2 served at full width, cut to 27 of its 81 layers (4 superblocks of 6
+# Mamba-2 layers with the shared attention after each, 3 trailing) to keep
+# the whole run within its time limit once Gemma 3's phases were added
+ZAMBA2_LAYERS = 27
 # the routing rule of a MoE model, card against CPU: in float32 every token
 # is routed alike in every layer; in bf16 a token may go to another expert
 # only where its router margin (the k-th probability less the next, on the
@@ -1148,9 +1167,10 @@ def compare_model_kernels(dev):
     rng = np.random.default_rng(14)
     edge_rng = np.random.default_rng(17)  # the edge cases', so rng's draws stay as they were
     llama4_rng = np.random.default_rng(19)  # Llama-4-Scout's shapes, likewise
+    gemma_rng = np.random.default_rng(25)  # Gemma 3's shapes and the window cases, likewise
     bf, f32 = "bfloat16", "float32"
     dt = {bf: torch.bfloat16, f32: torch.float32}
-    # (label, B, Sq, H, KV, D, Dv, dtype, causal, Skv)
+    # (label, B, Sq, H, KV, D, Dv, dtype, causal, Skv[, window])
     cases = [("path", 4, 512, 24, 8, 128, 128, bf, True, 512),
              ("zamba2_path", 4, 512, 32, 32, 112, 112, bf, True, 512),
              ("llama4_path", 4, 512, 40, 8, 128, 128, bf, True, 512)]
@@ -1165,22 +1185,37 @@ def compare_model_kernels(dev):
         cases += [("edge_s", 2, S, 4, 2, 64, 64, d_, True, S) for S in (1, 63, 64, 65, 129)]
     # every (D, Dv) the wrapper admits, non-causal where D < Dv
     cases += [("head_dims", 1, 100, 4, 2, D, Dv, bf, D >= Dv, 100)
-              for D in FK.HEAD_DIMS for Dv in FK.HEAD_DIMS]
+              for D in FK.HEAD_DIMS for Dv in FK.HEAD_DIMS if FK.admits(D, Dv)]
     cases += [("sq_ne_skv", 2, 70, 4, 2, 128, 128, bf, c, 130) for c in (True, False)]
+    # Gemma 3's prefill shapes (local layers: window 1024; global layers: D =
+    # 256 alone), a window below one tile at a ragged S, a window that is not
+    # a multiple of 64, ragged S, and the left edge alone (non-causal)
+    for d_ in (bf, f32):
+        cases += [("gemma3_window", 4, 2048, 8, 4, 256, 256, d_, True, 2048, 1024),
+                  ("gemma3_global", 4, 2048, 8, 4, 256, 256, d_, True, 2048, 0),
+                  ("window_lt_tile", 2, 300, 4, 2, 256, 256, d_, True, 300, 40),
+                  ("window_not_x64", 2, 520, 4, 2, 128, 128, d_, True, 520, 100),
+                  ("window_ragged_s", 1, 257, 4, 2, 64, 64, d_, True, 257, 64),
+                  ("window_noncausal", 2, 200, 4, 2, 64, 64, d_, False, 200, 48)]
     errs, rows = {}, []
-    for label, B, S, H, KV, D, Dv, d_, causal, Skv in cases:
+    for label, B, S, H, KV, D, Dv, d_, causal, Skv, *win in cases:
+        window = win[0] if win else 0
         gen = (edge_rng if label in ("edge_s", "head_dims", "sq_ne_skv") else
-               llama4_rng if label == "llama4_path" else rng)
+               llama4_rng if label == "llama4_path" else
+               gemma_rng if label.startswith(("gemma3", "window")) else rng)
         q, k, v = (randn(gen, sh, dt[d_], dev) for sh in
                    ((B, S, H, D), (B, Skv, KV, D), (B, Skv, KV, Dv)))
         keep = [t.clone() for t in (q, k, v)]
-        got = FK.flash_attention_cuda(q, k, v, causal=causal)
+        got = FK.flash_attention_cuda(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
-        err, ok = close_err(got, attention_ref(q, k, v, causal=causal), ATTN_TOL[d_])
+        err, ok = close_err(got, attention_ref(q, k, v, causal=causal, window=window),
+                            ATTN_TOL[d_])
         same = all(torch.equal(a, b) for a, b in zip(keep, (q, k, v)))
         rows.append({"case": label, "shape": [B, S, H, KV, D, Dv], "skv": Skv,
-                     "causal": causal, "dtype": d_, "max_abs_err": err, "tol": ATTN_TOL[d_]})
-        check(ok, f"flash attention disagrees with plain ({label}, {d_}): {err}")
+                     "causal": causal, "window": window, "dtype": d_, "max_abs_err": err,
+                     "tol": ATTN_TOL[d_]})
+        check(ok and bool(torch.isfinite(got).all()),
+              f"flash attention disagrees with plain ({label}, {d_}): {err}")
         check(same, "the flash-attention kernel modified its inputs")
         if label == "path":
             errs["flash_attention"] = err
@@ -1188,6 +1223,8 @@ def compare_model_kernels(dev):
             errs["flash_attention_d112"] = err
         if label == "llama4_path":
             errs["flash_attention_llama4"] = err
+        if label in ("gemma3_window", "gemma3_global") and d_ == bf:
+            errs["flash_attention_" + label] = err
     # (N, d, weight at an odd element offset): the path widths (3072 Phi-4-mini,
     # 768 Mamba-2, 3584 Zamba2, 5120 Llama-4-Scout at its prefill and decode
     # rows), row counts off the rows-per-CTA grid, the scalar path (odd width;
@@ -1196,8 +1233,10 @@ def compare_model_kernels(dev):
     rms_cases += [(N, d, False) for d in (768, 3584) for N in (1, 5, 2047)]
     rms_cases += [(5, 3072, True), (2047, 768, True), (5, 100, False), (2047, 100, False)]
     rms_cases += [(2048, 5120, False), (4, 5120, False)]
+    rms_cases += [(8192, 2560, False), (4, 2560, False)]  # Gemma 3's prefill and decode rows
     for i, (N, d, odd_w) in enumerate(rms_cases):
-        gen = rng if i < 2 else llama4_rng if d == 5120 else edge_rng
+        gen = (rng if i < 2 else llama4_rng if d == 5120 else gemma_rng if d == 2560
+               else edge_rng)
         for d_ in (f32, bf):
             x, r = randn(gen, (N, d), dt[d_], dev), randn(gen, (N, d), dt[d_], dev)
             w = randn(gen, (d + odd_w,), torch.float32, dev) * 0.1 + 1
@@ -1219,7 +1258,7 @@ def compare_model_kernels(dev):
                   "the RMSNorm kernel modified its inputs")
             if N == 2048 and d == 3072 and d_ == bf:
                 errs["rmsnorm"], errs["rmsnorm_residual"] = e1, max(e2, e3)
-            if d in (768, 3584, 5120) and not odd_w and d_ == bf:  # the other paths' widths
+            if d in (768, 3584, 5120, 2560) and not odd_w and d_ == bf:  # the other paths' widths
                 key = f"rmsnorm_d{d}"
                 errs[key] = max(errs.get(key, 0.0), e1)
     ssd_cases = []  # (label, B, S, H, P, N, chunk, dtype, entering state)
@@ -1282,8 +1321,9 @@ def greedy_trace(M, cfg, p, toks, lens, n, force=None):
 
 
 def serve_vs_cpu(dev, name, cfg, prompt_len, seed):
-    """``cfg`` (full width, random weights from seed 0) on the card against
-    the CPU (plain versions): one prompt of ``prompt_len`` tokens, padded as
+    """``cfg`` (full width, random weights drawn on the card from seed 0 and
+    copied to the CPU) on the card against the CPU (plain versions): one
+    prompt of ``prompt_len`` tokens, padded as
     the engine pads it, and 4 greedy decode steps (the card teacher-forced
     with the CPU's tokens); logits within ``LOGIT_TOL`` and tokens equal
     wherever the CPU's top-2 margin exceeds it."""
@@ -1295,8 +1335,8 @@ def serve_vs_cpu(dev, name, cfg, prompt_len, seed):
     from repro_torch.models import model as M
     from repro_torch.serve.engine import pad_prompts
 
-    p_cpu = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    p_gpu = copy.deepcopy(p_cpu).to(dev)
+    p_gpu = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    p_cpu = copy.deepcopy(p_gpu).to("cpu")
     prompt = np.random.default_rng(seed).integers(0, cfg.vocab_size, prompt_len).tolist()
     n = 4
     t0 = time.perf_counter()
@@ -1729,8 +1769,9 @@ def serve_model(dev, name, cfg, prompts, per_prefill, per_decode, n_new=16,
 
 
 def serve_models(dev):
-    """The four serving paths at full width (and depth, but for
-    Llama-4-Scout's ``LLAMA4_LAYERS``), each driven with the launch counts
+    """The five serving paths at full width (and depth, but for
+    Llama-4-Scout's ``LLAMA4_LAYERS`` and Zamba2's ``ZAMBA2_LAYERS``), each
+    driven with the launch counts
     set to 0 just before it and read just after. Returns each path's
     generate launches."""
     import numpy as np
@@ -1755,7 +1796,7 @@ def serve_models(dev):
     out["serve_mamba2_130m"] = serve_model(dev, "serve_mamba2_130m", cfg, prompts,
                                            {"ssd": L, "rmsnorm": L + 1},
                                            {"rmsnorm": L + 1})
-    cfg = get_config(ZAMBA2)
+    cfg = get_config(ZAMBA2).replace(n_layers=ZAMBA2_LAYERS)
     L, n_attn = cfg.n_layers, cfg.n_layers // cfg.shared_attn_period
     rng = np.random.default_rng(11)
     prompts = [rng.integers(0, cfg.vocab_size, 512).tolist() for _ in range(4)]
@@ -1774,14 +1815,60 @@ def serve_models(dev):
                                             {"flash_attention": L, "rmsnorm": 2 * L + 1},
                                             {"rmsnorm": 2 * L + 1},
                                             decode_bound=moe_decode_bound)
+    # Gemma 3 4B whole: 4 prompts of 2048 tokens, twice the window, so the
+    # prefill masks the window in 29 of its 34 layers and the decode steps
+    # wrap every ring
+    cfg = get_config(GEMMA3)
+    L = cfg.n_layers
+    rng = np.random.default_rng(27)
+    prompts = [rng.integers(0, cfg.vocab_size, 2048).tolist() for _ in range(4)]
+    out["serve_gemma3_4b"] = serve_model(dev, "serve_gemma3_4b", cfg, prompts,
+                                         {"flash_attention": L, "rmsnorm": 2 * L + 1},
+                                         {"rmsnorm": 2 * L + 1},
+                                         decode_bound=dense_decode_bound)
     return out
 
 
-def attn_bound(B, S, H, KV, D, Dv, itemsize):
-    """Least time of causal attention: the visible (q, k) pairs' two
-    products at the bf16 tensor-core peak, or q, k, v read once and the
-    output written once at the memory rate, whichever is larger."""
-    flops = 2 * (D + Dv) * (S * (S + 1) // 2) * B * H
+def visible_pairs(S, window=0):
+    """The (q, k) pairs that causal attention over S positions computes:
+    row i sees min(i + 1, window) keys (i + 1 without a window)."""
+    W = min(window or S, S)
+    return W * (W + 1) // 2 + (S - W) * W
+
+
+def dense_decode_bound(cfg, params, cache, tokens):
+    """A dense decode step's least time: every weight read once (the tied
+    embedding too, for the unembed) and each layer's valid K/V read once
+    (a ring's min(len, W) slots, a global cache's len), at the memory
+    rate. The products (2 x weights x B) are far below it."""
+    B = tokens.shape[0]
+    weight_bytes = sum(t.numel() * t.element_size() for t in params.parameters())
+    n_weights = sum(t.numel() for t in params.parameters())
+    n = int(cache["len"].max()) + 1
+    kv_bytes = 0
+
+    def walk(tree):
+        nonlocal kv_bytes
+        for key, v in tree.items():
+            if isinstance(v, dict):
+                walk(v)
+            elif key in ("k", "v"):
+                lead = v.shape[:-4].numel()  # the stacked layers
+                kv_bytes += lead * B * min(n, v.shape[-3]) * v.shape[-2] * v.shape[-1] * \
+                    v.element_size()
+
+    walk({k: v for k, v in cache.items() if k != "len"})
+    nbytes = weight_bytes + kv_bytes
+    return {"weight_bytes": weight_bytes, "kv_bytes_read": kv_bytes,
+            **bound_fields(nbytes, 2 * n_weights * B, BF16_FLOPS_PER_S)}
+
+
+def attn_bound(B, S, H, KV, D, Dv, itemsize, window=0):
+    """Least time of causal attention (with a sliding window, only the
+    pairs inside it): the visible (q, k) pairs' two products at the bf16
+    tensor-core peak, or q, k, v read once and the output written once at
+    the memory rate, whichever is larger."""
+    flops = 2 * (D + Dv) * visible_pairs(S, window) * B * H
     nbytes = B * S * (H * D + KV * D + KV * Dv + H * Dv) * itemsize
     return bound_fields(nbytes, flops, BF16_FLOPS_PER_S)
 
@@ -1806,6 +1893,24 @@ def bound_fields(nbytes, nops, ops_per_s=SCALAR_OPS_PER_S):
     return dict(zip(("bound_ms", "bound_by"), bound(nbytes, nops, ops_per_s)))
 
 
+def top_kernel(fn):
+    """The device kernel that takes most of one ``fn()`` call's time under
+    ``torch.profiler`` (``None`` where it records no device activity)."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = collections.Counter()
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name[:80]] += e.time_range.elapsed_us()
+    return by_name.most_common(1)[0][0] if by_name else None
+
+
 def time_model_kernels(dev):
     """Each kernel at the serve paths' shapes: kernel, plain version and one
     PyTorch call where there is one (the yardstick the port never calls),
@@ -1813,6 +1918,7 @@ def time_model_kernels(dev):
     import numpy as np
     import torch
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend
 
     from repro_torch.kernels.flash_attention import flash_attention as FK
     from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -1837,6 +1943,33 @@ def time_model_kernels(dev):
                 qt, kt, vt, is_causal=True, enable_gqa=True), reps=20),
             **attn_bound(B, S, H, KV, D, D, 2),
             "shape": f"B={B}, S={S}, H={H}, KV={KV}, D=Dv={D}, bf16, causal"}
+    # Gemma 3's prefill (B 4, S 2048, 8 / 4 heads of 256): its local layers'
+    # window of 1024 (SDPA's yardstick takes the band as a boolean mask) and
+    # its global layers
+    gemma_rng = np.random.default_rng(26)  # rng's draws stay as they were
+    B, S, H, KV, D = 4, 2048, 8, 4, 256
+    q, k, v = (randn(gemma_rng, sh, bf, dev) for sh in
+               ((B, S, H, D), (B, S, KV, D), (B, S, KV, D)))
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    pos = torch.arange(S, device=dev)
+    dist = pos[:, None] - pos[None, :]  # query position less key position
+    for key, window in (("flash_attention_gemma3_window", 1024),
+                        ("flash_attention_gemma3_global", 0)):
+        sdpa_kw = {"attn_mask": (dist >= 0) & (dist < window)} if window else {"is_causal": True}
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **sdpa_kw)
+
+        # the backend SDPA dispatches these inputs to, and the kernel it ran
+        choice = SDPBackend(torch._fused_sdp_choice(qt, kt, vt, enable_gqa=True, **sdpa_kw))
+        out[key] = {
+            "ms": graph_ms(lambda: FK.flash_attention_cuda(q, k, v, window=window), reps=10),
+            "plain_ms": graph_ms(lambda: attention_ref(q, k, v, window=window), reps=3),
+            "library_ms": graph_ms(sdpa, reps=10), "library_backend": choice.name,
+            "library_kernel": top_kernel(sdpa),
+            **attn_bound(B, S, H, KV, D, D, 2, window),
+            "shape": f"B={B}, S={S}, H={H}, KV={KV}, D=Dv={D}, bf16, causal, "
+                     f"window {window or 'none'}"}
     d, B, S = 3072, 4, 512
     w = randn(rng, (d,), torch.float32, dev) * 0.1 + 1
     wb = w.to(bf)
@@ -1854,10 +1987,10 @@ def time_model_kernels(dev):
             "library_ms": None,
             **bound_fields(4 * row + d * 4, 5 * N * d), "shape": f"N={N}, d={d}, bf16"}
     # the other serve paths' widths, prefill rows: Mamba-2 768, Zamba2 3584,
-    # Llama-4-Scout 5120
+    # Llama-4-Scout 5120 (4 x 512 rows), Gemma 3 2560 (4 x 2048 rows)
     width_rng = np.random.default_rng(17)  # rng's draws for SSD stay as they were
-    for dw in (768, 3584, 5120):
-        N = B * S
+    for dw in (768, 3584, 5120, 2560):
+        N = B * S * (4 if dw == 2560 else 1)
         x = randn(width_rng, (N, dw), bf, dev)
         ww = randn(width_rng, (dw,), torch.float32, dev) * 0.1 + 1
         wwb = ww.to(bf)
@@ -2727,6 +2860,12 @@ def main() -> int:
     moe_serve_vs_cpu(dev, "serve_llama4_scout_vs_cpu",
                      get_config(LLAMA4).replace(n_layers=2), 120, 13)
     moe_drop_vs_cpu(dev, get_config(LLAMA4))
+    # Gemma 3 at full width, cut to 7 layers (one superblock of 5 local and 1
+    # global layer, one trailing local layer); a ragged prompt of 1 500
+    # tokens padded to 2048, so the prefill ring holds pads (the engine's
+    # quirk, on both sides) and the 4 decode steps write into it
+    serve_vs_cpu(dev, "serve_gemma3_4b_vs_cpu", get_config(GEMMA3).replace(n_layers=7),
+                 1500, 28)
     serve_launches = serve_models(dev)
     model_times = time_model_kernels(dev)
 
@@ -2828,11 +2967,12 @@ def main() -> int:
     #  shapes, each path shape's also beside its time
     model_rows = (
         ("flash_attention_kernel", "flash_attention", "flash_attention", 23,
-         ("serve_phi4_mini", "serve_llama4_scout")),
+         ("serve_phi4_mini", "serve_llama4_scout", "serve_gemma3_4b")),
         ("flash_attention_kernel[D=112]", "flash_attention_d112", "flash_attention", 23,
          ("serve_zamba2_7b",)),
         ("rmsnorm_kernel", "rmsnorm", "rmsnorm", 16,
-         ("serve_phi4_mini", "serve_mamba2_130m", "serve_zamba2_7b", "serve_llama4_scout")),
+         ("serve_phi4_mini", "serve_mamba2_130m", "serve_zamba2_7b", "serve_llama4_scout",
+          "serve_gemma3_4b")),
         ("rmsnorm_residual_kernel", "rmsnorm_residual", "rmsnorm", 24, ()),
         ("ssd_tc_kernel", "ssd", "ssd", 21, ("serve_mamba2_130m",)),
         ("ssd_tc_kernel[zamba2]", "ssd_zamba2", "ssd", 21, ("serve_zamba2_7b",)),
@@ -2845,9 +2985,10 @@ def main() -> int:
             check(n > 0, f"{name} was not launched on its main path {path}")
         err = model_errs[key]
         if key == "flash_attention":
-            err = max(err, model_errs["flash_attention_llama4"])
+            err = max(err, *(model_errs[f"flash_attention_{k_}"] for k_ in (
+                "llama4", "gemma3_window", "gemma3_global")))
         if key == "rmsnorm":
-            err = max(err, *(model_errs[f"rmsnorm_d{dw}"] for dw in (768, 3584, 5120)))
+            err = max(err, *(model_errs[f"rmsnorm_d{dw}"] for dw in (768, 3584, 5120, 2560)))
         kernels.append({
             "name": name, "route": "cuda", "source": model_src.format(pkg),
             "replaces": model_tpu.format(pkg, line), "launches": sum(launches.values()),
@@ -2860,13 +3001,17 @@ def main() -> int:
                 k_: model_times[key + "_decode"][k_] for k_ in
                 ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
         })
-        if key == "rmsnorm":  # the Mamba-2, Zamba2 and Llama-4 widths beside Phi-4-mini's
+        if key == "rmsnorm":  # the Mamba-2, Zamba2, Llama-4 and Gemma 3 widths
             kernels[-1]["other_widths"] = [
                 {**model_times[f"rmsnorm_d{dw}"], "max_abs_err": model_errs[f"rmsnorm_d{dw}"]}
-                for dw in (768, 3584, 5120)]
-        if key == "flash_attention":  # Llama-4-Scout's 40 / 8 heads
+                for dw in (768, 3584, 5120, 2560)]
+        if key == "flash_attention":  # Llama-4-Scout's 40 / 8 heads; Gemma 3's D = 256
             kernels[-1]["llama4_shape"] = {**model_times["flash_attention_llama4"],
                                            "max_abs_err": model_errs["flash_attention_llama4"]}
+            kernels[-1]["gemma3_shape"] = {
+                k_: {**model_times[f"flash_attention_gemma3_{k_}"],
+                     "max_abs_err": model_errs[f"flash_attention_gemma3_{k_}"]}
+                for k_ in ("window", "global")}
     kernels.append({
         "name": "kv_gather_kernel", "route": "cuda",
         "source": "src/repro_torch/kernels/kv_gather/csrc/kv_gather.cu",

@@ -5,8 +5,9 @@ port never imports ``repro``). Every assigned architecture is a
 ``ModelConfig`` registered in ``REGISTRY`` (one module per arch under
 ``repro_torch.configs``). ``ModelConfig.reduced()`` produces a small
 same-family config for CPU smoke tests. The port runs the dense GQA
-family without a sliding window, ``moe`` with GQA attention, ``ssm`` and
-``hybrid`` so far (``repro_torch.models.model.FAMILIES``).
+family (a sliding window only in its local:global layers), ``moe`` with
+GQA attention, ``ssm`` and ``hybrid`` so far
+(``repro_torch.models.model.FAMILIES``).
 """
 from __future__ import annotations
 

@@ -1,4 +1,5 @@
-// Causal flash attention (forward) for Hopper (sm_90a), GQA-aware.
+// Causal flash attention (forward) for Hopper (sm_90a), GQA-aware, with a
+// sliding-window mode.
 //
 // Replaces the JAX package's Pallas kernel `_kernel`
 // (src/repro/kernels/flash_attention/flash_attention.py:23, launched by
@@ -7,9 +8,17 @@
 // accumulator, `-1e30` masking (query row i sees keys j <= i, top-left
 // aligned) and the output `acc / max(l, 1e-30)` in q's dtype. The KV head of
 // query head h is h / (H / KV): GQA reads the shared k/v rows in place, never
-// a broadcast copy. Keys are visited in ascending order from key 0, which
-// every row sees, so `m` is finite after the first tile and a masked entry
-// adds exp(-1e30 - m) = 0.
+// a broadcast copy. `window > 0` adds the mask of the JAX package's
+// `flash_attention_jax` (src/repro/models/attention.py:134): row i sees only
+// keys with i - j < window (Sq == Skv), and the key tiles outside every
+// row's window are never loaded (its `_block_pairs`, :67).
+//
+// A row may see no key of the first tiles it visits (the window's left
+// edge, and the rows of the second half of a CTA's first tile), so its
+// running max is still -1e30 there. Such a row adds P = 0: P is taken as
+// exp(s - 0) rather than exp(s - m) while m == -1e30, as FA2 does, so that
+// no result rests on -1e30 - (-1e30) cancelling. Every row sees at least its
+// own key, so its max is finite when the loop ends.
 //
 // One kernel for each dtype (a dispatch, not a fallback).
 //
@@ -18,11 +27,14 @@
 // (B = 4, S = 512, D = 128) it is bound by bytes: q, k, v and o move ~34 MB,
 // 0.010 ms at 3.35 TB/s, against 0.0065 ms for the products at 989 TFLOP/s.
 // Design:
-// * one warpgroup (4 warps) per CTA owns 128 query rows of one (batch, head)
-//   as two 64-row halves, so every K/V tile it loads, and every wgmma B
-//   operand, serves 128 rows; each warp holds 16 rows of each half. The
-//   grid's x is batch * head, its y the query tile; with `causal` blockIdx.y
-//   counts from the last tile, so the tiles with the most keys start first;
+// * a CTA owns 128 query rows of one (batch, head) as two 64-row halves, so
+//   every K/V tile it loads, and every wgmma B operand, serves 128 rows. Up
+//   to D = Dv = 128 one warpgroup (4 warps) holds both halves, each warp 16
+//   rows of each half; at D = Dv = 256 each half has a warpgroup of its own
+//   (256 threads, 128 accumulators a thread), since two halves' 256-column
+//   accumulators would not fit 255 registers. The grid's x is batch * head,
+//   its y the query tile; with `causal` blockIdx.y counts from the last
+//   tile, so the tiles with the most keys start first;
 // * shared memory holds bf16 tiles in the 128-byte-swizzled layout that the
 //   wgmma descriptors read (64-column blocks of 64 rows x 128 bytes, chunk
 //   c of row r at c ^ (r % 8); D = 112 pads to two blocks). The Q tile is
@@ -31,6 +43,7 @@
 //   tile's copy running under this tile's products; `fence.proxy.async`
 //   makes the copies visible to the tensor cores. 96 KB at D = Dv = 128:
 //   two CTAs to an SM, which is also all that ~250 registers a thread allow;
+//   192 KB at D = Dv = 256, one CTA an SM;
 // * S = Q K^T: `wgmma.m64n64k16`, Q and K both K-major from shared memory,
 //   one per half and 16 columns of D. The online softmax runs on the
 //   accumulator fragments in registers: a row's max and sum reduce over the
@@ -40,16 +53,18 @@
 //   through shared memory; `l` sums the unrounded float32 P;
 // * P V: `wgmma.m64nDVk16` with P from registers and V through an MN-major
 //   (transposed) descriptor of the same row-major tile;
-// * causal: key tiles wholly above the diagonal are never loaded, the first
-//   half skips the products of a tile that lies wholly above its rows, and
-//   only the diagonal tiles and a ragged last tile are masked.
+// * causal and window: key tiles wholly above the diagonal, or wholly left
+//   of the first row's window, are never loaded; the first half of a
+//   one-warpgroup CTA skips the products of a tile past its last row; only
+//   the tiles on the diagonal, at a window's edge or past Skv are masked.
 //
 // float32: `flash_fwd_kernel`, scalar float32 FMAs out of shared memory (the
 // tensor cores would compute in TF32, outside the float32 tolerance). One
 // CTA of 256 threads (16 x 16) per (64-row q tile, batch * head); each thread
 // owns a 4 x 4 block of the score tile and 4 rows x DV/16 accumulator
-// columns; q, k, v staged as float32, k and q rows padded by one word. No
-// serve path runs attention in float32 on the card.
+// columns; q, k, v staged as float32, k and q rows padded by one word
+// (209 KB at D = Dv = 256). No serve path runs attention in float32 on the
+// card.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -86,7 +101,7 @@ template <typename T, int DV>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ o, int H, int KV, int Sq, int Skv, int D, float scale,
-                 int causal) {
+                 int causal, int window) {
   constexpr int NC = DV / 16;  // accumulator columns per thread
   extern __shared__ float smem[];
   const int DP = D + 1;
@@ -113,9 +128,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
   }
 
-  // keys at or past q0 + BQ are above the diagonal for every row of the tile
+  // keys at or past q0 + BQ are above the diagonal for every row of the tile;
+  // keys at or before q0 - window are outside every row's window
   const int kend = causal ? min(Skv, q0 + BQ) : Skv;
-  for (int k0 = 0; k0 < kend; k0 += BK) {
+  const int kbeg = window ? max(0, q0 - window + 1) / BK * BK : 0;
+  for (int k0 = kbeg; k0 < kend; k0 += BK) {
     __syncthreads();  // the previous tile's readers are done with Ks/Vs/Ps
     for (int e = tid; e < BK * D; e += NT) {
       const int r = e / D, c = e - r * D, kj = k0 + r;
@@ -152,16 +169,18 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kpos = k0 + tx + 16 * j;
-        const bool ok = kpos < Skv && (!causal || qpos >= kpos);
+        const bool ok = kpos < Skv && (!causal || qpos >= kpos) &&
+                        (!window || qpos - kpos < window);
         s[i][j] = ok ? s[i][j] * scale : NEG_INF;
         mx = fmaxf(mx, s[i][j]);
       }
       const float mn = fmaxf(m[i], row_max16(mx));
       const float alpha = expf(m[i] - mn);
+      const float sub = mn == NEG_INF ? 0.f : mn;  // a row that has seen no key adds 0
       float rs = 0.f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - mn);
+        const float p = expf(s[i][j] - sub);
         Ps[(ty + 16 * i) * (BK + 1) + tx + 16 * j] = p;
         rs += p;
       }
@@ -199,7 +218,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
 template <typename T, int DV>
 int launch_t(const void* q, const void* k, const void* v, void* o, int B, int H, int KV,
-             int Sq, int Skv, int D, float scale, int causal, cudaStream_t stream) {
+             int Sq, int Skv, int D, float scale, int causal, int window,
+             cudaStream_t stream) {
   auto kern = flash_fwd_kernel<T, DV>;
   const size_t smem = smem_bytes(D, DV);
   // opt in to more than 48 KB of shared memory on every launch: the
@@ -211,18 +231,20 @@ int launch_t(const void* q, const void* k, const void* v, void* o, int B, int H,
   const dim3 grid((Sq + BQ - 1) / BQ, B * H);
   kern<<<grid, NT, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
                                    static_cast<const T*>(v), static_cast<T*>(o), H, KV, Sq,
-                                   Skv, D, scale, causal);
+                                   Skv, D, scale, causal, window);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_dv(const void* q, const void* k, const void* v, void* o, int B, int H, int KV,
-              int Sq, int Skv, int D, int Dv, float scale, int causal, cudaStream_t s) {
+              int Sq, int Skv, int D, int Dv, float scale, int causal, int w,
+              cudaStream_t s) {
   switch (Dv) {
-    case 32: return launch_t<T, 32>(q, k, v, o, B, H, KV, Sq, Skv, D, scale, causal, s);
-    case 64: return launch_t<T, 64>(q, k, v, o, B, H, KV, Sq, Skv, D, scale, causal, s);
-    case 112: return launch_t<T, 112>(q, k, v, o, B, H, KV, Sq, Skv, D, scale, causal, s);
-    case 128: return launch_t<T, 128>(q, k, v, o, B, H, KV, Sq, Skv, D, scale, causal, s);
+    case 32: return launch_t<T, 32>(q, k, v, o, B, H, KV, Sq, Skv, D, scale, causal, w, s);
+    case 64: return launch_t<T, 64>(q, k, v, o, B, H, KV, Sq, Skv, D, scale, causal, w, s);
+    case 112: return launch_t<T, 112>(q, k, v, o, B, H, KV, Sq, Skv, D, scale, causal, w, s);
+    case 128: return launch_t<T, 128>(q, k, v, o, B, H, KV, Sq, Skv, D, scale, causal, w, s);
+    case 256: return launch_t<T, 256>(q, k, v, o, B, H, KV, Sq, Skv, D, scale, causal, w, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -348,6 +370,17 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], uint32_t a0, uint32_t a
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
 }
 
+// d[64 x 256] += A[64 x 16] B[16 x 256]; A in registers, B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs(float (&d)[128], uint32_t a0, uint32_t a1,
+                                         uint32_t a2, uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
 // Columns a [64, COLS] tile takes in shared memory: whole 64-column blocks
 template <int COLS>
 __host__ __device__ constexpr int padded() { return (COLS + 63) / 64 * 64; }
@@ -355,14 +388,15 @@ __host__ __device__ constexpr int padded() { return (COLS + 63) / 64 * 64; }
 // Rows row0 .. row0 + 63 of a [rows, COLS] slab with row stride `gstride`
 // elements into the 128-byte-swizzled layout: 64-column blocks of 64 rows x
 // 128 bytes (8 KB apart), the 16-byte chunk c of row r at position
-// (c % 8) ^ (r % 8) of its row. Rows at or past `rows` are zero-filled.
-template <int COLS>
+// (c % 8) ^ (r % 8) of its row. Rows at or past `rows` are zero-filled. The
+// CTA's NTHR threads share the copies.
+template <int COLS, int NTHR>
 __device__ __forceinline__ void load_tile(uint32_t sdst, const bf16* g, size_t gstride,
                                           int row0, int rows, int tid) {
   constexpr int CPR = COLS / 8;  // 16-byte chunks per row
 #pragma unroll
-  for (int i = 0; i < BN * CPR / THREADS; ++i) {
-    const int e = tid + i * THREADS, r = e / CPR, c = e - r * CPR, gr = row0 + r;
+  for (int i = 0; i < BN * CPR / NTHR; ++i) {
+    const int e = tid + i * NTHR, r = e / CPR, c = e - r * CPR, gr = row0 + r;
     const bool ok = gr < rows;
     cp_async16(sdst + (c >> 3) * 8192 + r * 128 + (((c & 7) ^ (r & 7)) << 4),
                g + (size_t)(ok ? gr : 0) * gstride + c * 8, ok);
@@ -387,13 +421,19 @@ constexpr size_t smem_bytes() {
          (2 * (size_t)BM * padded<D>() + 2 * (size_t)BN * (padded<D>() + padded<DV>()));
 }
 
+// warpgroups of a CTA: one for both halves, or one a half where two halves'
+// accumulators would not fit the registers
+template <int DV>
+constexpr int warpgroups() { return DV > 128 ? 2 : 1; }
+
 // q [B, Sq, H, D], k [B, Skv, KV, D], v [B, Skv, KV, DV], o [B, Sq, H, DV];
-// grid (B * H, 128-row query tiles)
-template <int D, int DV>
-__global__ void __launch_bounds__(THREADS, 2)
+// grid (B * H, 128-row query tiles); window 0 means none
+template <int D, int DV, int NWG = warpgroups<DV>()>
+__global__ void __launch_bounds__(THREADS * NWG, 2 / NWG)
 flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, bf16* __restrict__ o, int H, int KV, int Sq,
-                   int Skv, float scale_log2, int causal) {
+                   int Skv, float scale_log2, int causal, int window) {
+  constexpr int NTHR = THREADS * NWG, HPW = 2 / NWG;  // threads; halves a warpgroup
   constexpr int NKT = BN / 8, NVT = DV / 8, BMR = 2 * BM;
   constexpr int DP = padded<D>(), DVP = padded<DV>();
   constexpr uint32_t QH = BM * DP * 2, KST = BN * DP * 2, VST = BN * DVP * 2;  // bytes
@@ -402,46 +442,50 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* Ks = Qs + BMR * DP;                      // [2][BN x DP]
   bf16* Vs = Ks + 2 * BN * DP;                   // [2][BN x DVP]
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gr = lane >> 2, gc = lane & 3;  // fragment row group, column pair
+  const int tid = threadIdx.x, wgi = tid / THREADS, warp = (tid % THREADS) >> 5;
+  const int lane = tid & 31, gr = lane >> 2, gc = lane & 3;  // fragment row group, column pair
   const int bh = blockIdx.x, b = bh / H, h = bh - b * H, g = h / (H / KV);
   const int q0 = (causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * BMR;
-  const int r0 = warp * 16;  // this warp's first row in each half
+  const int r0 = warp * 16;  // this warp's first row in each of its halves
 
   const bf16* qg = q + ((size_t)b * Sq * H + h) * D;
   const bf16* kg = k + ((size_t)b * Skv * KV + g) * D;
   const bf16* vg = v + ((size_t)b * Skv * KV + g) * DV;
   const size_t qstride = (size_t)H * D, kstride = (size_t)KV * D, vstride = (size_t)KV * DV;
-  // keys at or past q0 + BMR are above the diagonal for every row of the tile
+  // keys at or past q0 + BMR are above the diagonal for every row of the
+  // tile; keys at or before q0 - window are outside every row's window
   const int kend = causal ? min(Skv, q0 + BMR) : Skv;
   const int ntiles = (kend + BN - 1) / BN;
+  const int t0 = window ? max(0, q0 - window + 1) / BN : 0;
   const uint32_t q_base = smem_u32(Qs), k_base = smem_u32(Ks), v_base = smem_u32(Vs);
 
-  load_tile<D>(q_base, qg, qstride, q0, Sq, tid);
-  load_tile<D>(q_base + QH, qg, qstride, q0 + BM, Sq, tid);
-  load_tile<D>(k_base, kg, kstride, 0, Skv, tid);
-  load_tile<DV>(v_base, vg, vstride, 0, Skv, tid);
+  load_tile<D, NTHR>(q_base, qg, qstride, q0, Sq, tid);
+  load_tile<D, NTHR>(q_base + QH, qg, qstride, q0 + BM, Sq, tid);
+  load_tile<D, NTHR>(k_base, kg, kstride, t0 * BN, Skv, tid);
+  load_tile<DV, NTHR>(v_base, vg, vstride, t0 * BN, Skv, tid);
   cp_async_commit();
 
-  // per half: the accumulator fragment (acc[hf][4n + e] is row r0 + gr +
-  // 8 (e / 2) of the half, column 8n + 2gc + e % 2: the wgmma D layout; s
-  // likewise over the tile's 64 keys), the running max of the raw scores and
-  // this lane's share of the row sums
-  float acc[2][DV / 2];
+  // per half of this warpgroup (half wgi * HPW + j): the accumulator
+  // fragment (acc[j][4n + e] is row r0 + gr + 8 (e / 2) of the half, column
+  // 8n + 2gc + e % 2: the wgmma D layout; s likewise over the tile's 64
+  // keys), the running max of the raw scores and this lane's share of the
+  // row sums
+  float acc[HPW][DV / 2];
 #pragma unroll
-  for (int hf = 0; hf < 2; ++hf)
+  for (int j = 0; j < HPW; ++j)
 #pragma unroll
-    for (int i = 0; i < DV / 2; ++i) acc[hf][i] = 0.f;
-  float m[2][2] = {{NEG_INF, NEG_INF}, {NEG_INF, NEG_INF}};
-  float l[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-  fence_regs(acc[0]);
-  fence_regs(acc[1]);
+    for (int i = 0; i < DV / 2; ++i) acc[j][i] = 0.f;
+  float m[HPW][2], l[HPW][2];
+#pragma unroll
+  for (int j = 0; j < HPW; ++j) m[j][0] = m[j][1] = NEG_INF, l[j][0] = l[j][1] = 0.f;
+#pragma unroll
+  for (int j = 0; j < HPW; ++j) fence_regs(acc[j]);
 
-  for (int t = 0; t < ntiles; ++t) {
-    const int st = t & 1;
+  for (int t = t0; t < ntiles; ++t) {
+    const int st = (t - t0) & 1;
     if (t + 1 < ntiles) {  // the next tile's copy runs under this tile's products
-      load_tile<D>(k_base + (st ^ 1) * KST, kg, kstride, (t + 1) * BN, Skv, tid);
-      load_tile<DV>(v_base + (st ^ 1) * VST, vg, vstride, (t + 1) * BN, Skv, tid);
+      load_tile<D, NTHR>(k_base + (st ^ 1) * KST, kg, kstride, (t + 1) * BN, Skv, tid);
+      load_tile<DV, NTHR>(v_base + (st ^ 1) * VST, vg, vstride, (t + 1) * BN, Skv, tid);
     }
     cp_async_commit();
     cp_async_wait<1>();   // every group but the newest: tile t has landed
@@ -449,120 +493,138 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();
 
     const int k0 = t * BN;
-    // with causal, the first half sees nothing of a tile past its last row
-    const bool live0 = !causal || k0 <= q0 + BM - 1;
+    // with causal, the first half of a one-warpgroup CTA sees nothing of a
+    // tile past its last row and skips its products. Every other half runs
+    // every tile of the range: the only tiles it does not see are the
+    // second half's first tile in window mode and, at D = 256, the first
+    // half's last one, whose scores are all masked and add P = 0; a branch
+    // on the warpgroup's index would put the wgmmas on a path ptxas takes as
+    // divergent, and serializes (C7520)
+    const bool live0 = NWG == 2 || !causal || k0 <= q0 + BM - 1;
     const uint32_t kb = k_base + st * KST, vb = v_base + st * VST;
-    float s[2][BN / 2];
+    float s[HPW][BN / 2];
 #pragma unroll
-    for (int hf = 0; hf < 2; ++hf)
+    for (int j = 0; j < HPW; ++j)
 #pragma unroll
-      for (int i = 0; i < BN / 2; ++i) s[hf][i] = 0.f;
+      for (int i = 0; i < BN / 2; ++i) s[j][i] = 0.f;
     // every non-wgmma definition of an accumulator register lands before the
     // fence, or ptxas serializes the wgmmas
-    fence_regs(s[0]);
-    fence_regs(s[1]);
+#pragma unroll
+    for (int j = 0; j < HPW; ++j) fence_regs(s[j]);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      if (live0) wgmma_ss_n64(s[0], desc_k(q_base, kk), desc_k(kb, kk), kk > 0);
-      wgmma_ss_n64(s[1], desc_k(q_base + QH, kk), desc_k(kb, kk), kk > 0);
-    }
+    for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+      for (int j = 0; j < HPW; ++j)
+        if (j > 0 || live0)
+          wgmma_ss_n64(s[j], desc_k(q_base + (wgi * HPW + j) * QH, kk), desc_k(kb, kk),
+                       kk > 0);
     wgmma_commit();
     wgmma_wait0();
-    fence_regs(s[0]);
-    fence_regs(s[1]);
+#pragma unroll
+    for (int j = 0; j < HPW; ++j) fence_regs(s[j]);
 
-    const bool masked = (causal && k0 + BN - 1 > q0) || k0 + BN > Skv;
 #pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      if (hf == 0 && !live0) continue;
-      if (masked) {  // the raw scores of a diagonal or ragged tile
+    for (int j = 0; j < HPW; ++j) {
+      if (j == 0 && !live0) continue;
+      const int lo = q0 + (wgi * HPW + j) * BM;
+      // a tile on the diagonal, at a window's edge or past Skv
+      const bool masked = (causal && k0 + BN - 1 > lo) ||
+                          (window && lo + BM - 1 - k0 >= window) || k0 + BN > Skv;
+      if (masked) {  // the raw scores: row r sees keys klo[r] < key <= khi[r]
+        int klo[2], khi[2];
 #pragma unroll
-        for (int j = 0; j < NKT; ++j)
+        for (int r = 0; r < 2; ++r) {
+          const int row = lo + r0 + gr + 8 * r;
+          khi[r] = causal ? min(row, Skv - 1) : Skv - 1;
+          klo[r] = window ? row - window : -1;
+        }
+#pragma unroll
+        for (int n = 0; n < NKT; ++n)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const int row = q0 + hf * BM + r0 + gr + (e >> 1) * 8;
-            const int key = k0 + 8 * j + 2 * gc + (e & 1);
-            if (key >= Skv || (causal && key > row)) s[hf][4 * j + e] = NEG_INF;
+            const int key = k0 + 8 * n + 2 * gc + (e & 1);
+            if (key <= klo[e >> 1] || key > khi[e >> 1]) s[j][4 * n + e] = NEG_INF;
           }
       }
-      float mx[2] = {m[hf][0], m[hf][1]};
+      float mx[2] = {m[j][0], m[j][1]};
 #pragma unroll
-      for (int j = 0; j < NKT; ++j) {
-        mx[0] = fmaxf(mx[0], fmaxf(s[hf][4 * j], s[hf][4 * j + 1]));
-        mx[1] = fmaxf(mx[1], fmaxf(s[hf][4 * j + 2], s[hf][4 * j + 3]));
+      for (int n = 0; n < NKT; ++n) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[j][4 * n], s[j][4 * n + 1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[j][4 * n + 2], s[j][4 * n + 3]));
       }
       float alpha[2], nb[2];
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 1));
         mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 2));
-        alpha[r] = exp2_approx((m[hf][r] - mx[r]) * scale_log2);
-        m[hf][r] = mx[r];
-        nb[r] = -mx[r] * scale_log2;
+        alpha[r] = exp2_approx((m[j][r] - mx[r]) * scale_log2);
+        m[j][r] = mx[r];
+        // a row that has seen no key yet adds P = 2^(-1e30 c) = 0
+        nb[r] = mx[r] == NEG_INF ? 0.f : -mx[r] * scale_log2;
       }
       // P = 2^(s * scale * log2(e) - m * scale * log2(e)): one FFMA, one ex2
       float rs[2] = {0.f, 0.f};
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) {
-        s[hf][i] = exp2_approx(fmaf(s[hf][i], scale_log2, nb[(i >> 1) & 1]));
-        rs[(i >> 1) & 1] += s[hf][i];
+        s[j][i] = exp2_approx(fmaf(s[j][i], scale_log2, nb[(i >> 1) & 1]));
+        rs[(i >> 1) & 1] += s[j][i];
       }
 #pragma unroll
-      for (int r = 0; r < 2; ++r) l[hf][r] = l[hf][r] * alpha[r] + rs[r];
+      for (int r = 0; r < 2; ++r) l[j][r] = l[j][r] * alpha[r] + rs[r];
 #pragma unroll
       for (int n = 0; n < NVT; ++n) {
-        acc[hf][4 * n] *= alpha[0];
-        acc[hf][4 * n + 1] *= alpha[0];
-        acc[hf][4 * n + 2] *= alpha[1];
-        acc[hf][4 * n + 3] *= alpha[1];
+        acc[j][4 * n] *= alpha[0];
+        acc[j][4 * n + 1] *= alpha[0];
+        acc[j][4 * n + 2] *= alpha[1];
+        acc[j][4 * n + 3] *= alpha[1];
       }
     }
 
     // acc += P V, P rounded to bf16 in registers: S's column tiles 2kk and
     // 2kk + 1 are the A fragment of keys 16kk .. 16kk + 15
-    fence_regs(acc[0]);
-    fence_regs(acc[1]);
+#pragma unroll
+    for (int j = 0; j < HPW; ++j) fence_regs(acc[j]);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk) {
 #pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        if (hf == 0 && !live0) continue;
-        wgmma_rs(acc[hf], pack_bf16(s[hf][8 * kk], s[hf][8 * kk + 1]),
-                 pack_bf16(s[hf][8 * kk + 2], s[hf][8 * kk + 3]),
-                 pack_bf16(s[hf][8 * kk + 4], s[hf][8 * kk + 5]),
-                 pack_bf16(s[hf][8 * kk + 6], s[hf][8 * kk + 7]), desc_mn(vb, kk));
+      for (int j = 0; j < HPW; ++j) {
+        if (j == 0 && !live0) continue;
+        wgmma_rs(acc[j], pack_bf16(s[j][8 * kk], s[j][8 * kk + 1]),
+                 pack_bf16(s[j][8 * kk + 2], s[j][8 * kk + 3]),
+                 pack_bf16(s[j][8 * kk + 4], s[j][8 * kk + 5]),
+                 pack_bf16(s[j][8 * kk + 6], s[j][8 * kk + 7]), desc_mn(vb, kk));
       }
     }
     wgmma_commit();
     wgmma_wait0();
-    fence_regs(acc[0]);
-    fence_regs(acc[1]);
+#pragma unroll
+    for (int j = 0; j < HPW; ++j) fence_regs(acc[j]);
     __syncthreads();  // every warp is done with stage st before it is refilled
   }
 
 #pragma unroll
-  for (int hf = 0; hf < 2; ++hf)
+  for (int j = 0; j < HPW; ++j)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      float lr = l[hf][r];
+      float lr = l[j][r];
       lr += __shfl_xor_sync(FULL, lr, 1);
       lr += __shfl_xor_sync(FULL, lr, 2);
-      const int qi = q0 + hf * BM + r0 + gr + 8 * r;
+      const int qi = q0 + (wgi * HPW + j) * BM + r0 + gr + 8 * r;
       if (qi >= Sq) continue;
       const float inv = 1.f / fmaxf(lr, 1e-30f);
       bf16* orow = o + (((size_t)b * Sq + qi) * H + h) * DV + 2 * gc;
 #pragma unroll
       for (int n = 0; n < NVT; ++n)
         *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n) = __floats2bfloat162_rn(
-            acc[hf][4 * n + 2 * r] * inv, acc[hf][4 * n + 2 * r + 1] * inv);
+            acc[j][4 * n + 2 * r] * inv, acc[j][4 * n + 2 * r + 1] * inv);
     }
 }
 
 template <int D, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int KV, int Sq,
-           int Skv, float scale, int causal, cudaStream_t stream) {
+           int Skv, float scale, int causal, int window, cudaStream_t stream) {
   auto kern = flash_wgmma_kernel<D, DV>;
   constexpr size_t smem = smem_bytes<D, DV>();
   // opt in to more than 48 KB of shared memory on every launch, as the
@@ -572,51 +634,59 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H, i
   if (err != cudaSuccess) return (int)err;
   const int ntiles = (Sq + 2 * BM - 1) / (2 * BM);
   if (ntiles > 65535) return (int)cudaErrorInvalidValue;
-  kern<<<dim3(B * H, ntiles), THREADS, smem, stream>>>(
+  kern<<<dim3(B * H, ntiles), THREADS * warpgroups<DV>(), smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), H, KV, Sq, Skv, scale * LOG2E, causal);
+      static_cast<bf16*>(o), H, KV, Sq, Skv, scale * LOG2E, causal, window);
   return (int)cudaGetLastError();
 }
 
 template <int D>
 int launch_dv(const void* q, const void* k, const void* v, void* o, int B, int H, int KV,
-              int Sq, int Skv, int Dv, float scale, int causal, cudaStream_t s) {
+              int Sq, int Skv, int Dv, float scale, int causal, int w, cudaStream_t s) {
   switch (Dv) {
-    case 32: return launch<D, 32>(q, k, v, o, B, H, KV, Sq, Skv, scale, causal, s);
-    case 64: return launch<D, 64>(q, k, v, o, B, H, KV, Sq, Skv, scale, causal, s);
-    case 112: return launch<D, 112>(q, k, v, o, B, H, KV, Sq, Skv, scale, causal, s);
-    case 128: return launch<D, 128>(q, k, v, o, B, H, KV, Sq, Skv, scale, causal, s);
+    case 32: return launch<D, 32>(q, k, v, o, B, H, KV, Sq, Skv, scale, causal, w, s);
+    case 64: return launch<D, 64>(q, k, v, o, B, H, KV, Sq, Skv, scale, causal, w, s);
+    case 112: return launch<D, 112>(q, k, v, o, B, H, KV, Sq, Skv, scale, causal, w, s);
+    case 128: return launch<D, 128>(q, k, v, o, B, H, KV, Sq, Skv, scale, causal, w, s);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 int launch_d(const void* q, const void* k, const void* v, void* o, int B, int H, int KV,
-             int Sq, int Skv, int D, int Dv, float scale, int causal, cudaStream_t s) {
+             int Sq, int Skv, int D, int Dv, float scale, int causal, int w, cudaStream_t s) {
   switch (D) {
-    case 32: return launch_dv<32>(q, k, v, o, B, H, KV, Sq, Skv, Dv, scale, causal, s);
-    case 64: return launch_dv<64>(q, k, v, o, B, H, KV, Sq, Skv, Dv, scale, causal, s);
-    case 112: return launch_dv<112>(q, k, v, o, B, H, KV, Sq, Skv, Dv, scale, causal, s);
-    case 128: return launch_dv<128>(q, k, v, o, B, H, KV, Sq, Skv, Dv, scale, causal, s);
+    case 32: return launch_dv<32>(q, k, v, o, B, H, KV, Sq, Skv, Dv, scale, causal, w, s);
+    case 64: return launch_dv<64>(q, k, v, o, B, H, KV, Sq, Skv, Dv, scale, causal, w, s);
+    case 112: return launch_dv<112>(q, k, v, o, B, H, KV, Sq, Skv, Dv, scale, causal, w, s);
+    case 128: return launch_dv<128>(q, k, v, o, B, H, KV, Sq, Skv, Dv, scale, causal, w, s);
+    case 256: return launch<256, 256>(q, k, v, o, B, H, KV, Sq, Skv, scale, causal, w, s);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace wg
 
+bool head_dim_ok(int d) { return d == 32 || d == 64 || d == 112 || d == 128 || d == 256; }
+
 }  // namespace
 
 // q [B, Sq, H, D], k [B, Skv, KV, D], v [B, Skv, KV, Dv] contiguous, float32
 // (dtype 0, the scalar kernel) or bfloat16 (dtype 1, the wgmma kernel; every
 // pointer 16-byte aligned); o [B, Sq, H, Dv] of the same type. D, Dv in
-// {32, 64, 112, 128}; H a multiple of KV; B * H <= 65535. Returns the
-// launch's CUDA error code (0 on success).
+// {32, 64, 112, 128}, or D = Dv = 256; H a multiple of KV; B * H <= 65535;
+// window >= 0 (0: none; > 0 only with Sq == Skv). Returns the launch's CUDA
+// error code (0 on success).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                                       int B, int H, int KV, int Sq, int Skv, int D, int Dv,
-                                      int dtype, int causal, float scale, void* stream) {
+                                      int dtype, int causal, int window, float scale,
+                                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D != 32 && D != 64 && D != 112 && D != 128) return (int)cudaErrorInvalidValue;
+  if (!head_dim_ok(D) || !head_dim_ok(Dv) || ((D == 256 || Dv == 256) && D != Dv) ||
+      window < 0 || (window > 0 && Sq != Skv))
+    return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return launch_dv<float>(q, k, v, o, B, H, KV, Sq, Skv, D, Dv, scale, causal, s);
-  if (dtype == 1) return wg::launch_d(q, k, v, o, B, H, KV, Sq, Skv, D, Dv, scale, causal, s);
+    return launch_dv<float>(q, k, v, o, B, H, KV, Sq, Skv, D, Dv, scale, causal, window, s);
+  if (dtype == 1)
+    return wg::launch_d(q, k, v, o, B, H, KV, Sq, Skv, D, Dv, scale, causal, window, s);
   return (int)cudaErrorInvalidValue;
 }

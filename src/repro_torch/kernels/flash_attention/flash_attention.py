@@ -7,10 +7,14 @@ reads the ``[B, S, H, D]`` layout directly and indexes KV head
 ``h // (H // KV)``, so neither the transpose nor the GQA broadcast of the
 JAX wrapper is materialised. bfloat16 runs on the tensor cores through
 ``wgmma`` (float32 accumulation; P rounded to bf16 in registers before
-``P V``): one warpgroup per 128 query rows, bf16 tiles in shared memory in
-the 128-byte-swizzled layout, fed by a two-stage ``cp.async`` ring; at the
+``P V``): 128 query rows a CTA (one warpgroup for both 64-row halves, or
+one warpgroup each at D = Dv = 256), bf16 tiles in shared memory in the
+128-byte-swizzled layout, fed by a two-stage ``cp.async`` ring; at the
 serve paths' shapes it is bound by bytes. float32 keeps a kernel of scalar
-float32 FMAs, since the tensor cores would compute in TF32.
+float32 FMAs, since the tensor cores would compute in TF32. ``window > 0``
+is the sliding-window mode of the JAX package's ``flash_attention_jax``
+(``repro/models/attention.py:67, :134``): key tiles outside every row's
+window are never loaded, the edge tiles are masked.
 
 The library is built by ``repro_torch.kernels.build`` at first use on a
 CUDA tensor, into ``_build/`` beside this file; importing builds nothing.
@@ -27,7 +31,9 @@ from repro_torch.kernels.build import CudaLibrary, ptr, stream
 
 SOURCES = (Path(__file__).parent / "csrc" / "flash_attention.cu",)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 112, 128)  # D and Dv the kernel is built for (112: Zamba2)
+# D and Dv the kernel is built for (112: Zamba2; 256: Gemma 3, with Dv = 256 only)
+HEAD_DIMS = (32, 64, 112, 128, 256)
+PAIRED_ONLY = 256  # built only as D = Dv
 
 # launches, counted where the wrapper launches the kernel
 LAUNCHES = {"flash_attention": 0}
@@ -35,7 +41,7 @@ LAUNCHES = {"flash_attention": 0}
 
 def _declare(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.flash_attention_launch.argtypes = [vp] * 4 + [ci] * 9 + [ctypes.c_float, vp]
+    lib.flash_attention_launch.argtypes = [vp] * 4 + [ci] * 10 + [ctypes.c_float, vp]
     lib.flash_attention_launch.restype = ci
 
 
@@ -43,11 +49,18 @@ LIBRARY = CudaLibrary("flash_attention", SOURCES, Path(__file__).parent / "_buil
                       _declare)
 
 
-def flash_attention_cuda(q, k, v, *, causal: bool = True):
+def admits(D: int, Dv: int) -> bool:
+    """Whether the kernel is built for head dims (D, Dv)."""
+    return (D in HEAD_DIMS and Dv in HEAD_DIMS
+            and (D == Dv or PAIRED_ONLY not in (D, Dv)))
+
+
+def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
     """Launch the kernel on contiguous CUDA tensors q [B, Sq, H, D], k
     [B, Skv, KV, D], v [B, Skv, KV, Dv] (float32 or bfloat16, one dtype;
     bf16 tensors 16-byte aligned, as every fresh allocation is).
-    Scores scale by ``D ** -0.5``. Returns a fresh [B, Sq, H, Dv] tensor;
+    Scores scale by ``D ** -0.5``; ``window > 0`` (Sq == Skv) masks keys
+    with ``qpos - kpos >= window``. Returns a fresh [B, Sq, H, Dv] tensor;
     the inputs are only read."""
     dev = q.device
     if dev.type != "cuda":
@@ -63,8 +76,12 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True):
                          f"q {tuple(q.shape)}")
     if KV < 1 or H % KV:
         raise ValueError(f"{H} query heads do not group over {KV} KV heads")
-    if D not in HEAD_DIMS or Dv not in HEAD_DIMS:
-        raise ValueError(f"head dims must be in {HEAD_DIMS}, got D={D}, Dv={Dv}")
+    if not admits(D, Dv):
+        raise ValueError(f"head dims must be in {HEAD_DIMS} ({PAIRED_ONLY} only as "
+                         f"D = Dv), got D={D}, Dv={Dv}")
+    if window < 0 or (window and Sq != Skv):
+        raise ValueError(f"window {window}: must be >= 0, and > 0 only with Sq == Skv "
+                         f"(got Sq={Sq}, Skv={Skv})")
     if B * H > 65535:
         raise ValueError(f"B * H = {B * H} exceeds one launch's grid")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -80,7 +97,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True):
         raise ValueError("attention over zero keys")
     err = LIBRARY.load().flash_attention_launch(
         ptr(q), ptr(k), ptr(v), ptr(out), B, H, KV, Sq, Skv, D, Dv,
-        DTYPES[q.dtype], int(causal), D ** -0.5, stream(dev))
+        DTYPES[q.dtype], int(causal), int(window), D ** -0.5, stream(dev))
     if err != 0:
         raise RuntimeError(f"flash-attention kernel launch failed: CUDA error {err}")
     LAUNCHES["flash_attention"] += 1

@@ -2,16 +2,21 @@
 ``prefill`` / ``decode_step``, driven by ``ModelConfig``.
 
 The counterpart of ``repro.models.model`` for four families: dense GQA
-without local:global attention (Phi-4-mini, Granite, Mistral-Large),
-``moe`` with GQA attention and gather dispatch (Llama-4-Scout: MoE blocks
+(Phi-4-mini, Granite, Mistral-Large; Gemma 3's local:global attention:
+superblocks of ``local_global_period - 1`` sliding-window layers with
+window-sized ring caches, then one global layer, then the trailing local
+layers), ``moe`` with GQA attention and gather dispatch (Llama-4-Scout: MoE blocks
 after ``first_k_dense`` dense ones, sharing the dense KV cache layout),
 ``ssm`` (Mamba-2) and ``hybrid`` (Zamba2: superblocks of
 ``shared_attn_period`` Mamba-2 layers, each followed by one tied dense GQA
 block with its own KV cache per application, then the trailing Mamba-2
-layers). Every other family and attention kind (MLA among them) raises
+layers). Every other family and attention kind (MLA among them), and a
+sliding window anywhere but in a dense model's local:global layers, raises
 ``NotImplementedError`` naming ROADMAP Queue 1 item 12.
 """
 from __future__ import annotations
+
+from functools import partial
 
 import numpy as np
 import torch
@@ -56,14 +61,17 @@ FAMILIES = ("dense", "moe", "ssm", "hybrid")  # the families the port runs
 def check_supported(cfg: ModelConfig):
     """Raise ``NotImplementedError`` unless the port runs ``cfg``."""
     why = None
+    local_global = cfg.family == "dense" and cfg.local_global_period and cfg.sliding_window
     if cfg.family not in FAMILIES:
         why = f"the {cfg.family!r} family"
     elif cfg.modality != "text":
         why = f"the {cfg.modality!r} front end"
     elif cfg.family == "ssm":
         pass  # attention-free
-    elif cfg.local_global_period or cfg.sliding_window:
-        why = "sliding-window / local:global attention"
+    elif (cfg.local_global_period or cfg.sliding_window) and not local_global:
+        # the JAX package applies a window only in a dense model's local
+        # layers, and silently none elsewhere
+        why = "sliding-window attention outside a dense model's local:global layers"
     elif cfg.attn_kind != "gqa":
         why = f"{cfg.attn_kind!r} attention"
     elif cfg.rope_kind == "mrope":
@@ -76,9 +84,11 @@ def check_supported(cfg: ModelConfig):
 # ======================================================================
 # Schema
 # ======================================================================
-def _hybrid_split(cfg: ModelConfig) -> tuple[int, int, int]:
-    """(layers per superblock, superblocks, trailing layers) of a hybrid."""
-    per = cfg.shared_attn_period
+def _superblock_split(cfg: ModelConfig) -> tuple[int, int, int]:
+    """(layers per superblock, superblocks, trailing layers) of a hybrid
+    (``shared_attn_period``) or a local:global model
+    (``local_global_period``)."""
+    per = cfg.shared_attn_period if cfg.family == "hybrid" else cfg.local_global_period
     n_super = cfg.n_layers // per
     return per, n_super, cfg.n_layers - n_super * per
 
@@ -87,10 +97,19 @@ def param_schema(cfg: ModelConfig) -> dict:
     """The model's parameter schema: embedding, final norm, the blocks
     (for a moe model: ``dense_blocks`` when ``first_k_dense > 0``, then
     the MoE ``blocks``; for a hybrid: ``superblocks`` [n_super][per], one
-    ``shared_attn`` block and the ``trailing`` layers)."""
+    ``shared_attn`` block and the ``trailing`` layers; for a local:global
+    model: ``superblocks`` [n_super] of ``local`` [per - 1] blocks and one
+    ``global`` block, then the ``trailing`` local blocks)."""
     check_supported(cfg)
     sch = {"embed": embed_schema(cfg), "final_norm": rmsnorm_schema(cfg.d_model)}
-    if cfg.family == "dense":
+    if cfg.family == "dense" and cfg.local_global_period:
+        per, n_super, trailing = _superblock_split(cfg)
+        sch["superblocks"] = stack_schema(
+            {"local": stack_schema(dense_block_schema(cfg), per - 1),
+             "global": dense_block_schema(cfg)}, n_super)
+        if trailing:
+            sch["trailing"] = stack_schema(dense_block_schema(cfg), trailing)
+    elif cfg.family == "dense":
         sch["blocks"] = stack_schema(dense_block_schema(cfg), cfg.n_layers)
     elif cfg.family == "moe":
         if cfg.first_k_dense:
@@ -99,7 +118,7 @@ def param_schema(cfg: ModelConfig) -> dict:
     elif cfg.family == "ssm":
         sch["blocks"] = stack_schema(ssm_block_schema(cfg), cfg.n_layers)
     else:
-        per, n_super, trailing = _hybrid_split(cfg)
+        per, n_super, trailing = _superblock_split(cfg)
         sch["superblocks"] = stack_schema(stack_schema(ssm_block_schema(cfg), per), n_super)
         sch["shared_attn"] = dense_block_schema(cfg)  # tied weights (one copy)
         if trailing:
@@ -134,8 +153,9 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device=None):
     parameters as numpy arrays keyed by pytree path, stacked layers with
     their leading layer axes (``"blocks.attn.wq"`` [L, d, H, D],
     ``"blocks.moe.w1"`` [L, E, d, ff], ``"blocks.moe.router"`` [L, d, E],
-    ``"superblocks.mixer.wz"`` [n_super, per, d, H, P], ``"shared_attn.
-    attn.wq"`` unstacked). Every leaf is checked against the schema's
+    ``"superblocks.mixer.wz"`` [n_super, per, d, H, P], ``"superblocks.
+    local.attn.wq"`` [n_super, per - 1, d, H, D], ``"shared_attn.attn.wq"``
+    unstacked). Every leaf is checked against the schema's
     stacked shape and cast to its dtype; keys the schema lacks, or lacks in
     ``tree``, raise."""
     dev = resolve_device(device)
@@ -173,10 +193,29 @@ def _embed_input(cfg: ModelConfig, p, batch):
     return x, positions_for(cfg, tuple(tokens.shape), device=tokens.device)
 
 
+def _run_superblocks(pairs, keys, stack_fn, block_fn, x, ctx: Ctx, sc=None):
+    """Superblock i runs ``stack_fn`` over the layers of ``pairs[i][0]``,
+    then ``block_fn`` with ``pairs[i][1]``, their caches under ``keys``
+    (stack's, block's) of the superblock's cache ``sc[i]``. Returns (x, the
+    superblocks' stacked caches): decode's written in place, prefill's
+    new."""
+    outs = []
+    for i, (stack_p, block_p) in enumerate(pairs):
+        scache = None if sc is None else tree_index(sc, i)
+        x, stack_c, _ = scan_stack(stack_fn, stack_p, x, ctx,
+                                   stacked_cache=None if scache is None else scache[keys[0]])
+        x, block_c, _ = block_fn(block_p, x, None if scache is None else scache[keys[1]], ctx)
+        outs.append({keys[0]: stack_c, keys[1]: block_c})
+    if sc is None and ctx.mode == "prefill":
+        sc = tree_stack(outs)
+    return x, sc
+
+
 def _run_lm_stacks(cfg: ModelConfig, p, x, ctx: Ctx, caches=None):
-    """The dense, moe, ssm and hybrid branches of the JAX package's
-    ``_run_lm_stacks``. Returns (x, new_caches, aux): aux is the MoE
-    blocks' aux summed over the layers, ``None`` for the other families."""
+    """The dense (with its local:global branch), moe, ssm and hybrid
+    branches of the JAX package's ``_run_lm_stacks``. Returns (x,
+    new_caches, aux): aux is the MoE blocks' aux summed over the layers,
+    ``None`` for the other families."""
     c = caches or {}
     if cfg.family == "moe":
         new_caches = {}
@@ -186,28 +225,27 @@ def _run_lm_stacks(cfg: ModelConfig, p, x, ctx: Ctx, caches=None):
         x, new_caches["blocks"], aux = scan_stack(moe_layer_block, p["blocks"], x, ctx,
                                                   stacked_cache=c.get("blocks"))
         return x, new_caches, aux
-    if cfg.family in ("dense", "ssm"):
+    if cfg.family == "ssm" or (cfg.family == "dense" and not cfg.local_global_period):
         block = dense_block if cfg.family == "dense" else ssm_block
         x, bc, _ = scan_stack(block, p["blocks"], x, ctx, stacked_cache=c.get("blocks"))
         return x, {"blocks": bc}, None
-    # hybrid: each superblock's SSM layers, then the shared attention block
-    # with this application's KV cache
-    sc = c.get("superblocks")
-    outs = []
-    for i, sp in enumerate(p["superblocks"]):
-        scache = None if sc is None else tree_index(sc, i)
-        x, ssm_c, _ = scan_stack(ssm_block, sp, x, ctx,
-                                 stacked_cache=None if scache is None else scache["ssm"])
-        x, attn_c, _ = dense_block(p["shared_attn"], x,
-                                   None if scache is None else scache["attn"], ctx)
-        outs.append({"ssm": ssm_c, "attn": attn_c})
-    if sc is None and ctx.mode == "prefill":
-        sc = tree_stack(outs)
-    new_caches = {"superblocks": sc}  # decode: the views were written in place
+    if cfg.family == "dense":
+        # local:global: each superblock's sliding-window layers (ring caches
+        # outside training), then its global layer; the trailing layers local
+        layer = partial(dense_block, window=cfg.sliding_window, ring=ctx.mode != "train")
+        pairs = [(sp["local"], sp["global"]) for sp in p["superblocks"]]
+        keys = ("local", "global")
+    else:
+        # hybrid: each superblock's SSM layers, then the shared attention
+        # block with this application's KV cache
+        layer = ssm_block
+        pairs = [(sp, p["shared_attn"]) for sp in p["superblocks"]]
+        keys = ("ssm", "attn")
+    x, sc = _run_superblocks(pairs, keys, layer, dense_block, x, ctx, c.get("superblocks"))
+    new_caches = {"superblocks": sc}
     if "trailing" in p:
-        x, tc, _ = scan_stack(ssm_block, p["trailing"], x, ctx,
-                              stacked_cache=c.get("trailing"))
-        new_caches["trailing"] = tc
+        x, new_caches["trailing"], _ = scan_stack(layer, p["trailing"], x, ctx,
+                                                  stacked_cache=c.get("trailing"))
     return x, new_caches, None
 
 
@@ -229,13 +267,17 @@ def forward(cfg: ModelConfig, p, batch, mode: str = "train"):
 def cache_schema(cfg: ModelConfig, B: int, S: int) -> dict:
     """PSpec tree mirroring what prefill/decode produce. S = max context.
     KV caches are [layers, B, S, KV, D] bf16 (a moe model's as a dense
-    model's: ``dense_blocks`` and ``blocks``); an SSM layer holds its state
-    [B, H, P, N] float32 and the last W - 1 raw conv inputs in bf16."""
+    model's: ``dense_blocks`` and ``blocks``; a local:global model's local
+    layers [n_super, per - 1, B, W, KV, D] and trailing layers rings of W =
+    ``min(sliding_window, S)`` slots, its global layers [n_super, B, S, KV,
+    D]); an SSM layer holds its state [B, H, P, N] float32 and the last
+    W - 1 raw conv inputs in bf16."""
     check_supported(cfg)
     KV, D = cfg.n_kv_heads, cfg.resolved_head_dim
 
-    def kv(n):
-        spec = PSpec((n, B, S, KV, D), ("layers", "batch", None, "kv_heads", None),
+    def kv(lead, s=S):
+        ax = ("layers", "layers2")[: len(lead)]
+        spec = PSpec(lead + (B, s, KV, D), ax + ("batch", None, "kv_heads", None),
                      init="zeros")
         return {"k": spec, "v": spec}
 
@@ -255,16 +297,22 @@ def cache_schema(cfg: ModelConfig, B: int, S: int) -> dict:
         }
 
     sch = {"len": PSpec((B,), ("batch",), "int32", "zeros")}
-    if cfg.family in ("dense", "moe"):
+    if cfg.family == "dense" and cfg.local_global_period:
+        per, n_super, trailing = _superblock_split(cfg)
+        W = min(cfg.sliding_window, S)
+        sch["superblocks"] = {"local": kv((n_super, per - 1), W), "global": kv((n_super,))}
+        if trailing:
+            sch["trailing"] = kv((trailing,), W)
+    elif cfg.family in ("dense", "moe"):
         n_dense = cfg.first_k_dense if cfg.family == "moe" else 0
-        sch["blocks"] = kv(cfg.n_layers - n_dense)
+        sch["blocks"] = kv((cfg.n_layers - n_dense,))
         if n_dense:
-            sch["dense_blocks"] = kv(n_dense)
+            sch["dense_blocks"] = kv((n_dense,))
     elif cfg.family == "ssm":
         sch["blocks"] = ssm_cache(cfg.n_layers)
     else:
-        per, n_super, trailing = _hybrid_split(cfg)
-        sch["superblocks"] = {"ssm": ssm_cache(n_super, per), "attn": kv(n_super)}
+        per, n_super, trailing = _superblock_split(cfg)
+        sch["superblocks"] = {"ssm": ssm_cache(n_super, per), "attn": kv((n_super,))}
         if trailing:
             sch["trailing"] = ssm_cache(trailing)
     return sch
@@ -300,17 +348,19 @@ def decode_step(cfg: ModelConfig, p, cache, tokens):
 
 def pad_cache(cfg: ModelConfig, cache, extra: int):
     """Grow the sequence dim (-3) of the KV caches (every ``k`` / ``v``
-    leaf) by ``extra`` decode slots (prefill sizes them to the prompt); SSM
-    states and conv prefixes are fixed-size and stay as they are."""
+    leaf) by ``extra`` decode slots (prefill sizes them to the prompt); a
+    local:global model's ``local`` and ``trailing`` rings, SSM states and
+    conv prefixes are fixed-size and stay as they are."""
     if extra <= 0:
         return cache
 
-    def grow(tree):
-        return {k: grow(v) if isinstance(v, dict)
-                else F.pad(v, (0, 0, 0, 0, 0, extra)) if k in ("k", "v") else v
+    def grow(tree, ring):
+        return {k: grow(v, ring or (bool(cfg.local_global_period) and k in ("local", "trailing")))
+                if isinstance(v, dict)
+                else F.pad(v, (0, 0, 0, 0, 0, extra)) if k in ("k", "v") and not ring else v
                 for k, v in tree.items()}
 
-    return grow(cache)
+    return grow(cache, False)
 
 
 def prefill(cfg: ModelConfig, p, batch, *, pad_to: int = 0):

@@ -10,7 +10,8 @@ layers' modules; it sums a MoE block's aux (load-balance loss, router
 z-loss, dropped share) over the layers, as the JAX package's scan does.
 
 Decode updates the stacked cache in place (the JAX package returns an
-updated copy): the new token's K/V is written into its slot, and an SSM
+updated copy): the new token's K/V is written into its slot (a local
+layer's into slot ``pos % W`` of its window-sized ring), and an SSM
 layer overwrites its state and conv prefixes (``models.ssm``). The cache
 is the largest live tensor after the weights, and no caller keeps the old
 one. A layer's cache is a (nested) dict of tensors; the stacked cache has
@@ -76,30 +77,49 @@ def _out(o, w):
     return o.reshape(*o.shape[:-2], H * K) @ w.reshape(H * K, d)
 
 
-def gqa_attn(p, x, cache, ctx: Ctx):
-    """Returns (out, new_cache). Prefill builds ``{"k", "v"}``; decode writes
-    slot ``min(pos, S - 1)`` of the layer's cache in place and attends over
-    ``pos + 1`` entries."""
+def _ring(x, W: int):
+    """The window-sized ring of a prefill's keys or values [B, S, KV, D]:
+    the last ``W`` positions at slots ``pos % W``, zeros where S < W (the
+    JAX package's ``gqa_attn``, ``repro/models/transformer.py:110-118``)."""
+    S = x.shape[1]
+    ring = x.new_zeros((x.shape[0], W) + tuple(x.shape[2:]))
+    ring[:, torch.arange(max(S - W, 0), S, device=x.device) % W] = x[:, -W:]
+    return ring
+
+
+def gqa_attn(p, x, cache, ctx: Ctx, *, window: int = 0, ring: bool = False):
+    """Returns (out, new_cache). Prefill builds ``{"k", "v"}`` (with
+    ``ring`` and a window, the window-sized ring of the last W positions);
+    decode writes slot ``min(pos, S - 1)`` of the layer's cache in place and
+    attends over ``pos + 1`` entries (the last ``window`` of them with a
+    window), or with ``ring`` writes slot ``pos % S`` and attends over
+    ``min(pos + 1, S)`` slots."""
     rope_fn = make_rope_fn(ctx.cfg)
     q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
 
     if ctx.mode in ("train", "prefill"):
         q = rope_fn(q, ctx.pos)
         k = rope_fn(k, ctx.pos)
-        o = attention(q, k, v)
+        o = attention(q, k, v, window=window)
         out = _out(o, p["wo"])
-        return out, ({"k": k, "v": v} if ctx.mode == "prefill" else None)
+        if ctx.mode == "train":
+            return out, None
+        if ring and window:
+            return out, {"k": _ring(k, window), "v": _ring(v, window)}
+        return out, {"k": k, "v": v}
 
     posB = ctx.pos  # [B] absolute position of the new token (cache slot)
     rpos = posB[:, None]
     q = rope_fn(q, rpos)
     k = rope_fn(k, rpos)
     S = cache["k"].shape[1]
-    idx = torch.clamp(posB, max=S - 1).long()
+    idx = (posB % S if ring else torch.clamp(posB, max=S - 1)).long()
     bidx = torch.arange(x.shape[0], device=x.device)
     cache["k"][bidx, idx] = k[:, 0]
     cache["v"][bidx, idx] = v[:, 0]
-    o = decode_attention(q, cache["k"], cache["v"], posB + 1)
+    cache_len = torch.clamp(posB + 1, max=S) if ring else posB + 1
+    o = decode_attention(q, cache["k"], cache["v"], cache_len,
+                         window=0 if ring else window, ring=ring)
     return _out(o, p["wo"]), cache
 
 
@@ -120,11 +140,12 @@ def dense_block_schema(cfg: ModelConfig, *, attn: str = "gqa", ff: int | None = 
     }
 
 
-def dense_block(p, x, cache, ctx: Ctx):
+def dense_block(p, x, cache, ctx: Ctx, *, window: int = 0, ring: bool = False):
     """``x + attn(ln1(x))``, then ``+ mlp(ln2(.))``; the residual sums are
-    rounded to x's dtype before each norm, as in the JAX package."""
+    rounded to x's dtype before each norm, as in the JAX package. A local
+    layer passes its ``window`` and ``ring`` to ``gqa_attn``."""
     h = rmsnorm(p["ln1"], x, ctx.cfg.norm_eps)
-    a, new_cache = gqa_attn(p["attn"], h, cache, ctx)
+    a, new_cache = gqa_attn(p["attn"], h, cache, ctx, window=window, ring=ring)
     x = x + a
     x = x + mlp(p["mlp"], rmsnorm(p["ln2"], x, ctx.cfg.norm_eps))
     return x, new_cache, None

@@ -59,18 +59,46 @@ def test_flash_attention_kernel_matches_plain(B, S, H, KV, D, Dv, causal, dtype)
     _flash_matches_plain(B, S, H, KV, D, Dv, causal, dtype)
 
 
-def _flash_matches_plain(B, S, H, KV, D, Dv, causal, dtype):
-    rng = np.random.default_rng(S + D + Dv)
+def _flash_matches_plain(B, S, H, KV, D, Dv, causal, dtype, window=0):
+    rng = np.random.default_rng(S + D + Dv + window)
     q = _card(rng, (B, S, H, D), dtype)
     k = _card(rng, (B, S, KV, D), dtype)
     v = _card(rng, (B, S, KV, Dv), dtype)
+    keep = [t.clone() for t in (q, k, v)]
     before = fkern.LAUNCHES["flash_attention"]
-    got = fkern.flash_attention_cuda(q, k, v, causal=causal)
+    got = fkern.flash_attention_cuda(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert fkern.LAUNCHES["flash_attention"] == before + 1
-    want = attention_ref(q, k, v, causal=causal)
+    want = attention_ref(q, k, v, causal=causal, window=window)
     assert got.dtype == q.dtype and got.shape == want.shape
+    assert torch.isfinite(got.float()).all()
     torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[dtype])
+    assert all(torch.equal(a, b) for a, b in zip(keep, (q, k, v)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,KV,D,causal,window", [
+    (4, 2048, 8, 4, 256, True, 1024),  # Gemma 3's local layers
+    (2, 300, 4, 2, 256, True, 40),  # a window below one tile, ragged S
+    (2, 520, 4, 2, 128, True, 100),  # not a multiple of 64
+    (1, 257, 4, 2, 64, True, 64),
+    (2, 200, 4, 2, 64, False, 48),  # non-causal: only the left edge
+    (1, 130, 2, 2, 32, True, 1),  # every row sees itself alone
+])
+def test_flash_attention_kernel_window(B, S, H, KV, D, causal, window, dtype):
+    """The sliding-window mode: skipped and masked key tiles, and rows
+    that see no key of the first tiles they visit."""
+    _flash_matches_plain(B, S, H, KV, D, D, causal, dtype, window)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S", [1, 100, 2048])
+def test_flash_attention_kernel_d256(S, dtype):
+    """D = Dv = 256 without a window (Gemma 3's global layers at S 2048):
+    a warpgroup a half in bf16, 209 KB of shared memory in float32."""
+    _flash_matches_plain(4 if S == 2048 else 2, S, 8, 4, 256, 256, True, dtype)
 
 
 @pytest.mark.gpu
@@ -87,7 +115,13 @@ def test_flash_attention_kernel_partial_tiles(S, dtype):
 def test_flash_attention_kernel_head_dims(D, Dv):
     """Every (D, Dv) the wrapper admits, in bf16 (the tensor-core kernel);
     non-causal where D < Dv, so (32, 128) runs non-causal and (128, 64)
-    causal."""
+    causal. A pair with 256 but not (256, 256) is refused."""
+    if not fkern.admits(D, Dv):
+        rng = np.random.default_rng(D + Dv)
+        q, k = _card(rng, (1, 8, 2, D), "bfloat16"), _card(rng, (1, 8, 2, D), "bfloat16")
+        with pytest.raises(ValueError, match="head dims"):
+            fkern.flash_attention_cuda(q, k, _card(rng, (1, 8, 2, Dv), "bfloat16"))
+        return
     _flash_matches_plain(1, 100, 4, 2, D, Dv, D >= Dv, "bfloat16")
 
 

@@ -267,26 +267,34 @@ def _config(arch):
     return get_config(arch)
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "gemma3-4b", "qwen2-vl-72b",
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "qwen2-vl-72b",
                                   "seamless-m4t-medium", "llama4-scout-17b-a16e-mla"])
 def test_unported_model_families_raise(arch):
-    """The dense GQA family without a window, ``moe`` with GQA attention
-    (Llama-4-Scout), ``ssm`` (Mamba-2) and ``hybrid`` (Zamba2) run in the
-    port; every other registered architecture is refused, naming the
-    ROADMAP item, and so is a MoE model with MLA attention (DeepSeek-V2's,
-    and Llama-4-Scout's widths with MLA)."""
+    """The dense GQA family (with Gemma 3's local:global layers), ``moe``
+    with GQA attention (Llama-4-Scout), ``ssm`` (Mamba-2) and ``hybrid``
+    (Zamba2) run in the port; every other registered architecture is
+    refused, naming the ROADMAP item, and so is a MoE model with MLA
+    attention (DeepSeek-V2's, and Llama-4-Scout's widths with MLA)."""
     with pytest.raises(NotImplementedError, match="item 12"):
         TM.init_params(_config(arch).reduced(), device="cpu")
 
 
 def test_unported_model_options_raise():
+    """A sliding window runs only in a dense model's local:global layers:
+    a window without a period (where the JAX package would apply none), a
+    period without a window, or a window in another family is refused."""
     q = torch.zeros((1, 8, 2, 32))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        attention(q, q, q, window=4)
+    assert attention(q, q, q, window=4).shape == q.shape
     with pytest.raises(NotImplementedError, match="item 12"):
         TM.param_schema(get_config("phi4-mini-3.8b").replace(sliding_window=64))
+    with pytest.raises(NotImplementedError, match="item 12"):
+        TM.param_schema(get_config("gemma3-4b").replace(local_global_period=0))
+    with pytest.raises(NotImplementedError, match="item 12"):
+        TM.param_schema(get_config("gemma3-4b").replace(sliding_window=0))
+    with pytest.raises(NotImplementedError, match="item 12"):
+        TM.param_schema(get_config("llama4-scout-17b-a16e").replace(sliding_window=64))
     for arch in ("phi4-mini-3.8b", "granite-8b", "mistral-large-123b", "mamba2-130m",
-                 "zamba2-7b", "llama4-scout-17b-a16e"):
+                 "zamba2-7b", "llama4-scout-17b-a16e", "gemma3-4b"):
         assert TM.count_params(get_config(arch)) > 0
     with pytest.raises(NotImplementedError, match="item 12"):
         TM.param_schema(get_config("zamba2-7b").replace(sliding_window=64))
