@@ -10,7 +10,7 @@ its plain PyTorch version on the card, drives the simulator's main path
 through the port's entry points (``build_sim`` / ``run`` / ``stats``), the
 paper's figures through ``repro_torch.benchmarks`` and the model stack's
 serving paths (``Engine.generate`` on Phi-4-mini, Mamba-2, Zamba2,
-Llama-4-Scout and Gemma 3 4B), and checks what comes out:
+Llama-4-Scout, Gemma 3 4B and DeepSeek-V2), and checks what comes out:
 
 1. the card (``nvidia-smi``) and the kernels' build time;
 2. the arb and apply kernels bit-identical to the plain version on random
@@ -40,8 +40,9 @@ Llama-4-Scout and Gemma 3 4B), and checks what comes out:
 6. the 8x4 torus at ``n_vcs=2``, one cycle per step and at
    ``fused_cycles=4``: GPU state equal to CPU state, ms per cycle, the VC
    arb/apply kernels timed on the per-cycle run's state;
-7. the 8x1 ring: wedged at ``n_vcs=1`` (nothing delivered in 4000
-   cycles), drained at ``n_vcs=2`` with the GPU state equal to CPU state;
+7. the 8x1 ring: wedged at ``n_vcs=1`` (nothing delivered in 2000
+   cycles, twice what the drain takes), drained at ``n_vcs=2`` with the
+   GPU state equal to CPU state;
 8. the 32x32 torus at ``n_vcs=2``, one cycle per step and at
    ``fused_cycles=4`` (200 cycles each): GPU state equal to CPU state, ms
    per cycle, peak device memory; VC and fused kernel times against their
@@ -80,10 +81,12 @@ Llama-4-Scout and Gemma 3 4B), and checks what comes out:
    63, 64, 65, 129), every (D, Dv) in bf16 and Sq != Skv, and the sliding
    window and D = 256 in both dtypes (Gemma 3's B=4, S=2048, H=8, KV=4,
    D=256 with window 1024 and without, a window below one tile at a ragged
-   S, one not a multiple of 64, a ragged S, the left edge alone); both RMSNorm
+   S, one not a multiple of 64, a ragged S, the left edge alone), and
+   DeepSeek-V2's MLA prefill (B=4, S=512, H=KV=128, D=192, Dv=128; a ragged
+   S=520 and S=1) in both dtypes; both RMSNorm
    variants at N = 4 and 2048, d = 3072 and 5120, at N = 1, 5 and 2047,
    d = 768 and 3584, with a weight at an odd element offset and at d = 100,
-   at d = 2560 (N = 8192 and 4), float32
+   at d = 2560 (N = 8192 and 4), at d = 1536 and 512 (N = 2048 and 4), float32
    and bf16; the SSD kernel (y and final state) at
    the sweep shapes in float32 and bf16, the Mamba-2 (H=24, P=64, N=128)
    and Zamba2 (H=112, N=64) path shapes (B=4, S=512, Q=128, bf16), a ragged
@@ -100,35 +103,43 @@ Llama-4-Scout and Gemma 3 4B), and checks what comes out:
    the positions routed alike, ``serve_llama4_scout_vs_cpu``), Gemma 3 at
    full width and 7 layers (one superblock, one trailing local layer; a
    1 500-token prompt padded to 2048, so the rings hold pads as the
-   engine's do, ``serve_gemma3_4b_vs_cpu``); one
+   engine's do, ``serve_gemma3_4b_vs_cpu``), DeepSeek-V2 at full width and
+   2 layers (the dense first layer and one MoE layer, both MLA; 120 tokens;
+   bf16 and float32 under the routing rule, ``serve_deepseek_v2_vs_cpu``); one
    Llama-4-Scout MoE layer at full width in float32 with capacity factor
    0.25 on the card and the CPU (``dropped_frac`` 0.75 on both, routing
    equal, output within ``MOE_TOL``), and in bf16 with no host
    synchronisation inside (``moe_drop_vs_cpu``). Each model at full width
    through ``Engine.generate``, at full depth but for Llama-4-Scout (12 of
-   48 layers, ``LLAMA4_LAYERS``: the whole model does not fit the card) and
-   Zamba2 (27 of 81, ``ZAMBA2_LAYERS``: the run's time limit): 4 prompts
-   (Phi-4-mini and Llama-4-Scout 300-500 tokens, Mamba-2 and Zamba2 512
+   48 layers, ``LLAMA4_LAYERS``, and DeepSeek-V2, 8 of 60,
+   ``DEEPSEEK_LAYERS``: the whole models do not fit the card) and Zamba2
+   (27 of 81, ``ZAMBA2_LAYERS``: the run's time limit): 4 prompts
+   (Phi-4-mini, Llama-4-Scout and DeepSeek-V2 300-500 tokens, Mamba-2 and Zamba2 512
    each, Gemma 3 2048 each, no pad tail), 16 greedy tokens, twice (identical
    tokens; launch counts exact: per prefill / decode step Phi-4-mini 32 /
    0 flash and 65 / 65 RMSNorm, Mamba-2 24 / 0 SSD and 25 / 25 RMSNorm,
    Zamba2 (27 of 81 layers, ``ZAMBA2_LAYERS``) 27 / 0 SSD, 4 / 0 flash and
    36 / 36 RMSNorm, Llama-4-Scout
    12 / 0 flash and 25 / 25 RMSNorm, Gemma 3 34 / 0 flash (29 windowed)
-   and 69 / 69 RMSNorm; 15 decode steps), all logits finite,
+   and 69 / 69 RMSNorm, DeepSeek-V2 8 / 0 flash (D=192, Dv=128) and 33 / 33
+   RMSNorm (ln1, q_norm, kv_norm, ln2 a layer, the final norm); 15 decode
+   steps), all logits finite,
    prefill ms, decode ms per step, tokens/s, peak device memory, and the
    device's busy share of one prefill and one decode step
-   (``torch.profiler``); Llama-4-Scout's decode step beside its bytes
-   bound (the routed experts that step's tokens pick), Gemma 3's beside
+   (``torch.profiler``); Llama-4-Scout's and DeepSeek-V2's decode step
+   beside its bytes bound (every weight but the routed experts, which count
+   as far as that step's tokens pick them; the dense first layer's MLP;
+   the K/V or MLA's compressed cache read and written), Gemma 3's beside
    its (every weight and each layer's valid K/V read once); each kernel's time at
    the paths' shapes beside its bound, its plain version and one PyTorch
    call where there is one (``library_ms``: ``scaled_dot_product_attention``,
    ``rms_norm``; none computes the SSD scan), flash attention also at
-   Llama-4-Scout's 40 / 8 heads and at Gemma 3's shape with its window
+   Llama-4-Scout's 40 / 8 heads, at Gemma 3's shape with its window
    (bound over the visible pairs only; SDPA given the band as a boolean
-   mask, the backend it picks named) and without, RMSNorm also at
-   Mamba-2's, Zamba2's, Llama-4-Scout's and Gemma 3's widths (N = 2048, d
-   = 768, 3584 and 5120; N = 8192, d = 2560);
+   mask, the backend it picks named) and without, and at DeepSeek-V2's MLA
+   shape (SDPA's backend named), RMSNorm also at Mamba-2's, Zamba2's,
+   Llama-4-Scout's, Gemma 3's and DeepSeek-V2's widths (N = 2048, d = 768,
+   3584, 5120, 1536 and 512; N = 8192, d = 2560);
 11. the paged KV gather (``kernels_vs_plain_kv_gather``,
    ``kernel_times_kv_gather``): the kernel bit-equal to its plain version
    at ``tests/test_kernels.py``'s sweep shapes in float32, bf16 and int32
@@ -149,7 +160,7 @@ Llama-4-Scout and Gemma 3 4B), and checks what comes out:
    random snapshots of B x C = 12 channels (``kernels_vs_plain_sweep``;
    8x4 mesh V = 1, 8x4 torus V = 2, the all-reduce's offload groups);
    ``sweep_8x4``: ``run_sweep`` on ``preset("mesh", big=True)`` over uniform
-   1 / 4 / 16 / 32 kB x 4 DMA reads, B = 4 as one state, 1 200 cycles,
+   1 / 4 / 16 / 32 kB x 4 DMA reads, B = 4 as one state, 600 cycles,
    router launches equal to one configuration's, each configuration's state
    equal to its own sequential run on the card and configuration 0's to
    the CPU's, batched and single ms per cycle and their ratio;
@@ -160,7 +171,8 @@ Llama-4-Scout and Gemma 3 4B), and checks what comes out:
    all-reduce of ``llama4-scout-17b-a16e`` reduced) through
    ``ml_traffic.validate_phase`` on the card, counted, equal to the CPU's;
 12. one JSON line listing every kernel and mode (launches on its main
-   path, mismatch, times, bounds; the per-cycle kernels' rows also the
+   path, mismatch, times, bounds; the flash kernel's MLA instance, D=192
+   with Dv=128, a row of its own; the per-cycle kernels' rows also the
    launch floor: an empty kernel's time at the same grid, timed the same
    way in the same run; the unfused apply mode's rows its launches on the
    naive paths and the fused mode's time beside its own).
@@ -1088,6 +1100,10 @@ SSD_TOL = (1e-3, 1e-3)
 # few bf16 ulps of logits of size ~5
 LOGIT_TOL = 0.1
 RMS_EPS = 1e-5
+# RMSNorm widths of the serve paths beside Phi-4-mini's 3072: Mamba-2, Zamba2,
+# Llama-4-Scout (and DeepSeek-V2's d_model), Gemma 3, DeepSeek-V2's q_norm
+# and kv_norm
+RMS_WIDTHS = (768, 3584, 5120, 2560, 1536, 512)
 PHI4, MAMBA2, ZAMBA2 = "phi4-mini-3.8b", "mamba2-130m", "zamba2-7b"
 GEMMA3 = "gemma3-4b"
 LLAMA4 = "llama4-scout-17b-a16e"
@@ -1095,6 +1111,11 @@ LLAMA4 = "llama4-scout-17b-a16e"
 # model (~106.7 B parameters, ~213 GB in bf16) does not fit an 80 GB card;
 # 12 layers of ~4.40 GB and the 2.07 GB embedding are ~55 GB
 LLAMA4_LAYERS = 12
+# DeepSeek-V2 served at full width, cut to 8 of its 60 layers (the dense first
+# layer and 7 MoE layers: 2.867e10 parameters, 57.33 GB in bf16): the whole
+# model (~235 B parameters, ~470 GB) does not fit an 80 GB card
+DEEPSEEK = "deepseek-v2-236b"
+DEEPSEEK_LAYERS = 8
 # Zamba2 served at full width, cut to 27 of its 81 layers (4 superblocks of 6
 # Mamba-2 layers with the shared attention after each, 3 trailing) to keep
 # the whole run within its time limit once Gemma 3's phases were added
@@ -1168,6 +1189,7 @@ def compare_model_kernels(dev):
     edge_rng = np.random.default_rng(17)  # the edge cases', so rng's draws stay as they were
     llama4_rng = np.random.default_rng(19)  # Llama-4-Scout's shapes, likewise
     gemma_rng = np.random.default_rng(25)  # Gemma 3's shapes and the window cases, likewise
+    mla_rng = np.random.default_rng(29)  # DeepSeek-V2's MLA shapes and widths, likewise
     bf, f32 = "bfloat16", "float32"
     dt = {bf: torch.bfloat16, f32: torch.float32}
     # (label, B, Sq, H, KV, D, Dv, dtype, causal, Skv[, window])
@@ -1184,8 +1206,9 @@ def compare_model_kernels(dev):
         # partial and single-row tiles
         cases += [("edge_s", 2, S, 4, 2, 64, 64, d_, True, S) for S in (1, 63, 64, 65, 129)]
     # every (D, Dv) the wrapper admits, non-causal where D < Dv
+    dims = sorted({*FK.HEAD_DIMS, *(d for pair in FK.PAIRS for d in pair)})
     cases += [("head_dims", 1, 100, 4, 2, D, Dv, bf, D >= Dv, 100)
-              for D in FK.HEAD_DIMS for Dv in FK.HEAD_DIMS if FK.admits(D, Dv)]
+              for D in dims for Dv in dims if FK.admits(D, Dv)]
     cases += [("sq_ne_skv", 2, 70, 4, 2, 128, 128, bf, c, 130) for c in (True, False)]
     # Gemma 3's prefill shapes (local layers: window 1024; global layers: D =
     # 256 alone), a window below one tile at a ragged S, a window that is not
@@ -1197,12 +1220,19 @@ def compare_model_kernels(dev):
                   ("window_not_x64", 2, 520, 4, 2, 128, 128, d_, True, 520, 100),
                   ("window_ragged_s", 1, 257, 4, 2, 64, 64, d_, True, 257, 64),
                   ("window_noncausal", 2, 200, 4, 2, 64, 64, d_, False, 200, 48)]
+    # DeepSeek-V2's MLA prefill (128 heads, each its own KV head, D = 192 of
+    # 128 + 64 rotary columns, Dv = 128), a ragged S and a single row
+    for d_ in (bf, f32):
+        cases += [("mla_path", 4, 512, 128, 128, 192, 128, d_, True, 512),
+                  ("mla_ragged", 1, 520, 128, 128, 192, 128, d_, True, 520),
+                  ("mla_s1", 2, 1, 128, 128, 192, 128, d_, True, 1)]
     errs, rows = {}, []
     for label, B, S, H, KV, D, Dv, d_, causal, Skv, *win in cases:
         window = win[0] if win else 0
         gen = (edge_rng if label in ("edge_s", "head_dims", "sq_ne_skv") else
                llama4_rng if label == "llama4_path" else
-               gemma_rng if label.startswith(("gemma3", "window")) else rng)
+               gemma_rng if label.startswith(("gemma3", "window")) else
+               mla_rng if label.startswith("mla") else rng)
         q, k, v = (randn(gen, sh, dt[d_], dev) for sh in
                    ((B, S, H, D), (B, Skv, KV, D), (B, Skv, KV, Dv)))
         keep = [t.clone() for t in (q, k, v)]
@@ -1225,6 +1255,8 @@ def compare_model_kernels(dev):
             errs["flash_attention_llama4"] = err
         if label in ("gemma3_window", "gemma3_global") and d_ == bf:
             errs["flash_attention_" + label] = err
+        if label == "mla_path" and d_ == bf:
+            errs["flash_attention_mla"] = err
     # (N, d, weight at an odd element offset): the path widths (3072 Phi-4-mini,
     # 768 Mamba-2, 3584 Zamba2, 5120 Llama-4-Scout at its prefill and decode
     # rows), row counts off the rows-per-CTA grid, the scalar path (odd width;
@@ -1234,9 +1266,11 @@ def compare_model_kernels(dev):
     rms_cases += [(5, 3072, True), (2047, 768, True), (5, 100, False), (2047, 100, False)]
     rms_cases += [(2048, 5120, False), (4, 5120, False)]
     rms_cases += [(8192, 2560, False), (4, 2560, False)]  # Gemma 3's prefill and decode rows
+    # DeepSeek-V2's q_norm and kv_norm (its ln1, ln2 and final norm are 5120's)
+    rms_cases += [(N, d, False) for d in (1536, 512) for N in (2048, 4)]
     for i, (N, d, odd_w) in enumerate(rms_cases):
         gen = (rng if i < 2 else llama4_rng if d == 5120 else gemma_rng if d == 2560
-               else edge_rng)
+               else mla_rng if d in (1536, 512) else edge_rng)
         for d_ in (f32, bf):
             x, r = randn(gen, (N, d), dt[d_], dev), randn(gen, (N, d), dt[d_], dev)
             w = randn(gen, (d + odd_w,), torch.float32, dev) * 0.1 + 1
@@ -1258,7 +1292,7 @@ def compare_model_kernels(dev):
                   "the RMSNorm kernel modified its inputs")
             if N == 2048 and d == 3072 and d_ == bf:
                 errs["rmsnorm"], errs["rmsnorm_residual"] = e1, max(e2, e3)
-            if d in (768, 3584, 5120, 2560) and not odd_w and d_ == bf:  # the other paths' widths
+            if d in RMS_WIDTHS and not odd_w and d_ == bf:  # the other paths' widths
                 key = f"rmsnorm_d{d}"
                 errs[key] = max(errs.get(key, 0.0), e1)
     ssd_cases = []  # (label, B, S, H, P, N, chunk, dtype, entering state)
@@ -1543,13 +1577,17 @@ def moe_drop_vs_cpu(dev, cfg, B=4, S=128):
 
 def moe_decode_bound(cfg, params, cache, tokens):
     """Bytes one decode step of the MoE ``cfg`` must move, counted for this
-    step's data: each layer's norms, attention weights, router, the shared
-    expert and the routed experts this step's B tokens pick (read once
-    each), the KV cache's valid prefix read and the new K/V written; the
-    embedding rows, the final norm, the tied embedding read for the logits
-    and the logits written. Runs one decode step with routing recorded (on
-    a copy of the cache). Returns the bound fields and the experts read a
-    layer."""
+    step's data: every weight but the routed experts read once (the
+    parameter tree's bytes less the routed experts': the tied embedding,
+    read for the logits, the norms, each layer's attention weights, GQA's
+    or MLA's, the ``first_k_dense`` dense layers' MLPs, the routers and the
+    shared experts), the routed experts this step's B tokens pick (read
+    once each), the cache (``cache_step_bytes``: K / V, or MLA's ``ckv`` /
+    ``krope``), the embedding rows read and the logits written. Its
+    operations: the products of every weight read but the routed experts
+    with the B tokens, and of the top-k experts each token picks. Runs one
+    decode step with routing recorded (on a copy of the cache). Returns
+    the bound fields and the experts read a layer."""
     import copy
 
     from repro_torch.models import model as M
@@ -1558,19 +1596,19 @@ def moe_decode_bound(cfg, params, cache, tokens):
         M.decode_step(cfg, params, copy.deepcopy(cache), tokens)
     experts = [len(set(e.reshape(-1).tolist())) for e, _ in routing]
     d, ff, V = cfg.d_model, cfg.moe_d_ff or cfg.d_ff, cfg.vocab_size
-    H, KV, D, E = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, cfg.n_experts
     B = tokens.shape[0]
-    lens = cache["len"].tolist()
-    attn = (d * H * D * 2 + d * KV * D * 2) * 2
-    kv = sum((n + 1) * KV * D * 2 * 2 for n in lens)  # read, with the new slot
-    shared = 3 * d * ff * cfg.n_shared_experts * 2
-    per_layer = [2 * d * 4 + attn + kv + d * E * 4 + shared + 3 * d * ff * 2 * n_e
-                 for n_e in experts]
-    nbytes = sum(per_layer) + B * d * 2 + d * 4 + V * d * 2 + B * V * 4
-    active = sum(attn // 2 + shared // 2 + 3 * d * ff * n_e for n_e in experts) + V * d
-    return {**bound_fields(nbytes, 2 * B * active, BF16_FLOPS_PER_S),
+    other = [t for name, t in params.named_parameters()
+             if not name.endswith(("moe.w1", "moe.w2", "moe.w3"))]
+    other_bytes = sum(t.numel() * t.element_size() for t in other)
+    expert_bytes = 3 * d * ff * 2  # one routed expert's w1, w3 and w2 in bf16
+    kv_read, kv_written = cache_step_bytes(cache)
+    nbytes = (other_bytes + expert_bytes * sum(experts) + kv_read + kv_written
+              + B * d * 2 + B * V * 4)
+    nops = 2 * B * (sum(t.numel() for t in other) + len(experts) * cfg.moe_top_k * 3 * d * ff)
+    return {**bound_fields(nbytes, nops, BF16_FLOPS_PER_S),
             "bound_bytes": nbytes, "routed_experts_read_per_layer": experts,
-            "embedding_bytes": V * d * 2}
+            "other_weight_bytes": other_bytes, "kv_bytes_read": kv_read,
+            "kv_bytes_written": kv_written}
 
 
 def ddp_demo(dev):
@@ -1739,12 +1777,13 @@ def serve_model(dev, name, cfg, prompts, per_prefill, per_decode, n_new=16,
     bound = {} if decode_bound is None else decode_bound(cfg, params, cache, gen[:, -1:])
 
     def nbytes(tree, kv):
-        """Bytes of the cache's K/V leaves (``kv``), or of its SSM leaves."""
+        """Bytes of the cache's K/V (or MLA) leaves (``kv``), or of its SSM
+        leaves."""
         total = 0
         for k, v in tree.items():
             if isinstance(v, dict):
                 total += nbytes(v, kv)
-            elif k != "len" and (k in ("k", "v")) == kv:
+            elif k != "len" and (k in M.SEQ_DIM) == kv:
                 total += v.numel() * v.element_size()
         return total
 
@@ -1769,8 +1808,9 @@ def serve_model(dev, name, cfg, prompts, per_prefill, per_decode, n_new=16,
 
 
 def serve_models(dev):
-    """The five serving paths at full width (and depth, but for
-    Llama-4-Scout's ``LLAMA4_LAYERS`` and Zamba2's ``ZAMBA2_LAYERS``), each
+    """The six serving paths at full width (and depth, but for
+    Llama-4-Scout's ``LLAMA4_LAYERS``, Zamba2's ``ZAMBA2_LAYERS`` and
+    DeepSeek-V2's ``DEEPSEEK_LAYERS``), each
     driven with the launch counts
     set to 0 just before it and read just after. Returns each path's
     generate launches."""
@@ -1826,6 +1866,19 @@ def serve_models(dev):
                                          {"flash_attention": L, "rmsnorm": 2 * L + 1},
                                          {"rmsnorm": 2 * L + 1},
                                          decode_bound=dense_decode_bound)
+    # DeepSeek-V2 at full width, cut to DEEPSEEK_LAYERS of 60 layers: MLA
+    # attention (flash at D = 192, Dv = 128 in each prefill layer; the
+    # absorbed decode over the compressed cache), ln1, q_norm, kv_norm and
+    # ln2 in each layer, then the final norm
+    cfg = get_config(DEEPSEEK).replace(n_layers=DEEPSEEK_LAYERS)
+    L = cfg.n_layers
+    rng = np.random.default_rng(31)
+    prompts = [rng.integers(0, cfg.vocab_size, int(m)).tolist()
+               for m in rng.integers(300, 501, 4)]
+    out["serve_deepseek_v2"] = serve_model(dev, "serve_deepseek_v2", cfg, prompts,
+                                           {"flash_attention": L, "rmsnorm": 4 * L + 1},
+                                           {"rmsnorm": 4 * L + 1},
+                                           decode_bound=moe_decode_bound)
     return out
 
 
@@ -1836,30 +1889,44 @@ def visible_pairs(S, window=0):
     return W * (W + 1) // 2 + (S - W) * W
 
 
-def dense_decode_bound(cfg, params, cache, tokens):
-    """A dense decode step's least time: every weight read once (the tied
-    embedding too, for the unembed) and each layer's valid K/V read once
-    (a ring's min(len, W) slots, a global cache's len), at the memory
-    rate. The products (2 x weights x B) are far below it."""
-    B = tokens.shape[0]
-    weight_bytes = sum(t.numel() * t.element_size() for t in params.parameters())
-    n_weights = sum(t.numel() for t in params.parameters())
-    n = int(cache["len"].max()) + 1
-    kv_bytes = 0
+def cache_step_bytes(cache):
+    """(bytes a decode step reads from the cache, bytes it writes there):
+    each layer's K / V (or MLA's ``ckv`` / ``krope``) over each sequence's
+    valid prefix with the new slot (a ring: at most its slots) read once,
+    and the new slot written."""
+    from repro_torch.models.model import SEQ_DIM
+
+    lens = cache["len"].tolist()
+    read = written = 0
 
     def walk(tree):
-        nonlocal kv_bytes
+        nonlocal read, written
         for key, v in tree.items():
             if isinstance(v, dict):
                 walk(v)
-            elif key in ("k", "v"):
-                lead = v.shape[:-4].numel()  # the stacked layers
-                kv_bytes += lead * B * min(n, v.shape[-3]) * v.shape[-2] * v.shape[-1] * \
-                    v.element_size()
+            elif key in SEQ_DIM:
+                sd = SEQ_DIM[key]
+                layers = v.shape[:sd - 1].numel()  # the stacked layers, before B
+                slot = v.shape[sd + 1:].numel() * v.element_size()  # one sequence's
+                read += layers * sum(min(n + 1, v.shape[sd]) for n in lens) * slot
+                written += layers * len(lens) * slot
 
     walk({k: v for k, v in cache.items() if k != "len"})
-    nbytes = weight_bytes + kv_bytes
-    return {"weight_bytes": weight_bytes, "kv_bytes_read": kv_bytes,
+    return read, written
+
+
+def dense_decode_bound(cfg, params, cache, tokens):
+    """A dense decode step's least time: every weight read once (the tied
+    embedding too, for the unembed) and the cache read and written
+    (``cache_step_bytes``), at the memory rate. The products (2 x weights
+    x B) are far below it."""
+    B = tokens.shape[0]
+    weight_bytes = sum(t.numel() * t.element_size() for t in params.parameters())
+    n_weights = sum(t.numel() for t in params.parameters())
+    kv_read, kv_written = cache_step_bytes(cache)
+    nbytes = weight_bytes + kv_read + kv_written
+    return {"weight_bytes": weight_bytes, "kv_bytes_read": kv_read,
+            "kv_bytes_written": kv_written,
             **bound_fields(nbytes, 2 * n_weights * B, BF16_FLOPS_PER_S)}
 
 
@@ -1970,6 +2037,25 @@ def time_model_kernels(dev):
             **attn_bound(B, S, H, KV, D, D, 2, window),
             "shape": f"B={B}, S={S}, H={H}, KV={KV}, D=Dv={D}, bf16, causal, "
                      f"window {window or 'none'}"}
+    # DeepSeek-V2's MLA prefill: 128 heads, each its own KV head, D = 192
+    # (128 + 64 rotary columns), Dv = 128; SDPA takes k's and v's head dims
+    # as they are
+    mla_rng = np.random.default_rng(30)  # rng's draws stay as they were
+    B, S, H, D, Dv = 4, 512, 128, 192, 128
+    q, k = (randn(mla_rng, (B, S, H, D), bf, dev) for _ in range(2))
+    v = randn(mla_rng, (B, S, H, Dv), bf, dev)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    choice = SDPBackend(torch._fused_sdp_choice(qt, kt, vt, is_causal=True))
+    out["flash_attention_mla"] = {
+        "ms": graph_ms(lambda: FK.flash_attention_cuda(q, k, v), reps=10),
+        "plain_ms": graph_ms(lambda: attention_ref(q, k, v), reps=3),
+        "library_ms": graph_ms(sdpa, reps=10), "library_backend": choice.name,
+        "library_kernel": top_kernel(sdpa), **attn_bound(B, S, H, H, D, Dv, 2),
+        "shape": f"B={B}, S={S}, H=KV={H}, D={D}, Dv={Dv}, bf16, causal"}
     d, B, S = 3072, 4, 512
     w = randn(rng, (d,), torch.float32, dev) * 0.1 + 1
     wb = w.to(bf)
@@ -1987,9 +2073,10 @@ def time_model_kernels(dev):
             "library_ms": None,
             **bound_fields(4 * row + d * 4, 5 * N * d), "shape": f"N={N}, d={d}, bf16"}
     # the other serve paths' widths, prefill rows: Mamba-2 768, Zamba2 3584,
-    # Llama-4-Scout 5120 (4 x 512 rows), Gemma 3 2560 (4 x 2048 rows)
+    # Llama-4-Scout 5120 (4 x 512 rows), Gemma 3 2560 (4 x 2048 rows),
+    # DeepSeek-V2's q_norm 1536 and kv_norm 512 (4 x 512 rows)
     width_rng = np.random.default_rng(17)  # rng's draws for SSD stay as they were
-    for dw in (768, 3584, 5120, 2560):
+    for dw in RMS_WIDTHS:
         N = B * S * (4 if dw == 2560 else 1)
         x = randn(width_rng, (N, dw), bf, dev)
         ww = randn(width_rng, (dw,), torch.float32, dev) * 0.1 + 1
@@ -2234,7 +2321,8 @@ def figure_fig10(dev):
 # the batched sweep and the design-space exploration
 
 SWEEP_KB = (1, 4, 16, 32)  # the explorer's pattern sweep: uniform, 4 transfers each
-SWEEP_CYCLES = 1200
+# cut from 1 200 to hold the whole run within its time limit
+SWEEP_CYCLES = 600
 
 
 def sweep_kernels(rng, dev):
@@ -2281,7 +2369,7 @@ def sweep_kernels(rng, dev):
 def sweep_8x4(dev):
     """``run_sweep`` on ``preset("mesh", big=True)`` (the paper's 8x4
     compute mesh) over the explorer's uniform 1 / 4 / 16 / 32 kB x 4 DMA
-    reads, B = 4 as one state for 1 200 cycles, counted: the router kernels
+    reads, B = 4 as one state for ``SWEEP_CYCLES``, counted: the router kernels
     launched as for one configuration; each configuration's state equal,
     leaf for leaf, to its own sequential run on the card, and
     configuration 0's to the CPU's. Prints the batched and the single
@@ -2686,9 +2774,11 @@ def main() -> int:
     rtopo = build_torus(nx=8, ny=1)
     rwl = ring_workload(epm, rtopo)
     rsim1 = TS.build_sim(rtopo, NocParams(), rwl)
-    rst, _, _ = run_counted(TS, rsim1, 2000)
+    # 2 x 1000 cycles (4000 until the run's time limit forced the cut): the
+    # ring with two VCs drains in 1000
+    rst, _, _ = run_counted(TS, rsim1, 1000)
     mid = int(rst.eps.beats_rcvd.sum())
-    rst, _, _ = run_counted(TS, rsim1, 2000, rst)
+    rst, _, _ = run_counted(TS, rsim1, 1000, rst)
     wedged = (int(rst.eps.rx_bursts.sum()) == 0
               and int(rst.eps.beats_rcvd.sum()) == mid)
     check(wedged, "the VC-less 8x1 ring did not wedge")
@@ -2709,7 +2799,7 @@ def main() -> int:
     drained = (int(rst2.eps.rx_bursts.sum()) == rtopo.n_endpoints
                and int(rst2.eps.beats_rcvd.sum())
                == rtopo.n_endpoints * rwl.dma_beats)
-    phase("ring_8x1", vc1_cycles=4000, vc1_beats_rcvd=mid,
+    phase("ring_8x1", vc1_cycles=2000, vc1_beats_rcvd=mid,
           vc1_rx_bursts=int(rst.eps.rx_bursts.sum()), vc1_wedged=wedged,
           vc2_cycles=ring_cycles, vc2_rx_bursts=int(rst2.eps.rx_bursts.sum()),
           vc2_drained=drained, vc2_launches=ring_launches,
@@ -2866,6 +2956,10 @@ def main() -> int:
     # quirk, on both sides) and the 4 decode steps write into it
     serve_vs_cpu(dev, "serve_gemma3_4b_vs_cpu", get_config(GEMMA3).replace(n_layers=7),
                  1500, 28)
+    # DeepSeek-V2 at full width, cut to 2 layers: the dense first layer and
+    # one MoE layer, both with MLA (4.83e9 parameters)
+    moe_serve_vs_cpu(dev, "serve_deepseek_v2_vs_cpu",
+                     get_config(DEEPSEEK).replace(n_layers=2), 120, 32)
     serve_launches = serve_models(dev)
     model_times = time_model_kernels(dev)
 
@@ -2970,16 +3064,18 @@ def main() -> int:
          ("serve_phi4_mini", "serve_llama4_scout", "serve_gemma3_4b")),
         ("flash_attention_kernel[D=112]", "flash_attention_d112", "flash_attention", 23,
          ("serve_zamba2_7b",)),
+        ("flash_attention_kernel[D=192,Dv=128]", "flash_attention_mla", "flash_attention", 23,
+         ("serve_deepseek_v2",)),
         ("rmsnorm_kernel", "rmsnorm", "rmsnorm", 16,
          ("serve_phi4_mini", "serve_mamba2_130m", "serve_zamba2_7b", "serve_llama4_scout",
-          "serve_gemma3_4b")),
+          "serve_gemma3_4b", "serve_deepseek_v2")),
         ("rmsnorm_residual_kernel", "rmsnorm_residual", "rmsnorm", 24, ()),
         ("ssd_tc_kernel", "ssd", "ssd", 21, ("serve_mamba2_130m",)),
         ("ssd_tc_kernel[zamba2]", "ssd_zamba2", "ssd", 21, ("serve_zamba2_7b",)),
     )
     for name, key, pkg, line, paths in model_rows:
         t = model_times[key]
-        count = key.removesuffix("_d112").removesuffix("_zamba2")
+        count = key.removesuffix("_d112").removesuffix("_zamba2").removesuffix("_mla")
         launches = {path: serve_launches[path][count] for path in paths}
         for path, n in launches.items():
             check(n > 0, f"{name} was not launched on its main path {path}")
@@ -2988,23 +3084,24 @@ def main() -> int:
             err = max(err, *(model_errs[f"flash_attention_{k_}"] for k_ in (
                 "llama4", "gemma3_window", "gemma3_global")))
         if key == "rmsnorm":
-            err = max(err, *(model_errs[f"rmsnorm_d{dw}"] for dw in (768, 3584, 5120, 2560)))
+            err = max(err, *(model_errs[f"rmsnorm_d{dw}"] for dw in RMS_WIDTHS))
         kernels.append({
             "name": name, "route": "cuda", "source": model_src.format(pkg),
             "replaces": model_tpu.format(pkg, line), "launches": sum(launches.values()),
             "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "shape": t["shape"],
+            **({"library_backend": t["library_backend"]} if "library_backend" in t else {}),
             "main_path": launches or
                          "none (the serve paths round x + a before their norms)",
             "decode": None if key + "_decode" not in model_times else {
                 k_: model_times[key + "_decode"][k_] for k_ in
                 ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
         })
-        if key == "rmsnorm":  # the Mamba-2, Zamba2, Llama-4 and Gemma 3 widths
+        if key == "rmsnorm":  # the Mamba-2, Zamba2, Llama-4, Gemma 3 and DeepSeek-V2 widths
             kernels[-1]["other_widths"] = [
                 {**model_times[f"rmsnorm_d{dw}"], "max_abs_err": model_errs[f"rmsnorm_d{dw}"]}
-                for dw in (768, 3584, 5120, 2560)]
+                for dw in RMS_WIDTHS]
         if key == "flash_attention":  # Llama-4-Scout's 40 / 8 heads; Gemma 3's D = 256
             kernels[-1]["llama4_shape"] = {**model_times["flash_attention_llama4"],
                                            "max_abs_err": model_errs["flash_attention_llama4"]}

@@ -4,10 +4,11 @@ The port's own copy of the JAX package's config system (pure data, so the
 port never imports ``repro``). Every assigned architecture is a
 ``ModelConfig`` registered in ``REGISTRY`` (one module per arch under
 ``repro_torch.configs``). ``ModelConfig.reduced()`` produces a small
-same-family config for CPU smoke tests. The port runs the dense GQA
-family (a sliding window only in its local:global layers), ``moe`` with
-GQA attention, ``ssm`` and ``hybrid`` so far
-(``repro_torch.models.model.FAMILIES``).
+same-family config for CPU smoke tests. The port runs the dense family
+(GQA, a sliding window only in its local:global layers, or MLA), ``moe``
+with GQA or MLA attention, ``ssm`` and ``hybrid`` so far
+(``repro_torch.models.model.FAMILIES``,
+``repro_torch.models.transformer.ATTN_SCHEMAS``).
 """
 from __future__ import annotations
 

@@ -43,7 +43,10 @@
 //   tile's copy running under this tile's products; `fence.proxy.async`
 //   makes the copies visible to the tensor cores. 96 KB at D = Dv = 128:
 //   two CTAs to an SM, which is also all that ~250 registers a thread allow;
-//   192 KB at D = Dv = 256, one CTA an SM;
+//   192 KB at D = Dv = 256, one CTA an SM. MLA's D = 192 (128 columns
+//   without and 64 with the rotary embedding) with Dv = 128 is the
+//   one-warpgroup kernel with three 64-column blocks of Q and K (12 K-steps
+//   of Q K^T; the registers are D = 128's): 128 KB, one CTA an SM;
 // * S = Q K^T: `wgmma.m64n64k16`, Q and K both K-major from shared memory,
 //   one per half and 16 columns of D. The online softmax runs on the
 //   accumulator fragments in registers: a row's max and sum reduce over the
@@ -63,8 +66,8 @@
 // CTA of 256 threads (16 x 16) per (64-row q tile, batch * head); each thread
 // owns a 4 x 4 block of the score tile and 4 rows x DV/16 accumulator
 // columns; q, k, v staged as float32, k and q rows padded by one word
-// (209 KB at D = Dv = 256). No serve path runs attention in float32 on the
-// card.
+// (209 KB at D = Dv = 256, 145 KB at D = 192 and Dv = 128). No serve path
+// runs attention in float32 on the card.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -484,8 +487,13 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int t = t0; t < ntiles; ++t) {
     const int st = (t - t0) & 1;
     if (t + 1 < ntiles) {  // the next tile's copy runs under this tile's products
-      load_tile<D, NTHR>(k_base + (st ^ 1) * KST, kg, kstride, (t + 1) * BN, Skv, tid);
-      load_tile<DV, NTHR>(v_base + (st ^ 1) * VST, vg, vstride, (t + 1) * BN, Skv, tid);
+      // at D = 192 the thread index is opaque in each tile: hoisted out of
+      // the key loop, the offsets of K's 12 copies a thread spill the
+      // one-warpgroup kernel (255 registers, 200 bytes; 250 and none so)
+      int ti = tid;
+      if constexpr (NWG == 1 && D > 128) asm volatile("" : "+r"(ti));
+      load_tile<D, NTHR>(k_base + (st ^ 1) * KST, kg, kstride, (t + 1) * BN, Skv, ti);
+      load_tile<DV, NTHR>(v_base + (st ^ 1) * VST, vg, vstride, (t + 1) * BN, Skv, ti);
     }
     cp_async_commit();
     cp_async_wait<1>();   // every group but the newest: tile t has landed
@@ -659,6 +667,7 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int B, int H,
     case 64: return launch_dv<64>(q, k, v, o, B, H, KV, Sq, Skv, Dv, scale, causal, w, s);
     case 112: return launch_dv<112>(q, k, v, o, B, H, KV, Sq, Skv, Dv, scale, causal, w, s);
     case 128: return launch_dv<128>(q, k, v, o, B, H, KV, Sq, Skv, Dv, scale, causal, w, s);
+    case 192: return launch<192, 128>(q, k, v, o, B, H, KV, Sq, Skv, scale, causal, w, s);
     case 256: return launch<256, 256>(q, k, v, o, B, H, KV, Sq, Skv, scale, causal, w, s);
   }
   return (int)cudaErrorInvalidValue;
@@ -666,14 +675,20 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int B, int H,
 
 }  // namespace wg
 
-bool head_dim_ok(int d) { return d == 32 || d == 64 || d == 112 || d == 128 || d == 256; }
+// D and Dv in {32, 64, 112, 128} in any pair, or one of the pairs built
+// alone: D = Dv = 256 (Gemma 3), D = 192 with Dv = 128 (MLA)
+bool head_dims_ok(int D, int Dv) {
+  auto any = [](int d) { return d == 32 || d == 64 || d == 112 || d == 128; };
+  return (any(D) && any(Dv)) || (D == 256 && Dv == 256) || (D == 192 && Dv == 128);
+}
 
 }  // namespace
 
 // q [B, Sq, H, D], k [B, Skv, KV, D], v [B, Skv, KV, Dv] contiguous, float32
 // (dtype 0, the scalar kernel) or bfloat16 (dtype 1, the wgmma kernel; every
 // pointer 16-byte aligned); o [B, Sq, H, Dv] of the same type. D, Dv in
-// {32, 64, 112, 128}, or D = Dv = 256; H a multiple of KV; B * H <= 65535;
+// {32, 64, 112, 128}, or D = Dv = 256, or D = 192 with Dv = 128; H a
+// multiple of KV; B * H <= 65535;
 // window >= 0 (0: none; > 0 only with Sq == Skv). Returns the launch's CUDA
 // error code (0 on success).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
@@ -681,8 +696,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
                                       int dtype, int causal, int window, float scale,
                                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!head_dim_ok(D) || !head_dim_ok(Dv) || ((D == 256 || Dv == 256) && D != Dv) ||
-      window < 0 || (window > 0 && Sq != Skv))
+  if (!head_dims_ok(D, Dv) || window < 0 || (window > 0 && Sq != Skv))
     return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return launch_dv<float>(q, k, v, o, B, H, KV, Sq, Skv, D, Dv, scale, causal, window, s);

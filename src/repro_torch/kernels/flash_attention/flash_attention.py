@@ -8,7 +8,8 @@ reads the ``[B, S, H, D]`` layout directly and indexes KV head
 JAX wrapper is materialised. bfloat16 runs on the tensor cores through
 ``wgmma`` (float32 accumulation; P rounded to bf16 in registers before
 ``P V``): 128 query rows a CTA (one warpgroup for both 64-row halves, or
-one warpgroup each at D = Dv = 256), bf16 tiles in shared memory in the
+one warpgroup each at D = Dv = 256; MLA's D = 192 with Dv = 128 as the
+former), bf16 tiles in shared memory in the
 128-byte-swizzled layout, fed by a two-stage ``cp.async`` ring; at the
 serve paths' shapes it is bound by bytes. float32 keeps a kernel of scalar
 float32 FMAs, since the tensor cores would compute in TF32. ``window > 0``
@@ -31,9 +32,10 @@ from repro_torch.kernels.build import CudaLibrary, ptr, stream
 
 SOURCES = (Path(__file__).parent / "csrc" / "flash_attention.cu",)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# D and Dv the kernel is built for (112: Zamba2; 256: Gemma 3, with Dv = 256 only)
-HEAD_DIMS = (32, 64, 112, 128, 256)
-PAIRED_ONLY = 256  # built only as D = Dv
+# D and Dv the kernel is built for in any pair (112: Zamba2), and the (D, Dv)
+# pairs built alone: Gemma 3's 256 and MLA's 192 (128 + 64 rotary) with 128
+HEAD_DIMS = (32, 64, 112, 128)
+PAIRS = ((256, 256), (192, 128))
 
 # launches, counted where the wrapper launches the kernel
 LAUNCHES = {"flash_attention": 0}
@@ -51,8 +53,7 @@ LIBRARY = CudaLibrary("flash_attention", SOURCES, Path(__file__).parent / "_buil
 
 def admits(D: int, Dv: int) -> bool:
     """Whether the kernel is built for head dims (D, Dv)."""
-    return (D in HEAD_DIMS and Dv in HEAD_DIMS
-            and (D == Dv or PAIRED_ONLY not in (D, Dv)))
+    return (D in HEAD_DIMS and Dv in HEAD_DIMS) or (D, Dv) in PAIRS
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
@@ -77,8 +78,8 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
     if KV < 1 or H % KV:
         raise ValueError(f"{H} query heads do not group over {KV} KV heads")
     if not admits(D, Dv):
-        raise ValueError(f"head dims must be in {HEAD_DIMS} ({PAIRED_ONLY} only as "
-                         f"D = Dv), got D={D}, Dv={Dv}")
+        raise ValueError(f"head dims must be in {HEAD_DIMS} or a pair of {PAIRS}, "
+                         f"got D={D}, Dv={Dv}")
     if window < 0 or (window and Sq != Skv):
         raise ValueError(f"window {window}: must be >= 0, and > 0 only with Sq == Skv "
                          f"(got Sq={Sq}, Skv={Skv})")

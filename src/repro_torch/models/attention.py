@@ -1,5 +1,5 @@
-"""Attention for the port's GQA models: prefill through the flash kernel,
-decode against a KV cache in plain PyTorch.
+"""Attention for the port's GQA and MLA models: prefill through the flash
+kernel, decode against a KV cache in plain PyTorch.
 
 Layouts as in ``repro.models.attention``: q [B, S, H, D]; k, v [B, S, KV, D];
 GQA group G = H // KV, head ``h`` reading KV head ``h // G``.
@@ -32,17 +32,19 @@ def attention(q, k, v, *, causal=True, window=0):
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0,
-                     ring: bool = False):
-    """q [B, 1, H, D]; caches [B, S, KV, D]; cache_len [B] (valid prefix,
+                     scale=None, ring: bool = False):
+    """q [B, 1, H, D]; caches [B, S, KV, D(v)]; cache_len [B] (valid prefix,
     the current token already written at ``cache_len - 1``). Float32 scores
-    and softmax, the output in ``q``'s dtype; the KV heads are read in
-    groups, not broadcast. ``ring``: the cache is a ring of S slots, every
+    scaled by ``scale`` (``D ** -0.5`` if None) and softmax, the output in
+    ``q``'s dtype; the KV heads are read in groups, not broadcast (MLA's
+    absorbed decode: one KV head for every query head). ``ring``: the
+    cache is a ring of S slots, every
     slot below ``cache_len`` valid (the softmax does not care about their
     order); otherwise ``window > 0`` also drops the slots before
     ``cache_len - window``."""
     B, _, H, D = q.shape
     S, KV, Dv = k_cache.shape[1], k_cache.shape[2], v_cache.shape[3]
-    scale = 1.0 / math.sqrt(D)
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
     qf = q[:, 0].to(torch.float32).reshape(B, KV, H // KV, D)
     s = torch.einsum("bkgd,bskd->bkgs", qf, k_cache.to(torch.float32)) * scale
     kpos = torch.arange(S, device=q.device)[None, :]

@@ -1,18 +1,23 @@
 """Model assembly for the port: ``param_schema`` / ``forward`` /
 ``prefill`` / ``decode_step``, driven by ``ModelConfig``.
 
-The counterpart of ``repro.models.model`` for four families: dense GQA
-(Phi-4-mini, Granite, Mistral-Large; Gemma 3's local:global attention:
+The counterpart of ``repro.models.model`` for four families: dense, with
+GQA (Phi-4-mini, Granite, Mistral-Large; Gemma 3's local:global attention:
 superblocks of ``local_global_period - 1`` sliding-window layers with
 window-sized ring caches, then one global layer, then the trailing local
-layers), ``moe`` with GQA attention and gather dispatch (Llama-4-Scout: MoE blocks
-after ``first_k_dense`` dense ones, sharing the dense KV cache layout),
-``ssm`` (Mamba-2) and ``hybrid`` (Zamba2: superblocks of
-``shared_attn_period`` Mamba-2 layers, each followed by one tied dense GQA
-block with its own KV cache per application, then the trailing Mamba-2
-layers). Every other family and attention kind (MLA among them), and a
-sliding window anywhere but in a dense model's local:global layers, raises
-``NotImplementedError`` naming ROADMAP Queue 1 item 12.
+layers) or MLA attention; ``moe`` with GQA or MLA attention and gather
+dispatch (Llama-4-Scout; DeepSeek-V2: MoE blocks after ``first_k_dense``
+dense ones, sharing their cache layout: K/V for GQA, the compressed
+``ckv`` / ``krope`` for MLA); ``ssm`` (Mamba-2) and ``hybrid`` (Zamba2:
+superblocks of ``shared_attn_period`` Mamba-2 layers, each followed by one
+tied dense GQA block with its own KV cache per application, then the
+trailing Mamba-2 layers). A local:global or hybrid model may have no
+superblock at all (fewer layers than one period): its ``superblocks``
+leaves are then zero-size, as the JAX package's. Every other family and
+attention kind, MLA in a local:global or hybrid model (where the JAX
+package silently builds GQA), and a sliding window anywhere but in a dense
+model's local:global layers, raises ``NotImplementedError`` naming ROADMAP
+Queue 1 item 12.
 """
 from __future__ import annotations
 
@@ -42,6 +47,7 @@ from repro_torch.models.spec import (
     stacked_shapes,
 )
 from repro_torch.models.transformer import (
+    ATTN_SCHEMAS,
     Ctx,
     dense_block,
     dense_block_schema,
@@ -72,8 +78,10 @@ def check_supported(cfg: ModelConfig):
         # the JAX package applies a window only in a dense model's local
         # layers, and silently none elsewhere
         why = "sliding-window attention outside a dense model's local:global layers"
-    elif cfg.attn_kind != "gqa":
+    elif cfg.attn_kind not in ATTN_SCHEMAS:
         why = f"{cfg.attn_kind!r} attention"
+    elif cfg.attn_kind == "mla" and (local_global or cfg.family == "hybrid"):
+        why = "MLA attention in a local:global or hybrid model"
     elif cfg.rope_kind == "mrope":
         why = "M-RoPE"
     if why:
@@ -110,10 +118,11 @@ def param_schema(cfg: ModelConfig) -> dict:
         if trailing:
             sch["trailing"] = stack_schema(dense_block_schema(cfg), trailing)
     elif cfg.family == "dense":
-        sch["blocks"] = stack_schema(dense_block_schema(cfg), cfg.n_layers)
+        sch["blocks"] = stack_schema(dense_block_schema(cfg, attn=cfg.attn_kind), cfg.n_layers)
     elif cfg.family == "moe":
         if cfg.first_k_dense:
-            sch["dense_blocks"] = stack_schema(dense_block_schema(cfg), cfg.first_k_dense)
+            sch["dense_blocks"] = stack_schema(dense_block_schema(cfg, attn=cfg.attn_kind),
+                                               cfg.first_k_dense)
         sch["blocks"] = stack_schema(moe_layer_schema(cfg), cfg.n_layers - cfg.first_k_dense)
     elif cfg.family == "ssm":
         sch["blocks"] = stack_schema(ssm_block_schema(cfg), cfg.n_layers)
@@ -157,7 +166,9 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device=None):
     local.attn.wq"`` [n_super, per - 1, d, H, D], ``"shared_attn.attn.wq"``
     unstacked). Every leaf is checked against the schema's
     stacked shape and cast to its dtype; keys the schema lacks, or lacks in
-    ``tree``, raise."""
+    ``tree``, raise. The zero-size leaves of a stack with no layers (a
+    model with no superblock) hold no parameter: their shapes are checked
+    alone."""
     dev = resolve_device(device)
     schema = param_schema(cfg)
     shapes = stacked_shapes(schema)
@@ -177,7 +188,14 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device=None):
         return torch.as_tensor(np.array(arr[layer], np.float32)).to(DTYPES[spec.dtype]).to(dev)
 
     params = build_tree(schema, leaf)
-    extra = sorted(set(tree) - used)
+    # the schema's keys that built no parameter are those of stacks with no
+    # layers: their leaves must be there, zero-size, of the stacked shape
+    for key in sorted(set(shapes) - used):
+        if key not in tree:
+            raise KeyError(f"{cfg.name}: no parameter {key!r} in the tree")
+        if np.shape(tree[key]) != shapes[key]:
+            raise ValueError(f"{key}: shape {np.shape(tree[key])}, expected {shapes[key]}")
+    extra = sorted(set(tree) - set(shapes))
     if extra:
         raise KeyError(f"{cfg.name}: parameters the port does not have: {extra}")
     return params
@@ -198,7 +216,7 @@ def _run_superblocks(pairs, keys, stack_fn, block_fn, x, ctx: Ctx, sc=None):
     then ``block_fn`` with ``pairs[i][1]``, their caches under ``keys``
     (stack's, block's) of the superblock's cache ``sc[i]``. Returns (x, the
     superblocks' stacked caches): decode's written in place, prefill's
-    new."""
+    new; with no superblock, zero-size leaves of the prefill's shapes)."""
     outs = []
     for i, (stack_p, block_p) in enumerate(pairs):
         scache = None if sc is None else tree_index(sc, i)
@@ -207,8 +225,22 @@ def _run_superblocks(pairs, keys, stack_fn, block_fn, x, ctx: Ctx, sc=None):
         x, block_c, _ = block_fn(block_p, x, None if scache is None else scache[keys[1]], ctx)
         outs.append({keys[0]: stack_c, keys[1]: block_c})
     if sc is None and ctx.mode == "prefill":
-        sc = tree_stack(outs)
+        sc = tree_stack(outs) if outs else _no_superblocks(ctx.cfg, x)
     return x, sc
+
+
+def _no_superblocks(cfg: ModelConfig, x):
+    """The zero-size ``superblocks`` caches of a prefill of ``x`` [B, S, d]
+    by a model with no superblock: ``cache_schema``'s shapes, but local
+    rings of ``sliding_window`` slots, as a prefill builds them, and every
+    leaf but the float32 SSM state in x's dtype (the JAX package's scan over
+    no layers)."""
+    B, S = x.shape[:2]
+    sch = cache_schema(cfg, B, S)["superblocks"]
+    if cfg.family == "dense":
+        sch["local"] = cache_schema(cfg, B, max(S, cfg.sliding_window))["superblocks"]["local"]
+    return _tree_map(lambda s: torch.zeros(
+        s.shape, dtype=torch.float32 if s.dtype == "float32" else x.dtype, device=x.device), sch)
 
 
 def _run_lm_stacks(cfg: ModelConfig, p, x, ctx: Ctx, caches=None):
@@ -217,16 +249,17 @@ def _run_lm_stacks(cfg: ModelConfig, p, x, ctx: Ctx, caches=None):
     new_caches, aux): aux is the MoE blocks' aux summed over the layers,
     ``None`` for the other families."""
     c = caches or {}
+    dense = partial(dense_block, attn_kind=cfg.attn_kind)
     if cfg.family == "moe":
         new_caches = {}
         if "dense_blocks" in p:
             x, new_caches["dense_blocks"], _ = scan_stack(
-                dense_block, p["dense_blocks"], x, ctx, stacked_cache=c.get("dense_blocks"))
+                dense, p["dense_blocks"], x, ctx, stacked_cache=c.get("dense_blocks"))
         x, new_caches["blocks"], aux = scan_stack(moe_layer_block, p["blocks"], x, ctx,
                                                   stacked_cache=c.get("blocks"))
         return x, new_caches, aux
     if cfg.family == "ssm" or (cfg.family == "dense" and not cfg.local_global_period):
-        block = dense_block if cfg.family == "dense" else ssm_block
+        block = dense if cfg.family == "dense" else ssm_block
         x, bc, _ = scan_stack(block, p["blocks"], x, ctx, stacked_cache=c.get("blocks"))
         return x, {"blocks": bc}, None
     if cfg.family == "dense":
@@ -267,7 +300,9 @@ def forward(cfg: ModelConfig, p, batch, mode: str = "train"):
 def cache_schema(cfg: ModelConfig, B: int, S: int) -> dict:
     """PSpec tree mirroring what prefill/decode produce. S = max context.
     KV caches are [layers, B, S, KV, D] bf16 (a moe model's as a dense
-    model's: ``dense_blocks`` and ``blocks``; a local:global model's local
+    model's: ``dense_blocks`` and ``blocks``; with MLA the compressed
+    ``ckv`` [layers, B, S, kv_lora_rank] and ``krope`` [layers, B, S,
+    qk_rope_head_dim] instead; a local:global model's local
     layers [n_super, per - 1, B, W, KV, D] and trailing layers rings of W =
     ``min(sliding_window, S)`` slots, its global layers [n_super, B, S, KV,
     D]); an SSM layer holds its state [B, H, P, N] float32 and the last
@@ -277,6 +312,9 @@ def cache_schema(cfg: ModelConfig, B: int, S: int) -> dict:
 
     def kv(lead, s=S):
         ax = ("layers", "layers2")[: len(lead)]
+        if cfg.attn_kind == "mla":
+            return {key: PSpec(lead + (B, s, n), ax + ("batch", None, None), init="zeros")
+                    for key, n in (("ckv", cfg.kv_lora_rank), ("krope", cfg.qk_rope_head_dim))}
         spec = PSpec(lead + (B, s, KV, D), ax + ("batch", None, "kv_heads", None),
                      init="zeros")
         return {"k": spec, "v": spec}
@@ -346,18 +384,24 @@ def decode_step(cfg: ModelConfig, p, cache, tokens):
     return logits, new_cache
 
 
+# the sequence dim of each kind of KV leaf, counted from the end
+SEQ_DIM = {"k": -3, "v": -3, "ckv": -2, "krope": -2}
+
+
 def pad_cache(cfg: ModelConfig, cache, extra: int):
-    """Grow the sequence dim (-3) of the KV caches (every ``k`` / ``v``
-    leaf) by ``extra`` decode slots (prefill sizes them to the prompt); a
-    local:global model's ``local`` and ``trailing`` rings, SSM states and
-    conv prefixes are fixed-size and stay as they are."""
+    """Grow the sequence dim of the KV caches (-3 of every ``k`` / ``v``
+    leaf, -2 of MLA's ``ckv`` / ``krope``) by ``extra`` decode slots
+    (prefill sizes them to the prompt); a local:global model's ``local``
+    and ``trailing`` rings, SSM states and conv prefixes are fixed-size and
+    stay as they are."""
     if extra <= 0:
         return cache
 
     def grow(tree, ring):
         return {k: grow(v, ring or (bool(cfg.local_global_period) and k in ("local", "trailing")))
                 if isinstance(v, dict)
-                else F.pad(v, (0, 0, 0, 0, 0, extra)) if k in ("k", "v") and not ring else v
+                else F.pad(v, (0, 0) * (-SEQ_DIM[k] - 1) + (0, extra))
+                if k in SEQ_DIM and not ring else v
                 for k, v in tree.items()}
 
     return grow(cache, False)

@@ -1,7 +1,8 @@
-"""The dense GQA, MoE and SSM (Mamba-2) blocks and the layer-stack loop.
+"""The dense and MoE blocks (GQA or MLA attention), the SSM (Mamba-2)
+block and the layer-stack loop.
 
-The counterparts of ``repro.models.transformer`` for the dense, moe (GQA
-attention), ssm and hybrid families: every block has the signature
+The counterparts of ``repro.models.transformer`` for the dense, moe, ssm
+and hybrid families: every block has the signature
 ``block(p, x, cache_layer, ctx) -> (x', new_cache_layer, aux)``, and
 ``ctx`` carries the mode ("train" | "prefill" | "decode") and positions.
 There is no mesh, so the JAX package's sharding constraints (``_cb``,
@@ -11,14 +12,16 @@ z-loss, dropped share) over the layers, as the JAX package's scan does.
 
 Decode updates the stacked cache in place (the JAX package returns an
 updated copy): the new token's K/V is written into its slot (a local
-layer's into slot ``pos % W`` of its window-sized ring), and an SSM
-layer overwrites its state and conv prefixes (``models.ssm``). The cache
+layer's into slot ``pos % W`` of its window-sized ring; an MLA layer's
+compressed ``ckv`` / ``krope`` row into slot ``pos``), and an SSM layer
+overwrites its state and conv prefixes (``models.ssm``). The cache
 is the largest live tensor after the weights, and no caller keeps the old
 one. A layer's cache is a (nested) dict of tensors; the stacked cache has
 the same tree with a leading layer axis on every leaf.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any, Callable
 
@@ -124,49 +127,139 @@ def gqa_attn(p, x, cache, ctx: Ctx, *, window: int = 0, ring: bool = False):
 
 
 # ----------------------------------------------------------------------
+# MLA attention sub-layer (DeepSeek-V2)
+# ----------------------------------------------------------------------
+def mla_schema(cfg: ModelConfig) -> dict:
+    """Low-rank projections in the JAX layouts: ``wq_a`` [d, ql], the bare
+    float32 ``q_norm`` scale [ql], ``wq_b`` [ql, H, dn + dr], ``wkv_a`` [d,
+    kl + dr], ``kv_norm`` [kl], ``wk_b`` [kl, H, dn], ``wv_b`` [kl, H, dv],
+    ``wo`` [H, dv, d]."""
+    d, H = cfg.d_model, cfg.n_heads
+    ql, kl = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    return {
+        "wq_a": PSpec((d, ql), ("embed", "q_lora"), init="scaled:0"),
+        "q_norm": rmsnorm_schema(ql)["scale"],
+        "wq_b": PSpec((ql, H, dn + dr), ("q_lora", "heads", None), init="scaled:0"),
+        "wkv_a": PSpec((d, kl + dr), ("embed", None), init="scaled:0"),
+        "kv_norm": rmsnorm_schema(kl)["scale"],
+        "wk_b": PSpec((kl, H, dn), ("kv_lora", "heads", None), init="scaled:0"),
+        "wv_b": PSpec((kl, H, dv), ("kv_lora", "heads", None), init="scaled:0"),
+        "wo": PSpec((H, dv, d), ("heads", None, "embed"), init="scaled:1"),
+    }
+
+
+def _mla_qkv(p, x, cfg: ModelConfig):
+    """(q_nope [B, S, H, dn], q_rope [B, S, H, dr], the normed latent ckv
+    [B, S, kl], k_rope [B, S, 1, dr]), before the rotary embedding."""
+    kl, dn = cfg.kv_lora_rank, cfg.qk_nope_head_dim
+    cq = rmsnorm({"scale": p["q_norm"]}, x @ p["wq_a"], cfg.norm_eps)
+    q = _proj(cq, p["wq_b"])
+    kv_a = x @ p["wkv_a"]  # [B, S, kl + dr]
+    ckv = rmsnorm({"scale": p["kv_norm"]}, kv_a[..., :kl], cfg.norm_eps)
+    return q[..., :dn], q[..., dn:], ckv, kv_a[..., None, kl:]
+
+
+def mla_attn(p, x, cache, ctx: Ctx):
+    """Returns (out, new_cache). Prefill builds each head's key from the
+    latent (``wk_b``) and the rotary key shared by the heads, and runs the
+    flash kernel at D = dn + dr, Dv = dv; its cache is the compressed
+    ``{"ckv": [B, S, kl], "krope": [B, S, dr]}``. Decode writes the token's
+    row at slot ``min(pos, S - 1)`` in place, absorbs ``wk_b`` into the
+    query and attends over ``[ckv | krope]`` as one KV head of kl + dr
+    (values ``ckv``), scaled by ``(dn + dr) ** -0.5``, then applies
+    ``wv_b`` and ``wo``."""
+    cfg = ctx.cfg
+    dr = cfg.qk_rope_head_dim
+    q_nope, q_rope, ckv, k_rope = _mla_qkv(p, x, cfg)
+
+    if ctx.mode in ("train", "prefill"):
+        q_rope = apply_rope(q_rope, ctx.pos, cfg.rope_theta)
+        k_rope = apply_rope(k_rope, ctx.pos, cfg.rope_theta)
+        k_nope = _proj(ckv, p["wk_b"])
+        q = torch.cat([q_nope, q_rope], -1)
+        k = torch.cat([k_nope, k_rope.expand(*k_nope.shape[:3], dr)], -1)
+        o = attention(q, k, _proj(ckv, p["wv_b"]))
+        out = _out(o, p["wo"])
+        if ctx.mode == "train":
+            return out, None
+        return out, {"ckv": ckv, "krope": k_rope[:, :, 0]}
+
+    posB = ctx.pos
+    q_rope = apply_rope(q_rope, posB[:, None], cfg.rope_theta)
+    k_rope = apply_rope(k_rope, posB[:, None], cfg.rope_theta)
+    S = cache["ckv"].shape[1]
+    idx = torch.clamp(posB, max=S - 1).long()
+    bidx = torch.arange(x.shape[0], device=x.device)
+    cache["ckv"][bidx, idx] = ckv[:, 0]
+    cache["krope"][bidx, idx] = k_rope[:, 0, 0]
+    # scores = (q_nope wk_b^T) . ckv + q_rope . k_rope
+    q_abs = torch.einsum("bshn,khn->bshk", q_nope, p["wk_b"])  # [B, 1, H, kl]
+    q_eff = torch.cat([q_abs, q_rope], -1)
+    k_eff = torch.cat([cache["ckv"], cache["krope"]], -1)[:, :, None]  # [B, S, 1, kl + dr]
+    o = decode_attention(q_eff, k_eff, cache["ckv"][:, :, None], posB + 1,
+                         scale=1.0 / math.sqrt(cfg.qk_nope_head_dim + dr))  # [B, 1, H, kl]
+    o = torch.einsum("bshk,khv->bshv", o, p["wv_b"])
+    return _out(o, p["wo"]), cache
+
+
+# ----------------------------------------------------------------------
 # Blocks
 # ----------------------------------------------------------------------
+ATTN_SCHEMAS = {"gqa": gqa_schema, "mla": mla_schema}
+
+
 def dense_block_schema(cfg: ModelConfig, *, attn: str = "gqa", ff: int | None = None) -> dict:
-    """A pre-norm block: ``ln1``, ``attn``, ``ln2``, ``mlp``."""
-    if attn != "gqa":
+    """A pre-norm block: ``ln1``, ``attn`` (GQA or MLA), ``ln2``, ``mlp``."""
+    if attn not in ATTN_SCHEMAS:
         raise NotImplementedError(
             f"{attn!r} attention is not ported yet (ROADMAP Queue 1 item 12)")
     d = cfg.d_model
     return {
         "ln1": rmsnorm_schema(d),
-        "attn": gqa_schema(cfg),
+        "attn": ATTN_SCHEMAS[attn](cfg),
         "ln2": rmsnorm_schema(d),
         "mlp": mlp_schema(d, ff or cfg.d_ff),
     }
 
 
-def dense_block(p, x, cache, ctx: Ctx, *, window: int = 0, ring: bool = False):
+def _attn(p, h, cache, ctx: Ctx, attn_kind: str, window: int = 0, ring: bool = False):
+    """The attention sub-layer of ``attn_kind``: (out, new_cache)."""
+    if attn_kind == "mla":
+        return mla_attn(p, h, cache, ctx)
+    return gqa_attn(p, h, cache, ctx, window=window, ring=ring)
+
+
+def dense_block(p, x, cache, ctx: Ctx, *, window: int = 0, ring: bool = False,
+                attn_kind: str = "gqa"):
     """``x + attn(ln1(x))``, then ``+ mlp(ln2(.))``; the residual sums are
     rounded to x's dtype before each norm, as in the JAX package. A local
-    layer passes its ``window`` and ``ring`` to ``gqa_attn``."""
+    layer passes its ``window`` and ``ring`` to ``gqa_attn``; ``attn_kind``
+    "mla" takes ``mla_attn``."""
     h = rmsnorm(p["ln1"], x, ctx.cfg.norm_eps)
-    a, new_cache = gqa_attn(p["attn"], h, cache, ctx, window=window, ring=ring)
+    a, new_cache = _attn(p["attn"], h, cache, ctx, attn_kind, window, ring)
     x = x + a
     x = x + mlp(p["mlp"], rmsnorm(p["ln2"], x, ctx.cfg.norm_eps))
     return x, new_cache, None
 
 
 def moe_layer_schema(cfg: ModelConfig) -> dict:
-    """A pre-norm MoE block: ``ln1``, GQA ``attn``, ``ln2``, ``moe``."""
+    """A pre-norm MoE block: ``ln1``, ``attn`` (``cfg.attn_kind``), ``ln2``,
+    ``moe``."""
     d = cfg.d_model
     return {
         "ln1": rmsnorm_schema(d),
-        "attn": gqa_schema(cfg),
+        "attn": ATTN_SCHEMAS[cfg.attn_kind](cfg),
         "ln2": rmsnorm_schema(d),
         "moe": moe_mod.moe_schema(cfg),
     }
 
 
 def moe_layer_block(p, x, cache, ctx: Ctx):
-    """``x + attn(ln1(x))``, then ``+ moe(ln2(.))``. Returns the MoE
-    layer's aux."""
+    """``x + attn(ln1(x))`` (GQA or MLA by ``cfg.attn_kind``), then
+    ``+ moe(ln2(.))``. Returns the MoE layer's aux."""
     h = rmsnorm(p["ln1"], x, ctx.cfg.norm_eps)
-    a, new_cache = gqa_attn(p["attn"], h, cache, ctx)
+    a, new_cache = _attn(p["attn"], h, cache, ctx, ctx.cfg.attn_kind)
     x = x + a
     mo, aux = moe_mod.moe_block(p["moe"], rmsnorm(p["ln2"], x, ctx.cfg.norm_eps), cfg=ctx.cfg)
     return x + mo, new_cache, aux

@@ -109,20 +109,49 @@ def test_flash_attention_kernel_partial_tiles(S, dtype):
     _flash_matches_plain(2, S, 4, 2, 64, 64, True, dtype)
 
 
+# every head dim the kernel is built for, in pairs or alone
+DIMS = sorted({*fkern.HEAD_DIMS, *(d for pair in fkern.PAIRS for d in pair)})
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("Dv", fkern.HEAD_DIMS)
-@pytest.mark.parametrize("D", fkern.HEAD_DIMS)
+@pytest.mark.parametrize("Dv", DIMS)
+@pytest.mark.parametrize("D", DIMS)
 def test_flash_attention_kernel_head_dims(D, Dv):
     """Every (D, Dv) the wrapper admits, in bf16 (the tensor-core kernel);
     non-causal where D < Dv, so (32, 128) runs non-causal and (128, 64)
-    causal. A pair with 256 but not (256, 256) is refused."""
+    causal. A pair with 192 or 256 but not (192, 128) or (256, 256) is
+    refused."""
     if not fkern.admits(D, Dv):
-        rng = np.random.default_rng(D + Dv)
-        q, k = _card(rng, (1, 8, 2, D), "bfloat16"), _card(rng, (1, 8, 2, D), "bfloat16")
-        with pytest.raises(ValueError, match="head dims"):
-            fkern.flash_attention_cuda(q, k, _card(rng, (1, 8, 2, Dv), "bfloat16"))
+        _refused(D, Dv)
         return
     _flash_matches_plain(1, 100, 4, 2, D, Dv, D >= Dv, "bfloat16")
+
+
+def _refused(D, Dv, dtype="bfloat16"):
+    rng = np.random.default_rng(D + Dv)
+    q, k = _card(rng, (1, 8, 2, D), dtype), _card(rng, (1, 8, 2, D), dtype)
+    before = fkern.LAUNCHES["flash_attention"]
+    with pytest.raises(ValueError, match="head dims"):
+        fkern.flash_attention_cuda(q, k, _card(rng, (1, 8, 2, Dv), dtype))
+    assert fkern.LAUNCHES["flash_attention"] == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H", [(4, 512, 128), (2, 520, 16), (2, 1, 16), (1, 100, 4)])
+def test_flash_attention_kernel_mla(B, S, H, dtype):
+    """MLA's prefill attention (DeepSeek-V2): D = 192 (128 columns without
+    and 64 with the rotary embedding), Dv = 128, as many KV heads as query
+    heads; at its serve shape, a ragged last tile and a single row."""
+    _flash_matches_plain(B, S, H, H, 192, 128, True, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel_refuses_mla_reduced_dims(dtype):
+    """MLA ``reduced()`` (D = 32 + 16, Dv = 32) is not built: the launch
+    raises, and nothing falls back to the plain version."""
+    _refused(48, 32, dtype)
 
 
 @pytest.mark.gpu

@@ -22,8 +22,13 @@ CPU, copied to the card; routing recorded by ``torch_routing``.
 * ``forward`` of ``llama4-scout-17b-a16e`` reduced in float32: routing
   equal in every layer, logits within 1e-4 (the flash kernel's float32
   attention, ``tests/test_torch_cuda_model_kernels.py``'s tolerance),
-  the summed aux within 1e-5.
+  the summed aux within 1e-5;
+* ``deepseek-v2-236b`` reduced at MLA's serving head dims (D = 192, Dv =
+  128) in float32: forward, prefill and decode steps, routing equal and
+  logits and the compressed cache within 1e-4.
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -54,8 +59,6 @@ def _moe_case(arch, dtype, S=64):
 
 
 def _run(p, x, cfg, cf, device):
-    import copy
-
     p, x = copy.deepcopy(p).to(device), x.to(device)
     out, aux = TMOE.moe_block(p, x, cfg=cfg, capacity_factor=cf)
     e, m = route(p, x, cfg.moe_top_k)
@@ -151,3 +154,42 @@ def test_moe_forward_on_card_matches_cpu(monkeypatch):
     np.testing.assert_allclose(lg.cpu().numpy(), lw.numpy(), atol=1e-4, rtol=1e-4)
     for key in aux_w:
         assert abs(float(aux_g[key]) - float(aux_w[key])) <= 1e-5, key
+
+
+@pytest.mark.gpu
+def test_mla_moe_model_on_card_matches_cpu(monkeypatch):
+    """DeepSeek-V2 reduced at MLA's serving head dims (D = 128 + 64 rotary
+    columns = 192, Dv = 128: the flash kernel's MLA instance) in float32:
+    forward, then a prefill and three decode steps through the compressed
+    cache; routing equal in every layer and call, logits within 1e-4."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("deepseek-v2-236b").reduced().replace(
+        qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128)
+    p = TM.init_params(cfg, torch.Generator().manual_seed(0), device="cpu").float()
+    pg = copy.deepcopy(p).to("cuda")
+    toks = torch.as_tensor(np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 99)))
+    rec = record_routing(monkeypatch)
+
+    def run(params, t):
+        out = [TM.forward(cfg, params, {"tokens": t[:, :96]})[0]]
+        logits, cache = TM.prefill(cfg, params, {"tokens": t[:, :96]}, pad_to=99)
+        out.append(logits)
+        for i in range(96, 99):
+            logits, cache = TM.decode_step(cfg, params, cache, t[:, i:i + 1])
+            out.append(logits)
+        return [o.cpu() for o in out], cache
+
+    want, cache_w = run(p, toks)
+    r_cpu = rec[:]
+    rec.clear()
+    got, cache_g = run(pg, toks.cuda())
+    assert len(rec) == len(r_cpu) == 5 * (cfg.n_layers - cfg.first_k_dense)
+    for (eg, _), (ew, _) in zip(rec, r_cpu):
+        np.testing.assert_array_equal(np.sort(eg.numpy(), -1), np.sort(ew.numpy(), -1))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-4, rtol=1e-4)
+    for stack in ("dense_blocks", "blocks"):
+        for key in ("ckv", "krope"):
+            np.testing.assert_allclose(cache_g[stack][key].cpu().numpy(),
+                                       cache_w[stack][key].numpy(), atol=1e-4, rtol=1e-4)

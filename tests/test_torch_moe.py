@@ -5,8 +5,9 @@ device, so ``_moe_local`` with one shard), and the port's mirror of
 
 Inputs come from JAX's ``init_tree`` (parameters) and numpy (x), carried
 across as numpy arrays. The MoE blocks of ``llama4-scout-17b-a16e`` (top-1,
-one shared expert) and ``deepseek-v2-236b`` (top-2, its MoE block only:
-MLA attention is not ported) ``reduced()``: d 128, 4 experts of 128.
+one shared expert) and ``deepseek-v2-236b`` (top-2, its MoE block alone;
+its MLA attention: ``tests/test_torch_mla.py``) ``reduced()``: d 128, 4
+experts of 128.
 
 * float32: the routing (top-k expert ids) equal for every token; the
   output within atol / rtol 1e-5 (sums of 128-term products in another
@@ -239,7 +240,8 @@ def test_grouped_mm_call_matches_the_plain_loop(dtype):
 
 @pytest.mark.parametrize("reduced", [False, True], ids=["full", "reduced"])
 @pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "phi4-mini-3.8b", "granite-8b",
-                                  "mistral-large-123b", "mamba2-130m", "zamba2-7b"])
+                                  "mistral-large-123b", "mamba2-130m", "zamba2-7b",
+                                  "deepseek-v2-236b"])
 def test_count_params_equal_jax(arch, reduced):
     """Every architecture the port admits; ``active_only`` counts a MoE
     model's routed experts at top-k of E."""

@@ -267,14 +267,15 @@ def _config(arch):
     return get_config(arch)
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "qwen2-vl-72b",
-                                  "seamless-m4t-medium", "llama4-scout-17b-a16e-mla"])
+@pytest.mark.parametrize("arch", ["gemma3-4b-mla", "qwen2-vl-72b",
+                                  "seamless-m4t-medium", "zamba2-7b-mla"])
 def test_unported_model_families_raise(arch):
-    """The dense GQA family (with Gemma 3's local:global layers), ``moe``
-    with GQA attention (Llama-4-Scout), ``ssm`` (Mamba-2) and ``hybrid``
-    (Zamba2) run in the port; every other registered architecture is
-    refused, naming the ROADMAP item, and so is a MoE model with MLA
-    attention (DeepSeek-V2's, and Llama-4-Scout's widths with MLA)."""
+    """The dense family (GQA, with Gemma 3's local:global layers, or MLA),
+    ``moe`` with GQA or MLA attention (Llama-4-Scout, DeepSeek-V2), ``ssm``
+    (Mamba-2) and ``hybrid`` (Zamba2) run in the port; every other
+    registered architecture is refused, naming the ROADMAP item, and so is
+    MLA attention in a local:global (Gemma 3's) or hybrid (Zamba2's) model,
+    where the JAX package would silently build GQA."""
     with pytest.raises(NotImplementedError, match="item 12"):
         TM.init_params(_config(arch).reduced(), device="cpu")
 
@@ -294,7 +295,7 @@ def test_unported_model_options_raise():
     with pytest.raises(NotImplementedError, match="item 12"):
         TM.param_schema(get_config("llama4-scout-17b-a16e").replace(sliding_window=64))
     for arch in ("phi4-mini-3.8b", "granite-8b", "mistral-large-123b", "mamba2-130m",
-                 "zamba2-7b", "llama4-scout-17b-a16e", "gemma3-4b"):
+                 "zamba2-7b", "llama4-scout-17b-a16e", "gemma3-4b", "deepseek-v2-236b"):
         assert TM.count_params(get_config(arch)) > 0
     with pytest.raises(NotImplementedError, match="item 12"):
         TM.param_schema(get_config("zamba2-7b").replace(sliding_window=64))

@@ -27,7 +27,7 @@ and each MoE layer's float32 sums (grouped products and the weighted
 combine, in another order) reach the next layer's keys and values, up to
 2.1e-5.
 
-A MoE model adds a routing rule. Rounding may send a token whose top-1 /
+A MoE model adds a routing rule (``routing_rule``). Rounding may send a token whose top-1 /
 top-2 router margin is tiny to another expert, and that token's output
 then differs by far more than 3e-2; no seed is chosen to avoid such a
 token. In float32 every MoE layer's routing (top-k expert ids, recorded on
@@ -47,13 +47,13 @@ import torch
 
 from repro.configs import get_config as jax_get_config
 from repro.models import model as JM
-from repro.models import moe as JMOE
 from repro.runtime import default_runtime
 from repro.serve import Engine as JEngine
 from repro.serve import ServeConfig as JServeConfig
 from repro_torch.configs import get_config
 from repro_torch.models import model as TM
 from repro_torch.serve import Engine, ServeConfig
+from routing_rule import agreed, record_jax_routing
 from torch_routing import record_routing
 
 torch.set_num_threads(1)
@@ -61,8 +61,6 @@ torch.set_num_threads(1)
 ARCHS = ["phi4-mini-3.8b", "llama4-scout-17b-a16e", "granite-8b", "mistral-large-123b"]
 RT_JAX = default_runtime().with_(attn_impl="flash", block_q=64, block_k=64, remat=False)
 TOL = {"float32": dict(atol=1e-5, rtol=1e-5), "bfloat16": dict(atol=3e-2, rtol=3e-2)}
-MAX_FLIP_SHARE = 0.05  # bf16: positions that may route differently in some layer
-MARGIN_BOUND = 1e-2  # bf16: a router margin below it is a near-tie
 CACHE_TOL = {"llama4-scout-17b-a16e": dict(atol=1e-4, rtol=1e-5)}  # float32 KV cache
 
 
@@ -75,20 +73,9 @@ def jax_params(request):
 
 @pytest.fixture
 def jax_routing(monkeypatch):
-    """Each JAX MoE layer's top-k expert ids [T, k] (sorted per token), in
-    call order: the JAX package's ``moe_block`` wrapped to recompute its
-    float32 routing from the same input and send it to the host."""
-    rec = []
-    moe_block = JMOE.moe_block
-
-    def recorded(p, x, *, cfg, rt):
-        xf = x.reshape(-1, x.shape[-1]).astype(jnp.float32)
-        _, e = jax.lax.top_k(jax.nn.softmax(xf @ p["router"], axis=-1), cfg.moe_top_k)
-        jax.debug.callback(lambda e: rec.append(np.sort(np.asarray(e), -1)), e, ordered=True)
-        return moe_block(p, x, cfg=cfg, rt=rt)
-
-    monkeypatch.setattr(JMOE, "moe_block", recorded)
-    return rec
+    """Each JAX MoE layer's top-k expert ids, in call order
+    (``routing_rule.record_jax_routing``)."""
+    return record_jax_routing(monkeypatch)
 
 
 @pytest.fixture
@@ -96,35 +83,6 @@ def port_routing(monkeypatch):
     """Each of the port's MoE layers' ``(top_e, margin)``, in call order
     (``torch_routing.record_routing``)."""
     return record_routing(monkeypatch)
-
-
-def _agreed(port_routing, jax_routing, n_layers, dtype):
-    """Per position (token), whether every MoE layer routed it alike on
-    both sides; float32 demands all, bf16 at most ``MAX_FLIP_SHARE`` not.
-    ``port_routing``: the port's ``(top_e, margin)`` records, ``n_layers``
-    per call, as ``jax_routing``'s arrays."""
-    jax.effects_barrier()  # every recorded callback has run
-    assert len(port_routing) == len(jax_routing)
-    if not port_routing:
-        return None
-    got = np.stack([np.sort(e.numpy(), -1) for e, _ in port_routing])
-    want = np.stack(jax_routing)
-    T = got.shape[1]
-    same = (got == want).all(-1).reshape(-1, n_layers, T)  # [calls, layers, T]
-    agree = same.all(1)  # [calls, T]
-    if dtype == "float32":
-        assert agree.all(), f"float32 routing differs at {np.argwhere(~agree).tolist()}"
-        return agree
-    margin = np.stack([m.numpy() for _, m in port_routing]).reshape(-1, n_layers, T)
-    near = int((margin < MARGIN_BOUND).sum())
-    call, tok = np.nonzero(~agree)
-    first = np.argmin(same[call, :, tok], axis=1)  # the first layer that differs
-    assert (margin[call, first, tok] < MARGIN_BOUND).all(), (
-        f"a position routed differently at a margin of {margin[call, first, tok].max()}")
-    assert 1 - agree.mean() <= MAX_FLIP_SHARE, (
-        f"{(~agree).sum()} of {agree.size} positions routed differently; "
-        f"{near} layer decisions below a margin of {MARGIN_BOUND}")
-    return agree
 
 
 def _aux_close(aux_j, aux_t, dtype):
@@ -186,7 +144,7 @@ def test_forward_matches_jax(jax_params, jax_routing, port_routing, dtype):
     lt, caches, aux_t = TM.forward(cfg_t, pt, {"tokens": torch.as_tensor(toks).long()})
     assert lt.dtype == torch.float32 and tuple(lt.shape) == (2, 320, cfg_t.vocab_size)
     assert caches is None
-    agree = _agreed(port_routing, jax_routing, _moe_layers(cfg_t), dtype)
+    agree = agreed(port_routing, jax_routing, _moe_layers(cfg_t), dtype)
     _close(lj, lt, dtype, None if agree is None else agree[0])
     _aux_close(aux_j, aux_t, dtype)
 
@@ -206,7 +164,7 @@ def test_prefill_and_decode_match_jax(jax_params, jax_routing, port_routing, dty
     lj, cj = JM.prefill(cfg_j, pj, {"tokens": jnp.asarray(toks[:, :S])}, RT_JAX, pad_to=S + 4)
     lt, ct = TM.prefill(cfg_t, pt, {"tokens": torch.as_tensor(toks[:, :S]).long()},
                         pad_to=S + 4)
-    agree = _agreed(port_routing, jax_routing, L, dtype)
+    agree = agreed(port_routing, jax_routing, L, dtype)
     where = None if agree is None else agree[0]
     _close(lj, lt, dtype, where)
     tol = CACHE_TOL.get(jax_params[0]) if dtype == "float32" else None
@@ -220,7 +178,7 @@ def test_prefill_and_decode_match_jax(jax_params, jax_routing, port_routing, dty
         jax_routing.clear()
         lj, cj = JM.decode_step(cfg_j, pj, cj, jnp.asarray(toks[:, t:t + 1]), RT_JAX)
         lt, ct = TM.decode_step(cfg_t, pt, ct, torch.as_tensor(toks[:, t:t + 1]).long())
-        agree = _agreed(port_routing, jax_routing, L, dtype)
+        agree = agreed(port_routing, jax_routing, L, dtype)
         _close(lj, lt, dtype, None if agree is None else agree[0])
     assert ct["len"].tolist() == [323, 323]
     if dtype == "float32" or not L:

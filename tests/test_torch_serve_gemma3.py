@@ -241,3 +241,54 @@ def test_init_cache_mirrors_jax(jax_params):
         assert {k: tuple(v.shape) for k, v in got.items()} == {
             k: v.shape for k, v in want.items()}
         assert all(not v.any() for v in got.values())
+
+
+# ----------------------------------------------------------------------
+# fewer layers than one superblock
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S", [48, 96])
+def test_no_superblock_matches_jax(S, dtype):
+    """3 layers, below one period of 4: no superblock, three trailing local
+    layers. The JAX parameters' zero-size ``superblocks`` leaves load;
+    forward, a prefill of S tokens (below and above the window; cache
+    padded by 4) and three decode steps equal JAX's, logits and every cache
+    leaf (the zero-size ``superblocks`` ones of the JAX prefill's shapes:
+    rings of 64 slots, global caches of S + 4), as do five greedy tokens of
+    the engine (float32)."""
+    cfg_j = jax_get_config(ARCH).reduced().replace(n_layers=3)
+    cfg_t = get_config(ARCH).reduced().replace(n_layers=3)
+    flat = _flat(JM.init_params(cfg_j, jax.random.key(0)))
+    assert flat["superblocks.local.attn.wq"].shape == (0, 3, 128, 4, 32)
+    assert TM.count_params(cfg_t) == JM.count_params(cfg_j)
+    _, pj, _, pt = _setup((3, JM.init_params(cfg_j, jax.random.key(0))), dtype)
+    assert len(pt["superblocks"]) == 0 and len(pt["trailing"]) == 3
+    toks = _tokens(cfg_j, 2, S + 3, seed=S)
+    lj, _, _ = JM.forward(cfg_j, pj, {"tokens": jnp.asarray(toks)}, RT_JAX, mode="train")
+    lt, _, _ = TM.forward(cfg_t, pt, {"tokens": torch.as_tensor(toks).long()})
+    _close(lj, lt, dtype)
+    lj, cj = JM.prefill(cfg_j, pj, {"tokens": jnp.asarray(toks[:, :S])}, RT_JAX, pad_to=S + 4)
+    lt, ct = TM.prefill(cfg_t, pt, {"tokens": torch.as_tensor(toks[:, :S]).long()},
+                        pad_to=S + 4)
+    _close(lj, lt, dtype)
+    for t in range(S, S + 3):
+        lj, cj = JM.decode_step(cfg_j, pj, cj, jnp.asarray(toks[:, t:t + 1]), RT_JAX)
+        lt, ct = TM.decode_step(cfg_t, pt, ct, torch.as_tensor(toks[:, t:t + 1]).long())
+        _close(lj, lt, dtype)
+    want = dict(_leaves(jax.tree.map(np.asarray, cj)))
+    got = dict(_leaves(ct))
+    assert {k: tuple(v.shape) for k, v in got.items()} == {k: v.shape for k, v in want.items()}
+    assert tuple(got["superblocks.local.k"].shape) == (0, 3, 2, 64, 2, 32)
+    assert tuple(got["superblocks.global.k"].shape) == (0, 2, S + 4, 2, 32)
+    n = 1 if dtype == "bfloat16" else None  # in bf16 the first layer's (module docstring)
+    for key, leaf in got.items():
+        if key.startswith("trailing"):
+            _close(want[key][:n], leaf[:n], dtype)
+    assert got["len"].tolist() == [S + 3, S + 3]
+    if dtype == "float32":
+        rng = np.random.default_rng(S)
+        prompts = [rng.integers(0, cfg_j.vocab_size, n).tolist() for n in (S, S - 9, 30)]
+        want_t = JEngine(cfg_j, pj, scfg=JServeConfig(max_new_tokens=5)).generate(prompts)
+        got_t = Engine(cfg_t, pt, scfg=ServeConfig(max_new_tokens=5),
+                       device="cpu").generate(prompts)
+        assert got_t == want_t

@@ -1,8 +1,10 @@
 """The port's ``ssm`` (Mamba-2) and ``hybrid`` (Zamba2) serving paths
 against the JAX package, on ``mamba2-130m``'s and ``zamba2-7b``'s
-``reduced()`` configs and the 7-layer hybrid (one superblock of 3 SSM
-layers and the shared attention block twice, then one trailing layer),
-with the JAX-initialised weights carried across by
+``reduced()`` configs, the 7-layer hybrid (one superblock of 3 SSM
+layers and the shared attention block twice, then one trailing layer) and
+the 2-layer hybrid (fewer layers than one superblock: its ``superblocks``
+parameters and caches are zero-size leaves, and the shared attention block
+never runs), with the JAX-initialised weights carried across by
 ``models.model.params_from_numpy``.
 
 Prompts are at most 256 tokens, so JAX's prefill attention is its plain
@@ -43,7 +45,8 @@ torch.set_num_threads(1)
 RT_JAX = default_runtime().with_(remat=False)
 TOL = {"float32": dict(atol=1e-5, rtol=1e-5), "bfloat16": dict(atol=3e-2, rtol=3e-2)}
 ARCHS = {"mamba2": ("mamba2-130m", {}), "zamba2": ("zamba2-7b", {}),
-         "zamba2_7l": ("zamba2-7b", {"n_layers": 7})}
+         "zamba2_7l": ("zamba2-7b", {"n_layers": 7}),
+         "zamba2_2l": ("zamba2-7b", {"n_layers": 2})}  # no superblock: zero-size leaves
 
 
 def _cfg(get, case):
@@ -103,7 +106,7 @@ def _close_cache(cj, ct, dtype):
         if k == "len":
             continue
         tol = dict(TOL[dtype])
-        if got[k].dtype == torch.bfloat16:  # two ulps at the leaf's scale
+        if got[k].dtype == torch.bfloat16 and want[k].size:  # two ulps at the leaf's scale
             ulp = 2.0 ** (np.floor(np.log2(np.abs(want[k]).max())) - 7)
             tol["atol"] = max(tol["atol"], 2 * ulp)
         np.testing.assert_allclose(got[k].to(torch.float32).numpy(), want[k], **tol,
@@ -202,11 +205,11 @@ def test_init_cache_matches_jax_schema(case):
         assert grown[k].shape == want_shape, k
 
 
-@pytest.mark.parametrize("case", ["mamba2", "zamba2_7l"])
+@pytest.mark.parametrize("case", ["mamba2", "zamba2_7l", "zamba2_2l"])
 def test_params_from_numpy_checks_every_leaf(case):
     """A missing, an unknown or a misshapen leaf is refused, at every
     stacking depth (blocks, superblocks, trailing, the unstacked shared
-    block)."""
+    block), the zero-size leaves of a model with no superblock too."""
     cfg = _cfg(get_config, case)
     flat = _flat(_jax_params(case))
     keys = (["blocks.mixer.wz"] if case == "mamba2" else
