@@ -10,7 +10,8 @@ its plain PyTorch version on the card, drives the simulator's main path
 through the port's entry points (``build_sim`` / ``run`` / ``stats``), the
 paper's figures through ``repro_torch.benchmarks`` and the model stack's
 serving paths (``Engine.generate`` on Phi-4-mini, Mamba-2, Zamba2,
-Llama-4-Scout, Gemma 3 4B and DeepSeek-V2), and checks what comes out:
+Llama-4-Scout, Gemma 3 4B, DeepSeek-V2, Qwen2-VL and SeamlessM4T), and
+checks what comes out:
 
 1. the card (``nvidia-smi``) and the kernels' build time;
 2. the arb and apply kernels bit-identical to the plain version on random
@@ -40,8 +41,8 @@ Llama-4-Scout, Gemma 3 4B and DeepSeek-V2), and checks what comes out:
 6. the 8x4 torus at ``n_vcs=2``, one cycle per step and at
    ``fused_cycles=4``: GPU state equal to CPU state, ms per cycle, the VC
    arb/apply kernels timed on the per-cycle run's state;
-7. the 8x1 ring: wedged at ``n_vcs=1`` (nothing delivered in 2000
-   cycles, twice what the drain takes), drained at ``n_vcs=2`` with the
+7. the 8x1 ring: wedged at ``n_vcs=1`` (nothing delivered in 1100
+   cycles, more than the drain takes), drained at ``n_vcs=2`` with the
    GPU state equal to CPU state;
 8. the 32x32 torus at ``n_vcs=2``, one cycle per step and at
    ``fused_cycles=4`` (200 cycles each): GPU state equal to CPU state, ms
@@ -83,11 +84,15 @@ Llama-4-Scout, Gemma 3 4B and DeepSeek-V2), and checks what comes out:
    D=256 with window 1024 and without, a window below one tile at a ragged
    S, one not a multiple of 64, a ragged S, the left edge alone), and
    DeepSeek-V2's MLA prefill (B=4, S=512, H=KV=128, D=192, Dv=128; a ragged
-   S=520 and S=1) in both dtypes; both RMSNorm
+   S=520 and S=1) in both dtypes, Qwen2-VL's prefill (B=4, S=512, H=64,
+   KV=8, D=128, causal) and SeamlessM4T's (B=4, S=512, H=KV=16, D=64: the
+   encoder and the cross-attention non-causal, the decoder's
+   self-attention causal, and a ragged cross-attention of Sq=300 against
+   Skv=512) in both dtypes; both RMSNorm
    variants at N = 4 and 2048, d = 3072 and 5120, at N = 1, 5 and 2047,
    d = 768 and 3584, with a weight at an odd element offset and at d = 100,
-   at d = 2560 (N = 8192 and 4), at d = 1536 and 512 (N = 2048 and 4), float32
-   and bf16; the SSD kernel (y and final state) at
+   at d = 2560 (N = 8192 and 4), at d = 1536, 512, 8192 and 1024 (N = 2048
+   and 4), float32 and bf16; the SSD kernel (y and final state) at
    the sweep shapes in float32 and bf16, the Mamba-2 (H=24, P=64, N=128)
    and Zamba2 (H=112, N=64) path shapes (B=4, S=512, Q=128, bf16), a ragged
    S=520, an entering state, and in bf16 Q=100, P=40, N=72 (off the
@@ -105,41 +110,59 @@ Llama-4-Scout, Gemma 3 4B and DeepSeek-V2), and checks what comes out:
    1 500-token prompt padded to 2048, so the rings hold pads as the
    engine's do, ``serve_gemma3_4b_vs_cpu``), DeepSeek-V2 at full width and
    2 layers (the dense first layer and one MoE layer, both MLA; 120 tokens;
-   bf16 and float32 under the routing rule, ``serve_deepseek_v2_vs_cpu``); one
+   bf16 and float32 under the routing rule, ``serve_deepseek_v2_vs_cpu``),
+   Qwen2-VL at full width and 2 layers (400 tokens padded to 512, random
+   patch embeddings in the first 256 slots on both sides,
+   ``serve_qwen2_vl_vs_cpu``), SeamlessM4T whole (random frames [1, 512,
+   1024] on both sides, a 400-token decoder prompt,
+   ``serve_seamless_vs_cpu``); one
    Llama-4-Scout MoE layer at full width in float32 with capacity factor
    0.25 on the card and the CPU (``dropped_frac`` 0.75 on both, routing
    equal, output within ``MOE_TOL``), and in bf16 with no host
    synchronisation inside (``moe_drop_vs_cpu``). Each model at full width
    through ``Engine.generate``, at full depth but for Llama-4-Scout (12 of
-   48 layers, ``LLAMA4_LAYERS``, and DeepSeek-V2, 8 of 60,
-   ``DEEPSEEK_LAYERS``: the whole models do not fit the card) and Zamba2
+   48 layers, ``LLAMA4_LAYERS``, DeepSeek-V2, 8 of 60,
+   ``DEEPSEEK_LAYERS``, and Qwen2-VL, 32 of 80, ``QWEN2VL_LAYERS``: the
+   whole models do not fit the card) and Zamba2
    (27 of 81, ``ZAMBA2_LAYERS``: the run's time limit): 4 prompts
-   (Phi-4-mini, Llama-4-Scout and DeepSeek-V2 300-500 tokens, Mamba-2 and Zamba2 512
-   each, Gemma 3 2048 each, no pad tail), 16 greedy tokens, twice (identical
+   (Phi-4-mini, Llama-4-Scout, DeepSeek-V2, Qwen2-VL and SeamlessM4T
+   300-500 tokens, Mamba-2 and Zamba2 512 each, Gemma 3 2048 each, no pad
+   tail; Qwen2-VL's first 256 slots the engine's zero patch stub, on a
+   16 x 16 grid; SeamlessM4T's encoder fed the engine's zero frames [4,
+   512, 1024]), 16 greedy tokens, twice (identical
    tokens; launch counts exact: per prefill / decode step Phi-4-mini 32 /
    0 flash and 65 / 65 RMSNorm, Mamba-2 24 / 0 SSD and 25 / 25 RMSNorm,
    Zamba2 (27 of 81 layers, ``ZAMBA2_LAYERS``) 27 / 0 SSD, 4 / 0 flash and
    36 / 36 RMSNorm, Llama-4-Scout
    12 / 0 flash and 25 / 25 RMSNorm, Gemma 3 34 / 0 flash (29 windowed)
    and 69 / 69 RMSNorm, DeepSeek-V2 8 / 0 flash (D=192, Dv=128) and 33 / 33
-   RMSNorm (ln1, q_norm, kv_norm, ln2 a layer, the final norm); 15 decode
-   steps), all logits finite,
+   RMSNorm (ln1, q_norm, kv_norm, ln2 a layer, the final norm), Qwen2-VL
+   32 / 0 flash and 65 / 65 RMSNorm, SeamlessM4T 36 / 0 flash (12 encoder,
+   12 self- and 12 cross-attention at D=64) and 62 / 37 RMSNorm (encoder 2
+   a layer and its final norm, decoder 3 a layer and the final norm); 15
+   decode steps), all logits finite,
    prefill ms, decode ms per step, tokens/s, peak device memory, and the
    device's busy share of one prefill and one decode step
    (``torch.profiler``); Llama-4-Scout's and DeepSeek-V2's decode step
    beside its bytes bound (every weight but the routed experts, which count
    as far as that step's tokens pick them; the dense first layer's MLP;
-   the K/V or MLA's compressed cache read and written), Gemma 3's beside
-   its (every weight and each layer's valid K/V read once); each kernel's time at
+   the K/V or MLA's compressed cache read and written), Gemma 3's and
+   Qwen2-VL's beside theirs (every weight a decode step reads and each
+   layer's valid K/V read once), SeamlessM4T's beside its own (the decoder's
+   weights and the embedding, not the encoder's; the self-attention's K/V
+   and the cross-attention's ``ck`` / ``cv`` over ``enc_len``); each
+   kernel's time at
    the paths' shapes beside its bound, its plain version and one PyTorch
    call where there is one (``library_ms``: ``scaled_dot_product_attention``,
    ``rms_norm``; none computes the SSD scan), flash attention also at
    Llama-4-Scout's 40 / 8 heads, at Gemma 3's shape with its window
    (bound over the visible pairs only; SDPA given the band as a boolean
-   mask, the backend it picks named) and without, and at DeepSeek-V2's MLA
-   shape (SDPA's backend named), RMSNorm also at Mamba-2's, Zamba2's,
-   Llama-4-Scout's, Gemma 3's and DeepSeek-V2's widths (N = 2048, d = 768,
-   3584, 5120, 1536 and 512; N = 8192, d = 2560);
+   mask, the backend it picks named) and without, at DeepSeek-V2's MLA
+   shape, at Qwen2-VL's 64 / 8 heads and at SeamlessM4T's D=64, non-causal
+   (bound over all S x S pairs) and causal (SDPA's backend named), RMSNorm
+   also at Mamba-2's, Zamba2's, Llama-4-Scout's, Gemma 3's, DeepSeek-V2's,
+   Qwen2-VL's and SeamlessM4T's widths (N = 2048, d = 768, 3584, 5120,
+   1536, 512, 8192 and 1024; N = 8192, d = 2560);
 11. the paged KV gather (``kernels_vs_plain_kv_gather``,
    ``kernel_times_kv_gather``): the kernel bit-equal to its plain version
    at ``tests/test_kernels.py``'s sweep shapes in float32, bf16 and int32
@@ -172,7 +195,8 @@ Llama-4-Scout, Gemma 3 4B and DeepSeek-V2), and checks what comes out:
    ``ml_traffic.validate_phase`` on the card, counted, equal to the CPU's;
 12. one JSON line listing every kernel and mode (launches on its main
    path, mismatch, times, bounds; the flash kernel's MLA instance, D=192
-   with Dv=128, a row of its own; the per-cycle kernels' rows also the
+   with Dv=128, and its D=64 instance (SeamlessM4T) rows of their own; the
+   per-cycle kernels' rows also the
    launch floor: an empty kernel's time at the same grid, timed the same
    way in the same run; the unfused apply mode's rows its launches on the
    naive paths and the fused mode's time beside its own).
@@ -1102,8 +1126,8 @@ LOGIT_TOL = 0.1
 RMS_EPS = 1e-5
 # RMSNorm widths of the serve paths beside Phi-4-mini's 3072: Mamba-2, Zamba2,
 # Llama-4-Scout (and DeepSeek-V2's d_model), Gemma 3, DeepSeek-V2's q_norm
-# and kv_norm
-RMS_WIDTHS = (768, 3584, 5120, 2560, 1536, 512)
+# and kv_norm, Qwen2-VL, SeamlessM4T
+RMS_WIDTHS = (768, 3584, 5120, 2560, 1536, 512, 8192, 1024)
 PHI4, MAMBA2, ZAMBA2 = "phi4-mini-3.8b", "mamba2-130m", "zamba2-7b"
 GEMMA3 = "gemma3-4b"
 LLAMA4 = "llama4-scout-17b-a16e"
@@ -1116,6 +1140,15 @@ LLAMA4_LAYERS = 12
 # model (~235 B parameters, ~470 GB) does not fit an 80 GB card
 DEEPSEEK = "deepseek-v2-236b"
 DEEPSEEK_LAYERS = 8
+# Qwen2-VL served at full width, cut to 32 of its 80 layers (2.940e10
+# parameters, 58.80 GB in bf16): the whole model (~71.5 B parameters, ~143
+# GB) does not fit an 80 GB card. SeamlessM4T (0.750e9 parameters) is served
+# whole
+QWEN2VL, SEAMLESS = "qwen2-vl-72b", "seamless-m4t-medium"
+QWEN2VL_LAYERS = 32
+# an encoder-decoder's cache leaves of the encoder's length, written once by
+# the prefill
+CROSS_CACHE = ("ck", "cv", "enc_out")
 # Zamba2 served at full width, cut to 27 of its 81 layers (4 superblocks of 6
 # Mamba-2 layers with the shared attention after each, 3 trailing) to keep
 # the whole run within its time limit once Gemma 3's phases were added
@@ -1190,6 +1223,7 @@ def compare_model_kernels(dev):
     llama4_rng = np.random.default_rng(19)  # Llama-4-Scout's shapes, likewise
     gemma_rng = np.random.default_rng(25)  # Gemma 3's shapes and the window cases, likewise
     mla_rng = np.random.default_rng(29)  # DeepSeek-V2's MLA shapes and widths, likewise
+    vlm_rng = np.random.default_rng(35)  # Qwen2-VL's and SeamlessM4T's, likewise
     bf, f32 = "bfloat16", "float32"
     dt = {bf: torch.bfloat16, f32: torch.float32}
     # (label, B, Sq, H, KV, D, Dv, dtype, causal, Skv[, window])
@@ -1226,13 +1260,23 @@ def compare_model_kernels(dev):
         cases += [("mla_path", 4, 512, 128, 128, 192, 128, d_, True, 512),
                   ("mla_ragged", 1, 520, 128, 128, 192, 128, d_, True, 520),
                   ("mla_s1", 2, 1, 128, 128, 192, 128, d_, True, 1)]
+    # Qwen2-VL's prefill (64 query heads in groups of 8); SeamlessM4T's (16
+    # heads of their own, D = 64): the encoder's and the cross-attention's
+    # non-causal attention, the decoder's causal self-attention, and a
+    # ragged decoder against the encoder's 512 frames
+    for d_ in (bf, f32):
+        cases += [("qwen2vl_path", 4, 512, 64, 8, 128, 128, d_, True, 512),
+                  ("seamless_noncausal", 4, 512, 16, 16, 64, 64, d_, False, 512),
+                  ("seamless_causal", 4, 512, 16, 16, 64, 64, d_, True, 512),
+                  ("seamless_cross_ragged", 4, 300, 16, 16, 64, 64, d_, False, 512)]
     errs, rows = {}, []
     for label, B, S, H, KV, D, Dv, d_, causal, Skv, *win in cases:
         window = win[0] if win else 0
         gen = (edge_rng if label in ("edge_s", "head_dims", "sq_ne_skv") else
                llama4_rng if label == "llama4_path" else
                gemma_rng if label.startswith(("gemma3", "window")) else
-               mla_rng if label.startswith("mla") else rng)
+               mla_rng if label.startswith("mla") else
+               vlm_rng if label.startswith(("qwen2vl", "seamless")) else rng)
         q, k, v = (randn(gen, sh, dt[d_], dev) for sh in
                    ((B, S, H, D), (B, Skv, KV, D), (B, Skv, KV, Dv)))
         keep = [t.clone() for t in (q, k, v)]
@@ -1257,6 +1301,10 @@ def compare_model_kernels(dev):
             errs["flash_attention_" + label] = err
         if label == "mla_path" and d_ == bf:
             errs["flash_attention_mla"] = err
+        if label == "qwen2vl_path" and d_ == bf:
+            errs["flash_attention_qwen2vl"] = err
+        if label.startswith("seamless") and d_ == bf:
+            errs["flash_attention_seamless"] = max(errs.get("flash_attention_seamless", 0.0), err)
     # (N, d, weight at an odd element offset): the path widths (3072 Phi-4-mini,
     # 768 Mamba-2, 3584 Zamba2, 5120 Llama-4-Scout at its prefill and decode
     # rows), row counts off the rows-per-CTA grid, the scalar path (odd width;
@@ -1268,9 +1316,12 @@ def compare_model_kernels(dev):
     rms_cases += [(8192, 2560, False), (4, 2560, False)]  # Gemma 3's prefill and decode rows
     # DeepSeek-V2's q_norm and kv_norm (its ln1, ln2 and final norm are 5120's)
     rms_cases += [(N, d, False) for d in (1536, 512) for N in (2048, 4)]
+    # Qwen2-VL's and SeamlessM4T's widths, prefill and decode rows
+    rms_cases += [(N, d, False) for d in (8192, 1024) for N in (2048, 4)]
     for i, (N, d, odd_w) in enumerate(rms_cases):
         gen = (rng if i < 2 else llama4_rng if d == 5120 else gemma_rng if d == 2560
-               else mla_rng if d in (1536, 512) else edge_rng)
+               else mla_rng if d in (1536, 512) else vlm_rng if d in (8192, 1024)
+               else edge_rng)
         for d_ in (f32, bf):
             x, r = randn(gen, (N, d), dt[d_], dev), randn(gen, (N, d), dt[d_], dev)
             w = randn(gen, (d + odd_w,), torch.float32, dev) * 0.1 + 1
@@ -1333,14 +1384,16 @@ def compare_model_kernels(dev):
     return errs
 
 
-def greedy_trace(M, cfg, p, toks, lens, n, force=None):
-    """Prefill, then ``n`` greedy decode steps (fed ``force``'s tokens when
-    given). Returns the logits of the last valid position and of each step
-    ([n + 1] x [B, V], float32 on the CPU) and the tokens [B, n + 1]."""
+def greedy_trace(M, cfg, p, toks, lens, n, force=None, extra=None):
+    """Prefill (the batch's ``extra`` entries beside the tokens: a front
+    end's patch embeddings or frames), then ``n`` greedy decode steps (fed
+    ``force``'s tokens when given). Returns the logits of the last valid
+    position and of each step ([n + 1] x [B, V], float32 on the CPU) and the
+    tokens [B, n + 1]."""
     import torch
 
     B, S = toks.shape
-    logits, cache = M.prefill(cfg, p, {"tokens": toks}, pad_to=S + n + 1)
+    logits, cache = M.prefill(cfg, p, {"tokens": toks, **(extra or {})}, pad_to=S + n + 1)
     cache["len"] = lens
     cur = logits[torch.arange(B, device=toks.device), lens.long() - 1]
     out_logits, out_toks = [], []
@@ -1354,13 +1407,15 @@ def greedy_trace(M, cfg, p, toks, lens, n, force=None):
     return out_logits, torch.stack(out_toks, 1)
 
 
-def serve_vs_cpu(dev, name, cfg, prompt_len, seed):
+def serve_vs_cpu(dev, name, cfg, prompt_len, seed, extra=None):
     """``cfg`` (full width, random weights drawn on the card from seed 0 and
     copied to the CPU) on the card against the CPU (plain versions): one
     prompt of ``prompt_len`` tokens, padded as
-    the engine pads it, and 4 greedy decode steps (the card teacher-forced
-    with the CPU's tokens); logits within ``LOGIT_TOL`` and tokens equal
-    wherever the CPU's top-2 margin exceeds it."""
+    the engine pads it, with the batch entries ``extra(S)`` gives for the
+    padded length S (CPU tensors, copied to the card), and 4 greedy decode
+    steps (the card teacher-forced with the CPU's tokens); logits within
+    ``LOGIT_TOL`` and tokens equal wherever the CPU's top-2 margin exceeds
+    it."""
     import copy
 
     import numpy as np
@@ -1375,10 +1430,12 @@ def serve_vs_cpu(dev, name, cfg, prompt_len, seed):
     n = 4
     t0 = time.perf_counter()
     toks, lens = pad_prompts([prompt], "cpu")
-    want, cpu_toks = greedy_trace(M, cfg, p_cpu, toks, lens, n)
+    ext = {} if extra is None else extra(toks.shape[1])
+    want, cpu_toks = greedy_trace(M, cfg, p_cpu, toks, lens, n, extra=ext)
     cpu_s = time.perf_counter() - t0
     toks_g, lens_g = pad_prompts([prompt], dev)
-    got, _ = greedy_trace(M, cfg, p_gpu, toks_g, lens_g, n, force=cpu_toks)
+    got, _ = greedy_trace(M, cfg, p_gpu, toks_g, lens_g, n, force=cpu_toks,
+                          extra={k: v.to(dev) for k, v in ext.items()})
     errs, checked, equal = [], 0, 0
     for g, w in zip(got, want):
         errs.append(float((g - w).abs().max()))
@@ -1388,6 +1445,7 @@ def serve_vs_cpu(dev, name, cfg, prompt_len, seed):
         equal += int((g.argmax(-1) == w.argmax(-1))[sure].sum())
     phase(name, layers=cfg.n_layers, d_model=cfg.d_model,
           prompt_tokens=len(prompt), padded_to=int(toks.shape[1]), decode_steps=n,
+          extra_inputs={k: list(v.shape) for k, v in ext.items()},
           max_abs_logit_err=errs, tol=LOGIT_TOL,
           max_abs_logit=float(max(w.abs().max() for w in want)),
           tokens_checked=checked, tokens_equal=equal, cpu_s=cpu_s)
@@ -1703,7 +1761,7 @@ def serve_model(dev, name, cfg, prompts, per_prefill, per_decode, n_new=16,
 
     from repro_torch.models import model as M
     from repro_torch.serve import Engine, ServeConfig
-    from repro_torch.serve.engine import pad_prompts
+    from repro_torch.serve.engine import frontend_stub, pad_prompts
 
     def counts():
         return {k: v for c in launch_counters() for k, v in c.items()}
@@ -1746,9 +1804,10 @@ def serve_model(dev, name, cfg, prompts, per_prefill, per_decode, n_new=16,
     # the engine's tokens, each checked against the engine and timed
     toks, lens = pad_prompts(prompts, dev)
     B, S = toks.shape
+    batch = {"tokens": toks, **frontend_stub(cfg, B, S, dev)}  # the engine's batch
     reset()
     t0 = time.perf_counter()
-    logits, cache = M.prefill(cfg, params, {"tokens": toks}, pad_to=S + n_new + 1)
+    logits, cache = M.prefill(cfg, params, batch, pad_to=S + n_new + 1)
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
     check(counts() == expect(1, 0), f"{name}: prefill launched {counts()}")
@@ -1771,32 +1830,37 @@ def serve_model(dev, name, cfg, prompts, per_prefill, per_decode, n_new=16,
     peak = torch.cuda.max_memory_allocated()
     decode_ms = statistics.median(step_ms)
     prof_prefill = call_profile(lambda: M.prefill(
-        cfg, params, {"tokens": toks}, pad_to=S + n_new + 1), prefill_ms)
+        cfg, params, batch, pad_to=S + n_new + 1), prefill_ms)
     prof_decode = call_profile(lambda: M.decode_step(
         cfg, params, cache, gen[:, -1:]), decode_ms)
     bound = {} if decode_bound is None else decode_bound(cfg, params, cache, gen[:, -1:])
 
-    def nbytes(tree, kv):
-        """Bytes of the cache's K/V (or MLA) leaves (``kv``), or of its SSM
-        leaves."""
+    def nbytes(tree, kind):
+        """Bytes of the cache's leaves of one ``kind``: "kv" (K/V or MLA's),
+        "cross" (an encoder-decoder's ``ck`` / ``cv`` and ``enc_out``) or
+        "ssm" (the rest, but the lengths)."""
         total = 0
         for k, v in tree.items():
             if isinstance(v, dict):
-                total += nbytes(v, kv)
-            elif k != "len" and (k in M.SEQ_DIM) == kv:
+                total += nbytes(v, kind)
+            elif k not in ("len", "enc_len") and kind == (
+                    "kv" if k in M.SEQ_DIM else "cross" if k in CROSS_CACHE else "ssm"):
                 total += v.numel() * v.element_size()
         return total
 
     phase(name, layers=cfg.n_layers, d_model=cfg.d_model, batch=B,
+          **({"enc_layers": cfg.n_enc_layers, "dec_layers": cfg.n_dec_layers}
+             if cfg.family == "encdec" else {}),
           prompt_tokens=[len(p_) for p_ in prompts], padded_to=S, new_tokens=n_new,
+          frontend_stub={k: list(v.shape) for k, v in batch.items() if k != "tokens"},
           launches_per_generate=launches, tokens_identical_two_runs=True,
           steps_reproduce_engine_tokens=agree, logits_finite=finite,
           init_s=init_s, generate_s=[gen1_s, gen2_s], prefill_ms=prefill_ms,
           decode_ms_per_step=decode_ms, decode_ms_per_step_all=step_ms,
           decode_tokens_per_s=B / decode_ms * 1e3,
           generate_tokens_per_s=B * n_new / gen2_s,
-          weight_bytes=weight_bytes, kv_cache_bytes=nbytes(cache, True),
-          ssm_cache_bytes=nbytes(cache, False),
+          weight_bytes=weight_bytes, kv_cache_bytes=nbytes(cache, "kv"),
+          cross_cache_bytes=nbytes(cache, "cross"), ssm_cache_bytes=nbytes(cache, "ssm"),
           peak_device_bytes=peak, peak_above_earlier_phases_bytes=peak - held,
           **({"decode_step_bound": bound} if bound else {}))
     phase("profile_" + name, prefill=prof_prefill, decode_step=prof_decode)
@@ -1808,9 +1872,10 @@ def serve_model(dev, name, cfg, prompts, per_prefill, per_decode, n_new=16,
 
 
 def serve_models(dev):
-    """The six serving paths at full width (and depth, but for
-    Llama-4-Scout's ``LLAMA4_LAYERS``, Zamba2's ``ZAMBA2_LAYERS`` and
-    DeepSeek-V2's ``DEEPSEEK_LAYERS``), each
+    """The eight serving paths at full width (and depth, but for
+    Llama-4-Scout's ``LLAMA4_LAYERS``, Zamba2's ``ZAMBA2_LAYERS``,
+    DeepSeek-V2's ``DEEPSEEK_LAYERS`` and Qwen2-VL's ``QWEN2VL_LAYERS``),
+    each
     driven with the launch counts
     set to 0 just before it and read just after. Returns each path's
     generate launches."""
@@ -1879,6 +1944,32 @@ def serve_models(dev):
                                            {"flash_attention": L, "rmsnorm": 4 * L + 1},
                                            {"rmsnorm": 4 * L + 1},
                                            decode_bound=moe_decode_bound)
+    # Qwen2-VL at full width, cut to QWEN2VL_LAYERS of 80 layers: the
+    # engine's zero patch stub in the first 256 slots (a 16 x 16 grid of
+    # M-RoPE positions), then the text
+    cfg = get_config(QWEN2VL).replace(n_layers=QWEN2VL_LAYERS)
+    L = cfg.n_layers
+    rng = np.random.default_rng(37)
+    prompts = [rng.integers(0, cfg.vocab_size, int(m)).tolist()
+               for m in rng.integers(300, 501, 4)]
+    out["serve_qwen2_vl"] = serve_model(dev, "serve_qwen2_vl", cfg, prompts,
+                                        {"flash_attention": L, "rmsnorm": 2 * L + 1},
+                                        {"rmsnorm": 2 * L + 1},
+                                        decode_bound=dense_decode_bound)
+    # SeamlessM4T whole: the encoder over the engine's zero frames (as many
+    # as the padded prompt's tokens), then the decoder; flash in each encoder
+    # layer and in each decoder layer's self- and cross-attention, two norms
+    # an encoder layer and three a decoder layer, each stack's final norm.
+    # Decode runs the decoder alone
+    cfg = get_config(SEAMLESS)
+    n_enc, n_dec = cfg.n_enc_layers, cfg.n_dec_layers
+    rng = np.random.default_rng(38)
+    prompts = [rng.integers(0, cfg.vocab_size, int(m)).tolist()
+               for m in rng.integers(300, 501, 4)]
+    out["serve_seamless_m4t"] = serve_model(
+        dev, "serve_seamless_m4t", cfg, prompts,
+        {"flash_attention": n_enc + 2 * n_dec, "rmsnorm": 2 * n_enc + 1 + 3 * n_dec + 1},
+        {"rmsnorm": 3 * n_dec + 1}, decode_bound=encdec_decode_bound)
     return out
 
 
@@ -1915,14 +2006,21 @@ def cache_step_bytes(cache):
     return read, written
 
 
+def step_weights(params, skip=()):
+    """(bytes, count) of the parameters but those under the top-level keys
+    in ``skip``."""
+    ws = [t for name, t in params.named_parameters() if name.split(".")[0] not in skip]
+    return sum(t.numel() * t.element_size() for t in ws), sum(t.numel() for t in ws)
+
+
 def dense_decode_bound(cfg, params, cache, tokens):
-    """A dense decode step's least time: every weight read once (the tied
-    embedding too, for the unembed) and the cache read and written
+    """A dense decode step's least time: every weight it reads once (the
+    tied embedding too, for the unembed; a vision model's ``patch_proj``
+    only in the prefill) and the cache read and written
     (``cache_step_bytes``), at the memory rate. The products (2 x weights
     x B) are far below it."""
     B = tokens.shape[0]
-    weight_bytes = sum(t.numel() * t.element_size() for t in params.parameters())
-    n_weights = sum(t.numel() for t in params.parameters())
+    weight_bytes, n_weights = step_weights(params, skip=("patch_proj",))
     kv_read, kv_written = cache_step_bytes(cache)
     nbytes = weight_bytes + kv_read + kv_written
     return {"weight_bytes": weight_bytes, "kv_bytes_read": kv_read,
@@ -1930,12 +2028,35 @@ def dense_decode_bound(cfg, params, cache, tokens):
             **bound_fields(nbytes, 2 * n_weights * B, BF16_FLOPS_PER_S)}
 
 
-def attn_bound(B, S, H, KV, D, Dv, itemsize, window=0):
+def encdec_decode_bound(cfg, params, cache, tokens):
+    """An encoder-decoder's decode step's least time: the weights it reads
+    once (the decoder's blocks, the final norm and the tied embedding; one
+    ``dec_pos`` row a sequence; not the encoder, ``frame_proj`` or
+    ``enc_pos``), the self-attention's K/V read and written
+    (``cache_step_bytes``) and the cross-attention's ``ck`` / ``cv`` read
+    over each sequence's ``enc_len``, at the memory rate. The products (2 x
+    weights x B) are far below it."""
+    B = tokens.shape[0]
+    weight_bytes, n_weights = step_weights(
+        params, skip=("frame_proj", "enc_pos", "dec_pos", "enc_blocks", "enc_final_norm"))
+    weight_bytes += B * cfg.d_model * params["dec_pos"].element_size()
+    kv_read, kv_written = cache_step_bytes(cache)
+    ck = cache["dec_blocks"]["ck"]  # [layers, B, S_enc, KV, D]
+    row = ck.shape[0] * ck.shape[3] * ck.shape[4] * ck.element_size()  # a position's, all layers
+    cross_read = 2 * row * sum(cache["enc_len"].tolist())
+    nbytes = weight_bytes + kv_read + kv_written + cross_read
+    return {"weight_bytes": weight_bytes, "kv_bytes_read": kv_read,
+            "kv_bytes_written": kv_written, "cross_kv_bytes_read": cross_read,
+            **bound_fields(nbytes, 2 * n_weights * B, BF16_FLOPS_PER_S)}
+
+
+def attn_bound(B, S, H, KV, D, Dv, itemsize, window=0, causal=True):
     """Least time of causal attention (with a sliding window, only the
-    pairs inside it): the visible (q, k) pairs' two products at the bf16
-    tensor-core peak, or q, k, v read once and the output written once at
-    the memory rate, whichever is larger."""
-    flops = 2 * (D + Dv) * visible_pairs(S, window) * B * H
+    pairs inside it; not causal, all S x S pairs): the visible (q, k)
+    pairs' two products at the bf16 tensor-core peak, or q, k, v read once
+    and the output written once at the memory rate, whichever is larger."""
+    pairs = visible_pairs(S, window) if causal else S * S
+    flops = 2 * (D + Dv) * pairs * B * H
     nbytes = B * S * (H * D + KV * D + KV * Dv + H * Dv) * itemsize
     return bound_fields(nbytes, flops, BF16_FLOPS_PER_S)
 
@@ -2056,6 +2177,31 @@ def time_model_kernels(dev):
         "library_ms": graph_ms(sdpa, reps=10), "library_backend": choice.name,
         "library_kernel": top_kernel(sdpa), **attn_bound(B, S, H, H, D, Dv, 2),
         "shape": f"B={B}, S={S}, H=KV={H}, D={D}, Dv={Dv}, bf16, causal"}
+    # Qwen2-VL's prefill (64 query heads in groups of 8, causal) and
+    # SeamlessM4T's (16 heads of their own at D = 64: the encoder and the
+    # cross-attention not causal, the decoder's self-attention causal)
+    vlm_rng = np.random.default_rng(36)  # rng's draws stay as they were
+    for key, B, S, H, KV, D, causal in (
+            ("flash_attention_qwen2vl", 4, 512, 64, 8, 128, True),
+            ("flash_attention_seamless", 4, 512, 16, 16, 64, False),
+            ("flash_attention_seamless_causal", 4, 512, 16, 16, 64, True)):
+        q, k, v = (randn(vlm_rng, sh, bf, dev) for sh in
+                   ((B, S, H, D), (B, S, KV, D), (B, S, KV, D)))
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                  enable_gqa=True)
+
+        choice = SDPBackend(torch._fused_sdp_choice(qt, kt, vt, is_causal=causal,
+                                                    enable_gqa=True))
+        out[key] = {
+            "ms": graph_ms(lambda: FK.flash_attention_cuda(q, k, v, causal=causal), reps=20),
+            "plain_ms": graph_ms(lambda: attention_ref(q, k, v, causal=causal), reps=5),
+            "library_ms": graph_ms(sdpa, reps=20), "library_backend": choice.name,
+            **attn_bound(B, S, H, KV, D, D, 2, causal=causal),
+            "shape": f"B={B}, S={S}, H={H}, KV={KV}, D=Dv={D}, bf16, "
+                     f"{'causal' if causal else 'not causal'}"}
     d, B, S = 3072, 4, 512
     w = randn(rng, (d,), torch.float32, dev) * 0.1 + 1
     wb = w.to(bf)
@@ -2074,7 +2220,8 @@ def time_model_kernels(dev):
             **bound_fields(4 * row + d * 4, 5 * N * d), "shape": f"N={N}, d={d}, bf16"}
     # the other serve paths' widths, prefill rows: Mamba-2 768, Zamba2 3584,
     # Llama-4-Scout 5120 (4 x 512 rows), Gemma 3 2560 (4 x 2048 rows),
-    # DeepSeek-V2's q_norm 1536 and kv_norm 512 (4 x 512 rows)
+    # DeepSeek-V2's q_norm 1536 and kv_norm 512, Qwen2-VL 8192 and
+    # SeamlessM4T 1024 (4 x 512 rows)
     width_rng = np.random.default_rng(17)  # rng's draws for SSD stay as they were
     for dw in RMS_WIDTHS:
         N = B * S * (4 if dw == 2560 else 1)
@@ -2713,12 +2860,13 @@ def main() -> int:
     phase("super_8x4", cycles=1200, fused_cycles=4, launches=super_launches,
           gpu_ms_per_cycle=ms_super, k1_gpu_ms_per_cycle=ms_8x4,
           gpu_state_equals_cpu=True, wide_util=float(sout["wide_util"]))
-    # k = 1 against k = 4 in turns (k1, k4, k4, k1), 400 cycles each from a
-    # fresh state: the host's speed drifts within a call
+    # k = 1 against k = 4 in turns (k1, k4, k4, k1), 100 cycles each (400
+    # until the run's time limit forced the cut) from a fresh state: the
+    # host's speed drifts within a call
     turns = []
     for s_ in (sim, ssim, ssim, sim):
-        _, t_, _ = run_counted(TS, s_, 400)
-        turns.append(t_ / 400 * 1e3)
+        _, t_, _ = run_counted(TS, s_, 100)
+        turns.append(t_ / 100 * 1e3)
     phase("k1_vs_k4_8x4", order="k1,k4,k4,k1", gpu_ms_per_cycle=turns)
     phase("profile_super_8x4", **device_profile(ssim, sst, ms_super, n=10))
     ones = lambda T: torch.ones((3, T.n_endpoints), dtype=torch.bool, device=dev)
@@ -2774,11 +2922,11 @@ def main() -> int:
     rtopo = build_torus(nx=8, ny=1)
     rwl = ring_workload(epm, rtopo)
     rsim1 = TS.build_sim(rtopo, NocParams(), rwl)
-    # 2 x 1000 cycles (4000 until the run's time limit forced the cut): the
-    # ring with two VCs drains in 1000
+    # 1000 + 100 cycles (4000, then 2000, until the run's time limit forced
+    # the cuts): the ring with two VCs drains in 1000
     rst, _, _ = run_counted(TS, rsim1, 1000)
     mid = int(rst.eps.beats_rcvd.sum())
-    rst, _, _ = run_counted(TS, rsim1, 1000, rst)
+    rst, _, _ = run_counted(TS, rsim1, 100, rst)
     wedged = (int(rst.eps.rx_bursts.sum()) == 0
               and int(rst.eps.beats_rcvd.sum()) == mid)
     check(wedged, "the VC-less 8x1 ring did not wedge")
@@ -2799,7 +2947,7 @@ def main() -> int:
     drained = (int(rst2.eps.rx_bursts.sum()) == rtopo.n_endpoints
                and int(rst2.eps.beats_rcvd.sum())
                == rtopo.n_endpoints * rwl.dma_beats)
-    phase("ring_8x1", vc1_cycles=2000, vc1_beats_rcvd=mid,
+    phase("ring_8x1", vc1_cycles=1100, vc1_beats_rcvd=mid,
           vc1_rx_bursts=int(rst.eps.rx_bursts.sum()), vc1_wedged=wedged,
           vc2_cycles=ring_cycles, vc2_rx_bursts=int(rst2.eps.rx_bursts.sum()),
           vc2_drained=drained, vc2_launches=ring_launches,
@@ -2883,12 +3031,13 @@ def main() -> int:
     naive_vs_fast(TS, "naive_8x4", (nsim, nst), nst_cpu, (sim, st_gpu))
     nout = TS.stats(nsim, nst)
     ms_naive = ndt / 1200 * 1e3
-    # fast against naive in turns (fast, naive, naive, fast), 200 cycles each
-    # from a fresh state: the host's speed drifts within a call
+    # fast against naive in turns (fast, naive, naive, fast), 100 cycles each
+    # (200 until the run's time limit forced the cut) from a fresh state:
+    # the host's speed drifts within a call
     turns = []
     for s_ in (sim, nsim, nsim, sim):
-        _, t_, _ = run_counted(TS, s_, 200)
-        turns.append(t_ / 200 * 1e3)
+        _, t_, _ = run_counted(TS, s_, 100)
+        turns.append(t_ / 100 * 1e3)
     nlat = {d: narrow_latency(TS, epm, topo, 0, d, params=naive) for d in (1, 2, 31)}
     phase("naive_8x4", cycles=1200, launches=naive_launches,
           gpu_ms_per_cycle=ms_naive, main_8x4_gpu_ms_per_cycle=ms_8x4,
@@ -2960,6 +3109,22 @@ def main() -> int:
     # one MoE layer, both with MLA (4.83e9 parameters)
     moe_serve_vs_cpu(dev, "serve_deepseek_v2_vs_cpu",
                      get_config(DEEPSEEK).replace(n_layers=2), 120, 32)
+    # Qwen2-VL at full width, cut to 2 layers (3.07e9 parameters): 400 tokens
+    # padded to 512, random patch embeddings in the first 256 slots on both
+    # sides; SeamlessM4T whole, random frames [1, 512, 1024] on both sides
+    # and a 400-token decoder prompt
+
+    def stub(name, seed, shape):
+        """The batch entry ``name``: bf16 normal numbers of ``shape(S)``."""
+        return lambda S: {name: randn(np.random.default_rng(seed), shape(S), torch.bfloat16,
+                                      "cpu")}
+
+    qwen = get_config(QWEN2VL).replace(n_layers=2)
+    serve_vs_cpu(dev, "serve_qwen2_vl_vs_cpu", qwen, 400, 39, extra=stub(
+        "patch_embeds", 40, lambda S: (1, min(qwen.frontend_tokens, S), qwen.d_model)))
+    seamless = get_config(SEAMLESS)
+    serve_vs_cpu(dev, "serve_seamless_vs_cpu", seamless, 400, 41,
+                 extra=stub("frames", 42, lambda S: (1, S, seamless.d_model)))
     serve_launches = serve_models(dev)
     model_times = time_model_kernels(dev)
 
@@ -3061,28 +3226,32 @@ def main() -> int:
     #  shapes, each path shape's also beside its time
     model_rows = (
         ("flash_attention_kernel", "flash_attention", "flash_attention", 23,
-         ("serve_phi4_mini", "serve_llama4_scout", "serve_gemma3_4b")),
+         ("serve_phi4_mini", "serve_llama4_scout", "serve_gemma3_4b", "serve_qwen2_vl")),
         ("flash_attention_kernel[D=112]", "flash_attention_d112", "flash_attention", 23,
          ("serve_zamba2_7b",)),
         ("flash_attention_kernel[D=192,Dv=128]", "flash_attention_mla", "flash_attention", 23,
          ("serve_deepseek_v2",)),
+        ("flash_attention_kernel[D=64]", "flash_attention_seamless", "flash_attention", 23,
+         ("serve_seamless_m4t",)),
         ("rmsnorm_kernel", "rmsnorm", "rmsnorm", 16,
          ("serve_phi4_mini", "serve_mamba2_130m", "serve_zamba2_7b", "serve_llama4_scout",
-          "serve_gemma3_4b", "serve_deepseek_v2")),
+          "serve_gemma3_4b", "serve_deepseek_v2", "serve_qwen2_vl", "serve_seamless_m4t")),
         ("rmsnorm_residual_kernel", "rmsnorm_residual", "rmsnorm", 24, ()),
         ("ssd_tc_kernel", "ssd", "ssd", 21, ("serve_mamba2_130m",)),
         ("ssd_tc_kernel[zamba2]", "ssd_zamba2", "ssd", 21, ("serve_zamba2_7b",)),
     )
     for name, key, pkg, line, paths in model_rows:
         t = model_times[key]
-        count = key.removesuffix("_d112").removesuffix("_zamba2").removesuffix("_mla")
+        count = key
+        for tag in ("_d112", "_zamba2", "_mla", "_seamless"):
+            count = count.removesuffix(tag)
         launches = {path: serve_launches[path][count] for path in paths}
         for path, n in launches.items():
             check(n > 0, f"{name} was not launched on its main path {path}")
         err = model_errs[key]
         if key == "flash_attention":
             err = max(err, *(model_errs[f"flash_attention_{k_}"] for k_ in (
-                "llama4", "gemma3_window", "gemma3_global")))
+                "llama4", "gemma3_window", "gemma3_global", "qwen2vl")))
         if key == "rmsnorm":
             err = max(err, *(model_errs[f"rmsnorm_d{dw}"] for dw in RMS_WIDTHS))
         kernels.append({
@@ -3105,10 +3274,14 @@ def main() -> int:
         if key == "flash_attention":  # Llama-4-Scout's 40 / 8 heads; Gemma 3's D = 256
             kernels[-1]["llama4_shape"] = {**model_times["flash_attention_llama4"],
                                            "max_abs_err": model_errs["flash_attention_llama4"]}
+            kernels[-1]["qwen2vl_shape"] = {**model_times["flash_attention_qwen2vl"],
+                                            "max_abs_err": model_errs["flash_attention_qwen2vl"]}
             kernels[-1]["gemma3_shape"] = {
                 k_: {**model_times[f"flash_attention_gemma3_{k_}"],
                      "max_abs_err": model_errs[f"flash_attention_gemma3_{k_}"]}
                 for k_ in ("window", "global")}
+        if key == "flash_attention_seamless":  # the decoder's causal self-attention
+            kernels[-1]["causal_shape"] = model_times["flash_attention_seamless_causal"]
     kernels.append({
         "name": "kv_gather_kernel", "route": "cuda",
         "source": "src/repro_torch/kernels/kv_gather/csrc/kv_gather.cu",

@@ -1,4 +1,5 @@
-"""Shared layers: RMSNorm, rotary embeddings, the SwiGLU MLP, embedding.
+"""Shared layers: RMSNorm, rotary embeddings (RoPE and Qwen2-VL's M-RoPE),
+the SwiGLU MLP, embedding.
 
 The counterparts of ``repro.models.layers``. Weights keep the JAX layouts
 (``w1`` [d, ff], ``embedding`` [V, d]); ``p`` is the layer's parameter
@@ -37,24 +38,51 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
                                          device=device) / head_dim))
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """x: [..., S, H, D]; positions: [..., S] int. Split-half pairs, float32
-    angles, the result in ``x``'s dtype."""
+def _rotate(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
+    """x [..., S, H, D] rotated in split-half pairs by the float32 angles
+    ``pos * rope_freqs`` (pos [..., S, D/2] or [..., S, 1]), the result in
+    ``x``'s dtype."""
     d = x.shape[-1]
-    inv = rope_freqs(d, theta, x.device)
-    ang = positions[..., None].to(torch.float32) * inv  # [..., S, d/2]
+    ang = pos * rope_freqs(d, theta, x.device)  # [..., S, d/2]
     cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
     xf1, xf2 = x[..., : d // 2].to(torch.float32), x[..., d // 2:].to(torch.float32)
     out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
     return out.to(x.dtype)
 
 
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: [..., S, H, D]; positions: [..., S] int. Split-half pairs, float32
+    angles, the result in ``x``'s dtype."""
+    return _rotate(x, positions[..., None].to(torch.float32), theta)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, sections, theta: float
+                ) -> torch.Tensor:
+    """Multimodal RoPE (Qwen2-VL). x: [..., S, H, D]; positions3: [..., S, 3]
+    (t, h, w) int. The D/2 frequency slots are split into ``sections``: slot
+    group ``i`` rotates by position component ``i`` (text: t == h == w).
+    Split-half pairs, float32 angles, the result in ``x``'s dtype. As
+    ``jnp.repeat(..., total_repeat_length=D // 2)``, sections that fall
+    short of D/2 repeat their last id and longer ones are cut."""
+    counts, left = [], x.shape[-1] // 2
+    for n in sections:
+        counts.append(min(n, left))
+        left -= counts[-1]
+    counts[-1] += left
+    pos = positions3.to(torch.float32)
+    pos = torch.cat([pos[..., i, None].expand(*pos.shape[:-1], n)
+                     for i, n in enumerate(counts)], dim=-1)  # [..., S, d/2]
+    return _rotate(x, pos, theta)
+
+
 def positions_for(cfg: ModelConfig, tokens_shape, device=None):
-    """Default positions: [B, S] int32."""
-    if cfg.rope_kind == "mrope":
-        raise NotImplementedError("M-RoPE is not ported yet (ROADMAP Queue 1 item 12)")
+    """Default positions: [B, S] int32, or [B, S, 3] (t == h == w) for
+    M-RoPE."""
     B, S = tokens_shape
-    return torch.arange(S, dtype=torch.int32, device=device)[None, :].expand(B, S)
+    pos = torch.arange(S, dtype=torch.int32, device=device)[None, :].expand(B, S)
+    if cfg.rope_kind == "mrope":
+        return pos[..., None].expand(B, S, 3)
+    return pos
 
 
 # ----------------------------------------------------------------------

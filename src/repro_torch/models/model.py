@@ -1,8 +1,11 @@
 """Model assembly for the port: ``param_schema`` / ``forward`` /
 ``prefill`` / ``decode_step``, driven by ``ModelConfig``.
 
-The counterpart of ``repro.models.model`` for four families: dense, with
-GQA (Phi-4-mini, Granite, Mistral-Large; Gemma 3's local:global attention:
+The counterpart of ``repro.models.model`` for every family: dense, with
+GQA (Phi-4-mini, Granite, Mistral-Large; Qwen2-VL's M-RoPE and vision
+stub: ``patch_proj`` maps precomputed patch embeddings into the leading
+``min(frontend_tokens, S)`` slots, which rotate by their (t, h, w) grid
+position; Gemma 3's local:global attention:
 superblocks of ``local_global_period - 1`` sliding-window layers with
 window-sized ring caches, then one global layer, then the trailing local
 layers) or MLA attention; ``moe`` with GQA or MLA attention and gather
@@ -11,16 +14,24 @@ dense ones, sharing their cache layout: K/V for GQA, the compressed
 ``ckv`` / ``krope`` for MLA); ``ssm`` (Mamba-2) and ``hybrid`` (Zamba2:
 superblocks of ``shared_attn_period`` Mamba-2 layers, each followed by one
 tied dense GQA block with its own KV cache per application, then the
-trailing Mamba-2 layers). A local:global or hybrid model may have no
+trailing Mamba-2 layers); ``encdec`` (SeamlessM4T: the speech front end
+is a stub fed frame embeddings, which ``frame_proj`` and the learned
+``enc_pos`` turn into the non-causal encoder's input; each decoder layer
+attends causally to itself and across to the encoder's output, whose keys
+and values the prefill caches once as ``ck`` / ``cv``). A local:global or
+hybrid model may have no
 superblock at all (fewer layers than one period): its ``superblocks``
-leaves are then zero-size, as the JAX package's. Every other family and
-attention kind, MLA in a local:global or hybrid model (where the JAX
-package silently builds GQA), and a sliding window anywhere but in a dense
-model's local:global layers, raises ``NotImplementedError`` naming ROADMAP
-Queue 1 item 12.
+leaves are then zero-size, as the JAX package's. Every other attention
+kind, MLA in a local:global, hybrid or encoder-decoder model (where the
+JAX package silently builds GQA), M-RoPE or a vision front end outside a
+plain dense GQA model (where the JAX package builds no ``patch_proj`` or
+was never run), an audio front end outside the encoder-decoder, and a
+sliding window anywhere but in a dense model's local:global layers, raises
+``NotImplementedError`` naming ROADMAP Queue 1 item 12.
 """
 from __future__ import annotations
 
+import math
 from functools import partial
 
 import numpy as np
@@ -51,6 +62,8 @@ from repro_torch.models.transformer import (
     Ctx,
     dense_block,
     dense_block_schema,
+    encdec_dec_block,
+    encdec_dec_block_schema,
     moe_layer_block,
     moe_layer_schema,
     scan_stack,
@@ -61,17 +74,26 @@ from repro_torch.models.transformer import (
     tree_stack,
 )
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid")  # the families the port runs
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec")  # the families the port runs
+MAX_ENC_POS = 16_384  # rows of an encoder-decoder's learned positions
 
 
 def check_supported(cfg: ModelConfig):
     """Raise ``NotImplementedError`` unless the port runs ``cfg``."""
     why = None
     local_global = cfg.family == "dense" and cfg.local_global_period and cfg.sliding_window
+    # M-RoPE and the vision stub run in a plain dense GQA model only; the
+    # frames of an encoder-decoder stand for its audio front end
+    plain_dense = (cfg.family == "dense" and not cfg.local_global_period
+                   and cfg.attn_kind == "gqa")
+    front_end_ok = {"text": True, "vision": plain_dense,
+                    "audio": cfg.family == "encdec"}.get(cfg.modality, False)
     if cfg.family not in FAMILIES:
         why = f"the {cfg.family!r} family"
-    elif cfg.modality != "text":
-        why = f"the {cfg.modality!r} front end"
+    elif not front_end_ok:
+        why = f"the {cfg.modality!r} front end in a {cfg.family!r} model"
+    elif cfg.rope_kind == "mrope" and not plain_dense:
+        why = "M-RoPE outside a plain dense GQA model"
     elif cfg.family == "ssm":
         pass  # attention-free
     elif (cfg.local_global_period or cfg.sliding_window) and not local_global:
@@ -80,10 +102,8 @@ def check_supported(cfg: ModelConfig):
         why = "sliding-window attention outside a dense model's local:global layers"
     elif cfg.attn_kind not in ATTN_SCHEMAS:
         why = f"{cfg.attn_kind!r} attention"
-    elif cfg.attn_kind == "mla" and (local_global or cfg.family == "hybrid"):
-        why = "MLA attention in a local:global or hybrid model"
-    elif cfg.rope_kind == "mrope":
-        why = "M-RoPE"
+    elif cfg.attn_kind == "mla" and (local_global or cfg.family in ("hybrid", "encdec")):
+        why = "MLA attention in a local:global, hybrid or encoder-decoder model"
     if why:
         raise NotImplementedError(
             f"{cfg.name}: {why} is not ported yet (ROADMAP Queue 1 item 12)")
@@ -107,7 +127,10 @@ def param_schema(cfg: ModelConfig) -> dict:
     the MoE ``blocks``; for a hybrid: ``superblocks`` [n_super][per], one
     ``shared_attn`` block and the ``trailing`` layers; for a local:global
     model: ``superblocks`` [n_super] of ``local`` [per - 1] blocks and one
-    ``global`` block, then the ``trailing`` local blocks)."""
+    ``global`` block, then the ``trailing`` local blocks; a vision model
+    adds ``patch_proj`` [d, d]; an encoder-decoder has ``frame_proj`` [d,
+    d], ``enc_pos`` and ``dec_pos`` [MAX_ENC_POS, d], ``enc_blocks``,
+    ``dec_blocks`` and ``enc_final_norm``)."""
     check_supported(cfg)
     sch = {"embed": embed_schema(cfg), "final_norm": rmsnorm_schema(cfg.d_model)}
     if cfg.family == "dense" and cfg.local_global_period:
@@ -119,6 +142,8 @@ def param_schema(cfg: ModelConfig) -> dict:
             sch["trailing"] = stack_schema(dense_block_schema(cfg), trailing)
     elif cfg.family == "dense":
         sch["blocks"] = stack_schema(dense_block_schema(cfg, attn=cfg.attn_kind), cfg.n_layers)
+        if cfg.modality == "vision":
+            sch["patch_proj"] = PSpec((cfg.d_model,) * 2, ("embed_in", "embed"), init="scaled:0")
     elif cfg.family == "moe":
         if cfg.first_k_dense:
             sch["dense_blocks"] = stack_schema(dense_block_schema(cfg, attn=cfg.attn_kind),
@@ -126,6 +151,14 @@ def param_schema(cfg: ModelConfig) -> dict:
         sch["blocks"] = stack_schema(moe_layer_schema(cfg), cfg.n_layers - cfg.first_k_dense)
     elif cfg.family == "ssm":
         sch["blocks"] = stack_schema(ssm_block_schema(cfg), cfg.n_layers)
+    elif cfg.family == "encdec":
+        d = cfg.d_model
+        sch["frame_proj"] = PSpec((d, d), ("embed_in", "embed"), init="scaled:0")
+        sch["enc_pos"] = PSpec((MAX_ENC_POS, d), (None, "embed"), scale=0.01)
+        sch["dec_pos"] = PSpec((MAX_ENC_POS, d), (None, "embed"), scale=0.01)
+        sch["enc_blocks"] = stack_schema(dense_block_schema(cfg), cfg.n_enc_layers)
+        sch["dec_blocks"] = stack_schema(encdec_dec_block_schema(cfg), cfg.n_dec_layers)
+        sch["enc_final_norm"] = rmsnorm_schema(d)
     else:
         per, n_super, trailing = _superblock_split(cfg)
         sch["superblocks"] = stack_schema(stack_schema(ssm_block_schema(cfg), per), n_super)
@@ -204,11 +237,37 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device=None):
 # ======================================================================
 # Forward (train / prefill)
 # ======================================================================
+def _mrope_positions(cfg: ModelConfig, B: int, S: int, device=None):
+    """[B, S, 3] (t, h, w) int32: the leading P = min(frontend_tokens, S)
+    patch slots at (0, i // g, i % g) on a grid of g = floor(sqrt(P))
+    columns, then text at t == h == w = i - P + g."""
+    P = min(cfg.frontend_tokens, S)
+    g = max(int(math.sqrt(P)), 1)
+    i = torch.arange(S, device=device)
+    is_patch = i < P
+    text = i - P + g
+    pos = torch.stack([torch.where(is_patch, torch.zeros_like(i), text),
+                       torch.where(is_patch, i // g, text),
+                       torch.where(is_patch, i % g, text)], -1).to(torch.int32)
+    return pos[None].expand(B, S, 3)
+
+
 def _embed_input(cfg: ModelConfig, p, batch):
-    """Token embedding. Returns (x, pos)."""
+    """Token embedding; a vision model's batch may carry ``patch_embeds``
+    [B, P, d], which ``patch_proj`` maps into the first P slots (cast to
+    its dtype first: the JAX package promotes a float32 stub against bf16
+    weights instead). Returns (x, pos): M-RoPE's grid positions, else the
+    default ones."""
     tokens = batch["tokens"]
+    B, S = tokens.shape
     x = embed(p["embed"], tokens)
-    return x, positions_for(cfg, tuple(tokens.shape), device=tokens.device)
+    if cfg.modality == "vision" and "patch_embeds" in batch:
+        pe = batch["patch_embeds"]
+        pe = pe.to(p["patch_proj"].dtype) @ p["patch_proj"]
+        x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
+    if cfg.rope_kind == "mrope":
+        return x, _mrope_positions(cfg, B, S, tokens.device)
+    return x, positions_for(cfg, (B, S), device=tokens.device)
 
 
 def _run_superblocks(pairs, keys, stack_fn, block_fn, x, ctx: Ctx, sc=None):
@@ -282,10 +341,45 @@ def _run_lm_stacks(cfg: ModelConfig, p, x, ctx: Ctx, caches=None):
     return x, new_caches, None
 
 
+def _encdec_encode(cfg: ModelConfig, p, frames):
+    """The encoder: ``frames`` [B, S_enc, d] (cast to the weights' dtype)
+    through ``frame_proj``, plus ``enc_pos``, then the non-causal stack in
+    train mode (the encoder caches nothing) and ``enc_final_norm``."""
+    B, S_enc, _ = frames.shape
+    h = frames.to(p["frame_proj"].dtype) @ p["frame_proj"]
+    h = h + p["enc_pos"][:S_enc][None]
+    ctx = Ctx(cfg=cfg, mode="train", pos=positions_for(cfg, (B, S_enc), frames.device),
+              causal=False)
+    h, _, _ = scan_stack(dense_block, p["enc_blocks"], h, ctx)
+    return rmsnorm(p["enc_final_norm"], h, cfg.norm_eps)
+
+
+def _encdec_forward(cfg: ModelConfig, p, batch, mode: str):
+    """An encoder-decoder's forward: the encoder over ``batch["frames"]``,
+    then the decoder over the tokens plus ``dec_pos``, attending across to
+    the encoder's output (``batch["enc_len"]`` long, all of it if absent).
+    A prefill's caches are the decoder's ``dec_blocks`` {k, v, ck, cv} and
+    ``enc_out``."""
+    enc_out = _encdec_encode(cfg, p, batch["frames"])
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = embed(p["embed"], tokens) + p["dec_pos"][:S][None]
+    enc_len = batch.get("enc_len")
+    if enc_len is None:
+        enc_len = torch.full((B,), enc_out.shape[1], dtype=torch.int32, device=tokens.device)
+    ctx = Ctx(cfg=cfg, mode=mode, pos=positions_for(cfg, (B, S), tokens.device),
+              enc_out=enc_out, enc_len=enc_len)
+    x, bc, _ = scan_stack(encdec_dec_block, p["dec_blocks"], x, ctx)
+    logits = unembed(p["embed"], rmsnorm(p["final_norm"], x, cfg.norm_eps))
+    return logits, ({"dec_blocks": bc, "enc_out": enc_out} if mode == "prefill" else None), None
+
+
 def forward(cfg: ModelConfig, p, batch, mode: str = "train"):
     """Teacher-forced forward. Returns (logits [B, S, V] float32, caches,
     aux)."""
     check_supported(cfg)
+    if cfg.family == "encdec":
+        return _encdec_forward(cfg, p, batch, mode)
     x, pos = _embed_input(cfg, p, batch)
     ctx = Ctx(cfg=cfg, mode=mode, pos=pos)
     x, caches, aux = _run_lm_stacks(cfg, p, x, ctx)
@@ -305,8 +399,11 @@ def cache_schema(cfg: ModelConfig, B: int, S: int) -> dict:
     qk_rope_head_dim] instead; a local:global model's local
     layers [n_super, per - 1, B, W, KV, D] and trailing layers rings of W =
     ``min(sliding_window, S)`` slots, its global layers [n_super, B, S, KV,
-    D]); an SSM layer holds its state [B, H, P, N] float32 and the last
-    W - 1 raw conv inputs in bf16."""
+    D]; an encoder-decoder's ``dec_blocks`` hold ``k`` / ``v`` and the
+    cross-attention's ``ck`` / ``cv`` [n_dec_layers, B, S, KV, D] (S_enc =
+    S), beside ``enc_out`` [B, S, d] and ``enc_len`` [B]); an SSM layer
+    holds its state [B, H, P, N] float32 and the last W - 1 raw conv inputs
+    in bf16."""
     check_supported(cfg)
     KV, D = cfg.n_kv_heads, cfg.resolved_head_dim
 
@@ -348,6 +445,11 @@ def cache_schema(cfg: ModelConfig, B: int, S: int) -> dict:
             sch["dense_blocks"] = kv((n_dense,))
     elif cfg.family == "ssm":
         sch["blocks"] = ssm_cache(cfg.n_layers)
+    elif cfg.family == "encdec":
+        self_kv = kv((cfg.n_dec_layers,))
+        sch["dec_blocks"] = {**self_kv, "ck": self_kv["k"], "cv": self_kv["v"]}
+        sch["enc_out"] = PSpec((B, S, cfg.d_model), ("batch", None, None), init="zeros")
+        sch["enc_len"] = PSpec((B,), ("batch",), "int32", "zeros")
     else:
         per, n_super, trailing = _superblock_split(cfg)
         sch["superblocks"] = {"ssm": ssm_cache(n_super, per), "attn": kv((n_super,))}
@@ -371,10 +473,25 @@ def init_cache(cfg: ModelConfig, B: int, S: int, device=None):
 def decode_step(cfg: ModelConfig, p, cache, tokens):
     """One decode step. tokens: [B, 1]. Returns (logits [B, 1, V],
     new_cache); the cache's K/V, SSM state and conv tensors are updated in
-    place."""
+    place. An encoder-decoder adds ``dec_pos[pos]`` to the token and
+    attends across to the cached ``ck`` / ``cv``; M-RoPE rotates the token
+    by ``pos - frontend_tokens + g`` (g = floor(sqrt(frontend_tokens))), the
+    JAX package's text position after a full patch grid, even where the
+    prefill's grid was clipped to fewer slots."""
     posB = cache["len"]  # [B] current length == write position
+    if cfg.family == "encdec":
+        x = embed(p["embed"], tokens) + p["dec_pos"][posB.long()][:, None]
+        ctx = Ctx(cfg=cfg, mode="decode", pos=posB, enc_len=cache["enc_len"])
+        x, _, _ = scan_stack(encdec_dec_block, p["dec_blocks"], x, ctx,
+                             stacked_cache=cache["dec_blocks"])
+        logits = unembed(p["embed"], rmsnorm(p["final_norm"], x, cfg.norm_eps))
+        return logits, {**cache, "len": posB + 1}
     x = embed(p["embed"], tokens)
-    ctx = Ctx(cfg=cfg, mode="decode", pos=posB)
+    rope_pos = None
+    if cfg.rope_kind == "mrope" and cfg.frontend_tokens:
+        P = cfg.frontend_tokens
+        rope_pos = posB - P + max(int(math.sqrt(P)), 1)
+    ctx = Ctx(cfg=cfg, mode="decode", pos=posB, rope_pos=rope_pos)
     stacks = {k: v for k, v in cache.items() if k != "len"}
     x, new_stacks, _ = _run_lm_stacks(cfg, p, x, ctx, caches=stacks)
     x = rmsnorm(p["final_norm"], x, cfg.norm_eps)
@@ -392,8 +509,9 @@ def pad_cache(cfg: ModelConfig, cache, extra: int):
     """Grow the sequence dim of the KV caches (-3 of every ``k`` / ``v``
     leaf, -2 of MLA's ``ckv`` / ``krope``) by ``extra`` decode slots
     (prefill sizes them to the prompt); a local:global model's ``local``
-    and ``trailing`` rings, SSM states and conv prefixes are fixed-size and
-    stay as they are."""
+    and ``trailing`` rings, SSM states and conv prefixes, and an
+    encoder-decoder's cross-attention ``ck`` / ``cv`` and ``enc_out`` (the
+    encoder's length) are fixed-size and stay as they are."""
     if extra <= 0:
         return cache
 
@@ -416,4 +534,7 @@ def prefill(cfg: ModelConfig, p, batch, *, pad_to: int = 0):
     B, S = batch["tokens"].shape
     cache = dict(caches)
     cache["len"] = torch.full((B,), S, dtype=torch.int32, device=logits.device)
+    if cfg.family == "encdec":
+        cache["enc_len"] = torch.full((B,), cache["enc_out"].shape[1], dtype=torch.int32,
+                                      device=logits.device)
     return logits, pad_cache(cfg, cache, pad_to - S)

@@ -1,10 +1,13 @@
 """The dense and MoE blocks (GQA or MLA attention), the SSM (Mamba-2)
-block and the layer-stack loop.
+block, the encoder-decoder's decoder block (self- and cross-attention)
+and the layer-stack loop.
 
-The counterparts of ``repro.models.transformer`` for the dense, moe, ssm
-and hybrid families: every block has the signature
+The counterparts of ``repro.models.transformer`` for every family: every
+block has the signature
 ``block(p, x, cache_layer, ctx) -> (x', new_cache_layer, aux)``, and
-``ctx`` carries the mode ("train" | "prefill" | "decode") and positions.
+``ctx`` carries the mode ("train" | "prefill" | "decode"), positions
+(M-RoPE's [B, S, 3] among them), the encoder's output and whether
+attention is causal.
 There is no mesh, so the JAX package's sharding constraints (``_cb``,
 ``_gw``) have no counterpart. ``scan_stack`` is a Python loop over the
 layers' modules; it sums a MoE block's aux (load-balance loss, router
@@ -13,7 +16,8 @@ z-loss, dropped share) over the layers, as the JAX package's scan does.
 Decode updates the stacked cache in place (the JAX package returns an
 updated copy): the new token's K/V is written into its slot (a local
 layer's into slot ``pos % W`` of its window-sized ring; an MLA layer's
-compressed ``ckv`` / ``krope`` row into slot ``pos``), and an SSM layer
+compressed ``ckv`` / ``krope`` row into slot ``pos``; the cross-attention
+caches ``ck`` / ``cv`` are written once, by the prefill), and an SSM layer
 overwrites its state and conv prefixes (``models.ssm``). The cache
 is the largest live tensor after the weights, and no caller keeps the old
 one. A layer's cache is a (nested) dict of tensors; the stacked cache has
@@ -31,7 +35,14 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import attention, decode_attention
-from repro_torch.models.layers import apply_rope, mlp, mlp_schema, rmsnorm, rmsnorm_schema
+from repro_torch.models.layers import (
+    apply_mrope,
+    apply_rope,
+    mlp,
+    mlp_schema,
+    rmsnorm,
+    rmsnorm_schema,
+)
 from repro_torch.models.spec import PSpec, Stacked
 
 
@@ -41,7 +52,11 @@ class Ctx:
 
     cfg: ModelConfig
     mode: str  # "train" | "prefill" | "decode"
-    pos: Any = None  # [B, S]; decode: [B] write position
+    pos: Any = None  # [B, S] (or [B, S, 3] M-RoPE); decode: [B] write position
+    rope_pos: Any = None  # decode only: rotary position if != write slot (M-RoPE)
+    enc_out: Any = None  # encoder output [B, S_enc, d] for cross-attention
+    enc_len: Any = None  # [B] valid encoder length (decode's cross-attention)
+    causal: bool = True
 
 
 def make_rope_fn(cfg: ModelConfig) -> Callable:
@@ -49,7 +64,7 @@ def make_rope_fn(cfg: ModelConfig) -> Callable:
     if cfg.rope_kind == "none":
         return lambda x, pos: x
     if cfg.rope_kind == "mrope":
-        raise NotImplementedError("M-RoPE is not ported yet (ROADMAP Queue 1 item 12)")
+        return lambda x, pos: apply_mrope(x, pos, cfg.mrope_sections, cfg.rope_theta)
     return lambda x, pos: apply_rope(x, pos, cfg.rope_theta)
 
 
@@ -92,18 +107,20 @@ def _ring(x, W: int):
 
 def gqa_attn(p, x, cache, ctx: Ctx, *, window: int = 0, ring: bool = False):
     """Returns (out, new_cache). Prefill builds ``{"k", "v"}`` (with
-    ``ring`` and a window, the window-sized ring of the last W positions);
-    decode writes slot ``min(pos, S - 1)`` of the layer's cache in place and
-    attends over ``pos + 1`` entries (the last ``window`` of them with a
-    window), or with ``ring`` writes slot ``pos % S`` and attends over
-    ``min(pos + 1, S)`` slots."""
+    ``ring`` and a window, the window-sized ring of the last W positions),
+    causal unless ``ctx.causal`` is false (the encoder); decode rotates by
+    ``ctx.rope_pos`` where set (M-RoPE: [B] broadcast to [B, 1, 3]), else by
+    the write position, writes slot ``min(pos, S - 1)`` of the layer's
+    cache in place and attends over ``pos + 1`` entries (the last
+    ``window`` of them with a window), or with ``ring`` writes slot
+    ``pos % S`` and attends over ``min(pos + 1, S)`` slots."""
     rope_fn = make_rope_fn(ctx.cfg)
     q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
 
     if ctx.mode in ("train", "prefill"):
         q = rope_fn(q, ctx.pos)
         k = rope_fn(k, ctx.pos)
-        o = attention(q, k, v, window=window)
+        o = attention(q, k, v, causal=ctx.causal, window=window)
         out = _out(o, p["wo"])
         if ctx.mode == "train":
             return out, None
@@ -112,7 +129,9 @@ def gqa_attn(p, x, cache, ctx: Ctx, *, window: int = 0, ring: bool = False):
         return out, {"k": k, "v": v}
 
     posB = ctx.pos  # [B] absolute position of the new token (cache slot)
-    rpos = posB[:, None]
+    rpos = (posB if ctx.rope_pos is None else ctx.rope_pos)[:, None]  # [B, 1]
+    if ctx.cfg.rope_kind == "mrope":
+        rpos = rpos[..., None].expand(-1, 1, 3)
     q = rope_fn(q, rpos)
     k = rope_fn(k, rpos)
     S = cache["k"].shape[1]
@@ -123,6 +142,22 @@ def gqa_attn(p, x, cache, ctx: Ctx, *, window: int = 0, ring: bool = False):
     cache_len = torch.clamp(posB + 1, max=S) if ring else posB + 1
     o = decode_attention(q, cache["k"], cache["v"], cache_len,
                          window=0 if ring else window, ring=ring)
+    return _out(o, p["wo"]), cache
+
+
+def cross_attn(p, x, cache, ctx: Ctx):
+    """Cross-attention to the encoder's output (``gqa_schema`` weights).
+    Train and prefill project ``ctx.enc_out`` to keys and values and attend
+    over all of them, not causally (Sq = S_dec, Skv = S_enc); prefill
+    returns them as the layer's ``{"ck", "cv"}``, built once. Decode
+    attends over the cached ``ck`` / ``cv`` up to ``ctx.enc_len`` and
+    leaves them as they are."""
+    q = _proj(x, p["wq"])
+    if ctx.mode in ("train", "prefill"):
+        k, v = _proj(ctx.enc_out, p["wk"]), _proj(ctx.enc_out, p["wv"])
+        out = _out(attention(q, k, v, causal=False), p["wo"])
+        return out, (None if ctx.mode == "train" else {"ck": k, "cv": v})
+    o = decode_attention(q, cache["ck"], cache["cv"], ctx.enc_len)
     return _out(o, p["wo"]), cache
 
 
@@ -283,6 +318,36 @@ def ssm_block(p, x, cache, ctx: Ctx):
         return x + out, new_cache, None
     out, new_cache = ssm_mod.mamba2_decode_step(p["mixer"], h, cache, cfg=ctx.cfg)
     return x + out, new_cache, None
+
+
+def encdec_dec_block_schema(cfg: ModelConfig) -> dict:
+    """The decoder block of an encoder-decoder: ``ln1``, ``self_attn``,
+    ``ln_x``, ``cross_attn`` (both GQA), ``ln2``, ``mlp``."""
+    d = cfg.d_model
+    return {
+        "ln1": rmsnorm_schema(d),
+        "self_attn": gqa_schema(cfg),
+        "ln_x": rmsnorm_schema(d),
+        "cross_attn": gqa_schema(cfg),
+        "ln2": rmsnorm_schema(d),
+        "mlp": mlp_schema(d, cfg.d_ff),
+    }
+
+
+def encdec_dec_block(p, x, cache, ctx: Ctx):
+    """``x + self_attn(ln1(x))`` (causal), ``+ cross_attn(ln_x(.))`` over
+    the encoder's output, then ``+ mlp(ln2(.))``. The layer's cache is
+    ``{"k", "v"}`` of the self-attention and ``{"ck", "cv"}`` of the
+    cross-attention in one dict."""
+    self_cache = None if cache is None else {"k": cache["k"], "v": cache["v"]}
+    cross_cache = None if cache is None else {"ck": cache["ck"], "cv": cache["cv"]}
+    eps = ctx.cfg.norm_eps
+    a, new_self = gqa_attn(p["self_attn"], rmsnorm(p["ln1"], x, eps), self_cache, ctx)
+    x = x + a
+    c, new_cross = cross_attn(p["cross_attn"], rmsnorm(p["ln_x"], x, eps), cross_cache, ctx)
+    x = x + c
+    x = x + mlp(p["mlp"], rmsnorm(p["ln2"], x, eps))
+    return x, (None if new_self is None else {**new_self, **new_cross}), None
 
 
 # ----------------------------------------------------------------------

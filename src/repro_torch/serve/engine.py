@@ -1,4 +1,5 @@
-"""Batched serving engine: prefill + decode with KV / SSM-state caches.
+"""Batched serving engine: prefill + decode with KV / SSM-state caches
+(and an encoder-decoder's cross-attention caches).
 
 The counterpart of ``repro.serve.engine``: a batch of requests is
 prefilled together (right-padded to a power of two of at least 8 tokens),
@@ -7,7 +8,10 @@ tokens); finished slots keep their tokens frozen until the batch drains.
 As in the JAX engine, the pad tokens are prefilled too: attention masks
 them by the cache length, but an SSM layer's state and conv prefix absorb
 the pads of every prompt shorter than the batch's padded length, so a
-short prompt's tokens after the first follow that state.
+short prompt's tokens after the first follow that state. The front ends
+are stubs, as in the JAX engine: an encoder-decoder is fed zero frames
+[B, S, d] (so its encoder runs over S positions), a vision model zero
+patch embeddings for its first ``min(frontend_tokens, S)`` slots.
 Greedy, or temperature sampling from a ``torch.Generator`` seeded by
 ``ServeConfig.seed`` (its draws differ from ``jax.random``'s). Runs on a
 card unless the caller passes ``device="cpu"``.
@@ -46,6 +50,19 @@ def pad_prompts(prompts: list[list[int]], device):
     return torch.as_tensor(toks, device=device), torch.as_tensor(lens, device=device)
 
 
+def frontend_stub(cfg: ModelConfig, B: int, S: int, device) -> dict:
+    """The batch entries the JAX engine feeds a model's front end for a
+    batch of B prompts padded to S: bf16 zeros, ``frames`` [B, S, d] for an
+    encoder-decoder, ``patch_embeds`` [B, min(frontend_tokens, S), d] for a
+    vision model; none for a text model."""
+    shapes = {}
+    if cfg.family == "encdec":
+        shapes["frames"] = (B, S, cfg.d_model)
+    if cfg.modality == "vision" and cfg.frontend_tokens:
+        shapes["patch_embeds"] = (B, min(cfg.frontend_tokens, S), cfg.d_model)
+    return {k: torch.zeros(sh, dtype=torch.bfloat16, device=device) for k, sh in shapes.items()}
+
+
 class Engine:
     """Prefill a batch of prompts together, then decode it step by step."""
 
@@ -66,8 +83,8 @@ class Engine:
         cfg, scfg = self.cfg, self.scfg
         toks, lens = pad_prompts(prompts, self.device)
         B, S = toks.shape
-        logits, cache = M.prefill(cfg, self.params, {"tokens": toks},
-                                  pad_to=S + scfg.max_new_tokens + 1)
+        batch = {"tokens": toks, **frontend_stub(cfg, B, S, self.device)}
+        logits, cache = M.prefill(cfg, self.params, batch, pad_to=S + scfg.max_new_tokens + 1)
         # per-slot position = prompt length: padding beyond it is masked by
         # the cache-length check and progressively overwritten during decode
         cache["len"] = lens

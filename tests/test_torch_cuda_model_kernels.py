@@ -54,6 +54,9 @@ def _card(rng, shape, dtype):
     (1, 96, 4, 4, 32, 128, False),
     (4, 512, 32, 32, 112, 112, True),  # Zamba2's shared attention
     (4, 512, 40, 8, 128, 128, True),  # Llama-4-Scout's query-head groups of 5
+    (4, 512, 64, 8, 128, 128, True),  # Qwen2-VL's query-head groups of 8
+    (4, 512, 16, 16, 64, 64, False),  # SeamlessM4T's encoder and cross-attention
+    (4, 512, 16, 16, 64, 64, True),  # SeamlessM4T's decoder self-attention
 ])
 def test_flash_attention_kernel_matches_plain(B, S, H, KV, D, Dv, causal, dtype):
     _flash_matches_plain(B, S, H, KV, D, Dv, causal, dtype)
@@ -169,7 +172,26 @@ def test_flash_attention_kernel_sq_ne_skv(causal):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Sq,Skv", [(512, 512), (300, 512), (512, 300), (1, 512)])
+def test_flash_attention_kernel_cross_attention(Sq, Skv, dtype):
+    """SeamlessM4T's cross-attention (16 heads, each its own KV head, D =
+    64), non-causal: decoder and encoder of one length, a ragged decoder
+    shorter than the encoder, one longer, a single query row."""
+    rng = np.random.default_rng(Sq + Skv)
+    q = _card(rng, (2, Sq, 16, 64), dtype)
+    k, v = (_card(rng, (2, Skv, 16, 64), dtype) for _ in range(2))
+    keep = [t.clone() for t in (q, k, v)]
+    got = fkern.flash_attention_cuda(q, k, v, causal=False)
+    want = attention_ref(q, k, v, causal=False)
+    assert got.dtype == q.dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[dtype])
+    assert all(torch.equal(a, b) for a, b in zip(keep, (q, k, v)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("N,d", [(4, 3072), (2048, 3072), (4, 5120), (2048, 5120),
+                                 (4, 8192), (2048, 8192), (4, 1024), (2048, 1024),
                                  (64, 128), (3, 100)])
 def test_rmsnorm_kernels_match_plain(N, d, dtype):
     """Both variants; d = 100 takes the scalar (non-vector) path."""

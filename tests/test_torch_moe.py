@@ -241,7 +241,8 @@ def test_grouped_mm_call_matches_the_plain_loop(dtype):
 @pytest.mark.parametrize("reduced", [False, True], ids=["full", "reduced"])
 @pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "phi4-mini-3.8b", "granite-8b",
                                   "mistral-large-123b", "mamba2-130m", "zamba2-7b",
-                                  "deepseek-v2-236b"])
+                                  "deepseek-v2-236b", "qwen2-vl-72b",
+                                  "seamless-m4t-medium"])
 def test_count_params_equal_jax(arch, reduced):
     """Every architecture the port admits; ``active_only`` counts a MoE
     model's routed experts at top-k of E."""

@@ -261,21 +261,26 @@ def test_serving_entry_points_refuse_to_drop_to_cpu(monkeypatch):
 
 def _config(arch):
     """A registered config, or for ``<arch>-mla`` that config with MLA
-    attention."""
+    attention, for ``<arch>-vision`` that config with the vision front end."""
     if arch.endswith("-mla"):
         return get_config(arch.removesuffix("-mla")).replace(attn_kind="mla")
+    if arch.endswith("-vision"):
+        return get_config(arch.removesuffix("-vision")).replace(modality="vision")
     return get_config(arch)
 
 
-@pytest.mark.parametrize("arch", ["gemma3-4b-mla", "qwen2-vl-72b",
-                                  "seamless-m4t-medium", "zamba2-7b-mla"])
+@pytest.mark.parametrize("arch", ["gemma3-4b-mla", "seamless-m4t-medium-mla",
+                                  "llama4-scout-17b-a16e-vision", "zamba2-7b-mla"])
 def test_unported_model_families_raise(arch):
-    """The dense family (GQA, with Gemma 3's local:global layers, or MLA),
+    """Every family runs in the port: dense (GQA, with Gemma 3's
+    local:global layers or Qwen2-VL's M-RoPE and vision stub, or MLA),
     ``moe`` with GQA or MLA attention (Llama-4-Scout, DeepSeek-V2), ``ssm``
-    (Mamba-2) and ``hybrid`` (Zamba2) run in the port; every other
-    registered architecture is refused, naming the ROADMAP item, and so is
-    MLA attention in a local:global (Gemma 3's) or hybrid (Zamba2's) model,
-    where the JAX package would silently build GQA."""
+    (Mamba-2), ``hybrid`` (Zamba2) and ``encdec`` (SeamlessM4T). Refused,
+    naming the ROADMAP item: MLA attention in a local:global (Gemma 3's),
+    encoder-decoder (SeamlessM4T's) or hybrid (Zamba2's) model, where the
+    JAX package would silently build GQA, and a vision front end outside a
+    plain dense model (Llama-4-Scout's MoE), where it builds no
+    ``patch_proj``."""
     with pytest.raises(NotImplementedError, match="item 12"):
         TM.init_params(_config(arch).reduced(), device="cpu")
 
@@ -295,7 +300,8 @@ def test_unported_model_options_raise():
     with pytest.raises(NotImplementedError, match="item 12"):
         TM.param_schema(get_config("llama4-scout-17b-a16e").replace(sliding_window=64))
     for arch in ("phi4-mini-3.8b", "granite-8b", "mistral-large-123b", "mamba2-130m",
-                 "zamba2-7b", "llama4-scout-17b-a16e", "gemma3-4b", "deepseek-v2-236b"):
+                 "zamba2-7b", "llama4-scout-17b-a16e", "gemma3-4b", "deepseek-v2-236b",
+                 "qwen2-vl-72b", "seamless-m4t-medium"):
         assert TM.count_params(get_config(arch)) > 0
     with pytest.raises(NotImplementedError, match="item 12"):
         TM.param_schema(get_config("zamba2-7b").replace(sliding_window=64))
