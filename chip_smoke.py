@@ -4,14 +4,16 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``src/repro_torch`` (``nvcc`` for ``sm_90a``,
-one compiler per source, all at once): the router cycle, flash attention,
-RMSNorm, the SSD scan and the paged KV gather. Holds each kernel against
+one compiler per source, all at once): the router cycle, flash attention
+and its backward, RMSNorm (with its backward), the SSD scan and the paged
+KV gather. Holds each kernel against
 its plain PyTorch version on the card, drives the simulator's main path
 through the port's entry points (``build_sim`` / ``run`` / ``stats``), the
 paper's figures through ``repro_torch.benchmarks`` and the model stack's
 serving paths (``Engine.generate`` on Phi-4-mini, Mamba-2, Zamba2,
-Llama-4-Scout, Gemma 3 4B, DeepSeek-V2, Qwen2-VL and SeamlessM4T), and
-checks what comes out:
+Llama-4-Scout, Gemma 3 4B, DeepSeek-V2, Qwen2-VL and SeamlessM4T) and
+its training path (``Trainer.run`` on Phi-4-mini, through the backward
+kernels), and checks what comes out:
 
 1. the card (``nvidia-smi``) and the kernels' build time;
 2. the arb and apply kernels bit-identical to the plain version on random
@@ -36,11 +38,17 @@ checks what comes out:
    times, peak device memory;
    at both sizes also the router cycle's and the endpoint phases' share of
    a step, and the device's busy share under ``torch.profiler``;
-5. super-steps: the 8x4 mesh at ``fused_cycles=4`` (GPU state equal to
-   CPU state, one fused launch per 4 cycles, ms per cycle beside k = 1);
+5. super-steps: the 8x4 mesh at ``fused_cycles=4`` (600 cycles,
+   ``SUPER_CYCLES``, cut from 1200: GPU state equal to CPU state, one
+   fused launch per 4 cycles, ms per cycle beside k = 1);
 6. the 8x4 torus at ``n_vcs=2``, one cycle per step and at
-   ``fused_cycles=4``: GPU state equal to CPU state, ms per cycle, the VC
-   arb/apply kernels timed on the per-cycle run's state;
+   ``fused_cycles=4`` (600 cycles each, cut from 1200; the naive step's
+   torus cell too): GPU state equal to CPU state, ms per cycle, the VC
+   arb/apply kernels timed on the per-cycle run's state (the simulator
+   profiles cover ``PROFILE_STEPS`` = 6 steps, 3 for the super-steps and
+   the all-reduce, cut from 20 and 10, and the timing turns
+   ``TURN_CYCLES`` = 48 cycles, cut from 100; ``time_budget`` holds each
+   cut's seconds in the run against the training phases');
 7. the 8x1 ring: wedged at ``n_vcs=1`` (nothing delivered in 1100
    cycles, more than the drain takes), drained at ``n_vcs=2`` with the
    GPU state equal to CPU state;
@@ -65,8 +73,8 @@ checks what comes out:
    8x4 all-reduce's layer split and device profile from cycle 400;
 9b. the naive reference step (``step_impl="naive"``): the 8x4 mesh under
    ``main_8x4``'s workload (1200 cycles), the 32x32 scaling point (200),
-   the 8x4 torus at ``n_vcs=2`` (1200) and the in-fabric all-reduce on the
-   8x4 mesh (delivering exactly ``expect_rx`` at cycle 693), each with one
+   the 8x4 torus at ``n_vcs=2`` (``SUPER_CYCLES``) and the in-fabric
+   all-reduce on the 8x4 mesh (delivering exactly ``expect_rx`` at cycle 693), each with one
    arb and one unfused apply launch a cycle and no fused-mode apply; the
    card state equal to the CPU's naive state leaf for leaf and, under
    ``canonical_state(scrub=True)``, to the fast cell's card state; Fig. 7
@@ -163,6 +171,26 @@ checks what comes out:
    also at Mamba-2's, Zamba2's, Llama-4-Scout's, Gemma 3's, DeepSeek-V2's,
    Qwen2-VL's and SeamlessM4T's widths (N = 2048, d = 768, 3584, 5120,
    1536, 512, 8192 and 1024; N = 8192, d = 2560);
+10b. training on the card (``kernels_vs_plain_train_*``, ``train_vs_cpu``,
+   ``train_resume_card``, ``serve_int8_cache_vs_cpu``, ``train_phi4_mini``,
+   ``kernel_times_train``): the backward kernels (flash attention's dQ and
+   dK / dV, RMSNorm's dx / dw) against the autograd of their plain
+   versions in float32 and bf16 (flash at Phi-4-mini's B 4, S 512, 24 / 8
+   heads, D 128, at D 32 and 112, S = 1, 63, 65, 129 and a ragged 520, G =
+   1, 3 and 8, non-causal with Sq != Skv; RMSNorm at d 3072 and 128, N
+   2048, 5 and 1, and d 100), inputs untouched, two runs bit-equal, the
+   forward's log-sum-exp against ``logsumexp``; Phi-4-mini at full width
+   and 2 layers trained 3 float32 steps on the card and the CPU from the
+   same parameters (losses, grad norms, parameters); a reduced Granite's
+   resume on the card (restored tensors bit-equal, losses as straight
+   through); 16 decode steps from an empty int8 KV cache on card and CPU;
+   the whole Phi-4-mini (32 layers, bf16, remat) trained 8 steps through
+   ``Trainer.run`` on B 4 x 512 tokens (launches per step exact: 64 flash
+   forward, 32 dQ and 32 dK / dV, 129 RMSNorm forward and 65 backward; ms
+   per step, the forward / backward / ``adamw_update`` split, busy share,
+   peak memory, every loss finite); the backward kernels' times beside
+   their bounds, the plain autograd's and the library's backward (cuDNN
+   SDPA, ``F.rms_norm``);
 11. the paged KV gather (``kernels_vs_plain_kv_gather``,
    ``kernel_times_kv_gather``): the kernel bit-equal to its plain version
    at ``tests/test_kernels.py``'s sweep shapes in float32, bf16 and int32
@@ -1108,6 +1136,58 @@ def narrow_latency(TS, TT_epm, topo, src, dst, cycles=380, params=None):
 
 # the H100 SXM's dense bf16 tensor-core peak (NVIDIA data sheet)
 BF16_FLOPS_PER_S = 989e12
+# the horizon of super_8x4, torus_vc_8x4, torus_8x4 and naive_torus_vc_8x4,
+# and the steps a simulator profile covers: cut from 1 200 cycles and 20 /
+# 10 steps to pay for the training phases within the run's time limit
+SUPER_CYCLES, SUPER_CYCLES_UNCUT = 600, 1200
+PROFILE_STEPS, PROFILE_STEPS_UNCUT = 6, 20
+# each turn of the k1 / k4 and fast / naive timing (k = 4 needs a multiple of 4)
+TURN_CYCLES, TURN_CYCLES_UNCUT = 48, 100
+# each cut cell's seconds in this run at its cut size, beside its uncut
+# size and the seconds the cut saved, estimated in proportion to the size
+# (for a profile, whose set-up does not shrink, an upper estimate)
+CUTS = {}
+
+
+def note_cut(name, seconds, size, uncut):
+    """Record a cut cell's measured ``seconds`` at ``size`` (cut from
+    ``uncut``) in ``CUTS``."""
+    CUTS[name] = {"seconds": seconds, "size": size, "uncut_size": uncut,
+                  "saved_estimate_s": seconds * (uncut / size - 1)}
+
+
+def cut_profile(name, sim, st, step_ms, n):
+    """``device_profile`` over ``n`` steps (``PROFILE_STEPS`` or half of it,
+    cut from 20 or 10), its seconds noted in ``CUTS``."""
+    t0 = time.perf_counter()
+    out = device_profile(sim, st, step_ms, n=n)
+    note_cut(name, time.perf_counter() - t0, n,
+             PROFILE_STEPS_UNCUT * n // PROFILE_STEPS)
+    return out
+
+
+def cut_run(name, TS, sim, build_cpu):
+    """The card's ``run_counted`` and the CPU's run of ``SUPER_CYCLES``
+    (cut from ``SUPER_CYCLES_UNCUT``), their seconds noted in ``CUTS``.
+    Returns (card state, card seconds, launches, CPU state)."""
+    st, dt, launches = run_counted(TS, sim, SUPER_CYCLES)
+    t0 = time.perf_counter()
+    st_cpu = TS.run(build_cpu(), SUPER_CYCLES)
+    note_cut(name, dt + time.perf_counter() - t0, SUPER_CYCLES, SUPER_CYCLES_UNCUT)
+    return st, dt, launches, st_cpu
+
+
+def timing_turns(name, TS, sims):
+    """ms per cycle of each of ``sims`` run ``TURN_CYCLES`` from a fresh
+    state, in turn (cut from ``TURN_CYCLES_UNCUT``; seconds in ``CUTS``)."""
+    turns = []
+    for s_ in sims:
+        _, t_, _ = run_counted(TS, s_, TURN_CYCLES)
+        turns.append(t_ / TURN_CYCLES * 1e3)
+    note_cut(name, sum(turns) * TURN_CYCLES / 1e3, TURN_CYCLES, TURN_CYCLES_UNCUT)
+    return turns
+
+
 # kernel vs plain version (atol, rtol): float32 sums in another order
 # (attention: exp and row sums of up to 520 keys); bf16 one output rounding,
 # as tests/test_kernels.py
@@ -1382,6 +1462,575 @@ def compare_model_kernels(dev):
             errs["ssd_zamba2"] = max(ey, es)
     phase("kernels_vs_plain_model", cases=rows)
     return errs
+
+
+# the backward kernels against the autograd of the plain versions on the
+# same inputs: float32 sums in another order (scores over up to 520 keys, D
+# up to 128; dw sums 2048 rows of values ~1), bf16 gradients rounded to bf16
+# on both sides (and the kernel's Delta from the bf16 output, the plain one
+# from the unrounded softmax)
+ATTN_GRAD_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (5e-2, 5e-2)}
+LSE_TOL = (2e-3, 1e-4)  # the forward's float32 log-sum-exp against logsumexp
+RMS_GRAD_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (3e-2, 3e-2)}
+# the bf16 gradients also against float32 autograd on the same bf16 inputs
+# (upcast), as max |kernel - float32| / max |float32| per tensor: the
+# kernels compute in float32 and round each gradient to bf16 once (2^-9
+# of its size), so a dropped tile or head shows far above this
+GRAD_BF16_REL = 1e-2
+
+
+def plain_attention_grads(q, k, v, dout, causal):
+    """(out, dq, dk, dv) of the plain attention by autograd."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    with torch.enable_grad():
+        out = attention_ref(*leaves, causal=causal)
+        out.backward(dout)
+    return (out.detach(), *(t.grad for t in leaves))
+
+
+def plain_lse(q, k, causal):
+    """The float32 log-sum-exp [B, H, Sq] of the scaled, masked scores."""
+    import torch
+
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    qf = q.float().reshape(B, Sq, KV, H // KV, D)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float()) * D ** -0.5
+    if causal:
+        vis = torch.arange(Sq, device=q.device)[:, None] >= torch.arange(Skv, device=q.device)
+        s = s.masked_fill(~vis, float("-inf"))
+    return torch.logsumexp(s, -1).reshape(B, H, Sq)
+
+
+def rel_err(got, want):
+    """max |got - want| / max |want| in float32; None where ``want`` is all
+    zero (attention over one key has dq = dk = 0), which the absolute
+    tolerance alone holds."""
+    scale = float(want.float().abs().max())
+    return float((got.float() - want.float()).abs().max()) / scale if scale > 0 else None
+
+
+def rel_ok(err):
+    """Whether a ``rel_err`` reading is within ``GRAD_BF16_REL``."""
+    return err is None or err <= GRAD_BF16_REL
+
+
+def compare_train_kernels(dev):
+    """The backward kernels (flash attention's dQ and dK / dV, RMSNorm's dx
+    / dw) against the autograd of their plain versions on the card, float32
+    and bf16 (bf16 also against float32 autograd on the upcast inputs,
+    within ``GRAD_BF16_REL`` of each tensor's largest value), inputs checked
+    untouched, two runs bit-equal; the forward's
+    log-sum-exp against ``logsumexp``, its output with the log-sum-exp equal
+    to the output without. Returns the max error of each at Phi-4-mini's
+    training shapes."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention as FK
+    from repro_torch.kernels.rmsnorm import rmsnorm as RK
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+
+    rng = np.random.default_rng(41)
+    bf, f32 = "bfloat16", "float32"
+    dt = {bf: torch.bfloat16, f32: torch.float32}
+    # (label, dtype, B, Sq, H, KV, D, causal, Skv)
+    cases = []
+    for d_ in (bf, f32):
+        cases += [("phi4_train", d_, 4, 512, 24, 8, 128, True, 512),
+                  ("reduced_d32", d_, 2, 64, 4, 2, 32, True, 64),
+                  ("d112", d_, 2, 130, 4, 2, 112, True, 130),
+                  ("ragged", d_, 1, 520, 24, 8, 128, True, 520),
+                  ("noncausal_sq_ne_skv", d_, 2, 300, 8, 4, 64, False, 512),
+                  ("noncausal_sq_gt_skv", d_, 1, 130, 4, 2, 64, False, 70)]
+        cases += [("edge_s", d_, 2, S, 4, 2, 64, True, S) for S in (1, 63, 65, 129)]
+        cases += [(f"group_{H // KV}", d_, 2, 200, H, KV, 64, True, 200)
+                  for H, KV in ((4, 4), (6, 2), (8, 1))]
+    errs, rows = {}, []
+    for label, d_, B, S, H, KV, D, causal, Skv in cases:
+        q, k, v = (randn(rng, sh, dt[d_], dev) for sh in
+                   ((B, S, H, D), (B, Skv, KV, D), (B, Skv, KV, D)))
+        dout = randn(rng, (B, S, H, D), dt[d_], dev)
+        keep = [t.clone() for t in (q, k, v, dout)]
+        out, lse = FK.flash_attention_cuda(q, k, v, causal=causal, lse=True)
+        plain_out = FK.flash_attention_cuda(q, k, v, causal=causal)
+        runs = [FK.flash_attention_bwd_cuda(q, k, v, out, dout, lse, causal=causal)
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        _, dq_p, dk_p, dv_p = plain_attention_grads(q, k, v, dout, causal)
+        tol = ATTN_GRAD_TOL[d_]
+        row = {"case": label, "shape": [B, S, H, KV, D], "skv": Skv, "causal": causal,
+               "dtype": d_, "tol": tol}
+        ok_all = True
+        for name, got, want in zip(("dq", "dk", "dv"), runs[0], (dq_p, dk_p, dv_p)):
+            err, ok = close_err(got, want, tol)
+            row[name] = err
+            ok_all &= ok and bool(torch.isfinite(got).all())
+        if d_ == bf:  # against float32 autograd on the same (upcast) inputs
+            _, *want32 = plain_attention_grads(*(t.float() for t in (q, k, v, dout)), causal)
+            for name, got, want in zip(("dq", "dk", "dv"), runs[0], want32):
+                row[name + "_rel_f32"] = rel_err(got, want)
+                ok_all &= rel_ok(row[name + "_rel_f32"])
+            row["rel_f32_tol"] = GRAD_BF16_REL
+        lse_err, lse_ok = close_err(lse, plain_lse(q, k, causal), LSE_TOL)
+        row["lse"] = lse_err
+        rows.append(row)
+        check(ok_all, f"flash attention's backward disagrees with plain ({label}, {d_}): {row}")
+        check(lse_ok, f"flash attention's log-sum-exp disagrees ({label}, {d_}): {lse_err}")
+        check(torch.equal(out, plain_out), "the forward's output changed with the lse")
+        check(all(torch.equal(a, b) for a, b in zip(*runs)),
+              f"two runs of flash attention's backward differ ({label}, {d_})")
+        check(all(torch.equal(a, b) for a, b in zip(keep, (q, k, v, dout))),
+              "the flash-attention backward modified its inputs")
+        if label == "phi4_train":
+            for name in ("dq", "dk", "dv"):
+                key = f"flash_attention_bwd_{d_}"
+                errs[key] = max(errs.get(key, 0.0), row[name])
+    phase("kernels_vs_plain_train_flash", cases=rows)
+
+    rows = []
+    # (N, d): Phi-4-mini's training rows (B 4 x 512) and decode-sized ones at
+    # d 3072, the reduced configs' d 128, and a d that no vector divides
+    rms_cases = [(2048, 3072), (5, 3072), (1, 3072), (2048, 128), (5, 128), (1, 128),
+                 (7, 100)]
+    for d_ in (bf, f32):
+        for N, d in rms_cases:
+            x = randn(rng, (N, d), dt[d_], dev)
+            w = 1 + 0.1 * randn(rng, (d,), torch.float32, dev)
+            dy = randn(rng, (N, d), dt[d_], dev)
+            keep = [t.clone() for t in (x, w, dy)]
+            runs = [RK.rmsnorm_bwd_cuda(x, w, dy, RMS_EPS) for _ in range(2)]
+            torch.cuda.synchronize()
+            xl, wl = (t.detach().clone().requires_grad_(True) for t in (x, w))
+            with torch.enable_grad():
+                rmsnorm_ref(xl, wl, RMS_EPS).backward(dy)
+            tol = RMS_GRAD_TOL[d_]
+            ex, okx = close_err(runs[0][0], xl.grad, tol)
+            ew, okw = close_err(runs[0][1], wl.grad, tol)
+            row = {"N": N, "d": d, "dtype": d_, "dx": ex, "dw": ew, "tol": tol}
+            if d_ == bf:  # against float32 autograd on the same (upcast) inputs
+                xf, wf = x.float().requires_grad_(True), w.clone().requires_grad_(True)
+                with torch.enable_grad():
+                    rmsnorm_ref(xf, wf, RMS_EPS).backward(dy.float())
+                row.update(dx_rel_f32=rel_err(runs[0][0], xf.grad),
+                           dw_rel_f32=rel_err(runs[0][1], wf.grad), rel_f32_tol=GRAD_BF16_REL)
+                okx &= rel_ok(row["dx_rel_f32"])
+                okw &= rel_ok(row["dw_rel_f32"])
+            rows.append(row)
+            check(okx and okw and bool(torch.isfinite(runs[0][0]).all()),
+                  f"RMSNorm's backward disagrees with plain ({N}, {d}, {d_}): {row}")
+            check(runs[0][0].dtype == x.dtype and runs[0][1].dtype == torch.float32,
+                  "RMSNorm's backward returned the wrong dtypes")
+            check(all(torch.equal(a, b) for a, b in zip(*runs)),
+                  f"two runs of RMSNorm's backward differ ({N}, {d}, {d_})")
+            check(all(torch.equal(a, b) for a, b in zip(keep, (x, w, dy))),
+                  "the RMSNorm backward modified its inputs")
+            if (N, d) == (2048, 3072):
+                errs[f"rmsnorm_bwd_{d_}"] = max(ex, ew)
+    phase("kernels_vs_plain_train_rmsnorm", cases=rows)
+    return errs
+
+
+def backward_ms(out, inputs, grad, reps=10):
+    """Device time of one backward through autograd's recorded graph of
+    ``out`` (built once, kept with ``retain_graph``): after a warm-up,
+    ``reps`` eager calls queued behind a spinning kernel
+    (``torch.cuda._sleep``), so that the host has enqueued them all before
+    the first runs and the CUDA events around them see the device's time
+    alone, as a CUDA graph's replay does for the kernels' own times."""
+    import torch
+
+    def fn():
+        return torch.autograd.grad(out, inputs, grad, retain_graph=True)
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)  # ~0.1 s of spinning while the host enqueues
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def attn_bwd_bound(B, S, H, KV, D, itemsize, ops_per_s):
+    """Least time of causal attention's backward: five products over the
+    visible (q, k) pairs (S and dP recomputed, dV, dK, dQ) at ``ops_per_s``,
+    or q, k, v, o, dO and the log-sum-exp read once and dQ, dK, dV written
+    once at the memory rate, whichever is larger."""
+    flops = 5 * 2 * D * visible_pairs(S) * B * H
+    nbytes = B * S * (4 * H * D + 4 * KV * D) * itemsize + B * H * S * 4
+    return bound_fields(nbytes, flops, ops_per_s)
+
+
+def time_train_kernels(dev):
+    """The backward kernels at Phi-4-mini's training shapes: flash
+    attention's dQ + dK / dV at B 4, S 512, 24 / 8 heads, D 128, and
+    RMSNorm's backward at N 2048, d 3072, both bf16: kernel, the plain
+    version's autograd backward, and the backward of one PyTorch call
+    through autograd (cuDNN SDPA, ``F.rms_norm``; timed alone, never called
+    by the port), with the bound."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend
+
+    from repro_torch.kernels.flash_attention import flash_attention as FK
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.rmsnorm import rmsnorm as RK
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+
+    rng = np.random.default_rng(43)
+    bf = torch.bfloat16
+    out = {}
+    B, S, H, KV, D = 4, 512, 24, 8, 128
+    q, k, v, dout = (randn(rng, sh, bf, dev) for sh in
+                     ((B, S, H, D), (B, S, KV, D), (B, S, KV, D), (B, S, H, D)))
+    o, lse = FK.flash_attention_cuda(q, k, v, lse=True)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    with torch.enable_grad():
+        plain_out = attention_ref(*leaves)
+    lt = [t.detach().transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v)]
+    with torch.enable_grad():
+        lib_out = F.scaled_dot_product_attention(*lt, is_causal=True, enable_gqa=True)
+    # the backend SDPA dispatches these inputs to
+    choice = SDPBackend(torch._fused_sdp_choice(*lt, is_causal=True, enable_gqa=True))
+    lib_grad = dout.transpose(1, 2).contiguous()
+    out["flash_attention_bwd"] = {
+        "ms": graph_ms(lambda: FK.flash_attention_bwd_cuda(q, k, v, o, dout, lse), reps=5),
+        "plain_ms": backward_ms(plain_out, leaves, dout, reps=5),
+        "library_ms": backward_ms(lib_out, lt, lib_grad), "library_backend": choice.name,
+        **attn_bwd_bound(B, S, H, KV, D, 2, BF16_FLOPS_PER_S),
+        "shape": f"B={B}, S={S}, H={H}, KV={KV}, D=Dv={D}, bf16, causal"}
+    N, d = 2048, 3072
+    x, dy = (randn(rng, (N, d), bf, dev) for _ in range(2))
+    w = 1 + 0.1 * randn(rng, (d,), torch.float32, dev)
+    xl, wl = (t.clone().requires_grad_(True) for t in (x, w))
+    xb, wb = x.clone().requires_grad_(True), w.to(bf).requires_grad_(True)
+    with torch.enable_grad():
+        plain_y = rmsnorm_ref(xl, wl, RMS_EPS)
+        lib_y = F.rms_norm(xb, (d,), wb, RMS_EPS)
+    out["rmsnorm_bwd"] = {
+        "ms": graph_ms(lambda: RK.rmsnorm_bwd_cuda(x, w, dy, RMS_EPS)),
+        "plain_ms": backward_ms(plain_y, (xl, wl), dy),
+        "library_ms": backward_ms(lib_y, (xb, wb), dy),
+        # x and dy read, dx written (bf16); w read and dw written (float32)
+        **bound_fields(3 * N * d * 2 + 2 * d * 4, 8 * N * d),
+        "shape": f"N={N}, d={d}, bf16"}
+    phase("kernel_times_train", **out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# training on the card (Phi-4-mini): card against CPU, resume, the whole model
+
+TRAIN_LOSS_RTOL = 1e-4  # float32 card vs CPU: sums in another order, 2 layers
+# float32 card vs CPU: each leaf's step-0 gradient, max |card - CPU| / max |CPU|
+TRAIN_GRAD_REL = 1e-4
+TRAIN_PARAM_MEAN_ATOL = 1e-6  # the parameters' mean |card - CPU| after 3 steps
+RESUME_LOSS_RTOL = 1e-3  # bf16 parameters: resumed against straight, on the card
+TRAIN_STEPS = 8  # train_phi4_mini's steps; ms per step is the median of steps 2-8
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=100)
+
+
+def trainer_from(cfg, dcfg, steps, device, init, rt=None, first_grads=None):
+    """A ``Trainer`` of ``cfg`` on ``device`` whose ``init_state`` loads the
+    float32 parameters ``init`` (``params_to_numpy`` layout); with a dict
+    ``first_grads``, each parameter's gradient of the first step is copied
+    into it by name as autograd accumulates it."""
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    tr = Trainer(cfg, dcfg, TrainerConfig(steps=steps, log_every=0,
+                                          opt=AdamWConfig(**TRAIN_OPT)),
+                 rt=rt, device=device)
+
+    def keep(name):
+        def hook(q):
+            if name not in first_grads:
+                first_grads[name] = q.grad.detach().clone()
+        return hook
+
+    def init_state():
+        p = M.params_from_numpy(cfg, init, device=device).float()
+        for name, q in p.named_parameters():
+            q.requires_grad_(True)
+            if first_grads is not None:
+                q.register_post_accumulate_grad_hook(keep(name))
+        return p, adamw_init(dict(p.named_parameters()))
+
+    tr.init_state = init_state
+    return tr
+
+
+_PHI4_2L = []  # the 2-layer Phi-4-mini's initial parameters, made once
+
+
+def phi4_two_layers():
+    """(Phi-4-mini at full width cut to 2 layers, its float32 initial
+    parameters in ``params_to_numpy`` layout, seeded), shared by
+    ``train_vs_cpu`` and ``serve_int8_cache_vs_cpu``."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    cfg = get_config(PHI4).replace(n_layers=2)
+    if not _PHI4_2L:  # drawn on the card (fast), carried to the host once
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        _PHI4_2L.append(M.params_to_numpy(cfg, M.init_params(cfg, gen, device="cuda")))
+    return cfg, _PHI4_2L[0]
+
+
+def train_vs_cpu(dev):
+    """Phi-4-mini at full width, 2 layers, float32, the same initial
+    parameters on the card and the CPU: ``Trainer.run`` for 3 steps on 1 x
+    256 tokens of ``SyntheticLM``. Per step the loss and grad norm within
+    ``TRAIN_LOSS_RTOL``; each leaf's gradient of the first step within
+    ``TRAIN_GRAD_REL`` of that leaf's largest value (the tight check of
+    every gradient, a norm weight's as the embedding's); after the last
+    step every parameter within 3 Adam steps (``6 lr``, a loose sanity
+    bound: Adam moves each element about ``lr`` a step whatever its
+    gradient's size, and a near-zero gradient whose float32 sign differs
+    moves the two sides a step apart) and their mean difference within
+    ``TRAIN_PARAM_MEAN_ATOL``. The CPU runs without remat (the same
+    numbers, less work) on a thread beside the card's run."""
+    import torch
+
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.runtime import Runtime
+
+    t0 = time.perf_counter()
+    cfg, init = phi4_two_layers()
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=256, global_batch=1, seed=5)
+    seconds = {"init": time.perf_counter() - t0}
+
+    grads = {"cuda": {}, "cpu": {}}
+
+    def train(device, rt):
+        t1 = time.perf_counter()
+        params, _, hist = trainer_from(cfg, dcfg, 3, device, init, rt=rt,
+                                       first_grads=grads[device]).run(resume=False)
+        seconds[device] = time.perf_counter() - t1
+        return params, hist
+
+    with ThreadPoolExecutor(1) as pool:  # the CPU's run beside the card's
+        cpu_run = pool.submit(train, "cpu", Runtime(remat=False))
+        pg, hg = train("cuda", None)
+        pc, hc = cpu_run.result()
+    rows = []
+    for a, b in zip(hg, hc):
+        rows.append({k: [a[k], b[k]] for k in ("loss", "grad_norm")})
+        for k in ("loss", "grad_norm"):
+            check(abs(a[k] - b[k]) <= TRAIN_LOSS_RTOL * abs(b[k]),
+                  f"train_vs_cpu: step {a['step']} {k} card {a[k]} CPU {b[k]}")
+    check(set(grads["cuda"]) == set(grads["cpu"]) == {k for k, _ in pc.named_parameters()},
+          "train_vs_cpu: a parameter got no gradient on one side")
+    leaf_rel = {}
+    for k in sorted(grads["cpu"]):  # on the card, one leaf at a time
+        a, b = grads["cuda"].pop(k), grads["cpu"].pop(k).to(dev)
+        err = rel_err(a, b)
+        leaf_rel[k] = float(a.abs().max()) if err is None else err
+    worst_leaf = max(leaf_rel, key=leaf_rel.get)
+    check(leaf_rel[worst_leaf] <= TRAIN_GRAD_REL,
+          f"train_vs_cpu: step 0's gradient of {worst_leaf} differs by "
+          f"{leaf_rel[worst_leaf]} of its largest value")
+    worst, total, n = 0.0, 0.0, 0
+    with torch.no_grad():  # on the card: the CPU's parameters carried over
+        for (k, a), (_, b) in zip(pg.named_parameters(), pc.named_parameters()):
+            d = (a - b.to(a.device)).abs()
+            worst, total, n = max(worst, float(d.max())), total + float(d.double().sum()), n + d.numel()
+    mean = total / n
+    del pg, pc
+    torch.cuda.empty_cache()
+    check(worst <= 6 * TRAIN_OPT["lr"] and mean <= TRAIN_PARAM_MEAN_ATOL,
+          f"train_vs_cpu: parameters differ by {worst} (mean {mean})")
+    phase("train_vs_cpu", layers=cfg.n_layers, d_model=cfg.d_model, params=int(n),
+          tokens=256, steps=3, dtype="float32", steps_card_cpu=rows,
+          grad_rel_by_leaf=leaf_rel, grad_rel_worst=[worst_leaf, leaf_rel[worst_leaf]],
+          param_max_abs_diff=worst, param_mean_abs_diff=mean,
+          tol={"loss_rtol": TRAIN_LOSS_RTOL, "grad_rel": TRAIN_GRAD_REL,
+               "param_max": 6 * TRAIN_OPT["lr"], "param_mean": TRAIN_PARAM_MEAN_ATOL},
+          seconds=time.perf_counter() - t0, seconds_by_part=seconds)
+
+
+def train_resume_card(dev):
+    """``granite-8b`` ``reduced()`` on the card, in the trainer's own bf16
+    parameters (a checkpoint restores into the schema's dtypes, as JAX's
+    does): 6 steps straight against 3 steps, a checkpoint, a restore into a
+    fresh ``Trainer`` and 3 more steps. The restored tensors equal the saved
+    ones bit for bit; the float32 losses within ``RESUME_LOSS_RTOL`` (cuBLAS
+    and the embedding's backward need not be deterministic, and a sum a
+    rounding apart may round an updated bf16 parameter to its neighbour)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = get_config("granite-8b").reduced()
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=64, global_batch=4, seed=6)
+
+    def trainer(steps, **kw):
+        return Trainer(cfg, dcfg, TrainerConfig(steps=steps, log_every=0, seed=6,
+                                                opt=AdamWConfig(**TRAIN_OPT), **kw), device=dev)
+
+    _, _, straight = trainer(6).run(resume=False)
+    with tempfile.TemporaryDirectory() as d:
+        first = trainer(3, ckpt_every=3, ckpt_dir=d)
+        p3, o3, h1 = first.run(resume=False)
+        second = trainer(6, ckpt_dir=d)
+        rp, ro = second.restore(3)
+        same = all(torch.equal(a, b) for a, b in zip(p3.parameters(), rp.parameters()))
+        same &= all(torch.equal(o3[k][n], ro[k][n]) for k in ("m", "v") for n in o3[k])
+        same &= torch.equal(o3["step"], ro["step"])
+        check(same, "train_resume_card: the restored state differs from the saved one")
+        _, _, h2 = second.run(resume=True)
+    resumed = h1 + h2
+    check([h["step"] for h in resumed] == list(range(6)), "train_resume_card: steps")
+    for a, b in zip(resumed, straight):
+        check(abs(a["loss"] - b["loss"]) <= RESUME_LOSS_RTOL * abs(b["loss"]),
+              f"train_resume_card: step {a['step']} loss {a['loss']} vs {b['loss']}")
+    phase("train_resume_card", model=cfg.name, steps=6, restored_bit_equal=True,
+          losses_resumed=[h["loss"] for h in resumed], losses_straight=[h["loss"] for h in straight])
+
+
+def serve_int8_cache_vs_cpu(dev):
+    """Phi-4-mini at full width, 2 layers, float32: 16 decode steps from an
+    empty int8 KV cache (``init_cache(..., quant=True)``, len 0) on the card
+    and on the CPU, the same tokens (the CPU's greedy choices) on both.
+    Logits within ``LOGIT_TOL``; the cached int8 values within 1 (a key a
+    float32 rounding from a half rounds the other way); the first layer's
+    scales within float32 rounding (rtol 1e-5), the second layer's within
+    rtol 1e-2 (decode attends over the dequantised cache in bf16, as JAX
+    does, so a scale a float32 rounding apart may round to the neighbouring
+    bf16, 2^-8 apart, and the second layer's keys carry that)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import model as M
+
+    cfg, init = phi4_two_layers()
+    pc = M.params_from_numpy(cfg, init, device="cpu").float()
+    pg = M.params_from_numpy(cfg, init, device=dev).float()
+    B, n = 2, 16
+    caches = {d: M.init_cache(cfg, B, n, device=d, quant=True) for d in ("cpu", "cuda")}
+    tok = torch.as_tensor(np.random.default_rng(8).integers(0, cfg.vocab_size, (B, 1)))
+    worst = 0.0
+    with torch.no_grad():
+        for i in range(n):
+            lc, caches["cpu"] = M.decode_step(cfg, pc, caches["cpu"], tok)
+            lg, caches["cuda"] = M.decode_step(cfg, pg, caches["cuda"], tok.to(dev))
+            err = float((lg.float().cpu() - lc).abs().max())
+            worst = max(worst, err)
+            check(err <= LOGIT_TOL and bool(torch.isfinite(lg).all()),
+                  f"serve_int8_cache_vs_cpu: step {i} logits differ by {err}")
+            tok = lc[:, -1].argmax(-1, keepdim=True)
+    codes, scales = 0, [0.0] * cfg.n_layers
+    for kind in ("k", "v"):
+        a, b = caches["cuda"]["blocks"][kind].cpu().int(), caches["cpu"]["blocks"][kind].int()
+        check(caches["cuda"]["blocks"][kind].dtype == torch.int8, "the cache is not int8")
+        codes = max(codes, int((a - b).abs().max()))
+        sa = caches["cuda"]["blocks"][kind + "_scale"].cpu()
+        sb = caches["cpu"]["blocks"][kind + "_scale"]
+        rel = ((sa - sb).abs() / sb.abs().clamp(min=1e-30)).amax(dim=(1, 2, 3))
+        scales = [max(x, float(r)) for x, r in zip(scales, rel)]
+    check(codes <= 1 and scales[0] <= 1e-5 and max(scales) <= 1e-2,
+          f"serve_int8_cache_vs_cpu: int8 codes differ by {codes}, scales by {scales}")
+    phase("serve_int8_cache_vs_cpu", layers=cfg.n_layers, d_model=cfg.d_model, batch=B,
+          decode_steps=n, dtype="float32", max_logit_diff=worst, logit_tol=LOGIT_TOL,
+          max_int8_code_diff=codes, max_scale_rel_diff_by_layer=scales,
+          cache_len=int(caches["cuda"]["len"][0]))
+
+
+def train_phi4_mini(dev):
+    """The whole Phi-4-mini (32 layers, full width, bf16) trained 8 steps
+    through ``Trainer.run`` on B 4 x 512 tokens of ``SyntheticLM``, remat on:
+    ms per step (median of steps 2-8) and tokens/s, the synchronised split
+    into forward, backward and ``adamw_update``, the device's busy share of
+    one step under ``torch.profiler``, exact launches per step of the flash
+    forward and backward and the RMSNorm forward and backward, peak memory,
+    the model FLOPs and the optimizer's bytes beside their times at the
+    card's peaks. Every loss finite. Returns the run's launches."""
+    import statistics as st_
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models import model as M
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = get_config(PHI4)
+    B, S = 4, 512
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B, seed=7)
+    tr = Trainer(cfg, dcfg, TrainerConfig(steps=TRAIN_STEPS, log_every=0), device=dev)
+    tr.time_phases = True
+    phases = []
+    real_step = tr.step
+
+    def step(params, opt, batch):
+        out = real_step(params, opt, batch)
+        phases.append(dict(tr.last_phases))
+        return out
+
+    tr.step = step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in launch_counters():
+        c.update(dict.fromkeys(c, 0))
+    t0 = time.perf_counter()
+    params, opt, hist = tr.run(resume=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for c in launch_counters() for k, v in c.items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n = TRAIN_STEPS
+    L = cfg.n_layers
+    want = {"flash_attention": 2 * L * n, "flash_attention_bwd_dq": L * n,
+            "flash_attention_bwd_dkdv": L * n, "rmsnorm": (4 * L + 1) * n,
+            "rmsnorm_bwd": (2 * L + 1) * n, "rmsnorm_bwd_dw": (2 * L + 1) * n,
+            "rmsnorm_residual": 0, "ssd": 0}
+    check(launches == want, f"train_phi4_mini launches {launches}, expected {want}")
+    check(all(torch.isfinite(torch.tensor(h["loss"])) for h in hist),
+          f"train_phi4_mini: a non-finite loss in {[h['loss'] for h in hist]}")
+    check(tr.nan_guard.total_skipped == 0, "train_phi4_mini skipped a step")
+    steady = phases[1:]  # steps 2-8
+    ms = st_.median(h["time_s"] for h in hist[1:]) * 1e3
+    split = {k: st_.median(p[k] for p in steady) for k in steady[0]}
+    # one more step under the profiler (autograd on), counters restored
+    batch = tr._device_batch(tr.source.batch_for_step(n))
+    t1 = time.perf_counter()
+    tr.step(params, opt, batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t1) * 1e3
+    prof = call_profile(lambda: tr.step(params, opt, tr._device_batch(
+        tr.source.batch_for_step(n + 1))), step_ms, grad=True)
+    n_params = M.count_params(cfg)
+    flops = 6 * n_params * B * S
+    opt_bytes = n_params * (2 + 2 + 2 + 4 * 4)  # p read + written, g read, m and v r + w
+    phase("train_phi4_mini", layers=L, d_model=cfg.d_model, params=n_params, batch=B,
+          seq_len=S, steps=n, dtype="bfloat16", remat=True,
+          ms_per_step=ms, tokens_per_s=B * S / ms * 1e3, split_ms=split,
+          step_ms_all=[sum(p.values()) for p in phases], wall_s=wall,
+          losses=[h["loss"] for h in hist], grad_norms=[h["grad_norm"] for h in hist],
+          launches_per_step={k: v / n for k, v in launches.items() if v},
+          peak_memory_gb=peak, profile=prof,
+          model_flops=flops, model_flops_ms_at_989=flops / BF16_FLOPS_PER_S * 1e3,
+          optimizer_bytes=opt_bytes, optimizer_bytes_ms_at_3_35=opt_bytes / HBM_BYTES_PER_S * 1e3)
+    del params, opt, tr
+    torch.cuda.empty_cache()
+    return launches
 
 
 def greedy_trace(M, cfg, p, toks, lens, n, force=None, extra=None):
@@ -1715,18 +2364,19 @@ def launch_counters():
     return (FK.LAUNCHES, RK.LAUNCHES, SK.LAUNCHES)
 
 
-def call_profile(fn, wall_ms):
-    """Device activity of one ``fn()`` call under ``torch.profiler``: device
-    events, device time, the busy share of an unprofiled call
-    (``wall_ms``) and the kernels that take most device time. ``None``
-    where the profiler reports no device activity."""
+def call_profile(fn, wall_ms, grad=False):
+    """Device activity of one ``fn()`` call under ``torch.profiler`` (with
+    ``grad``, autograd on, as a training step runs): device events, device
+    time, the busy share of an unprofiled call (``wall_ms``) and the kernels
+    that take most device time. ``None`` where the profiler reports no
+    device activity."""
     import collections
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     saved = [dict(c) for c in launch_counters()]
-    with torch.no_grad(), profile(
+    with contextlib.nullcontext() if grad else torch.no_grad(), profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
@@ -2634,7 +3284,7 @@ def main() -> int:
     card = smi.splitlines()[0]
     # the package exports its entry point under the module's own name
     KG = importlib.import_module("repro_torch.kernels.kv_gather.kv_gather")
-    libs = (K.LIBRARY, FK.LIBRARY, RK.LIBRARY, SK.LIBRARY, KG.LIBRARY)
+    libs = (K.LIBRARY, FK.LIBRARY, FK.BWD_LIBRARY, RK.LIBRARY, SK.LIBRARY, KG.LIBRARY)
     fresh = [not lib.path().exists() for lib in libs]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs) + 1) as pool:  # one nvcc per source, together
@@ -2791,7 +3441,8 @@ def main() -> int:
     phase("kernel_times_8x4", **timing_8x4)
     layers_8x4 = layer_times(eng, sim, st_gpu)
     phase("layers_8x4", **layers_8x4)
-    phase("profile_8x4", **device_profile(sim, st_gpu, layers_8x4["step_ms"]))
+    phase("profile_8x4", **cut_profile("profile_8x4", sim, st_gpu, layers_8x4["step_ms"],
+                                       PROFILE_STEPS))
 
     lat = {d: narrow_latency(TS, epm, topo, 0, d) for d in (1, 2, 3, 31)}
     phase("fig7_8x4", latency=lat)
@@ -2845,32 +3496,30 @@ def main() -> int:
     phase("kernel_times_32x32", **timing_32)
     layers_32 = layer_times(eng, bsim, bst, n=50)
     phase("layers_32x32", **layers_32)
-    phase("profile_32x32", **device_profile(bsim, bst, layers_32["step_ms"]))
+    phase("profile_32x32", **cut_profile("profile_32x32", bsim, bst, layers_32["step_ms"],
+                                         PROFILE_STEPS))
 
     # ---- 5. super-steps: the 8x4 mesh at fused_cycles=4 ------------------
     sp = NocParams(fused_cycles=4)
     ssim = TS.build_sim(topo, sp, wl)
-    sst, sdt, super_launches = run_counted(TS, ssim, 1200)
-    sst_cpu = TS.run(TS.build_sim(topo, sp, wl, device="cpu"), 1200)
+    sst, sdt, super_launches, sst_cpu = cut_run(
+        "super_8x4", TS, ssim, lambda: TS.build_sim(topo, sp, wl, device="cpu"))
     bad = states_equal(sst, sst_cpu)
     check(not bad, f"super_8x4 GPU state differs from CPU state in {bad}")
     sout = TS.stats(ssim, sst)
     check(sout["beats_rcvd"].sum() > 0, "super_8x4 moved no wide beats")
-    ms_super = sdt / 1200 * 1e3
-    phase("super_8x4", cycles=1200, fused_cycles=4, launches=super_launches,
+    ms_super = sdt / SUPER_CYCLES * 1e3
+    phase("super_8x4", cycles=SUPER_CYCLES, fused_cycles=4, launches=super_launches,
           gpu_ms_per_cycle=ms_super, k1_gpu_ms_per_cycle=ms_8x4,
           gpu_state_equals_cpu=True, wide_util=float(sout["wide_util"]))
-    # k = 1 against k = 4 in turns (k1, k4, k4, k1), 100 cycles each (400
-    # until the run's time limit forced the cut) from a fresh state: the
-    # host's speed drifts within a call
-    turns = []
-    for s_ in (sim, ssim, ssim, sim):
-        _, t_, _ = run_counted(TS, s_, 100)
-        turns.append(t_ / 100 * 1e3)
+    # k = 1 against k = 4 in turns (k1, k4, k4, k1), TURN_CYCLES each from
+    # a fresh state: the host's speed drifts within a call
+    turns = timing_turns("k1_vs_k4_8x4", TS, (sim, ssim, ssim, sim))
     phase("k1_vs_k4_8x4", order="k1,k4,k4,k1", gpu_ms_per_cycle=turns)
-    phase("profile_super_8x4", **device_profile(ssim, sst, ms_super, n=10))
+    phase("profile_super_8x4", **cut_profile("profile_super_8x4", ssim, sst, ms_super,
+                                             PROFILE_STEPS // 2))
     ones = lambda T: torch.ones((3, T.n_endpoints), dtype=torch.bool, device=dev)
-    fused_8x4 = time_fused(sst.fabric, sst.eps, ssim.tables, ones(topo), 1200,
+    fused_8x4 = time_fused(sst.fabric, sst.eps, ssim.tables, ones(topo), SUPER_CYCLES,
                            timing_8x4)
     phase("kernel_times_fused_8x4", **fused_8x4)
     fused_32 = time_fused(bst.fabric, bst.eps, bsim.tables, ones(btopo), 200,
@@ -2882,15 +3531,15 @@ def main() -> int:
     twl = mesh_workload(TT, ttopo, transfer_kb=8, narrow_rate=0.05)
     vp = NocParams(n_vcs=2)
     vsim = TS.build_sim(ttopo, vp, twl)
-    vst, vdt, vc_launches = run_counted(TS, vsim, 1200)
-    vst_cpu = TS.run(TS.build_sim(ttopo, vp, twl, device="cpu"), 1200)
+    vst, vdt, vc_launches, vst_cpu = cut_run(
+        "torus_vc_8x4", TS, vsim, lambda: TS.build_sim(ttopo, vp, twl, device="cpu"))
     bad = states_equal(vst, vst_cpu)
     check(not bad, f"torus_vc_8x4 GPU state differs from CPU state in {bad}")
     vout = TS.stats(vsim, vst)
     check(vout["beats_rcvd"].sum() > 0 and vout["narrow_lat_cnt"].sum() > 0,
           "torus_vc_8x4 moved no traffic")
-    ms_vc = vdt / 1200 * 1e3
-    phase("torus_vc_8x4", cycles=1200, n_vcs=2, fused_cycles=1,
+    ms_vc = vdt / SUPER_CYCLES * 1e3
+    phase("torus_vc_8x4", cycles=SUPER_CYCLES, n_vcs=2, fused_cycles=1,
           launches=vc_launches, gpu_ms_per_cycle=ms_vc,
           gpu_state_equals_cpu=True, wide_util=float(vout["wide_util"]),
           narrow_lat_mean=float(vout["narrow_lat_mean"].mean()))
@@ -2901,21 +3550,22 @@ def main() -> int:
 
     tp = NocParams(n_vcs=2, fused_cycles=4)
     tsim = TS.build_sim(ttopo, tp, twl)
-    tst, tdt, torus_launches = run_counted(TS, tsim, 1200)
-    tst_cpu = TS.run(TS.build_sim(ttopo, tp, twl, device="cpu"), 1200)
+    tst, tdt, torus_launches, tst_cpu = cut_run(
+        "torus_8x4", TS, tsim, lambda: TS.build_sim(ttopo, tp, twl, device="cpu"))
     bad = states_equal(tst, tst_cpu)
     check(not bad, f"torus_8x4 GPU state differs from CPU state in {bad}")
     tout = TS.stats(tsim, tst)
     check(tout["beats_rcvd"].sum() > 0 and tout["narrow_lat_cnt"].sum() > 0,
           "torus_8x4 moved no traffic")
-    ms_torus = tdt / 1200 * 1e3
-    phase("torus_8x4", cycles=1200, n_vcs=2, fused_cycles=4,
+    ms_torus = tdt / SUPER_CYCLES * 1e3
+    phase("torus_8x4", cycles=SUPER_CYCLES, n_vcs=2, fused_cycles=4,
           launches=torus_launches, gpu_ms_per_cycle=ms_torus,
           gpu_state_equals_cpu=True, wide_util=float(tout["wide_util"]),
           narrow_lat_mean=float(tout["narrow_lat_mean"].mean()))
-    phase("profile_torus_8x4", **device_profile(tsim, tst, ms_torus, n=10))
+    phase("profile_torus_8x4", **cut_profile("profile_torus_8x4", tsim, tst, ms_torus,
+                                             PROFILE_STEPS // 2))
     fused_vc_8x4 = time_fused(tst.fabric, tst.eps, tsim.tables, ones(ttopo),
-                              1200, vc_8x4)
+                              SUPER_CYCLES, vc_8x4)
     phase("kernel_times_fused_vc_8x4", **fused_vc_8x4)
 
     # ---- 7. the 8x1 ring: wedged without VCs, drained with two ------------
@@ -3003,7 +3653,8 @@ def main() -> int:
     layers_ar = layer_times(eng, ar_sim, ar_mid)
     phase("layers_allreduce_infabric_8x4", from_cycle=400, **layers_ar)
     phase("profile_allreduce_infabric_8x4", from_cycle=400,
-          **device_profile(ar_sim, ar_mid, layers_ar["step_ms"], n=10))
+          **cut_profile("profile_allreduce_infabric_8x4", ar_sim, ar_mid,
+                        layers_ar["step_ms"], PROFILE_STEPS // 2))
     offload_run("multicast_tree_8x4", topo, 1,
                 CT.multicast(topo, data_kb=16, streams=4, offload=True),
                 450, 150, done_at=278)
@@ -3031,13 +3682,9 @@ def main() -> int:
     naive_vs_fast(TS, "naive_8x4", (nsim, nst), nst_cpu, (sim, st_gpu))
     nout = TS.stats(nsim, nst)
     ms_naive = ndt / 1200 * 1e3
-    # fast against naive in turns (fast, naive, naive, fast), 100 cycles each
-    # (200 until the run's time limit forced the cut) from a fresh state:
-    # the host's speed drifts within a call
-    turns = []
-    for s_ in (sim, nsim, nsim, sim):
-        _, t_, _ = run_counted(TS, s_, 100)
-        turns.append(t_ / 100 * 1e3)
+    # fast against naive in turns (fast, naive, naive, fast), TURN_CYCLES
+    # each from a fresh state: the host's speed drifts within a call
+    turns = timing_turns("fast_vs_naive_8x4", TS, (sim, nsim, nsim, sim))
     nlat = {d: narrow_latency(TS, epm, topo, 0, d, params=naive) for d in (1, 2, 31)}
     phase("naive_8x4", cycles=1200, launches=naive_launches,
           gpu_ms_per_cycle=ms_naive, main_8x4_gpu_ms_per_cycle=ms_8x4,
@@ -3049,7 +3696,8 @@ def main() -> int:
     check(nlat == {1: 22.0, 2: 26.0, 31: 58.0}, f"Fig. 7 latencies under naive {nlat}")
     layers_naive = layer_times(eng, nsim, nst)
     phase("layers_naive_8x4", **layers_naive)
-    phase("profile_naive_8x4", **device_profile(nsim, nst, layers_naive["step_ms"]))
+    phase("profile_naive_8x4", **cut_profile("profile_naive_8x4", nsim, nst,
+                                             layers_naive["step_ms"], PROFILE_STEPS))
 
     nbsim = TS.build_sim(btopo, naive, bwl)
     nbst, nbdt, naive_big_launches = run_counted(TS, nbsim, 200)
@@ -3067,11 +3715,11 @@ def main() -> int:
 
     nvp = NocParams(step_impl="naive", n_vcs=2)
     nvsim = TS.build_sim(ttopo, nvp, twl)
-    nvst, nvdt, naive_vc_launches = run_counted(TS, nvsim, 1200)
-    nvst_cpu = TS.run(TS.build_sim(ttopo, nvp, twl, device="cpu"), 1200)
+    nvst, nvdt, naive_vc_launches, nvst_cpu = cut_run(
+        "naive_torus_vc_8x4", TS, nvsim, lambda: TS.build_sim(ttopo, nvp, twl, device="cpu"))
     naive_vs_fast(TS, "naive_torus_vc_8x4", (nvsim, nvst), nvst_cpu, (vsim, vst))
-    phase("naive_torus_vc_8x4", cycles=1200, n_vcs=2, launches=naive_vc_launches,
-          gpu_ms_per_cycle=nvdt / 1200 * 1e3, torus_vc_8x4_gpu_ms_per_cycle=ms_vc,
+    phase("naive_torus_vc_8x4", cycles=SUPER_CYCLES, n_vcs=2, launches=naive_vc_launches,
+          gpu_ms_per_cycle=nvdt / SUPER_CYCLES * 1e3, torus_vc_8x4_gpu_ms_per_cycle=ms_vc,
           gpu_state_equals_cpu=True, canonical_equals_torus_vc_8x4=True,
           wide_util=float(TS.stats(nvsim, nvst)["wide_util"]))
 
@@ -3127,6 +3775,17 @@ def main() -> int:
                  extra=stub("frames", 42, lambda S: (1, S, seamless.d_model)))
     serve_launches = serve_models(dev)
     model_times = time_model_kernels(dev)
+
+    # ---- 10b. training on the card: the backward kernels, Phi-4-mini --------
+    t_train = time.perf_counter()
+    train_errs = compare_train_kernels(dev)
+    train_vs_cpu(dev)
+    train_resume_card(dev)
+    serve_int8_cache_vs_cpu(dev)
+    serve_launches["train_phi4_mini"] = train_phi4_mini(dev)
+    train_times = time_train_kernels(dev)
+    train_s = time.perf_counter() - t_train
+    phase("train_phases", seconds=train_s)
 
     # ---- 11. the paged KV gather; the paper's figures through the port ----
     kv_err, kv_launches = compare_kv_gather(dev)
@@ -3226,7 +3885,8 @@ def main() -> int:
     #  shapes, each path shape's also beside its time
     model_rows = (
         ("flash_attention_kernel", "flash_attention", "flash_attention", 23,
-         ("serve_phi4_mini", "serve_llama4_scout", "serve_gemma3_4b", "serve_qwen2_vl")),
+         ("serve_phi4_mini", "serve_llama4_scout", "serve_gemma3_4b", "serve_qwen2_vl",
+          "train_phi4_mini")),
         ("flash_attention_kernel[D=112]", "flash_attention_d112", "flash_attention", 23,
          ("serve_zamba2_7b",)),
         ("flash_attention_kernel[D=192,Dv=128]", "flash_attention_mla", "flash_attention", 23,
@@ -3235,7 +3895,8 @@ def main() -> int:
          ("serve_seamless_m4t",)),
         ("rmsnorm_kernel", "rmsnorm", "rmsnorm", 16,
          ("serve_phi4_mini", "serve_mamba2_130m", "serve_zamba2_7b", "serve_llama4_scout",
-          "serve_gemma3_4b", "serve_deepseek_v2", "serve_qwen2_vl", "serve_seamless_m4t")),
+          "serve_gemma3_4b", "serve_deepseek_v2", "serve_qwen2_vl", "serve_seamless_m4t",
+          "train_phi4_mini")),
         ("rmsnorm_residual_kernel", "rmsnorm_residual", "rmsnorm", 24, ()),
         ("ssd_tc_kernel", "ssd", "ssd", 21, ("serve_mamba2_130m",)),
         ("ssd_tc_kernel[zamba2]", "ssd_zamba2", "ssd", 21, ("serve_zamba2_7b",)),
@@ -3282,6 +3943,29 @@ def main() -> int:
                 for k_ in ("window", "global")}
         if key == "flash_attention_seamless":  # the decoder's causal self-attention
             kernels[-1]["causal_shape"] = model_times["flash_attention_seamless_causal"]
+    # the backward kernels: no TPU kernel; each computes the gradient of a
+    # JAX function that the JAX package differentiates by autodiff
+    train = serve_launches["train_phi4_mini"]
+    for name, key, source, grad_of, counts in (
+            ("flash_bwd_dq_kernel + flash_bwd_dkdv_kernel", "flash_attention_bwd",
+             "flash_attention/csrc/flash_attention_bwd.cu", "src/repro/models/attention.py:75",
+             ("flash_attention_bwd_dq", "flash_attention_bwd_dkdv")),
+            ("rmsnorm_bwd_kernel + rmsnorm_dw_kernel", "rmsnorm_bwd",
+             "rmsnorm/csrc/rmsnorm_bwd.cu", "src/repro/models/layers.py:18",
+             ("rmsnorm_bwd", "rmsnorm_bwd_dw"))):
+        t = train_times[key]
+        n = sum(train[c] for c in counts)
+        check(n > 0, f"{name} was not launched on its main path train_phi4_mini")
+        kernels.append({
+            "name": name, "route": "cuda", "source": "src/repro_torch/kernels/" + source,
+            "replaces": grad_of, "launches": n,
+            "max_abs_err": max(train_errs[f"{key}_bfloat16"], train_errs[f"{key}_float32"]),
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"], "shape": t["shape"],
+            "main_path": {"train_phi4_mini": {c: train[c] for c in counts}},
+            "gradient_of": grad_of + " (JAX autodiff; no backward Pallas kernel)",
+            **({"library_backend": t["library_backend"]} if "library_backend" in t else {}),
+        })
     kernels.append({
         "name": "kv_gather_kernel", "route": "cuda",
         "source": "src/repro_torch/kernels/kv_gather/csrc/kv_gather.cu",
@@ -3295,6 +3979,12 @@ def main() -> int:
                     for path, counts in {**figure_launches, **sweep_launches,
                                          **naive_counts}.items()})
     phase("launches_by_path", **by_path)
+    # the training phases' seconds against the cuts' estimated savings, both
+    # from this run
+    saved = sum(c["saved_estimate_s"] for c in CUTS.values())
+    phase("time_budget", train_phases_s=train_s, cuts_saved_estimate_s=saved,
+          cuts_seconds_now=sum(c["seconds"] for c in CUTS.values()),
+          covered=saved >= train_s, cuts=CUTS)
     phase("total", seconds=time.perf_counter() - t_start)
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -95,3 +95,26 @@ def stream(device) -> ctypes.c_void_p:
     import torch
 
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def wants_grad(*tensors) -> bool:
+    """Whether autograd would record a function of ``tensors``: grad mode on
+    and any of them requiring a gradient."""
+    import torch
+
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise where autograd would record a kernel launched through
+    ``ctypes``: its output would leave autograd's graph, and every input
+    upstream would silently get no gradient. The flash-attention and RMSNorm
+    kernels are differentiated through their ``ops`` entry points (whose
+    ``autograd.Function`` launches them with grad mode off); the others have
+    no backward."""
+    if wants_grad(*tensors):
+        raise NotImplementedError(
+            f"{name}: a kernel launched outside autograd's graph was asked for a "
+            "gradient; training through it on the card is not ported yet (ROADMAP "
+            "Queue 1 item 12 step 7b)")

@@ -20,6 +20,16 @@
 // no result rests on -1e30 - (-1e30) cancelling. Every row sees at least its
 // own key, so its max is finite when the loop ends.
 //
+// For training, either kernel also writes each row's log-sum-exp, float32
+// [B, H, Sq] (`lse`: m * scale + log(l), +inf for a row that saw no key),
+// when the caller passes a buffer for it; the backward kernels
+// (`flash_attention_bwd.cu`) recompute P from it. The store is a template
+// flag (`LSE`), instantiated only at the backward's head dims (D = Dv <=
+// 128): serving's launch, with no buffer, runs the instance without it,
+// whose code is the forward-only kernel's (a runtime branch on the pointer
+// cost the bf16 kernel at D = Dv = 128 its last registers: 255 and 16 bytes
+// of spill stores, against 254 and none).
+//
 // One kernel for each dtype (a dispatch, not a fallback).
 //
 // bfloat16: `flash_wgmma_kernel`, both products on the tensor cores through
@@ -70,6 +80,7 @@
 // runs attention in float32 on the card.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stddef.h>
 #include <stdint.h>
 
@@ -100,11 +111,11 @@ size_t smem_bytes(int D, int DV) {
 }
 
 // q [B, Sq, H, D], k [B, Skv, KV, D], v [B, Skv, KV, DV], o [B, Sq, H, DV]
-template <typename T, int DV>
+template <typename T, int DV, bool LSE>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, int H, int KV, int Sq, int Skv, int D, float scale,
-                 int causal, int window) {
+                 T* __restrict__ o, float* __restrict__ lse, int H, int KV, int Sq, int Skv,
+                 int D, float scale, int causal, int window) {
   constexpr int NC = DV / 16;  // accumulator columns per thread
   extern __shared__ float smem[];
   const int DP = D + 1;
@@ -212,6 +223,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   for (int i = 0; i < 4; ++i) {
     const int qi = q0 + ty + 16 * i;
     if (qi >= Sq) continue;
+    if (LSE && tx == 0)  // m is of the scaled scores here
+      lse[((size_t)b * H + h) * Sq + qi] = m[i] == NEG_INF ? INFINITY : m[i] + logf(l[i]);
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
     T* orow = o + (((size_t)b * Sq + qi) * H + h) * DV;
 #pragma unroll
@@ -220,10 +233,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 }
 
 template <typename T, int DV>
-int launch_t(const void* q, const void* k, const void* v, void* o, int B, int H, int KV,
-             int Sq, int Skv, int D, float scale, int causal, int window,
+int launch_t(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
+             int KV, int Sq, int Skv, int D, float scale, int causal, int window,
              cudaStream_t stream) {
-  auto kern = flash_fwd_kernel<T, DV>;
+  auto kern = flash_fwd_kernel<T, DV, false>;
+  if (lse != nullptr) {  // the log-sum-exp only at the backward's head dims
+    if constexpr (DV <= 128) kern = flash_fwd_kernel<T, DV, true>;
+    else return (int)cudaErrorInvalidValue;
+  }
   const size_t smem = smem_bytes(D, DV);
   // opt in to more than 48 KB of shared memory on every launch: the
   // attribute belongs to the current device, and the call is cheap and
@@ -233,21 +250,24 @@ int launch_t(const void* q, const void* k, const void* v, void* o, int B, int H,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((Sq + BQ - 1) / BQ, B * H);
   kern<<<grid, NT, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                   static_cast<const T*>(v), static_cast<T*>(o), H, KV, Sq,
-                                   Skv, D, scale, causal, window);
+                                   static_cast<const T*>(v), static_cast<T*>(o), lse, H, KV,
+                                   Sq, Skv, D, scale, causal, window);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_dv(const void* q, const void* k, const void* v, void* o, int B, int H, int KV,
-              int Sq, int Skv, int D, int Dv, float scale, int causal, int w,
+int launch_dv(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
+              int KV, int Sq, int Skv, int D, int Dv, float scale, int causal, int w,
               cudaStream_t s) {
   switch (Dv) {
-    case 32: return launch_t<T, 32>(q, k, v, o, B, H, KV, Sq, Skv, D, scale, causal, w, s);
-    case 64: return launch_t<T, 64>(q, k, v, o, B, H, KV, Sq, Skv, D, scale, causal, w, s);
-    case 112: return launch_t<T, 112>(q, k, v, o, B, H, KV, Sq, Skv, D, scale, causal, w, s);
-    case 128: return launch_t<T, 128>(q, k, v, o, B, H, KV, Sq, Skv, D, scale, causal, w, s);
-    case 256: return launch_t<T, 256>(q, k, v, o, B, H, KV, Sq, Skv, D, scale, causal, w, s);
+    case 32: return launch_t<T, 32>(q, k, v, o, lse, B, H, KV, Sq, Skv, D, scale, causal, w, s);
+    case 64: return launch_t<T, 64>(q, k, v, o, lse, B, H, KV, Sq, Skv, D, scale, causal, w, s);
+    case 112:
+      return launch_t<T, 112>(q, k, v, o, lse, B, H, KV, Sq, Skv, D, scale, causal, w, s);
+    case 128:
+      return launch_t<T, 128>(q, k, v, o, lse, B, H, KV, Sq, Skv, D, scale, causal, w, s);
+    case 256:
+      return launch_t<T, 256>(q, k, v, o, lse, B, H, KV, Sq, Skv, D, scale, causal, w, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -262,6 +282,7 @@ constexpr int BM = 64;        // query rows of a half; a CTA owns two halves
 constexpr int BN = 64;        // keys per K/V tile
 constexpr int THREADS = 128;  // one warpgroup
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -431,11 +452,11 @@ constexpr int warpgroups() { return DV > 128 ? 2 : 1; }
 
 // q [B, Sq, H, D], k [B, Skv, KV, D], v [B, Skv, KV, DV], o [B, Sq, H, DV];
 // grid (B * H, 128-row query tiles); window 0 means none
-template <int D, int DV, int NWG = warpgroups<DV>()>
+template <int D, int DV, bool LSE, int NWG = warpgroups<DV>()>
 __global__ void __launch_bounds__(THREADS * NWG, 2 / NWG)
 flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, bf16* __restrict__ o, int H, int KV, int Sq,
-                   int Skv, float scale_log2, int causal, int window) {
+                   const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+                   int H, int KV, int Sq, int Skv, float scale_log2, int causal, int window) {
   constexpr int NTHR = THREADS * NWG, HPW = 2 / NWG;  // threads; halves a warpgroup
   constexpr int NKT = BN / 8, NVT = DV / 8, BMR = 2 * BM;
   constexpr int DP = padded<D>(), DVP = padded<DV>();
@@ -621,6 +642,9 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       lr += __shfl_xor_sync(FULL, lr, 2);
       const int qi = q0 + (wgi * HPW + j) * BM + r0 + gr + 8 * r;
       if (qi >= Sq) continue;
+      if (LSE && gc == 0)  // m is of the raw scores here
+        lse[((size_t)b * H + h) * Sq + qi] =
+            m[j][r] == NEG_INF ? INFINITY : m[j][r] * (scale_log2 * LN2) + logf(lr);
       const float inv = 1.f / fmaxf(lr, 1e-30f);
       bf16* orow = o + (((size_t)b * Sq + qi) * H + h) * DV + 2 * gc;
 #pragma unroll
@@ -631,9 +655,13 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int D, int DV>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int KV, int Sq,
-           int Skv, float scale, int causal, int window, cudaStream_t stream) {
-  auto kern = flash_wgmma_kernel<D, DV>;
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
+           int KV, int Sq, int Skv, float scale, int causal, int window, cudaStream_t stream) {
+  auto kern = flash_wgmma_kernel<D, DV, false>;
+  if (lse != nullptr) {  // the log-sum-exp only at the backward's head dims
+    if constexpr (D == DV && D <= 128) kern = flash_wgmma_kernel<D, DV, true>;
+    else return (int)cudaErrorInvalidValue;
+  }
   constexpr size_t smem = smem_bytes<D, DV>();
   // opt in to more than 48 KB of shared memory on every launch, as the
   // scalar kernel does
@@ -644,31 +672,34 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H, i
   if (ntiles > 65535) return (int)cudaErrorInvalidValue;
   kern<<<dim3(B * H, ntiles), THREADS * warpgroups<DV>(), smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), H, KV, Sq, Skv, scale * LOG2E, causal, window);
+      static_cast<bf16*>(o), lse, H, KV, Sq, Skv, scale * LOG2E, causal, window);
   return (int)cudaGetLastError();
 }
 
 template <int D>
-int launch_dv(const void* q, const void* k, const void* v, void* o, int B, int H, int KV,
-              int Sq, int Skv, int Dv, float scale, int causal, int w, cudaStream_t s) {
+int launch_dv(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
+              int KV, int Sq, int Skv, int Dv, float scale, int causal, int w, cudaStream_t s) {
   switch (Dv) {
-    case 32: return launch<D, 32>(q, k, v, o, B, H, KV, Sq, Skv, scale, causal, w, s);
-    case 64: return launch<D, 64>(q, k, v, o, B, H, KV, Sq, Skv, scale, causal, w, s);
-    case 112: return launch<D, 112>(q, k, v, o, B, H, KV, Sq, Skv, scale, causal, w, s);
-    case 128: return launch<D, 128>(q, k, v, o, B, H, KV, Sq, Skv, scale, causal, w, s);
+    case 32: return launch<D, 32>(q, k, v, o, lse, B, H, KV, Sq, Skv, scale, causal, w, s);
+    case 64: return launch<D, 64>(q, k, v, o, lse, B, H, KV, Sq, Skv, scale, causal, w, s);
+    case 112: return launch<D, 112>(q, k, v, o, lse, B, H, KV, Sq, Skv, scale, causal, w, s);
+    case 128: return launch<D, 128>(q, k, v, o, lse, B, H, KV, Sq, Skv, scale, causal, w, s);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-int launch_d(const void* q, const void* k, const void* v, void* o, int B, int H, int KV,
-             int Sq, int Skv, int D, int Dv, float scale, int causal, int w, cudaStream_t s) {
+int launch_d(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
+             int KV, int Sq, int Skv, int D, int Dv, float scale, int causal, int w,
+             cudaStream_t s) {
   switch (D) {
-    case 32: return launch_dv<32>(q, k, v, o, B, H, KV, Sq, Skv, Dv, scale, causal, w, s);
-    case 64: return launch_dv<64>(q, k, v, o, B, H, KV, Sq, Skv, Dv, scale, causal, w, s);
-    case 112: return launch_dv<112>(q, k, v, o, B, H, KV, Sq, Skv, Dv, scale, causal, w, s);
-    case 128: return launch_dv<128>(q, k, v, o, B, H, KV, Sq, Skv, Dv, scale, causal, w, s);
-    case 192: return launch<192, 128>(q, k, v, o, B, H, KV, Sq, Skv, scale, causal, w, s);
-    case 256: return launch<256, 256>(q, k, v, o, B, H, KV, Sq, Skv, scale, causal, w, s);
+    case 32: return launch_dv<32>(q, k, v, o, lse, B, H, KV, Sq, Skv, Dv, scale, causal, w, s);
+    case 64: return launch_dv<64>(q, k, v, o, lse, B, H, KV, Sq, Skv, Dv, scale, causal, w, s);
+    case 112:
+      return launch_dv<112>(q, k, v, o, lse, B, H, KV, Sq, Skv, Dv, scale, causal, w, s);
+    case 128:
+      return launch_dv<128>(q, k, v, o, lse, B, H, KV, Sq, Skv, Dv, scale, causal, w, s);
+    case 192: return launch<192, 128>(q, k, v, o, lse, B, H, KV, Sq, Skv, scale, causal, w, s);
+    case 256: return launch<256, 256>(q, k, v, o, lse, B, H, KV, Sq, Skv, scale, causal, w, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -689,18 +720,22 @@ bool head_dims_ok(int D, int Dv) {
 // pointer 16-byte aligned); o [B, Sq, H, Dv] of the same type. D, Dv in
 // {32, 64, 112, 128}, or D = Dv = 256, or D = 192 with Dv = 128; H a
 // multiple of KV; B * H <= 65535;
-// window >= 0 (0: none; > 0 only with Sq == Skv). Returns the launch's CUDA
-// error code (0 on success).
+// window >= 0 (0: none; > 0 only with Sq == Skv). `lse`, when not NULL, gets
+// each row's log-sum-exp of its scaled scores, float32 [B, H, Sq] (+inf for a
+// row that saw no key): the backward kernels' input; with bf16 only at D = Dv
+// <= 128, with float32 at Dv <= 128. Returns the launch's CUDA error code (0
+// on success).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
-                                      int B, int H, int KV, int Sq, int Skv, int D, int Dv,
-                                      int dtype, int causal, int window, float scale,
+                                      void* lse, int B, int H, int KV, int Sq, int Skv, int D,
+                                      int Dv, int dtype, int causal, int window, float scale,
                                       void* stream) {
+  float* ls = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!head_dims_ok(D, Dv) || window < 0 || (window > 0 && Sq != Skv))
     return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return launch_dv<float>(q, k, v, o, B, H, KV, Sq, Skv, D, Dv, scale, causal, window, s);
+    return launch_dv<float>(q, k, v, o, ls, B, H, KV, Sq, Skv, D, Dv, scale, causal, window, s);
   if (dtype == 1)
-    return wg::launch_d(q, k, v, o, B, H, KV, Sq, Skv, D, Dv, scale, causal, window, s);
+    return wg::launch_d(q, k, v, o, ls, B, H, KV, Sq, Skv, D, Dv, scale, causal, window, s);
   return (int)cudaErrorInvalidValue;
 }

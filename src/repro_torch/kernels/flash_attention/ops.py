@@ -1,13 +1,61 @@
 """Public flash-attention entry point in the JAX wrapper's ``[B, S, H, D]``
 layout with GQA, dispatched on the device: a CPU tensor runs the plain
-version (``ref``), a CUDA tensor the kernel
+version (``ref``), which autograd differentiates, a CUDA tensor the kernel
 (``flash_attention.flash_attention_cuda``) or raises. The counterpart of
 the JAX package's ``repro.kernels.flash_attention.ops``, with the sliding
-window of ``repro.models.attention.flash_attention_jax`` beside it."""
+window of ``repro.models.attention.flash_attention_jax`` beside it.
+
+On a card, when autograd records the call (grad mode on and an input
+requiring a gradient), it goes through ``FlashAttentionFn``: the forward
+kernel also writes the log-sum-exp, and the backward is the two backward
+kernels. That needs D == Dv in ``HEAD_DIMS`` and no window; anything else
+is refused as soon as a gradient is asked for. Otherwise the call is the
+forward-only launch serving makes.
+"""
 from __future__ import annotations
 
-from repro_torch.kernels.flash_attention.flash_attention import flash_attention_cuda
+import torch
+
+from repro_torch.kernels.build import wants_grad
+from repro_torch.kernels.flash_attention.flash_attention import (
+    admits_grad,
+    flash_attention_bwd_cuda,
+    flash_attention_cuda,
+)
 from repro_torch.kernels.flash_attention.ref import attention_ref
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """The flash kernel with its backward kernels, for CUDA tensors."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out, lse = flash_attention_cuda(q, k, v, causal=causal, lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, dout.contiguous(), lse,
+                                              causal=ctx.causal)
+        return dq, dk, dv, None
+
+
+def grad_route(q, k, v, window: int = 0) -> bool:
+    """Whether a call on the card goes through ``FlashAttentionFn``: autograd
+    records it (grad mode on, an input requiring a gradient). Raises
+    ``NotImplementedError`` where it would and the backward kernels do not
+    take the head dims or the window."""
+    if not wants_grad(q, k, v):
+        return False
+    if not admits_grad(q.shape[3], v.shape[3], window):
+        raise NotImplementedError(
+            f"flash attention's backward kernels take D == Dv in (32, 64, 112, 128) "
+            f"and no window, got D={q.shape[3]}, Dv={v.shape[3]}, window={window}: "
+            "training it on the card is not ported yet (ROADMAP Queue 1 item 12 step 7b)")
+    return True
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
@@ -23,5 +71,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
         return attention_ref(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"no flash-attention kernel for device {q.device}")
-    return flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
-                                causal=causal, window=window)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if grad_route(q, k, v, window):
+        return FlashAttentionFn.apply(q, k, v, causal)
+    return flash_attention_cuda(q, k, v, causal=causal, window=window)

@@ -19,7 +19,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels.build import CudaLibrary, ptr, stream
+from repro_torch.kernels.build import CudaLibrary, ptr, refuse_grad, stream
 
 SOURCES = (Path(__file__).parent / "csrc" / "kv_gather.cu",)
 INDEX_DTYPES = {torch.int32: 0, torch.int64: 1}
@@ -57,6 +57,7 @@ def kv_gather_cuda(pages, table):
     device. Returns a fresh [B, max_pages * page, KVD] tensor. The ids are
     not checked here (``ops.kv_gather`` does): the kernel writes zeros for
     an id out of range and never reads outside ``pages``."""
+    refuse_grad("kv_gather_cuda", pages)
     dev = pages.device
     if dev.type != "cuda":
         raise ValueError(f"kv_gather_cuda needs CUDA tensors, got {dev}")

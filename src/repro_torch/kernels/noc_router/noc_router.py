@@ -48,7 +48,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels.build import CudaLibrary, ptr as _ptr, stream as _stream
+from repro_torch.kernels.build import CudaLibrary, ptr as _ptr, refuse_grad, stream as _stream
 from repro_torch.kernels.noc_router.ref import (
     NF,
     NRED,
@@ -294,6 +294,7 @@ def arb_cuda(in_buf, in_cnt, out_cnt, rr_ptr, wh_lock, route,
     outputs are fresh scratch tensors.
     """
     dev = in_buf.device
+    refuse_grad("arb_cuda", in_buf, in_cnt, out_cnt)  # no backward: autograd must not record it
     _require_cuda("arb_cuda", dev)
     C, R, P, Din = _dims(in_buf, n_vcs=n_vcs)
     Dout = int(depth_out)
@@ -333,6 +334,7 @@ def arb_offload_cuda(in_buf, in_cnt, out_cnt, rr_ptr, wh_lock, route,
     ``[C, R, P, ...]``. Returns ``(ArbDecisions, red_acc', red_got')``,
     all fresh tensors; the inputs are only read."""
     dev = in_buf.device
+    refuse_grad("arb_offload_cuda", in_buf, in_cnt, out_cnt, red_acc)  # no backward: autograd must not record it
     _require_cuda("arb_offload_cuda", dev)
     C, R, P, Din = _dims(in_buf, n_vcs=n_vcs)
     Dout = int(depth_out)
@@ -386,6 +388,7 @@ def apply_cuda(in_buf, in_cnt, out_buf, out_cnt, arb: ArbDecisions,
     untouched cycle-start snapshot. The link tables are physical ([R, P /
     n_vcs, 2])."""
     dev = in_buf.device
+    refuse_grad("apply_cuda", in_buf, in_cnt, out_buf, out_cnt)  # no backward: autograd must not record it
     _require_cuda("apply_cuda", dev)
     C, R, P, Din, Dout = _dims(in_buf, out_buf, n_vcs=n_vcs)
     if Din + Dout > MAX_APPLY_DEPTH:
@@ -490,6 +493,7 @@ def router_cycles_fused_cuda(in_buf, in_cnt, out_buf, out_cnt, rr_ptr,
     ``port_ep`` is the inverse of ``ep_attach``, as on every topology.
     """
     dev = in_buf.device
+    refuse_grad("router_cycles_fused_cuda", in_buf, in_cnt, out_buf, out_cnt)  # no backward: autograd must not record it
     _require_cuda("router_cycles_fused_cuda", dev)
     N = int(n_cycles)
     if N < 1:

@@ -10,9 +10,17 @@ from those registers. Rows, outputs and the float32 weight move as 16-byte
 vectors when ``d`` is a multiple of ``16 / itemsize`` and every pointer,
 the weight's too, is 16-byte aligned; otherwise element by element.
 
+For training, ``rmsnorm_bwd_cuda`` launches the backward kernel
+(``csrc/rmsnorm_bwd.cu``: dx per row from registers, dw as float32 partial
+sums per CTA reduced by a second small kernel, no atomics). The JAX package
+differentiates ``layers.rmsnorm`` (``repro/models/layers.py:18``) by
+autodiff; it has no backward kernel to replace.
+
 The library is built by ``repro_torch.kernels.build`` at first use on a
 CUDA tensor, into ``_build/`` beside this file; importing builds nothing.
-``LAUNCHES`` counts the launches of each variant.
+``LAUNCHES`` counts the launches of each kernel (the backward's two
+separately: ``rmsnorm_bwd`` for dx and dw's partials, ``rmsnorm_bwd_dw``
+for their reduction).
 """
 from __future__ import annotations
 
@@ -21,19 +29,27 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels.build import CudaLibrary, ptr, stream
+from repro_torch.kernels.build import CudaLibrary, ptr, refuse_grad, stream
 
-SOURCES = (Path(__file__).parent / "csrc" / "rmsnorm.cu",)
+SOURCES = (Path(__file__).parent / "csrc" / "rmsnorm.cu",
+           Path(__file__).parent / "csrc" / "rmsnorm_bwd.cu")
+MAX_BWD_D = 32768  # the widest row the backward kernel takes
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # launches of each variant, counted where the wrapper launches it
-LAUNCHES = {"rmsnorm": 0, "rmsnorm_residual": 0}
+LAUNCHES = {"rmsnorm": 0, "rmsnorm_residual": 0, "rmsnorm_bwd": 0, "rmsnorm_bwd_dw": 0}
 
 
 def _declare(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.rmsnorm_launch.argtypes = [vp] * 5 + [ci] * 4 + [ctypes.c_float, vp]
     lib.rmsnorm_launch.restype = ci
+    lib.rmsnorm_bwd_launch.argtypes = [vp] * 5 + [ci] * 3 + [ctypes.c_float, vp]
+    lib.rmsnorm_bwd_launch.restype = ci
+    lib.rmsnorm_dw_launch.argtypes = [vp] * 2 + [ci] * 2 + [vp]
+    lib.rmsnorm_dw_launch.restype = ci
+    lib.rmsnorm_bwd_blocks.argtypes = [ci]
+    lib.rmsnorm_bwd_blocks.restype = ci
 
 
 LIBRARY = CudaLibrary("rmsnorm", SOURCES, Path(__file__).parent / "_build", _declare)
@@ -50,6 +66,7 @@ def rmsnorm_cuda(x2, w, eps: float, res2=None):
     """Launch the kernel on ``x2`` [N, d] (float32 or bfloat16, contiguous,
     on a CUDA device) with ``w`` [d] float32. Returns the normed rows, or,
     with ``res2``, ``(normed, x2 + res2)``; outputs are fresh tensors."""
+    refuse_grad("rmsnorm_cuda" if res2 is None else "rmsnorm_residual", x2, w, res2)
     dev = x2.device
     if dev.type != "cuda":
         raise ValueError(f"rmsnorm_cuda needs CUDA tensors, got {dev}")
@@ -82,3 +99,44 @@ def rmsnorm_cuda(x2, w, eps: float, res2=None):
         raise RuntimeError(f"{kind} kernel launch failed: CUDA error {err}")
     LAUNCHES[kind] += 1
     return out if res2 is None else (out, res_out)
+
+
+def rmsnorm_bwd_cuda(x2, w, dy2, eps: float):
+    """The gradients (dx [N, d] in x's dtype, dw [d] float32) of
+    ``rmsnorm_cuda(x2, w, eps)`` for the output gradient ``dy2`` [N, d]
+    (x's dtype): the backward kernel and its dw reduction on the current
+    stream. Returns fresh tensors; the inputs are only read."""
+    dev = x2.device
+    if dev.type != "cuda":
+        raise ValueError(f"rmsnorm_bwd_cuda needs CUDA tensors, got {dev}")
+    if x2.dtype not in DTYPES or x2.dim() != 2:
+        raise TypeError(f"x2 must be a float32 or bfloat16 [N, d] tensor, got {x2.dtype} "
+                        f"{tuple(x2.shape)}")
+    N, d = x2.shape
+    _rows("x", x2, d, x2.dtype, dev)
+    _rows("dy", dy2, d, x2.dtype, dev)
+    if dy2.shape[0] != N:
+        raise ValueError(f"dy: {tuple(dy2.shape)} rows, expected {N}")
+    if w.device != dev or w.dtype != torch.float32 or tuple(w.shape) != (d,):
+        raise ValueError(f"w must be a float32 [{d}] tensor on {dev}")
+    if d > MAX_BWD_D:
+        raise ValueError(f"the RMSNorm backward takes d <= {MAX_BWD_D}, got {d}")
+    dx = torch.empty_like(x2)
+    dw = torch.zeros((d,), dtype=torch.float32, device=dev)
+    if N == 0 or d == 0:
+        return dx, dw
+    if N >= 2**31:
+        raise ValueError("too many rows for one launch")
+    lib = LIBRARY.load()
+    partial = torch.empty((lib.rmsnorm_bwd_blocks(N), d), dtype=torch.float32, device=dev)
+    st = stream(dev)
+    err = lib.rmsnorm_bwd_launch(ptr(x2), ptr(w.contiguous()), ptr(dy2), ptr(dx),
+                                 ptr(partial), N, d, DTYPES[x2.dtype], float(eps), st)
+    if err != 0:
+        raise RuntimeError(f"rmsnorm backward kernel launch failed: CUDA error {err}")
+    LAUNCHES["rmsnorm_bwd"] += 1
+    err = lib.rmsnorm_dw_launch(ptr(partial), ptr(dw), N, d, st)
+    if err != 0:
+        raise RuntimeError(f"rmsnorm dw kernel launch failed: CUDA error {err}")
+    LAUNCHES["rmsnorm_bwd_dw"] += 1
+    return dx, dw

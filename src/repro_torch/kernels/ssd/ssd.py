@@ -28,7 +28,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels.build import CudaLibrary, ptr, stream
+from repro_torch.kernels.build import CudaLibrary, ptr, refuse_grad, stream
 
 SOURCES = (Path(__file__).parent / "csrc" / "ssd.cu",)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -68,6 +68,7 @@ def ssd_cuda(x, dt, Bv, Cv, A_log, D, chunk: int, state_init=None):
     or None (zeros); chunks of ``min(chunk, S)`` steps. Returns fresh
     (y [B, S, H, P] float32, final state [B, H, P, N] float32); the inputs
     are only read."""
+    refuse_grad("ssd_cuda", x, dt, Bv, Cv, A_log, D, state_init)
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"ssd_cuda needs CUDA tensors, got {dev}")

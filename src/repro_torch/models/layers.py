@@ -116,14 +116,40 @@ def embed(p, tokens):
     return p["embedding"][tokens]
 
 
+class _UnembedFn(torch.autograd.Function):
+    """``torch.mm(x2, E^T, out_dtype=float32)`` with its gradient (autograd
+    has none for ``out_dtype``): the float32 output gradient against the
+    other operand widened to float32, rounded to the operand's dtype, as the
+    transpose of JAX's einsum with ``preferred_element_type`` computes it
+    (and as the CPU route's autograd does)."""
+
+    @staticmethod
+    def forward(ctx, x2, E):
+        ctx.save_for_backward(x2, E)
+        return torch.mm(x2, E.t(), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, E = ctx.saved_tensors
+        dx = dE = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.matmul(g, E.to(torch.float32)).to(x2.dtype)
+        if ctx.needs_input_grad[1]:
+            dE = torch.matmul(g.t(), x2.to(torch.float32)).to(E.dtype)
+        return dx, dE
+
+
 def unembed(p, x):
     """Tied embeddings: float32 logits ``x @ E^T``, as the JAX package's
     einsum with ``preferred_element_type=float32``. bf16 products are exact
     in float32, so every route sums the same float32 products: on a card,
     bf16 operands go to the tensor cores with a float32 result (``torch.mm``
-    with ``out_dtype``); elsewhere the operands are widened to float32."""
+    with ``out_dtype``, through ``_UnembedFn`` when autograd records it);
+    elsewhere the operands are widened to float32."""
     E = p["embedding"]
     if x.is_cuda and x.dtype == E.dtype == torch.bfloat16:
         x2 = x.reshape(-1, x.shape[-1])
+        if torch.is_grad_enabled() and (x2.requires_grad or E.requires_grad):
+            return _UnembedFn.apply(x2, E).reshape(*x.shape[:-1], -1)
         return torch.mm(x2, E.t(), out_dtype=torch.float32).reshape(*x.shape[:-1], -1)
     return torch.matmul(x.to(torch.float32), E.to(torch.float32).t())

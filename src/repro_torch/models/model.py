@@ -28,6 +28,13 @@ plain dense GQA model (where the JAX package builds no ``patch_proj`` or
 was never run), an audio front end outside the encoder-decoder, and a
 sliding window anywhere but in a dense model's local:global layers, raises
 ``NotImplementedError`` naming ROADMAP Queue 1 item 12.
+
+Training: ``loss_fn`` (JAX's: float32 cross-entropy over ``loss_mask``, a
+z-loss and, for a MoE model, the load-balance and router z-losses), over a
+``forward`` that recomputes each layer in the backward pass when
+``rt.remat`` is set; ``params_to_numpy`` carries the port's parameters back
+to JAX's flat stacked layout. Serving may build an int8 KV cache
+(``cache_schema`` / ``init_cache`` with ``quant=True``).
 """
 from __future__ import annotations
 
@@ -55,8 +62,10 @@ from repro_torch.models.spec import (
     build_tree,
     count_params_tree,
     init_tree,
+    stack_layers,
     stacked_shapes,
 )
+from repro_torch.runtime import Runtime, default_runtime
 from repro_torch.models.transformer import (
     ATTN_SCHEMAS,
     Ctx,
@@ -66,6 +75,7 @@ from repro_torch.models.transformer import (
     encdec_dec_block_schema,
     moe_layer_block,
     moe_layer_schema,
+    run_layer,
     scan_stack,
     ssm_block,
     ssm_block_schema,
@@ -76,6 +86,8 @@ from repro_torch.models.transformer import (
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec")  # the families the port runs
 MAX_ENC_POS = 16_384  # rows of an encoder-decoder's learned positions
+MOE_AUX_COEF = 0.01  # the load-balance loss's weight in the training loss
+ROUTER_Z_COEF = 1e-3  # the router z-loss's
 
 
 def check_supported(cfg: ModelConfig):
@@ -234,6 +246,16 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device=None):
     return params
 
 
+def params_to_numpy(cfg: ModelConfig, params) -> dict:
+    """The inverse of ``params_from_numpy``: the port's parameters as
+    float32 numpy arrays keyed by the JAX package's flat paths, stacked
+    layers with their leading layer axes (a stack with no layers as a
+    zero-size array of its stacked shape)."""
+    flat = stack_layers(dict(params.named_parameters()),
+                        stacked_shapes(param_schema(cfg)))
+    return {k: t.to(torch.float32).numpy() for k, t in flat.items()}
+
+
 # ======================================================================
 # Forward (train / prefill)
 # ======================================================================
@@ -281,7 +303,8 @@ def _run_superblocks(pairs, keys, stack_fn, block_fn, x, ctx: Ctx, sc=None):
         scache = None if sc is None else tree_index(sc, i)
         x, stack_c, _ = scan_stack(stack_fn, stack_p, x, ctx,
                                    stacked_cache=None if scache is None else scache[keys[0]])
-        x, block_c, _ = block_fn(block_p, x, None if scache is None else scache[keys[1]], ctx)
+        x, block_c, _ = run_layer(block_fn, block_p, x,
+                                  None if scache is None else scache[keys[1]], ctx)
         outs.append({keys[0]: stack_c, keys[1]: block_c})
     if sc is None and ctx.mode == "prefill":
         sc = tree_stack(outs) if outs else _no_superblocks(ctx.cfg, x)
@@ -341,26 +364,27 @@ def _run_lm_stacks(cfg: ModelConfig, p, x, ctx: Ctx, caches=None):
     return x, new_caches, None
 
 
-def _encdec_encode(cfg: ModelConfig, p, frames):
+def _encdec_encode(cfg: ModelConfig, p, frames, remat: bool = False):
     """The encoder: ``frames`` [B, S_enc, d] (cast to the weights' dtype)
     through ``frame_proj``, plus ``enc_pos``, then the non-causal stack in
-    train mode (the encoder caches nothing) and ``enc_final_norm``."""
+    train mode (the encoder caches nothing; ``remat`` as the JAX package's
+    runtime sets it) and ``enc_final_norm``."""
     B, S_enc, _ = frames.shape
     h = frames.to(p["frame_proj"].dtype) @ p["frame_proj"]
     h = h + p["enc_pos"][:S_enc][None]
     ctx = Ctx(cfg=cfg, mode="train", pos=positions_for(cfg, (B, S_enc), frames.device),
-              causal=False)
+              causal=False, remat=remat)
     h, _, _ = scan_stack(dense_block, p["enc_blocks"], h, ctx)
     return rmsnorm(p["enc_final_norm"], h, cfg.norm_eps)
 
 
-def _encdec_forward(cfg: ModelConfig, p, batch, mode: str):
+def _encdec_forward(cfg: ModelConfig, p, batch, mode: str, remat: bool = False):
     """An encoder-decoder's forward: the encoder over ``batch["frames"]``,
     then the decoder over the tokens plus ``dec_pos``, attending across to
     the encoder's output (``batch["enc_len"]`` long, all of it if absent).
     A prefill's caches are the decoder's ``dec_blocks`` {k, v, ck, cv} and
     ``enc_out``."""
-    enc_out = _encdec_encode(cfg, p, batch["frames"])
+    enc_out = _encdec_encode(cfg, p, batch["frames"], remat)
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = embed(p["embed"], tokens) + p["dec_pos"][:S][None]
@@ -368,20 +392,22 @@ def _encdec_forward(cfg: ModelConfig, p, batch, mode: str):
     if enc_len is None:
         enc_len = torch.full((B,), enc_out.shape[1], dtype=torch.int32, device=tokens.device)
     ctx = Ctx(cfg=cfg, mode=mode, pos=positions_for(cfg, (B, S), tokens.device),
-              enc_out=enc_out, enc_len=enc_len)
+              enc_out=enc_out, enc_len=enc_len, remat=remat)
     x, bc, _ = scan_stack(encdec_dec_block, p["dec_blocks"], x, ctx)
     logits = unembed(p["embed"], rmsnorm(p["final_norm"], x, cfg.norm_eps))
     return logits, ({"dec_blocks": bc, "enc_out": enc_out} if mode == "prefill" else None), None
 
 
-def forward(cfg: ModelConfig, p, batch, mode: str = "train"):
+def forward(cfg: ModelConfig, p, batch, mode: str = "train", rt: Runtime | None = None):
     """Teacher-forced forward. Returns (logits [B, S, V] float32, caches,
-    aux)."""
+    aux). With ``rt.remat`` (the default runtime's) a training forward that
+    autograd records recomputes each layer in the backward pass."""
     check_supported(cfg)
+    remat = (rt or default_runtime()).remat
     if cfg.family == "encdec":
-        return _encdec_forward(cfg, p, batch, mode)
+        return _encdec_forward(cfg, p, batch, mode, remat)
     x, pos = _embed_input(cfg, p, batch)
-    ctx = Ctx(cfg=cfg, mode=mode, pos=pos)
+    ctx = Ctx(cfg=cfg, mode=mode, pos=pos, remat=remat)
     x, caches, aux = _run_lm_stacks(cfg, p, x, ctx)
     x = rmsnorm(p["final_norm"], x, cfg.norm_eps)
     logits = unembed(p["embed"], x)
@@ -389,9 +415,43 @@ def forward(cfg: ModelConfig, p, batch, mode: str = "train"):
 
 
 # ======================================================================
+# Loss
+# ======================================================================
+def loss_fn(cfg: ModelConfig, p, batch, rt: Runtime | None = None):
+    """The training loss of JAX's ``loss_fn``: float32 ``log_softmax``
+    cross-entropy averaged over ``batch["loss_mask"]`` (ones if absent; the
+    denominator at least 1), plus 1e-4 x the z-loss (the mask-averaged
+    squared ``logsumexp`` of the logits); a MoE model adds
+    ``MOE_AUX_COEF`` x its load-balance loss and ``ROUTER_Z_COEF`` x its
+    router z-loss, each summed over its MoE layers and divided by their
+    number. Returns (loss, metrics): ``ce``, ``z_loss`` (and ``lb_loss``,
+    ``router_z``, ``dropped_frac``) and ``loss``, 0-d float32 tensors."""
+    logits, _, aux = forward(cfg, p, batch, mode="train", rt=rt)
+    targets = batch["targets"].long()
+    mask = batch.get("loss_mask")
+    mask = torch.ones(targets.shape, device=logits.device) if mask is None else mask
+    mask = mask.to(torch.float32)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
+    denom = torch.clamp(mask.sum(), min=1.0)
+    ce = (nll * mask).sum() / denom
+    # z-loss stabilizes the f32 softmax at scale
+    zl = ((torch.logsumexp(logits, dim=-1) ** 2) * mask).sum() / denom
+    loss = ce + 1e-4 * zl
+    metrics = {"ce": ce, "z_loss": zl}
+    if aux is not None:
+        n_moe = max(cfg.n_layers - cfg.first_k_dense, 1)
+        lb, rz = aux["lb_loss"] / n_moe, aux["router_z"] / n_moe
+        loss = loss + MOE_AUX_COEF * lb + ROUTER_Z_COEF * rz
+        metrics.update(lb_loss=lb, router_z=rz, dropped_frac=aux["dropped_frac"] / n_moe)
+    metrics["loss"] = loss
+    return loss, metrics
+
+
+# ======================================================================
 # KV cache + decode
 # ======================================================================
-def cache_schema(cfg: ModelConfig, B: int, S: int) -> dict:
+def cache_schema(cfg: ModelConfig, B: int, S: int, *, quant: bool = False) -> dict:
     """PSpec tree mirroring what prefill/decode produce. S = max context.
     KV caches are [layers, B, S, KV, D] bf16 (a moe model's as a dense
     model's: ``dense_blocks`` and ``blocks``; with MLA the compressed
@@ -403,18 +463,23 @@ def cache_schema(cfg: ModelConfig, B: int, S: int) -> dict:
     cross-attention's ``ck`` / ``cv`` [n_dec_layers, B, S, KV, D] (S_enc =
     S), beside ``enc_out`` [B, S, d] and ``enc_len`` [B]); an SSM layer
     holds its state [B, H, P, N] float32 and the last W - 1 raw conv inputs
-    in bf16."""
+    in bf16. ``quant``: the GQA caches JAX quantises (every one but a
+    local:global model's local rings and an encoder-decoder's) hold int8
+    ``k`` / ``v`` and float32 ``k_scale`` / ``v_scale`` [..., B, S, KV]."""
     check_supported(cfg)
     KV, D = cfg.n_kv_heads, cfg.resolved_head_dim
 
-    def kv(lead, s=S):
+    def kv(lead, s=S, quantised=quant):
         ax = ("layers", "layers2")[: len(lead)]
         if cfg.attn_kind == "mla":
             return {key: PSpec(lead + (B, s, n), ax + ("batch", None, None), init="zeros")
                     for key, n in (("ckv", cfg.kv_lora_rank), ("krope", cfg.qk_rope_head_dim))}
         spec = PSpec(lead + (B, s, KV, D), ax + ("batch", None, "kv_heads", None),
-                     init="zeros")
-        return {"k": spec, "v": spec}
+                     "int8" if quantised else "bfloat16", "zeros")
+        if not quantised:
+            return {"k": spec, "v": spec}
+        scale = PSpec(lead + (B, s, KV), ax + ("batch", None, "kv_heads"), "float32", "zeros")
+        return {"k": spec, "v": spec, "k_scale": scale, "v_scale": scale}
 
     def ssm_cache(*lead):
         _, H, P_, N = ssm_mod.ssm_dims(cfg)
@@ -435,7 +500,8 @@ def cache_schema(cfg: ModelConfig, B: int, S: int) -> dict:
     if cfg.family == "dense" and cfg.local_global_period:
         per, n_super, trailing = _superblock_split(cfg)
         W = min(cfg.sliding_window, S)
-        sch["superblocks"] = {"local": kv((n_super, per - 1), W), "global": kv((n_super,))}
+        sch["superblocks"] = {"local": kv((n_super, per - 1), W, False),
+                              "global": kv((n_super,))}
         if trailing:
             sch["trailing"] = kv((trailing,), W)
     elif cfg.family in ("dense", "moe"):
@@ -446,7 +512,7 @@ def cache_schema(cfg: ModelConfig, B: int, S: int) -> dict:
     elif cfg.family == "ssm":
         sch["blocks"] = ssm_cache(cfg.n_layers)
     elif cfg.family == "encdec":
-        self_kv = kv((cfg.n_dec_layers,))
+        self_kv = kv((cfg.n_dec_layers,), S, False)
         sch["dec_blocks"] = {**self_kv, "ck": self_kv["k"], "cv": self_kv["v"]}
         sch["enc_out"] = PSpec((B, S, cfg.d_model), ("batch", None, None), init="zeros")
         sch["enc_len"] = PSpec((B,), ("batch",), "int32", "zeros")
@@ -462,12 +528,13 @@ def _tree_map(fn, tree):
     return {k: _tree_map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
 
 
-def init_cache(cfg: ModelConfig, B: int, S: int, device=None):
+def init_cache(cfg: ModelConfig, B: int, S: int, device=None, *, quant: bool = False):
     """An empty cache (zeros; the JAX package fills the unwritten KV slots
-    with random values, which decode masks either way)."""
+    with random values, which decode masks either way); ``quant`` the int8
+    KV cache of ``cache_schema(..., quant=True)``."""
     dev = resolve_device(device)
     return _tree_map(lambda s: torch.zeros(s.shape, dtype=DTYPES[s.dtype], device=dev),
-                     cache_schema(cfg, B, S))
+                     cache_schema(cfg, B, S, quant=quant))
 
 
 def decode_step(cfg: ModelConfig, p, cache, tokens):

@@ -82,6 +82,19 @@ def stacked_shapes(schema, prefix: str = "", lead: tuple[int, ...] = ()) -> dict
     return out
 
 
+def layer_specs(schema, prefix: str = "") -> dict:
+    """Each leaf's path without layer indices mapped to its (one layer's)
+    ``PSpec``: the dtype of ``stacked_shapes``' stacked leaf."""
+    if isinstance(schema, PSpec):
+        return {prefix: schema}
+    if isinstance(schema, Stacked):
+        return layer_specs(schema.layer, prefix)
+    out = {}
+    for k, v in schema.items():
+        out.update(layer_specs(v, f"{prefix}.{k}" if prefix else k))
+    return out
+
+
 def count_params_tree(schema) -> int:
     """Parameters in a schema."""
     return sum(math.prod(s.shape) for _, s in leaves(schema))
@@ -127,3 +140,68 @@ def init_tree(schema, generator: torch.Generator, device) -> nn.Module:
     """Materialise a schema with random values drawn in schema order from
     ``generator`` (which must live on ``device``)."""
     return build_tree(schema, lambda path, s: _init_leaf(s, generator, device))
+
+
+def jax_key(name: str) -> str:
+    """The JAX package's flat key of a port parameter name: the name
+    without its layer indices (``blocks.3.attn.wq`` -> ``blocks.attn.wq``)."""
+    return ".".join(p for p in name.split(".") if not p.isdigit())
+
+
+def stack_layers(named: dict, shapes: dict, device="cpu") -> dict:
+    """``{JAX key: tensor}`` with the stacked layer axes of ``shapes`` (the
+    schema's ``stacked_shapes``) from ``named`` (``{port name: tensor}``,
+    a stack's layers in order), copied to ``device``; a key with no tensor
+    (a stack with no layers) gets a zero-size tensor of its stacked shape."""
+    groups: dict = {}
+    for name, t in named.items():
+        groups.setdefault(jax_key(name), []).append(t.detach().to(device))
+    out = {}
+    for key, shape in shapes.items():
+        ts = groups.get(key)
+        if not ts:
+            ref = next(iter(named.values()))
+            out[key] = torch.zeros(shape, dtype=ref.dtype, device=device)
+        elif len(ts) == 1 and tuple(ts[0].shape) == tuple(shape):
+            out[key] = ts[0]
+        else:
+            out[key] = torch.stack(ts).reshape(shape)
+    return out
+
+
+@torch.no_grad()
+def unstack_into(named: dict, stacked: dict) -> None:
+    """Copy each JAX key's stacked tensor of ``stacked`` into the port's
+    per-layer tensors of ``named`` (in place, cast to each one's dtype)."""
+    groups: dict = {}
+    for name, t in named.items():
+        groups.setdefault(jax_key(name), []).append(t)
+    for key, ts in groups.items():
+        src = stacked[key]
+        if len(ts) == 1 and tuple(ts[0].shape) == tuple(src.shape):
+            ts[0].copy_(src)
+            continue
+        flat = src.reshape((len(ts),) + tuple(ts[0].shape))
+        for t, s in zip(ts, flat):
+            t.copy_(s)
+
+
+def nest(flat: dict) -> dict:
+    """``{"a.b.c": x}`` -> ``{"a": {"b": {"c": x}}}``."""
+    out: dict = {}
+    for key, v in flat.items():
+        node = out
+        *head, last = key.split(".")
+        for h in head:
+            node = node.setdefault(h, {})
+        node[last] = v
+    return out
+
+
+def unnest(tree: dict, prefix: str = "") -> dict:
+    """The inverse of ``nest``."""
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}.{k}" if prefix else k
+        out.update(unnest(v, key) if isinstance(v, dict) else {key: v})
+    return out

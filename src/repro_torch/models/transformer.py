@@ -6,8 +6,8 @@ The counterparts of ``repro.models.transformer`` for every family: every
 block has the signature
 ``block(p, x, cache_layer, ctx) -> (x', new_cache_layer, aux)``, and
 ``ctx`` carries the mode ("train" | "prefill" | "decode"), positions
-(M-RoPE's [B, S, 3] among them), the encoder's output and whether
-attention is causal.
+(M-RoPE's [B, S, 3] among them), the encoder's output, whether
+attention is causal and whether training recomputes each layer (``remat``).
 There is no mesh, so the JAX package's sharding constraints (``_cb``,
 ``_gw``) have no counterpart. ``scan_stack`` is a Python loop over the
 layers' modules; it sums a MoE block's aux (load-balance loss, router
@@ -21,7 +21,19 @@ caches ``ck`` / ``cv`` are written once, by the prefill), and an SSM layer
 overwrites its state and conv prefixes (``models.ssm``). The cache
 is the largest live tensor after the weights, and no caller keeps the old
 one. A layer's cache is a (nested) dict of tensors; the stacked cache has
-the same tree with a leading layer axis on every leaf.
+the same tree with a leading layer axis on every leaf. An int8 KV cache
+(``k`` / ``v`` int8 with float32 ``k_scale`` / ``v_scale`` per token and KV
+head, JAX's ``cache_quant``) quantises the decoded token's K/V on its way
+in and attends over the dequantised cache (JAX's ``gqa_attn``,
+``repro/models/transformer.py:134-162``).
+
+With ``ctx.remat`` a training forward runs each layer under
+``torch.utils.checkpoint`` (non-reentrant): the backward recomputes the
+layer's activations instead of keeping them. The JAX package rematerialises
+each scanned layer too, but keeps the products without batch dimensions
+(``dots_with_no_batch_dims_saveable``); the port recomputes the whole
+layer. The numbers are the same; the memory kept and the work recomputed
+differ (on the card the layer's kernels launch twice a step).
 """
 from __future__ import annotations
 
@@ -30,6 +42,7 @@ from dataclasses import dataclass
 from typing import Any, Callable
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import moe as moe_mod
@@ -57,6 +70,7 @@ class Ctx:
     enc_out: Any = None  # encoder output [B, S_enc, d] for cross-attention
     enc_len: Any = None  # [B] valid encoder length (decode's cross-attention)
     causal: bool = True
+    remat: bool = False  # train: recompute each layer in the backward pass
 
 
 def make_rope_fn(cfg: ModelConfig) -> Callable:
@@ -137,12 +151,31 @@ def gqa_attn(p, x, cache, ctx: Ctx, *, window: int = 0, ring: bool = False):
     S = cache["k"].shape[1]
     idx = (posB % S if ring else torch.clamp(posB, max=S - 1)).long()
     bidx = torch.arange(x.shape[0], device=x.device)
-    cache["k"][bidx, idx] = k[:, 0]
-    cache["v"][bidx, idx] = v[:, 0]
+    if "k_scale" in cache:  # int8 KV cache, per-token-per-head scales
+        for name, t in (("k", k), ("v", v)):
+            t_q, t_s = _quant_i8(t[:, 0])
+            cache[name][bidx, idx] = t_q
+            cache[name + "_scale"][bidx, idx] = t_s
+        k_eff, v_eff = (cache[n].to(torch.bfloat16)
+                        * cache[n + "_scale"][..., None].to(torch.bfloat16) for n in ("k", "v"))
+    else:
+        cache["k"][bidx, idx] = k[:, 0]
+        cache["v"][bidx, idx] = v[:, 0]
+        k_eff, v_eff = cache["k"], cache["v"]
     cache_len = torch.clamp(posB + 1, max=S) if ring else posB + 1
-    o = decode_attention(q, cache["k"], cache["v"], cache_len,
-                         window=0 if ring else window, ring=ring)
+    o = decode_attention(q, k_eff, v_eff, cache_len, window=0 if ring else window, ring=ring)
     return _out(o, p["wo"]), cache
+
+
+def _quant_i8(x):
+    """[B, KV, D] -> (int8 values, [B, KV] float32 scales): the scale is
+    ``max(max |x|, 1e-8) / 127`` over D in float32, the values
+    ``clip(round(x / scale), -127, 127)`` (round half to even, as
+    ``jnp.round``)."""
+    xf = x.to(torch.float32)
+    scale = torch.clamp(xf.abs().amax(-1), min=1e-8) / 127.0
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
 
 
 def cross_attn(p, x, cache, ctx: Ctx):
@@ -370,17 +403,27 @@ def tree_stack(trees):
             else torch.stack([t[k] for t in trees]) for k, v in trees[0].items()}
 
 
+def run_layer(block_fn, p, x, cache, ctx: Ctx):
+    """One layer, ``block_fn(p, x, cache, ctx)``; with ``ctx.remat`` in a
+    training forward that autograd records, under a non-reentrant
+    ``torch.utils.checkpoint``."""
+    if ctx.remat and ctx.mode == "train" and torch.is_grad_enabled():
+        return checkpoint(block_fn, p, x, cache, ctx, use_reentrant=False)
+    return block_fn(p, x, cache, ctx)
+
+
 def scan_stack(block_fn, stacked_p, x, ctx: Ctx, stacked_cache=None):
-    """Run the layers in order. ``stacked_cache`` (decode) holds tensors
-    with a leading layer axis; prefill returns the layers' new caches
-    stacked the same way. Returns (x, new_stacked_cache, aux): aux is the
-    sum over the layers of each entry of the blocks' aux (MoE blocks), or
-    ``None`` for blocks without one."""
+    """Run the layers in order (each through ``run_layer``).
+    ``stacked_cache`` (decode) holds tensors with a leading layer axis;
+    prefill returns the layers' new caches stacked the same way. Returns
+    (x, new_stacked_cache, aux): aux is the sum over the layers of each
+    entry of the blocks' aux (MoE blocks), or ``None`` for blocks without
+    one."""
     new_caches = []
     aux = None
     for i, p in enumerate(stacked_p):
         cache = None if stacked_cache is None else tree_index(stacked_cache, i)
-        x, new_cache, a = block_fn(p, x, cache, ctx)
+        x, new_cache, a = run_layer(block_fn, p, x, cache, ctx)
         new_caches.append(new_cache)
         if a is not None:
             aux = a if aux is None else {k: aux[k] + v for k, v in a.items()}

@@ -321,3 +321,52 @@ def test_explorer_runs_the_ddp_workload(capsys):
         explore(["--help"])
     help_text = " ".join(capsys.readouterr().out.split())
     assert "(ddp/tp/moe/pp)" in help_text and "not ported" not in help_text
+
+
+@pytest.mark.parametrize("path", ["chip_smoke.py", "src/repro_torch"])
+def test_no_source_of_the_port_imports_ml_dtypes(path):
+    """The card's host has no ``ml_dtypes``: checkpoints carry bf16 as raw
+    bytes, decoded with ``torch.frombuffer``."""
+    files = [ROOT / path] if path.endswith(".py") else sorted((ROOT / path).rglob("*.py"))
+    for f in files:
+        for name in _imported_names(f):
+            assert name.split(".")[0] != "ml_dtypes", f"{f}: imports {name}"
+
+
+@pytest.mark.parametrize("field,value", [("seq_shard_cache", True), ("manual", True),
+                                         ("batch_over_model", True), ("moe_impl", "a2a"),
+                                         ("gather_weights", True)])
+def test_runtime_mesh_fields_raise(field, value):
+    """The port's ``Runtime`` keeps ``remat`` and ``cache_quant``; the JAX
+    runtime's mesh fields are refused when set, naming the ROADMAP item."""
+    from repro_torch.runtime import Runtime, default_runtime
+
+    rt = default_runtime()
+    assert rt.remat and not rt.cache_quant and rt.with_(cache_quant=True).cache_quant
+    with pytest.raises(NotImplementedError, match="item 12 step 7b"):
+        Runtime(**{field: value})
+    with pytest.raises(NotImplementedError, match="item 12 step 7b"):
+        rt.with_(**{field: value})
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-7b", "llama4-scout-17b-a16e",
+                                  "gemma3-4b", "deepseek-v2-236b", "seamless-m4t-medium"])
+def test_card_training_outside_dense_gqa_raises(arch, monkeypatch):
+    """The card trains the dense GQA family only (the backward kernels);
+    the trainer refuses the rest on the card before it touches it, and
+    ``mode="ddp"`` anywhere, each naming the ROADMAP item. The CPU trains
+    every family; without a card and without ``device="cpu"`` the trainer
+    raises rather than drop to the CPU."""
+    from repro_torch.data import DataConfig
+    from repro_torch.train import Trainer, TrainerConfig
+
+    cfg = get_config(arch).reduced()
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=8, global_batch=1)
+    with pytest.raises(NotImplementedError, match="item 12 step 7b"):
+        Trainer(cfg, dcfg, TrainerConfig(), device="cuda")
+    with pytest.raises(NotImplementedError, match="item 12 step 7b"):
+        Trainer(cfg, dcfg, TrainerConfig(mode="ddp"), device="cpu")
+    assert Trainer(cfg, dcfg, TrainerConfig(), device="cpu").device.type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(get_config("phi4-mini-3.8b").reduced(), dcfg, TrainerConfig())

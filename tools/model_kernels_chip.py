@@ -1,9 +1,9 @@
 """The model kernels alone on the card: resources, agreement and times.
 
-    PYTHONPATH=src python tools/model_kernels_chip.py [--skip-times]
+    PYTHONPATH=src python tools/model_kernels_chip.py [--skip-times] [--train-only]
 
 Needs a CUDA device and ``nvcc``. For each model kernel package
-(flash attention, RMSNorm, SSD) it
+(flash attention and its backward, RMSNorm with its backward, SSD) it
 
 1. compiles the package's sources with ``chip_smoke.py``'s ``nvcc`` flags
    plus ``-Xptxas -v`` and prints, for each kernel instantiation, its
@@ -11,9 +11,12 @@ Needs a CUDA device and ``nvcc``. For each model kernel package
    JSON line ``{"ptxas": {...}}`` (and the bf16 SSD kernel's dynamic
    shared memory at N <= 64 and N <= 128);
 2. runs ``chip_smoke.compare_model_kernels`` (every kernel against its
-   plain version, at the serve paths' shapes and the edge cases) and,
-   unless ``--skip-times``, ``chip_smoke.time_model_kernels`` (kernel,
-   plain and one PyTorch call, with the bound), printing their phase lines.
+   plain version, at the serve paths' shapes and the edge cases) and
+   ``chip_smoke.compare_train_kernels`` (the backward kernels against the
+   plain versions' autograd) and, unless ``--skip-times``,
+   ``chip_smoke.time_model_kernels`` and ``time_train_kernels`` (kernel,
+   plain and one PyTorch call, with the bound), printing their phase lines;
+   ``--train-only`` runs the backward kernels' phases alone.
 
 It is the quick check of a model-kernel change; ``chip_smoke.py`` runs the
 same two phases inside the whole run.
@@ -93,7 +96,7 @@ def main() -> int:
     from repro_torch.kernels.rmsnorm import rmsnorm as RK
     from repro_torch.kernels.ssd import ssd as SK
 
-    libs = (FK.LIBRARY, RK.LIBRARY, SK.LIBRARY)
+    libs = (FK.LIBRARY, FK.BWD_LIBRARY, RK.LIBRARY, SK.LIBRARY)
     with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc per source, together
         reports = {lib.name: r for lib, r in zip(libs, pool.map(ptxas_report, libs))}
     # the bf16 SSD kernel's shared memory is dynamic: its size by state width
@@ -102,9 +105,13 @@ def main() -> int:
     print(json.dumps({"ptxas": reports}))
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    CS.compare_model_kernels(dev)
+    if "--train-only" not in sys.argv:
+        CS.compare_model_kernels(dev)
+    CS.compare_train_kernels(dev)
     if "--skip-times" not in sys.argv:
-        CS.time_model_kernels(dev)
+        if "--train-only" not in sys.argv:
+            CS.time_model_kernels(dev)
+        CS.time_train_kernels(dev)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
