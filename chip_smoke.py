@@ -190,7 +190,9 @@ kernels), and checks what comes out:
    per step, the forward / backward / ``adamw_update`` split, busy share,
    peak memory, every loss finite); the backward kernels' times beside
    their bounds, the plain autograd's and the library's backward (cuDNN
-   SDPA, ``F.rms_norm``);
+   SDPA, ``F.rms_norm``): flash attention's in bf16 (the ``wgmma`` kernels,
+   on the training path) and in float32 (the scalar kernels, on
+   ``train_vs_cpu``'s path), named apart in the ``kernels`` line;
 11. the paged KV gather (``kernels_vs_plain_kv_gather``,
    ``kernel_times_kv_gather``): the kernel bit-equal to its plain version
    at ``tests/test_kernels.py``'s sweep shapes in float32, bf16 and int32
@@ -1673,11 +1675,12 @@ def attn_bwd_bound(B, S, H, KV, D, itemsize, ops_per_s):
 
 def time_train_kernels(dev):
     """The backward kernels at Phi-4-mini's training shapes: flash
-    attention's dQ + dK / dV at B 4, S 512, 24 / 8 heads, D 128, and
-    RMSNorm's backward at N 2048, d 3072, both bf16: kernel, the plain
-    version's autograd backward, and the backward of one PyTorch call
-    through autograd (cuDNN SDPA, ``F.rms_norm``; timed alone, never called
-    by the port), with the bound."""
+    attention's dQ + dK / dV at B 4, S 512, 24 / 8 heads, D 128 in bf16 (the
+    ``wgmma`` kernels) and in float32 (the scalar kernels), and RMSNorm's
+    backward at N 2048, d 3072 in bf16: kernel, the plain version's autograd
+    backward, and the backward of one PyTorch call through autograd (SDPA,
+    ``F.rms_norm``; timed alone, never called by the port), with the
+    bound."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1710,6 +1713,22 @@ def time_train_kernels(dev):
         "library_ms": backward_ms(lib_out, lt, lib_grad), "library_backend": choice.name,
         **attn_bwd_bound(B, S, H, KV, D, 2, BF16_FLOPS_PER_S),
         "shape": f"B={B}, S={S}, H={H}, KV={KV}, D=Dv={D}, bf16, causal"}
+    # float32: the same inputs widened; bound by the scalar float32 rate
+    q, k, v, dout = (t.float() for t in (q, k, v, dout))
+    o, lse = FK.flash_attention_cuda(q, k, v, lse=True)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    lt = [t.detach().transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v)]
+    with torch.enable_grad():
+        plain_out = attention_ref(*leaves)
+        lib_out = F.scaled_dot_product_attention(*lt, is_causal=True, enable_gqa=True)
+    choice = SDPBackend(torch._fused_sdp_choice(*lt, is_causal=True, enable_gqa=True))
+    out["flash_attention_bwd_f32"] = {
+        "ms": graph_ms(lambda: FK.flash_attention_bwd_cuda(q, k, v, o, dout, lse), reps=5),
+        "plain_ms": backward_ms(plain_out, leaves, dout, reps=5),
+        "library_ms": backward_ms(lib_out, lt, dout.transpose(1, 2).contiguous(), reps=5),
+        "library_backend": choice.name,
+        **attn_bwd_bound(B, S, H, KV, D, 4, SCALAR_OPS_PER_S),
+        "shape": f"B={B}, S={S}, H={H}, KV={KV}, D=Dv={D}, float32, causal"}
     N, d = 2048, 3072
     x, dy = (randn(rng, (N, d), bf, dev) for _ in range(2))
     w = 1 + 0.1 * randn(rng, (d,), torch.float32, dev)
@@ -1803,7 +1822,8 @@ def train_vs_cpu(dev):
     gradient's size, and a near-zero gradient whose float32 sign differs
     moves the two sides a step apart) and their mean difference within
     ``TRAIN_PARAM_MEAN_ATOL``. The CPU runs without remat (the same
-    numbers, less work) on a thread beside the card's run."""
+    numbers, less work) on a thread beside the card's run. Returns the
+    card run's launches: the float32 backward kernels' main path."""
     import torch
 
     from repro_torch.data.pipeline import DataConfig
@@ -1823,10 +1843,13 @@ def train_vs_cpu(dev):
         seconds[device] = time.perf_counter() - t1
         return params, hist
 
+    for c in launch_counters():  # the card's launches (the CPU runs the plain versions)
+        c.update(dict.fromkeys(c, 0))
     with ThreadPoolExecutor(1) as pool:  # the CPU's run beside the card's
         cpu_run = pool.submit(train, "cpu", Runtime(remat=False))
         pg, hg = train("cuda", None)
         pc, hc = cpu_run.result()
+    launches = {k: v for c in launch_counters() for k, v in c.items()}
     rows = []
     for a, b in zip(hg, hc):
         rows.append({k: [a[k], b[k]] for k in ("loss", "grad_norm")})
@@ -1860,7 +1883,9 @@ def train_vs_cpu(dev):
           param_max_abs_diff=worst, param_mean_abs_diff=mean,
           tol={"loss_rtol": TRAIN_LOSS_RTOL, "grad_rel": TRAIN_GRAD_REL,
                "param_max": 6 * TRAIN_OPT["lr"], "param_mean": TRAIN_PARAM_MEAN_ATOL},
+          launches={k: v for k, v in launches.items() if v},
           seconds=time.perf_counter() - t0, seconds_by_part=seconds)
+    return launches
 
 
 def train_resume_card(dev):
@@ -3779,7 +3804,7 @@ def main() -> int:
     # ---- 10b. training on the card: the backward kernels, Phi-4-mini --------
     t_train = time.perf_counter()
     train_errs = compare_train_kernels(dev)
-    train_vs_cpu(dev)
+    serve_launches["train_vs_cpu"] = train_vs_cpu(dev)
     train_resume_card(dev)
     serve_int8_cache_vs_cpu(dev)
     serve_launches["train_phi4_mini"] = train_phi4_mini(dev)
@@ -3944,25 +3969,33 @@ def main() -> int:
         if key == "flash_attention_seamless":  # the decoder's causal self-attention
             kernels[-1]["causal_shape"] = model_times["flash_attention_seamless_causal"]
     # the backward kernels: no TPU kernel; each computes the gradient of a
-    # JAX function that the JAX package differentiates by autodiff
-    train = serve_launches["train_phi4_mini"]
-    for name, key, source, grad_of, counts in (
-            ("flash_bwd_dq_kernel + flash_bwd_dkdv_kernel", "flash_attention_bwd",
-             "flash_attention/csrc/flash_attention_bwd.cu", "src/repro/models/attention.py:75",
-             ("flash_attention_bwd_dq", "flash_attention_bwd_dkdv")),
-            ("rmsnorm_bwd_kernel + rmsnorm_dw_kernel", "rmsnorm_bwd",
-             "rmsnorm/csrc/rmsnorm_bwd.cu", "src/repro/models/layers.py:18",
-             ("rmsnorm_bwd", "rmsnorm_bwd_dw"))):
+    # JAX function that the JAX package differentiates by autodiff. The
+    # flash backward is a dispatch by dtype: bf16 on the training path, the
+    # scalar float32 kernels on the float32 check against the CPU
+    flash_bwd = ("flash_attention/csrc/flash_attention_bwd.cu",
+                 "src/repro/models/attention.py:75",
+                 ("flash_attention_bwd_dq", "flash_attention_bwd_dkdv"))
+    for name, key, err_keys, path, (source, grad_of, counts) in (
+            ("flash_bwd_dq_wgmma_kernel + flash_bwd_dkdv_wgmma_kernel (bf16)",
+             "flash_attention_bwd", ("bfloat16",), "train_phi4_mini", flash_bwd),
+            ("flash_bwd_dq_kernel + flash_bwd_dkdv_kernel (float32)", "flash_attention_bwd_f32",
+             ("float32",), "train_vs_cpu", flash_bwd),
+            ("rmsnorm_bwd_kernel (rmsnorm_bwd_wide_kernel past 384 chunks) + rmsnorm_dw_kernel",
+             "rmsnorm_bwd", ("bfloat16", "float32"), "train_phi4_mini",
+             ("rmsnorm/csrc/rmsnorm_bwd.cu", "src/repro/models/layers.py:18",
+              ("rmsnorm_bwd", "rmsnorm_bwd_dw")))):
         t = train_times[key]
+        train = serve_launches[path]
         n = sum(train[c] for c in counts)
-        check(n > 0, f"{name} was not launched on its main path train_phi4_mini")
+        check(n > 0, f"{name} was not launched on its main path {path}")
+        err_key = key.removesuffix("_f32")
         kernels.append({
             "name": name, "route": "cuda", "source": "src/repro_torch/kernels/" + source,
             "replaces": grad_of, "launches": n,
-            "max_abs_err": max(train_errs[f"{key}_bfloat16"], train_errs[f"{key}_float32"]),
+            "max_abs_err": max(train_errs[f"{err_key}_{d_}"] for d_ in err_keys),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"], "shape": t["shape"],
-            "main_path": {"train_phi4_mini": {c: train[c] for c in counts}},
+            "main_path": {path: {c: train[c] for c in counts}},
             "gradient_of": grad_of + " (JAX autodiff; no backward Pallas kernel)",
             **({"library_backend": t["library_backend"]} if "library_backend" in t else {}),
         })

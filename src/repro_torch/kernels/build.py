@@ -2,15 +2,17 @@
 
 Every kernel package of the port compiles its ``csrc/*.cu`` the same way:
 plain ``nvcc`` for ``sm_90a`` into a shared library with a C interface, at
-first use on a CUDA tensor, keyed by a hash of the sources and flags, into
-``_build/`` beside the package. Importing builds nothing; a library for the
-current sources is built once and reused.
+first use on a CUDA tensor, keyed by a hash of the sources, the local
+headers they include and the flags, into ``_build/`` beside the package.
+Importing builds nothing; a library for the current sources is built once
+and reused.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -35,6 +37,27 @@ def nvcc() -> str:
     return found
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def included(sources: Sequence[Path]) -> list[Path]:
+    """The sources and, depth first, every header they ``#include "..."``
+    (found beside the including file, as ``nvcc`` finds it), each once."""
+    seen: list[Path] = []
+
+    def visit(path: Path):
+        if path in seen:
+            return
+        seen.append(path)
+        for name in _INCLUDE.findall(path.read_text()):
+            if (path.parent / name).exists():
+                visit(path.parent / name)
+
+    for src in sources:
+        visit(Path(src))
+    return seen
+
+
 class CudaLibrary:
     """One package's kernels: ``name`` keys the file, ``declare(lib)`` sets
     the C signatures once the library is loaded."""
@@ -49,9 +72,10 @@ class CudaLibrary:
         self._lock = threading.Lock()
 
     def path(self) -> Path:
-        """Where the built library for the current sources lives."""
+        """Where the built library for the current sources lives: keyed by
+        the sources, every local header they include, and the flags."""
         h = hashlib.sha256()
-        for src in self.sources:
+        for src in included(self.sources):
             h.update(src.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
         return self.build_dir / f"{self.name}_{h.hexdigest()[:16]}.so"

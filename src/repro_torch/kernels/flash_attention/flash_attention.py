@@ -21,8 +21,11 @@ For training the forward also writes each row's log-sum-exp (``lse=True``),
 and ``flash_attention_bwd_cuda`` launches the two backward kernels
 (``csrc/flash_attention_bwd.cu``: dQ, which also writes Delta = rowsum(dO
 O), then dK / dV, which sums a KV head's group of query heads in one CTA;
-scalar float32 FMAs for both dtypes, D = Dv in ``HEAD_DIMS``). The JAX
-package differentiates ``flash_attention_jax`` / ``attention_ref``
+no atomics; D = Dv in ``HEAD_DIMS``). bfloat16 runs them on the tensor
+cores through the forward's two ``wgmma`` forms (``csrc/wgmma.cuh``, shared
+by both sources; P and dS rounded to bf16 in registers before the products
+that take them), float32 on scalar float32 FMAs. The JAX package
+differentiates ``flash_attention_jax`` / ``attention_ref``
 (``repro/models/attention.py:75, :34``) by autodiff; it has no backward
 kernel to replace.
 
@@ -142,8 +145,9 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, lse, *, causal: bool = True):
     causal=causal)`` for the output gradient ``dout``, from its output
     ``out`` and log-sum-exp ``lse`` [B, H, Sq]: the dQ kernel (which also
     writes Delta), then the dK / dV kernel, on the current stream. All
-    contiguous CUDA tensors of q's dtype (lse float32); D == Dv in
-    ``HEAD_DIMS``. Returns fresh tensors; the inputs are only read."""
+    contiguous CUDA tensors of q's dtype (lse float32; bf16 tensors 16-byte
+    aligned, as every fresh allocation is); D == Dv in ``HEAD_DIMS``.
+    Returns fresh tensors; the inputs are only read."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"flash_attention_bwd_cuda needs CUDA tensors, got {dev}")
@@ -161,6 +165,9 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, lse, *, causal: bool = True):
             raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shapes[name]}")
         if t.device != dev or t.dtype != q.dtype or not t.is_contiguous():
             raise ValueError(f"{name}: must be a contiguous {q.dtype} tensor on {dev}")
+        if q.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"{name}: the bf16 kernels copy 16-byte rows; the tensor "
+                             "must start 16-byte aligned")
     if (lse.device != dev or lse.dtype != torch.float32 or not lse.is_contiguous()
             or tuple(lse.shape) != (B, H, Sq)):
         raise ValueError(f"lse: must be a contiguous float32 [{B}, {H}, {Sq}] tensor on {dev}")

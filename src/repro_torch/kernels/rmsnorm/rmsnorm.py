@@ -11,8 +11,11 @@ vectors when ``d`` is a multiple of ``16 / itemsize`` and every pointer,
 the weight's too, is 16-byte aligned; otherwise element by element.
 
 For training, ``rmsnorm_bwd_cuda`` launches the backward kernel
-(``csrc/rmsnorm_bwd.cu``: dx per row from registers, dw as float32 partial
-sums per CTA reduced by a second small kernel, no atomics). The JAX package
+(``csrc/rmsnorm_bwd.cu``: 16-byte chunks, two groups of threads a CTA with
+two rows in flight each and one barrier a row, dx from registers; rows too
+wide to hold are read twice, the second time from L2; dw as at most 132
+float32 partial rows, one a CTA, summed in a fixed order by a second kernel
+over d / 32 CTAs; no atomics). The JAX package
 differentiates ``layers.rmsnorm`` (``repro/models/layers.py:18``) by
 autodiff; it has no backward kernel to replace.
 

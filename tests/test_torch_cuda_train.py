@@ -48,6 +48,8 @@ def _card(rng, shape, dtype):
     (1, 130, 130, 4, 2, 112, True),
     (2, 65, 65, 4, 4, 64, True),
     (2, 300, 512, 8, 4, 64, False),
+    (1, 200, 200, 8, 1, 64, True),  # G = 8: the dK / dV kernel sums eight heads
+    (2, 1, 1, 4, 2, 128, True),  # S = 1: one query, one key
 ])
 def test_flash_backward_matches_plain(B, Sq, Skv, H, KV, D, causal, dtype):
     rng = np.random.default_rng(11)
@@ -81,7 +83,8 @@ def test_flash_lse_refused_outside_backward_dims(D, Dv, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("N,d", [(2048, 3072), (5, 3072), (1, 128), (7, 100)])
+@pytest.mark.parametrize("N,d", [(2048, 3072), (5, 3072), (1, 128), (7, 100),
+                                 (64, 5120), (3, 32768)])  # rows too wide to hold
 def test_rmsnorm_backward_matches_plain(N, d, dtype):
     rng = np.random.default_rng(12)
     x, dy = _card(rng, (N, d), dtype), _card(rng, (N, d), dtype)

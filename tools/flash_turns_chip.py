@@ -1,6 +1,7 @@
-"""The bf16 flash-attention forward of two trees, in turns on the card.
+"""The bf16 flash-attention forward, or the backward kernels, of two trees
+in turns on the card.
 
-    PYTHONPATH=src python tools/flash_turns_chip.py BASE_ROOT [--rounds N]
+    PYTHONPATH=src python tools/flash_turns_chip.py BASE_ROOT [--rounds N] [--backward]
 
 ``BASE_ROOT`` is another checkout of this repo (for example the parent
 commit, unpacked with ``git archive`` into a directory that ``.gitignore``
@@ -14,6 +15,18 @@ speed drift within a call, so only turns of one call compare. It also
 times this tree's training launch, which writes the log-sum-exp, at the
 same shapes, checks that both trees' outputs are equal bit for bit, and
 prints one JSON line per shape and the card's name and power limit.
+
+``--backward`` instead times both trees' backward kernels in turns (base,
+this, this, base, ``N`` times), each tree's own library built from its own
+sources: flash attention's dQ and dK / dV launches at Phi-4-mini's training
+shape (B 4, S 512, 24 / 8 heads, D 128, bf16, causal; the output and
+log-sum-exp from this tree's forward, the same for both) beside cuDNN SDPA's
+backward through autograd on the same inputs, and RMSNorm's backward (dx
+and dw's two launches) at N 2048, d 3072, bf16, beside ``F.rms_norm``'s
+backward, and this tree's kernels each alone. Each tree's gradients are
+held against the other's within
+``chip_smoke.ATTN_GRAD_TOL`` / ``RMS_GRAD_TOL`` (bf16). One JSON line per
+kernel, then the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -72,6 +85,154 @@ def launcher(lib, has_lse, q, k, v, o, lse=None):
     return call
 
 
+def bwd_libraries(root: Path, tag: str):
+    """(the tree's flash-attention backward library, its RMSNorm library),
+    built into the tree's own ``_build/``; both trees' C interfaces agree."""
+    from repro_torch.kernels.build import CudaLibrary
+
+    def declare_flash(lib):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        for fn in (lib.flash_bwd_dq_launch, lib.flash_bwd_dkdv_launch):
+            fn.argtypes = [vp] * 8 + [ci] * 8 + [ctypes.c_float, vp]
+            fn.restype = ci
+
+    def declare_rms(lib):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.rmsnorm_bwd_launch.argtypes = [vp] * 5 + [ci] * 3 + [ctypes.c_float, vp]
+        lib.rmsnorm_bwd_launch.restype = ci
+        lib.rmsnorm_dw_launch.argtypes = [vp] * 2 + [ci] * 2 + [vp]
+        lib.rmsnorm_dw_launch.restype = ci
+        lib.rmsnorm_bwd_blocks.argtypes = [ci]
+        lib.rmsnorm_bwd_blocks.restype = ci
+
+    rms = Path("src/repro_torch/kernels/rmsnorm")
+    return (CudaLibrary(f"flash_attention_bwd_{tag}",
+                        (root / REL / "csrc" / "flash_attention_bwd.cu",),
+                        root / REL / "_build", declare_flash),
+            CudaLibrary(f"rmsnorm_{tag}", (root / rms / "csrc" / "rmsnorm.cu",
+                                           root / rms / "csrc" / "rmsnorm_bwd.cu"),
+                        root / rms / "_build", declare_rms))
+
+
+def checked(err, what):
+    if err:
+        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
+
+
+def backward_turns(base_root: Path, rounds: int) -> None:
+    """``--backward``: both trees' backward kernels in turns (module doc)."""
+    import torch
+    import torch.nn.functional as F
+
+    import chip_smoke as CS
+    from repro_torch.kernels.build import ptr, stream
+    from repro_torch.kernels.flash_attention import flash_attention as FK
+
+    libs = {"base": bwd_libraries(base_root, "base"), "this": bwd_libraries(ROOT, "this")}
+    with ThreadPoolExecutor(4) as pool:  # one nvcc per source set, together
+        list(pool.map(lambda lib: lib.build(), [lib for pair in libs.values() for lib in pair]))
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    H, KV, bf = 24, 8, torch.bfloat16
+    q, dout = (torch.randn((B, S, H, D), generator=gen, device=dev).to(bf) for _ in range(2))
+    k, v = (torch.randn((B, S, KV, D), generator=gen, device=dev).to(bf) for _ in range(2))
+    o, lse = FK.flash_attention_cuda(q, k, v, lse=True)
+    grads, runs, parts = {}, {}, {}
+    for who, (flib, _) in libs.items():
+        fl = flib.load()
+        grads[who] = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v),
+                      torch.empty((B, H, S), dtype=torch.float32, device=dev))
+
+        def dq_call(fl=fl, g=grads[who]):
+            checked(fl.flash_bwd_dq_launch(ptr(q), ptr(k), ptr(v), ptr(o), ptr(dout), ptr(lse),
+                                           ptr(g[0]), ptr(g[3]), B, H, KV, S, S, D, 1, 1,
+                                           D ** -0.5, stream(dev)), "dQ")
+
+        def dkdv_call(fl=fl, g=grads[who]):
+            checked(fl.flash_bwd_dkdv_launch(ptr(q), ptr(k), ptr(v), ptr(dout), ptr(lse),
+                                             ptr(g[3]), ptr(g[1]), ptr(g[2]), B, H, KV, S, S,
+                                             D, 1, 1, D ** -0.5, stream(dev)), "dK / dV")
+
+        def call(dq_call=dq_call, dkdv_call=dkdv_call):
+            dq_call()
+            dkdv_call()
+        runs[who], parts[who] = call, (dq_call, dkdv_call)
+    turns = {"base": [], "this": []}
+    for _ in range(rounds):
+        for who in ("base", "this", "this", "base"):
+            turns[who].append(CS.graph_ms(runs[who], reps=10))
+    # this tree's two kernels alone (dK / dV reads the Delta of the last dQ run)
+    this_parts = {name: CS.graph_ms(fn, reps=10) for name, fn in zip(("dq", "dkdv"),
+                                                                     parts["this"])}
+    lt = [t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v)]
+    with torch.enable_grad():
+        lib_out = F.scaled_dot_product_attention(*lt, is_causal=True, enable_gqa=True)
+    lib_ms = [CS.backward_ms(lib_out, lt, dout.transpose(1, 2).contiguous())
+              for _ in range(rounds)]
+    torch.cuda.synchronize()
+    errs = {}
+    for name, a, b in zip(("dq", "dk", "dv"), grads["base"][:3], grads["this"][:3]):
+        errs[name], ok = CS.close_err(b, a, CS.ATTN_GRAD_TOL["bfloat16"])
+        CS.check(ok and bool(torch.isfinite(b).all()),
+                 f"flash backward: this tree's {name} disagrees with the base's: {errs[name]}")
+    print(json.dumps({
+        "kernel": "flash attention backward (dQ + dK / dV)",
+        "shape": f"B={B}, S={S}, H={H}, KV={KV}, D=Dv={D}, bf16, causal",
+        "order": "base,this,this,base" + f" x {rounds}",
+        "base_ms": turns["base"], "this_ms": turns["this"],
+        "base_median_ms": statistics.median(turns["base"]),
+        "this_median_ms": statistics.median(turns["this"]),
+        "base_over_this": statistics.median(turns["base"]) / statistics.median(turns["this"]),
+        "this_alone_ms": this_parts, "cudnn_sdpa_bwd_ms": lib_ms,
+        "max_abs_diff_vs_base": errs, "tol": CS.ATTN_GRAD_TOL["bfloat16"]}), flush=True)
+
+    N, d = 2048, 3072
+    x, dy = (torch.randn((N, d), generator=gen, device=dev).to(bf) for _ in range(2))
+    w = 1 + 0.1 * torch.randn((d,), generator=gen, device=dev)
+    out, runs = {}, {}
+    for who, (_, rlib) in libs.items():
+        rl = rlib.load()
+        part = torch.empty((rl.rmsnorm_bwd_blocks(N), d), dtype=torch.float32, device=dev)
+        out[who] = (torch.empty_like(x), torch.empty((d,), dtype=torch.float32, device=dev))
+
+        def dx_call(rl=rl, part=part, g=out[who]):
+            checked(rl.rmsnorm_bwd_launch(ptr(x), ptr(w), ptr(dy), ptr(g[0]), ptr(part), N, d, 1,
+                                          CS.RMS_EPS, stream(dev)), "RMSNorm backward")
+
+        def dw_call(rl=rl, part=part, g=out[who]):
+            checked(rl.rmsnorm_dw_launch(ptr(part), ptr(g[1]), N, d, stream(dev)), "RMSNorm dw")
+
+        def call(dx_call=dx_call, dw_call=dw_call):
+            dx_call()
+            dw_call()
+        runs[who], parts[who] = call, (dx_call, dw_call)
+    turns = {"base": [], "this": []}
+    for _ in range(rounds):
+        for who in ("base", "this", "this", "base"):
+            turns[who].append(CS.graph_ms(runs[who]))
+    this_parts = {name: CS.graph_ms(fn) for name, fn in zip(("dx", "dw"), parts["this"])}
+    xb, wb = x.clone().requires_grad_(True), w.to(bf).requires_grad_(True)
+    with torch.enable_grad():
+        lib_y = F.rms_norm(xb, (d,), wb, CS.RMS_EPS)
+    lib_ms = [CS.backward_ms(lib_y, (xb, wb), dy) for _ in range(rounds)]
+    torch.cuda.synchronize()
+    errs = {}
+    for name, a, b in zip(("dx", "dw"), out["base"], out["this"]):
+        errs[name], ok = CS.close_err(b, a, CS.RMS_GRAD_TOL["bfloat16"])
+        CS.check(ok and bool(torch.isfinite(b).all()),
+                 f"RMSNorm backward: this tree's {name} disagrees with the base's: {errs[name]}")
+    print(json.dumps({
+        "kernel": "RMSNorm backward (dx + dw)", "shape": f"N={N}, d={d}, bf16",
+        "order": "base,this,this,base" + f" x {rounds}",
+        "base_ms": turns["base"], "this_ms": turns["this"],
+        "base_median_ms": statistics.median(turns["base"]),
+        "this_median_ms": statistics.median(turns["this"]),
+        "base_over_this": statistics.median(turns["base"]) / statistics.median(turns["this"]),
+        "this_alone_ms": this_parts, "f_rms_norm_bwd_ms": lib_ms,
+        "max_abs_diff_vs_base": errs,
+        "tol": CS.RMS_GRAD_TOL["bfloat16"]}), flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -86,6 +247,10 @@ def main() -> int:
         return 2
     base_root = Path(args[0]).resolve()
     rounds = int(args[args.index("--rounds") + 1]) if "--rounds" in args else 3
+    if "--backward" in args:
+        backward_turns(base_root, rounds)
+        print_card()
+        return 0
     (base, base_lse), (this, this_lse) = (library(base_root, "flash_attention_base"),
                                           library(ROOT, "flash_attention_this"))
     with ThreadPoolExecutor(2) as pool:  # one nvcc per tree, together
@@ -117,11 +282,16 @@ def main() -> int:
             "this_train_lse_ms": train_ms,
             "outputs_equal": bool(torch.equal(o_base, o_this) and torch.equal(o_this, o_train)),
         }), flush=True)
+    print_card()
+    return 0
+
+
+def print_card() -> None:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(smi.splitlines()[0])
-    return 0
 
 
 if __name__ == "__main__":
