@@ -5,15 +5,15 @@
 
 Builds the CUDA kernels from ``src/repro_torch`` (``nvcc`` for ``sm_90a``,
 one compiler per source, all at once): the router cycle, flash attention
-and its backward, RMSNorm (with its backward), the SSD scan and the paged
-KV gather. Holds each kernel against
+and its backward, RMSNorm (with its backward), the SSD scan and its
+backward, and the paged KV gather. Holds each kernel against
 its plain PyTorch version on the card, drives the simulator's main path
 through the port's entry points (``build_sim`` / ``run`` / ``stats``), the
 paper's figures through ``repro_torch.benchmarks`` and the model stack's
 serving paths (``Engine.generate`` on Phi-4-mini, Mamba-2, Zamba2,
 Llama-4-Scout, Gemma 3 4B, DeepSeek-V2, Qwen2-VL and SeamlessM4T) and
-its training path (``Trainer.run`` on Phi-4-mini, through the backward
-kernels), and checks what comes out:
+its training paths (``Trainer.run`` on Phi-4-mini, Mamba-2 and Zamba2,
+through the backward kernels), and checks what comes out:
 
 1. the card (``nvidia-smi``) and the kernels' build time;
 2. the arb and apply kernels bit-identical to the plain version on random
@@ -67,7 +67,8 @@ kernels), and checks what comes out:
    torus at ``n_vcs=2`` and the offloaded tree multicast (16 kB, 4
    streams) on the 8x4 mesh, each delivering exactly its
    ``expect_rx`` at the CPU run's completion cycle (693 / 673 / 278) with
-   the GPU state equal to the CPU's; the all-reduce on the 32x32 mesh for
+   the GPU state equal to the CPU's (the all-reduces run 800 cycles,
+   ``OFFLOAD_CYCLES``, cut from 1 000; the naive one too); the all-reduce on the 32x32 mesh for
    200 cycles (state against CPU, ms per cycle, peak device memory); the
    offload arb kernel's time against its plain version and bound; the
    8x4 all-reduce's layer split and device profile from cycle 400;
@@ -172,27 +173,43 @@ kernels), and checks what comes out:
    Qwen2-VL's and SeamlessM4T's widths (N = 2048, d = 768, 3584, 5120,
    1536, 512, 8192 and 1024; N = 8192, d = 2560);
 10b. training on the card (``kernels_vs_plain_train_*``, ``train_vs_cpu``,
-   ``train_resume_card``, ``serve_int8_cache_vs_cpu``, ``train_phi4_mini``,
+   ``train_ssm_vs_cpu``, ``train_resume_card``, ``serve_int8_cache_vs_cpu``,
+   ``train_phi4_mini``, ``train_mamba2_130m``, ``train_zamba2_7b``,
    ``kernel_times_train``): the backward kernels (flash attention's dQ and
    dK / dV, RMSNorm's dx / dw) against the autograd of their plain
    versions in float32 and bf16 (flash at Phi-4-mini's B 4, S 512, 24 / 8
-   heads, D 128, at D 32 and 112, S = 1, 63, 65, 129 and a ragged 520, G =
+   heads, D 128, at Zamba2's 32 / 32 heads, D 112, at D 32 and 112, S = 1,
+   63, 65, 129 and a ragged 520, G =
    1, 3 and 8, non-causal with Sq != Skv; RMSNorm at d 3072 and 128, N
    2048, 5 and 1, and d 100), inputs untouched, two runs bit-equal, the
-   forward's log-sum-exp against ``logsumexp``; Phi-4-mini at full width
-   and 2 layers trained 3 float32 steps on the card and the CPU from the
-   same parameters (losses, grad norms, parameters); a reduced Granite's
+   forward's log-sum-exp against ``logsumexp``; the SSD scan's three
+   backward kernels against the plain backward ``ssd_chunked_bwd_ref``
+   within ``SSD_GRAD_REL`` of each gradient's largest value (Mamba-2's and
+   Zamba2's B 4 x 512 shapes, a ragged S, an entering state with a
+   final-state gradient, a shape off every tile, the narrow test shape;
+   float32 and bf16), two runs bit-equal, the forward's ``STATES``
+   instance bit-equal to the serving one; Phi-4-mini at full width
+   and 2 layers, Mamba-2 130M whole and Zamba2 at full width and 7 layers
+   (one superblock, one trailing layer) trained 3 / 3 / 2 float32 steps on
+   the card and the CPU from the same parameters (losses, grad norms, each
+   leaf's first gradient, parameters); a reduced Granite's
    resume on the card (restored tensors bit-equal, losses as straight
    through); 16 decode steps from an empty int8 KV cache on card and CPU;
    the whole Phi-4-mini (32 layers, bf16, remat) trained 8 steps through
    ``Trainer.run`` on B 4 x 512 tokens (launches per step exact: 64 flash
    forward, 32 dQ and 32 dK / dV, 129 RMSNorm forward and 65 backward; ms
    per step, the forward / backward / ``adamw_update`` split, busy share,
-   peak memory, every loss finite); the backward kernels' times beside
+   peak memory, every loss finite), and so the whole Mamba-2 130M (per
+   step 48 SSD forward, 24 of each SSD backward kernel, 49 / 25 RMSNorm)
+   and Zamba2 at 27 of 81 layers (``ZAMBA2_LAYERS``; 54 SSD forward, 27 of
+   each backward kernel, 8 flash forward at D 112, 4 dQ and 4 dK / dV, 71
+   / 36 RMSNorm); the backward kernels' times beside
    their bounds, the plain autograd's and the library's backward (cuDNN
    SDPA, ``F.rms_norm``): flash attention's in bf16 (the ``wgmma`` kernels,
    on the training path) and in float32 (the scalar kernels, on
-   ``train_vs_cpu``'s path), named apart in the ``kernels`` line;
+   ``train_vs_cpu``'s path), named apart in the ``kernels`` line; the SSD
+   backward's at Mamba-2's and Zamba2's shapes beside the plain backward
+   (no PyTorch call computes it);
 11. the paged KV gather (``kernels_vs_plain_kv_gather``,
    ``kernel_times_kv_gather``): the kernel bit-equal to its plain version
    at ``tests/test_kernels.py``'s sweep shapes in float32, bf16 and int32
@@ -206,8 +223,9 @@ kernels), and checks what comes out:
    every ``repro_torch.benchmarks`` module in ``--smoke`` mode on the card
    and on the CPU, each row equal on both and to the JAX package's rows in
    ``src/repro_torch/benchmarks/jax_rows.json``; and ``fig10_rob``, the
-   whole default-mode Fig. 10 module on the card (3 x 4000 cycles on the
-   4x4 mesh), rows and footer equal to the JAX package's, ms per cycle;
+   default-mode Fig. 10 module on the card (3 x 1 000 cycles on the 4x4
+   mesh, ``FIG10_CYCLES``, cut from 4 000: each run completes by cycle
+   688), rows and footer equal to the JAX package's, ms per cycle;
 11b. the batched sweep and the design-space exploration: the per-cycle
    arb, apply and offload arb kernels against their plain versions on
    random snapshots of B x C = 12 channels (``kernels_vs_plain_sweep``;
@@ -1081,6 +1099,8 @@ def offload_run(name, otopo, V, sched, n, mid, done_at=None, step_impl="fast"):
     done = CT.measured_cycles(out, otopo)
     cpu_done = CT.measured_cycles(TS.stats(csim, cst), otopo)
     exact = bool(np.array_equal(out["rx_bursts"], sched.expect_rx))
+    if n == OFFLOAD_CYCLES:
+        note_cut(name, dt1 + dt2 + dt_cpu, n, OFFLOAD_CYCLES_UNCUT)
     phase(name, cycles=n, n_vcs=V, groups=len(groups),
           beats=sched.meta["beats"], launches=launches,
           gpu_ms_per_cycle=(dt1 + dt2) / n * 1e3,
@@ -1145,6 +1165,13 @@ SUPER_CYCLES, SUPER_CYCLES_UNCUT = 600, 1200
 PROFILE_STEPS, PROFILE_STEPS_UNCUT = 6, 20
 # each turn of the k1 / k4 and fast / naive timing (k = 4 needs a multiple of 4)
 TURN_CYCLES, TURN_CYCLES_UNCUT = 48, 100
+# the 8x4 all-reduce runs' horizon (fast, torus at n_vcs=2, naive): cut from
+# 1 000 cycles to pay for the SSM training phases; each completes by 693
+OFFLOAD_CYCLES, OFFLOAD_CYCLES_UNCUT = 800, 1000
+# each of Fig. 10's three runs (the module's ``_completion``): cut from its
+# 4 000 cycles, for the same reason; each completes by cycle 688, so its
+# rows equal the 4 000-cycle rows
+FIG10_CYCLES, FIG10_CYCLES_UNCUT = 1000, 4000
 # each cut cell's seconds in this run at its cut size, beside its uncut
 # size and the seconds the cut saved, estimated in proportion to the size
 # (for a profile, whose set-up does not shrink, an upper estimate)
@@ -1544,6 +1571,7 @@ def compare_train_kernels(dev):
     cases = []
     for d_ in (bf, f32):
         cases += [("phi4_train", d_, 4, 512, 24, 8, 128, True, 512),
+                  ("zamba2_train", d_, 4, 512, 32, 32, 112, True, 512),
                   ("reduced_d32", d_, 2, 64, 4, 2, 32, True, 64),
                   ("d112", d_, 2, 130, 4, 2, 112, True, 130),
                   ("ragged", d_, 1, 520, 24, 8, 128, True, 520),
@@ -1588,7 +1616,7 @@ def compare_train_kernels(dev):
               f"two runs of flash attention's backward differ ({label}, {d_})")
         check(all(torch.equal(a, b) for a, b in zip(keep, (q, k, v, dout))),
               "the flash-attention backward modified its inputs")
-        if label == "phi4_train":
+        if label in ("phi4_train", "zamba2_train"):
             for name in ("dq", "dk", "dv"):
                 key = f"flash_attention_bwd_{d_}"
                 errs[key] = max(errs.get(key, 0.0), row[name])
@@ -1637,6 +1665,117 @@ def compare_train_kernels(dev):
     return errs
 
 
+# the SSD scan's backward kernels against ``ssd_chunked_bwd_ref``: max |kernel
+# - plain| / max |plain| of each gradient. float32: the same float32
+# algorithm, sums in another order (dA_log sums terms over every position
+# that cancel); bf16: the kernels compute in float32 on the same bf16 inputs
+# and round dx, dB and dC to bf16 once (2^-9 of their size)
+SSD_GRAD_REL = {"float32": 1e-4, "bfloat16": 1e-2}
+SSD_GRADS = ("dx", "ddt", "dA_log", "dBv", "dCv", "dD", "dstate_init")
+
+
+def ssd_bwd_inputs(rng, B, S, H, P, N, Q, dtype, dev, init=False, fin=False):
+    """``ssd_inputs`` plus the forward's states (its ``states=True``
+    launch), a float32 output gradient and, with ``fin``, a float32
+    final-state gradient."""
+    import torch
+
+    from repro_torch.kernels.ssd import ssd as SK
+
+    x, dt, Bv, Cv, A_log, D, s0 = ssd_inputs(rng, B, S, H, P, N, dtype, dev, init)
+    _, _, states = SK.ssd_cuda(x, dt, Bv, Cv, A_log, D, Q, s0, states=True)
+    dy = randn(rng, (B, S, H, P), torch.float32, dev)
+    dfin = randn(rng, (B, H, P, N), torch.float32, dev) if fin else None
+    return x, dt, Bv, Cv, A_log, D, s0, states, dy, dfin
+
+
+def compare_train_ssd(dev):
+    """The SSD scan's three backward kernels against the plain backward
+    ``ssd_chunked_bwd_ref`` on the card, float32 and bf16, within
+    ``SSD_GRAD_REL`` of each gradient's largest value: at Mamba-2's and
+    Zamba2's training shapes (B 4 x 512, Q 128, P 64; H 24, N 128 and H 112,
+    N 64), a ragged S, an entering state with a final-state gradient, a shape
+    off every tile and the narrow test shape; two runs bit-equal, inputs
+    untouched; the forward's STATES instance bit-equal to the serving
+    instance in y and the final state. Returns the largest absolute error
+    at the path shapes by dtype, and (``_rel``) the largest relative one."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.ssd import ssd as SK
+    from repro_torch.kernels.ssd.ref import ssd_chunked_bwd_ref
+
+    rng = np.random.default_rng(44)
+    bf, f32 = "bfloat16", "float32"
+    dts = {bf: torch.bfloat16, f32: torch.float32}
+    cases = []  # (label, B, S, H, P, N, Q, dtype, entering state, final gradient)
+    for d_ in (bf, f32):
+        cases += [("mamba2_train", 4, 512, 24, 64, 128, 128, d_, False, False),
+                  ("zamba2_train", 4, 512, 112, 64, 64, 128, d_, False, False),
+                  ("ragged", 1, 520, 24, 64, 128, 128, d_, False, False),
+                  ("state_init_final", 2, 200, 24, 64, 128, 128, d_, True, True),
+                  ("off_tile_q100_p40_n72", 2, 300, 3, 40, 72, 100, d_, False, True),
+                  ("narrow_p16_n16_q32", 2, 100, 3, 16, 16, 32, d_, True, False)]
+    rows, errs = [], {}
+    for label, B, S, H, P, N, Q, d_, init, fin in cases:
+        x, dt, Bv, Cv, A_log, D, s0, states, dy, dfin = ssd_bwd_inputs(
+            rng, B, S, H, P, N, Q, dts[d_], dev, init, fin)
+        keep = [t.clone() for t in (x, dt, Bv, Cv, A_log, D, states, dy)]
+        y0, f0 = SK.ssd_cuda(x, dt, Bv, Cv, A_log, D, Q, s0)
+        y1, f1, states1 = SK.ssd_cuda(x, dt, Bv, Cv, A_log, D, Q, s0, states=True)
+        runs = [SK.ssd_bwd_cuda(x, dt, Bv, Cv, A_log, D, Q, states, dy, dfin, want_dstate=init)
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        want = ssd_chunked_bwd_ref(x, dt, A_log, Bv, Cv, D, Q, s0, dy, dfin)
+        row = {"case": label, "shape": [B, S, H, P, N, Q], "dtype": d_,
+               "state_init": init, "final_grad": fin, "tol_rel": SSD_GRAD_REL[d_]}
+        ok = True
+        for name, got, w in zip(SSD_GRADS, runs[0], want):
+            if w is None:
+                ok &= got is None
+                continue
+            row[name] = rel_err(got, w)
+            ok &= (row[name] is None or row[name] <= SSD_GRAD_REL[d_]) and bool(
+                torch.isfinite(got).all())
+        rows.append(row)
+        check(ok, f"the SSD backward disagrees with the plain backward ({label}, {d_}): {row}")
+        check(runs[0][0].dtype == x.dtype and runs[0][3].dtype == x.dtype
+              and runs[0][1].dtype == torch.float32, "the SSD backward's dtypes")
+        check(all(a is None and b is None or torch.equal(a, b) for a, b in zip(*runs)),
+              f"two runs of the SSD backward differ ({label}, {d_})")
+        check(torch.equal(y0, y1) and torch.equal(f0, f1) and torch.equal(states, states1),
+              f"the STATES forward differs from the serving forward ({label}, {d_})")
+        check(all(torch.equal(a, b) for a, b in zip(keep, (x, dt, Bv, Cv, A_log, D, states, dy))),
+              "the SSD backward modified its inputs")
+        if label.endswith("_train"):
+            key = f"ssd_bwd_{d_}"
+            errs[key + "_rel"] = max(errs.get(key + "_rel", 0.0),
+                                     *(row[n] for n in SSD_GRADS if n in row))
+            errs[key] = max(errs.get(key, 0.0), *(
+                float((got.float() - w).abs().max())
+                for got, w in zip(runs[0], want) if w is not None))
+    phase("kernels_vs_plain_train_ssd", cases=rows)
+    return errs
+
+
+def ssd_bwd_bound(B, S, H, P, N, Q, itemsize):
+    """Least time of the SSD scan's gradient (S a multiple of Q, no entering
+    state): x, dt, B, C, dy (float32) and the forward's states (float32)
+    read once, dx, dt, dB and dC written once; or the products at the bf16
+    tensor-core peak, each counted once: per (batch, chunk) C.B^T's causal
+    pairs and the head-summed E's products with B and with C, per head dy.x^T
+    and dx's intra term over the causal pairs, dx's inter term, dy^T S_prev,
+    x^T G and the state gradient's update. Also that count at the scalar
+    float32 rate, which the kernels run at."""
+    nC = S // Q
+    pairs = Q * (Q + 1) // 2
+    flops = 2 * B * nC * (3 * pairs * N + H * (2 * pairs * P + 4 * Q * N * P))
+    nbytes = (2 * B * S * H * P * itemsize + B * S * H * P * 4 + 2 * B * S * H * 4
+              + 4 * B * S * N * itemsize + 2 * H * 4 + B * nC * H * P * N * 4)
+    return {**bound_fields(nbytes, flops, BF16_FLOPS_PER_S),
+            "ops_ms_at_scalar_f32": flops / SCALAR_OPS_PER_S * 1e3}
+
+
 def backward_ms(out, inputs, grad, reps=10):
     """Device time of one backward through autograd's recorded graph of
     ``out`` (built once, kept with ``retain_graph``): after a warm-up,
@@ -1673,14 +1812,48 @@ def attn_bwd_bound(B, S, H, KV, D, itemsize, ops_per_s):
     return bound_fields(nbytes, flops, ops_per_s)
 
 
+def time_train_ssd(dev):
+    """The SSD scan's three backward kernels at Mamba-2's and Zamba2's
+    training shapes (B 4 x 512, Q 128, P 64, bf16; Mamba-2's also in
+    float32, ``train_ssm_vs_cpu``'s dtype) beside the plain backward
+    ``ssd_chunked_bwd_ref`` and the bound; no PyTorch call computes the
+    scan's gradient (``library_ms`` None). Returns the rows."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.ssd import ssd as SK
+    from repro_torch.kernels.ssd.ref import ssd_chunked_bwd_ref
+
+    rng = np.random.default_rng(45)
+    out = {}
+    for key, H, N, dt_ in (("ssd_bwd", 24, 128, torch.bfloat16),
+                           ("ssd_bwd_zamba2", 112, 64, torch.bfloat16),
+                           ("ssd_bwd_f32", 24, 128, torch.float32)):
+        x, dt, Bv, Cv, A_log, D, _, states, dy, _ = ssd_bwd_inputs(
+            rng, 4, 512, H, 64, N, 128, dt_, dev)
+        item = 2 if dt_ == torch.bfloat16 else 4
+        out[key] = {
+            "ms": graph_ms(lambda: SK.ssd_bwd_cuda(x, dt, Bv, Cv, A_log, D, 128, states, dy),
+                           reps=10),
+            "plain_ms": graph_ms(lambda: ssd_chunked_bwd_ref(x, dt, A_log, Bv, Cv, D, 128,
+                                                             None, dy), reps=3),
+            "library_ms": None, **ssd_bwd_bound(4, 512, H, 64, N, 128, item),
+            "shape": f"B=4, S=512, H={H}, P=64, N={N}, Q=128, "
+                     f"{'bf16' if item == 2 else 'float32'}"}
+        del x, dt, Bv, Cv, states, dy
+    torch.cuda.empty_cache()
+    return out
+
+
 def time_train_kernels(dev):
     """The backward kernels at Phi-4-mini's training shapes: flash
     attention's dQ + dK / dV at B 4, S 512, 24 / 8 heads, D 128 in bf16 (the
-    ``wgmma`` kernels) and in float32 (the scalar kernels), and RMSNorm's
+    ``wgmma`` kernels; also at Zamba2's 32 / 32 heads, D 112) and in float32
+    (the scalar kernels), and RMSNorm's
     backward at N 2048, d 3072 in bf16: kernel, the plain version's autograd
     backward, and the backward of one PyTorch call through autograd (SDPA,
     ``F.rms_norm``; timed alone, never called by the port), with the
-    bound."""
+    bound; then ``time_train_ssd``'s rows."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1694,25 +1867,28 @@ def time_train_kernels(dev):
     rng = np.random.default_rng(43)
     bf = torch.bfloat16
     out = {}
-    B, S, H, KV, D = 4, 512, 24, 8, 128
-    q, k, v, dout = (randn(rng, sh, bf, dev) for sh in
-                     ((B, S, H, D), (B, S, KV, D), (B, S, KV, D), (B, S, H, D)))
-    o, lse = FK.flash_attention_cuda(q, k, v, lse=True)
-    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-    with torch.enable_grad():
-        plain_out = attention_ref(*leaves)
-    lt = [t.detach().transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v)]
-    with torch.enable_grad():
-        lib_out = F.scaled_dot_product_attention(*lt, is_causal=True, enable_gqa=True)
-    # the backend SDPA dispatches these inputs to
-    choice = SDPBackend(torch._fused_sdp_choice(*lt, is_causal=True, enable_gqa=True))
-    lib_grad = dout.transpose(1, 2).contiguous()
-    out["flash_attention_bwd"] = {
-        "ms": graph_ms(lambda: FK.flash_attention_bwd_cuda(q, k, v, o, dout, lse), reps=5),
-        "plain_ms": backward_ms(plain_out, leaves, dout, reps=5),
-        "library_ms": backward_ms(lib_out, lt, lib_grad), "library_backend": choice.name,
-        **attn_bwd_bound(B, S, H, KV, D, 2, BF16_FLOPS_PER_S),
-        "shape": f"B={B}, S={S}, H={H}, KV={KV}, D=Dv={D}, bf16, causal"}
+    # Zamba2's shared block (32 / 32 heads, D 112), then Phi-4-mini's, whose
+    # inputs the float32 row below widens
+    for key, (B, S, H, KV, D) in (("flash_attention_bwd_zamba2", (4, 512, 32, 32, 112)),
+                                  ("flash_attention_bwd", (4, 512, 24, 8, 128))):
+        q, k, v, dout = (randn(rng, sh, bf, dev) for sh in
+                         ((B, S, H, D), (B, S, KV, D), (B, S, KV, D), (B, S, H, D)))
+        o, lse = FK.flash_attention_cuda(q, k, v, lse=True)
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        with torch.enable_grad():
+            plain_out = attention_ref(*leaves)
+        lt = [t.detach().transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v)]
+        with torch.enable_grad():
+            lib_out = F.scaled_dot_product_attention(*lt, is_causal=True, enable_gqa=True)
+        # the backend SDPA dispatches these inputs to
+        choice = SDPBackend(torch._fused_sdp_choice(*lt, is_causal=True, enable_gqa=True))
+        lib_grad = dout.transpose(1, 2).contiguous()
+        out[key] = {
+            "ms": graph_ms(lambda: FK.flash_attention_bwd_cuda(q, k, v, o, dout, lse), reps=5),
+            "plain_ms": backward_ms(plain_out, leaves, dout, reps=5),
+            "library_ms": backward_ms(lib_out, lt, lib_grad), "library_backend": choice.name,
+            **attn_bwd_bound(B, S, H, KV, D, 2, BF16_FLOPS_PER_S),
+            "shape": f"B={B}, S={S}, H={H}, KV={KV}, D=Dv={D}, bf16, causal"}
     # float32: the same inputs widened; bound by the scalar float32 rate
     q, k, v, dout = (t.float() for t in (q, k, v, dout))
     o, lse = FK.flash_attention_cuda(q, k, v, lse=True)
@@ -1744,6 +1920,7 @@ def time_train_kernels(dev):
         # x and dy read, dx written (bf16); w read and dw written (float32)
         **bound_fields(3 * N * d * 2 + 2 * d * 4, 8 * N * d),
         "shape": f"N={N}, d={d}, bf16"}
+    out.update(time_train_ssd(dev))
     phase("kernel_times_train", **out)
     return out
 
@@ -1810,35 +1987,33 @@ def phi4_two_layers():
     return cfg, _PHI4_2L[0]
 
 
-def train_vs_cpu(dev):
-    """Phi-4-mini at full width, 2 layers, float32, the same initial
-    parameters on the card and the CPU: ``Trainer.run`` for 3 steps on 1 x
-    256 tokens of ``SyntheticLM``. Per step the loss and grad norm within
+def train_card_vs_cpu(dev, cfg, init, steps, seed):
+    """``cfg`` in float32 from the same initial parameters ``init`` on the
+    card and the CPU: ``Trainer.run`` for ``steps`` steps on 1 x 256 tokens
+    of ``SyntheticLM`` (``seed``). Per step the loss and grad norm within
     ``TRAIN_LOSS_RTOL``; each leaf's gradient of the first step within
     ``TRAIN_GRAD_REL`` of that leaf's largest value (the tight check of
-    every gradient, a norm weight's as the embedding's); after the last
-    step every parameter within 3 Adam steps (``6 lr``, a loose sanity
-    bound: Adam moves each element about ``lr`` a step whatever its
-    gradient's size, and a near-zero gradient whose float32 sign differs
-    moves the two sides a step apart) and their mean difference within
-    ``TRAIN_PARAM_MEAN_ATOL``. The CPU runs without remat (the same
-    numbers, less work) on a thread beside the card's run. Returns the
-    card run's launches: the float32 backward kernels' main path."""
+    every gradient, a norm weight's as the embedding's); after the last step every parameter within ``steps``
+    Adam steps (``2 steps lr``, a loose sanity bound: Adam moves each
+    element about ``lr`` a step whatever its gradient's size, and a
+    near-zero gradient whose float32 sign differs moves the two sides a
+    step apart) and their mean difference within ``TRAIN_PARAM_MEAN_ATOL``.
+    The CPU runs without remat (the same numbers, less work) on a thread
+    beside the card's run. Returns (the phase's fields, the card run's
+    launches)."""
     import torch
 
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.runtime import Runtime
 
     t0 = time.perf_counter()
-    cfg, init = phi4_two_layers()
-    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=256, global_batch=1, seed=5)
-    seconds = {"init": time.perf_counter() - t0}
-
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=256, global_batch=1, seed=seed)
+    seconds = {}
     grads = {"cuda": {}, "cpu": {}}
 
     def train(device, rt):
         t1 = time.perf_counter()
-        params, _, hist = trainer_from(cfg, dcfg, 3, device, init, rt=rt,
+        params, _, hist = trainer_from(cfg, dcfg, steps, device, init, rt=rt,
                                        first_grads=grads[device]).run(resume=False)
         seconds[device] = time.perf_counter() - t1
         return params, hist
@@ -1855,18 +2030,18 @@ def train_vs_cpu(dev):
         rows.append({k: [a[k], b[k]] for k in ("loss", "grad_norm")})
         for k in ("loss", "grad_norm"):
             check(abs(a[k] - b[k]) <= TRAIN_LOSS_RTOL * abs(b[k]),
-                  f"train_vs_cpu: step {a['step']} {k} card {a[k]} CPU {b[k]}")
+                  f"{cfg.name} card vs CPU: step {a['step']} {k} card {a[k]} CPU {b[k]}")
     check(set(grads["cuda"]) == set(grads["cpu"]) == {k for k, _ in pc.named_parameters()},
-          "train_vs_cpu: a parameter got no gradient on one side")
-    leaf_rel = {}
+          f"{cfg.name} card vs CPU: a parameter got no gradient on one side")
+    rel = {}
     for k in sorted(grads["cpu"]):  # on the card, one leaf at a time
         a, b = grads["cuda"].pop(k), grads["cpu"].pop(k).to(dev)
         err = rel_err(a, b)
-        leaf_rel[k] = float(a.abs().max()) if err is None else err
-    worst_leaf = max(leaf_rel, key=leaf_rel.get)
-    check(leaf_rel[worst_leaf] <= TRAIN_GRAD_REL,
-          f"train_vs_cpu: step 0's gradient of {worst_leaf} differs by "
-          f"{leaf_rel[worst_leaf]} of its largest value")
+        rel[k] = float(a.abs().max()) if err is None else err
+    worst_leaf = max(rel, key=rel.get)
+    check(rel[worst_leaf] <= TRAIN_GRAD_REL,
+          f"{cfg.name} card vs CPU: step 0's gradient of {worst_leaf} differs by "
+          f"{rel[worst_leaf]} of its largest value")
     worst, total, n = 0.0, 0.0, 0
     with torch.no_grad():  # on the card: the CPU's parameters carried over
         for (k, a), (_, b) in zip(pg.named_parameters(), pc.named_parameters()):
@@ -1875,16 +2050,57 @@ def train_vs_cpu(dev):
     mean = total / n
     del pg, pc
     torch.cuda.empty_cache()
-    check(worst <= 6 * TRAIN_OPT["lr"] and mean <= TRAIN_PARAM_MEAN_ATOL,
-          f"train_vs_cpu: parameters differ by {worst} (mean {mean})")
-    phase("train_vs_cpu", layers=cfg.n_layers, d_model=cfg.d_model, params=int(n),
-          tokens=256, steps=3, dtype="float32", steps_card_cpu=rows,
-          grad_rel_by_leaf=leaf_rel, grad_rel_worst=[worst_leaf, leaf_rel[worst_leaf]],
-          param_max_abs_diff=worst, param_mean_abs_diff=mean,
-          tol={"loss_rtol": TRAIN_LOSS_RTOL, "grad_rel": TRAIN_GRAD_REL,
-               "param_max": 6 * TRAIN_OPT["lr"], "param_mean": TRAIN_PARAM_MEAN_ATOL},
-          launches={k: v for k, v in launches.items() if v},
-          seconds=time.perf_counter() - t0, seconds_by_part=seconds)
+    check(worst <= 2 * steps * TRAIN_OPT["lr"] and mean <= TRAIN_PARAM_MEAN_ATOL,
+          f"{cfg.name} card vs CPU: parameters differ by {worst} (mean {mean})")
+    fields = dict(layers=cfg.n_layers, d_model=cfg.d_model, params=int(n),
+                  tokens=256, steps=steps, dtype="float32", steps_card_cpu=rows,
+                  grad_rel_by_leaf=rel, grad_rel_worst=[worst_leaf, rel[worst_leaf]],
+                  param_max_abs_diff=worst, param_mean_abs_diff=mean,
+                  tol={"loss_rtol": TRAIN_LOSS_RTOL, "grad_rel": TRAIN_GRAD_REL,
+                       "param_max": 2 * steps * TRAIN_OPT["lr"],
+                       "param_mean": TRAIN_PARAM_MEAN_ATOL},
+                  launches={k: v for k, v in launches.items() if v},
+                  seconds=time.perf_counter() - t0, seconds_by_part=seconds)
+    return fields, launches
+
+
+def train_vs_cpu(dev):
+    """Phi-4-mini at full width, 2 layers, float32: ``train_card_vs_cpu``
+    for 3 steps. Returns the card run's launches: the float32 backward
+    kernels' main path."""
+    t0 = time.perf_counter()
+    cfg, init = phi4_two_layers()
+    init_s = time.perf_counter() - t0
+    fields, launches = train_card_vs_cpu(dev, cfg, init, 3, 5)
+    fields["seconds_by_part"]["init"] = init_s
+    phase("train_vs_cpu", **fields)
+    return launches
+
+
+def train_ssm_vs_cpu(dev):
+    """Mamba-2 130M whole (3 steps) and Zamba2 7B at full width cut to 7
+    layers (one superblock of 6 Mamba-2 layers and the shared attention
+    block, one trailing layer; 2 steps), float32: ``train_card_vs_cpu``
+    from seeded initial parameters drawn on the card. Returns the card
+    runs' launches by model: the float32 SSD backward's main path."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    out, launches = {}, {}
+    for key, cfg, steps, seed in (("mamba2_130m", get_config(MAMBA2), 3, 47),
+                                  ("zamba2_7b_7_layers", get_config(ZAMBA2).replace(n_layers=7),
+                                   2, 48)):
+        t0 = time.perf_counter()
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        init = M.params_to_numpy(cfg, M.init_params(cfg, gen, device="cuda"))
+        torch.cuda.empty_cache()
+        init_s = time.perf_counter() - t0
+        out[key], launches[key] = train_card_vs_cpu(dev, cfg, init, steps, seed)
+        out[key]["seconds_by_part"]["init"] = init_s
+        del init
+    phase("train_ssm_vs_cpu", **out)
     return launches
 
 
@@ -1978,25 +2194,24 @@ def serve_int8_cache_vs_cpu(dev):
           cache_len=int(caches["cuda"]["len"][0]))
 
 
-def train_phi4_mini(dev):
-    """The whole Phi-4-mini (32 layers, full width, bf16) trained 8 steps
-    through ``Trainer.run`` on B 4 x 512 tokens of ``SyntheticLM``, remat on:
-    ms per step (median of steps 2-8) and tokens/s, the synchronised split
-    into forward, backward and ``adamw_update``, the device's busy share of
-    one step under ``torch.profiler``, exact launches per step of the flash
-    forward and backward and the RMSNorm forward and backward, peak memory,
-    the model FLOPs and the optimizer's bytes beside their times at the
-    card's peaks. Every loss finite. Returns the run's launches."""
+def train_model(dev, name, cfg, want):
+    """``cfg`` (full width, bf16) trained ``TRAIN_STEPS`` steps through
+    ``Trainer.run`` on B 4 x 512 tokens of ``SyntheticLM``, remat on: ms per
+    step (median of steps 2-8) and tokens/s, the synchronised split into
+    forward, backward and ``adamw_update``, the device's busy share of one
+    step under ``torch.profiler``, exact launches per step of every model
+    kernel (``want``: the launches a step makes, by ``LAUNCHES`` key; every
+    other key 0), peak memory, the model FLOPs and the optimizer's bytes
+    beside their times at the card's peaks. Every loss finite, no step
+    skipped. The phase ``name``; returns the run's launches."""
     import statistics as st_
 
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.models import model as M
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
-    cfg = get_config(PHI4)
     B, S = 4, 512
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B, seed=7)
     tr = Trainer(cfg, dcfg, TrainerConfig(steps=TRAIN_STEPS, log_every=0), device=dev)
@@ -2021,15 +2236,12 @@ def train_phi4_mini(dev):
     launches = {k: v for c in launch_counters() for k, v in c.items()}
     peak = torch.cuda.max_memory_allocated() / 1e9
     n = TRAIN_STEPS
-    L = cfg.n_layers
-    want = {"flash_attention": 2 * L * n, "flash_attention_bwd_dq": L * n,
-            "flash_attention_bwd_dkdv": L * n, "rmsnorm": (4 * L + 1) * n,
-            "rmsnorm_bwd": (2 * L + 1) * n, "rmsnorm_bwd_dw": (2 * L + 1) * n,
-            "rmsnorm_residual": 0, "ssd": 0}
-    check(launches == want, f"train_phi4_mini launches {launches}, expected {want}")
+    expect = {k: want.get(k, 0) * n for k in launches}
+    check(launches == expect and set(want) <= set(launches),
+          f"{name} launches {launches}, expected {expect}")
     check(all(torch.isfinite(torch.tensor(h["loss"])) for h in hist),
-          f"train_phi4_mini: a non-finite loss in {[h['loss'] for h in hist]}")
-    check(tr.nan_guard.total_skipped == 0, "train_phi4_mini skipped a step")
+          f"{name}: a non-finite loss in {[h['loss'] for h in hist]}")
+    check(tr.nan_guard.total_skipped == 0, f"{name} skipped a step")
     steady = phases[1:]  # steps 2-8
     ms = st_.median(h["time_s"] for h in hist[1:]) * 1e3
     split = {k: st_.median(p[k] for p in steady) for k in steady[0]}
@@ -2044,7 +2256,7 @@ def train_phi4_mini(dev):
     n_params = M.count_params(cfg)
     flops = 6 * n_params * B * S
     opt_bytes = n_params * (2 + 2 + 2 + 4 * 4)  # p read + written, g read, m and v r + w
-    phase("train_phi4_mini", layers=L, d_model=cfg.d_model, params=n_params, batch=B,
+    phase(name, layers=cfg.n_layers, d_model=cfg.d_model, params=n_params, batch=B,
           seq_len=S, steps=n, dtype="bfloat16", remat=True,
           ms_per_step=ms, tokens_per_s=B * S / ms * 1e3, split_ms=split,
           step_ms_all=[sum(p.values()) for p in phases], wall_s=wall,
@@ -2056,6 +2268,55 @@ def train_phi4_mini(dev):
     del params, opt, tr
     torch.cuda.empty_cache()
     return launches
+
+
+def train_phi4_mini(dev):
+    """The whole Phi-4-mini (32 layers) through ``train_model``: per step
+    64 flash forward (remat), 32 dQ and 32 dK / dV, 129 RMSNorm forward and
+    65 backward."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(PHI4)
+    L = cfg.n_layers
+    return train_model(dev, "train_phi4_mini", cfg, {
+        "flash_attention": 2 * L, "flash_attention_bwd_dq": L,
+        "flash_attention_bwd_dkdv": L, "rmsnorm": 4 * L + 1, "rmsnorm_bwd": 2 * L + 1,
+        "rmsnorm_bwd_dw": 2 * L + 1})
+
+
+def ssm_train_launches(L, n_attn):
+    """A step's launches of a Mamba-2 (``n_attn`` 0) or hybrid model of ``L``
+    Mamba-2 layers and ``n_attn`` applications of the shared attention block
+    under remat: each layer's SSD forward (STATES) twice and its three
+    backward kernels once; each application's flash forward twice and dQ,
+    dK / dV once; every layer norm twice forward (one a Mamba-2 layer, two
+    an attention block), the final norm once, each once backward."""
+    norms = L + 2 * n_attn
+    return {"ssd": 2 * L, "ssd_bwd_state": L, "ssd_bwd_chunk": L, "ssd_bwd_reduce": L,
+            "flash_attention": 2 * n_attn, "flash_attention_bwd_dq": n_attn,
+            "flash_attention_bwd_dkdv": n_attn, "rmsnorm": 2 * norms + 1,
+            "rmsnorm_bwd": norms + 1, "rmsnorm_bwd_dw": norms + 1}
+
+
+def train_mamba2_130m(dev):
+    """The whole Mamba-2 130M (24 layers) through ``train_model``."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(MAMBA2)
+    return train_model(dev, "train_mamba2_130m", cfg, ssm_train_launches(cfg.n_layers, 0))
+
+
+def train_zamba2_7b(dev):
+    """Zamba2 7B at full width, ``ZAMBA2_LAYERS`` (27) of 81 layers: four
+    superblocks of 6 Mamba-2 layers, each followed by the tied shared
+    attention block (D 112, 32 / 32 heads), and 3 trailing layers; 2.43e9
+    parameters (the whole model's parameters, gradients and m / v would not
+    fit the card), through ``train_model``."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(ZAMBA2).replace(n_layers=ZAMBA2_LAYERS)
+    n_attn = cfg.n_layers // cfg.shared_attn_period
+    return train_model(dev, "train_zamba2_7b", cfg, ssm_train_launches(cfg.n_layers, n_attn))
 
 
 def greedy_trace(M, cfg, p, toks, lens, n, force=None, extra=None):
@@ -3110,9 +3371,12 @@ def figures_smoke(dev):
 
 
 def figure_fig10(dev):
-    """The whole default-mode Fig. 10 module on the card (three 4000-cycle
-    runs on the 4x4 mesh and the area rows), counted: rows equal to the
-    JAX package's, every target met."""
+    """The default-mode Fig. 10 module on the card (three runs on the 4x4
+    mesh, each ``FIG10_CYCLES``, cut from 4 000, and the area rows),
+    counted: rows equal to the JAX package's 4 000-cycle rows, every target
+    met."""
+    import functools
+
     import torch
 
     from repro_torch.benchmarks import fig10_rob
@@ -3121,13 +3385,19 @@ def figure_fig10(dev):
 
     counts = router_launches_reset()
     t0 = time.perf_counter()
-    rows = bench_rows(fig10_rob, False, False, dev)
+    full = fig10_rob._completion
+    fig10_rob._completion = functools.partial(full, cycles=FIG10_CYCLES)
+    try:
+        rows = bench_rows(fig10_rob, False, False, dev)
+    finally:
+        fig10_rob._completion = full
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    note_cut("fig10_rob", wall, FIG10_CYCLES, FIG10_CYCLES_UNCUT)
     launches = dict(counts)
     got, want = figure_rows(rows), jax_rows()["default"]["fig10_rob"]
     check(got == want["rows"], f"Fig. 10 rows differ from the JAX rows: {got}")
-    cycles = 3 * 4000
+    cycles = 3 * FIG10_CYCLES
     check(launches == expected_launches(NocParams(), cycles), f"Fig. 10 launches {launches}")
     checked = [r for r in rows if r["ok"] is not None]
     footer = (f"# paper-validation: {sum(bool(r['ok']) for r in checked)}/{len(checked)} "
@@ -3309,7 +3579,8 @@ def main() -> int:
     card = smi.splitlines()[0]
     # the package exports its entry point under the module's own name
     KG = importlib.import_module("repro_torch.kernels.kv_gather.kv_gather")
-    libs = (K.LIBRARY, FK.LIBRARY, FK.BWD_LIBRARY, RK.LIBRARY, SK.LIBRARY, KG.LIBRARY)
+    libs = (K.LIBRARY, FK.LIBRARY, FK.BWD_LIBRARY, RK.LIBRARY, SK.LIBRARY, SK.BWD_LIBRARY,
+            KG.LIBRARY)
     fresh = [not lib.path().exists() for lib in libs]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs) + 1) as pool:  # one nvcc per source, together
@@ -3672,7 +3943,7 @@ def main() -> int:
     # ---- 9. in-network collective offload -----------------------------------
     ar = lambda t: CT.all_reduce(t, data_kb=16, streams=2, algo="infabric")
     ar_mid, ar_sim, ar_launches, ar_end = offload_run(
-        "allreduce_infabric_8x4", topo, 1, ar(topo), 1000, 400, done_at=693)
+        "allreduce_infabric_8x4", topo, 1, ar(topo), OFFLOAD_CYCLES, 400, done_at=693)
     offload_8x4 = time_offload(ar_mid.fabric, ar_sim.tables)
     phase("kernel_times_offload_8x4", at_cycle=400, **offload_8x4)
     layers_ar = layer_times(eng, ar_sim, ar_mid)
@@ -3684,7 +3955,7 @@ def main() -> int:
                 CT.multicast(topo, data_kb=16, streams=4, offload=True),
                 450, 150, done_at=278)
     tar_mid, tar_sim, tar_launches, _ = offload_run(
-        "allreduce_infabric_torus_vc_8x4", ttopo, 2, ar(ttopo), 1000, 400,
+        "allreduce_infabric_torus_vc_8x4", ttopo, 2, ar(ttopo), OFFLOAD_CYCLES, 400,
         done_at=673)
     offload_vc_8x4 = time_offload(tar_mid.fabric, tar_sim.tables)
     phase("kernel_times_offload_vc_8x4", at_cycle=400, **offload_vc_8x4)
@@ -3749,8 +4020,8 @@ def main() -> int:
           wide_util=float(TS.stats(nvsim, nvst)["wide_util"]))
 
     _, nar_sim, naive_ar_launches, nar_end = offload_run(
-        "naive_allreduce_infabric_8x4", topo, 1, ar(topo), 1000, 400, done_at=693,
-        step_impl="naive")
+        "naive_allreduce_infabric_8x4", topo, 1, ar(topo), OFFLOAD_CYCLES, 400,
+        done_at=693, step_impl="naive")
     bad = states_equal(TS.canonical_state(nar_sim, nar_end, scrub=True),
                        TS.canonical_state(ar_sim, ar_end, scrub=True))
     check(not bad, f"naive_allreduce_infabric_8x4 canonical state differs from the "
@@ -3803,11 +4074,24 @@ def main() -> int:
 
     # ---- 10b. training on the card: the backward kernels, Phi-4-mini --------
     t_train = time.perf_counter()
+    new_s = {}  # the seconds of the SSM training phases
+
+    def timed(name, fn):
+        t1 = time.perf_counter()
+        out = fn(dev)
+        new_s[name] = time.perf_counter() - t1
+        return out
+
     train_errs = compare_train_kernels(dev)
+    train_errs.update(timed("kernels_vs_plain_train_ssd", compare_train_ssd))
     serve_launches["train_vs_cpu"] = train_vs_cpu(dev)
+    for key, launches in timed("train_ssm_vs_cpu", train_ssm_vs_cpu).items():
+        serve_launches[f"train_ssm_vs_cpu[{key}]"] = launches
     train_resume_card(dev)
     serve_int8_cache_vs_cpu(dev)
     serve_launches["train_phi4_mini"] = train_phi4_mini(dev)
+    serve_launches["train_mamba2_130m"] = timed("train_mamba2_130m", train_mamba2_130m)
+    serve_launches["train_zamba2_7b"] = timed("train_zamba2_7b", train_zamba2_7b)
     train_times = time_train_kernels(dev)
     train_s = time.perf_counter() - t_train
     phase("train_phases", seconds=train_s)
@@ -3913,7 +4197,7 @@ def main() -> int:
          ("serve_phi4_mini", "serve_llama4_scout", "serve_gemma3_4b", "serve_qwen2_vl",
           "train_phi4_mini")),
         ("flash_attention_kernel[D=112]", "flash_attention_d112", "flash_attention", 23,
-         ("serve_zamba2_7b",)),
+         ("serve_zamba2_7b", "train_zamba2_7b")),
         ("flash_attention_kernel[D=192,Dv=128]", "flash_attention_mla", "flash_attention", 23,
          ("serve_deepseek_v2",)),
         ("flash_attention_kernel[D=64]", "flash_attention_seamless", "flash_attention", 23,
@@ -3921,10 +4205,11 @@ def main() -> int:
         ("rmsnorm_kernel", "rmsnorm", "rmsnorm", 16,
          ("serve_phi4_mini", "serve_mamba2_130m", "serve_zamba2_7b", "serve_llama4_scout",
           "serve_gemma3_4b", "serve_deepseek_v2", "serve_qwen2_vl", "serve_seamless_m4t",
-          "train_phi4_mini")),
+          "train_phi4_mini", "train_mamba2_130m", "train_zamba2_7b")),
         ("rmsnorm_residual_kernel", "rmsnorm_residual", "rmsnorm", 24, ()),
-        ("ssd_tc_kernel", "ssd", "ssd", 21, ("serve_mamba2_130m",)),
-        ("ssd_tc_kernel[zamba2]", "ssd_zamba2", "ssd", 21, ("serve_zamba2_7b",)),
+        ("ssd_tc_kernel", "ssd", "ssd", 21, ("serve_mamba2_130m", "train_mamba2_130m")),
+        ("ssd_tc_kernel[zamba2]", "ssd_zamba2", "ssd", 21,
+         ("serve_zamba2_7b", "train_zamba2_7b")),
     )
     for name, key, pkg, line, paths in model_rows:
         t = model_times[key]
@@ -3975,30 +4260,53 @@ def main() -> int:
     flash_bwd = ("flash_attention/csrc/flash_attention_bwd.cu",
                  "src/repro/models/attention.py:75",
                  ("flash_attention_bwd_dq", "flash_attention_bwd_dkdv"))
-    for name, key, err_keys, path, (source, grad_of, counts) in (
+    ssd_bwd = ("ssd/csrc/ssd_bwd.cu", "src/repro/models/ssm.py:82",
+               ("ssd_bwd_state", "ssd_bwd_chunk", "ssd_bwd_reduce"))
+    ssd_bwd_name = "ssd_bwd_state_kernel + ssd_bwd_chunk_kernel + ssd_bwd_reduce_kernel"
+    # the SSD backward's float32 instances run on train_ssm_vs_cpu's paths
+    ssd_f32_paths = [p_ for p_ in serve_launches if p_.startswith("train_ssm_vs_cpu")]
+    for name, key, err, paths, (source, grad_of, counts) in (
             ("flash_bwd_dq_wgmma_kernel + flash_bwd_dkdv_wgmma_kernel (bf16)",
-             "flash_attention_bwd", ("bfloat16",), "train_phi4_mini", flash_bwd),
+             "flash_attention_bwd", train_errs["flash_attention_bwd_bfloat16"],
+             ("train_phi4_mini", "train_zamba2_7b"), flash_bwd),
             ("flash_bwd_dq_kernel + flash_bwd_dkdv_kernel (float32)", "flash_attention_bwd_f32",
-             ("float32",), "train_vs_cpu", flash_bwd),
+             train_errs["flash_attention_bwd_float32"],
+             ("train_vs_cpu", "train_ssm_vs_cpu[zamba2_7b_7_layers]"), flash_bwd),
             ("rmsnorm_bwd_kernel (rmsnorm_bwd_wide_kernel past 384 chunks) + rmsnorm_dw_kernel",
-             "rmsnorm_bwd", ("bfloat16", "float32"), "train_phi4_mini",
+             "rmsnorm_bwd", max(train_errs["rmsnorm_bwd_bfloat16"],
+                                train_errs["rmsnorm_bwd_float32"]),
+             ("train_phi4_mini", "train_mamba2_130m", "train_zamba2_7b"),
              ("rmsnorm/csrc/rmsnorm_bwd.cu", "src/repro/models/layers.py:18",
-              ("rmsnorm_bwd", "rmsnorm_bwd_dw")))):
+              ("rmsnorm_bwd", "rmsnorm_bwd_dw"))),
+            (ssd_bwd_name + " (bf16)", "ssd_bwd", train_errs["ssd_bwd_bfloat16"],
+             ("train_mamba2_130m",), ssd_bwd),
+            (ssd_bwd_name + " (bf16) [zamba2]", "ssd_bwd_zamba2",
+             train_errs["ssd_bwd_bfloat16"], ("train_zamba2_7b",), ssd_bwd),
+            (ssd_bwd_name + " (float32)", "ssd_bwd_f32", train_errs["ssd_bwd_float32"],
+             tuple(ssd_f32_paths), ssd_bwd)):
         t = train_times[key]
-        train = serve_launches[path]
-        n = sum(train[c] for c in counts)
-        check(n > 0, f"{name} was not launched on its main path {path}")
-        err_key = key.removesuffix("_f32")
+        main = {path: {c: serve_launches[path][c] for c in counts} for path in paths}
+        for path, by in main.items():
+            check(all(n > 0 for n in by.values()),
+                  f"{name} was not launched on its main path {path}: {by}")
         kernels.append({
             "name": name, "route": "cuda", "source": "src/repro_torch/kernels/" + source,
-            "replaces": grad_of, "launches": n,
-            "max_abs_err": max(train_errs[f"{err_key}_{d_}"] for d_ in err_keys),
+            "replaces": grad_of,
+            "launches": sum(n for by in main.values() for n in by.values()),
+            "max_abs_err": err,
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"], "shape": t["shape"],
-            "main_path": {path: {c: train[c] for c in counts}},
+            "main_path": main,
             "gradient_of": grad_of + " (JAX autodiff; no backward Pallas kernel)",
             **({"library_backend": t["library_backend"]} if "library_backend" in t else {}),
+            **({"ops_ms_at_scalar_f32": t["ops_ms_at_scalar_f32"]}
+               if "ops_ms_at_scalar_f32" in t else {}),
         })
+        if key == "flash_attention_bwd":  # train_zamba2_7b's shape
+            kernels[-1]["zamba2_shape"] = train_times["flash_attention_bwd_zamba2"]
+        if key.startswith("ssd_bwd"):  # the tolerance's measure: of each gradient's largest value
+            kernels[-1]["max_rel_err"] = train_errs[("ssd_bwd_float32_rel" if "float32" in name
+                                                     else "ssd_bwd_bfloat16_rel")]
     kernels.append({
         "name": "kv_gather_kernel", "route": "cuda",
         "source": "src/repro_torch/kernels/kv_gather/csrc/kv_gather.cu",
@@ -4017,7 +4325,7 @@ def main() -> int:
     saved = sum(c["saved_estimate_s"] for c in CUTS.values())
     phase("time_budget", train_phases_s=train_s, cuts_saved_estimate_s=saved,
           cuts_seconds_now=sum(c["seconds"] for c in CUTS.values()),
-          covered=saved >= train_s, cuts=CUTS)
+          covered=saved >= train_s, cuts=CUTS, ssm_training_phases_s=new_s)
     phase("total", seconds=time.perf_counter() - t_start)
     print(card)
     print(json.dumps({"kernels": kernels}))

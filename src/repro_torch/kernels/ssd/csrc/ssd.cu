@@ -56,6 +56,12 @@
 // its best: each warp re-read its operands from shared memory and stalled
 // on each product's result, where `wgmma` reads them once per warpgroup.
 //
+// For training, each kernel has a second instance (template flag STATES)
+// that also writes the state entering each chunk, float32 [B, nC, H, P, N],
+// for the backward kernels (csrc/ssd_bwd.cu). A template flag and not a
+// runtime branch: the serving instances compile exactly as before (a
+// runtime branch on an optional output spilled the serving flash kernel).
+//
 // float32: `ssd_kernel`, scalar float32 FMAs out of shared memory (the
 // tensor cores would round to TF32, outside the float32 tolerance). One CTA
 // of 16 x 16 threads per (batch, head, P tile) loops over the chunks, the
@@ -86,14 +92,16 @@ size_t smem_floats(int Q, int N, int PT) {
 
 // x [B, S, H, P], dt [B, S, H], Bv / Cv [B, S, N], A_log / D [H], s0
 // [B, H, P, N] or null; y [B, S, H, P], s_out [B, H, P, N]; all float32.
+// With STATES, also the state entering each chunk, states [B, nC, H, P, N].
 // Grid (B * H, ceil(P / PT)).
-template <int PT>
+template <int PT, bool STATES>
 __global__ void __launch_bounds__(NT)
 ssd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
            const float* __restrict__ Bv, const float* __restrict__ Cv,
            const float* __restrict__ A_log,
            const float* __restrict__ Dp, const float* __restrict__ s0, float* __restrict__ y,
-           float* __restrict__ s_out, int S, int H, int P, int N, int Q) {
+           float* __restrict__ s_out, float* __restrict__ states, int S, int H, int P, int N,
+           int Q) {
   constexpr int RP = PT / 16;  // P columns per thread
   extern __shared__ float smem[];
   const int QS = Q + 1;
@@ -122,6 +130,13 @@ ssd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
   for (int c = 0; c < nC; ++c) {
     const int c0 = c * Q;
     __syncthreads();  // the previous chunk's readers are done with the staging
+    if constexpr (STATES) {  // st holds the state entering chunk c until its update
+      float* sc = states + ((size_t)(b * nC + c) * H + h) * P * N;
+      for (int e = tid; e < N * PT; e += NT) {
+        const int pp = e / N, n = e - pp * N, p = p0 + pp;
+        if (p < P) sc[(size_t)p * N + n] = st[n * PT + pp];
+      }
+    }
     for (int j = tid; j < Q; j += NT) {
       const int s = c0 + j;
       dts[j] = s < S ? dt[((size_t)b * S + s) * H + h] : 0.f;
@@ -271,10 +286,14 @@ ssd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
   }
 }
 
+template <bool STATES>
 int launch_scalar(int PT, const float* x, const float* dt, const float* Bv, const float* Cv,
                   const float* A_log, const float* D, const float* s0, float* y,
-                  float* s_out, int B, int S, int H, int P, int N, int Q, cudaStream_t stream) {
-  auto kern = PT == 16 ? ssd_kernel<16> : PT == 32 ? ssd_kernel<32> : ssd_kernel<64>;
+                  float* s_out, float* states, int B, int S, int H, int P, int N, int Q,
+                  cudaStream_t stream) {
+  auto kern = PT == 16   ? ssd_kernel<16, STATES>
+              : PT == 32 ? ssd_kernel<32, STATES>
+                         : ssd_kernel<64, STATES>;
   if (PT != 16 && PT != 32 && PT != 64) return (int)cudaErrorInvalidValue;
   const size_t smem = smem_floats(Q, N, PT) * sizeof(float);
   // opt in to more than 48 KB on every launch (the attribute is per device)
@@ -282,7 +301,8 @@ int launch_scalar(int PT, const float* x, const float* dt, const float* Bv, cons
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(B * H, (P + PT - 1) / PT);
-  kern<<<grid, NT, smem, stream>>>(x, dt, Bv, Cv, A_log, D, s0, y, s_out, S, H, P, N, Q);
+  kern<<<grid, NT, smem, stream>>>(x, dt, Bv, Cv, A_log, D, s0, y, s_out, states, S, H, P, N,
+                                   Q);
   return (int)cudaGetLastError();
 }
 
@@ -542,16 +562,17 @@ constexpr size_t smem_bytes(int NB) {
 
 // x [B, S, H, P], Bv / Cv [B, S, N] bf16; dt [B, S, H], A_log / D [H], s0
 // [B, H, P, N] (or null) float32; y [B, S, H, P], s_out [B, H, P, N] float32;
-// N <= 64 NB. A CTA of two warpgroups owns (batch, head, 64 columns of P)
-// and scans its chunks in order; the next chunk's copies run under this
-// chunk's products. Grid: B * H * ceil(P / 64) CTAs.
-template <int NB>
+// with STATES also states [B, nC, H, P, N] float32, the state entering each
+// chunk. N <= 64 NB. A CTA of two warpgroups owns (batch, head, 64 columns
+// of P) and scans its chunks in order; the next chunk's copies run under
+// this chunk's products. Grid: B * H * ceil(P / 64) CTAs.
+template <int NB, bool STATES>
 __global__ void __launch_bounds__(THREADS, 1)
 ssd_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
               const bf16* __restrict__ Bv, const bf16* __restrict__ Cv,
               const float* __restrict__ A_log, const float* __restrict__ Dp,
               const float* __restrict__ s0, float* __restrict__ y, float* __restrict__ s_out,
-              int S, int H, int P, int N, int Q, int vec) {
+              float* __restrict__ states, int S, int H, int P, int N, int Q, int vec) {
   constexpr int NS = 32 * NB;                     // state registers: [64 x 64 NB] / 128
   constexpr uint32_t CB_BYTES = ROWS * 128 * NB;  // one of C, B
   constexpr uint32_t STAGE_BYTES = 2 * CB_BYTES + ROWS * 128;
@@ -664,6 +685,16 @@ ssd_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
       }
       if (lane == 31) seg[warp] = v;
       cj = v;
+      if constexpr (STATES) {  // st: the state entering chunk c
+        float* sc = states + ((size_t)(b * nC + c) * H + h) * PN;
+#pragma unroll
+        for (int t = 0; t < NS / 4; ++t)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int p = p0 + row + 8 * (e >> 1), n = 8 * t + 2 * gc + (e & 1);
+            if (p < P && n < N) sc[(size_t)p * N + n] = st[4 * t + e];
+          }
+      }
 #pragma unroll
       for (int t = 0; t < NS / 4; ++t)
 #pragma unroll
@@ -801,11 +832,11 @@ ssd_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
   }
 }
 
-template <int NB>
+template <int NB, bool STATES>
 int launch(const bf16* x, const float* dt, const bf16* Bv, const bf16* Cv,
            const float* A_log, const float* D, const float* s0, float* y, float* s_out,
-           int B, int S, int H, int P, int N, int Q, cudaStream_t stream) {
-  auto kern = ssd_tc_kernel<NB>;
+           float* states, int B, int S, int H, int P, int N, int Q, cudaStream_t stream) {
+  auto kern = ssd_tc_kernel<NB, STATES>;
   const long long grid = (long long)B * H * ((P + PT - 1) / PT);
   if (grid >= (1ll << 31)) return (int)cudaErrorInvalidValue;
   constexpr size_t smem = smem_bytes(NB);
@@ -816,8 +847,8 @@ int launch(const bf16* x, const float* dt, const bf16* Bv, const bf16* Cv,
       ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(Bv) |
         reinterpret_cast<uintptr_t>(Cv)) & 15) == 0;
   const int vec = aligned && N % 8 == 0 && P % 8 == 0;
-  kern<<<(unsigned)grid, THREADS, smem, stream>>>(x, dt, Bv, Cv, A_log, D, s0, y, s_out, S, H,
-                                                  P, N, Q, vec);
+  kern<<<(unsigned)grid, THREADS, smem, stream>>>(x, dt, Bv, Cv, A_log, D, s0, y, s_out,
+                                                  states, S, H, P, N, Q, vec);
   return (int)cudaGetLastError();
 }
 
@@ -838,13 +869,14 @@ extern "C" size_t ssd_tc_smem_bytes(int N) { return tc::smem_bytes(N <= 64 ? 1 :
 // x [B, S, H, P], Bv / Cv [B, S, N] contiguous, float32 (dtype 0, the
 // scalar kernel) or bfloat16 (dtype 1, the tensor-core kernel); dt [B, S, H],
 // A_log / D [H], s0 [B, H, P, N] (or null: zeros) float32; y [B, S, H, P] and
-// s_out [B, H, P, N] float32. 1 <= Q <= 128, N <= 128. PT: the float32
-// kernel's P columns per CTA (16, 32 or 64; the bfloat16 kernel's are 64).
-// Returns the launch's CUDA error code.
+// s_out [B, H, P, N] float32; states [B, nC, H, P, N] float32 or null (the
+// serving instances, which write no states). 1 <= Q <= 128, N <= 128. PT:
+// the float32 kernel's P columns per CTA (16, 32 or 64; the bfloat16
+// kernel's are 64). Returns the launch's CUDA error code.
 extern "C" int ssd_launch(const void* x, const void* dt, const void* Bv, const void* Cv,
                           const void* A_log, const void* D, const void* s0, void* y,
-                          void* s_out, int B, int S, int H, int P, int N, int Q, int PT,
-                          int dtype, void* stream) {
+                          void* s_out, void* states, int B, int S, int H, int P, int N, int Q,
+                          int PT, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Q < 1 || Q > QMAX || N < 1 || N > NMAX) return (int)cudaErrorInvalidValue;
   const float* dtf = static_cast<const float*>(dt);
@@ -853,15 +885,28 @@ extern "C" int ssd_launch(const void* x, const void* dt, const void* Bv, const v
   const float* s0f = static_cast<const float*>(s0);
   float* yf = static_cast<float*>(y);
   float* so = static_cast<float*>(s_out);
-  if (dtype == 0)
-    return launch_scalar(PT, static_cast<const float*>(x), dtf, static_cast<const float*>(Bv),
-                         static_cast<const float*>(Cv), al, dp, s0f, yf, so, B, S, H, P, N,
-                         Q, s);
+  float* sts = static_cast<float*>(states);
+  if (dtype == 0) {
+    const float* xf = static_cast<const float*>(x);
+    const float* bf = static_cast<const float*>(Bv);
+    const float* cf = static_cast<const float*>(Cv);
+    return sts ? launch_scalar<true>(PT, xf, dtf, bf, cf, al, dp, s0f, yf, so, sts, B, S, H, P,
+                                     N, Q, s)
+               : launch_scalar<false>(PT, xf, dtf, bf, cf, al, dp, s0f, yf, so, sts, B, S, H,
+                                      P, N, Q, s);
+  }
   if (dtype != 1) return (int)cudaErrorInvalidValue;
   using tc::bf16;
   const bf16* xb = static_cast<const bf16*>(x);
   const bf16* bb = static_cast<const bf16*>(Bv);
   const bf16* cb = static_cast<const bf16*>(Cv);
-  return N <= 64 ? tc::launch<1>(xb, dtf, bb, cb, al, dp, s0f, yf, so, B, S, H, P, N, Q, s)
-                 : tc::launch<2>(xb, dtf, bb, cb, al, dp, s0f, yf, so, B, S, H, P, N, Q, s);
+  if (sts)
+    return N <= 64 ? tc::launch<1, true>(xb, dtf, bb, cb, al, dp, s0f, yf, so, sts, B, S, H, P,
+                                         N, Q, s)
+                   : tc::launch<2, true>(xb, dtf, bb, cb, al, dp, s0f, yf, so, sts, B, S, H, P,
+                                         N, Q, s);
+  return N <= 64 ? tc::launch<1, false>(xb, dtf, bb, cb, al, dp, s0f, yf, so, sts, B, S, H, P,
+                                        N, Q, s)
+                 : tc::launch<2, false>(xb, dtf, bb, cb, al, dp, s0f, yf, so, sts, B, S, H, P,
+                                        N, Q, s);
 }

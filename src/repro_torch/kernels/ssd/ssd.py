@@ -16,10 +16,20 @@ counting as dt = 0. One kernel for each dtype:
   chunk's products;
 * float32 runs ``ssd_kernel``, scalar float32 FMAs (no serve path).
 
+For training, ``states=True`` launches each kernel's second instance, which
+also writes the state entering each chunk, and ``ssd_bwd_cuda`` launches
+the three backward kernels (``csrc/ssd_bwd.cu``: the reverse scan of the
+state's gradient over chunks, a pass per (batch, chunk, head) for dx, dt
+and the head's partials, and their reduction in a fixed order; no atomics;
+scalar float32 FMAs for both dtypes, P <= 64). The JAX package
+differentiates ``repro.models.ssm.ssd_chunked`` (``src/repro/models/ssm.py:82``)
+by autodiff; it has no backward kernel to replace.
+
 Every shape the wrapper admits goes to its dtype's kernel; a CUDA tensor
-launches it or raises. The library is built by ``repro_torch.kernels.build``
-at first use on a CUDA tensor, into ``_build/`` beside this file; importing
-builds nothing. ``LAUNCHES`` counts the launches.
+launches it or raises. The libraries are built by
+``repro_torch.kernels.build`` at first use on a CUDA tensor, into
+``_build/`` beside this file; importing builds nothing. ``LAUNCHES`` counts
+the launches of each kernel.
 """
 from __future__ import annotations
 
@@ -31,18 +41,21 @@ import torch
 from repro_torch.kernels.build import CudaLibrary, ptr, refuse_grad, stream
 
 SOURCES = (Path(__file__).parent / "csrc" / "ssd.cu",)
+BWD_SOURCES = (Path(__file__).parent / "csrc" / "ssd_bwd.cu",)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_CHUNK = MAX_STATE = 128  # the kernels' register tiles
+MAX_BWD_P = 64  # P the backward kernels hold per CTA
 P_TILES = (64, 32, 16)  # P columns per CTA the float32 kernel is built for
 SMEM_LIMIT = 232_448  # shared memory one CTA may opt in to on an H100
 
-# launches, counted where the wrapper launches the kernel
-LAUNCHES = {"ssd": 0}
+# launches, counted where the wrapper launches each kernel (the forward's
+# STATES instance counts as "ssd")
+LAUNCHES = {"ssd": 0, "ssd_bwd_state": 0, "ssd_bwd_chunk": 0, "ssd_bwd_reduce": 0}
 
 
 def _declare(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.ssd_launch.argtypes = [vp] * 9 + [ci] * 8 + [vp]
+    lib.ssd_launch.argtypes = [vp] * 10 + [ci] * 8 + [vp]
     lib.ssd_launch.restype = ci
     lib.ssd_smem_bytes.argtypes = [ci] * 3
     lib.ssd_smem_bytes.restype = ctypes.c_size_t
@@ -50,7 +63,22 @@ def _declare(lib):
     lib.ssd_tc_smem_bytes.restype = ctypes.c_size_t
 
 
+def _declare_bwd(lib):
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.ssd_bwd_state_launch.argtypes = [vp] * 7 + [ci] * 7 + [vp]
+    lib.ssd_bwd_chunk_launch.argtypes = [vp] * 15 + [ci] * 7 + [vp]
+    lib.ssd_bwd_reduce_launch.argtypes = [vp] * 8 + [ci] * 6 + [vp]
+    for fn in (lib.ssd_bwd_state_launch, lib.ssd_bwd_chunk_launch, lib.ssd_bwd_reduce_launch):
+        fn.restype = ci
+    lib.ssd_bwd_state_smem_bytes.argtypes = [ci] * 2
+    lib.ssd_bwd_chunk_smem_bytes.argtypes = [ci] * 2
+    lib.ssd_bwd_state_smem_bytes.restype = ctypes.c_size_t
+    lib.ssd_bwd_chunk_smem_bytes.restype = ctypes.c_size_t
+
+
 LIBRARY = CudaLibrary("ssd", SOURCES, Path(__file__).parent / "_build", _declare)
+BWD_LIBRARY = CudaLibrary("ssd_bwd", BWD_SOURCES, Path(__file__).parent / "_build",
+                          _declare_bwd)
 
 
 def _check(name, t, shape, dtype, device):
@@ -61,17 +89,12 @@ def _check(name, t, shape, dtype, device):
                          f"got {list(t.shape)}")
 
 
-def ssd_cuda(x, dt, Bv, Cv, A_log, D, chunk: int, state_init=None):
-    """Launch the kernel on contiguous CUDA tensors: x [B, S, H, P] (float32
-    or bfloat16), dt [B, S, H] float32 (post-softplus), Bv and Cv [B, S, N]
-    in x's dtype, A_log and D [H] float32, state_init [B, H, P, N] float32
-    or None (zeros); chunks of ``min(chunk, S)`` steps. Returns fresh
-    (y [B, S, H, P] float32, final state [B, H, P, N] float32); the inputs
-    are only read."""
-    refuse_grad("ssd_cuda", x, dt, Bv, Cv, A_log, D, state_init)
+def _check_inputs(x, dt, Bv, Cv, A_log, D, chunk, state_init):
+    """The checks shared by the forward and the backward; returns (B, S, H,
+    P, N, Q)."""
     dev = x.device
     if dev.type != "cuda":
-        raise ValueError(f"ssd_cuda needs CUDA tensors, got {dev}")
+        raise ValueError(f"the SSD kernels need CUDA tensors, got {dev}")
     if x.dtype not in DTYPES:
         raise TypeError(f"the SSD kernel takes float32 or bfloat16, got {x.dtype}")
     if x.dim() != 4 or Bv.dim() != 3:
@@ -94,28 +117,95 @@ def ssd_cuda(x, dt, Bv, Cv, A_log, D, chunk: int, state_init=None):
         raise ValueError(f"empty input {list(x.shape)}")
     if B * H >= 2**31:
         raise ValueError(f"B * H = {B * H} exceeds one launch's grid")
+    return B, S, H, P, N, Q
+
+
+def ssd_cuda(x, dt, Bv, Cv, A_log, D, chunk: int, state_init=None, *, states: bool = False):
+    """Launch the kernel on contiguous CUDA tensors: x [B, S, H, P] (float32
+    or bfloat16), dt [B, S, H] float32 (post-softplus), Bv and Cv [B, S, N]
+    in x's dtype, A_log and D [H] float32, state_init [B, H, P, N] float32
+    or None (zeros); chunks of ``min(chunk, S)`` steps. Returns fresh
+    (y [B, S, H, P] float32, final state [B, H, P, N] float32), and with
+    ``states`` also the state entering each chunk [B, nC, H, P, N] float32
+    (the backward's input); the inputs are only read."""
+    refuse_grad("ssd_cuda", x, dt, Bv, Cv, A_log, D, state_init)
+    B, S, H, P, N, Q = _check_inputs(x, dt, Bv, Cv, A_log, D, chunk, state_init)
     lib = LIBRARY.load()
+    sts = (torch.empty((B, -(-S // Q), H, P, N), dtype=torch.float32, device=x.device)
+           if states else None)
     if x.dtype == torch.bfloat16:
-        return _launch(lib, x, dt, Bv, Cv, A_log, D, Q, state_init, 0)
+        return _launch(lib, x, dt, Bv, Cv, A_log, D, Q, state_init, 0, sts)
     fits = [pt for pt in P_TILES if lib.ssd_smem_bytes(Q, N, pt) <= SMEM_LIMIT]
     # the narrowest tile that covers P, else the widest that fits
     PT = min((pt for pt in fits if pt >= P), default=fits[0] if fits else None)
     if PT is None:
         raise ValueError(f"no P tile fits shared memory at chunk {Q}, N={N}")
-    return _launch(lib, x, dt, Bv, Cv, A_log, D, Q, state_init, PT)
+    return _launch(lib, x, dt, Bv, Cv, A_log, D, Q, state_init, PT, sts)
 
 
-def _launch(lib, x, dt, Bv, Cv, A_log, D, Q, state_init, p_tile):
+def _launch(lib, x, dt, Bv, Cv, A_log, D, Q, state_init, p_tile, states=None):
     """One launch on checked tensors; ``p_tile``: the float32 kernel's P
-    columns per CTA (the bf16 kernel's are fixed)."""
+    columns per CTA (the bf16 kernel's are fixed); ``states`` (or None): the
+    [B, nC, H, P, N] float32 tensor the STATES instance fills."""
     B, S, H, P = x.shape
     N = Bv.shape[2]
     y = torch.empty((B, S, H, P), dtype=torch.float32, device=x.device)
     state = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
     err = lib.ssd_launch(ptr(x), ptr(dt), ptr(Bv), ptr(Cv), ptr(A_log), ptr(D),
-                         ptr(state_init), ptr(y), ptr(state), B, S, H, P, N, Q, p_tile,
-                         DTYPES[x.dtype], stream(x.device))
+                         ptr(state_init), ptr(y), ptr(state), ptr(states), B, S, H, P, N, Q,
+                         p_tile, DTYPES[x.dtype], stream(x.device))
     if err != 0:
         raise RuntimeError(f"SSD kernel launch failed: CUDA error {err}")
     LAUNCHES["ssd"] += 1
-    return y, state
+    return (y, state) if states is None else (y, state, states)
+
+
+def ssd_bwd_cuda(x, dt, Bv, Cv, A_log, D, chunk: int, states, dy, d_final_state=None,
+                 want_dstate: bool = False):
+    """The gradients of ``ssd_cuda(x, dt, Bv, Cv, A_log, D, chunk,
+    state_init)`` for the cotangents ``dy`` [B, S, H, P] float32 of y and
+    ``d_final_state`` [B, H, P, N] float32 (None: zero) of the final state,
+    from the forward's inputs and ``states`` [B, nC, H, P, N] (its
+    ``states=True`` output): the reverse scan, the pass per chunk and the
+    reduction, on the current stream. Tensors as ``ssd_cuda``'s, P <= 64.
+    Returns fresh (dx in x's dtype, ddt float32, dA_log float32, dBv and
+    dCv in x's dtype, dD float32, d state_init float32 or None unless
+    ``want_dstate``); the inputs are only read."""
+    B, S, H, P, N, Q = _check_inputs(x, dt, Bv, Cv, A_log, D, chunk, None)
+    if P > MAX_BWD_P:
+        raise ValueError(f"the SSD backward kernels take P <= {MAX_BWD_P}, got P={P}")
+    dev, nC = x.device, -(-S // Q)
+    _check("states", states, (B, nC, H, P, N), torch.float32, dev)
+    _check("dy", dy, (B, S, H, P), torch.float32, dev)
+    if d_final_state is not None:
+        _check("d_final_state", d_final_state, (B, H, P, N), torch.float32, dev)
+    lib, st, code = BWD_LIBRARY.load(), stream(dev), DTYPES[x.dtype]
+    if lib.ssd_bwd_chunk_smem_bytes(Q, P) > SMEM_LIMIT:
+        raise ValueError(f"the SSD backward's chunk pass does not fit shared memory at "
+                         f"chunk {Q}, P={P}")
+    f32 = dict(dtype=torch.float32, device=dev)
+    gout = torch.empty((B, nC, H, P, N), **f32)
+    ds0 = torch.empty((B, H, P, N), **f32) if want_dstate else None
+    err = lib.ssd_bwd_state_launch(ptr(dy), ptr(dt), ptr(Cv), ptr(A_log), ptr(d_final_state),
+                                   ptr(gout), ptr(ds0), B, S, H, P, N, Q, code, st)
+    if err != 0:
+        raise RuntimeError(f"SSD backward state kernel launch failed: CUDA error {err}")
+    LAUNCHES["ssd_bwd_state"] += 1
+    dx, ddt = torch.empty_like(x), torch.empty((B, S, H), **f32)
+    dBp, dCp = (torch.empty((B, nC, H, Q, N), **f32) for _ in range(2))
+    dDp, dAp = (torch.empty((B, nC, H), **f32) for _ in range(2))
+    err = lib.ssd_bwd_chunk_launch(ptr(x), ptr(dt), ptr(Bv), ptr(Cv), ptr(A_log), ptr(D),
+                                   ptr(states), ptr(gout), ptr(dy), ptr(dx), ptr(ddt),
+                                   ptr(dBp), ptr(dCp), ptr(dDp), ptr(dAp),
+                                   B, S, H, P, N, Q, code, st)
+    if err != 0:
+        raise RuntimeError(f"SSD backward chunk kernel launch failed: CUDA error {err}")
+    LAUNCHES["ssd_bwd_chunk"] += 1
+    dB, dC = torch.empty_like(Bv), torch.empty_like(Cv)
+    dD, dA_log = torch.empty((H,), **f32), torch.empty((H,), **f32)
+    err = lib.ssd_bwd_reduce_launch(ptr(dBp), ptr(dCp), ptr(dDp), ptr(dAp), ptr(dB), ptr(dC),
+                                    ptr(dD), ptr(dA_log), B, S, H, N, Q, code, st)
+    if err != 0:
+        raise RuntimeError(f"SSD backward reduce kernel launch failed: CUDA error {err}")
+    LAUNCHES["ssd_bwd_reduce"] += 1
+    return dx, ddt, dA_log, dB, dC, dD, ds0

@@ -11,14 +11,16 @@ buffers; the port never writes them). Checkpoints are the JAX package's
 (``{"params", "opt"}``, stacked layers, JAX's keys), so either package
 restores the other's.
 
-On a card the step's attention and RMSNorm run through the hand-written
-kernels and their backward kernels (``kernels.flash_attention.ops``,
-``kernels.rmsnorm.ops``); no plain version runs. That covers the dense GQA
-family; the card refuses the families and options whose backward is not
-ported (``ssm`` and ``hybrid``: no SSD backward; ``moe``: the grouped
-product's backward is unverified; local:global windows, MLA and the
-encoder-decoder). On the CPU every family that ``loss_fn`` runs trains,
-through the plain versions, which autograd differentiates.
+On a card the step's attention, RMSNorm and SSD scan run through the
+hand-written kernels and their backward kernels (``kernels.flash_attention.
+ops``, ``kernels.rmsnorm.ops``, ``kernels.ssd.ops``); no plain version runs.
+That covers the dense GQA family, ``ssm`` (Mamba-2) and ``hybrid`` (Zamba2:
+Mamba-2 layers and a tied GQA block, whose gradient autograd sums over its
+applications); the card refuses the families and options whose backward is
+not ported (``moe``: the grouped product's backward is unverified;
+local:global windows, MLA and the encoder-decoder). On the CPU every family
+that ``loss_fn`` runs trains, through the plain versions, which autograd
+differentiates.
 """
 from __future__ import annotations
 
@@ -74,15 +76,16 @@ class TrainerConfig:
 
 def check_trainable(cfg: ModelConfig, device: torch.device):
     """Raise ``NotImplementedError`` where the card cannot train ``cfg``:
-    anything but a plain dense GQA model."""
+    anything but a plain dense GQA model, Mamba-2 (``ssm``) or a hybrid of
+    Mamba-2 and GQA layers."""
     if device.type != "cuda":
         return
     why = None
-    if cfg.family in ("ssm", "hybrid"):
-        why = f"the {cfg.family!r} family (the SSD scan has no backward kernel)"
+    if cfg.family == "ssm":
+        pass  # attention-free: the SSD scan's backward kernels
     elif cfg.family == "moe":
         why = "the 'moe' family (the grouped product's backward is unverified)"
-    elif cfg.family != "dense":
+    elif cfg.family not in ("dense", "hybrid"):
         why = f"the {cfg.family!r} family"
     elif cfg.local_global_period or cfg.sliding_window:
         why = "local:global sliding-window attention (no windowed backward kernel)"

@@ -1,5 +1,7 @@
 """The backward kernels (flash attention's dQ and dK / dV, RMSNorm's dx /
-dw) and training on the card, against the plain versions' autograd.
+dw, the SSD scan's three) and training on the card, against the plain
+versions' autograd (the SSD scan's against its plain backward
+``ssd_chunked_bwd_ref``).
 
 These tests need a CUDA device and skip without one (the kernels have no
 CPU mode); run them on the GPU host with
@@ -9,9 +11,12 @@ This file imports neither JAX nor ``repro``. Tolerances (those of
 float32 atol / rtol 2e-4 (scores over up to 520 keys and the five products
 in another order), bf16 5e-2 (the gradients rounded to bf16 on both sides;
 the kernel's Delta from the bf16 output); RMSNorm float32 1e-4 / 1e-5 (dw
-sums 2048 rows in another order), bf16 3e-2. Training: a reduced Granite
-trained 3 steps in float32 on the card and on the CPU from the same
-parameters, losses within rtol 1e-4.
+sums 2048 rows in another order), bf16 3e-2; the SSD scan's gradients
+within 1e-4 of each one's largest value in float32 and 1e-2 in bf16 (the
+kernels compute in float32 on the same bf16 inputs and round each gradient
+once). Training: a reduced Granite, Mamba-2 and Zamba2 trained 3 steps in
+float32 on the card and on the CPU from the same parameters, losses within
+rtol 1e-4.
 """
 import numpy as np
 import pytest
@@ -25,6 +30,9 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.rmsnorm import ops as trms
 from repro_torch.kernels.rmsnorm import rmsnorm as rkern
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.kernels.ssd import ops as tssd
+from repro_torch.kernels.ssd import ssd as skern
+from repro_torch.kernels.ssd.ref import ssd_chunked_bwd_ref
 from repro_torch.models import model as TM
 from repro_torch.optim.adamw import AdamWConfig, adamw_init
 from repro_torch.train.trainer import Trainer, TrainerConfig
@@ -32,6 +40,7 @@ from repro_torch.train.trainer import Trainer, TrainerConfig
 DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 ATTN_TOL = {"float32": dict(atol=2e-4, rtol=2e-4), "bfloat16": dict(atol=5e-2, rtol=5e-2)}
 RMS_TOL = {"float32": dict(atol=1e-4, rtol=1e-5), "bfloat16": dict(atol=3e-2, rtol=3e-2)}
+SSD_GRAD_REL = {"float32": 1e-4, "bfloat16": 1e-2}  # of each gradient's largest value
 
 
 def _card(rng, shape, dtype):
@@ -153,3 +162,87 @@ def test_unembed_gradient_on_card_matches_cpu():
     for a, b in zip(*grads):
         assert a.dtype == torch.bfloat16
         torch.testing.assert_close(a.float(), b.float(), **ATTN_TOL["bfloat16"])
+
+
+def _ssd_card(rng, B, S, H, P, N, dtype, init, fin):
+    """SSD inputs on the card (x, Bv, Cv in ``dtype``), dy and the optional
+    entering state and final-state cotangent in float32."""
+    f = lambda *sh: _card(rng, sh, "float32")
+    x, Bv, Cv = (0.5 * f(*sh) for sh in ((B, S, H, P), (B, S, N), (B, S, N)))
+    dt = torch.nn.functional.softplus(f(B, S, H))
+    A_log, D = 0.2 * f(H), 1 + 0.1 * f(H)
+    s0 = 0.5 * f(B, H, P, N) if init else None
+    return (x.to(DT[dtype]), dt, A_log, Bv.to(DT[dtype]), Cv.to(DT[dtype]), D, s0,
+            f(B, S, H, P), f(B, H, P, N) if fin else None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,P,N,chunk,init,fin", [
+    (2, 96, 3, 16, 8, 32, False, False),
+    (2, 100, 3, 16, 16, 32, True, True),  # ragged, an entering state, a final cotangent
+    (1, 520, 4, 64, 128, 128, False, True),  # Mamba-2's widths, ragged
+    (1, 300, 6, 64, 64, 128, True, False),  # Zamba2's
+    (2, 200, 3, 40, 72, 100, False, False),  # off every tile
+    (2, 1, 2, 64, 128, 128, False, False),  # S = 1
+])
+def test_ssd_backward_matches_plain(B, S, H, P, N, chunk, init, fin, dtype):
+    rng = np.random.default_rng(14)
+    x, dt, A_log, Bv, Cv, D, s0, dy, dfin = _ssd_card(rng, B, S, H, P, N, dtype, init, fin)
+    y0, f0 = skern.ssd_cuda(x, dt, Bv, Cv, A_log, D, chunk, s0)
+    y, fs, states = skern.ssd_cuda(x, dt, Bv, Cv, A_log, D, chunk, s0, states=True)
+    assert torch.equal(y, y0) and torch.equal(fs, f0)  # the STATES instance's outputs
+    runs = [skern.ssd_bwd_cuda(x, dt, Bv, Cv, A_log, D, chunk, states, dy, dfin,
+                               want_dstate=init) for _ in range(2)]
+    want = ssd_chunked_bwd_ref(x, dt, A_log, Bv, Cv, D, chunk, s0, dy, dfin)
+    for name, got, w in zip(("dx", "ddt", "dA_log", "dBv", "dCv", "dD", "ds0"), runs[0], want):
+        if w is None:
+            assert got is None
+            continue
+        assert got.dtype == (x.dtype if name in ("dx", "dBv", "dCv") else torch.float32)
+        err = float((got.float() - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+        assert err <= SSD_GRAD_REL[dtype], (name, err)
+    assert all(a is None and b is None or torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.gpu
+def test_ssd_chunked_goes_through_the_backward_kernels():
+    rng = np.random.default_rng(15)
+    x, dt, A_log, Bv, Cv, D, _, dy, _ = _ssd_card(rng, 2, 200, 4, 64, 64, "bfloat16",
+                                                  False, False)
+    before = dict(skern.LAUNCHES)
+    leaves = [t.clone().requires_grad_(True) for t in (x, dt, A_log, Bv, Cv, D)]
+    y, _ = tssd.ssd_chunked(*leaves, 128)
+    y.backward(dy)
+    assert {k: skern.LAUNCHES[k] - before[k] for k in before} == dict.fromkeys(before, 1)
+    assert all(t.grad is not None and t.grad.dtype == t.dtype for t in leaves)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-7b"])
+def test_ssm_training_on_card_matches_cpu(arch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch).reduced()
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=64, global_batch=2)
+    init = TM.params_to_numpy(cfg, TM.init_params(cfg, device="cpu"))
+    hists = {}
+    for dev in ("cpu", "cuda"):
+        tr = Trainer(cfg, dcfg, TrainerConfig(steps=3, log_every=0, opt=AdamWConfig(lr=1e-3)),
+                     device=dev)
+
+        def init_state(dev=dev):
+            p = TM.params_from_numpy(cfg, init, device=dev).float()
+            for q in p.parameters():
+                q.requires_grad_(True)
+            return p, adamw_init(dict(p.named_parameters()))
+
+        tr.init_state = init_state
+        before = dict(skern.LAUNCHES)
+        _, _, hists[dev] = tr.run(resume=False)
+        if dev == "cuda":
+            assert skern.LAUNCHES["ssd_bwd_chunk"] - before["ssd_bwd_chunk"] == 3 * cfg.n_layers
+    for a, b in zip(hists["cpu"], hists["cuda"]):
+        np.testing.assert_allclose(b["loss"], a["loss"], rtol=1e-4)
+        np.testing.assert_allclose(b["grad_norm"], a["grad_norm"], rtol=1e-4)

@@ -352,18 +352,23 @@ def test_runtime_mesh_fields_raise(field, value):
 @pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-7b", "llama4-scout-17b-a16e",
                                   "gemma3-4b", "deepseek-v2-236b", "seamless-m4t-medium"])
 def test_card_training_outside_dense_gqa_raises(arch, monkeypatch):
-    """The card trains the dense GQA family only (the backward kernels);
-    the trainer refuses the rest on the card before it touches it, and
-    ``mode="ddp"`` anywhere, each naming the ROADMAP item. The CPU trains
-    every family; without a card and without ``device="cpu"`` the trainer
-    raises rather than drop to the CPU."""
+    """The card trains the dense GQA family, Mamba-2 (``ssm``) and the
+    Mamba-2 / GQA hybrid (the backward kernels); the trainer refuses the
+    rest on the card before it touches it, and ``mode="ddp"`` anywhere,
+    each naming the ROADMAP item. The CPU trains every family; without a
+    card and without ``device="cpu"`` the trainer raises rather than drop
+    to the CPU."""
     from repro_torch.data import DataConfig
     from repro_torch.train import Trainer, TrainerConfig
+    from repro_torch.train.trainer import check_trainable
 
     cfg = get_config(arch).reduced()
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=8, global_batch=1)
-    with pytest.raises(NotImplementedError, match="item 12 step 7b"):
-        Trainer(cfg, dcfg, TrainerConfig(), device="cuda")
+    if cfg.family in ("ssm", "hybrid"):  # the SSD scan's backward kernels
+        check_trainable(cfg, torch.device("cuda"))
+    else:
+        with pytest.raises(NotImplementedError, match="item 12 step 7b"):
+            Trainer(cfg, dcfg, TrainerConfig(), device="cuda")
     with pytest.raises(NotImplementedError, match="item 12 step 7b"):
         Trainer(cfg, dcfg, TrainerConfig(mode="ddp"), device="cpu")
     assert Trainer(cfg, dcfg, TrainerConfig(), device="cpu").device.type == "cpu"

@@ -131,12 +131,16 @@ def test_nan_step_leaves_the_state_unchanged(monkeypatch):
 
 
 def test_card_refuses_what_it_cannot_train():
-    """The card trains the dense GQA family; everything else raises naming
-    the ROADMAP item, before anything touches the card."""
+    """The card trains the dense GQA family, Mamba-2 and the Mamba-2 / GQA
+    hybrid; everything else raises naming the ROADMAP item, before anything
+    touches the card."""
     dev = torch.device("cuda")
     TT.check_trainable(get_config("phi4-mini-3.8b"), dev)
     TT.check_trainable(get_config("granite-8b").reduced(), dev)
-    for arch, cfg_kw in (("mamba2-130m", {}), ("zamba2-7b", {}), ("llama4-scout-17b-a16e", {}),
+    TT.check_trainable(get_config("mamba2-130m"), dev)
+    TT.check_trainable(get_config("zamba2-7b"), dev)
+    TT.check_trainable(get_config("zamba2-7b").reduced(), dev)
+    for arch, cfg_kw in (("llama4-scout-17b-a16e", {}),
                          ("gemma3-4b", {}), ("deepseek-v2-236b", {}),
                          ("seamless-m4t-medium", {}), ("phi4-mini-3.8b", {"attn_kind": "mla"})):
         cfg = get_config(arch).replace(**cfg_kw)

@@ -1,7 +1,9 @@
 """The port's training loss and every parameter's gradient against
 ``jax.value_and_grad(loss_fn)`` on the CPU in float32, with JAX's initial
 parameters carried across (``models.model.params_from_numpy``), on
-``granite-8b`` (dense GQA), ``mamba2-130m`` (SSM) and
+``granite-8b`` (dense GQA), ``mamba2-130m`` (SSM), ``zamba2-7b`` (hybrid:
+two superblocks of Mamba-2 layers, each followed by the tied
+``shared_attn`` block, whose gradient sums its two applications') and
 ``llama4-scout-17b-a16e`` (MoE: float32 routes every token alike, as in
 ``tests/test_torch_serve.py``) ``reduced()``: the loss and its metrics
 within rtol 1e-5, each gradient within atol ``GRAD_ATOL`` x its largest
@@ -39,7 +41,8 @@ def _port_params(cfg, flat):
     return p
 
 
-@pytest.mark.parametrize("arch", ["granite-8b", "mamba2-130m", "llama4-scout-17b-a16e"])
+@pytest.mark.parametrize("arch", ["granite-8b", "mamba2-130m", "zamba2-7b",
+                                  "llama4-scout-17b-a16e"])
 def test_loss_and_grads_match_jax(arch):
     jcfg, cfg = jax_get_config(arch).reduced(), get_config(arch).reduced()
     jp = jax.tree.map(lambda a: a.astype(jnp.float32), JM.init_params(jcfg, jax.random.key(0)))

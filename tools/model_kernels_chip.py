@@ -1,9 +1,10 @@
 """The model kernels alone on the card: resources, agreement and times.
 
-    PYTHONPATH=src python tools/model_kernels_chip.py [--skip-times] [--train-only]
+    PYTHONPATH=src python tools/model_kernels_chip.py [--skip-times] [--train-only] [OTHER_ROOT]
 
 Needs a CUDA device and ``nvcc``. For each model kernel package
-(flash attention and its backward, RMSNorm with its backward, SSD) it
+(flash attention and its backward, RMSNorm with its backward, SSD and its
+backward) it
 
 1. compiles the package's sources with ``chip_smoke.py``'s ``nvcc`` flags
    plus ``-Xptxas -v`` and prints, for each kernel instantiation, its
@@ -12,11 +13,20 @@ Needs a CUDA device and ``nvcc``. For each model kernel package
    shared memory at N <= 64 and N <= 128);
 2. runs ``chip_smoke.compare_model_kernels`` (every kernel against its
    plain version, at the serve paths' shapes and the edge cases) and
-   ``chip_smoke.compare_train_kernels`` (the backward kernels against the
-   plain versions' autograd) and, unless ``--skip-times``,
+   ``chip_smoke.compare_train_kernels`` and ``compare_train_ssd`` (the
+   backward kernels against the plain versions' autograd, the SSD scan's
+   against its plain backward) and, unless ``--skip-times``,
    ``chip_smoke.time_model_kernels`` and ``time_train_kernels`` (kernel,
    plain and one PyTorch call, with the bound), printing their phase lines;
-   ``--train-only`` runs the backward kernels' phases alone.
+   ``--train-only`` runs the backward kernels' phases alone;
+3. with ``OTHER_ROOT``, another checkout (for example the parent commit,
+   unpacked by ``git archive`` into the ignored ``_proof/``), also compiles
+   that tree's serving libraries (flash attention's and SSD's forward) with
+   ``ptxas -v``, checks that each serving instance of this tree has the
+   other tree's figures (SSD's ``STATES`` instances, which only training
+   launches, left out), launches both trees' SSD forward on the same inputs
+   and checks the output and the final state bit-equal, and prints one
+   JSON line ``{"serving_vs_other": ...}``.
 
 It is the quick check of a model-kernel change; ``chip_smoke.py`` runs the
 same two phases inside the whole run.
@@ -84,6 +94,80 @@ def ptxas_report(lib):
     return out
 
 
+def other_library(lib, root: Path):
+    """``lib`` built from ``root``'s copy of its sources into ``root``'s own
+    build directory; only SSD's forward launcher is declared, as the tree
+    before the ``STATES`` flag declares it (no states pointer)."""
+    import ctypes
+
+    from repro_torch.kernels.build import CudaLibrary
+
+    def declare(so):
+        if hasattr(so, "ssd_launch"):
+            vp, ci = ctypes.c_void_p, ctypes.c_int
+            so.ssd_launch.argtypes = [vp] * 9 + [ci] * 8 + [vp]
+            so.ssd_launch.restype = ci
+
+    here = lambda p: p.resolve().relative_to(ROOT)  # noqa: E731
+    return CudaLibrary(lib.name, tuple(root / here(s) for s in lib.sources),
+                       root / here(lib.build_dir), declare)
+
+
+def serving_rows(name, rows):
+    """One library's ptxas rows keyed by instance name without its parameter
+    list; for ``ssd``, the serving instances only, named without their
+    ``STATES`` flag (as the tree before the flag names them)."""
+    out = {}
+    for k, v in rows.items():
+        if k in ("warnings", "bf16_dynamic_smem"):
+            continue
+        key = k[: k.index(">(") + 1] if ">(" in k else k
+        if name == "ssd":
+            if "(bool)1>" in key:
+                continue
+            key = re.sub(r",\s*\(bool\)0>", ">", key)
+        out[key] = v
+    return out
+
+
+def serving_vs_other(reports, other_reports, other_ssd, dev):
+    """This tree's serving instances against the other tree's: ptxas
+    figures equal, and the SSD forward's outputs bit-equal at Mamba-2's and
+    Zamba2's serving shapes (bf16), with an entering state, and at a float32
+    sweep shape."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as CS
+    from repro_torch.kernels.build import ptr, stream
+    from repro_torch.kernels.ssd import ssd as SK
+
+    for name, rows in other_reports.items():
+        mine, theirs = serving_rows(name, reports[name]), serving_rows(name, rows)
+        CS.check(mine == theirs, f"{name}: the serving instances' ptxas figures differ: "
+                                 f"{mine} vs {theirs}")
+    so = other_ssd.load()
+    rng = np.random.default_rng(46)
+    same = []
+    for B, S, H, P, N, dtype, init in ((4, 512, 24, 64, 128, torch.bfloat16, False),
+                                       (4, 512, 112, 64, 64, torch.bfloat16, False),
+                                       (2, 200, 24, 64, 128, torch.bfloat16, True),
+                                       (2, 128, 3, 16, 8, torch.float32, False)):
+        x, dt, Bv, Cv, A_log, D, s0 = CS.ssd_inputs(rng, B, S, H, P, N, dtype, dev, init)
+        y, st = SK.ssd_cuda(x, dt, Bv, Cv, A_log, D, 128, s0)
+        y2, st2 = torch.empty_like(y), torch.empty_like(st)
+        pt = 0 if dtype == torch.bfloat16 else 16
+        err = so.ssd_launch(ptr(x), ptr(dt), ptr(Bv), ptr(Cv), ptr(A_log), ptr(D), ptr(s0),
+                            ptr(y2), ptr(st2), B, S, H, P, N, min(128, S), pt,
+                            SK.DTYPES[dtype], stream(dev))
+        torch.cuda.synchronize()
+        CS.check(err == 0, f"the other tree's SSD launch failed: {err}")
+        same.append(bool(torch.equal(y, y2) and torch.equal(st, st2)))
+    CS.check(all(same), f"serving outputs differ from the other tree's: {same}")
+    print(json.dumps({"serving_vs_other": {
+        "ptxas_equal": sorted(other_reports), "ssd_outputs_bit_equal": same}}), flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -96,18 +180,27 @@ def main() -> int:
     from repro_torch.kernels.rmsnorm import rmsnorm as RK
     from repro_torch.kernels.ssd import ssd as SK
 
-    libs = (FK.LIBRARY, FK.BWD_LIBRARY, RK.LIBRARY, SK.LIBRARY)
-    with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc per source, together
-        reports = {lib.name: r for lib, r in zip(libs, pool.map(ptxas_report, libs))}
+    args = [a for a in sys.argv[1:] if not a.startswith("--")]
+    other = Path(args[0]).resolve() if args else None
+    libs = (FK.LIBRARY, FK.BWD_LIBRARY, RK.LIBRARY, SK.LIBRARY, SK.BWD_LIBRARY)
+    theirs = () if other is None else (other_library(FK.LIBRARY, other),
+                                       other_library(SK.LIBRARY, other))
+    with ThreadPoolExecutor(len(libs) + len(theirs)) as pool:  # one nvcc per source, together
+        done = list(pool.map(ptxas_report, libs + theirs))
+    reports = {lib.name: r for lib, r in zip(libs, done)}
+    other_reports = {lib.name: r for lib, r in zip(theirs, done[len(libs):])}
     # the bf16 SSD kernel's shared memory is dynamic: its size by state width
     reports["ssd"]["bf16_dynamic_smem"] = {
         f"N<={n}": SK.LIBRARY.load().ssd_tc_smem_bytes(n) for n in (64, 128)}
-    print(json.dumps({"ptxas": reports}))
+    print(json.dumps({"ptxas": reports} | ({"ptxas_other": other_reports} if theirs else {})))
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
+    if theirs:
+        serving_vs_other(reports, other_reports, theirs[1], dev)
     if "--train-only" not in sys.argv:
         CS.compare_model_kernels(dev)
     CS.compare_train_kernels(dev)
+    CS.compare_train_ssd(dev)
     if "--skip-times" not in sys.argv:
         if "--train-only" not in sys.argv:
             CS.time_model_kernels(dev)
