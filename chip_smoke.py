@@ -1695,7 +1695,9 @@ def compare_train_ssd(dev):
     ``SSD_GRAD_REL`` of each gradient's largest value: at Mamba-2's and
     Zamba2's training shapes (B 4 x 512, Q 128, P 64; H 24, N 128 and H 112,
     N 64), a ragged S, an entering state with a final-state gradient, a shape
-    off every tile and the narrow test shape; two runs bit-equal, inputs
+    off every tile, the narrow test shape and, in bf16, heads that the
+    chunk pass's groups do not divide (with P and N off the 16-byte
+    copies); two runs bit-equal, inputs
     untouched; the forward's STATES instance bit-equal to the serving
     instance in y and the final state. Returns the largest absolute error
     at the path shapes by dtype, and (``_rel``) the largest relative one."""
@@ -1716,6 +1718,9 @@ def compare_train_ssd(dev):
                   ("state_init_final", 2, 200, 24, 64, 128, 128, d_, True, True),
                   ("off_tile_q100_p40_n72", 2, 300, 3, 40, 72, 100, d_, False, True),
                   ("narrow_p16_n16_q32", 2, 100, 3, 16, 16, 32, d_, True, False)]
+    # bf16: heads in groups of ceil(B nC H / SMs) = 6 on 132 SMs, the last
+    # group of 3; P and N off the 16-byte copies
+    cases.append(("group_rem_h45_p36_n44", 4, 500, 45, 36, 44, 128, bf, False, True))
     rows, errs = [], {}
     for label, B, S, H, P, N, Q, d_, init, fin in cases:
         x, dt, Bv, Cv, A_log, D, s0, states, dy, dfin = ssd_bwd_inputs(
@@ -1815,9 +1820,10 @@ def attn_bwd_bound(B, S, H, KV, D, itemsize, ops_per_s):
 def time_train_ssd(dev):
     """The SSD scan's three backward kernels at Mamba-2's and Zamba2's
     training shapes (B 4 x 512, Q 128, P 64, bf16; Mamba-2's also in
-    float32, ``train_ssm_vs_cpu``'s dtype) beside the plain backward
-    ``ssd_chunked_bwd_ref`` and the bound; no PyTorch call computes the
-    scan's gradient (``library_ms`` None). Returns the rows."""
+    float32, ``train_ssm_vs_cpu``'s dtype), together and each alone (its
+    inputs left in place by a run of the launches before it), beside the
+    plain backward ``ssd_chunked_bwd_ref`` and the bound; no PyTorch call
+    computes the scan's gradient (``library_ms`` None). Returns the rows."""
     import numpy as np
     import torch
 
@@ -1832,9 +1838,13 @@ def time_train_ssd(dev):
         x, dt, Bv, Cv, A_log, D, _, states, dy, _ = ssd_bwd_inputs(
             rng, 4, 512, H, 64, N, 128, dt_, dev)
         item = 2 if dt_ == torch.bfloat16 else 4
+        launches, _ = SK.ssd_bwd_launches(x, dt, Bv, Cv, A_log, D, 128, states, dy)
+        for _, fn in launches:  # each kernel's inputs in place before it runs alone
+            fn()
         out[key] = {
             "ms": graph_ms(lambda: SK.ssd_bwd_cuda(x, dt, Bv, Cv, A_log, D, 128, states, dy),
                            reps=10),
+            "kernels_alone_ms": {name: graph_ms(fn, reps=10) for name, fn in launches},
             "plain_ms": graph_ms(lambda: ssd_chunked_bwd_ref(x, dt, A_log, Bv, Cv, D, 128,
                                                              None, dy), reps=3),
             "library_ms": None, **ssd_bwd_bound(4, 512, H, 64, N, 128, item),
@@ -4262,7 +4272,9 @@ def main() -> int:
                  ("flash_attention_bwd_dq", "flash_attention_bwd_dkdv"))
     ssd_bwd = ("ssd/csrc/ssd_bwd.cu", "src/repro/models/ssm.py:82",
                ("ssd_bwd_state", "ssd_bwd_chunk", "ssd_bwd_reduce"))
-    ssd_bwd_name = "ssd_bwd_state_kernel + ssd_bwd_chunk_kernel + ssd_bwd_reduce_kernel"
+    # the SSD backward is likewise a dispatch by dtype
+    ssd_bwd_tc = "ssd_bwd_state_tc_kernel + ssd_bwd_chunk_tc_kernel + ssd_bwd_reduce_kernel"
+    ssd_bwd_f32 = "ssd_bwd_state_kernel + ssd_bwd_chunk_kernel + ssd_bwd_reduce_kernel"
     # the SSD backward's float32 instances run on train_ssm_vs_cpu's paths
     ssd_f32_paths = [p_ for p_ in serve_launches if p_.startswith("train_ssm_vs_cpu")]
     for name, key, err, paths, (source, grad_of, counts) in (
@@ -4278,11 +4290,11 @@ def main() -> int:
              ("train_phi4_mini", "train_mamba2_130m", "train_zamba2_7b"),
              ("rmsnorm/csrc/rmsnorm_bwd.cu", "src/repro/models/layers.py:18",
               ("rmsnorm_bwd", "rmsnorm_bwd_dw"))),
-            (ssd_bwd_name + " (bf16)", "ssd_bwd", train_errs["ssd_bwd_bfloat16"],
+            (ssd_bwd_tc + " (bf16)", "ssd_bwd", train_errs["ssd_bwd_bfloat16"],
              ("train_mamba2_130m",), ssd_bwd),
-            (ssd_bwd_name + " (bf16) [zamba2]", "ssd_bwd_zamba2",
+            (ssd_bwd_tc + " (bf16) [zamba2]", "ssd_bwd_zamba2",
              train_errs["ssd_bwd_bfloat16"], ("train_zamba2_7b",), ssd_bwd),
-            (ssd_bwd_name + " (float32)", "ssd_bwd_f32", train_errs["ssd_bwd_float32"],
+            (ssd_bwd_f32 + " (float32)", "ssd_bwd_f32", train_errs["ssd_bwd_float32"],
              tuple(ssd_f32_paths), ssd_bwd)):
         t = train_times[key]
         main = {path: {c: serve_launches[path][c] for c in counts} for path in paths}
@@ -4305,6 +4317,7 @@ def main() -> int:
         if key == "flash_attention_bwd":  # train_zamba2_7b's shape
             kernels[-1]["zamba2_shape"] = train_times["flash_attention_bwd_zamba2"]
         if key.startswith("ssd_bwd"):  # the tolerance's measure: of each gradient's largest value
+            kernels[-1]["kernels_alone_ms"] = t["kernels_alone_ms"]
             kernels[-1]["max_rel_err"] = train_errs[("ssd_bwd_float32_rel" if "float32" in name
                                                      else "ssd_bwd_bfloat16_rel")]
     kernels.append({

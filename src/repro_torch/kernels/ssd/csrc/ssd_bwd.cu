@@ -20,7 +20,56 @@
 // past S count as dt = 0, as in the forward, and get no gradient.
 //
 // Three kernels, in order on one stream, no atomics (two runs are
-// bit-equal):
+// bit-equal), in one of two designs by dtype (a dispatch, not a fallback).
+//
+// bfloat16, on the tensor cores through `wgmma` (bf16 in, float32
+// accumulate; helpers shared with the forward in ssd_wgmma.cuh):
+// * `ssd_bwd_state_tc_kernel`: the reverse scan per (batch, head, 64
+//   columns of N), G [64 x 64] in the accumulator registers of G = exp(cs_Q)
+//   G + (exp(cs) o dy)^T C, as the forward's first warpgroup carries its
+//   state; the A operand made in registers from dy (float32) and split into
+//   bf16 hi + lo, C read MN-major; a chunk's C, dy and dt staged by
+//   `cp.async` two stages deep. Writes G leaving each chunk in bf16 (the
+//   chunk pass reads it as one bf16 operand), <G, S_prev> per chunk, and G
+//   entering chunk 0. Bound by dy's and the states' bytes: ~55% of HBM's
+//   rate at Zamba2's shape;
+// * `ssd_bwd_chunk_tc_kernel`: one CTA of two warpgroups per (batch, chunk,
+//   group of GH heads), GH = ceil(B nC H / SMs) (Mamba-2's 3, Zamba2's 14:
+//   128 CTAs). The heads share B and C, so dC_i = sum_h [sum_j E_ij B_j +
+//   es_i dy_i^T S_prev] and dB_j = sum_h [sum_i E_ij C_i + wq_j x_j^T G] are
+//   products whose K dimension runs over the group's heads too: each sits
+//   in one accumulator that the group's heads, in order, add to. Per head,
+//   in 64 x 64 and 64 x 32 blocks (blocks wholly above or below the
+//   diagonal skipped where no barrier follows), each warpgroup owning 64
+//   rows: Z = (es o dy) S_prev
+//   (U_i = C_i . Z_i), E = L dt_j o dy x^T into dC += Z + E B; then B G^T
+//   (dx's inter term and W_j), B C^T and x dy^T in accumulators whose rows
+//   are j, so that the masked M^T = L dt_j o B C^T and E^T = L dt_j o x dy^T
+//   are the A operands of dx = M^T dy and dB += E^T C (and wq o x of dB +=
+//   (wq o x) G) without touching shared memory, as the forward's `decay` /
+//   `mx` do; the sums of R = L o B C^T o x dy^T for d cs from the same
+//   registers. dy and S_prev enter as bf16 hi + lo tiles, the products made
+//   in float32 (E, M^T, es o dy, wq o x) as hi + lo A fragments (M^T's lo
+//   times dy's lo dropped), G as bf16: tests/test_torch_ssd_bwd_tensorcore_
+//   numerics.py emulates this arithmetic against JAX and keeps each lo term
+//   whose loss would bring a gradient within 3x of the 1e-2 tolerance. At N
+//   = 128 dC and dB [128 x N] would take 128 of a thread's registers
+//   together, so the heads are walked twice (dC, then dB, dx and the rest);
+//   at N <= 64 once. Each head's x, dy, S_prev and G are staged anew (a
+//   copy of the next head's under this head's products measured no
+//   faster); B and C once per CTA. d cs is summed backward by four warps'
+//   shuffles; dx is written once in bf16; dB and dC once per group as
+//   float32 partials, 8.4 / 16.8 MB at Zamba2's / Mamba-2's shape against
+//   117 / 50 MB for a partial per head. 229-255 registers a thread, no
+//   spill, one CTA an SM; most of its time is each head's chain of
+//   products, waits and barriers (~16 us a head at Zamba2's shape, of which
+//   the head's products, counted, take about a quarter at the bf16 peak);
+// * `ssd_bwd_reduce_kernel`: the groups' dB and dC partials summed in order,
+//   dD and dA_log over batch and chunks.
+//
+// float32, scalar FMAs out of shared memory (the tensor cores would round
+// to TF32, outside the float32 tolerance; no training path runs float32
+// but the CPU gates):
 // * `ssd_bwd_state_kernel`: the reverse scan over chunks per (batch, head,
 //   64 columns of P), G [P x N] in registers as the forward carries its
 //   state; writes G leaving each chunk, float32 [B, nC, H, P, N], and G
@@ -31,8 +80,6 @@
 //   B, C, S_prev and G staged 32 state columns at a time;
 // * `ssd_bwd_reduce_kernel`: dB and dC summed over the heads, dD and
 //   dA_log over batch and chunks, each in a fixed order.
-// Scalar float32 FMAs out of shared memory, for bfloat16 and float32 inputs
-// alike (bf16 values are widened on load; gradients rounded once on store).
 //
 // Bound (B 4, S 512, Q 128, P 64, bf16 x, B, C; float32 dy and states): by
 // bytes, x, dy, dt, B, C and the states read once and dx, dt, dB, dC
@@ -40,15 +87,18 @@
 // (H 112, N 64), 12 and 44 us at 3.35 TB/s. The products, counted once (the
 // heads share B and C, so C.B^T and E's products with B and C once per
 // chunk), are 4.1 and 11.3 GFLOP: 4 and 11 us at the bf16 tensor-core
-// peak, but 62 and 170 us at the 67 TFLOP/s of scalar float32, and these
-// kernels repeat C.B^T and the products with B and C per head (8.8 and 24
-// GFLOP). So they are bound by operations, several times over the bytes;
-// moving the Q x Q products onto `wgmma` as the forward's `ssd_tc_kernel`
-// does is the redesign that would close it.
+// peak. The bf16 kernels run ~3x that count (the hi + lo terms, C B^T and x
+// dy^T twice at N = 128, the blocks above the diagonal) and move the
+// states, G, the staged operands per head and the partials on top of the
+// bound's bytes.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include <initializer_list>
+
+#include "ssd_wgmma.cuh"
 
 namespace {
 
@@ -63,8 +113,6 @@ constexpr unsigned FULL = 0xffffffffu;
 
 using bf16 = __nv_bfloat16;
 
-__device__ __forceinline__ float ld(const float* p) { return *p; }
-__device__ __forceinline__ float ld(const bf16* p) { return __bfloat162float(*p); }
 __device__ __forceinline__ void put(float* p, float v) { *p = v; }
 __device__ __forceinline__ void put(bf16* p, float v) { *p = __float2bfloat16(v); }
 
@@ -109,10 +157,9 @@ size_t state_smem_floats(int Q, int N) {
 // leaving each chunk, ds0 [B, H, P, N] or null the gradient of the state
 // entering chunk 0. Grid (B * H, ceil(P / 64)); G [64 x N] in registers:
 // P row ty + 16 k, N column tx + 16 a.
-template <typename T>
 __global__ void __launch_bounds__(NT)
 ssd_bwd_state_kernel(const float* __restrict__ dy, const float* __restrict__ dt,
-                     const T* __restrict__ Cv, const float* __restrict__ A_log,
+                     const float* __restrict__ Cv, const float* __restrict__ A_log,
                      const float* __restrict__ dfin, float* __restrict__ gout,
                      float* __restrict__ ds0, int S, int H, int P, int N, int Q) {
   extern __shared__ float smem[];
@@ -149,7 +196,7 @@ ssd_bwd_state_kernel(const float* __restrict__ dy, const float* __restrict__ dt,
     load_dt(dts, dt, b, S, H, h, c0, rows, Q, tid);
     for (int e = tid; e < Q * N; e += NT) {
       const int j = e / N, n = e - j * N;
-      Ct[n * QS + j] = j < rows ? ld(Cv + ((size_t)b * S + c0 + j) * N + n) : 0.f;
+      Ct[n * QS + j] = j < rows ? Cv[((size_t)b * S + c0 + j) * N + n] : 0.f;
     }
     __syncthreads();
     if (tid < 32) chunk_cumsum(dts, cs, A, Q, tid);
@@ -203,16 +250,15 @@ size_t chunk_smem_floats(int Q, int P) {
 }
 
 // one N tile of the chunk's B and C, [Q][NLS], zero past the valid rows and N
-template <typename T>
-__device__ __forceinline__ void load_bc(float* Bs, float* Cs, const T* Bv, const T* Cv, int b,
-                                        int S, int N, int c0, int rows, int Q, int n0,
+__device__ __forceinline__ void load_bc(float* Bs, float* Cs, const float* Bv, const float* Cv,
+                                        int b, int S, int N, int c0, int rows, int Q, int n0,
                                         int tid) {
   for (int e = tid; e < Q * NL; e += NT) {
     const int j = e / NL, nn = e - j * NL, n = n0 + nn;
     const bool ok = j < rows && n < N;
     const size_t g = ((size_t)b * S + c0 + j) * N + n;
-    Bs[j * NLS + nn] = ok ? ld(Bv + g) : 0.f;
-    Cs[j * NLS + nn] = ok ? ld(Cv + g) : 0.f;
+    Bs[j * NLS + nn] = ok ? Bv[g] : 0.f;
+    Cs[j * NLS + nn] = ok ? Cv[g] : 0.f;
   }
 }
 
@@ -223,13 +269,12 @@ __device__ __forceinline__ void load_bc(float* Bs, float* Cs, const T* Bv, const
 // dDp / dAp [B, nC, H] (float32). One CTA per (batch, chunk, head), heads
 // fastest: the CTAs of one chunk read its B and C from L2. Threads (ty, tx)
 // of 16 x 16 own chunk rows ty + 16 a and columns tx + 16 k.
-template <typename T>
 __global__ void __launch_bounds__(NT, 1)
-ssd_bwd_chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-                     const T* __restrict__ Bv, const T* __restrict__ Cv,
+ssd_bwd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dt,
+                     const float* __restrict__ Bv, const float* __restrict__ Cv,
                      const float* __restrict__ A_log, const float* __restrict__ Dp,
                      const float* __restrict__ states, const float* __restrict__ gout,
-                     const float* __restrict__ dy, T* __restrict__ dx,
+                     const float* __restrict__ dy, float* __restrict__ dx,
                      float* __restrict__ ddt, float* __restrict__ dBp,
                      float* __restrict__ dCp, float* __restrict__ dDp,
                      float* __restrict__ dAp, int S, int H, int P, int N, int Q) {
@@ -267,7 +312,7 @@ ssd_bwd_chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   for (int e = tid; e < Q * P; e += NT) {
     const int j = e / P, p = e - j * P;
     const size_t g = (((size_t)b * S + c0 + j) * H + h) * P + p;
-    xt[p * QS + j] = j < rows ? ld(x + g) : 0.f;
+    xt[p * QS + j] = j < rows ? x[g] : 0.f;
     dyt[p * QS + j] = j < rows ? dy[g] : 0.f;
   }
   __syncthreads();
@@ -625,15 +670,16 @@ ssd_bwd_chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   }
 }
 
-// dB / dC [B, S, N] (T) = the partials [B, nC, H, Q, N] summed over heads in
-// order; dD / dA_log [H] = the partials [B, nC, H] summed over (b, c) in
-// order (by the first CTA). One thread per (b, s, n).
+// dB / dC [B, S, N] (T) = the partials [B, nC, NP, Q, N] (one per head, or
+// per group of heads) summed in order; dD / dA_log [H] = the partials [B,
+// nC, H] summed over (b, c) in order (by the first CTA). One thread per (b,
+// s, n).
 template <typename T>
 __global__ void __launch_bounds__(NT)
 ssd_bwd_reduce_kernel(const float* __restrict__ dBp, const float* __restrict__ dCp,
                       const float* __restrict__ dDp, const float* __restrict__ dAp,
                       T* __restrict__ dB, T* __restrict__ dC, float* __restrict__ dD,
-                      float* __restrict__ dA_log, int B, int S, int H, int N, int Q) {
+                      float* __restrict__ dA_log, int B, int S, int H, int NP, int N, int Q) {
   const int nC = (S + Q - 1) / Q;
   const size_t idx = (size_t)blockIdx.x * NT + threadIdx.x;
   if (idx < (size_t)B * S * N) {
@@ -641,9 +687,9 @@ ssd_bwd_reduce_kernel(const float* __restrict__ dBp, const float* __restrict__ d
     const size_t bs = idx / N;
     const int s = (int)(bs % S), b = (int)(bs / S), c = s / Q, i = s - c * Q;
     const size_t step = (size_t)Q * N;
-    const size_t base = (size_t)(b * nC + c) * H * step + (size_t)i * N + n;
+    const size_t base = (size_t)(b * nC + c) * NP * step + (size_t)i * N + n;
     float sb = 0.f, sc = 0.f;
-    for (int h = 0; h < H; ++h) {
+    for (int h = 0; h < NP; ++h) {
       sb += dBp[base + h * step];
       sc += dCp[base + h * step];
     }
@@ -674,62 +720,875 @@ bool bad_shape(int B, int S, int H, int P, int N, int Q) {
          Q > QMAX;
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16 on the tensor cores
+
+namespace tc {
+
+constexpr int WG = 128;     // threads of a warpgroup
+constexpr int ROWS = 128;   // chunk rows staged (Q <= 128, zero past Q)
+constexpr int PT = 64;      // P rows or columns staged (P <= 64, zero past P)
+constexpr int DYS = 68;     // the state kernel's float32 dy row stride: conflict-free A reads
+constexpr int GMAX = 16;    // heads of a group, at most
+constexpr float LOG2E = 1.4426950408889634f;
+
+// v, opaque to the compiler: a shared-memory base taken anew in each block
+// of a loop, so that ptxas does not hoist every descriptor made from it out
+// of the loop and hold them all in registers
+__device__ __forceinline__ uint32_t opaque(uint32_t v) {
+  asm volatile("" : "+r"(v));
+  return v;
+}
+
+// d[64 x 32] (+)= A[64 x 16] B[16 x 32]; A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// rows r < ROWS_T of a bf16 matrix (row r at g + r * ld; `nrows` rows and
+// `ncols` columns valid) into a swizzled tile of ROWS_T rows x 64 NBT
+// columns at shared address `dst` (`dstg` its generic pointer), zero past
+// both: by `cp.async` (vec: ncols % 8 == 0 and g, ld 16-byte aligned) or
+// element by element. NTHR threads share the copies.
+template <int ROWS_T, int NBT, int NTHR>
+__device__ __forceinline__ void tile_bf16(uint32_t dst, unsigned char* dstg, const bf16* g,
+                                          size_t ld, int nrows, int ncols, bool vec, int tid) {
+  if (vec) {
+    for (int e = tid; e < ROWS_T * 8 * NBT; e += NTHR) {
+      const int r = e / (8 * NBT), k = e - r * (8 * NBT);
+      const bool ok = r < nrows && 8 * k < ncols;
+      cp_async16(dst + swz(ROWS_T, r, k), g + (ok ? r * ld + 8 * k : 0), ok);
+    }
+  } else {  // not unrolled: the chunk pass has no registers to spare
+#pragma unroll 1
+    for (int e = tid; e < ROWS_T * 64 * NBT; e += NTHR) {
+      const int r = e / (64 * NBT), n = e - r * (64 * NBT);
+      *reinterpret_cast<bf16*>(dstg + swz(ROWS_T, r, n >> 3) + 2 * (n & 7)) =
+          r < nrows && n < ncols ? g[r * ld + n] : __float2bfloat16(0.f);
+    }
+  }
+}
+
+// The same for a float32 matrix, split into two bf16 tiles hi and lo (generic
+// pointers) as `split` does; vec: ncols % 8 == 0 and g, ld 16-byte aligned.
+// `load` brings a thread's 8-column chunks into registers, `store` splits
+// and writes them, so that a caller can have
+// several tiles' loads in flight before the first store.
+template <int ROWS_T, int NBT, int NTHR>
+struct SplitTile {
+  static constexpr int IT = ROWS_T * 8 * NBT / NTHR;  // 8-column chunks per thread
+  static_assert(IT * NTHR == ROWS_T * 8 * NBT, "whole chunks per thread");
+  float v[IT][8];
+
+  __device__ __forceinline__ void load(const float* g, size_t ld, int nrows, int ncols,
+                                       bool vec, int tid) {
+#pragma unroll
+    for (int it = 0; it < IT; ++it) {
+      const int e = tid + it * NTHR, r = e / (8 * NBT), k = e - r * (8 * NBT);
+      if (vec) {
+        const bool ok = r < nrows && 8 * k < ncols;
+        const float4* src = reinterpret_cast<const float4*>(g + (ok ? r * ld + 8 * k : 0));
+        const float4 a = ok ? __ldg(src) : make_float4(0.f, 0.f, 0.f, 0.f);
+        const float4 b = ok ? __ldg(src + 1) : make_float4(0.f, 0.f, 0.f, 0.f);
+        v[it][0] = a.x, v[it][1] = a.y, v[it][2] = a.z, v[it][3] = a.w;
+        v[it][4] = b.x, v[it][5] = b.y, v[it][6] = b.z, v[it][7] = b.w;
+      } else {
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+          v[it][u] = r < nrows && 8 * k + u < ncols ? g[r * ld + 8 * k + u] : 0.f;
+      }
+    }
+  }
+
+  __device__ __forceinline__ void store(unsigned char* hi, unsigned char* lo, int tid) const {
+#pragma unroll
+    for (int it = 0; it < IT; ++it) {
+      const int e = tid + it * NTHR, r = e / (8 * NBT), k = e - r * (8 * NBT);
+      uint4 h, l;
+      split(v[it][0], v[it][1], h.x, l.x);
+      split(v[it][2], v[it][3], h.y, l.y);
+      split(v[it][4], v[it][5], h.z, l.z);
+      split(v[it][6], v[it][7], h.w, l.w);
+      *reinterpret_cast<uint4*>(hi + swz(ROWS_T, r, k)) = h;
+      *reinterpret_cast<uint4*>(lo + swz(ROWS_T, r, k)) = l;
+    }
+  }
+};
+
+__device__ __forceinline__ uint32_t lds32(const unsigned char* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// (a, b) at p and p + 1 of a row of `n` values from column `col` (even):
+// one 8-byte or 4-byte store where the pair is whole and aligned
+__device__ __forceinline__ void put2(float* p, float a, float b, int col, int n) {
+  if (col + 1 < n && (n & 1) == 0) {
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  } else {
+    if (col < n) p[0] = a;
+    if (col + 1 < n) p[1] = b;
+  }
+}
+__device__ __forceinline__ void put2(bf16* p, float a, float b, int col, int n) {
+  if (col + 1 < n && (n & 1) == 0) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+  } else {
+    if (col < n) p[0] = __float2bfloat16(a);
+    if (col + 1 < n) p[1] = __float2bfloat16(b);
+  }
+}
+
+// The reverse state scan. Shared memory: two stages of C [ROWS x 64] bf16
+// (swizzled), dy [ROWS][DYS] float32 and dt [ROWS] (padded to 1 KB); cs and
+// exp(cs) [ROWS]; 8 floats of sums.
+constexpr uint32_t STATE_STAGE = ROWS * 128 + ROWS * DYS * 4 + 1024;
+constexpr size_t STATE_SMEM = 2 * STATE_STAGE + 2 * ROWS * 4 + 8 * 4;
+
+// dy [B, S, H, P], dt [B, S, H], A_log [H], dfin [B, H, P, N] or null, states
+// [B, nC, H, P, N] (the state entering each chunk) float32; Cv [B, S, N]
+// bf16. Writes gout [B, nC, H, P, N] bf16, the gradient of the state leaving
+// each chunk, gs [B, nC, H, 2], <G leaving, S entering> over each 64
+// columns of N, float32, and ds0 [B, H, P, N] float32 (or null), the
+// gradient of the state entering chunk 0. One warpgroup per (batch, head, 64
+// columns of N: G's columns evolve apart), the chunks in reverse order: G
+// [64 P rows x 64 N columns] in the accumulator registers of G = exp(cs_Q) G
+// + (exp(cs) o dy)^T C, g[4 t + e] its P row row + 8 (e / 2) and N column n0
+// + 8 t + 2 gc + e % 2. The A operand (exp(cs) o dy)^T is made in registers
+// from dy in float32 and split into bf16 hi + lo; C is read MN-major. The
+// next chunk's C, dy and dt are copied by `cp.async` under this chunk's
+// products; the states for <G, S> are loaded before this chunk's wait.
+__global__ void __launch_bounds__(WG)
+ssd_bwd_state_tc_kernel(const float* __restrict__ dy, const float* __restrict__ dt,
+                        const bf16* __restrict__ Cv, const float* __restrict__ A_log,
+                        const float* __restrict__ dfin, const float* __restrict__ states,
+                        bf16* __restrict__ gout, float* __restrict__ gs, float* __restrict__ ds0,
+                        int S, int H, int P, int N, int Q, int vec) {
+  constexpr int NS = 32;
+  constexpr uint32_t CB_BYTES = ROWS * 128;
+  const int nC = (S + Q - 1) / Q;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = smem_u32(smem_raw);
+  float* cs = reinterpret_cast<float*>(smem_raw + 2 * STATE_STAGE);  // [ROWS]
+  float* es = cs + ROWS;                                             // [ROWS] exp(cs_j)
+  float* seg = es + ROWS;  // [4] segment sums of dt A, [4] warp sums of <G, S_prev>
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gr = lane >> 2, gc = lane & 3, row = 16 * warp + gr;
+  const int bh = blockIdx.x, b = bh / H, h = bh - b * H, n0 = 64 * blockIdx.y;
+  const float A = -expf(A_log[h]);
+  const size_t PN = (size_t)P * N;
+
+  float g[NS];
+#pragma unroll
+  for (int t = 0; t < NS / 4; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int p = row + 8 * (e >> 1), n = n0 + 8 * t + 2 * gc + (e & 1);
+      g[4 * t + e] = dfin != nullptr && p < P && n < N ? dfin[bh * PN + (size_t)p * N + n] : 0.f;
+    }
+
+  // chunk c's C (columns n0 ..), dy and dt into stage sg, zero past S, Q, N and P
+  auto stage = [&](int c, int sg) {
+    const uint32_t Cs = base + sg * STATE_STAGE, dys = Cs + CB_BYTES;
+    unsigned char* gC = smem_raw + sg * STATE_STAGE;
+    float* dyf = reinterpret_cast<float*>(gC + CB_BYTES);
+    float* dts = dyf + ROWS * DYS;
+    const int c0 = c * Q, rows = min(Q, S - c0);
+    tile_bf16<ROWS, 1, WG>(Cs, gC, Cv + ((size_t)b * S + c0) * N + n0, N, rows, N - n0, vec, tid);
+    const float* dyc = dy + (((size_t)b * S + c0) * H + h) * P;
+    const size_t ld = (size_t)H * P;
+    if (vec) {  // 16-byte chunk k (4 floats) of row i, 16 a row
+      for (int e = tid; e < ROWS * 16; e += WG) {
+        const int i = e >> 4, k = e & 15;
+        const bool ok = i < rows && 4 * k < P;
+        cp_async16(dys + (i * DYS + 4 * k) * 4, dyc + (ok ? i * ld + 4 * k : 0), ok);
+      }
+    } else {
+      for (int e = tid; e < ROWS * PT; e += WG) {
+        const int i = e / PT, p = e - i * PT;
+        dyf[i * DYS + p] = i < rows && p < P ? dyc[i * ld + p] : 0.f;
+      }
+    }
+    for (int j = tid; j < ROWS; j += WG) {
+      const bool ok = j < rows;
+      cp_async4(smem_u32(dts + j), dt + (ok ? ((size_t)b * S + c0 + j) * H + h : 0), ok);
+    }
+    cp_async_commit();
+  };
+
+  stage(nC - 1, 0);
+#pragma unroll 1
+  for (int it = 0; it < nC; ++it) {
+    const int c = nC - 1 - it, sg = it & 1;
+    const uint32_t Cs = base + sg * STATE_STAGE;
+    const float* dyf = reinterpret_cast<const float*>(smem_raw + sg * STATE_STAGE + CB_BYTES);
+    const float* dts = dyf + ROWS * DYS;
+    const size_t off = ((size_t)(b * nC + c) * H + h) * PN;
+    // the state entering chunk c at G's positions, for <G, S_prev>
+    float sp[NS];
+#pragma unroll
+    for (int t = 0; t < NS / 4; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int p = row + 8 * (e >> 1), n = n0 + 8 * t + 2 * gc + (e & 1);
+        sp[4 * t + e] = p < P && n < N ? states[off + (size_t)p * N + n] : 0.f;
+      }
+    // the other stage was last read in the previous iteration, before its closing barrier
+    if (c > 0) stage(c - 1, sg ^ 1);
+    else cp_async_commit();  // an empty group keeps the count
+    cp_async_wait<1>();      // every group but the newest: chunk c has landed
+    fence_proxy_async();     // the copies, visible to the tensor cores
+    __syncthreads();
+
+    // the cumsum of dt A: warp w scans steps 32 w .. 32 w + 31; meanwhile G
+    // leaving chunk c goes out (bf16) with its dot with the state entering c
+    float v = dts[tid] * A;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float u = __shfl_up_sync(FULL, v, o);
+      if (lane >= o) v += u;
+    }
+    if (lane == 31) seg[warp] = v;
+    float dot = 0.f;
+#pragma unroll
+    for (int t = 0; t < NS / 4; ++t)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int p = row + 8 * hr, n = n0 + 8 * t + 2 * gc;
+        const float g0 = g[4 * t + 2 * hr], g1 = g[4 * t + 2 * hr + 1];
+        dot = fmaf(g0, sp[4 * t + 2 * hr], fmaf(g1, sp[4 * t + 2 * hr + 1], dot));
+        if (p < P && n < N) put2(gout + off + (size_t)p * N + n, g0, g1, n, N);
+      }
+    dot = warp_sum(dot);
+    if (lane == 0) seg[4 + warp] = dot;
+    __syncthreads();
+    float before = 0.f;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) before += w < warp ? seg[w] : 0.f;
+    v += before;
+    cs[tid] = v;
+    es[tid] = expf(v);
+    if (tid == 0)
+      gs[((size_t)(b * nC + c) * H + h) * 2 + blockIdx.y] = ((seg[4] + seg[5]) + seg[6]) + seg[7];
+    __syncthreads();
+
+    // G = exp(cs_Q) G + (exp(cs) o dy)^T C: the A fragment kb holds steps
+    // 16 kb .. 16 kb + 15, its registers q = (step half, P row half)
+    const float decay = expf(cs[ROWS - 1]);
+    uint32_t ah[ROWS / 16][4], al[ROWS / 16][4];
+#pragma unroll
+    for (int kb = 0; kb < ROWS / 16; ++kb)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int p = row + 8 * (q & 1), j = 16 * kb + 8 * (q >> 1) + 2 * gc;
+        split(es[j] * dyf[j * DYS + p], es[j + 1] * dyf[(j + 1) * DYS + p], ah[kb][q],
+              al[kb][q]);
+      }
+#pragma unroll
+    for (int i = 0; i < NS; ++i) g[i] *= decay;
+    fence_regs(g);
+    fence_regs(ah);
+    fence_regs(al);
+    wgmma_fence();
+#pragma unroll
+    for (int kb = 0; kb < ROWS / 16; ++kb) {
+      wgmma_rs(g, ah[kb], desc_mn(Cs, ROWS, kb));
+      wgmma_rs(g, al[kb], desc_mn(Cs, ROWS, kb));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(g);
+    fence_regs(ah);
+    fence_regs(al);
+    __syncthreads();  // every warp is done with this stage
+  }
+  if (ds0 != nullptr) {
+#pragma unroll
+    for (int t = 0; t < NS / 4; ++t)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int p = row + 8 * hr, n = n0 + 8 * t + 2 * gc;
+        if (p < P && n < N)
+          put2(ds0 + bh * PN + (size_t)p * N + n, g[4 * t + 2 * hr], g[4 * t + 2 * hr + 1], n, N);
+      }
+  }
+}
+
+// The chunk pass's shared memory, byte offsets: C, B [ROWS x 64 NB]; x, dy
+// hi, dy lo [ROWS x 64]; S_prev hi, lo and G [PT x 64 NB], all bf16 and
+// swizzled; then float32 dt, cs log2(e), exp(cs), exp(cs_Q - cs), exp(cs_Q -
+// cs) dt, and the per-step sums rsum, W, dd [ROWS] each, 16 segment sums,
+// the group's A, D and <G, S_prev> [GMAX] each, the eight warps' column sums red
+// [8][ROWS] and the group's U [GMAX][ROWS].
+template <int NB>
+struct ChunkSmem {
+  static constexpr uint32_t CB = ROWS * 128 * NB, XT = ROWS * 128, SP = PT * 128 * NB;
+  static constexpr uint32_t C = 0, B = CB, X = 2 * CB, DYH = X + XT, DYL = DYH + XT,
+                            SH = DYL + XT, SL = SH + SP, G = SL + SP, F = G + SP;
+  static constexpr size_t bytes = F + 4 * (8 * ROWS + 16 + 3 * GMAX + 8 * ROWS + GMAX * ROWS);
+};
+
+// x [B, S, H, P], Bv / Cv [B, S, N] bf16; dt [B, S, H], A_log / D [H], states
+// [B, nC, H, P, N] float32; gout [B, nC, H, P, N] bf16 and gs [B, nC, H, 2]
+// (the state kernel's); dy [B, S, H, P] float32. Writes dx [B, S, H, P]
+// bf16, ddt [B, S, H], dDp / dAp [B, nC, H] and the group's dBp / dCp [B,
+// nC, ceil(H / GH), Q, N] float32. One CTA of two warpgroups per (batch,
+// chunk, group of GH heads), each warpgroup owning 64 rows of every [Q x .]
+// product: dC's rows i, then dx's and dB's rows j. C B^T, B G^T and every
+// product with B, C or x as an operand are exact in bf16; dy, S_prev and the
+// operands made in float32 (E, M^T, exp(cs) o dy, wq o x) enter as bf16 hi +
+// lo; G enters as bf16 (its lo term is below the tolerance). dC and dB sum
+// the group's heads in their accumulators: with TWO_PASS (N > 64, where
+// both would not fit the registers) one pass over the heads for dC, then
+// one for dB, dx and the rest.
+template <int NB, bool TWO_PASS, bool VEC>
+__global__ void __launch_bounds__(2 * WG, 1)
+ssd_bwd_chunk_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
+                        const bf16* __restrict__ Bv, const bf16* __restrict__ Cv,
+                        const float* __restrict__ A_log, const float* __restrict__ Dp,
+                        const float* __restrict__ states, const bf16* __restrict__ gout,
+                        const float* __restrict__ gs, const float* __restrict__ dy,
+                        bf16* __restrict__ dx, float* __restrict__ ddt, float* __restrict__ dBp,
+                        float* __restrict__ dCp, float* __restrict__ dDp,
+                        float* __restrict__ dAp, int S, int H, int P, int N, int Q, int GH) {
+  using L = ChunkSmem<NB>;
+  constexpr int NS = 32 * NB;  // registers of a [64 x 64 NB] accumulator
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* sm = smem_raw;
+  const uint32_t base = smem_u32(smem_raw);
+  const uint32_t Cs = base + L::C, Bs = base + L::B, xs = base + L::X, dyh = base + L::DYH,
+                 dyl = base + L::DYL, sh = base + L::SH, sl = base + L::SL, gt = base + L::G;
+  float* dts = reinterpret_cast<float*>(smem_raw + L::F);
+  float* cs2 = dts + ROWS;   // cs log2(e)
+  float* es = cs2 + ROWS;    // exp(cs_i)
+  float* eq = es + ROWS;     // exp(cs_Q - cs_j)
+  float* wq = eq + ROWS;     // exp(cs_Q - cs_j) dt_j
+  float* rsum = wq + ROWS;   // sum_i R_ij
+  float* wv = rsum + ROWS;   // W_j
+  float* dd = wv + ROWS;     // dy_j . x_j
+  float* seg = dd + ROWS;    // [16] segment sums
+  float* hA = seg + 16;      // [GMAX] A of the group's heads
+  float* hD = hA + GMAX;     // [GMAX] D
+  float* hG = hD + GMAX;     // [GMAX] <G, S_prev>
+  float* red = hG + GMAX;    // [8][ROWS] each warp's sums of T = R dt_j over its rows j
+  float* Us = red + 8 * ROWS;  // [GMAX][ROWS] U_i of the group's heads
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, wg = tid / WG;
+  const int gr = lane >> 2, gc = lane & 3;
+  const int row = 16 * (warp & 3) + gr;  // the thread's first row of a 64-row tile
+  const int R0 = 64 * wg;                // the warpgroup's rows of the chunk
+  const int nC = (S + Q - 1) / Q, ng = (H + GH - 1) / GH;
+  const int grp = blockIdx.x % ng, bc = blockIdx.x / ng, b = bc / nC, c = bc - b * nC;
+  const int c0 = c * Q, rows = min(Q, S - c0);
+  const int h0 = grp * GH, h1 = min(H, h0 + GH);
+  const size_t PN = (size_t)P * N, ldx = (size_t)H * P;
+  auto x_of = [&](int h) { return ((size_t)b * S + c0) * H * P + (size_t)h * P; };
+  auto s_of = [&](int h) { return ((size_t)(b * nC + c) * H + h) * PN; };
+
+  // the decays of the head in slot hl from dt (dtv: the thread's step's;
+  // dts holds them): the cumsum of dt A by the first warpgroup, a step a
+  // thread; then every thread's tile writes made visible to the tensor cores
+  auto decays = [&](int hl, float dtv) {
+    float v = 0.f;
+    if (tid < ROWS) {
+      v = dtv * hA[hl];
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float u = __shfl_up_sync(FULL, v, off);
+        if (lane >= off) v += u;
+      }
+      if (lane == 31) seg[warp] = v;
+    }
+    __syncthreads();
+    if (tid < ROWS) {
+      float before = 0.f;
+#pragma unroll
+      for (int w = 0; w < 4; ++w) before += w < warp ? seg[w] : 0.f;
+      v += before;
+      const float last = ((seg[0] + seg[1]) + seg[2]) + seg[3];
+      cs2[tid] = v * LOG2E;
+      es[tid] = expf(v);
+      eq[tid] = expf(last - v);
+      wq[tid] = eq[tid] * dtv;
+    }
+    fence_proxy_async();  // the tiles written by the threads, visible to the tensor cores
+    __syncthreads();
+  };
+
+  // head h's x, dy (hi + lo), dt and, as asked, S_prev (hi + lo) and G,
+  // every global load in flight before the first store; then its decays
+  auto stage_head = [&](int h, bool withS, bool withG) {
+    const size_t xo = x_of(h), so = s_of(h);
+    __syncthreads();  // the previous head's readers are done
+    tile_bf16<ROWS, 1, 2 * WG>(xs, sm + L::X, x + xo, ldx, rows, P, VEC, tid);
+    if (withG) tile_bf16<PT, NB, 2 * WG>(gt, sm + L::G, gout + so, N, P, N, VEC, tid);
+    cp_async_commit();
+    const float dtv = tid < rows ? dt[((size_t)b * S + c0 + tid) * H + h] : 0.f;
+    SplitTile<ROWS, 1, 2 * WG> dyt;
+    SplitTile<PT, NB, 2 * WG> spt;
+    dyt.load(dy + xo, ldx, rows, P, VEC, tid);
+    if (withS) spt.load(states + so, N, P, N, VEC, tid);
+    if (tid < ROWS) dts[tid] = dtv;
+    dyt.store(sm + L::DYH, sm + L::DYL, tid);
+    if (withS) spt.store(sm + L::SH, sm + L::SL, tid);
+    cp_async_wait<0>();
+    __syncthreads();
+    decays(h - h0, dtv);
+  };
+
+  // dC += Z + E B for the head in slot hl, Z = (exp(cs) o dy) S_prev, E =
+  // L dt_j o dy x^T; U_i = C_i . Z_i into Us. The warpgroup's rows are i.
+  auto phase_c = [&](float (&dC)[NS], int hl) {
+    uint32_t ah[4][4], al[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int i = R0 + row + 8 * (q & 1);
+        const uint32_t off = swz(ROWS, i, 2 * kk + (q >> 1)) + 4 * gc;
+        const float2 hv = unpack(lds32(sm + L::DYH + off)), lv = unpack(lds32(sm + L::DYL + off));
+        const float e = es[i];
+        split((hv.x + lv.x) * e, (hv.y + lv.y) * e, ah[kk][q], al[kk][q]);
+      }
+    float z[NS];
+#pragma unroll
+    for (int k = 0; k < NS; ++k) z[k] = 0.f;
+    fence_regs(z);
+    fence_regs(ah);
+    fence_regs(al);
+    const uint32_t shq = opaque(sh), slq = opaque(sl);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_rs(z, ah[kk], desc_mn(shq, PT, kk));
+      wgmma_rs(z, al[kk], desc_mn(shq, PT, kk));
+      wgmma_rs(z, ah[kk], desc_mn(slq, PT, kk));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(z);
+    fence_regs(ah);
+    fence_regs(al);
+    float u[2] = {0.f, 0.f};
+#pragma unroll
+    for (int t = 0; t < NS / 4; ++t)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const float2 cv = unpack(lds32(sm + L::C + swz(ROWS, R0 + row + 8 * hr, t) + 4 * gc));
+        u[hr] = fmaf(z[4 * t + 2 * hr], cv.x, fmaf(z[4 * t + 2 * hr + 1], cv.y, u[hr]));
+      }
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      u[hr] += __shfl_xor_sync(FULL, u[hr], 1);
+      u[hr] += __shfl_xor_sync(FULL, u[hr], 2);
+      if (gc == 0) Us[hl * ROWS + R0 + row + 8 * hr] = u[hr];
+    }
+#pragma unroll
+    for (int k = 0; k < NS; ++k) dC[k] += z[k];
+    // E by 64 x 64 blocks: rows i of this warpgroup, columns j of block q.
+    // The first warpgroup's block q = 1 lies above the diagonal, all zero: in
+    // one pass it is skipped (the first warpgroup goes on to the second
+    // phase meanwhile); in two, where a barrier follows, computed
+#pragma unroll 1
+    for (int q = 0; q <= (TWO_PASS ? 1 : wg); ++q) {
+      const uint32_t dyhq = opaque(dyh), dylq = opaque(dyl), xq = opaque(xs), Bq = opaque(Bs);
+      float s[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss(s, desc_k(dyhq, ROWS, R0, kk), desc_k(xq, ROWS, 64 * q, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss(s, desc_k(dylq, ROWS, R0, kk), desc_k(xq, ROWS, 64 * q, kk), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      uint32_t eh[4][4], el[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int qq = 0; qq < 4; ++qq) {
+          const int t = 2 * kk + (qq >> 1), hr = qq & 1;
+          const int i = R0 + row + 8 * hr, j = 64 * q + 8 * t + 2 * gc;
+          const float ci = cs2[i];
+          const float v0 = j <= i ? s[4 * t + 2 * hr] * exp2_approx(ci - cs2[j]) * dts[j] : 0.f;
+          const float v1 =
+              j + 1 <= i ? s[4 * t + 2 * hr + 1] * exp2_approx(ci - cs2[j + 1]) * dts[j + 1] : 0.f;
+          split(v0, v1, eh[kk][qq], el[kk][qq]);
+        }
+      fence_regs(dC);
+      fence_regs(eh);
+      fence_regs(el);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_rs(dC, eh[kk], desc_mn(Bq, ROWS, 4 * q + kk));
+        wgmma_rs(dC, el[kk], desc_mn(Bq, ROWS, 4 * q + kk));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dC);
+      fence_regs(eh);
+      fence_regs(el);
+    }
+  };
+
+  // dB += (wq o x) G + E^T C and dx = wq_j B_j G^T + D dy + M^T dy for head h
+  // (slot hl), M^T = L dt_j o B C^T and E^T = L dt_j o x dy^T; W, rsum, dd
+  // and the column sums of T into shared memory. The warpgroup's rows are j.
+  auto phase_b = [&](float (&dB)[NS], int h, int hl) {
+    float y[32];
+    {
+      uint32_t ah[4][4], al[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int j = R0 + row + 8 * (q & 1);
+          const float2 xv = unpack(lds32(sm + L::X + swz(ROWS, j, 2 * kk + (q >> 1)) + 4 * gc));
+          const float w = wq[j];
+          split(xv.x * w, xv.y * w, ah[kk][q], al[kk][q]);
+        }
+      const uint32_t Bq = opaque(Bs), gq = opaque(gt);
+      fence_regs(dB);
+      fence_regs(ah);
+      fence_regs(al);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4 * NB; ++kk)
+        wgmma_ss(y, desc_k(Bq, ROWS, R0, kk), desc_k(gq, PT, 0, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_rs(dB, ah[kk], desc_mn(gq, PT, kk));
+        wgmma_rs(dB, al[kk], desc_mn(gq, PT, kk));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(y);
+      fence_regs(dB);
+      fence_regs(ah);
+      fence_regs(al);
+    }
+    // W_j = exp(cs_Q - cs_j) x_j . (B G^T)_j; then dx = wq_j (B G^T) + D dy
+    const float Dh = hD[hl];
+    float wp[2] = {0.f, 0.f};
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int j = R0 + row + 8 * hr;
+        const uint32_t off = swz(ROWS, j, t) + 4 * gc;
+        const float2 xv = unpack(lds32(sm + L::X + off));
+        const float2 hv = unpack(lds32(sm + L::DYH + off)), lv = unpack(lds32(sm + L::DYL + off));
+        float& y0 = y[4 * t + 2 * hr];
+        float& y1 = y[4 * t + 2 * hr + 1];
+        wp[hr] = fmaf(y0, xv.x, fmaf(y1, xv.y, wp[hr]));
+        y0 = fmaf(Dh, hv.x + lv.x, wq[j] * y0);
+        y1 = fmaf(Dh, hv.y + lv.y, wq[j] * y1);
+      }
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      wp[hr] += __shfl_xor_sync(FULL, wp[hr], 1);
+      wp[hr] += __shfl_xor_sync(FULL, wp[hr], 2);
+      const int j = R0 + row + 8 * hr;
+      if (gc == 0) wv[j] = eq[j] * wp[hr];
+    }
+    // by 64 x 32 blocks: rows j of this warpgroup, columns i of block qb;
+    // 32 columns keep the block's accumulators and A fragments within the
+    // registers. The second warpgroup's blocks qb < 2 lie below the diagonal,
+    // all zero: skipped in one pass (with the first phase's skipped block,
+    // each warpgroup runs 6 of the 12 blocks' worth of products a head),
+    // computed in two
+    float rs[2] = {0.f, 0.f};
+#pragma unroll 1
+    for (int qb = TWO_PASS ? 0 : 2 * wg; qb < 4; ++qb) {
+      uint32_t Bq = opaque(Bs), Cq = opaque(Cs), xq = opaque(xs), dyhq = opaque(dyh),
+               dylq = opaque(dyl);
+      float s1[16], s2[16];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4 * NB; ++kk)
+        wgmma_ss_n32(s1, desc_k(Bq, ROWS, R0, kk), desc_k(Cq, ROWS, 32 * qb, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss_n32(s2, desc_k(xq, ROWS, R0, kk), desc_k(dyhq, ROWS, 32 * qb, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss_n32(s2, desc_k(xq, ROWS, R0, kk), desc_k(dylq, ROWS, 32 * qb, kk), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s1);
+      fence_regs(s2);
+      // R = L o B C^T o x dy^T: its sums over i (rs) and, times dt_j, over
+      // the warp's rows j (into red); s1 becomes M^T = L dt_j o B C^T, s2
+      // E^T = L dt_j o x dy^T
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        float ct[2];
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int j = R0 + row + 8 * hr, i = 32 * qb + 8 * t + 2 * gc;
+          const float dj = dts[j], cj = cs2[j];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int k = 4 * t + 2 * hr + e;
+            const float lw = i + e >= j ? exp2_approx(cs2[i + e] - cj) : 0.f;
+            const float r = lw * s1[k] * s2[k];
+            rs[hr] += r;
+            ct[e] = hr == 0 ? r * dj : fmaf(r, dj, ct[e]);
+            if (i + e == j) dd[j] = s2[k];
+            s1[k] *= lw * dj;
+            s2[k] *= lw * dj;
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float v = ct[e];
+          v += __shfl_xor_sync(FULL, v, 4);
+          v += __shfl_xor_sync(FULL, v, 8);
+          v += __shfl_xor_sync(FULL, v, 16);
+          if (gr == 0) red[warp * ROWS + 32 * qb + 8 * t + 2 * gc + e] = v;
+        }
+      }
+      uint32_t mh[2][4], ml[2][4], eh[2][4], el[2][4];
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+        for (int qq = 0; qq < 4; ++qq) {
+          const int k = 4 * (2 * kk + (qq >> 1)) + 2 * (qq & 1);
+          split(s1[k], s1[k + 1], mh[kk][qq], ml[kk][qq]);
+          split(s2[k], s2[k + 1], eh[kk][qq], el[kk][qq]);
+        }
+      fence_regs(y);
+      fence_regs(dB);
+      fence_regs(mh);
+      fence_regs(ml);
+      fence_regs(eh);
+      fence_regs(el);
+      dyhq = opaque(dyh), dylq = opaque(dyl), Cq = opaque(Cs);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        wgmma_rs(y, mh[kk], desc_mn(dyhq, ROWS, 2 * qb + kk));
+        wgmma_rs(y, mh[kk], desc_mn(dylq, ROWS, 2 * qb + kk));
+        wgmma_rs(y, ml[kk], desc_mn(dyhq, ROWS, 2 * qb + kk));
+        wgmma_rs(dB, eh[kk], desc_mn(Cq, ROWS, 2 * qb + kk));
+        wgmma_rs(dB, el[kk], desc_mn(Cq, ROWS, 2 * qb + kk));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(y);
+      fence_regs(dB);
+      fence_regs(mh);
+      fence_regs(ml);
+      fence_regs(eh);
+      fence_regs(el);
+    }
+    // dx, written once; sum_i R_ij
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int j = R0 + row + 8 * hr;
+      rs[hr] += __shfl_xor_sync(FULL, rs[hr], 1);
+      rs[hr] += __shfl_xor_sync(FULL, rs[hr], 2);
+      if (gc == 0) rsum[j] = rs[hr];
+      if (j >= rows) continue;
+      bf16* o = dx + ((size_t)b * S + c0 + j) * ldx + (size_t)h * P;
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        const int p = 8 * t + 2 * gc;
+        if (p < P) put2(o + p, y[4 * t + 2 * hr], y[4 * t + 2 * hr + 1], p, P);
+      }
+    }
+  };
+
+  // head h (slot hl): d cs from the sums, summed backward over the chunk by
+  // the first warpgroup, a warp to each 32 steps (each warp's suffix sums,
+  // then the later warps' totals), in a fixed order; ddt, and the partials
+  // of dA_log and dD
+  auto finish = [&](int h, int hl) {
+    __syncthreads();  // every warp's sums are in shared memory
+    if (wg != 0) return;
+    const float A = hA[hl];
+    const int k = 32 * warp + lane;
+    float colT = 0.f;  // the first warpgroup's warps reach every column, the second's i >= 64
+    for (int w = 0; w < (k < 64 ? 4 : 8); ++w) colT += red[w * ROWS + k];
+    const float dk = dts[k];
+    // dt_k sum_i R_ki rounded alone, as each T = R dt was: the two sums of
+    // one step's T (a chunk of one step) then cancel exactly, as the plain
+    // backward's do
+    float s = colT - __fmul_rn(dk, rsum[k]) + Us[hl * ROWS + k] - wv[k] * dk;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float t = __shfl_down_sync(FULL, s, off);
+      if (lane + off < 32) s += t;
+    }
+    const float ws = warp_sum(wv[k] * dk), dDs = warp_sum(dd[k]);
+    if (lane == 0) {
+      seg[warp] = s;  // the warp's total
+      seg[4 + warp] = ws;
+      seg[12 + warp] = dDs;
+    }
+    asm volatile("bar.sync 1, 128;\n" ::: "memory");  // the first warpgroup's warps
+    // d cs_Q: exp(cs_Q) <G, S_prev> + sum_j W_j dt_j reaches every step;
+    // then the later warps' steps
+    float carry = es[ROWS - 1] * hG[hl] + (((seg[4] + seg[5]) + seg[6]) + seg[7]);
+    for (int w = 3; w > warp; --w) carry += seg[w];
+    s += carry;
+    if (k < rows) ddt[((size_t)b * S + c0 + k) * H + h] = fmaf(s, A, rsum[k] + wv[k]);
+    const float dA = warp_sum(s * dk);
+    if (lane == 0) seg[8 + warp] = dA;
+    asm volatile("bar.sync 1, 128;\n" ::: "memory");
+    if (tid == 0) {
+      dAp[(size_t)(b * nC + c) * H + h] = (((seg[8] + seg[9]) + seg[10]) + seg[11]) * A;
+      dDp[(size_t)(b * nC + c) * H + h] = ((seg[12] + seg[13]) + seg[14]) + seg[15];
+    }
+  };
+
+  // a [Q x N] partial of the group from the warpgroup's accumulator (its
+  // address made here: hoisted above the heads' loop, it was spilled)
+  auto write_part = [&](float* part, const float (&acc)[NS]) {
+    float* o = part + (size_t)opaque(bc * ng + grp) * Q * N;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int i = R0 + row + 8 * hr;
+      if (i >= rows) continue;
+#pragma unroll
+      for (int t = 0; t < NS / 4; ++t) {
+        const int n = 8 * t + 2 * gc;
+        if (n < N) put2(o + (size_t)i * N + n, acc[4 * t + 2 * hr], acc[4 * t + 2 * hr + 1], n, N);
+      }
+    }
+  };
+
+  // the chunk's B and C, once (landed by the first head's wait); the group's
+  // A, D and <G, S_prev> (visible from the first head's barriers on)
+  tile_bf16<ROWS, NB, 2 * WG>(Cs, sm + L::C, Cv + ((size_t)b * S + c0) * N, N, rows, N, VEC, tid);
+  tile_bf16<ROWS, NB, 2 * WG>(Bs, sm + L::B, Bv + ((size_t)b * S + c0) * N, N, rows, N, VEC, tid);
+  cp_async_commit();
+  if (tid < h1 - h0) {
+    const int h = h0 + tid;
+    const float* g2 = gs + ((size_t)(b * nC + c) * H + h) * 2;
+    hA[tid] = -expf(A_log[h]);
+    hD[tid] = Dp[h];
+    hG[tid] = N > 64 ? g2[0] + g2[1] : g2[0];
+  }
+  if constexpr (TWO_PASS) {
+    {
+      float dC[NS];
+#pragma unroll
+      for (int k = 0; k < NS; ++k) dC[k] = 0.f;
+#pragma unroll 1
+      for (int h = h0; h < h1; ++h) {
+        stage_head(h, true, false);
+        phase_c(dC, h - h0);
+      }
+      write_part(dCp, dC);
+    }
+    float dB[NS];
+#pragma unroll
+    for (int k = 0; k < NS; ++k) dB[k] = 0.f;
+#pragma unroll 1
+    for (int h = h0; h < h1; ++h) {
+      stage_head(h, false, true);
+      phase_b(dB, h, h - h0);
+      finish(h, h - h0);
+    }
+    write_part(dBp, dB);
+  } else {
+    float dC[NS], dB[NS];
+#pragma unroll
+    for (int k = 0; k < NS; ++k) dC[k] = dB[k] = 0.f;
+#pragma unroll 1
+    for (int h = h0; h < h1; ++h) {
+      stage_head(h, true, true);
+      phase_c(dC, h - h0);
+      phase_b(dB, h, h - h0);
+      finish(h, h - h0);
+    }
+    write_part(dCp, dC);
+    write_part(dBp, dB);
+  }
+}
+
+}  // namespace tc
+
 }  // namespace
 
-// Each launcher: dtype 0 float32, 1 bfloat16 (x, Bv, Cv, dx, dB, dC);
-// everything else float32; contiguous; P <= 64, N <= 128, 1 <= Q <= 128.
-// Returns the launch's CUDA error code.
+// Each launcher: dtype 0 float32 (the scalar kernels), 1 bfloat16 (the
+// tensor-core kernels: x, Bv, Cv, dx, dB, dC and gout in bf16); everything
+// else float32; contiguous; P <= 64, N <= 128, 1 <= Q <= 128. Returns the
+// launch's CUDA error code.
 
-// the reverse scan: gout [B, nC, H, P, N]; dfin and ds0 may be null
+namespace {
+bool aligned16(std::initializer_list<const void*> ps) {
+  uintptr_t a = 0;
+  for (const void* p : ps) a |= reinterpret_cast<uintptr_t>(p);
+  return (a & 15) == 0;
+}
+}  // namespace
+
+// the reverse scan: gout [B, nC, H, P, N] (float32, or bf16 for dtype 1);
+// dfin and ds0 may be null; for dtype 1 also gs [B, nC, H, 2] = <G leaving,
+// state entering> each chunk over N's columns 0-63 and 64-127, from states
+// [B, nC, H, P, N]
 extern "C" int ssd_bwd_state_launch(const void* dy, const void* dt, const void* Cv,
-                                    const void* A_log, const void* dfin, void* gout,
-                                    void* ds0, int B, int S, int H, int P, int N, int Q,
-                                    int dtype, void* stream) {
+                                    const void* A_log, const void* dfin, const void* states,
+                                    void* gout, void* gs, void* ds0, int B, int S, int H, int P,
+                                    int N, int Q, int dtype, void* stream) {
   if (bad_shape(B, S, H, P, N, Q) || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = state_smem_floats(Q, N) * sizeof(float);
-  const dim3 grid(B * H, (P + PMAX - 1) / PMAX);
   const float* dyf = static_cast<const float*>(dy);
   const float* dtf = static_cast<const float*>(dt);
   const float* al = static_cast<const float*>(A_log);
   const float* df = static_cast<const float*>(dfin);
-  float* go = static_cast<float*>(gout);
   float* d0 = static_cast<float*>(ds0);
   int err;
   if (dtype == 0) {
-    auto kern = ssd_bwd_state_kernel<float>;
+    const size_t smem = state_smem_floats(Q, N) * sizeof(float);
+    const dim3 grid(B * H, (P + PMAX - 1) / PMAX);
+    auto kern = ssd_bwd_state_kernel;
     if ((err = set_smem(kern, smem)) != 0) return err;
-    kern<<<grid, NT, smem, st>>>(dyf, dtf, static_cast<const float*>(Cv), al, df, go, d0, S, H,
-                                 P, N, Q);
-  } else {
-    auto kern = ssd_bwd_state_kernel<bf16>;
-    if ((err = set_smem(kern, smem)) != 0) return err;
-    kern<<<grid, NT, smem, st>>>(dyf, dtf, static_cast<const bf16*>(Cv), al, df, go, d0, S, H,
-                                 P, N, Q);
+    kern<<<grid, NT, smem, st>>>(dyf, dtf, static_cast<const float*>(Cv), al, df,
+                                 static_cast<float*>(gout), d0, S, H, P, N, Q);
+    return (int)cudaGetLastError();
   }
+  const bf16* cb = static_cast<const bf16*>(Cv);
+  const float* sf = static_cast<const float*>(states);
+  bf16* go = static_cast<bf16*>(gout);
+  float* gsf = static_cast<float*>(gs);
+  const int vec = aligned16({dy, Cv}) && N % 8 == 0 && P % 4 == 0;
+  auto kern = tc::ssd_bwd_state_tc_kernel;
+  if ((err = set_smem(kern, tc::STATE_SMEM)) != 0) return err;
+  kern<<<dim3(B * H, (N + 63) / 64), tc::WG, tc::STATE_SMEM, st>>>(dyf, dtf, cb, al, df, sf, go,
+                                                                    gsf, d0, S, H, P, N, Q, vec);
   return (int)cudaGetLastError();
 }
 
-// the pass per chunk: dx, ddt and the per-head partials dBp / dCp [B, nC, H,
-// Q, N], dDp / dAp [B, nC, H]
+// the pass per chunk: dx, ddt, dDp / dAp [B, nC, H] and the partials dBp /
+// dCp: [B, nC, H, Q, N] one per head (dtype 0), or [B, nC, ceil(H / GH), Q,
+// N] one per group of GH <= 16 heads (dtype 1, which also reads gs)
 extern "C" int ssd_bwd_chunk_launch(const void* x, const void* dt, const void* Bv,
                                     const void* Cv, const void* A_log, const void* D,
-                                    const void* states, const void* gout, const void* dy,
-                                    void* dx, void* ddt, void* dBp, void* dCp, void* dDp,
-                                    void* dAp, int B, int S, int H, int P, int N, int Q,
-                                    int dtype, void* stream) {
+                                    const void* states, const void* gout, const void* gs,
+                                    const void* dy, void* dx, void* ddt, void* dBp, void* dCp,
+                                    void* dDp, void* dAp, int B, int S, int H, int P, int N,
+                                    int Q, int GH, int dtype, void* stream) {
   if (bad_shape(B, S, H, P, N, Q) || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = chunk_smem_floats(Q, P) * sizeof(float);
-  const long long grid = (long long)B * ((S + Q - 1) / Q) * H;
-  if (grid >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+  const int nC = (S + Q - 1) / Q;
   const float* dtf = static_cast<const float*>(dt);
   const float* al = static_cast<const float*>(A_log);
   const float* dp = static_cast<const float*>(D);
   const float* sf = static_cast<const float*>(states);
-  const float* gf = static_cast<const float*>(gout);
   const float* dyf = static_cast<const float*>(dy);
   float* ddtf = static_cast<float*>(ddt);
   float* bp = static_cast<float*>(dBp);
@@ -738,29 +1597,48 @@ extern "C" int ssd_bwd_chunk_launch(const void* x, const void* dt, const void* B
   float* Ap = static_cast<float*>(dAp);
   int err;
   if (dtype == 0) {
-    auto kern = ssd_bwd_chunk_kernel<float>;
+    const size_t smem = chunk_smem_floats(Q, P) * sizeof(float);
+    const long long grid = (long long)B * nC * H;
+    if (grid >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+    auto kern = ssd_bwd_chunk_kernel;
     if ((err = set_smem(kern, smem)) != 0) return err;
     kern<<<(unsigned)grid, NT, smem, st>>>(
         static_cast<const float*>(x), dtf, static_cast<const float*>(Bv),
-        static_cast<const float*>(Cv), al, dp, sf, gf, dyf, static_cast<float*>(dx), ddtf, bp,
-        cp, Dpp, Ap, S, H, P, N, Q);
-  } else {
-    auto kern = ssd_bwd_chunk_kernel<bf16>;
-    if ((err = set_smem(kern, smem)) != 0) return err;
-    kern<<<(unsigned)grid, NT, smem, st>>>(
-        static_cast<const bf16*>(x), dtf, static_cast<const bf16*>(Bv),
-        static_cast<const bf16*>(Cv), al, dp, sf, gf, dyf, static_cast<bf16*>(dx), ddtf, bp,
-        cp, Dpp, Ap, S, H, P, N, Q);
+        static_cast<const float*>(Cv), al, dp, sf, static_cast<const float*>(gout), dyf,
+        static_cast<float*>(dx), ddtf, bp, cp, Dpp, Ap, S, H, P, N, Q);
+    return (int)cudaGetLastError();
   }
+  if (GH < 1 || GH > tc::GMAX) return (int)cudaErrorInvalidValue;
+  const long long grid = (long long)B * nC * ((H + GH - 1) / GH);
+  if (grid >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+  const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* bb = static_cast<const bf16*>(Bv);
+  const bf16* cb = static_cast<const bf16*>(Cv);
+  const bf16* gb = static_cast<const bf16*>(gout);
+  const float* gsf = static_cast<const float*>(gs);
+  bf16* dxb = static_cast<bf16*>(dx);
+  // VEC (16-byte copies) where every row of every operand is 16-byte aligned;
+  // a template flag: the element copies' code in the same instance made
+  // ptxas spill
+  const bool vec = aligned16({x, Bv, Cv, gout, dy, states}) && N % 8 == 0 && P % 8 == 0;
+  auto kern = N <= 64 ? (vec ? tc::ssd_bwd_chunk_tc_kernel<1, false, true>
+                             : tc::ssd_bwd_chunk_tc_kernel<1, false, false>)
+                      : (vec ? tc::ssd_bwd_chunk_tc_kernel<2, true, true>
+                             : tc::ssd_bwd_chunk_tc_kernel<2, true, false>);
+  const size_t smem = N <= 64 ? tc::ChunkSmem<1>::bytes : tc::ChunkSmem<2>::bytes;
+  if ((err = set_smem(kern, smem)) != 0) return err;
+  kern<<<(unsigned)grid, 2 * tc::WG, smem, st>>>(xb, dtf, bb, cb, al, dp, sf, gb, gsf, dyf, dxb,
+                                                 ddtf, bp, cp, Dpp, Ap, S, H, P, N, Q, GH);
   return (int)cudaGetLastError();
 }
 
-// the sums over heads and chunks: dB, dC [B, S, N], dD, dA_log [H]
+// the sums over partials and chunks: dB, dC [B, S, N] from NP partials a
+// chunk (dBp, dCp [B, nC, NP, Q, N]), dD, dA_log [H] from dDp, dAp [B, nC, H]
 extern "C" int ssd_bwd_reduce_launch(const void* dBp, const void* dCp, const void* dDp,
                                      const void* dAp, void* dB, void* dC, void* dD,
-                                     void* dA_log, int B, int S, int H, int N, int Q,
+                                     void* dA_log, int B, int S, int H, int NP, int N, int Q,
                                      int dtype, void* stream) {
-  if (B < 1 || S < 1 || H < 1 || N < 1 || N > NMAX || Q < 1 || Q > QMAX ||
+  if (B < 1 || S < 1 || H < 1 || NP < 1 || N < 1 || N > NMAX || Q < 1 || Q > QMAX ||
       (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -775,18 +1653,26 @@ extern "C" int ssd_bwd_reduce_launch(const void* dBp, const void* dCp, const voi
   if (dtype == 0)
     ssd_bwd_reduce_kernel<float><<<(unsigned)blocks, NT, 0, st>>>(
         bp, cp, Dpp, Ap, static_cast<float*>(dB), static_cast<float*>(dC), dDf, dAf, B, S, H,
-        N, Q);
+        NP, N, Q);
   else
     ssd_bwd_reduce_kernel<bf16><<<(unsigned)blocks, NT, 0, st>>>(
-        bp, cp, Dpp, Ap, static_cast<bf16*>(dB), static_cast<bf16*>(dC), dDf, dAf, B, S, H, N,
-        Q);
+        bp, cp, Dpp, Ap, static_cast<bf16*>(dB), static_cast<bf16*>(dC), dDf, dAf, B, S, H, NP,
+        N, Q);
   return (int)cudaGetLastError();
 }
 
-// Dynamic shared memory of one CTA of each of the first two kernels, in bytes.
+// Dynamic shared memory of one CTA of the float32 state and chunk kernels,
+// and of the bf16 ones at state width N, in bytes.
 extern "C" size_t ssd_bwd_state_smem_bytes(int Q, int N) {
   return state_smem_floats(Q, N) * sizeof(float);
 }
 extern "C" size_t ssd_bwd_chunk_smem_bytes(int Q, int P) {
   return chunk_smem_floats(Q, P) * sizeof(float);
 }
+extern "C" size_t ssd_bwd_tc_smem_bytes(int N, int chunk_pass) {
+  if (chunk_pass) return N <= 64 ? tc::ChunkSmem<1>::bytes : tc::ChunkSmem<2>::bytes;
+  return tc::STATE_SMEM;
+}
+
+// The heads of a group, at most.
+extern "C" int ssd_bwd_max_group() { return tc::GMAX; }

@@ -10,8 +10,10 @@ CUDA tensor the kernel (``ssd.ssd_cuda``) or raises.
 On a card, when autograd records the call (grad mode on and an input
 requiring a gradient), ``ssd_chunked`` goes through ``SSDFn``: the forward
 is the kernel's instance that also writes the state entering each chunk,
-and the backward is the three backward kernels (``ssd.ssd_bwd_cuda``).
-Otherwise the call is the forward-only launch serving makes.
+and the backward is the three backward kernels (``ssd.ssd_bwd_cuda``: in
+bf16 on the tensor cores, dB and dC summed over a group of heads in a CTA;
+in float32 on scalar FMAs). Otherwise the call is the forward-only launch
+serving makes.
 """
 from __future__ import annotations
 

@@ -18,12 +18,23 @@ counting as dt = 0. One kernel for each dtype:
 
 For training, ``states=True`` launches each kernel's second instance, which
 also writes the state entering each chunk, and ``ssd_bwd_cuda`` launches
-the three backward kernels (``csrc/ssd_bwd.cu``: the reverse scan of the
-state's gradient over chunks, a pass per (batch, chunk, head) for dx, dt
-and the head's partials, and their reduction in a fixed order; no atomics;
-scalar float32 FMAs for both dtypes, P <= 64). The JAX package
-differentiates ``repro.models.ssm.ssd_chunked`` (``src/repro/models/ssm.py:82``)
-by autodiff; it has no backward kernel to replace.
+three backward kernels (``csrc/ssd_bwd.cu``; no atomics; P <= 64), one
+design for each dtype:
+
+* bfloat16 on the tensor cores through ``wgmma``: the reverse scan of the
+  state's gradient G per (batch, head), G in the accumulators
+  (``ssd_bwd_state_tc_kernel``); a pass per (batch, chunk, group of heads)
+  (``ssd_bwd_chunk_tc_kernel``), whose dB and dC accumulators sum the
+  group's heads (the heads share B and C), the operands made in float32
+  split into bf16 hi + lo; the groups' partials summed in a fixed order
+  (``ssd_bwd_reduce_kernel``). ``heads_per_cta`` sizes the group so that
+  the grid is one wave;
+* float32 on scalar FMAs: the same three steps with a CTA per (batch,
+  chunk, head) and a partial per head.
+
+The JAX package differentiates ``repro.models.ssm.ssd_chunked``
+(``src/repro/models/ssm.py:82``) by autodiff; it has no backward kernel to
+replace.
 
 Every shape the wrapper admits goes to its dtype's kernel; a CUDA tensor
 launches it or raises. The libraries are built by
@@ -64,16 +75,18 @@ def _declare(lib):
 
 
 def _declare_bwd(lib):
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.ssd_bwd_state_launch.argtypes = [vp] * 7 + [ci] * 7 + [vp]
-    lib.ssd_bwd_chunk_launch.argtypes = [vp] * 15 + [ci] * 7 + [vp]
-    lib.ssd_bwd_reduce_launch.argtypes = [vp] * 8 + [ci] * 6 + [vp]
-    for fn in (lib.ssd_bwd_state_launch, lib.ssd_bwd_chunk_launch, lib.ssd_bwd_reduce_launch):
+    vp, ci, sz = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
+    lib.ssd_bwd_state_launch.argtypes = [vp] * 9 + [ci] * 7 + [vp]
+    lib.ssd_bwd_chunk_launch.argtypes = [vp] * 16 + [ci] * 8 + [vp]
+    lib.ssd_bwd_reduce_launch.argtypes = [vp] * 8 + [ci] * 7 + [vp]
+    for fn in (lib.ssd_bwd_state_launch, lib.ssd_bwd_chunk_launch, lib.ssd_bwd_reduce_launch,
+               lib.ssd_bwd_max_group):
         fn.restype = ci
-    lib.ssd_bwd_state_smem_bytes.argtypes = [ci] * 2
-    lib.ssd_bwd_chunk_smem_bytes.argtypes = [ci] * 2
-    lib.ssd_bwd_state_smem_bytes.restype = ctypes.c_size_t
-    lib.ssd_bwd_chunk_smem_bytes.restype = ctypes.c_size_t
+    lib.ssd_bwd_max_group.argtypes = []
+    for fn in (lib.ssd_bwd_state_smem_bytes, lib.ssd_bwd_chunk_smem_bytes,
+               lib.ssd_bwd_tc_smem_bytes):
+        fn.argtypes = [ci] * 2
+        fn.restype = sz
 
 
 LIBRARY = CudaLibrary("ssd", SOURCES, Path(__file__).parent / "_build", _declare)
@@ -160,17 +173,22 @@ def _launch(lib, x, dt, Bv, Cv, A_log, D, Q, state_init, p_tile, states=None):
     return (y, state) if states is None else (y, state, states)
 
 
-def ssd_bwd_cuda(x, dt, Bv, Cv, A_log, D, chunk: int, states, dy, d_final_state=None,
-                 want_dstate: bool = False):
-    """The gradients of ``ssd_cuda(x, dt, Bv, Cv, A_log, D, chunk,
-    state_init)`` for the cotangents ``dy`` [B, S, H, P] float32 of y and
-    ``d_final_state`` [B, H, P, N] float32 (None: zero) of the final state,
-    from the forward's inputs and ``states`` [B, nC, H, P, N] (its
-    ``states=True`` output): the reverse scan, the pass per chunk and the
-    reduction, on the current stream. Tensors as ``ssd_cuda``'s, P <= 64.
-    Returns fresh (dx in x's dtype, ddt float32, dA_log float32, dBv and
-    dCv in x's dtype, dD float32, d state_init float32 or None unless
-    ``want_dstate``); the inputs are only read."""
+def heads_per_cta(B: int, nC: int, H: int, sms: int, most: int) -> int:
+    """Heads of a group in the bf16 chunk pass: the fewest that keep the
+    grid of (batch, chunk, group) CTAs within one wave of ``sms`` (one CTA
+    an SM), at most ``most`` and H."""
+    return max(1, min(H, most, -(-B * nC * H // sms)))
+
+
+def ssd_bwd_launches(x, dt, Bv, Cv, A_log, D, chunk: int, states, dy, d_final_state=None,
+                     want_dstate: bool = False):
+    """``ssd_bwd_cuda``'s checks and buffers, without launching: returns
+    (launches, outputs), ``launches`` the kernels in order as (name, fn),
+    each ``fn()`` launching one kernel on the stream current at the call
+    (and counting it in ``LAUNCHES[name]``), ``outputs`` what
+    ``ssd_bwd_cuda`` returns once every launch has run. A kernel may be
+    launched alone once the launches before it have run (its inputs are
+    then in place)."""
     B, S, H, P, N, Q = _check_inputs(x, dt, Bv, Cv, A_log, D, chunk, None)
     if P > MAX_BWD_P:
         raise ValueError(f"the SSD backward kernels take P <= {MAX_BWD_P}, got P={P}")
@@ -179,33 +197,68 @@ def ssd_bwd_cuda(x, dt, Bv, Cv, A_log, D, chunk: int, states, dy, d_final_state=
     _check("dy", dy, (B, S, H, P), torch.float32, dev)
     if d_final_state is not None:
         _check("d_final_state", d_final_state, (B, H, P, N), torch.float32, dev)
-    lib, st, code = BWD_LIBRARY.load(), stream(dev), DTYPES[x.dtype]
-    if lib.ssd_bwd_chunk_smem_bytes(Q, P) > SMEM_LIMIT:
-        raise ValueError(f"the SSD backward's chunk pass does not fit shared memory at "
-                         f"chunk {Q}, P={P}")
+    lib, code = BWD_LIBRARY.load(), DTYPES[x.dtype]
     f32 = dict(dtype=torch.float32, device=dev)
-    gout = torch.empty((B, nC, H, P, N), **f32)
+    if x.dtype == torch.bfloat16:  # the tensor-core kernels: dB, dC partials per head group
+        GH = heads_per_cta(B, nC, H, torch.cuda.get_device_properties(dev).multi_processor_count,
+                           lib.ssd_bwd_max_group())
+        NP = -(-H // GH)
+        gout = torch.empty((B, nC, H, P, N), dtype=torch.bfloat16, device=dev)
+        gs = torch.empty((B, nC, H, 2), **f32)
+    else:  # the scalar kernels: partials per head
+        if lib.ssd_bwd_chunk_smem_bytes(Q, P) > SMEM_LIMIT:
+            raise ValueError(f"the SSD backward's chunk pass does not fit shared memory at "
+                             f"chunk {Q}, P={P}")
+        GH, NP = 1, H
+        gout, gs = torch.empty((B, nC, H, P, N), **f32), None
     ds0 = torch.empty((B, H, P, N), **f32) if want_dstate else None
-    err = lib.ssd_bwd_state_launch(ptr(dy), ptr(dt), ptr(Cv), ptr(A_log), ptr(d_final_state),
-                                   ptr(gout), ptr(ds0), B, S, H, P, N, Q, code, st)
-    if err != 0:
-        raise RuntimeError(f"SSD backward state kernel launch failed: CUDA error {err}")
-    LAUNCHES["ssd_bwd_state"] += 1
     dx, ddt = torch.empty_like(x), torch.empty((B, S, H), **f32)
-    dBp, dCp = (torch.empty((B, nC, H, Q, N), **f32) for _ in range(2))
+    dBp, dCp = (torch.empty((B, nC, NP, Q, N), **f32) for _ in range(2))
     dDp, dAp = (torch.empty((B, nC, H), **f32) for _ in range(2))
-    err = lib.ssd_bwd_chunk_launch(ptr(x), ptr(dt), ptr(Bv), ptr(Cv), ptr(A_log), ptr(D),
-                                   ptr(states), ptr(gout), ptr(dy), ptr(dx), ptr(ddt),
-                                   ptr(dBp), ptr(dCp), ptr(dDp), ptr(dAp),
-                                   B, S, H, P, N, Q, code, st)
-    if err != 0:
-        raise RuntimeError(f"SSD backward chunk kernel launch failed: CUDA error {err}")
-    LAUNCHES["ssd_bwd_chunk"] += 1
     dB, dC = torch.empty_like(Bv), torch.empty_like(Cv)
     dD, dA_log = torch.empty((H,), **f32), torch.empty((H,), **f32)
-    err = lib.ssd_bwd_reduce_launch(ptr(dBp), ptr(dCp), ptr(dDp), ptr(dAp), ptr(dB), ptr(dC),
-                                    ptr(dD), ptr(dA_log), B, S, H, N, Q, code, st)
+
+    def state():
+        _launched("ssd_bwd_state", lib.ssd_bwd_state_launch(
+            ptr(dy), ptr(dt), ptr(Cv), ptr(A_log), ptr(d_final_state), ptr(states), ptr(gout),
+            ptr(gs), ptr(ds0), B, S, H, P, N, Q, code, stream(dev)))
+
+    def chunk_pass():
+        _launched("ssd_bwd_chunk", lib.ssd_bwd_chunk_launch(
+            ptr(x), ptr(dt), ptr(Bv), ptr(Cv), ptr(A_log), ptr(D), ptr(states), ptr(gout),
+            ptr(gs), ptr(dy), ptr(dx), ptr(ddt), ptr(dBp), ptr(dCp), ptr(dDp), ptr(dAp),
+            B, S, H, P, N, Q, GH, code, stream(dev)))
+
+    def reduce():
+        _launched("ssd_bwd_reduce", lib.ssd_bwd_reduce_launch(
+            ptr(dBp), ptr(dCp), ptr(dDp), ptr(dAp), ptr(dB), ptr(dC), ptr(dD), ptr(dA_log),
+            B, S, H, NP, N, Q, code, stream(dev)))
+
+    launches = [("ssd_bwd_state", state), ("ssd_bwd_chunk", chunk_pass),
+                ("ssd_bwd_reduce", reduce)]
+    return launches, (dx, ddt, dA_log, dB, dC, dD, ds0)
+
+
+def _launched(name, err):
     if err != 0:
-        raise RuntimeError(f"SSD backward reduce kernel launch failed: CUDA error {err}")
-    LAUNCHES["ssd_bwd_reduce"] += 1
-    return dx, ddt, dA_log, dB, dC, dD, ds0
+        raise RuntimeError(f"SSD backward kernel {name} launch failed: CUDA error {err}")
+    LAUNCHES[name] += 1
+
+
+def ssd_bwd_cuda(x, dt, Bv, Cv, A_log, D, chunk: int, states, dy, d_final_state=None,
+                 want_dstate: bool = False):
+    """The gradients of ``ssd_cuda(x, dt, Bv, Cv, A_log, D, chunk,
+    state_init)`` for the cotangents ``dy`` [B, S, H, P] float32 of y and
+    ``d_final_state`` [B, H, P, N] float32 (None: zero) of the final state,
+    from the forward's inputs and ``states`` [B, nC, H, P, N] (its
+    ``states=True`` output): the reverse scan, the pass per chunk (per
+    group of heads in bf16) and the reduction, on the current stream.
+    Tensors as ``ssd_cuda``'s, P <= 64.
+    Returns fresh (dx in x's dtype, ddt float32, dA_log float32, dBv and
+    dCv in x's dtype, dD float32, d state_init float32 or None unless
+    ``want_dstate``); the inputs are only read."""
+    launches, out = ssd_bwd_launches(x, dt, Bv, Cv, A_log, D, chunk, states, dy,
+                                     d_final_state, want_dstate)
+    for _, launch in launches:
+        launch()
+    return out

@@ -1,10 +1,12 @@
 """The kernel build's cache key (``repro_torch.kernels.build``): a library
 is keyed by its sources, every local header they include and the flags,
-so that editing a shared header (the flash kernels' ``csrc/wgmma.cuh``)
-builds anew instead of loading a stale ``.so``. Runs on the CPU: it hashes
+so that editing a shared header (the flash kernels' ``csrc/wgmma.cuh``, the
+SSD kernels' ``csrc/ssd_wgmma.cuh``) builds anew instead of loading a stale
+``.so``. Runs on the CPU: it hashes
 files and compiles nothing."""
 from repro_torch.kernels.build import CudaLibrary, included
 from repro_torch.kernels.flash_attention import flash_attention as fkern
+from repro_torch.kernels.ssd import ssd as skern
 
 
 def _lib(tmp_path, *sources):
@@ -42,3 +44,9 @@ def test_flash_libraries_hash_the_shared_wgmma_header():
     for lib in (fkern.LIBRARY, fkern.BWD_LIBRARY):
         names = [p.name for p in included(lib.sources)]
         assert names[0] == lib.sources[0].name and "wgmma.cuh" in names
+
+
+def test_ssd_libraries_hash_the_shared_wgmma_header():
+    for lib in (skern.LIBRARY, skern.BWD_LIBRARY):
+        names = [p.name for p in included(lib.sources)]
+        assert names[0] == lib.sources[0].name and "ssd_wgmma.cuh" in names

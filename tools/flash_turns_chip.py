@@ -1,7 +1,7 @@
 """The bf16 flash-attention forward, or the backward kernels, of two trees
 in turns on the card.
 
-    PYTHONPATH=src python tools/flash_turns_chip.py BASE_ROOT [--rounds N] [--backward]
+    PYTHONPATH=src python tools/flash_turns_chip.py BASE_ROOT [--rounds N] [--backward | --ssd | --train]
 
 ``BASE_ROOT`` is another checkout of this repo (for example the parent
 commit, unpacked with ``git archive`` into a directory that ``.gitignore``
@@ -21,16 +21,30 @@ this, this, base, ``N`` times), each tree's own library built from its own
 sources: flash attention's dQ and dK / dV launches at Phi-4-mini's training
 shape (B 4, S 512, 24 / 8 heads, D 128, bf16, causal; the output and
 log-sum-exp from this tree's forward, the same for both) beside cuDNN SDPA's
-backward through autograd on the same inputs, and RMSNorm's backward (dx
+backward through autograd on the same inputs, RMSNorm's backward (dx
 and dw's two launches) at N 2048, d 3072, bf16, beside ``F.rms_norm``'s
-backward, and this tree's kernels each alone. Each tree's gradients are
-held against the other's within
-``chip_smoke.ATTN_GRAD_TOL`` / ``RMS_GRAD_TOL`` (bf16). One JSON line per
-kernel, then the card's name and power limit.
+backward, and the SSD scan's backward (each tree's ``ssd_bwd_cuda``, its
+own module loaded from its own ``ssd.py``) at Mamba-2's and Zamba2's
+training shapes (B 4 x 512, Q 128, P 64, bf16; H 24, N 128 and H 112, N
+64; the forward's states from this tree's ``STATES`` launch) beside the
+plain backward ``ssd_chunked_bwd_ref``, and this tree's kernels each alone.
+Each tree's gradients are held against the other's within
+``chip_smoke.ATTN_GRAD_TOL`` / ``RMS_GRAD_TOL`` / ``SSD_GRAD_REL`` (bf16).
+One JSON line per kernel and shape, then the card's name and power limit.
+``--ssd`` runs the SSD scan's part of ``--backward`` alone.
+
+``--train`` instead runs ``chip_smoke.train_mamba2_130m`` and
+``train_zamba2_7b`` of both trees in turns (base, this, this, base, ``N``
+times; default 1), each turn a process of its own started in that tree
+(the two trees' packages share names), and prints one JSON line per cell
+with each turn's ms a step, forward / backward / update split, device ms
+and busy share of one profiled step, and the SSD backward's kernels among
+that step's six longest (device us); then the card's name and power limit.
 """
 from __future__ import annotations
 
 import ctypes
+import importlib.util
 import json
 import statistics
 import subprocess
@@ -233,6 +247,108 @@ def backward_turns(base_root: Path, rounds: int) -> None:
         "tol": CS.RMS_GRAD_TOL["bfloat16"]}), flush=True)
 
 
+def ssd_module(root: Path, name: str):
+    """The tree's ``kernels/ssd/ssd.py`` loaded as module ``name``: its
+    wrappers build and load that tree's own sources into its ``_build/``."""
+    spec = importlib.util.spec_from_file_location(
+        name, root / "src/repro_torch/kernels/ssd/ssd.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def ssd_turns(base_root: Path, rounds: int) -> None:
+    """Both trees' SSD scan backward in turns, and this tree's kernels each
+    alone (module doc)."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as CS
+    from repro_torch.kernels.ssd import ssd as SK
+    from repro_torch.kernels.ssd.ref import ssd_chunked_bwd_ref
+
+    mods = {"base": ssd_module(base_root, "ssd_base"), "this": SK}
+    with ThreadPoolExecutor(2) as pool:  # one nvcc per tree, together
+        list(pool.map(lambda m: m.BWD_LIBRARY.build(), mods.values()))
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(47)
+    for label, H, N in (("mamba2", 24, 128), ("zamba2", 112, 64)):
+        x, dt, Bv, Cv, A_log, D, _, states, dy, _ = CS.ssd_bwd_inputs(
+            rng, 4, 512, H, 64, N, 128, torch.bfloat16, dev)
+        args = (x, dt, Bv, Cv, A_log, D, 128, states, dy)
+        runs = {who: (lambda m=m: m.ssd_bwd_cuda(*args)) for who, m in mods.items()}
+        turns = {"base": [], "this": []}
+        for _ in range(rounds):
+            for who in ("base", "this", "this", "base"):
+                turns[who].append(CS.graph_ms(runs[who], reps=10))
+        launches, _ = SK.ssd_bwd_launches(*args)
+        for _, fn in launches:  # each kernel's inputs in place before it runs alone
+            fn()
+        alone = {name: CS.graph_ms(fn, reps=10) for name, fn in launches}
+        plain = CS.graph_ms(lambda: ssd_chunked_bwd_ref(x, dt, A_log, Bv, Cv, D, 128, None, dy),
+                            reps=3)
+        got = {who: run() for who, run in runs.items()}
+        torch.cuda.synchronize()
+        errs = {}
+        for name, a, b in zip(CS.SSD_GRADS, got["base"], got["this"]):
+            if a is None:
+                continue
+            errs[name] = CS.rel_err(b, a)
+            CS.check((errs[name] is None or errs[name] <= CS.SSD_GRAD_REL["bfloat16"])
+                     and bool(torch.isfinite(b).all()),
+                     f"SSD backward ({label}): this tree's {name} disagrees with the base's: "
+                     f"{errs[name]}")
+        print(json.dumps({
+            "kernel": "SSD scan backward", "shape": f"{label}: B=4, S=512, H={H}, P=64, "
+                                                   f"N={N}, Q=128, bf16",
+            "order": "base,this,this,base" + f" x {rounds}",
+            "base_ms": turns["base"], "this_ms": turns["this"],
+            "base_median_ms": statistics.median(turns["base"]),
+            "this_median_ms": statistics.median(turns["this"]),
+            "base_over_this": statistics.median(turns["base"]) / statistics.median(turns["this"]),
+            "this_alone_ms": alone, "plain_ms": plain,
+            **CS.ssd_bwd_bound(4, 512, H, 64, N, 128, 2),
+            "max_rel_diff_vs_base": errs, "tol_rel": CS.SSD_GRAD_REL["bfloat16"]}), flush=True)
+        del x, dt, Bv, Cv, states, dy, got
+        torch.cuda.empty_cache()
+
+
+TRAIN_CELLS = ("train_mamba2_130m", "train_zamba2_7b")
+
+
+def train_turns(base_root: Path, rounds: int) -> None:
+    """``--train``: both trees' SSM training cells in turns (module doc)."""
+    code = ("import sys, torch; sys.path[:0] = ['src', '.']; import chip_smoke as CS; "
+            "d = torch.device('cuda'); " + "; ".join(f"CS.{c}(d)" for c in TRAIN_CELLS))
+    turns = {c: {"base": [], "this": []} for c in TRAIN_CELLS}
+    for _ in range(rounds):
+        for who in ("base", "this", "this", "base"):
+            root = base_root if who == "base" else ROOT
+            run = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
+                                 text=True, timeout=1200)
+            if run.returncode != 0:
+                raise RuntimeError(f"{who}'s training turn failed:\n{run.stdout[-4000:]}\n"
+                                   f"{run.stderr[-4000:]}")
+            for line in run.stdout.splitlines():
+                cell = line[1:line.index("]")] if line.startswith("[train_") else None
+                if cell not in turns:
+                    continue
+                row = json.loads(line[line.index("]") + 2:])
+                prof = row["profile"] or {}
+                turns[cell][who].append({
+                    "ms_per_step": row["ms_per_step"], "split_ms": row["split_ms"],
+                    "device_ms": prof.get("device_us", 0) / 1e3,
+                    "busy_share": prof.get("busy_share"),
+                    "ssd_bwd_top_us": {k: v for k, v in prof.get("top_us", {}).items()
+                                       if "ssd_bwd" in k}})
+    for cell, by in turns.items():
+        med = {who: statistics.median(r["ms_per_step"] for r in rows) for who, rows in by.items()}
+        print(json.dumps({"cell": cell, "order": "base,this,this,base" + f" x {rounds}",
+                          "base": by["base"], "this": by["this"],
+                          "base_median_ms_per_step": med["base"],
+                          "this_median_ms_per_step": med["this"]}), flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -247,8 +363,14 @@ def main() -> int:
         return 2
     base_root = Path(args[0]).resolve()
     rounds = int(args[args.index("--rounds") + 1]) if "--rounds" in args else 3
-    if "--backward" in args:
-        backward_turns(base_root, rounds)
+    if "--train" in args:
+        train_turns(base_root, int(args[args.index("--rounds") + 1]) if "--rounds" in args else 1)
+        print_card()
+        return 0
+    if "--backward" in args or "--ssd" in args:
+        if "--backward" in args:
+            backward_turns(base_root, rounds)
+        ssd_turns(base_root, rounds)
         print_card()
         return 0
     (base, base_lse), (this, this_lse) = (library(base_root, "flash_attention_base"),

@@ -9,8 +9,9 @@ backward) it
 1. compiles the package's sources with ``chip_smoke.py``'s ``nvcc`` flags
    plus ``-Xptxas -v`` and prints, for each kernel instantiation, its
    registers, spill stores and loads, and static shared memory, as one
-   JSON line ``{"ptxas": {...}}`` (and the bf16 SSD kernel's dynamic
-   shared memory at N <= 64 and N <= 128);
+   JSON line ``{"ptxas": {...}}`` (and the bf16 SSD kernels' dynamic
+   shared memory, the forward's and the backward's, at N <= 64 and N <=
+   128);
 2. runs ``chip_smoke.compare_model_kernels`` (every kernel against its
    plain version, at the serve paths' shapes and the edge cases) and
    ``chip_smoke.compare_train_kernels`` and ``compare_train_ssd`` (the
@@ -96,21 +97,26 @@ def ptxas_report(lib):
 
 def other_library(lib, root: Path):
     """``lib`` built from ``root``'s copy of its sources into ``root``'s own
-    build directory; only SSD's forward launcher is declared, as the tree
-    before the ``STATES`` flag declares it (no states pointer)."""
+    build directory; only SSD's forward launcher is declared, with a states
+    pointer where that tree's launcher takes one (the trees since the
+    ``STATES`` flag; ``has_states`` on the result says which)."""
     import ctypes
 
     from repro_torch.kernels.build import CudaLibrary
 
+    here = lambda p: p.resolve().relative_to(ROOT)  # noqa: E731
+    sources = tuple(root / here(s) for s in lib.sources)
+    has_states = "void* states" in sources[0].read_text()
+
     def declare(so):
         if hasattr(so, "ssd_launch"):
             vp, ci = ctypes.c_void_p, ctypes.c_int
-            so.ssd_launch.argtypes = [vp] * 9 + [ci] * 8 + [vp]
+            so.ssd_launch.argtypes = [vp] * (10 if has_states else 9) + [ci] * 8 + [vp]
             so.ssd_launch.restype = ci
 
-    here = lambda p: p.resolve().relative_to(ROOT)  # noqa: E731
-    return CudaLibrary(lib.name, tuple(root / here(s) for s in lib.sources),
-                       root / here(lib.build_dir), declare)
+    out = CudaLibrary(lib.name, sources, root / here(lib.build_dir), declare)
+    out.has_states = has_states
+    return out
 
 
 def serving_rows(name, rows):
@@ -157,8 +163,9 @@ def serving_vs_other(reports, other_reports, other_ssd, dev):
         y, st = SK.ssd_cuda(x, dt, Bv, Cv, A_log, D, 128, s0)
         y2, st2 = torch.empty_like(y), torch.empty_like(st)
         pt = 0 if dtype == torch.bfloat16 else 16
+        states = [ptr(None)] if other_ssd.has_states else []  # the serving launch: none
         err = so.ssd_launch(ptr(x), ptr(dt), ptr(Bv), ptr(Cv), ptr(A_log), ptr(D), ptr(s0),
-                            ptr(y2), ptr(st2), B, S, H, P, N, min(128, S), pt,
+                            ptr(y2), ptr(st2), *states, B, S, H, P, N, min(128, S), pt,
                             SK.DTYPES[dtype], stream(dev))
         torch.cuda.synchronize()
         CS.check(err == 0, f"the other tree's SSD launch failed: {err}")
@@ -192,6 +199,9 @@ def main() -> int:
     # the bf16 SSD kernel's shared memory is dynamic: its size by state width
     reports["ssd"]["bf16_dynamic_smem"] = {
         f"N<={n}": SK.LIBRARY.load().ssd_tc_smem_bytes(n) for n in (64, 128)}
+    reports["ssd_bwd"]["bf16_dynamic_smem"] = {
+        f"{k} N<={n}": SK.BWD_LIBRARY.load().ssd_bwd_tc_smem_bytes(n, chunk)
+        for k, chunk in (("state", 0), ("chunk", 1)) for n in (64, 128)}
     print(json.dumps({"ptxas": reports} | ({"ptxas_other": other_reports} if theirs else {})))
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
