@@ -38,11 +38,11 @@ through the backward kernels), and checks what comes out:
    times, peak device memory;
    at both sizes also the router cycle's and the endpoint phases' share of
    a step, and the device's busy share under ``torch.profiler``;
-5. super-steps: the 8x4 mesh at ``fused_cycles=4`` (600 cycles,
+5. super-steps: the 8x4 mesh at ``fused_cycles=4`` (300 cycles,
    ``SUPER_CYCLES``, cut from 1200: GPU state equal to CPU state, one
    fused launch per 4 cycles, ms per cycle beside k = 1);
 6. the 8x4 torus at ``n_vcs=2``, one cycle per step and at
-   ``fused_cycles=4`` (600 cycles each, cut from 1200; the naive step's
+   ``fused_cycles=4`` (300 cycles each, cut from 1200; the naive step's
    torus cell too): GPU state equal to CPU state, ms per cycle, the VC
    arb/apply kernels timed on the per-cycle run's state (the simulator
    profiles cover ``PROFILE_STEPS`` = 6 steps, 3 for the super-steps and
@@ -67,9 +67,10 @@ through the backward kernels), and checks what comes out:
    torus at ``n_vcs=2`` and the offloaded tree multicast (16 kB, 4
    streams) on the 8x4 mesh, each delivering exactly its
    ``expect_rx`` at the CPU run's completion cycle (693 / 673 / 278) with
-   the GPU state equal to the CPU's (the all-reduces run 800 cycles,
-   ``OFFLOAD_CYCLES``, cut from 1 000; the naive one too); the all-reduce on the 32x32 mesh for
-   200 cycles (state against CPU, ms per cycle, peak device memory); the
+   the GPU state equal to the CPU's (the all-reduces run 720 cycles,
+   ``OFFLOAD_CYCLES``, cut from 1 000, the naive one too; the multicast 300,
+   cut from 450); the all-reduce on the 32x32 mesh for
+   150 cycles, cut from 200 (state against CPU, ms per cycle, peak device memory); the
    offload arb kernel's time against its plain version and bound; the
    8x4 all-reduce's layer split and device profile from cycle 400;
 9b. the naive reference step (``step_impl="naive"``): the 8x4 mesh under
@@ -175,14 +176,21 @@ through the backward kernels), and checks what comes out:
 10b. training on the card (``kernels_vs_plain_train_*``, ``train_vs_cpu``,
    ``train_ssm_vs_cpu``, ``train_resume_card``, ``serve_int8_cache_vs_cpu``,
    ``train_phi4_mini``, ``train_mamba2_130m``, ``train_zamba2_7b``,
-   ``kernel_times_train``): the backward kernels (flash attention's dQ and
+   ``train_families_vs_cpu``, ``moe_grouped_bwd``, ``train_gemma3_4b``,
+   ``train_deepseek_v2``, ``train_seamless_m4t``, ``kernel_times_train``):
+   the backward kernels (flash attention's dQ and
    dK / dV, RMSNorm's dx / dw) against the autograd of their plain
    versions in float32 and bf16 (flash at Phi-4-mini's B 4, S 512, 24 / 8
    heads, D 128, at Zamba2's 32 / 32 heads, D 112, at D 32 and 112, S = 1,
    63, 65, 129 and a ragged 520, G =
-   1, 3 and 8, non-causal with Sq != Skv; RMSNorm at d 3072 and 128, N
-   2048, 5 and 1, and d 100), inputs untouched, two runs bit-equal, the
-   forward's log-sum-exp against ``logsumexp``; the SSD scan's three
+   1, 3 and 8, non-causal with Sq != Skv; at the training shapes of Gemma
+   3 (B 2, S 2048, 8 / 4 heads, D 256, window 1024 and global), MLA (B 4,
+   S 512, 128 / 128 heads, D 192, Dv 128) and SeamlessM4T (B 4, S 512, 16 /
+   16 heads, D 64: not causal, causal, and the cross-attention over 768
+   keys); windows at D 32, 64, 112, 128 (not causal), 256 and with MLA, a
+   window of 1, D 256 and MLA not causal with Sq != Skv; RMSNorm at d 3072
+   and 128, N 2048, 5 and 1, and d 100), inputs untouched, two runs
+   bit-equal, the forward's log-sum-exp against ``logsumexp``; the SSD scan's three
    backward kernels against the plain backward ``ssd_chunked_bwd_ref``
    within ``SSD_GRAD_REL`` of each gradient's largest value (Mamba-2's and
    Zamba2's B 4 x 512 shapes, a ragged S, an entering state with a
@@ -190,7 +198,8 @@ through the backward kernels), and checks what comes out:
    float32 and bf16), two runs bit-equal, the forward's ``STATES``
    instance bit-equal to the serving one; Phi-4-mini at full width
    and 2 layers, Mamba-2 130M whole and Zamba2 at full width and 7 layers
-   (one superblock, one trailing layer) trained 3 / 3 / 2 float32 steps on
+   (one superblock, one trailing layer) trained 2 float32 steps each
+   (``CPU_GATE_STEPS``, cut from 3 for Phi-4-mini and Mamba-2) on
    the card and the CPU from the same parameters (losses, grad norms, each
    leaf's first gradient, parameters); a reduced Granite's
    resume on the card (restored tensors bit-equal, losses as straight
@@ -203,13 +212,29 @@ through the backward kernels), and checks what comes out:
    step 48 SSD forward, 24 of each SSD backward kernel, 49 / 25 RMSNorm)
    and Zamba2 at 27 of 81 layers (``ZAMBA2_LAYERS``; 54 SSD forward, 27 of
    each backward kernel, 8 flash forward at D 112, 4 dQ and 4 dK / dV, 71
-   / 36 RMSNorm); the backward kernels' times beside
-   their bounds, the plain autograd's and the library's backward (cuDNN
-   SDPA, ``F.rms_norm``): flash attention's in bf16 (the ``wgmma`` kernels,
-   on the training path) and in float32 (the scalar kernels, on
-   ``train_vs_cpu``'s path), named apart in the ``kernels`` line; the SSD
-   backward's at Mamba-2's and Zamba2's shapes beside the plain backward
-   (no PyTorch call computes it);
+   / 36 RMSNorm); Gemma 3 at full width and D 256 with 2 layers (one
+   windowed, the window cut to 128; one global), DeepSeek-V2 at full width
+   with 2 layers and 8 of its experts, SeamlessM4T at full width with 2 + 2
+   layers, trained 2 float32 steps on the card and the CPU
+   (``train_families_vs_cpu``, as ``train_vs_cpu``); the MoE backward at
+   DeepSeek-V2's expert shape (``moe_grouped_bwd``: the grouped product's
+   bf16 autograd against a float32 loop over the experts, the whole
+   ``moe_block`` in bf16 under ``set_sync_debug_mode("error")`` against its
+   float32 autograd, at the config's capacity and with three quarters
+   dropped); the whole Gemma 3 4B on B 2 x 2048 tokens (68 flash forward,
+   34 dQ and 34 dK / dV at D 256, 29 of each windowed; 137 / 69 RMSNorm),
+   DeepSeek-V2 at full width and 2 of 60 layers (``DEEPSEEK_TRAIN_LAYERS``:
+   the dense first layer and one MoE layer, 4.8e9 parameters; 4 flash
+   forward, 2 dQ and 2 dK / dV at D 192 / Dv 128; 17 / 9 RMSNorm) and the
+   whole SeamlessM4T (72 flash forward, 36 dQ and 36 dK / dV at D 64;
+   122 / 62 RMSNorm) through ``train_model``; the backward kernels' times
+   beside their bounds, the plain autograd's and the library's backward
+   (cuDNN SDPA, a window as a boolean band mask; ``F.rms_norm``): flash
+   attention's in bf16 (the ``wgmma`` kernels, on the training paths) at
+   every training path's shape and in float32 (the scalar kernels, on
+   ``train_vs_cpu``'s and ``train_families_vs_cpu``'s paths), named apart
+   in the ``kernels`` line; the SSD backward's at Mamba-2's and Zamba2's
+   shapes beside the plain backward (no PyTorch call computes it);
 11. the paged KV gather (``kernels_vs_plain_kv_gather``,
    ``kernel_times_kv_gather``): the kernel bit-equal to its plain version
    at ``tests/test_kernels.py``'s sweep shapes in float32, bf16 and int32
@@ -223,7 +248,7 @@ through the backward kernels), and checks what comes out:
    every ``repro_torch.benchmarks`` module in ``--smoke`` mode on the card
    and on the CPU, each row equal on both and to the JAX package's rows in
    ``src/repro_torch/benchmarks/jax_rows.json``; and ``fig10_rob``, the
-   default-mode Fig. 10 module on the card (3 x 1 000 cycles on the 4x4
+   default-mode Fig. 10 module on the card (3 x 720 cycles on the 4x4
    mesh, ``FIG10_CYCLES``, cut from 4 000: each run completes by cycle
    688), rows and footer equal to the JAX package's, ms per cycle;
 11b. the batched sweep and the design-space exploration: the per-cycle
@@ -243,7 +268,9 @@ through the backward kernels), and checks what comes out:
    ``ml_traffic.validate_phase`` on the card, counted, equal to the CPU's;
 12. one JSON line listing every kernel and mode (launches on its main
    path, mismatch, times, bounds; the flash kernel's MLA instance, D=192
-   with Dv=128, and its D=64 instance (SeamlessM4T) rows of their own; the
+   with Dv=128, and its D=64 instance (SeamlessM4T) rows of their own, and
+   so the flash backward's two-warpgroup instances at D=256 (Gemma 3) and
+   D=192 / Dv=128 (MLA) and its D=64 instance; the
    per-cycle kernels' rows also the
    launch floor: an empty kernel's time at the same grid, timed the same
    way in the same run; the unfused apply mode's rows its launches on the
@@ -1065,12 +1092,13 @@ def run_counted(TS, sim, n, state=None):
     return st, dt, launches
 
 
-def offload_run(name, otopo, V, sched, n, mid, done_at=None, step_impl="fast"):
+def offload_run(name, otopo, V, sched, n, mid, done_at=None, step_impl="fast", uncut=None):
     """One offloaded collective on the card through ``build_sim`` /
     ``run`` (two counted runs: ``mid`` cycles, then the rest), held
     against the same run on the CPU; with ``done_at`` also the
-    exactly-once delivery and the completion cycle. Returns the state
-    at ``mid``, the sim, the launch counts and the final state."""
+    exactly-once delivery and the completion cycle; with ``uncut`` (the
+    horizon ``n`` was cut from) its seconds noted in ``CUTS``. Returns the
+    state at ``mid``, the sim, the launch counts and the final state."""
     import numpy as np
     import torch
 
@@ -1099,8 +1127,8 @@ def offload_run(name, otopo, V, sched, n, mid, done_at=None, step_impl="fast"):
     done = CT.measured_cycles(out, otopo)
     cpu_done = CT.measured_cycles(TS.stats(csim, cst), otopo)
     exact = bool(np.array_equal(out["rx_bursts"], sched.expect_rx))
-    if n == OFFLOAD_CYCLES:
-        note_cut(name, dt1 + dt2 + dt_cpu, n, OFFLOAD_CYCLES_UNCUT)
+    if uncut:
+        note_cut(name, dt1 + dt2 + dt_cpu, n, uncut)
     phase(name, cycles=n, n_vcs=V, groups=len(groups),
           beats=sched.meta["beats"], launches=launches,
           gpu_ms_per_cycle=(dt1 + dt2) / n * 1e3,
@@ -1159,19 +1187,33 @@ def narrow_latency(TS, TT_epm, topo, src, dst, cycles=380, params=None):
 # the H100 SXM's dense bf16 tensor-core peak (NVIDIA data sheet)
 BF16_FLOPS_PER_S = 989e12
 # the horizon of super_8x4, torus_vc_8x4, torus_8x4 and naive_torus_vc_8x4,
-# and the steps a simulator profile covers: cut from 1 200 cycles and 20 /
-# 10 steps to pay for the training phases within the run's time limit
-SUPER_CYCLES, SUPER_CYCLES_UNCUT = 600, 1200
+# and the steps a simulator profile covers: cut from 1 200 cycles (to 600,
+# then to 300 for the Gemma 3, DeepSeek-V2 and SeamlessM4T training phases)
+# and 20 / 10 steps to pay for the training phases within the run's time
+# limit; each run still moves wide and narrow traffic, its state equal to
+# the CPU's
+SUPER_CYCLES, SUPER_CYCLES_UNCUT = 300, 1200
 PROFILE_STEPS, PROFILE_STEPS_UNCUT = 6, 20
 # each turn of the k1 / k4 and fast / naive timing (k = 4 needs a multiple of 4)
 TURN_CYCLES, TURN_CYCLES_UNCUT = 48, 100
 # the 8x4 all-reduce runs' horizon (fast, torus at n_vcs=2, naive): cut from
-# 1 000 cycles to pay for the SSM training phases; each completes by 693
-OFFLOAD_CYCLES, OFFLOAD_CYCLES_UNCUT = 800, 1000
+# 1 000 cycles to pay for the training phases; each completes by 693
+OFFLOAD_CYCLES, OFFLOAD_CYCLES_UNCUT = 720, 1000
+# the offloaded tree multicast's horizon, cut from 450 for the same reason;
+# it completes by 278
+MULTICAST_CYCLES, MULTICAST_CYCLES_UNCUT = 300, 450
+# the 32x32 all-reduce's horizon (its offload arb timed at cycle 100, as
+# before the cut), cut from 200
+BIG_OFFLOAD_CYCLES, BIG_OFFLOAD_CYCLES_UNCUT = 150, 200
 # each of Fig. 10's three runs (the module's ``_completion``): cut from its
 # 4 000 cycles, for the same reason; each completes by cycle 688, so its
 # rows equal the 4 000-cycle rows
-FIG10_CYCLES, FIG10_CYCLES_UNCUT = 1000, 4000
+FIG10_CYCLES, FIG10_CYCLES_UNCUT = 720, 4000
+# the float32 card-against-CPU gates of Phi-4-mini (``train_vs_cpu``) and
+# Mamba-2 (``train_ssm_vs_cpu``): steps, cut from 3 for the same reason
+# (every check still holds two steps: the losses and grad norms of each,
+# every leaf's first gradient, the parameters after the last update)
+CPU_GATE_STEPS, CPU_GATE_STEPS_UNCUT = 2, 3
 # each cut cell's seconds in this run at its cut size, beside its uncut
 # size and the seconds the cut saved, estimated in proportion to the size
 # (for a profile, whose set-up does not shrink, an upper estimate)
@@ -1249,6 +1291,7 @@ LLAMA4_LAYERS = 12
 # model (~235 B parameters, ~470 GB) does not fit an 80 GB card
 DEEPSEEK = "deepseek-v2-236b"
 DEEPSEEK_LAYERS = 8
+DEEPSEEK_TRAIN_LAYERS = 2  # train_deepseek_v2: the dense first layer and one MoE layer
 # Qwen2-VL served at full width, cut to 32 of its 80 layers (2.940e10
 # parameters, 58.80 GB in bf16): the whole model (~71.5 B parameters, ~143
 # GB) does not fit an 80 GB card. SeamlessM4T (0.750e9 parameters) is served
@@ -1508,7 +1551,15 @@ RMS_GRAD_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (3e-2, 3e-2)}
 GRAD_BF16_REL = 1e-2
 
 
-def plain_attention_grads(q, k, v, dout, causal):
+# the training paths' flash backward shapes in ``compare_train_kernels``,
+# by the error key of their ``kernels`` row
+TRAIN_FLASH_GROUPS = {"phi4_train": "flash_attention_bwd", "zamba2_train": "flash_attention_bwd",
+                      "gemma3_train": "flash_attention_bwd_gemma3",
+                      "mla_train": "flash_attention_bwd_mla",
+                      "seamless_train": "flash_attention_bwd_seamless"}
+
+
+def plain_attention_grads(q, k, v, dout, causal, window=0):
     """(out, dq, dk, dv) of the plain attention by autograd."""
     import torch
 
@@ -1516,12 +1567,12 @@ def plain_attention_grads(q, k, v, dout, causal):
 
     leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
     with torch.enable_grad():
-        out = attention_ref(*leaves, causal=causal)
+        out = attention_ref(*leaves, causal=causal, window=window)
         out.backward(dout)
     return (out.detach(), *(t.grad for t in leaves))
 
 
-def plain_lse(q, k, causal):
+def plain_lse(q, k, causal, window=0):
     """The float32 log-sum-exp [B, H, Sq] of the scaled, masked scores."""
     import torch
 
@@ -1529,9 +1580,12 @@ def plain_lse(q, k, causal):
     Skv, KV = k.shape[1], k.shape[2]
     qf = q.float().reshape(B, Sq, KV, H // KV, D)
     s = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float()) * D ** -0.5
-    if causal:
-        vis = torch.arange(Sq, device=q.device)[:, None] >= torch.arange(Skv, device=q.device)
-        s = s.masked_fill(~vis, float("-inf"))
+    i = torch.arange(Sq, device=q.device)[:, None]
+    j = torch.arange(Skv, device=q.device)[None, :]
+    vis = (i >= j) if causal else torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if window:
+        vis = vis & (i - j < window)
+    s = s.masked_fill(~vis, float("-inf"))
     return torch.logsumexp(s, -1).reshape(B, H, Sq)
 
 
@@ -1567,7 +1621,7 @@ def compare_train_kernels(dev):
     rng = np.random.default_rng(41)
     bf, f32 = "bfloat16", "float32"
     dt = {bf: torch.bfloat16, f32: torch.float32}
-    # (label, dtype, B, Sq, H, KV, D, causal, Skv)
+    # (label, dtype, B, Sq, H, KV, D, causal, Skv[, Dv, window])
     cases = []
     for d_ in (bf, f32):
         cases += [("phi4_train", d_, 4, 512, 24, 8, 128, True, 512),
@@ -1580,33 +1634,55 @@ def compare_train_kernels(dev):
         cases += [("edge_s", d_, 2, S, 4, 2, 64, True, S) for S in (1, 63, 65, 129)]
         cases += [(f"group_{H // KV}", d_, 2, 200, H, KV, 64, True, 200)
                   for H, KV in ((4, 4), (6, 2), (8, 1))]
+        # the training paths of Gemma 3 (D 256, window 1024 and global), MLA
+        # (D 192, Dv 128) and SeamlessM4T (D 64: the encoder, the decoder's
+        # self-attention, the cross-attention over 768 frames)
+        cases += [("gemma3_train_window", d_, 2, 2048, 8, 4, 256, True, 2048, 256, 1024),
+                  ("gemma3_train_global", d_, 2, 2048, 8, 4, 256, True, 2048, 256, 0),
+                  ("mla_train", d_, 4, 512, 128, 128, 192, True, 512, 128, 0),
+                  ("seamless_train_encoder", d_, 4, 512, 16, 16, 64, False, 512),
+                  ("seamless_train_self", d_, 4, 512, 16, 16, 64, True, 512),
+                  ("seamless_train_cross", d_, 4, 512, 16, 16, 64, False, 768)]
+        # windows at every width, ragged edges, the pairs in groups
+        cases += [("window_d32", d_, 1, 96, 4, 2, 32, True, 96, 32, 32),
+                  ("window_d64", d_, 2, 300, 8, 4, 64, True, 300, 64, 100),
+                  ("window_d112", d_, 1, 200, 4, 2, 112, True, 200, 112, 70),
+                  ("window_d128_noncausal", d_, 1, 200, 4, 2, 128, False, 200, 128, 50),
+                  ("window_d256_ragged", d_, 1, 200, 4, 2, 256, True, 200, 256, 70),
+                  ("window_1", d_, 1, 130, 4, 2, 256, True, 130, 256, 1),
+                  ("d256_noncausal_sq_ne_skv", d_, 1, 100, 4, 2, 256, False, 170, 256, 0),
+                  ("mla_ragged_group_4", d_, 1, 129, 8, 2, 192, True, 129, 128, 0),
+                  ("mla_window", d_, 1, 200, 4, 4, 192, True, 200, 128, 64),
+                  ("mla_noncausal_sq_gt_skv", d_, 1, 130, 4, 2, 192, False, 70, 128, 0)]
     errs, rows = {}, []
-    for label, d_, B, S, H, KV, D, causal, Skv in cases:
+    for label, d_, B, S, H, KV, D, causal, Skv, *rest in cases:
+        Dv, window = rest if rest else (D, 0)
         q, k, v = (randn(rng, sh, dt[d_], dev) for sh in
-                   ((B, S, H, D), (B, Skv, KV, D), (B, Skv, KV, D)))
-        dout = randn(rng, (B, S, H, D), dt[d_], dev)
+                   ((B, S, H, D), (B, Skv, KV, D), (B, Skv, KV, Dv)))
+        dout = randn(rng, (B, S, H, Dv), dt[d_], dev)
         keep = [t.clone() for t in (q, k, v, dout)]
-        out, lse = FK.flash_attention_cuda(q, k, v, causal=causal, lse=True)
-        plain_out = FK.flash_attention_cuda(q, k, v, causal=causal)
-        runs = [FK.flash_attention_bwd_cuda(q, k, v, out, dout, lse, causal=causal)
-                for _ in range(2)]
+        out, lse = FK.flash_attention_cuda(q, k, v, causal=causal, window=window, lse=True)
+        plain_out = FK.flash_attention_cuda(q, k, v, causal=causal, window=window)
+        runs = [FK.flash_attention_bwd_cuda(q, k, v, out, dout, lse, causal=causal,
+                                            window=window) for _ in range(2)]
         torch.cuda.synchronize()
-        _, dq_p, dk_p, dv_p = plain_attention_grads(q, k, v, dout, causal)
+        _, dq_p, dk_p, dv_p = plain_attention_grads(q, k, v, dout, causal, window)
         tol = ATTN_GRAD_TOL[d_]
-        row = {"case": label, "shape": [B, S, H, KV, D], "skv": Skv, "causal": causal,
-               "dtype": d_, "tol": tol}
+        row = {"case": label, "shape": [B, S, H, KV, D, Dv], "skv": Skv,
+               "causal": causal, "window": window, "dtype": d_, "tol": tol}
         ok_all = True
         for name, got, want in zip(("dq", "dk", "dv"), runs[0], (dq_p, dk_p, dv_p)):
             err, ok = close_err(got, want, tol)
             row[name] = err
             ok_all &= ok and bool(torch.isfinite(got).all())
         if d_ == bf:  # against float32 autograd on the same (upcast) inputs
-            _, *want32 = plain_attention_grads(*(t.float() for t in (q, k, v, dout)), causal)
+            _, *want32 = plain_attention_grads(*(t.float() for t in (q, k, v, dout)), causal,
+                                               window)
             for name, got, want in zip(("dq", "dk", "dv"), runs[0], want32):
                 row[name + "_rel_f32"] = rel_err(got, want)
                 ok_all &= rel_ok(row[name + "_rel_f32"])
             row["rel_f32_tol"] = GRAD_BF16_REL
-        lse_err, lse_ok = close_err(lse, plain_lse(q, k, causal), LSE_TOL)
+        lse_err, lse_ok = close_err(lse, plain_lse(q, k, causal, window), LSE_TOL)
         row["lse"] = lse_err
         rows.append(row)
         check(ok_all, f"flash attention's backward disagrees with plain ({label}, {d_}): {row}")
@@ -1616,10 +1692,14 @@ def compare_train_kernels(dev):
               f"two runs of flash attention's backward differ ({label}, {d_})")
         check(all(torch.equal(a, b) for a, b in zip(keep, (q, k, v, dout))),
               "the flash-attention backward modified its inputs")
-        if label in ("phi4_train", "zamba2_train"):
+        group = TRAIN_FLASH_GROUPS.get(label.rsplit("_", 1)[0] if label.startswith(
+            ("gemma3", "seamless")) else label)
+        if group is not None:
             for name in ("dq", "dk", "dv"):
-                key = f"flash_attention_bwd_{d_}"
+                key = f"{group}_{d_}"
                 errs[key] = max(errs.get(key, 0.0), row[name])
+        del q, k, v, dout, keep, out, runs, dq_p, dk_p, dv_p
+    torch.cuda.empty_cache()
     phase("kernels_vs_plain_train_flash", cases=rows)
 
     rows = []
@@ -1807,13 +1887,28 @@ def backward_ms(out, inputs, grad, reps=10):
     return a.elapsed_time(b) / reps
 
 
-def attn_bwd_bound(B, S, H, KV, D, itemsize, ops_per_s):
-    """Least time of causal attention's backward: five products over the
-    visible (q, k) pairs (S and dP recomputed, dV, dK, dQ) at ``ops_per_s``,
-    or q, k, v, o, dO and the log-sum-exp read once and dQ, dK, dV written
-    once at the memory rate, whichever is larger."""
-    flops = 5 * 2 * D * visible_pairs(S) * B * H
-    nbytes = B * S * (4 * H * D + 4 * KV * D) * itemsize + B * H * S * 4
+def attn_pairs(Sq, Skv, window=0, causal=True):
+    """The (q, k) pairs attention computes: causal (Sq == Skv), row i sees
+    min(i + 1, window) keys; not causal, every key, or with a window (Sq ==
+    Skv) the keys j > i - window."""
+    if causal:
+        return visible_pairs(Sq, window)
+    if not window or window >= Sq:
+        return Sq * Skv
+    return Sq * Sq - (Sq - window) * (Sq - window + 1) // 2
+
+
+def attn_bwd_bound(B, S, H, KV, D, itemsize, ops_per_s, *, Dv=None, Skv=None, window=0,
+                   causal=True):
+    """Least time of attention's backward: five products over the visible
+    (q, k) pairs (``attn_pairs``: S over D and dP over Dv recomputed, dV over
+    Dv, dK and dQ over D) at ``ops_per_s``, or q, k, v, o, dO and the
+    log-sum-exp read once and dQ, dK, dV written once at the memory rate,
+    whichever is larger. ``S`` is the queries' length, ``Skv`` (S if None)
+    the keys'; ``Dv`` (D if None) the values' head dim."""
+    Dv, Skv = Dv or D, Skv or S
+    flops = 2 * (3 * D + 2 * Dv) * attn_pairs(S, Skv, window, causal) * B * H
+    nbytes = (B * (S * H + Skv * KV) * (2 * D + 2 * Dv) * itemsize + B * H * S * 4)
     return bound_fields(nbytes, flops, ops_per_s)
 
 
@@ -1855,66 +1950,101 @@ def time_train_ssd(dev):
     return out
 
 
-def time_train_kernels(dev):
-    """The backward kernels at Phi-4-mini's training shapes: flash
-    attention's dQ + dK / dV at B 4, S 512, 24 / 8 heads, D 128 in bf16 (the
-    ``wgmma`` kernels; also at Zamba2's 32 / 32 heads, D 112) and in float32
-    (the scalar kernels), and RMSNorm's
-    backward at N 2048, d 3072 in bf16: kernel, the plain version's autograd
-    backward, and the backward of one PyTorch call through autograd (SDPA,
-    ``F.rms_norm``; timed alone, never called by the port), with the
-    bound; then ``time_train_ssd``'s rows."""
-    import numpy as np
+def time_attn_bwd(rng, dev, B, S, H, KV, D, *, Dv=None, Skv=None, window=0, causal=True,
+                  dtype="bfloat16", reps=5):
+    """Flash attention's backward (dQ + dK / dV) at one shape on random
+    inputs: the kernels' time (CUDA graph), the plain version's autograd
+    backward and SDPA's backward through autograd (a window as a boolean
+    band mask: cuDNN has no window mode; timed alone, never called by the
+    port) with the backend it dispatches to, and the bound (bf16 at the
+    tensor-core peak, float32 at the scalar rate)."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend
 
     from repro_torch.kernels.flash_attention import flash_attention as FK
     from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    Dv, Skv = Dv or D, Skv or S
+    dt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    q, k, v, dout = (randn(rng, sh, dt, dev) for sh in
+                     ((B, S, H, D), (B, Skv, KV, D), (B, Skv, KV, Dv), (B, S, H, Dv)))
+    o, lse = FK.flash_attention_cuda(q, k, v, causal=causal, window=window, lse=True)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    with torch.enable_grad():
+        plain_out = attention_ref(*leaves, causal=causal, window=window)
+    lt = [t.detach().transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v)]
+    kw = {"enable_gqa": True}
+    if window:
+        i = torch.arange(S, device=dev)[:, None]
+        j = torch.arange(Skv, device=dev)[None, :]
+        kw["attn_mask"] = ((i >= j) if causal else (i == i)) & (i - j < window)
+    else:
+        kw["is_causal"] = causal
+    with torch.enable_grad():
+        lib_out = F.scaled_dot_product_attention(*lt, **kw)
+    choice = SDPBackend(torch._fused_sdp_choice(*lt, **kw))
+    item = 2 if dt == torch.bfloat16 else 4
+    shape = (f"B={B}, Sq={S}, Skv={Skv}, H={H}, KV={KV}, D={D}, Dv={Dv}, "
+             f"{'bf16' if item == 2 else 'float32'}, {'causal' if causal else 'not causal'}"
+             + (f", window {window}" if window else ""))
+    row = {
+        "ms": graph_ms(lambda: FK.flash_attention_bwd_cuda(q, k, v, o, dout, lse, causal=causal,
+                                                           window=window), reps=reps),
+        "plain_ms": backward_ms(plain_out, leaves, dout, reps=reps),
+        "library_ms": backward_ms(lib_out, lt, dout.transpose(1, 2).contiguous(), reps=reps),
+        "library_backend": choice.name,
+        **attn_bwd_bound(B, S, H, KV, D, item,
+                         BF16_FLOPS_PER_S if item == 2 else SCALAR_OPS_PER_S,
+                         Dv=Dv, Skv=Skv, window=window, causal=causal),
+        "shape": shape}
+    del q, k, v, dout, o, lse, leaves, lt, plain_out, lib_out
+    torch.cuda.empty_cache()
+    return row
+
+
+# the training paths' backward shapes beyond Phi-4-mini's and Zamba2's:
+# (key, B, S, H, KV, D, keyword arguments of ``time_attn_bwd``)
+TRAIN_ATTN_SHAPES = (
+    ("flash_attention_bwd_gemma3_window", 2, 2048, 8, 4, 256, {"window": 1024}),
+    ("flash_attention_bwd_gemma3_global", 2, 2048, 8, 4, 256, {}),
+    ("flash_attention_bwd_mla", 4, 512, 128, 128, 192, {"Dv": 128}),
+    ("flash_attention_bwd_seamless", 4, 512, 16, 16, 64, {"causal": False}),
+    ("flash_attention_bwd_seamless_causal", 4, 512, 16, 16, 64, {}),
+    ("flash_attention_bwd_seamless_cross", 4, 512, 16, 16, 64, {"causal": False, "Skv": 768}),
+    # float32, at ``train_families_vs_cpu``'s shapes (1 x 256 tokens)
+    ("flash_attention_bwd_f32_gemma3", 1, 256, 8, 4, 256,
+     {"window": 128, "dtype": "float32"}),
+    ("flash_attention_bwd_f32_mla", 1, 256, 128, 128, 192, {"Dv": 128, "dtype": "float32"}),
+    ("flash_attention_bwd_f32_seamless", 1, 256, 16, 16, 64,
+     {"causal": False, "dtype": "float32"}),
+)
+
+
+def time_train_kernels(dev):
+    """The backward kernels at the training paths' shapes: flash
+    attention's dQ + dK / dV (``time_attn_bwd``) at Phi-4-mini's B 4, S 512,
+    24 / 8 heads, D 128 in bf16 (the ``wgmma`` kernels) and in float32 (the
+    scalar kernels), at Zamba2's 32 / 32 heads, D 112, and at
+    ``TRAIN_ATTN_SHAPES``; RMSNorm's backward at N 2048, d 3072 in bf16:
+    kernel, the plain version's autograd backward, and the backward of one
+    PyTorch call through autograd (``F.rms_norm``; timed alone, never called
+    by the port), with the bound; then ``time_train_ssd``'s rows."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
     from repro_torch.kernels.rmsnorm import rmsnorm as RK
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
     rng = np.random.default_rng(43)
     bf = torch.bfloat16
-    out = {}
-    # Zamba2's shared block (32 / 32 heads, D 112), then Phi-4-mini's, whose
-    # inputs the float32 row below widens
-    for key, (B, S, H, KV, D) in (("flash_attention_bwd_zamba2", (4, 512, 32, 32, 112)),
-                                  ("flash_attention_bwd", (4, 512, 24, 8, 128))):
-        q, k, v, dout = (randn(rng, sh, bf, dev) for sh in
-                         ((B, S, H, D), (B, S, KV, D), (B, S, KV, D), (B, S, H, D)))
-        o, lse = FK.flash_attention_cuda(q, k, v, lse=True)
-        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-        with torch.enable_grad():
-            plain_out = attention_ref(*leaves)
-        lt = [t.detach().transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v)]
-        with torch.enable_grad():
-            lib_out = F.scaled_dot_product_attention(*lt, is_causal=True, enable_gqa=True)
-        # the backend SDPA dispatches these inputs to
-        choice = SDPBackend(torch._fused_sdp_choice(*lt, is_causal=True, enable_gqa=True))
-        lib_grad = dout.transpose(1, 2).contiguous()
-        out[key] = {
-            "ms": graph_ms(lambda: FK.flash_attention_bwd_cuda(q, k, v, o, dout, lse), reps=5),
-            "plain_ms": backward_ms(plain_out, leaves, dout, reps=5),
-            "library_ms": backward_ms(lib_out, lt, lib_grad), "library_backend": choice.name,
-            **attn_bwd_bound(B, S, H, KV, D, 2, BF16_FLOPS_PER_S),
-            "shape": f"B={B}, S={S}, H={H}, KV={KV}, D=Dv={D}, bf16, causal"}
-    # float32: the same inputs widened; bound by the scalar float32 rate
-    q, k, v, dout = (t.float() for t in (q, k, v, dout))
-    o, lse = FK.flash_attention_cuda(q, k, v, lse=True)
-    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-    lt = [t.detach().transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v)]
-    with torch.enable_grad():
-        plain_out = attention_ref(*leaves)
-        lib_out = F.scaled_dot_product_attention(*lt, is_causal=True, enable_gqa=True)
-    choice = SDPBackend(torch._fused_sdp_choice(*lt, is_causal=True, enable_gqa=True))
-    out["flash_attention_bwd_f32"] = {
-        "ms": graph_ms(lambda: FK.flash_attention_bwd_cuda(q, k, v, o, dout, lse), reps=5),
-        "plain_ms": backward_ms(plain_out, leaves, dout, reps=5),
-        "library_ms": backward_ms(lib_out, lt, dout.transpose(1, 2).contiguous(), reps=5),
-        "library_backend": choice.name,
-        **attn_bwd_bound(B, S, H, KV, D, 4, SCALAR_OPS_PER_S),
-        "shape": f"B={B}, S={S}, H={H}, KV={KV}, D=Dv={D}, float32, causal"}
+    out = {"flash_attention_bwd_zamba2": time_attn_bwd(rng, dev, 4, 512, 32, 32, 112),
+           "flash_attention_bwd": time_attn_bwd(rng, dev, 4, 512, 24, 8, 128),
+           "flash_attention_bwd_f32": time_attn_bwd(rng, dev, 4, 512, 24, 8, 128,
+                                                    dtype="float32")}
+    for key, B, S, H, KV, D, kw in TRAIN_ATTN_SHAPES:
+        out[key] = time_attn_bwd(rng, dev, B, S, H, KV, D, **kw)
     N, d = 2048, 3072
     x, dy = (randn(rng, (N, d), bf, dev) for _ in range(2))
     w = 1 + 0.1 * randn(rng, (d,), torch.float32, dev)
@@ -1941,7 +2071,7 @@ def time_train_kernels(dev):
 TRAIN_LOSS_RTOL = 1e-4  # float32 card vs CPU: sums in another order, 2 layers
 # float32 card vs CPU: each leaf's step-0 gradient, max |card - CPU| / max |CPU|
 TRAIN_GRAD_REL = 1e-4
-TRAIN_PARAM_MEAN_ATOL = 1e-6  # the parameters' mean |card - CPU| after 3 steps
+TRAIN_PARAM_MEAN_ATOL = 1e-6  # the parameters' mean |card - CPU| after 2 steps
 RESUME_LOSS_RTOL = 1e-3  # bf16 parameters: resumed against straight, on the card
 TRAIN_STEPS = 8  # train_phi4_mini's steps; ms per step is the median of steps 2-8
 TRAIN_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=100)
@@ -2013,11 +2143,10 @@ def train_card_vs_cpu(dev, cfg, init, steps, seed):
     launches)."""
     import torch
 
-    from repro_torch.data.pipeline import DataConfig
     from repro_torch.runtime import Runtime
 
     t0 = time.perf_counter()
-    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=256, global_batch=1, seed=seed)
+    dcfg = data_config(cfg, 256, 1, seed)
     seconds = {}
     grads = {"cuda": {}, "cpu": {}}
 
@@ -2074,23 +2203,33 @@ def train_card_vs_cpu(dev, cfg, init, steps, seed):
     return fields, launches
 
 
+def note_gate_cut(name, fields):
+    """A card-against-CPU gate cut to ``CPU_GATE_STEPS`` steps in ``CUTS``:
+    the CPU run's seconds (the longer side, run beside the card's, and the
+    part that grows with the steps)."""
+    note_cut(name, fields["seconds_by_part"]["cpu"], CPU_GATE_STEPS, CPU_GATE_STEPS_UNCUT)
+
+
 def train_vs_cpu(dev):
     """Phi-4-mini at full width, 2 layers, float32: ``train_card_vs_cpu``
-    for 3 steps. Returns the card run's launches: the float32 backward
-    kernels' main path."""
+    for ``CPU_GATE_STEPS`` steps (the CPU's seconds noted in ``CUTS``).
+    Returns the card run's launches: the float32 backward kernels' main
+    path."""
     t0 = time.perf_counter()
     cfg, init = phi4_two_layers()
     init_s = time.perf_counter() - t0
-    fields, launches = train_card_vs_cpu(dev, cfg, init, 3, 5)
+    fields, launches = train_card_vs_cpu(dev, cfg, init, CPU_GATE_STEPS, 5)
     fields["seconds_by_part"]["init"] = init_s
+    note_gate_cut("train_vs_cpu", fields)
     phase("train_vs_cpu", **fields)
     return launches
 
 
 def train_ssm_vs_cpu(dev):
-    """Mamba-2 130M whole (3 steps) and Zamba2 7B at full width cut to 7
-    layers (one superblock of 6 Mamba-2 layers and the shared attention
-    block, one trailing layer; 2 steps), float32: ``train_card_vs_cpu``
+    """Mamba-2 130M whole (``CPU_GATE_STEPS`` steps, the CPU's seconds
+    noted in ``CUTS``) and Zamba2 7B at full width cut to 7 layers (one
+    superblock of 6 Mamba-2 layers and the shared attention block, one
+    trailing layer; 2 steps), float32: ``train_card_vs_cpu``
     from seeded initial parameters drawn on the card. Returns the card
     runs' launches by model: the float32 SSD backward's main path."""
     import torch
@@ -2099,7 +2238,7 @@ def train_ssm_vs_cpu(dev):
     from repro_torch.models import model as M
 
     out, launches = {}, {}
-    for key, cfg, steps, seed in (("mamba2_130m", get_config(MAMBA2), 3, 47),
+    for key, cfg, steps, seed in (("mamba2_130m", get_config(MAMBA2), CPU_GATE_STEPS, 47),
                                   ("zamba2_7b_7_layers", get_config(ZAMBA2).replace(n_layers=7),
                                    2, 48)):
         t0 = time.perf_counter()
@@ -2109,6 +2248,8 @@ def train_ssm_vs_cpu(dev):
         init_s = time.perf_counter() - t0
         out[key], launches[key] = train_card_vs_cpu(dev, cfg, init, steps, seed)
         out[key]["seconds_by_part"]["init"] = init_s
+        if key == "mamba2_130m":
+            note_gate_cut("train_ssm_vs_cpu[mamba2_130m]", out[key])
         del init
     phase("train_ssm_vs_cpu", **out)
     return launches
@@ -2204,9 +2345,20 @@ def serve_int8_cache_vs_cpu(dev):
           cache_len=int(caches["cuda"]["len"][0]))
 
 
-def train_model(dev, name, cfg, want):
+def data_config(cfg, S, B, seed):
+    """``SyntheticLM``'s settings for ``cfg``: B x S tokens, and a vision
+    model's patch embeddings or an encoder-decoder's S frames (the front
+    end's stub inputs) at its width."""
+    from repro_torch.data.pipeline import DataConfig
+
+    return DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B, seed=seed,
+                      modality=cfg.modality, d_model=cfg.d_model,
+                      frontend_tokens=cfg.frontend_tokens)
+
+
+def train_model(dev, name, cfg, want, B=4, S=512):
     """``cfg`` (full width, bf16) trained ``TRAIN_STEPS`` steps through
-    ``Trainer.run`` on B 4 x 512 tokens of ``SyntheticLM``, remat on: ms per
+    ``Trainer.run`` on B x S tokens of ``SyntheticLM``, remat on: ms per
     step (median of steps 2-8) and tokens/s, the synchronised split into
     forward, backward and ``adamw_update``, the device's busy share of one
     step under ``torch.profiler``, exact launches per step of every model
@@ -2218,13 +2370,12 @@ def train_model(dev, name, cfg, want):
 
     import torch
 
-    from repro_torch.data.pipeline import DataConfig
     from repro_torch.models import model as M
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
-    B, S = 4, 512
-    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B, seed=7)
-    tr = Trainer(cfg, dcfg, TrainerConfig(steps=TRAIN_STEPS, log_every=0), device=dev)
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, data_config(cfg, S, B, 7), TrainerConfig(steps=TRAIN_STEPS, log_every=0),
+                 device=dev)
     tr.time_phases = True
     phases = []
     real_step = tr.step
@@ -2239,10 +2390,10 @@ def train_model(dev, name, cfg, want):
     torch.cuda.reset_peak_memory_stats()
     for c in launch_counters():
         c.update(dict.fromkeys(c, 0))
-    t0 = time.perf_counter()
+    t1 = time.perf_counter()
     params, opt, hist = tr.run(resume=False)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    wall = time.perf_counter() - t1
     launches = {k: v for c in launch_counters() for k, v in c.items()}
     peak = torch.cuda.max_memory_allocated() / 1e9
     n = TRAIN_STEPS
@@ -2274,10 +2425,23 @@ def train_model(dev, name, cfg, want):
           launches_per_step={k: v / n for k, v in launches.items() if v},
           peak_memory_gb=peak, profile=prof,
           model_flops=flops, model_flops_ms_at_989=flops / BF16_FLOPS_PER_S * 1e3,
-          optimizer_bytes=opt_bytes, optimizer_bytes_ms_at_3_35=opt_bytes / HBM_BYTES_PER_S * 1e3)
+          optimizer_bytes=opt_bytes, optimizer_bytes_ms_at_3_35=opt_bytes / HBM_BYTES_PER_S * 1e3,
+          seconds=time.perf_counter() - t0)
     del params, opt, tr
     torch.cuda.empty_cache()
     return launches
+
+
+def attn_train_launches(n_attn, norms_in, norms_out=1):
+    """A step's launches of an attention model under remat: each of the
+    ``n_attn`` attention calls in its layers twice forward and its dQ and dK
+    / dV once; each of the ``norms_in`` norms in its layers twice forward,
+    the ``norms_out`` outside them (the final norms) once, each once
+    backward."""
+    norms = norms_in + norms_out
+    return {"flash_attention": 2 * n_attn, "flash_attention_bwd_dq": n_attn,
+            "flash_attention_bwd_dkdv": n_attn, "rmsnorm": 2 * norms_in + norms_out,
+            "rmsnorm_bwd": norms, "rmsnorm_bwd_dw": norms}
 
 
 def train_phi4_mini(dev):
@@ -2288,10 +2452,85 @@ def train_phi4_mini(dev):
 
     cfg = get_config(PHI4)
     L = cfg.n_layers
-    return train_model(dev, "train_phi4_mini", cfg, {
-        "flash_attention": 2 * L, "flash_attention_bwd_dq": L,
-        "flash_attention_bwd_dkdv": L, "rmsnorm": 4 * L + 1, "rmsnorm_bwd": 2 * L + 1,
-        "rmsnorm_bwd_dw": 2 * L + 1})
+    return train_model(dev, "train_phi4_mini", cfg, attn_train_launches(L, 2 * L))
+
+
+def train_gemma3_4b(dev):
+    """The whole Gemma 3 4B (34 layers, 29 with the 1024-token window, D
+    256, 8 / 4 heads) through ``train_model`` on B 2 x 2048 tokens, so the
+    window masks on its path: per step 68 flash forward, 34 dQ and 34 dK /
+    dV (the two-warpgroup kernels, 29 windowed), 137 RMSNorm forward and 69
+    backward (two norms a layer)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(GEMMA3)
+    L = cfg.n_layers
+    return train_model(dev, "train_gemma3_4b", cfg, attn_train_launches(L, 2 * L), B=2, S=2048)
+
+
+def train_deepseek_v2(dev):
+    """DeepSeek-V2 at full width, ``DEEPSEEK_TRAIN_LAYERS`` (2) of 60 layers:
+    the dense first layer and one MoE layer (160 routed experts of d_ff 1536,
+    top-6, 2 shared), MLA at D 192 / Dv 128, 4.8e9 parameters (the whole
+    model's parameters, gradients and m / v would not fit the card), through
+    ``train_model``: per step 4 flash forward, 2 dQ and 2 dK / dV (the
+    two-warpgroup kernels), four norms a layer (two of them MLA's latent
+    norms). The MoE backward is ``torch._grouped_mm``'s autograd."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(DEEPSEEK).replace(n_layers=DEEPSEEK_TRAIN_LAYERS)
+    L = cfg.n_layers
+    return train_model(dev, "train_deepseek_v2", cfg, attn_train_launches(L, 4 * L))
+
+
+def train_seamless_m4t(dev):
+    """The whole SeamlessM4T-medium (12 encoder and 12 decoder layers, D 64,
+    16 / 16 heads) through ``train_model`` on B 4 x 512 tokens with 512
+    frames: per step 72 flash forward (the encoder's not causal, the
+    decoder's self-attention causal, its cross-attention not causal), 36 dQ
+    and 36 dK / dV, two norms an encoder layer and three a decoder layer, the
+    encoder's and the decoder's final norms."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(SEAMLESS)
+    Le, Ld = cfg.n_enc_layers, cfg.n_dec_layers
+    return train_model(dev, "train_seamless_m4t", cfg,
+                       attn_train_launches(Le + 2 * Ld, 2 * Le + 3 * Ld, 2))
+
+
+def train_families_vs_cpu(dev):
+    """Gemma 3 at full width and D 256, 2 layers (one windowed, one global,
+    the window cut to 128 so that it masks at 256 tokens); DeepSeek-V2 at
+    full attention and expert widths, 2 layers (dense, then MoE) with 8 of
+    its 160 experts (top-6, 2 shared: the CPU's float32 copy of 160 would
+    not fit the host); SeamlessM4T at full width with 2 encoder and 2
+    decoder layers: ``train_card_vs_cpu`` for 2 steps each, float32, from
+    seeded initial parameters drawn on the card. Returns the card runs'
+    launches by model: the float32 backward kernels at D 256 (windowed and
+    not), D 192 / Dv 128 and D 64."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    out, launches = {}, {}
+    for key, cfg, seed in (
+            ("gemma3_4b_2_layers", get_config(GEMMA3).replace(
+                n_layers=2, local_global_period=2, sliding_window=128), 51),
+            ("deepseek_v2_2_layers_8_experts", get_config(DEEPSEEK).replace(
+                n_layers=2, n_experts=8), 52),
+            ("seamless_m4t_2_2_layers", get_config(SEAMLESS).replace(
+                n_layers=2, n_enc_layers=2, n_dec_layers=2), 53)):
+        t0 = time.perf_counter()
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        init = M.params_to_numpy(cfg, M.init_params(cfg, gen, device="cuda"))
+        torch.cuda.empty_cache()
+        init_s = time.perf_counter() - t0
+        out[key], launches[key] = train_card_vs_cpu(dev, cfg, init, 2, seed)
+        out[key]["seconds_by_part"]["init"] = init_s
+        del init
+    phase("train_families_vs_cpu", **out)
+    return launches
 
 
 def ssm_train_launches(L, n_attn):
@@ -2576,6 +2815,116 @@ def moe_drop_vs_cpu(dev, cfg, B=4, S=128):
     check(ok, f"moe_drop_vs_cpu: card output differs from the CPU's by {err}")
     del p_bf
     torch.cuda.empty_cache()
+
+
+MOE_GRAD_REL = 1e-2  # bf16 against float32: of each gradient's largest value
+
+
+def moe_grouped_bwd(dev):
+    """The MoE backward on the card at DeepSeek-V2's expert shape (160
+    experts, d 5120, d_ff 1536; 2048 tokens, top-6). First the grouped
+    SwiGLU product alone: ``torch._grouped_mm``'s bf16 autograd (the weight
+    gradients' groups run over the rows) against a float32 loop over the
+    experts under plain autograd, on the same (upcast) inputs, every
+    gradient within ``MOE_GRAD_REL`` of its largest value. Then the whole
+    ``moe_block`` (float32 router, softmax and top-k, the stable sort, the
+    capacity rows, the grouped products, the float32 ``index_add_`` combine,
+    the shared experts, the aux losses) forward and backward in bf16 under
+    ``torch.cuda.set_sync_debug_mode("error")`` (nothing read back to the
+    host), at the config's capacity factor and at 0.25 (three quarters
+    dropped), against the same layer's float32 autograd on the upcast
+    parameters, every gradient within ``MOE_GRAD_REL``."""
+    import copy
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.spec import init_tree
+
+    t0 = time.perf_counter()
+    cfg = get_config(DEEPSEEK)
+    E, d, k, T = cfg.n_experts, cfg.d_model, cfg.moe_top_k, 2048
+    gen = torch.Generator(device=dev).manual_seed(57)
+    p_bf = init_tree(MOE.moe_schema(cfg), gen, dev)
+    # the grouped product alone: each token's top-6 of random scores, the
+    # rows sorted by expert
+    eid = torch.rand((T, E), generator=gen, device=dev).topk(k, -1).indices.reshape(-1)
+    order = torch.sort(eid, stable=True).indices
+    offs = torch.cumsum(torch.bincount(eid, minlength=E), 0).to(torch.int32)
+    x = torch.randn((T, d), generator=gen, device=dev).to(torch.bfloat16)
+    xg = x[order // k]
+    dy = torch.randn((T * k, d), generator=gen, device=dev).to(torch.bfloat16)
+    ws = [p_bf[n].detach().requires_grad_(True) for n in ("w1", "w3", "w2")]
+    xl = xg.clone().requires_grad_(True)
+    with torch.enable_grad():
+        y = torch._grouped_mm(F.silu(torch._grouped_mm(xl, ws[0], offs=offs))
+                              * torch._grouped_mm(xl, ws[1], offs=offs), ws[2], offs=offs)
+        y.backward(dy)
+    got = {"y": y.detach(), "dx": xl.grad, "dw1": ws[0].grad, "dw3": ws[1].grad,
+           "dw2": ws[2].grad}
+    w32 = [w.detach().float().requires_grad_(True) for w in ws]
+    x32 = xg.float().requires_grad_(True)
+    ends = [0] + offs.tolist()
+    with torch.enable_grad():
+        y32 = torch.cat([
+            (F.silu(x32[a:b] @ w32[0][e]) * (x32[a:b] @ w32[1][e])) @ w32[2][e]
+            for e, (a, b) in enumerate(zip(ends[:-1], ends[1:]))])
+        y32.backward(dy.float())
+    want = {"y": y32.detach(), "dx": x32.grad, "dw1": w32[0].grad, "dw3": w32[1].grad,
+            "dw2": w32[2].grad}
+    grouped = {n: rel_err(got[n], want[n]) for n in got}
+    del ws, xl, y, y32, x32, got, want, xg, dy
+    for w in w32:
+        w.grad = None
+    torch.cuda.empty_cache()
+
+    # the whole layer: bf16 under the sync check, then float32
+    xb = torch.randn((4, T // 4, d), generator=gen, device=dev).to(torch.bfloat16)
+    dout = torch.randn((4, T // 4, d), generator=gen, device=dev).to(torch.bfloat16)
+    p32 = copy.deepcopy(p_bf).float()
+
+    def layer_grads(p, x_, cf, sync_check=False):
+        leaves = dict(p.named_parameters())
+        for t in leaves.values():
+            t.requires_grad_(True)
+            t.grad = None
+        xl_ = x_.detach().clone().requires_grad_(True)
+        if sync_check:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            with torch.enable_grad():
+                out, aux = MOE.moe_block(p, xl_, cfg=cfg, capacity_factor=cf)
+                loss = ((out.float() * dout.float()).sum() + aux["lb_loss"] + aux["router_z"])
+                loss.backward()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        grads = {"dx": xl_.grad, **{n: t.grad for n, t in leaves.items()}}
+        for t in leaves.values():
+            t.grad = None
+        return grads, float(aux["dropped_frac"])
+
+    block = {}
+    for cf in (None, 0.25):
+        gb, drop_b = layer_grads(p_bf, xb, cf, sync_check=True)
+        g32, drop_32 = layer_grads(p32, xb.float(), cf)
+        check(drop_b == drop_32, f"moe_grouped_bwd: dropped {drop_b} in bf16, {drop_32} in float32")
+        block[f"capacity_factor_{cf or cfg.moe_capacity_factor}"] = {
+            "dropped_frac": drop_b, **{n: rel_err(gb[n], g32[n]) for n in gb}}
+        del gb, g32
+        torch.cuda.empty_cache()
+    del p_bf, p32, w32
+    torch.cuda.empty_cache()
+    worst = max(v for rows in (grouped, *block.values()) for n, v in rows.items()
+                if n != "dropped_frac" and v is not None)
+    phase("moe_grouped_bwd", experts=E, d_model=d, d_ff=cfg.moe_d_ff, tokens=T, top_k=k,
+          grouped_rel_f32=grouped, moe_block_rel_f32=block, tol=MOE_GRAD_REL,
+          bf16_no_host_sync=True, seconds=time.perf_counter() - t0)
+    check(worst <= MOE_GRAD_REL, f"moe_grouped_bwd: a bf16 gradient is {worst} of its "
+          "largest value from float32")
+    return worst
 
 
 def moe_decode_bound(cfg, params, cache, tokens):
@@ -3953,7 +4302,8 @@ def main() -> int:
     # ---- 9. in-network collective offload -----------------------------------
     ar = lambda t: CT.all_reduce(t, data_kb=16, streams=2, algo="infabric")
     ar_mid, ar_sim, ar_launches, ar_end = offload_run(
-        "allreduce_infabric_8x4", topo, 1, ar(topo), OFFLOAD_CYCLES, 400, done_at=693)
+        "allreduce_infabric_8x4", topo, 1, ar(topo), OFFLOAD_CYCLES, 400, done_at=693,
+        uncut=OFFLOAD_CYCLES_UNCUT)
     offload_8x4 = time_offload(ar_mid.fabric, ar_sim.tables)
     phase("kernel_times_offload_8x4", at_cycle=400, **offload_8x4)
     layers_ar = layer_times(eng, ar_sim, ar_mid)
@@ -3963,14 +4313,15 @@ def main() -> int:
                         layers_ar["step_ms"], PROFILE_STEPS // 2))
     offload_run("multicast_tree_8x4", topo, 1,
                 CT.multicast(topo, data_kb=16, streams=4, offload=True),
-                450, 150, done_at=278)
+                MULTICAST_CYCLES, 150, done_at=278, uncut=MULTICAST_CYCLES_UNCUT)
     tar_mid, tar_sim, tar_launches, _ = offload_run(
         "allreduce_infabric_torus_vc_8x4", ttopo, 2, ar(ttopo), OFFLOAD_CYCLES, 400,
-        done_at=673)
+        done_at=673, uncut=OFFLOAD_CYCLES_UNCUT)
     offload_vc_8x4 = time_offload(tar_mid.fabric, tar_sim.tables)
     phase("kernel_times_offload_vc_8x4", at_cycle=400, **offload_vc_8x4)
     big_mid, big_sim, _, _ = offload_run(
-        "scale_32x32_allreduce_infabric", btopo, 1, ar(btopo), 200, 100)
+        "scale_32x32_allreduce_infabric", btopo, 1, ar(btopo), BIG_OFFLOAD_CYCLES, 100,
+        uncut=BIG_OFFLOAD_CYCLES_UNCUT)
     offload_32 = time_offload(big_mid.fabric, big_sim.tables)
     phase("kernel_times_offload_32x32", at_cycle=100, **offload_32)
 
@@ -4031,7 +4382,7 @@ def main() -> int:
 
     _, nar_sim, naive_ar_launches, nar_end = offload_run(
         "naive_allreduce_infabric_8x4", topo, 1, ar(topo), OFFLOAD_CYCLES, 400,
-        done_at=693, step_impl="naive")
+        done_at=693, step_impl="naive", uncut=OFFLOAD_CYCLES_UNCUT)
     bad = states_equal(TS.canonical_state(nar_sim, nar_end, scrub=True),
                        TS.canonical_state(ar_sim, ar_end, scrub=True))
     check(not bad, f"naive_allreduce_infabric_8x4 canonical state differs from the "
@@ -4102,7 +4453,22 @@ def main() -> int:
     serve_launches["train_phi4_mini"] = train_phi4_mini(dev)
     serve_launches["train_mamba2_130m"] = timed("train_mamba2_130m", train_mamba2_130m)
     serve_launches["train_zamba2_7b"] = timed("train_zamba2_7b", train_zamba2_7b)
-    train_times = time_train_kernels(dev)
+    # Gemma 3, DeepSeek-V2 (MLA and MoE) and SeamlessM4T
+    families_s = {}
+
+    def timed_family(name, fn):
+        t1 = time.perf_counter()
+        out = fn(dev)
+        families_s[name] = time.perf_counter() - t1
+        return out
+    for key, launches in timed_family("train_families_vs_cpu", train_families_vs_cpu).items():
+        serve_launches[f"train_families_vs_cpu[{key}]"] = launches
+    train_errs["moe_grouped_bwd"] = timed_family("moe_grouped_bwd", moe_grouped_bwd)
+    for name, fn in (("train_gemma3_4b", train_gemma3_4b),
+                     ("train_deepseek_v2", train_deepseek_v2),
+                     ("train_seamless_m4t", train_seamless_m4t)):
+        serve_launches[name] = timed_family(name, fn)
+    train_times = timed_family("kernel_times_train", time_train_kernels)
     train_s = time.perf_counter() - t_train
     phase("train_phases", seconds=train_s)
 
@@ -4205,17 +4571,18 @@ def main() -> int:
     model_rows = (
         ("flash_attention_kernel", "flash_attention", "flash_attention", 23,
          ("serve_phi4_mini", "serve_llama4_scout", "serve_gemma3_4b", "serve_qwen2_vl",
-          "train_phi4_mini")),
+          "train_phi4_mini", "train_gemma3_4b")),
         ("flash_attention_kernel[D=112]", "flash_attention_d112", "flash_attention", 23,
          ("serve_zamba2_7b", "train_zamba2_7b")),
         ("flash_attention_kernel[D=192,Dv=128]", "flash_attention_mla", "flash_attention", 23,
-         ("serve_deepseek_v2",)),
+         ("serve_deepseek_v2", "train_deepseek_v2")),
         ("flash_attention_kernel[D=64]", "flash_attention_seamless", "flash_attention", 23,
-         ("serve_seamless_m4t",)),
+         ("serve_seamless_m4t", "train_seamless_m4t")),
         ("rmsnorm_kernel", "rmsnorm", "rmsnorm", 16,
          ("serve_phi4_mini", "serve_mamba2_130m", "serve_zamba2_7b", "serve_llama4_scout",
           "serve_gemma3_4b", "serve_deepseek_v2", "serve_qwen2_vl", "serve_seamless_m4t",
-          "train_phi4_mini", "train_mamba2_130m", "train_zamba2_7b")),
+          "train_phi4_mini", "train_mamba2_130m", "train_zamba2_7b", "train_gemma3_4b",
+          "train_deepseek_v2", "train_seamless_m4t")),
         ("rmsnorm_residual_kernel", "rmsnorm_residual", "rmsnorm", 24, ()),
         ("ssd_tc_kernel", "ssd", "ssd", 21, ("serve_mamba2_130m", "train_mamba2_130m")),
         ("ssd_tc_kernel[zamba2]", "ssd_zamba2", "ssd", 21,
@@ -4277,17 +4644,29 @@ def main() -> int:
     ssd_bwd_f32 = "ssd_bwd_state_kernel + ssd_bwd_chunk_kernel + ssd_bwd_reduce_kernel"
     # the SSD backward's float32 instances run on train_ssm_vs_cpu's paths
     ssd_f32_paths = [p_ for p_ in serve_launches if p_.startswith("train_ssm_vs_cpu")]
+    family_f32_paths = [p_ for p_ in serve_launches if p_.startswith("train_families_vs_cpu")]
+    wide_bwd = "flash_bwd_dq_wide_kernel + flash_bwd_dkdv_wide_kernel (bf16)"
     for name, key, err, paths, (source, grad_of, counts) in (
             ("flash_bwd_dq_wgmma_kernel + flash_bwd_dkdv_wgmma_kernel (bf16)",
              "flash_attention_bwd", train_errs["flash_attention_bwd_bfloat16"],
              ("train_phi4_mini", "train_zamba2_7b"), flash_bwd),
+            (wide_bwd + " [D=Dv=256, window 1024 and global]", "flash_attention_bwd_gemma3_window",
+             train_errs["flash_attention_bwd_gemma3_bfloat16"], ("train_gemma3_4b",), flash_bwd),
+            (wide_bwd + " [D=192, Dv=128]", "flash_attention_bwd_mla",
+             train_errs["flash_attention_bwd_mla_bfloat16"], ("train_deepseek_v2",), flash_bwd),
+            ("flash_bwd_dq_wgmma_kernel + flash_bwd_dkdv_wgmma_kernel (bf16) [D=64]",
+             "flash_attention_bwd_seamless", train_errs["flash_attention_bwd_seamless_bfloat16"],
+             ("train_seamless_m4t",), flash_bwd),
             ("flash_bwd_dq_kernel + flash_bwd_dkdv_kernel (float32)", "flash_attention_bwd_f32",
-             train_errs["flash_attention_bwd_float32"],
-             ("train_vs_cpu", "train_ssm_vs_cpu[zamba2_7b_7_layers]"), flash_bwd),
+             max(train_errs[f"flash_attention_bwd{g}_float32"]
+                 for g in ("", "_gemma3", "_mla", "_seamless")),
+             ("train_vs_cpu", "train_ssm_vs_cpu[zamba2_7b_7_layers]", *family_f32_paths),
+             flash_bwd),
             ("rmsnorm_bwd_kernel (rmsnorm_bwd_wide_kernel past 384 chunks) + rmsnorm_dw_kernel",
              "rmsnorm_bwd", max(train_errs["rmsnorm_bwd_bfloat16"],
                                 train_errs["rmsnorm_bwd_float32"]),
-             ("train_phi4_mini", "train_mamba2_130m", "train_zamba2_7b"),
+             ("train_phi4_mini", "train_mamba2_130m", "train_zamba2_7b", "train_gemma3_4b",
+              "train_deepseek_v2", "train_seamless_m4t"),
              ("rmsnorm/csrc/rmsnorm_bwd.cu", "src/repro/models/layers.py:18",
               ("rmsnorm_bwd", "rmsnorm_bwd_dw"))),
             (ssd_bwd_tc + " (bf16)", "ssd_bwd", train_errs["ssd_bwd_bfloat16"],
@@ -4316,6 +4695,15 @@ def main() -> int:
         })
         if key == "flash_attention_bwd":  # train_zamba2_7b's shape
             kernels[-1]["zamba2_shape"] = train_times["flash_attention_bwd_zamba2"]
+        if key == "flash_attention_bwd_gemma3_window":  # the global layers' shape
+            kernels[-1]["global_shape"] = train_times["flash_attention_bwd_gemma3_global"]
+        if key == "flash_attention_bwd_seamless":  # the decoder's self- and cross-attention
+            kernels[-1]["causal_shape"] = train_times["flash_attention_bwd_seamless_causal"]
+            kernels[-1]["cross_shape"] = train_times["flash_attention_bwd_seamless_cross"]
+        if key == "flash_attention_bwd_f32":  # train_families_vs_cpu's shapes
+            kernels[-1]["family_shapes"] = {
+                g: train_times[f"flash_attention_bwd_f32_{g}"]
+                for g in ("gemma3", "mla", "seamless")}
         if key.startswith("ssd_bwd"):  # the tolerance's measure: of each gradient's largest value
             kernels[-1]["kernels_alone_ms"] = t["kernels_alone_ms"]
             kernels[-1]["max_rel_err"] = train_errs[("ssd_bwd_float32_rel" if "float32" in name
@@ -4338,7 +4726,8 @@ def main() -> int:
     saved = sum(c["saved_estimate_s"] for c in CUTS.values())
     phase("time_budget", train_phases_s=train_s, cuts_saved_estimate_s=saved,
           cuts_seconds_now=sum(c["seconds"] for c in CUTS.values()),
-          covered=saved >= train_s, cuts=CUTS, ssm_training_phases_s=new_s)
+          covered=saved >= train_s, cuts=CUTS, ssm_training_phases_s=new_s,
+          families_training_phases_s=families_s)
     phase("total", seconds=time.perf_counter() - t_start)
     print(card)
     print(json.dumps({"kernels": kernels}))

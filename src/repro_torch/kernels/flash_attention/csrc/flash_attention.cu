@@ -25,7 +25,8 @@
 // when the caller passes a buffer for it; the backward kernels
 // (`flash_attention_bwd.cu`) recompute P from it. The store is a template
 // flag (`LSE`), instantiated only at the backward's head dims (D = Dv <=
-// 128): serving's launch, with no buffer, runs the instance without it,
+// 128, D = Dv = 256 and D = 192 with Dv = 128): serving's launch, with no
+// buffer, runs the instance without it,
 // whose code is the forward-only kernel's (a runtime branch on the pointer
 // cost the bf16 kernel at D = Dv = 128 its last registers: 255 and 16 bytes
 // of spill stores, against 254 and none).
@@ -238,11 +239,7 @@ template <typename T, int DV>
 int launch_t(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
              int KV, int Sq, int Skv, int D, float scale, int causal, int window,
              cudaStream_t stream) {
-  auto kern = flash_fwd_kernel<T, DV, false>;
-  if (lse != nullptr) {  // the log-sum-exp only at the backward's head dims
-    if constexpr (DV <= 128) kern = flash_fwd_kernel<T, DV, true>;
-    else return (int)cudaErrorInvalidValue;
-  }
+  auto kern = lse != nullptr ? flash_fwd_kernel<T, DV, true> : flash_fwd_kernel<T, DV, false>;
   const size_t smem = smem_bytes(D, DV);
   // opt in to more than 48 KB of shared memory on every launch: the
   // attribute belongs to the current device, and the call is cheap and
@@ -504,7 +501,8 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
            int KV, int Sq, int Skv, float scale, int causal, int window, cudaStream_t stream) {
   auto kern = flash_wgmma_kernel<D, DV, false>;
   if (lse != nullptr) {  // the log-sum-exp only at the backward's head dims
-    if constexpr (D == DV && D <= 128) kern = flash_wgmma_kernel<D, DV, true>;
+    if constexpr ((D == DV && D <= 128) || (D == 256 && DV == 256) || (D == 192 && DV == 128))
+      kern = flash_wgmma_kernel<D, DV, true>;
     else return (int)cudaErrorInvalidValue;
   }
   constexpr size_t smem = smem_bytes<D, DV>();
@@ -567,8 +565,9 @@ bool head_dims_ok(int D, int Dv) {
 // multiple of KV; B * H <= 65535;
 // window >= 0 (0: none; > 0 only with Sq == Skv). `lse`, when not NULL, gets
 // each row's log-sum-exp of its scaled scores, float32 [B, H, Sq] (+inf for a
-// row that saw no key): the backward kernels' input; with bf16 only at D = Dv
-// <= 128, with float32 at Dv <= 128. Returns the launch's CUDA error code (0
+// row that saw no key): the backward kernels' input; with bf16 only at the
+// backward's head dims (D = Dv <= 128, D = Dv = 256, D = 192 with Dv = 128).
+// Returns the launch's CUDA error code (0
 // on success).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                                       void* lse, int B, int H, int KV, int Sq, int Skv, int D,

@@ -21,10 +21,11 @@ For training the forward also writes each row's log-sum-exp (``lse=True``),
 and ``flash_attention_bwd_cuda`` launches the two backward kernels
 (``csrc/flash_attention_bwd.cu``: dQ, which also writes Delta = rowsum(dO
 O), then dK / dV, which sums a KV head's group of query heads in one CTA;
-no atomics; D = Dv in ``HEAD_DIMS``). bfloat16 runs them on the tensor
-cores through the forward's two ``wgmma`` forms (``csrc/wgmma.cuh``, shared
-by both sources; P and dS rounded to bf16 in registers before the products
-that take them), float32 on scalar float32 FMAs. The JAX package
+no atomics; D = Dv in ``HEAD_DIMS`` or a pair of ``PAIRS``, with or without
+a window). bfloat16 runs them on the tensor cores through the forward's two
+``wgmma`` forms (``csrc/wgmma.cuh``, shared by both sources; P and dS
+rounded to bf16 in registers before the products that take them; two
+warpgroups a CTA at the pairs), float32 on scalar float32 FMAs. The JAX package
 differentiates ``flash_attention_jax`` / ``attention_ref``
 (``repro/models/attention.py:75, :34``) by autodiff; it has no backward
 kernel to replace.
@@ -63,7 +64,7 @@ def _declare(lib):
 def _declare_bwd(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.flash_bwd_dq_launch, lib.flash_bwd_dkdv_launch):
-        fn.argtypes = [vp] * 8 + [ci] * 8 + [ctypes.c_float, vp]
+        fn.argtypes = [vp] * 8 + [ci] * 10 + [ctypes.c_float, vp]
         fn.restype = ci
 
 
@@ -78,10 +79,11 @@ def admits(D: int, Dv: int) -> bool:
     return (D in HEAD_DIMS and Dv in HEAD_DIMS) or (D, Dv) in PAIRS
 
 
-def admits_grad(D: int, Dv: int, window: int = 0) -> bool:
-    """Whether the backward kernels take head dims (D, Dv) and ``window``:
-    D == Dv in ``HEAD_DIMS``, no window."""
-    return D == Dv and D in HEAD_DIMS and not window
+def admits_grad(D: int, Dv: int) -> bool:
+    """Whether the backward kernels (and the forward's log-sum-exp) take head
+    dims (D, Dv): D == Dv in ``HEAD_DIMS``, or a pair of ``PAIRS``; with or
+    without a window."""
+    return (D == Dv and D in HEAD_DIMS) or (D, Dv) in PAIRS
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
@@ -112,8 +114,8 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError(f"head dims must be in {HEAD_DIMS} or a pair of {PAIRS}, "
                          f"got D={D}, Dv={Dv}")
     if lse and not admits_grad(D, Dv):
-        raise ValueError(f"the log-sum-exp is built only at D == Dv in {HEAD_DIMS} (the "
-                         f"backward kernels' head dims), got D={D}, Dv={Dv}")
+        raise ValueError(f"the log-sum-exp is built only at the backward kernels' head dims "
+                         f"(D == Dv in {HEAD_DIMS}, or a pair of {PAIRS}), got D={D}, Dv={Dv}")
     if window < 0 or (window and Sq != Skv):
         raise ValueError(f"window {window}: must be >= 0, and > 0 only with Sq == Skv "
                          f"(got Sq={Sq}, Skv={Skv})")
@@ -140,26 +142,32 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
     return (out, ls) if lse else out
 
 
-def flash_attention_bwd_cuda(q, k, v, out, dout, lse, *, causal: bool = True):
+def flash_attention_bwd_cuda(q, k, v, out, dout, lse, *, causal: bool = True,
+                             window: int = 0):
     """The gradients (dq, dk, dv) of ``flash_attention_cuda(q, k, v,
-    causal=causal)`` for the output gradient ``dout``, from its output
-    ``out`` and log-sum-exp ``lse`` [B, H, Sq]: the dQ kernel (which also
-    writes Delta), then the dK / dV kernel, on the current stream. All
-    contiguous CUDA tensors of q's dtype (lse float32; bf16 tensors 16-byte
-    aligned, as every fresh allocation is); D == Dv in ``HEAD_DIMS``.
-    Returns fresh tensors; the inputs are only read."""
+    causal=causal, window=window)`` for the output gradient ``dout``, from
+    its output ``out`` and log-sum-exp ``lse`` [B, H, Sq]: the dQ kernel
+    (which also writes Delta), then the dK / dV kernel, on the current
+    stream. q [B, Sq, H, D], k [B, Skv, KV, D], v [B, Skv, KV, Dv], out and
+    dout [B, Sq, H, Dv]; all contiguous CUDA tensors of q's dtype (lse
+    float32; bf16 tensors 16-byte aligned, as every fresh allocation is);
+    (D, Dv) as ``admits_grad`` takes them. Returns fresh tensors; the
+    inputs are only read."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"flash_attention_bwd_cuda needs CUDA tensors, got {dev}")
     if q.dtype not in DTYPES:
         raise TypeError(f"the flash-attention backward takes float32 or bfloat16, got {q.dtype}")
     B, Sq, H, D = q.shape
-    Skv, KV = k.shape[1], k.shape[2]
-    if not admits_grad(D, v.shape[3]):
-        raise ValueError(f"the backward kernels take D == Dv in {HEAD_DIMS}, got "
-                         f"D={D}, Dv={v.shape[3]}")
-    shapes = {"k": (B, Skv, KV, D), "v": (B, Skv, KV, D), "out": (B, Sq, H, D),
-              "dout": (B, Sq, H, D)}
+    Skv, KV, Dv = k.shape[1], k.shape[2], v.shape[3]
+    if not admits_grad(D, Dv):
+        raise ValueError(f"the backward kernels take D == Dv in {HEAD_DIMS} or a pair of "
+                         f"{PAIRS}, got D={D}, Dv={Dv}")
+    if window < 0 or (window and Sq != Skv):
+        raise ValueError(f"window {window}: must be >= 0, and > 0 only with Sq == Skv "
+                         f"(got Sq={Sq}, Skv={Skv})")
+    shapes = {"k": (B, Skv, KV, D), "v": (B, Skv, KV, Dv), "out": (B, Sq, H, Dv),
+              "dout": (B, Sq, H, Dv)}
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out), ("dout", dout)):
         if name in shapes and tuple(t.shape) != shapes[name]:
             raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shapes[name]}")
@@ -179,14 +187,14 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, lse, *, causal: bool = True):
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
     lib, st, dt = BWD_LIBRARY.load(), stream(dev), DTYPES[q.dtype]
     err = lib.flash_bwd_dq_launch(ptr(q), ptr(k), ptr(v), ptr(out), ptr(dout), ptr(lse),
-                                  ptr(dq), ptr(delta), B, H, KV, Sq, Skv, D, dt,
-                                  int(causal), D ** -0.5, st)
+                                  ptr(dq), ptr(delta), B, H, KV, Sq, Skv, D, Dv, dt,
+                                  int(causal), int(window), D ** -0.5, st)
     if err != 0:
         raise RuntimeError(f"flash-attention dQ kernel launch failed: CUDA error {err}")
     LAUNCHES["flash_attention_bwd_dq"] += 1
     err = lib.flash_bwd_dkdv_launch(ptr(q), ptr(k), ptr(v), ptr(dout), ptr(lse), ptr(delta),
-                                    ptr(dk), ptr(dv), B, H, KV, Sq, Skv, D, dt,
-                                    int(causal), D ** -0.5, st)
+                                    ptr(dk), ptr(dv), B, H, KV, Sq, Skv, D, Dv, dt,
+                                    int(causal), int(window), D ** -0.5, st)
     if err != 0:
         raise RuntimeError(f"flash-attention dK/dV kernel launch failed: CUDA error {err}")
     LAUNCHES["flash_attention_bwd_dkdv"] += 1

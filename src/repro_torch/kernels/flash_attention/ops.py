@@ -8,9 +8,10 @@ window of ``repro.models.attention.flash_attention_jax`` beside it.
 On a card, when autograd records the call (grad mode on and an input
 requiring a gradient), it goes through ``FlashAttentionFn``: the forward
 kernel also writes the log-sum-exp, and the backward is the two backward
-kernels. That needs D == Dv in ``HEAD_DIMS`` and no window; anything else
-is refused as soon as a gradient is asked for. Otherwise the call is the
-forward-only launch serving makes.
+kernels, with the call's window. That needs the backward kernels' head dims
+(D == Dv in ``HEAD_DIMS``, D = Dv = 256, or D = 192 with Dv = 128); other
+head dims are refused as soon as a gradient is asked for. Otherwise the
+call is the forward-only launch serving makes.
 """
 from __future__ import annotations
 
@@ -29,32 +30,32 @@ class FlashAttentionFn(torch.autograd.Function):
     """The flash kernel with its backward kernels, for CUDA tensors."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal):
-        out, lse = flash_attention_cuda(q, k, v, causal=causal, lse=True)
+    def forward(ctx, q, k, v, causal, window):
+        out, lse = flash_attention_cuda(q, k, v, causal=causal, window=window, lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal = causal
+        ctx.causal, ctx.window = causal, window
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, dout.contiguous(), lse,
-                                              causal=ctx.causal)
-        return dq, dk, dv, None
+                                              causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None
 
 
-def grad_route(q, k, v, window: int = 0) -> bool:
+def grad_route(q, k, v) -> bool:
     """Whether a call on the card goes through ``FlashAttentionFn``: autograd
     records it (grad mode on, an input requiring a gradient). Raises
     ``NotImplementedError`` where it would and the backward kernels do not
-    take the head dims or the window."""
+    take the head dims."""
     if not wants_grad(q, k, v):
         return False
-    if not admits_grad(q.shape[3], v.shape[3], window):
+    if not admits_grad(q.shape[3], v.shape[3]):
         raise NotImplementedError(
-            f"flash attention's backward kernels take D == Dv in (32, 64, 112, 128) "
-            f"and no window, got D={q.shape[3]}, Dv={v.shape[3]}, window={window}: "
-            "training it on the card is not ported yet (ROADMAP Queue 1 item 12 step 7b)")
+            f"flash attention's backward kernels take D == Dv in (32, 64, 112, 128, 256) "
+            f"or D = 192 with Dv = 128, got D={q.shape[3]}, Dv={v.shape[3]}: training it "
+            "on the card is not ported (ROADMAP Queue 1 item 12 step 7b)")
     return True
 
 
@@ -72,6 +73,6 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     if q.device.type != "cuda":
         raise ValueError(f"no flash-attention kernel for device {q.device}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    if grad_route(q, k, v, window):
-        return FlashAttentionFn.apply(q, k, v, causal)
+    if grad_route(q, k, v):
+        return FlashAttentionFn.apply(q, k, v, causal, window)
     return flash_attention_cuda(q, k, v, causal=causal, window=window)

@@ -14,8 +14,12 @@ so it is not used.
 
 JAX's update is pure; the port's updates the parameters and the state in
 place, one parameter at a time, under ``torch.no_grad()`` (plain tensor
-ops: the update runs outside any kernel in JAX too), with two float32
-temporaries of one parameter's size: never the model's. Fused
+ops: the update runs outside any kernel in JAX too). Each parameter is
+walked in flat slices of at most ``SLICE`` elements, with up to three
+float32 temporaries of one slice's size, never the model's (every
+operation after the global norm is elementwise, so the bits are those of
+the whole leaf; DeepSeek-V2's expert leaves would otherwise take 15 GB of
+temporaries). Fused
 multiply-adds (``add_(alpha=)``, ``addcmul_``) may round a last bit apart
 from JAX's separate products. A caller that may discard the step (the
 trainer's NaN guard) decides before calling it.
@@ -28,6 +32,8 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.models.spec import jax_key
+
+SLICE = 1 << 28  # elements of a parameter updated at once (1 GiB in float32)
 
 
 @dataclass(frozen=True)
@@ -98,6 +104,25 @@ def clip_by_global_norm(grads: dict, max_norm: float):
     return {k: (g.to(torch.float32) * scale).to(g.dtype) for k, g in grads.items()}, gn
 
 
+def _update(cfg: AdamWConfig, p, g, m, v, scale, lr, bc1, bc2):
+    """The update of one parameter (or a slice of one) in place."""
+    b1, b2 = cfg.b1, cfg.b2
+    gf = g.to(torch.float32) * scale  # a fresh float32 tensor
+    if g.dtype != torch.float32:  # the clipped gradient in its own dtype
+        gf = gf.to(g.dtype).to(torch.float32)
+    # b1 m + (1 - b1) g and b2 v + (1 - b2) g^2, in place
+    m.mul_(b1).add_(gf, alpha=1 - b1)
+    v.mul_(b2).addcmul_(gf, gf, value=1 - b2)
+    # delta = (m / bc1) / (sqrt(v / bc2) + eps) + wd p, in two buffers
+    den = torch.div(v, bc2).sqrt_().add_(cfg.eps)
+    delta = torch.div(m, bc1, out=gf).div_(den)
+    if p.dtype == torch.float32:
+        p.sub_(delta.add_(p, alpha=cfg.weight_decay).mul_(lr))
+    else:
+        pf = p.to(torch.float32)
+        p.copy_(pf.sub_(delta.add_(pf, alpha=cfg.weight_decay).mul_(lr)))
+
+
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, params: dict, grads: dict, opt_state):
     """One AdamW step in place on ``{name: tensor}`` parameters and
@@ -109,25 +134,11 @@ def adamw_update(cfg: AdamWConfig, params: dict, grads: dict, opt_state):
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gn, min=1e-9), max=1.0)
     step = opt_state["step"] + 1
     lr = lr_schedule(cfg, step)
-    b1, b2 = cfg.b1, cfg.b2
-    bc1 = 1 - torch.pow(b1, step.to(torch.float32))
-    bc2 = 1 - torch.pow(b2, step.to(torch.float32))
+    bc1 = 1 - torch.pow(cfg.b1, step.to(torch.float32))
+    bc2 = 1 - torch.pow(cfg.b2, step.to(torch.float32))
     for k, p in params.items():
-        g = grads[k]
-        gf = g.to(torch.float32) * scale  # a fresh float32 tensor
-        if g.dtype != torch.float32:  # the clipped gradient in its own dtype
-            gf = gf.to(g.dtype).to(torch.float32)
-        m, v = opt_state["m"][k], opt_state["v"][k]
-        # b1 m + (1 - b1) g and b2 v + (1 - b2) g^2, in place
-        m.mul_(b1).add_(gf, alpha=1 - b1)
-        v.mul_(b2).addcmul_(gf, gf, value=1 - b2)
-        # delta = (m / bc1) / (sqrt(v / bc2) + eps) + wd p, in two buffers
-        den = torch.div(v, bc2).sqrt_().add_(cfg.eps)
-        delta = torch.div(m, bc1, out=gf).div_(den)
-        if p.dtype == torch.float32:
-            p.sub_(delta.add_(p, alpha=cfg.weight_decay).mul_(lr))
-        else:
-            pf = p.to(torch.float32)
-            p.copy_(pf.sub_(delta.add_(pf, alpha=cfg.weight_decay).mul_(lr)))
+        flat = [t.view(-1) for t in (p, grads[k], opt_state["m"][k], opt_state["v"][k])]
+        for i in range(0, p.numel(), SLICE):
+            _update(cfg, *(t[i:i + SLICE] for t in flat), scale, lr, bc1, bc2)
     opt_state["step"].copy_(step)
     return params, opt_state, {"grad_norm": gn, "lr": lr}

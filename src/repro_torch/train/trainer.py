@@ -14,13 +14,15 @@ restores the other's.
 On a card the step's attention, RMSNorm and SSD scan run through the
 hand-written kernels and their backward kernels (``kernels.flash_attention.
 ops``, ``kernels.rmsnorm.ops``, ``kernels.ssd.ops``); no plain version runs.
-That covers the dense GQA family, ``ssm`` (Mamba-2) and ``hybrid`` (Zamba2:
-Mamba-2 layers and a tied GQA block, whose gradient autograd sums over its
-applications); the card refuses the families and options whose backward is
-not ported (``moe``: the grouped product's backward is unverified;
-local:global windows, MLA and the encoder-decoder). On the CPU every family
-that ``loss_fn`` runs trains, through the plain versions, which autograd
-differentiates.
+That covers every family the port runs: dense GQA (with Gemma 3's
+local:global windows, M-RoPE and the vision stub), MLA, ``moe`` (the
+grouped product ``torch._grouped_mm`` differentiated by autograd, as JAX
+differentiates its ``ragged_dot`` outside any Pallas kernel), ``ssm``
+(Mamba-2), ``hybrid`` (Zamba2: Mamba-2 layers and a tied GQA block, whose
+gradient autograd sums over its applications) and ``encdec`` (SeamlessM4T).
+The card refuses only attention head dims that the backward kernels are not
+built for. On the CPU every family that ``loss_fn`` runs trains, through the
+plain versions, which autograd differentiates.
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import scheduler as sched
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.device import resolve_device
+from repro_torch.kernels.flash_attention.flash_attention import admits_grad
 from repro_torch.models import model as M
 from repro_torch.models.spec import (
     DTYPES,
@@ -74,26 +77,25 @@ class TrainerConfig:
     opt: AdamWConfig = field(default_factory=AdamWConfig)
 
 
-def check_trainable(cfg: ModelConfig, device: torch.device):
-    """Raise ``NotImplementedError`` where the card cannot train ``cfg``:
-    anything but a plain dense GQA model, Mamba-2 (``ssm``) or a hybrid of
-    Mamba-2 and GQA layers."""
-    if device.type != "cuda":
-        return
-    why = None
+def attention_head_dims(cfg: ModelConfig) -> tuple[int, int] | None:
+    """(D, Dv) of the model's attention (MLA: the rotary and non-rotary query
+    dims, and the value dim), or None for an attention-free model."""
     if cfg.family == "ssm":
-        pass  # attention-free: the SSD scan's backward kernels
-    elif cfg.family == "moe":
-        why = "the 'moe' family (the grouped product's backward is unverified)"
-    elif cfg.family not in ("dense", "hybrid"):
-        why = f"the {cfg.family!r} family"
-    elif cfg.local_global_period or cfg.sliding_window:
-        why = "local:global sliding-window attention (no windowed backward kernel)"
-    elif cfg.attn_kind != "gqa":
-        why = f"{cfg.attn_kind!r} attention (no backward kernel at its head dims)"
-    if why:
-        raise NotImplementedError(
-            f"{cfg.name}: training {why} on the card is not ported yet ({ITEM_7B})")
+        return None
+    if cfg.attn_kind == "mla":
+        return cfg.qk_nope_head_dim + cfg.qk_rope_head_dim, cfg.v_head_dim
+    return cfg.resolved_head_dim, cfg.resolved_head_dim
+
+
+def check_trainable(cfg: ModelConfig, device: torch.device):
+    """Raise ``NotImplementedError`` where the card cannot train ``cfg``: an
+    attention whose head dims the backward kernels are not built for."""
+    dims = attention_head_dims(cfg)
+    if device.type != "cuda" or dims is None or admits_grad(*dims):
+        return
+    raise NotImplementedError(
+        f"{cfg.name}: training attention at D={dims[0]}, Dv={dims[1]} on the card is not "
+        f"ported (the backward kernels' head dims; {ITEM_7B})")
 
 
 class Trainer:

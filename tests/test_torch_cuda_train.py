@@ -14,9 +14,9 @@ the kernel's Delta from the bf16 output); RMSNorm float32 1e-4 / 1e-5 (dw
 sums 2048 rows in another order), bf16 3e-2; the SSD scan's gradients
 within 1e-4 of each one's largest value in float32 and 1e-2 in bf16 (the
 kernels compute in float32 on the same bf16 inputs and round each gradient
-once). Training: a reduced Granite, Mamba-2 and Zamba2 trained 3 steps in
-float32 on the card and on the CPU from the same parameters, losses within
-rtol 1e-4.
+once). Training: a reduced Granite, Mamba-2, Zamba2, Gemma 3, DeepSeek-V2,
+SeamlessM4T and Llama-4-Scout trained 3 steps in float32 on the card and on
+the CPU from the same parameters, losses within rtol 1e-4.
 """
 import numpy as np
 import pytest
@@ -51,31 +51,39 @@ def _card(rng, shape, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("B,Sq,Skv,H,KV,D,causal", [
-    (2, 512, 512, 24, 8, 128, True),
-    (2, 64, 64, 4, 2, 32, True),
-    (1, 130, 130, 4, 2, 112, True),
-    (2, 65, 65, 4, 4, 64, True),
-    (2, 300, 512, 8, 4, 64, False),
-    (1, 200, 200, 8, 1, 64, True),  # G = 8: the dK / dV kernel sums eight heads
-    (2, 1, 1, 4, 2, 128, True),  # S = 1: one query, one key
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,D,causal,Dv,window", [
+    (2, 512, 512, 24, 8, 128, True, 128, 0),
+    (2, 64, 64, 4, 2, 32, True, 32, 0),
+    (1, 130, 130, 4, 2, 112, True, 112, 0),
+    (2, 65, 65, 4, 4, 64, True, 64, 0),
+    (2, 300, 512, 8, 4, 64, False, 64, 0),
+    (1, 200, 200, 8, 1, 64, True, 64, 0),  # G = 8: the dK / dV kernel sums eight heads
+    (2, 1, 1, 4, 2, 128, True, 128, 0),  # S = 1: one query, one key
+    (1, 300, 300, 8, 4, 64, True, 64, 100),  # a window, ragged
+    (1, 96, 96, 4, 2, 32, True, 32, 32),
+    (1, 200, 200, 4, 2, 128, False, 128, 50),  # a window, not causal
+    (1, 600, 600, 8, 4, 256, True, 256, 256),  # Gemma 3's head dim, windowed
+    (1, 200, 200, 8, 4, 256, True, 256, 0),  # and global
+    (1, 100, 170, 4, 2, 256, False, 256, 0),
+    (1, 260, 260, 16, 4, 192, True, 128, 0),  # MLA's head dims, G = 4, ragged
+    (1, 130, 70, 4, 4, 192, False, 128, 0),
 ])
-def test_flash_backward_matches_plain(B, Sq, Skv, H, KV, D, causal, dtype):
+def test_flash_backward_matches_plain(B, Sq, Skv, H, KV, D, causal, Dv, window, dtype):
     rng = np.random.default_rng(11)
     q, k, v, do = (_card(rng, s, dtype) for s in
-                   ((B, Sq, H, D), (B, Skv, KV, D), (B, Skv, KV, D), (B, Sq, H, D)))
+                   ((B, Sq, H, D), (B, Skv, KV, D), (B, Skv, KV, Dv), (B, Sq, H, Dv)))
     before = dict(fkern.LAUNCHES)
     got = [t.clone().requires_grad_(True) for t in (q, k, v)]
-    tflash.flash_attention(*got, causal=causal).backward(do)
+    tflash.flash_attention(*got, causal=causal, window=window).backward(do)
     assert fkern.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
     for key in ("flash_attention_bwd_dq", "flash_attention_bwd_dkdv"):
         assert fkern.LAUNCHES[key] == before[key] + 1
     want = [t.clone().requires_grad_(True) for t in (q, k, v)]
-    attention_ref(*want, causal=causal).backward(do)
+    attention_ref(*want, causal=causal, window=window).backward(do)
     for a, b in zip(got, want):
         torch.testing.assert_close(a.grad.float(), b.grad.float(), **ATTN_TOL[dtype])
-    out, lse = fkern.flash_attention_cuda(q, k, v, causal=causal, lse=True)
-    runs = [fkern.flash_attention_bwd_cuda(q, k, v, out, do, lse, causal=causal)
+    out, lse = fkern.flash_attention_cuda(q, k, v, causal=causal, window=window, lse=True)
+    runs = [fkern.flash_attention_bwd_cuda(q, k, v, out, do, lse, causal=causal, window=window)
             for _ in range(2)]
     assert all(torch.equal(a, b) for a, b in zip(*runs))  # no atomics
 
@@ -84,10 +92,19 @@ def test_flash_backward_matches_plain(B, Sq, Skv, H, KV, D, causal, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("D,Dv", [(128, 64), (64, 128), (256, 256), (192, 128)])
 def test_flash_lse_refused_outside_backward_dims(D, Dv, dtype):
+    """The log-sum-exp is built at the backward kernels' head dims (D = Dv =
+    256 and D = 192 with Dv = 128 among them) and refused elsewhere."""
     rng = np.random.default_rng(13)
     q, k, v = (_card(rng, s, dtype) for s in ((1, 64, 2, D), (1, 64, 2, D), (1, 64, 2, Dv)))
-    with pytest.raises(ValueError, match="log-sum-exp"):
-        fkern.flash_attention_cuda(q, k, v, lse=True)
+    if not fkern.admits_grad(D, Dv):
+        with pytest.raises(ValueError, match="log-sum-exp"):
+            fkern.flash_attention_cuda(q, k, v, lse=True)
+        return
+    out, lse = fkern.flash_attention_cuda(q, k, v, lse=True)
+    assert torch.equal(out, fkern.flash_attention_cuda(q, k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * D ** -0.5
+    s = s.masked_fill(torch.ones(64, 64, dtype=torch.bool, device="cuda").triu(1), -torch.inf)
+    torch.testing.assert_close(lse, torch.logsumexp(s, -1), atol=2e-3, rtol=1e-4)
 
 
 @pytest.mark.gpu
@@ -243,6 +260,50 @@ def test_ssm_training_on_card_matches_cpu(arch):
         _, _, hists[dev] = tr.run(resume=False)
         if dev == "cuda":
             assert skern.LAUNCHES["ssd_bwd_chunk"] - before["ssd_bwd_chunk"] == 3 * cfg.n_layers
+    for a, b in zip(hists["cpu"], hists["cuda"]):
+        np.testing.assert_allclose(b["loss"], a["loss"], rtol=1e-4)
+        np.testing.assert_allclose(b["grad_norm"], a["grad_norm"], rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["gemma3-4b", "deepseek-v2-236b", "seamless-m4t-medium",
+                                  "llama4-scout-17b-a16e"])
+def test_family_training_on_card_matches_cpu(arch):
+    """Gemma 3 (windows at D 32 in its reduced config, 128 tokens: past the
+    64-token window), DeepSeek-V2 (MLA at D 192 / Dv 128, and MoE), SeamlessM4T (the
+    encoder-decoder, with frames) and Llama-4-Scout (MoE) ``reduced()``,
+    3 steps in float32 on the card and on the CPU from the same parameters:
+    losses and grad norms within rtol 1e-4, and the flash backward launched
+    once per attention call a step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch).reduced()
+    if cfg.attn_kind == "mla":  # MLA's own head dims (the reduced 48 / 32 are not built)
+        cfg = cfg.replace(qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=128, global_batch=2,
+                      modality=cfg.modality, d_model=cfg.d_model,
+                      frontend_tokens=cfg.frontend_tokens)
+    init = TM.params_to_numpy(cfg, TM.init_params(cfg, device="cpu"))
+    hists = {}
+    for dev in ("cpu", "cuda"):
+        tr = Trainer(cfg, dcfg, TrainerConfig(steps=3, log_every=0, opt=AdamWConfig(lr=1e-3)),
+                     device=dev)
+
+        def init_state(dev=dev):
+            p = TM.params_from_numpy(cfg, init, device=dev).float()
+            for q in p.parameters():
+                q.requires_grad_(True)
+            return p, adamw_init(dict(p.named_parameters()))
+
+        tr.init_state = init_state
+        before = dict(fkern.LAUNCHES)
+        _, _, hists[dev] = tr.run(resume=False)
+        if dev == "cuda":
+            calls = (cfg.n_enc_layers + 2 * cfg.n_dec_layers if cfg.family == "encdec"
+                     else cfg.n_layers)
+            assert fkern.LAUNCHES["flash_attention_bwd_dq"] - before["flash_attention_bwd_dq"] \
+                == 3 * calls
     for a, b in zip(hists["cpu"], hists["cuda"]):
         np.testing.assert_allclose(b["loss"], a["loss"], rtol=1e-4)
         np.testing.assert_allclose(b["grad_norm"], a["grad_norm"], rtol=1e-4)

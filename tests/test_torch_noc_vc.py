@@ -31,6 +31,7 @@ from repro_torch.core.noc import engine as teng
 from repro_torch.core.noc import sim as TS
 from repro_torch.core.noc import traffic as TT
 from repro_torch.core.noc.endpoints import idle_workload as torch_idle_workload
+from repro_torch.core.noc.params import NocParams
 from repro_torch.core.noc.topology import build_occamy as torch_build_occamy
 from repro_torch.core.noc.topology import build_topology as torch_build_topology
 from repro_torch.kernels.noc_router import ref as tref
@@ -197,3 +198,40 @@ def test_ring_8x1_matches_jax_400_cycles(n_vcs):
     got = convert.sim_state_to_numpy(TS.run(tsim, 400))
     assert_states_equal(want, got, f"ring n_vcs={n_vcs}")
     assert got["eps.beats_sent"].sum() > 0
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` at the repo's root, as a module (it imports no
+    package at its top)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_horizons", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(fused_cycles=4), dict(step_impl="naive")],
+                         ids=["per_cycle", "fused_4", "naive"])
+def test_smoke_torus_horizon_crosses_the_dateline(kw):
+    """``chip_smoke.py``'s 8x4 torus runs at ``n_vcs=2`` (``torus_vc_8x4``,
+    ``torus_8x4``, ``naive_torus_vc_8x4``) stop after ``SUPER_CYCLES``: within
+    that horizon flits cross the dateline (a VC 1 slot holds a flit) well
+    before its half, so the card-against-CPU state check covers the VC
+    switch."""
+    CS = _chip_smoke()
+    ttopo = torch_build_topology("torus", nx=4, ny=8)
+    twl = CS.mesh_workload(TT, ttopo, transfer_kb=8, narrow_rate=0.05)
+    p = NocParams(n_vcs=2, **kw)
+    sim = TS.build_sim(ttopo, p, twl, device="cpu")
+    st, first, on_vc1 = sim.init_state(), None, 0
+    for c in range(0, CS.SUPER_CYCLES, p.fused_cycles):
+        st = TS.run(sim, p.fused_cycles, st)
+        n = int((st.fabric.in_cnt[..., 1::2] > 0).sum() + (st.fabric.out_cnt[..., 1::2] > 0).sum())
+        on_vc1 += n
+        if n and first is None:
+            first = c + p.fused_cycles
+    assert first is not None and first <= CS.SUPER_CYCLES // 2, first
+    assert on_vc1 > 0

@@ -70,6 +70,32 @@ def test_adamw_matches_jax_over_five_steps(clip):
                                            atol=1e-6, rtol=1e-6)
 
 
+def test_adamw_slices_equal_the_whole_leaf(monkeypatch):
+    """A parameter of more than ``SLICE`` elements is updated in flat slices
+    (every operation after the global norm is elementwise): the bits equal
+    the whole leaf's update, in bf16 and float32 parameters alike."""
+    from repro_torch.optim import adamw as A
+
+    rng = np.random.default_rng(21)
+    runs = []
+    for limit in (1 << 28, 7):  # whole leaves, then slices of 7 elements
+        monkeypatch.setattr(A, "SLICE", limit)
+        params = {"a": torch.as_tensor(rng.standard_normal((5, 6)), dtype=torch.bfloat16),
+                  "b": torch.as_tensor(rng.standard_normal((3, 4, 2)), dtype=torch.float32)}
+        grads = {k: torch.as_tensor(rng.standard_normal(tuple(p.shape)), dtype=p.dtype)
+                 for k, p in params.items()}
+        rng = np.random.default_rng(21)  # the same draws for both runs
+        opt = A.adamw_init(params)
+        cfg = A.AdamWConfig(lr=1e-2, warmup_steps=1)
+        for _ in range(3):
+            A.adamw_update(cfg, params, grads, opt)
+        runs.append((params, opt))
+    (p0, o0), (p1, o1) = runs
+    for k in p0:
+        assert torch.equal(p0[k], p1[k]) and p0[k].dtype == p1[k].dtype
+        assert torch.equal(o0["m"][k], o1["m"][k]) and torch.equal(o0["v"][k], o1["v"][k])
+
+
 def test_lr_schedule_and_clip_match_jax():
     cfg_kw = dict(lr=3e-4, warmup_steps=7, total_steps=50, min_lr_frac=0.1)
     for step in (0, 1, 3, 7, 8, 20, 49, 50, 80):

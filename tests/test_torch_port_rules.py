@@ -352,19 +352,23 @@ def test_runtime_mesh_fields_raise(field, value):
 @pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-7b", "llama4-scout-17b-a16e",
                                   "gemma3-4b", "deepseek-v2-236b", "seamless-m4t-medium"])
 def test_card_training_outside_dense_gqa_raises(arch, monkeypatch):
-    """The card trains the dense GQA family, Mamba-2 (``ssm``) and the
-    Mamba-2 / GQA hybrid (the backward kernels); the trainer refuses the
-    rest on the card before it touches it, and ``mode="ddp"`` anywhere,
-    each naming the ROADMAP item. The CPU trains every family; without a
-    card and without ``device="cpu"`` the trainer raises rather than drop
-    to the CPU."""
+    """The card trains every family, the full configs at their head dims
+    (the backward kernels'); the trainer refuses on the card, before it
+    touches it, only a head dim the kernels are not built for (the reduced
+    DeepSeek-V2's MLA at D 48 / Dv 32), and ``mode="ddp"`` anywhere, each
+    naming the ROADMAP item. The CPU trains every family; without a card
+    and without ``device="cpu"`` the trainer raises rather than drop to the
+    CPU."""
     from repro_torch.data import DataConfig
+    from repro_torch.kernels.flash_attention.flash_attention import admits_grad
     from repro_torch.train import Trainer, TrainerConfig
-    from repro_torch.train.trainer import check_trainable
+    from repro_torch.train.trainer import attention_head_dims, check_trainable
 
+    check_trainable(get_config(arch), torch.device("cuda"))
     cfg = get_config(arch).reduced()
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=8, global_batch=1)
-    if cfg.family in ("ssm", "hybrid"):  # the SSD scan's backward kernels
+    dims = attention_head_dims(cfg)
+    if dims is None or admits_grad(*dims):
         check_trainable(cfg, torch.device("cuda"))
     else:
         with pytest.raises(NotImplementedError, match="item 12 step 7b"):

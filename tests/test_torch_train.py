@@ -131,19 +131,27 @@ def test_nan_step_leaves_the_state_unchanged(monkeypatch):
 
 
 def test_card_refuses_what_it_cannot_train():
-    """The card trains the dense GQA family, Mamba-2 and the Mamba-2 / GQA
-    hybrid; everything else raises naming the ROADMAP item, before anything
-    touches the card."""
+    """The card trains every family the port runs (dense GQA with
+    local:global windows, M-RoPE and the vision stub, MLA, MoE, Mamba-2,
+    the hybrid, the encoder-decoder); it refuses only attention at head dims
+    the backward kernels are not built for (the reduced DeepSeek-V2's MLA
+    at D 48 / Dv 32, a GQA head dim of 48), naming the ROADMAP item before
+    anything touches the card, and ``mode="ddp"`` anywhere."""
     dev = torch.device("cuda")
     TT.check_trainable(get_config("phi4-mini-3.8b"), dev)
     TT.check_trainable(get_config("granite-8b").reduced(), dev)
     TT.check_trainable(get_config("mamba2-130m"), dev)
     TT.check_trainable(get_config("zamba2-7b"), dev)
     TT.check_trainable(get_config("zamba2-7b").reduced(), dev)
-    for arch, cfg_kw in (("llama4-scout-17b-a16e", {}),
-                         ("gemma3-4b", {}), ("deepseek-v2-236b", {}),
-                         ("seamless-m4t-medium", {}), ("phi4-mini-3.8b", {"attn_kind": "mla"})):
-        cfg = get_config(arch).replace(**cfg_kw)
+    for arch in ("llama4-scout-17b-a16e", "gemma3-4b", "deepseek-v2-236b",
+                 "seamless-m4t-medium", "qwen2-vl-72b"):
+        TT.check_trainable(get_config(arch), dev)
+        TT.check_trainable(get_config(arch), torch.device("cpu"))
+    assert TT.attention_head_dims(get_config("deepseek-v2-236b")) == (192, 128)
+    assert TT.attention_head_dims(get_config("gemma3-4b")) == (256, 256)
+    assert TT.attention_head_dims(get_config("mamba2-130m")) is None
+    for cfg in (get_config("deepseek-v2-236b").reduced(),
+                get_config("granite-8b").reduced().replace(head_dim=48)):
         with pytest.raises(NotImplementedError, match="item 12 step 7b"):
             TT.check_trainable(cfg, dev)
         with pytest.raises(NotImplementedError, match="item 12 step 7b"):

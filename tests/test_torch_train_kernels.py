@@ -78,6 +78,42 @@ def test_attention_grads_match_jax(B, Sq, Skv, H, KV, D, causal, impl, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,D,Dv,causal,window,impl", [
+    (1, 96, 96, 4, 2, 32, 32, True, 32, "flash"),  # a window, JAX's blocked attention
+    (1, 96, 96, 4, 2, 32, 32, True, 32, "ref"),
+    (1, 70, 70, 2, 1, 64, 64, False, 20, "ref"),  # a window, not causal
+    (1, 128, 128, 4, 2, 256, 256, True, 48, "ref"),  # Gemma 3's D = 256 with a window
+    (1, 80, 80, 4, 4, 192, 128, True, 0, "ref"),  # MLA's D = 192, Dv = 128
+    (1, 64, 100, 2, 2, 192, 128, False, 0, "ref"),
+])
+def test_windowed_and_wide_attention_grads_match_jax(B, Sq, Skv, H, KV, D, Dv, causal, window,
+                                                     impl, dtype):
+    """The gradients the new backward instances compute (a sliding window;
+    D = Dv = 256; D = 192 with Dv = 128), through the port's entry point on
+    the CPU, against ``jax.vjp`` of the JAX attention."""
+    rng = np.random.default_rng(4)
+    arrays = [rng.standard_normal(s).astype(np.float32) for s in
+              ((B, Sq, H, D), (B, Skv, KV, D), (B, Skv, KV, Dv), (B, Sq, H, Dv))]
+    (jq, tq), (jk, tk), (jv, tv), (jdo, tdo) = (_pair(a, dtype) for a in arrays)
+
+    def jfn(q, k, v):
+        if impl == "flash":
+            return flash_attention_jax(q, k, v, causal=causal, window=window, block_q=32,
+                                       block_k=32)
+        return jattention_ref(q, k, v, causal=causal, window=window)
+
+    jout, vjp = jax.vjp(jfn, jq, jk, jv)
+    jgrads = vjp(jdo)
+    leaves = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
+    out = tflash.flash_attention(*leaves, causal=causal, window=window)
+    out.backward(tdo)
+    _close(out.detach(), jout, dtype, "out")
+    for name, leaf, jg in zip("qkv", leaves, jgrads):
+        assert leaf.grad.dtype == leaf.dtype
+        _close(leaf.grad, jg, dtype, f"d{name}")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", [(8, 128), (2, 5, 3072), (1, 100)])
 def test_rmsnorm_grads_match_jax(shape, dtype):
     rng = np.random.default_rng(5)
@@ -113,19 +149,24 @@ def test_cpu_route_is_the_plain_autograd():
 
 
 def test_grad_route_on_the_card():
-    """Where autograd records a call, the card takes the backward kernels;
-    where they do not take the head dims or the window it raises, naming the
-    ROADMAP item; without a gradient it is the forward-only launch."""
+    """Where autograd records a call, the card takes the backward kernels (D
+    = Dv in 32, 64, 112, 128 and 256, D = 192 with Dv = 128; the window is
+    the kernels' argument); where they do not take the head dims it raises,
+    naming the ROADMAP item; without a gradient it is the forward-only
+    launch."""
     q = torch.zeros(1, 8, 2, 64)
     assert not tflash.grad_route(q, q, q)
     qg = q.clone().requires_grad_(True)
     assert tflash.grad_route(qg, q, q)
     with torch.no_grad():
         assert not tflash.grad_route(qg, q, q)
-    for D, Dv, window in ((256, 256, 0), (192, 128, 0), (64, 64, 16), (48, 48, 0)):
+    for D, Dv in ((256, 256), (192, 128), (32, 32), (112, 112)):
+        qd = torch.zeros(1, 8, 2, D, requires_grad=True)
+        assert tflash.grad_route(qd, qd, torch.zeros(1, 8, 2, Dv))
+    for D, Dv in ((48, 48), (128, 64), (256, 128), (192, 192)):
         qd = torch.zeros(1, 8, 2, D, requires_grad=True)
         with pytest.raises(NotImplementedError, match="item 12 step 7b"):
-            tflash.grad_route(qd, qd, torch.zeros(1, 8, 2, Dv), window)
+            tflash.grad_route(qd, qd, torch.zeros(1, 8, 2, Dv))
 
 
 class _StandIn:
@@ -140,17 +181,18 @@ class _StandIn:
     def flash(self, q, k, v, *, causal=True, window=0, lse=False):
         from repro_torch.kernels.flash_attention.ref import attention_ref
 
-        self.calls.append(("flash", lse, torch.is_grad_enabled()))
-        out = attention_ref(q, k, v, causal=causal)
+        self.calls.append(("flash", lse, torch.is_grad_enabled(), window))
+        out = attention_ref(q, k, v, causal=causal, window=window)
         return (out, torch.zeros(q.shape[0], q.shape[2], q.shape[1])) if lse else out
 
-    def flash_bwd(self, q, k, v, out, dout, lse, *, causal=True):
+    def flash_bwd(self, q, k, v, out, dout, lse, *, causal=True, window=0):
         from repro_torch.kernels.flash_attention.ref import attention_ref
 
-        self.calls.append(("flash_bwd", dout.is_contiguous()))
+        self.calls.append(("flash_bwd", dout.is_contiguous(), window))
         leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
         with torch.enable_grad():
-            return torch.autograd.grad(attention_ref(*leaves, causal=causal), leaves, dout)
+            return torch.autograd.grad(attention_ref(*leaves, causal=causal, window=window),
+                                       leaves, dout)
 
     def rms(self, x2, w, eps, res2=None):
         from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
@@ -170,8 +212,9 @@ class _StandIn:
 def test_functions_carry_the_gradients(monkeypatch):
     """``FlashAttentionFn`` and ``RMSNormFn`` with stand-in kernels: the
     forward is launched with grad mode off and asks for the log-sum-exp, the
-    backward gets a contiguous output gradient, and the gradients reaching
-    the leaves equal the plain autograd's."""
+    window reaches both kernels, the backward gets a contiguous output
+    gradient, and the gradients reaching the leaves equal the plain
+    autograd's."""
     s = _StandIn()
     monkeypatch.setattr(tflash, "flash_attention_cuda", s.flash)
     monkeypatch.setattr(tflash, "flash_attention_bwd_cuda", s.flash_bwd)
@@ -190,18 +233,18 @@ def test_functions_carry_the_gradients(monkeypatch):
         return (o.transpose(1, 2) ** 2).sum() + (fn_rms(xx, ww, 1e-5) ** 3).sum()
 
     got = [t.clone().requires_grad_(True) for t in (q, k, v, x, w)]
-    loss(lambda *a: tflash.FlashAttentionFn.apply(*a, True),
+    loss(lambda *a: tflash.FlashAttentionFn.apply(*a, True, 6),
          lambda x_, w_, e: trms.RMSNormFn.apply(x_.reshape(-1, 32), w_, e).reshape(x_.shape),
          got).backward()
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
     want = [t.clone().requires_grad_(True) for t in (q, k, v, x, w)]
-    loss(attention_ref, rmsnorm_ref, want).backward()
+    loss(lambda *a: attention_ref(*a, window=6), rmsnorm_ref, want).backward()
     for a, b in zip(got, want):
         torch.testing.assert_close(a.grad, b.grad, atol=1e-6, rtol=1e-6)
-    assert ("flash", True, False) in s.calls and ("rms", False) in s.calls
-    assert ("flash_bwd", True) in s.calls and ("rms_bwd", True) in s.calls
+    assert ("flash", True, False, 6) in s.calls and ("rms", False) in s.calls
+    assert ("flash_bwd", True, 6) in s.calls and ("rms_bwd", True) in s.calls
 
 
 def test_wrappers_refuse_a_gradient():

@@ -3,9 +3,13 @@
 parameters carried across (``models.model.params_from_numpy``), on
 ``granite-8b`` (dense GQA), ``mamba2-130m`` (SSM), ``zamba2-7b`` (hybrid:
 two superblocks of Mamba-2 layers, each followed by the tied
-``shared_attn`` block, whose gradient sums its two applications') and
+``shared_attn`` block, whose gradient sums its two applications'),
 ``llama4-scout-17b-a16e`` (MoE: float32 routes every token alike, as in
-``tests/test_torch_serve.py``) ``reduced()``: the loss and its metrics
+``tests/test_torch_serve.py``), ``gemma3-4b`` (local:global windows, 128
+tokens past its 64-token window), ``deepseek-v2-236b`` (MLA and MoE),
+``qwen2-vl-72b`` (M-RoPE, the vision stub's ``patch_embeds``) and
+``seamless-m4t-medium`` (the encoder-decoder, with ``frames``)
+``reduced()``, the batch's front-end inputs from ``SyntheticLM``: the loss and its metrics
 within rtol 1e-5, each gradient within atol ``GRAD_ATOL`` x its largest
 magnitude (float32 sums in another order through 4 layers and their
 backward).
@@ -42,13 +46,17 @@ def _port_params(cfg, flat):
 
 
 @pytest.mark.parametrize("arch", ["granite-8b", "mamba2-130m", "zamba2-7b",
-                                  "llama4-scout-17b-a16e"])
+                                  "llama4-scout-17b-a16e", "gemma3-4b", "deepseek-v2-236b",
+                                  "qwen2-vl-72b", "seamless-m4t-medium"])
 def test_loss_and_grads_match_jax(arch):
     jcfg, cfg = jax_get_config(arch).reduced(), get_config(arch).reduced()
     jp = jax.tree.map(lambda a: a.astype(jnp.float32), JM.init_params(jcfg, jax.random.key(0)))
     flat = _flat(jp)
-    batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
-                                   global_batch=2, seed=4)).batch_for_step(0)
+    # Gemma 3's reduced window is 64 tokens: 128 so that it masks
+    batch = SyntheticLM(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=128 if cfg.sliding_window else 32, global_batch=2,
+        seed=4, modality=cfg.modality, d_model=cfg.d_model,
+        frontend_tokens=cfg.frontend_tokens)).batch_for_step(0)
     batch["loss_mask"][1, 20:] = 0.0  # a partial mask
     (jloss, jmet), jgrads = jax.value_and_grad(
         lambda p: JM.loss_fn(jcfg, p, {k: jnp.asarray(v) for k, v in batch.items()},

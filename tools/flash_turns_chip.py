@@ -19,9 +19,9 @@ prints one JSON line per shape and the card's name and power limit.
 ``--backward`` instead times both trees' backward kernels in turns (base,
 this, this, base, ``N`` times), each tree's own library built from its own
 sources: flash attention's dQ and dK / dV launches at Phi-4-mini's training
-shape (B 4, S 512, 24 / 8 heads, D 128, bf16, causal; the output and
-log-sum-exp from this tree's forward, the same for both) beside cuDNN SDPA's
-backward through autograd on the same inputs, RMSNorm's backward (dx
+shape (B 4, S 512, 24 / 8 heads, D 128, causal; the output and log-sum-exp
+from this tree's forward, the same for both) in bf16, beside cuDNN SDPA's
+backward through autograd on the same inputs, and in float32, RMSNorm's backward (dx
 and dw's two launches) at N 2048, d 3072, bf16, beside ``F.rms_norm``'s
 backward, and the SSD scan's backward (each tree's ``ssd_bwd_cuda``, its
 own module loaded from its own ``ssd.py``) at Mamba-2's and Zamba2's
@@ -29,7 +29,8 @@ training shapes (B 4 x 512, Q 128, P 64, bf16; H 24, N 128 and H 112, N
 64; the forward's states from this tree's ``STATES`` launch) beside the
 plain backward ``ssd_chunked_bwd_ref``, and this tree's kernels each alone.
 Each tree's gradients are held against the other's within
-``chip_smoke.ATTN_GRAD_TOL`` / ``RMS_GRAD_TOL`` / ``SSD_GRAD_REL`` (bf16).
+``chip_smoke.ATTN_GRAD_TOL`` (bf16 and float32) / ``RMS_GRAD_TOL`` /
+``SSD_GRAD_REL`` (bf16).
 One JSON line per kernel and shape, then the card's name and power limit.
 ``--ssd`` runs the SSD scan's part of ``--backward`` alone.
 
@@ -101,13 +102,19 @@ def launcher(lib, has_lse, q, k, v, o, lse=None):
 
 def bwd_libraries(root: Path, tag: str):
     """(the tree's flash-attention backward library, its RMSNorm library),
-    built into the tree's own ``_build/``; both trees' C interfaces agree."""
+    built into the tree's own ``_build/``. The flash library's ``dims(D)``
+    gives the head-dim, dtype, causal and window arguments of its launches:
+    a tree whose launches take Dv and a window gets them, an
+    older one not."""
     from repro_torch.kernels.build import CudaLibrary
+
+    src = root / REL / "csrc" / "flash_attention_bwd.cu"
+    windowed = "int causal, int window, float scale" in src.read_text()
 
     def declare_flash(lib):
         vp, ci = ctypes.c_void_p, ctypes.c_int
         for fn in (lib.flash_bwd_dq_launch, lib.flash_bwd_dkdv_launch):
-            fn.argtypes = [vp] * 8 + [ci] * 8 + [ctypes.c_float, vp]
+            fn.argtypes = [vp] * 8 + [ci] * (10 if windowed else 8) + [ctypes.c_float, vp]
             fn.restype = ci
 
     def declare_rms(lib):
@@ -120,9 +127,11 @@ def bwd_libraries(root: Path, tag: str):
         lib.rmsnorm_bwd_blocks.restype = ci
 
     rms = Path("src/repro_torch/kernels/rmsnorm")
-    return (CudaLibrary(f"flash_attention_bwd_{tag}",
-                        (root / REL / "csrc" / "flash_attention_bwd.cu",),
-                        root / REL / "_build", declare_flash),
+    flash = CudaLibrary(f"flash_attention_bwd_{tag}", (src,), root / REL / "_build",
+                        declare_flash)
+    # D (Dv = D), dtype (1 bf16, 0 float32), causal, no window
+    flash.dims = lambda D, dt: (D, D, dt, 1, 0) if windowed else (D, dt, 1)
+    return (flash,
             CudaLibrary(f"rmsnorm_{tag}", (root / rms / "csrc" / "rmsnorm.cu",
                                            root / rms / "csrc" / "rmsnorm_bwd.cu"),
                         root / rms / "_build", declare_rms))
@@ -133,8 +142,10 @@ def checked(err, what):
         raise RuntimeError(f"{what} launch failed: CUDA error {err}")
 
 
-def backward_turns(base_root: Path, rounds: int) -> None:
-    """``--backward``: both trees' backward kernels in turns (module doc)."""
+def flash_turns(libs, dtype, gen, rounds: int) -> None:
+    """Both trees' flash backward pair in turns at Phi-4-mini's training
+    shape in ``dtype``, this tree's two kernels alone, and (bf16) cuDNN
+    SDPA's backward; one JSON line."""
     import torch
     import torch.nn.functional as F
 
@@ -142,30 +153,26 @@ def backward_turns(base_root: Path, rounds: int) -> None:
     from repro_torch.kernels.build import ptr, stream
     from repro_torch.kernels.flash_attention import flash_attention as FK
 
-    libs = {"base": bwd_libraries(base_root, "base"), "this": bwd_libraries(ROOT, "this")}
-    with ThreadPoolExecutor(4) as pool:  # one nvcc per source set, together
-        list(pool.map(lambda lib: lib.build(), [lib for pair in libs.values() for lib in pair]))
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(1)
-    H, KV, bf = 24, 8, torch.bfloat16
-    q, dout = (torch.randn((B, S, H, D), generator=gen, device=dev).to(bf) for _ in range(2))
-    k, v = (torch.randn((B, S, KV, D), generator=gen, device=dev).to(bf) for _ in range(2))
+    dev, H, KV = gen.device, 24, 8
+    bf16 = dtype == torch.bfloat16
+    q, dout = (torch.randn((B, S, H, D), generator=gen, device=dev).to(dtype) for _ in range(2))
+    k, v = (torch.randn((B, S, KV, D), generator=gen, device=dev).to(dtype) for _ in range(2))
     o, lse = FK.flash_attention_cuda(q, k, v, lse=True)
     grads, runs, parts = {}, {}, {}
     for who, (flib, _) in libs.items():
-        fl = flib.load()
+        fl, dims = flib.load(), flib.dims(D, int(bf16))
         grads[who] = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v),
                       torch.empty((B, H, S), dtype=torch.float32, device=dev))
 
-        def dq_call(fl=fl, g=grads[who]):
+        def dq_call(fl=fl, g=grads[who], dims=dims):
             checked(fl.flash_bwd_dq_launch(ptr(q), ptr(k), ptr(v), ptr(o), ptr(dout), ptr(lse),
-                                           ptr(g[0]), ptr(g[3]), B, H, KV, S, S, D, 1, 1,
+                                           ptr(g[0]), ptr(g[3]), B, H, KV, S, S, *dims,
                                            D ** -0.5, stream(dev)), "dQ")
 
-        def dkdv_call(fl=fl, g=grads[who]):
+        def dkdv_call(fl=fl, g=grads[who], dims=dims):
             checked(fl.flash_bwd_dkdv_launch(ptr(q), ptr(k), ptr(v), ptr(dout), ptr(lse),
                                              ptr(g[3]), ptr(g[1]), ptr(g[2]), B, H, KV, S, S,
-                                             D, 1, 1, D ** -0.5, stream(dev)), "dK / dV")
+                                             *dims, D ** -0.5, stream(dev)), "dK / dV")
 
         def call(dq_call=dq_call, dkdv_call=dkdv_call):
             dq_call()
@@ -178,32 +185,53 @@ def backward_turns(base_root: Path, rounds: int) -> None:
     # this tree's two kernels alone (dK / dV reads the Delta of the last dQ run)
     this_parts = {name: CS.graph_ms(fn, reps=10) for name, fn in zip(("dq", "dkdv"),
                                                                      parts["this"])}
-    lt = [t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v)]
-    with torch.enable_grad():
-        lib_out = F.scaled_dot_product_attention(*lt, is_causal=True, enable_gqa=True)
-    lib_ms = [CS.backward_ms(lib_out, lt, dout.transpose(1, 2).contiguous())
-              for _ in range(rounds)]
+    lib_ms = None
+    if bf16:
+        lt = [t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v)]
+        with torch.enable_grad():
+            lib_out = F.scaled_dot_product_attention(*lt, is_causal=True, enable_gqa=True)
+        lib_ms = [CS.backward_ms(lib_out, lt, dout.transpose(1, 2).contiguous())
+                  for _ in range(rounds)]
     torch.cuda.synchronize()
-    errs = {}
+    tol, errs = CS.ATTN_GRAD_TOL[str(dtype).removeprefix("torch.")], {}
     for name, a, b in zip(("dq", "dk", "dv"), grads["base"][:3], grads["this"][:3]):
-        errs[name], ok = CS.close_err(b, a, CS.ATTN_GRAD_TOL["bfloat16"])
+        errs[name], ok = CS.close_err(b, a, tol)
         CS.check(ok and bool(torch.isfinite(b).all()),
                  f"flash backward: this tree's {name} disagrees with the base's: {errs[name]}")
     print(json.dumps({
         "kernel": "flash attention backward (dQ + dK / dV)",
-        "shape": f"B={B}, S={S}, H={H}, KV={KV}, D=Dv={D}, bf16, causal",
+        "shape": f"B={B}, S={S}, H={H}, KV={KV}, D=Dv={D}, "
+                 f"{'bf16' if bf16 else 'float32'}, causal",
         "order": "base,this,this,base" + f" x {rounds}",
         "base_ms": turns["base"], "this_ms": turns["this"],
         "base_median_ms": statistics.median(turns["base"]),
         "this_median_ms": statistics.median(turns["this"]),
         "base_over_this": statistics.median(turns["base"]) / statistics.median(turns["this"]),
         "this_alone_ms": this_parts, "cudnn_sdpa_bwd_ms": lib_ms,
-        "max_abs_diff_vs_base": errs, "tol": CS.ATTN_GRAD_TOL["bfloat16"]}), flush=True)
+        "max_abs_diff_vs_base": errs, "tol": tol}), flush=True)
+
+
+def backward_turns(base_root: Path, rounds: int) -> None:
+    """``--backward``: both trees' backward kernels in turns (module doc)."""
+    import torch
+    import torch.nn.functional as F
+
+    import chip_smoke as CS
+    from repro_torch.kernels.build import ptr, stream
+
+    libs = {"base": bwd_libraries(base_root, "base"), "this": bwd_libraries(ROOT, "this")}
+    with ThreadPoolExecutor(4) as pool:  # one nvcc per source set, together
+        list(pool.map(lambda lib: lib.build(), [lib for pair in libs.values() for lib in pair]))
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    bf = torch.bfloat16
+    for dtype in (bf, torch.float32):
+        flash_turns(libs, dtype, gen, rounds)
 
     N, d = 2048, 3072
     x, dy = (torch.randn((N, d), generator=gen, device=dev).to(bf) for _ in range(2))
     w = 1 + 0.1 * torch.randn((d,), generator=gen, device=dev)
-    out, runs = {}, {}
+    out, runs, parts = {}, {}, {}
     for who, (_, rlib) in libs.items():
         rl = rlib.load()
         part = torch.empty((rl.rmsnorm_bwd_blocks(N), d), dtype=torch.float32, device=dev)

@@ -22,12 +22,15 @@ backward) it
    ``--train-only`` runs the backward kernels' phases alone;
 3. with ``OTHER_ROOT``, another checkout (for example the parent commit,
    unpacked by ``git archive`` into the ignored ``_proof/``), also compiles
-   that tree's serving libraries (flash attention's and SSD's forward) with
-   ``ptxas -v``, checks that each serving instance of this tree has the
-   other tree's figures (SSD's ``STATES`` instances, which only training
-   launches, left out), launches both trees' SSD forward on the same inputs
-   and checks the output and the final state bit-equal, and prints one
-   JSON line ``{"serving_vs_other": ...}``.
+   that tree's serving libraries (flash attention's and SSD's forward) and
+   its flash backward with ``ptxas -v``, checks that every instance the two
+   trees both have (by name, a flag the other tree lacks left out when it
+   is off) has the same figures and that no forward instance of the other
+   tree is missing here, launches both trees' SSD forward on the same
+   inputs and checks the output and the final state bit-equal, and prints
+   one JSON line ``{"serving_vs_other": ...}`` with the instances compared,
+   those only one tree has, and the flash backward's float32 instances at
+   D = Dv beside a tree's from before they took Dv (reported, not held).
 
 It is the quick check of a model-kernel change; ``chip_smoke.py`` runs the
 same two phases inside the whole run.
@@ -119,28 +122,41 @@ def other_library(lib, root: Path):
     return out
 
 
-def serving_rows(name, rows):
+def instance_rows(name, rows):
     """One library's ptxas rows keyed by instance name without its parameter
-    list; for ``ssd``, the serving instances only, named without their
-    ``STATES`` flag (as the tree before the flag names them)."""
+    list; for ``ssd`` and ``flash_attention_bwd``, an instance without its
+    last flag (SSD's ``STATES``, the backward's ``WINDOW``) is named as the
+    tree before the flag names it."""
     out = {}
     for k, v in rows.items():
         if k in ("warnings", "bf16_dynamic_smem"):
             continue
         key = k[: k.index(">(") + 1] if ">(" in k else k
-        if name == "ssd":
-            if "(bool)1>" in key:
-                continue
+        if name in ("ssd", "flash_attention_bwd"):
             key = re.sub(r",\s*\(bool\)0>", ">", key)
         out[key] = v
     return out
 
 
+def f32_renamed(mine, theirs):
+    """The float32 backward instances at D = Dv of this tree (``<float, D,
+    D>``) beside the other tree's of the same D (``<float, D>``, a tree
+    before the kernels took Dv apart from D): ``{name: [this, other]}``.
+    Their code changed with the template, so their figures are reported,
+    not held equal."""
+    out = {}
+    for k, v in mine.items():
+        old = re.sub(r"<float, \(int\)(\d+), \(int\)\1>", r"<float, (int)\1>", k)
+        if old != k and old in theirs:
+            out[old] = [v, theirs[old]]
+    return out
+
+
 def serving_vs_other(reports, other_reports, other_ssd, dev):
-    """This tree's serving instances against the other tree's: ptxas
-    figures equal, and the SSD forward's outputs bit-equal at Mamba-2's and
-    Zamba2's serving shapes (bf16), with an entering state, and at a float32
-    sweep shape."""
+    """This tree's kernel instances against the other tree's: every instance
+    both have with equal ptxas figures, and the SSD forward's outputs
+    bit-equal at Mamba-2's and Zamba2's serving shapes (bf16), with an
+    entering state, and at a float32 sweep shape."""
     import numpy as np
     import torch
 
@@ -148,10 +164,20 @@ def serving_vs_other(reports, other_reports, other_ssd, dev):
     from repro_torch.kernels.build import ptr, stream
     from repro_torch.kernels.ssd import ssd as SK
 
+    compared, apart = {}, {}
     for name, rows in other_reports.items():
-        mine, theirs = serving_rows(name, reports[name]), serving_rows(name, rows)
-        CS.check(mine == theirs, f"{name}: the serving instances' ptxas figures differ: "
-                                 f"{mine} vs {theirs}")
+        mine, theirs = instance_rows(name, reports[name]), instance_rows(name, rows)
+        both = sorted(set(mine) & set(theirs))
+        lost = sorted(set(theirs) - set(mine))
+        CS.check(name == "flash_attention_bwd" or not lost,
+                 f"{name}: instances of the other tree missing here: {lost}")
+        differ = {k: (mine[k], theirs[k]) for k in both if mine[k] != theirs[k]}
+        CS.check(both and not differ, f"{name}: ptxas figures differ from the other tree's: "
+                                      f"{differ}")
+        compared[name] = both
+        apart[name] = {"here_only": sorted(set(mine) - set(theirs)), "there_only": lost}
+        if name == "flash_attention_bwd":  # reported beside, not held: see f32_renamed
+            apart[name]["float32_d_eq_dv"] = f32_renamed(mine, theirs)
     so = other_ssd.load()
     rng = np.random.default_rng(46)
     same = []
@@ -172,7 +198,8 @@ def serving_vs_other(reports, other_reports, other_ssd, dev):
         same.append(bool(torch.equal(y, y2) and torch.equal(st, st2)))
     CS.check(all(same), f"serving outputs differ from the other tree's: {same}")
     print(json.dumps({"serving_vs_other": {
-        "ptxas_equal": sorted(other_reports), "ssd_outputs_bit_equal": same}}), flush=True)
+        "ptxas_equal": compared, "not_compared": apart, "ssd_outputs_bit_equal": same}}),
+        flush=True)
 
 
 def main() -> int:
@@ -191,7 +218,8 @@ def main() -> int:
     other = Path(args[0]).resolve() if args else None
     libs = (FK.LIBRARY, FK.BWD_LIBRARY, RK.LIBRARY, SK.LIBRARY, SK.BWD_LIBRARY)
     theirs = () if other is None else (other_library(FK.LIBRARY, other),
-                                       other_library(SK.LIBRARY, other))
+                                       other_library(SK.LIBRARY, other),
+                                       other_library(FK.BWD_LIBRARY, other))
     with ThreadPoolExecutor(len(libs) + len(theirs)) as pool:  # one nvcc per source, together
         done = list(pool.map(ptxas_report, libs + theirs))
     reports = {lib.name: r for lib, r in zip(libs, done)}
